@@ -1,0 +1,92 @@
+"""Parameter definitions and seeded initialisation.
+
+The subset of ``repro.distributed.sharding`` that a single-device port
+needs: ``ParamDef`` (shape, logical axes, init rule) and ``init_params``,
+which fills a nested dict of ParamDefs with tensors drawn from one
+``torch.Generator``. Mesh rules have no counterpart yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator
+
+import torch
+
+DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "int32": torch.int32,
+}
+
+
+def torch_dtype(name: str | torch.dtype) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis per dim
+    init: str = "normal"  # normal | zeros | ones | small | fan_in
+    dtype: str | None = None  # override model param dtype
+    scale: float | None = None  # stddev override for normal init
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def iter_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """(path, leaf) pairs of a nested dict in sorted-key order, the order
+    ``jax.tree.flatten`` visits a dict pytree. Paths join keys with '/'."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from iter_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every non-dict leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _init_leaf(gen: torch.Generator, d: ParamDef, default_dtype) -> torch.Tensor:
+    """One leaf, following the reference's ``_init_leaf`` rule for rule.
+
+    The reference takes ``fan_in = shape[0]`` of the leaf as stored, so for
+    a per-layer weight stacked to (layers, ...) the fan-in is the layer
+    count, not the input width. That behaviour is kept on purpose: the
+    port must draw from the same distribution as the reference."""
+    dtype = torch_dtype(d.dtype or default_dtype)
+    dev = gen.device
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=dev)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=dev)
+    fan_in = d.shape[0] if len(d.shape) >= 1 else 1
+    if d.scale is not None:
+        scale = d.scale
+    elif d.init == "normal":
+        scale = 0.02
+    elif d.init == "small":
+        scale = 0.01
+    else:  # fan_in
+        scale = 1.0 / max(fan_in, 1) ** 0.5
+    x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
+    return (x * scale).to(dtype)
+
+
+def init_params(defs: Any, gen: torch.Generator, default_dtype) -> Any:
+    """Concrete seeded init of a ParamDef tree, on ``gen``'s device. Leaves
+    draw in sorted-path order from the one generator."""
+    out: dict = {}
+    for path, d in iter_leaves(defs):
+        node = out
+        *parents, name = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = _init_leaf(gen, d, default_dtype)
+    return out

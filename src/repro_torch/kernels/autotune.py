@@ -1,0 +1,9 @@
+"""Shape keys, the same strings as ``repro.kernels.autotune`` so dispatch
+logs of the two packages line up. No tuning cache is ported yet."""
+from __future__ import annotations
+
+
+def attn_dec_key(B, S, KV, G, D, kind) -> str:
+    """Fused decode-attention shape key (``ops.attention_decode``). ``kind``
+    is "int8" for the quantized cache, else the float cache dtype name."""
+    return f"attn_dec|B{B}|S{S}|KV{KV}|G{G}|D{D}|{kind}"

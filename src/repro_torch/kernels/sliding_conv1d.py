@@ -1,0 +1,116 @@
+"""Sliding-window conv1d with a fused bias + activation epilogue.
+
+``conv1d_sliding`` is the wrapper: on a CUDA tensor it launches the Hopper
+kernel ``csrc/sliding_conv1d.cu``; on a CPU tensor it runs
+``conv1d_sliding_plain``, the same arithmetic in plain torch. Any other
+device raises. Nothing falls back from the kernel to the plain version.
+
+Contract (the TPU kernel's, ``repro.kernels.sliding_conv1d``): VALID conv1d
+on an input the caller already padded. x (B, L, Cin), w (K, Cin, Cout) of
+x's type, float32 or bfloat16; bias (Cout,) or None; output
+(B, (L - K) // stride + 1, Cout) in x's type. The sum runs in float32; bias
+and activation are applied to the float32 sum, then one cast.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
+# x, w, bias, y; B, L, Cin, Cout, K, stride, Lout, act, is_bf16; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def apply_activation(x: torch.Tensor, activation: str | None) -> torch.Tensor:
+    """Epilogue activation on the float32 sum. gelu is the tanh
+    approximation (``jax.nn.gelu(approximate=True)``)."""
+    if activation in (None, "none"):
+        return x
+    if activation == "relu":
+        return torch.relu(x)
+    if activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if activation == "silu":
+        return F.silu(x)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def _check(x, w, bias, stride, activation) -> int:
+    if x.dim() != 3 or w.dim() != 3 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
+                         "form (B, L, Cin) and (K, Cin, Cout)")
+    if bias is not None and bias.shape != (w.shape[2],):
+        raise ValueError(f"bias {tuple(bias.shape)} is not (Cout,)")
+    if stride < 1:
+        raise ValueError(f"stride {stride} < 1")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    out_len = (x.shape[1] - w.shape[0]) // stride + 1
+    if out_len < 1:
+        raise ValueError(f"filter K={w.shape[0]} (stride {stride}) exceeds "
+                         f"input length {x.shape[1]}")
+    return out_len
+
+
+def conv1d_sliding_plain(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
+    stride: int = 1, activation: str = "none",
+) -> torch.Tensor:
+    """The kernel's function in plain torch: one shifted float32 matrix
+    product per tap, then bias, activation and the cast to x's type."""
+    out_len = _check(x, w, bias, stride, activation)
+    xf, wf = x.float(), w.float()
+    span = (out_len - 1) * stride + 1
+    acc = torch.zeros((x.shape[0], out_len, w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(w.shape[0]):
+        acc = acc + xf[:, k : k + span : stride] @ wf[k]
+    if bias is not None:
+        acc = acc + bias.float()
+    return apply_activation(acc, activation).to(x.dtype)
+
+
+def _launch(x, w, bias, stride, activation, out_len) -> torch.Tensor:
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
+                        f"same type, got {x.dtype} and {w.dtype}")
+    if w.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError("x, w and bias must lie on one device")
+    fn = build.entry("sliding_conv1d", "sliding_conv1d", _ARGTYPES)
+    x, w = x.contiguous(), w.contiguous()
+    b32 = None if bias is None else bias.float().contiguous()
+    B, L, Cin = x.shape
+    K, _, Cout = w.shape
+    y = torch.empty((B, out_len, Cout), dtype=x.dtype, device=x.device)
+    code = fn(
+        x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
+        y.data_ptr(), B, L, Cin, Cout, K, stride, out_len,
+        ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("sliding_conv1d", code)
+    conv1d_sliding.launches += 1
+    return y
+
+
+def conv1d_sliding(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
+    stride: int = 1, activation: str = "none",
+) -> torch.Tensor:
+    """VALID sliding conv1d + bias + activation: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor. ``conv1d_sliding.launches``
+    counts kernel launches."""
+    out_len = _check(x, w, bias, stride, activation)
+    if x.device.type == "cuda":
+        return _launch(x, w, bias, stride, activation, out_len)
+    if x.device.type == "cpu":
+        return conv1d_sliding_plain(x, w, bias, stride=stride,
+                                    activation=activation)
+    raise ValueError(f"no sliding_conv1d for device {x.device}")
+
+
+conv1d_sliding.launches = 0

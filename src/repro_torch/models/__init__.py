@@ -1,0 +1,12 @@
+"""Model registry: family -> implementation."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+
+
+def build_model(cfg: ModelConfig):
+    if cfg.family == "audio":
+        from repro_torch.models.whisper import Whisper
+
+        return Whisper(cfg)
+    raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")

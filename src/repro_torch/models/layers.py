@@ -1,0 +1,347 @@
+"""Transformer building blocks on tensors (the whisper subset of
+``repro.models.layers``).
+
+Conventions, as in the reference: activations in ``compute_dtype``;
+reductions, softmax and norms in float32; grouped-query attention with
+grouped einsums (no KV head repetition in memory); flash-style chunked
+attention past ``attn_chunk``; decode against a static KV cache; logits
+summed in float32. Rotary embeddings are not ported (whisper uses
+sinusoidal positions).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ParamDef, torch_dtype
+from repro_torch.kernels import ops
+
+NEG_INF = float("-inf")
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.compute_dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def act_fn(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu_plain": lambda x: F.gelu(x, approximate="tanh"),
+        "relu_sq": lambda x: torch.square(torch.relu(x)),
+    }[name]
+
+
+# ---------------------------------------------------------------------------
+# fused conv -> bias -> activation
+# ---------------------------------------------------------------------------
+
+def conv1d_bias_act(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None,
+    *,
+    activation: str = "none",
+    stride: int = 1,
+    padding="VALID",
+    backend: str = "sliding",
+    precision: str = "fp",
+) -> torch.Tensor:
+    """Multi-channel conv1d + bias + activation. x: (B, L, Cin), w:
+    (K, Cin, Cout), cast to x's type as the reference does. On
+    ``sliding_pallas`` bias and activation run in the CUDA kernel's
+    epilogue; the other backends apply them unfused."""
+    if precision != "fp":
+        raise NotImplementedError(f"conv precision {precision!r} is not ported yet")
+    return ops.conv1d(
+        x, w.to(x.dtype), stride=stride, padding=padding, backend=backend,
+        bias=b, activation=activation,
+    )
+
+
+def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor:
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), dim / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# parameter defs
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    defs = {
+        "wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim"), init="fan_in"),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), init="fan_in"),
+        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed"), init="fan_in"),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones")
+    return defs
+
+
+def _check_ungated(cfg: ModelConfig) -> None:
+    if cfg.activation != "gelu_plain":
+        raise NotImplementedError(
+            f"gated MLP ({cfg.activation!r}) is not ported yet")
+
+
+def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict[str, ParamDef]:
+    """Ungated MLP (whisper); the reference's gated variants come with the
+    dense archs."""
+    _check_ungated(cfg)
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wi": ParamDef((d, f), ("embed", "mlp"), init="fan_in"),
+        "wo": ParamDef((f, d), ("mlp", "embed"), init="fan_in"),
+    }
+
+
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    _check_ungated(cfg)
+    h = act_fn(cfg.activation)(x @ p["wi"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)
+
+
+def cross_attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    return attention_defs(cfg.replace(qk_norm=False))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bld,dhk->blhk") as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("blhk,hkd->bld") as one matrix product."""
+    h, k, d = w.shape
+    return o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
+
+
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    q = _proj_heads(x, p["wq"])
+    k = _proj_heads(x, p["wk"])
+    v = _proj_heads(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _group(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B, L, H, D) -> (B, L, KV, G, D) grouped query layout."""
+    B, L, H, D = q.shape
+    return q.reshape(B, L, kv_heads, H // kv_heads, D)
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset: int = 0, kv_mask=None):
+    """Direct attention. q: (B, Lq, H, D), k/v: (B, Lk, KV, D). ``kv_mask``
+    (B, Lk) bool gates invalid key positions."""
+    B, Lq, H, D = q.shape
+    KV = k.shape[2]
+    qg = _group(q, KV)
+    scores = torch.einsum("blkgd,bmkd->bkglm", qg, k).float() * D ** -0.5
+    if causal:
+        qpos = torch.arange(Lq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        scores = scores.masked_fill(~mask, NEG_INF)
+    if kv_mask is not None:
+        scores = scores.masked_fill(~kv_mask[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkglm,bmkd->blkgd", w, v)
+    return out.reshape(B, Lq, H, D)
+
+
+def chunked_attention(q, k, v, *, causal: bool, chunk: int, kv_mask=None):
+    """Flash-style attention: loop over KV chunks with an online softmax.
+    q: (B, Lq, H, D); k/v: (B, Lk, KV, D); lengths that are not a multiple
+    of the chunk are padded inside (padded KV masked, padded Q trimmed)."""
+    B, Lq0, H, D = q.shape
+    Lk0 = k.shape[1]
+    pad_q = (-Lq0) % min(chunk, Lq0)
+    pad_k = (-Lk0) % min(chunk, Lk0)
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        base = torch.arange(Lk0 + pad_k, device=q.device)[None, :] < Lk0
+        if kv_mask is not None:
+            kv_mask = F.pad(kv_mask, (0, pad_k)) & base
+        else:
+            kv_mask = base.expand(B, Lk0 + pad_k)
+    Lq, Lk, KV = q.shape[1], k.shape[1], k.shape[2]
+    G = H // KV
+    cq, ck = min(chunk, Lq), min(chunk, Lk)
+    nq, nk = Lq // cq, Lk // ck
+    scale = D ** -0.5
+    qg = _group(q, KV).reshape(B, nq, cq, KV, G, D)
+    kc = k.reshape(B, nk, ck, KV, D)
+    vc = v.reshape(B, nk, ck, KV, D)
+    outs = []
+    for qi in range(nq):
+        q_chunk = qg[:, qi]
+        m = torch.full((B, KV, G, cq), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, cq), device=q.device)
+        acc = torch.zeros((B, cq, KV, G, D), device=q.device)
+        for kj in range(nk):
+            s = torch.einsum("blkgd,bmkd->bkglm", q_chunk, kc[:, kj]).float() * scale
+            if causal:
+                qpos = qi * cq + torch.arange(cq, device=q.device)
+                kpos = kj * ck + torch.arange(ck, device=q.device)
+                s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+            if kv_mask is not None:
+                mblk = kv_mask[:, kj * ck : (kj + 1) * ck]
+                s = s.masked_fill(~mblk[:, None, None, None, :], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                               torch.zeros_like(m))
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkglm,bmkd->blkgd", p.to(q.dtype), vc[:, kj]).float()
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        l_safe = torch.where(l > 0, l, torch.ones_like(l))
+        outs.append((acc / l_safe.permute(0, 3, 1, 2)[..., None]).to(q.dtype))
+    out = torch.stack(outs, dim=1).reshape(B, Lq, H, D)
+    return out[:, :Lq0]
+
+
+def self_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool):
+    """Self-attention over a whole sequence (encoder, prefill): q, k, v and
+    the projected output. Full attention up to ``attn_chunk``, chunked past
+    it."""
+    q, k, v = _qkv(p, x, cfg)
+    if x.shape[1] > cfg.attn_chunk:
+        o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    else:
+        o = full_attention(q, k, v, causal=causal)
+    return _out_proj(o, p["wo"]), k, v
+
+
+def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
+                     lengths: torch.Tensor | None = None):
+    """Single-token decode step against a static KV cache.
+
+    x: (B, 1, D); cache: {"k", "v": (B, S, KV, hd)}, updated in place at
+    ``pos``; ``lengths`` (B,) int32 = pos + 1, made here when not given.
+    ``cfg.attn_decode`` "fused" reads the cache through the decode-attention
+    kernel; "view" is the direct softmax over the whole cache."""
+    from repro_torch.models import common
+
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, cfg)
+    for name, fresh in (("k", k_new), ("v", v_new)):
+        common.store_kv_token(cache, name, fresh, pos)
+    if cfg.attn_decode == "fused":
+        if lengths is None:
+            lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+        out = ops.attention_decode(
+            q[:, 0], cache["k"], cache["v"], lengths=lengths
+        ).to(x.dtype)[:, None]
+    else:
+        k = cache["k"].to(x.dtype)
+        v = cache["v"].to(x.dtype)
+        S, KV = k.shape[1], k.shape[2]
+        qg = _group(q, KV)
+        s = torch.einsum("blkgd,bmkd->bkglm", qg, k).float() * q.shape[-1] ** -0.5
+        mask = torch.arange(S, device=x.device)[None, :] <= pos
+        s = s.masked_fill(~mask[None, None, None], NEG_INF)
+        w = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.einsum("bkglm,bmkd->blkgd", w, v).reshape(q.shape)
+    return _out_proj(out, p["wo"]), cache
+
+
+def cross_attention(p, x, enc_kv, cfg: ModelConfig):
+    """Decoder cross-attention; enc_kv = precomputed (k, v) of the encoder
+    output."""
+    q = _proj_heads(x, p["wq"])
+    k, v = enc_kv
+    if x.shape[1] > cfg.attn_chunk:
+        out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    else:
+        out = full_attention(q, k, v, causal=False)
+    return _out_proj(out, p["wo"])
+
+
+def cross_attention_decode(p, x, cache: dict, cfg: ModelConfig):
+    """Single-token cross-attention against the cached encoder K/V, which
+    is zero-padded past each slot's encoder length ``enc_len`` (written at
+    prefill). The fused read masks on those ragged lengths; length 0
+    attends nothing and gives 0."""
+    dt = x.dtype
+    q = _proj_heads(x, p["wq"])
+    if cfg.attn_decode == "fused":
+        out = ops.attention_decode(
+            q[:, 0], cache["xk"], cache["xv"],
+            lengths=cache["enc_len"].to(torch.int32),
+        ).to(dt)[:, None]
+    else:
+        xk, xv = cache["xk"].to(dt), cache["xv"].to(dt)
+        S = xk.shape[1]
+        valid = torch.arange(S, device=x.device)[None, :] < cache["enc_len"][:, None]
+        # enc_len 0: attend every (zero) row so the softmax stays finite
+        valid = valid | ~valid.any(dim=1, keepdim=True)
+        out = full_attention(q, xk, xv, causal=False, kv_mask=valid)
+    return _out_proj(out, p["wo"])
+
+
+def encode_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    return _proj_heads(enc_out, p["wk"]), _proj_heads(enc_out, p["wv"])
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits
+# ---------------------------------------------------------------------------
+
+def embed_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    defs = {
+        "tok": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                        init="normal")
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                   ("embed", "vocab"), init="normal")
+    return defs
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return p["tok"][tokens.long()].to(cdtype(cfg))
+
+
+def unembed_matrix(p, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return p["tok"].T
+    return p["unembed"]
+
+
+def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits summed in float32 from operands rounded to h's type, as the
+    reference's ``preferred_element_type=f32``."""
+    w = unembed_matrix(p, cfg).to(h.dtype)
+    return h.float() @ w.float()
