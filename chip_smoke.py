@@ -24,7 +24,29 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      median of 20 batches of 10 calls after warm-up, with the card's queue
      filled first so that the host's queueing time does not count;
      ``call_ms`` is the same without the filled queue (host time
-     included).
+     included);
+  7. train kernels vs plain: the dw/db kernel against its plain version at
+     the full-width frontend shapes (B=4, 512 mel frames; conv1 80->1024
+     stride 1, conv2 1024->1024 stride 2) and at edge shapes (K in
+     {1, 3, 5, 7, 20}, stride in {1, 2, 3}, ragged Lout, Cin 37, with and
+     without bias, float32 and bfloat16); the forward kernel's saved
+     pre-activation z; the whole conv autograd Function on the card against
+     the same Function on the plain versions, grads of the four frontend
+     leaves of the full-width frontend under one fixed cotangent;
+  8. smoke train, card vs CPU: whisper smoke config (float32), one set of
+     weights, 4 steps through the conv kernels: losses within 1e-4
+     relative on card and CPU (or within three times what summing the
+     convs in another order moves them on the CPU, where that is more),
+     falling as the reference's smoke test asks;
+  9. full-width train: whisper-medium (24+24 layers, d 1024, bf16 params,
+     float32 Adam moments, remat per block), mel frontend through the
+     kernels, B=4, seq 512, 10 steps: finite losses, frontend weights that
+     moved, the kernels' launch counts per step checked; step ms (median
+     after 2 warm-up steps), tokens/s, peak device memory, and the card's
+     busy share of a step (profiler, device kernels only);
+ 10. train times: the dw kernel at the two full-width shapes beside its
+     plain version, ``torch.nn.grad.conv1d_weight`` (cuDNN, TF32 off) and
+     the bound, timed as in phase 6.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -67,15 +89,20 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str) -> float:
-    """Raise unless got ~= want elementwise (in float32); return max |err|."""
+def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str, *,
+          scaled: bool = False) -> float:
+    """Raise unless got ~= want elementwise (in float32); return max |err|.
+    ``scaled``: atol is taken times max(1, max |want|), for sums whose
+    terms reach far above 1 (gradients; tests/test_grads.py
+    ``_close_scaled``)."""
     g, w = got.float(), want.float()
     if g.shape != w.shape:
         raise AssertionError(f"{what}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
     if not torch.isfinite(g).all():
         raise AssertionError(f"{what}: non-finite output")
     err = (g - w).abs()
-    bad = err > tol["atol"] + tol["rtol"] * w.abs()
+    atol = tol["atol"] * (max(1.0, w.abs().max().item()) if scaled else 1.0)
+    bad = err > atol + tol["rtol"] * w.abs()
     if bad.any():
         raise AssertionError(f"{what}: {int(bad.sum())} elements off, max "
                              f"|err| {err.max().item():.3e}")
@@ -288,7 +315,7 @@ def phase_smoke_serve(serve, models, configs, map_tree):
         f"{out[DEV][1].tolist()}; prefill logits max|err| {err:.3e}")
 
 
-def phase_full_serve(serve, models, configs, sc, ad, map_tree) -> dict:
+def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
     cfg = configs.get_config("whisper-medium").replace(
         conv_backend="sliding_pallas", attn_decode="fused")
     model = models.build_model(cfg)
@@ -310,17 +337,16 @@ def phase_full_serve(serve, models, configs, sc, ad, map_tree) -> dict:
     serve.generate(model, params, prompts, gen_len=2, cache_len=cache_len)  # warm-up
     torch.cuda.reset_peak_memory_stats()
 
-    sc.conv1d_sliding.launches = 0
-    ad.decode_attention.launches = 0
+    zero_launches(sc, ad, sb)
     stats: dict = {}
     t0 = time.perf_counter()
     toks, _ = serve.generate(model, params, prompts, gen_len=gen,
                              cache_len=cache_len, stats=stats)
     wall = time.perf_counter() - t0
-    launches = {"sliding_conv1d": sc.conv1d_sliding.launches,
-                "attention_decode": ad.decode_attention.launches}
+    launches = read_launches(sc, ad, sb)
 
-    want = {"sliding_conv1d": 2, "attention_decode": 2 * cfg.num_layers * (gen - 1)}
+    want = {"sliding_conv1d": 2, "attention_decode": 2 * cfg.num_layers * (gen - 1),
+            "conv1d_bwd_dw": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if tuple(toks.shape) != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -345,7 +371,7 @@ def phase_full_serve(serve, models, configs, sc, ad, map_tree) -> dict:
     nudged = dict(batch, frames=batch["frames"] * (1 + 1e-6))
     runs = {}
     for name, ctx, bt in (("kernels", contextlib.nullcontext(), batch),
-                          ("plain versions", plain_kernels(sc, ad), batch),
+                          ("plain versions", plain_kernels(sc, ad, sb), batch),
                           ("kernels on mels x (1 + 1e-6)",
                            contextlib.nullcontext(), nudged)):
         with torch.no_grad(), ctx:
@@ -382,16 +408,31 @@ def phase_full_serve(serve, models, configs, sc, ad, map_tree) -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels(sc, ad):
-    """Route both kernel wrappers to their plain versions for the block."""
-    saved = sc._launch, ad._launch
-    sc._launch = lambda x, w, b, stride, act, _n: sc.conv1d_sliding_plain(
-        x, w, b, stride=stride, activation=act)
+def plain_kernels(sc, ad, sb):
+    """Route every kernel wrapper to its plain version for the block."""
+    saved = sc._launch, ad._launch, sb._launch
+    sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
+        sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
+                                save_preact=save_preact))
     ad._launch = ad.attention_decode_plain
+    sb._launch = lambda x, dz, K, stride, has_bias: sb.conv1d_bwd_dw_plain(
+        x, dz, K, stride=stride, has_bias=has_bias)
     try:
         yield
     finally:
-        sc._launch, ad._launch = saved
+        sc._launch, ad._launch, sb._launch = saved
+
+
+def zero_launches(sc, ad, sb) -> None:
+    sc.conv1d_sliding.launches = 0
+    ad.decode_attention.launches = 0
+    sb.conv1d_bwd_dw.launches = 0
+
+
+def read_launches(sc, ad, sb) -> dict:
+    return {"sliding_conv1d": sc.conv1d_sliding.launches,
+            "attention_decode": ad.decode_attention.launches,
+            "conv1d_bwd_dw": sb.conv1d_bwd_dw.launches}
 
 
 def profile_busy(fn, reps: int = 3) -> dict:
@@ -510,6 +551,281 @@ def phase_times(sc, ad, launches, errs) -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# the training frontend at full width: B=4 and 512 mel frames, SAME padding
+# adds 2 rows; conv1 80->1024 stride 1 (512 rows out), conv2 1024->1024
+# stride 2 (256 rows out)
+DW_MAIN = {
+    "conv1": dict(B=4, L=514, Cin=80, Cout=1024, K=3, stride=1),
+    "conv2": dict(B=4, L=514, Cin=1024, Cout=1024, K=3, stride=2),
+}
+TRAIN = dict(B=4, seq=512, steps=10, warmup=2)  # full-width train run
+SMOKE_TRAIN = dict(B=2, seq=64, steps=4)
+
+
+def dw_inputs(seed, B, L, Cin, Cout, K, stride, dtype):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lout = (L - K) // stride + 1
+    x = torch.randn((B, L, Cin), generator=g, device=DEV).to(dtype)
+    dz = torch.randn((B, lout, Cout), generator=g, device=DEV).to(dtype)
+    return x, dz
+
+
+def phase_train_kernels(sc, ad, sb, ops) -> float:
+    """dw kernel, saved pre-activation and the conv autograd Function
+    against their plain versions; returns the dw kernel's max |err| at the
+    full-width shapes."""
+    err_main = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, s in DW_MAIN.items():
+            x, dz = dw_inputs(5, s["B"], s["L"], s["Cin"], s["Cout"], s["K"],
+                              s["stride"], dtype)
+            got = sb.conv1d_bwd_dw(x, dz, s["K"], stride=s["stride"], has_bias=True)
+            want = sb.conv1d_bwd_dw_plain(x, dz, s["K"], stride=s["stride"],
+                                          has_bias=True)
+            what = f"dw {name} {s} {dtype}"
+            err = max(close(got[0], want[0], TOL, what, scaled=True),
+                      close(got[1], want[1], TOL, what + " db", scaled=True))
+            err_main = max(err_main, err)
+            log(f"{what}: max|err| {err:.3e} (of max |dw| "
+                f"{want[0].abs().max().item():.1f})")
+    for dtype in (torch.float32, torch.bfloat16):
+        for K, stride in itertools.product((1, 3, 5, 7, 20), (1, 2, 3)):
+            for with_bias in (True, False):
+                x, dz = dw_inputs(K * stride, 3, 203, 37, 70, K, stride, dtype)
+                what = f"dw edge K={K} s={stride} bias={with_bias} {dtype}"
+                got = sb.conv1d_bwd_dw(x, dz, K, stride=stride, has_bias=with_bias)
+                want = sb.conv1d_bwd_dw_plain(x, dz, K, stride=stride,
+                                              has_bias=with_bias)
+                err = close(got[0], want[0], TOL, what, scaled=True)
+                if with_bias:
+                    err = max(err, close(got[1], want[1], TOL, what + " db",
+                                         scaled=True))
+                elif got[1] is not None:
+                    raise AssertionError(f"{what}: db without a bias")
+        log(f"dw edge shapes {dtype}: 30 shapes x bias on/off within TOL")
+    # the saved pre-activation at the frontend's shapes and at edge shapes
+    for name, s in CONV_MAIN.items():
+        x, w, b = conv_inputs(6, s["B"], s["L"], s["Cin"], s["Cout"], s["K"],
+                              torch.float32)
+        args = dict(stride=s["stride"], activation="gelu", save_preact=True)
+        y, z = sc.conv1d_sliding(x, w, b, **args)
+        py, pz = sc.conv1d_sliding_plain(x, w, b, **args)
+        err = max(close(y, py, TOL, f"save_preact y {name}"),
+                  close(z, pz, TOL, f"save_preact z {name}"))
+        log(f"save_preact {name} f32 gelu: y and z max|err| {err:.3e}")
+    for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BTOL)):
+        for K, stride, act in ((1, 3, "relu"), (5, 2, "silu"), (20, 1, "gelu")):
+            x, w, b = conv_inputs(K, 3, 203, 37, 70, K, dtype)
+            args = dict(stride=stride, activation=act, save_preact=True)
+            what = f"save_preact edge K={K} s={stride} {act} {dtype}"
+            y, z = sc.conv1d_sliding(x, w, b, **args)
+            py, pz = sc.conv1d_sliding_plain(x, w, b, **args)
+            close(y, py, tol, what + " y")
+            close(z, pz, tol, what + " z")
+    log("save_preact edge shapes within tolerance")
+
+    # the whole autograd Function at the full-width frontend, one cotangent
+    g = torch.Generator(device=DEV).manual_seed(7)
+    mels = torch.randn((4, 512, 80), generator=g, device=DEV)
+    leaves = [(torch.randn(shape, generator=g, device=DEV) * scale)
+              for shape, scale in (((3, 80, 1024), 3 ** -0.5), ((1024,), 0.1),
+                                   ((3, 1024, 1024), 3 ** -0.5), ((1024,), 0.1))]
+    ct = torch.randn((4, 256, 1024), generator=g, device=DEV)
+
+    def frontend_grads():
+        w1, b1, w2, b2 = (t.detach().requires_grad_(True) for t in leaves)
+        h = ops.conv1d(mels, w1, bias=b1, activation="gelu", padding="SAME")
+        y = ops.conv1d(h, w2, bias=b2, activation="gelu", padding="SAME",
+                       stride=2)
+        return torch.autograd.grad((y * ct).sum(), (w1, b1, w2, b2))
+
+    zero_launches(sc, ad, sb)
+    got = frontend_grads()
+    launches = read_launches(sc, ad, sb)
+    with plain_kernels(sc, ad, sb):
+        want = frontend_grads()
+    if launches != {"sliding_conv1d": 3, "attention_decode": 0, "conv1d_bwd_dw": 2}:
+        raise AssertionError(f"frontend autograd launches {launches}")
+    for name, a, b in zip(("conv1_w", "conv1_b", "conv2_w", "conv2_b"), got, want):
+        err = close(a, b, TOL, f"frontend grad {name}", scaled=True)
+        log(f"frontend autograd Function, kernels vs plain: d{name} max|err| "
+            f"{err:.3e} (of max {b.abs().max().item():.1f})")
+    torch.cuda.synchronize()
+    return err_main
+
+
+def train_batches(cfg, B, seq, steps, seed, device, train):
+    """The train loop's inputs for steps 0 .. steps-1: the token stream and
+    the per-step mel frames (``repro_torch.launch.train``)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.whisper import N_MELS
+
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=B, seed=seed)
+    out = []
+    for step in range(steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(step).items()}
+        rng = train.step_stream(seed, step, train._TAG_FRAMES)
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(B, seq, N_MELS)).astype(np.float32)).to(device)
+        out.append(batch)
+    return out
+
+
+def phase_smoke_train(models, configs, optim, steps_mod, train, map_tree):
+    """One set of float32 smoke weights trained 4 steps through the conv
+    kernels on the card and through their plain versions on the CPU: the
+    losses agree and fall. The control is the same CPU run with the convs
+    summed in another order (``xla`` backend): this random-weight model
+    amplifies rounding, and AdamW's normalised steps carry it into later
+    losses, so from step 2 on the card is held to three times the
+    control's difference where that exceeds 1e-4."""
+    base = configs.smoke_config(configs.get_config("whisper-medium"))
+    B, seq, n = SMOKE_TRAIN["B"], SMOKE_TRAIN["seq"], SMOKE_TRAIN["steps"]
+    opt_cfg = optim.OptConfig(total_steps=n, warmup_steps=5)
+    cpu_params = models.build_model(base).init(torch.Generator().manual_seed(0))
+    losses = {}
+    for run, dev, backend in (("card", DEV, "sliding_pallas"),
+                              ("cpu", "cpu", "sliding_pallas"),
+                              ("control", "cpu", "xla")):
+        cfg = base.replace(conv_backend=backend)
+        model = models.build_model(cfg)
+        params = map_tree(lambda t: t.to(dev), cpu_params)
+        state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+        step_fn = steps_mod.make_train_step(model, opt_cfg)
+        losses[run] = []
+        for batch in train_batches(cfg, B, seq, n, 0, dev, train):
+            state, metrics = step_fn(state, batch)
+            losses[run].append(float(metrics["loss"]))
+    card, cpu, ctrl = (np.array(losses[k]) for k in ("card", "cpu", "control"))
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    rel_ctrl = np.abs(ctrl - cpu) / np.abs(cpu)
+    allowed = np.maximum(1e-4, 3 * rel_ctrl)
+    if not (np.isfinite(card).all() and (rel <= allowed).all()):
+        raise AssertionError(f"smoke train losses card {card} vs CPU {cpu} "
+                             f"(control {ctrl})")
+    if not card[1:].min() < card[0]:
+        raise AssertionError(f"smoke train loss did not fall: {card}")
+    log(f"smoke train {SMOKE_TRAIN}: losses card {card.tolist()} vs CPU "
+        f"{cpu.tolist()}: rel diff {rel.tolist()}; control (CPU, xla convs) "
+        f"rel diff {rel_ctrl.tolist()}")
+
+
+def phase_full_train(models, configs, optim, steps_mod, train, sc, ad, sb,
+                     iter_leaves) -> dict:
+    cfg = configs.get_config("whisper-medium").replace(
+        conv_backend="sliding_pallas")
+    model = models.build_model(cfg)
+    B, seq, n, warm = (TRAIN[k] for k in ("B", "seq", "steps", "warmup"))
+    opt_cfg = optim.OptConfig(total_steps=n, warmup_steps=max(n // 20, 5),
+                              state_dtype=cfg.opt_state_dtype)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+    front0 = {k: v.clone() for k, v in params["frontend"].items()}
+    step_fn = steps_mod.make_train_step(model, opt_cfg)
+    batches = train_batches(cfg, B, seq, n, 0, DEV, train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(sc, ad, sb)
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = read_launches(sc, ad, sb)
+    want = {"sliding_conv1d": 3 * n, "attention_decode": 0, "conv1d_bwd_dw": 2 * n}
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches}, expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite train loss: {losses}")
+    moved = {k: (state["params"]["frontend"][k].float() - v.float()).abs().max().item()
+             for k, v in front0.items()}
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"frontend weights did not move: {moved}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(times[warm:]) * 1e3
+
+    def one_step():
+        with torch.enable_grad():
+            step_fn(state, batches[0])
+
+    prof = profile_busy(one_step, reps=2)
+    res = dict(losses=losses, step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+               tok_per_s=B * seq / (step_ms / 1e3), peak_mem_gb=peak,
+               launches=launches,
+               launches_per_step={k: v // n for k, v in launches.items()},
+               busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+               profiled_wall_ms=prof["wall_ms"], kernels_per_step=prof["kernels"],
+               frontend_moved=moved,
+               n_params=sum(t.numel() for _, t in iter_leaves(params)))
+    log(f"full-width train {cfg.name} ({cfg.param_dtype} params, "
+        f"{cfg.opt_state_dtype} moments, remat {cfg.remat}) B={B} seq={seq}: "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"full-width train: step {step_ms:.1f} ms (median of {n - warm} after "
+        f"{warm} warm-up), {res['tok_per_s']:.0f} tokens/s, peak mem "
+        f"{peak:.2f} GB, launches per step {res['launches_per_step']}, "
+        f"frontend moved {moved}")
+    log(f"profile train step: wall {prof['wall_ms']:.1f} ms, card busy "
+        f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%), "
+        f"{prof['kernels']} kernels; top: {prof['top']}")
+    return res
+
+
+def phase_train_times(sb, launches, err) -> dict:
+    rows = {}
+    for name, s in DW_MAIN.items():
+        K, stride = s["K"], s["stride"]
+        n_sets = 8 if s["Cin"] < 512 else 4  # > 50 MB of inputs in all
+        sets = []
+        for i in range(n_sets):
+            x, dz = dw_inputs(9 + i, s["B"], s["L"], s["Cin"], s["Cout"], K,
+                              stride, torch.float32)
+            # the library's layouts, (B, C, L), made ahead
+            sets.append((x, dz, x.transpose(1, 2).contiguous(),
+                         dz.transpose(1, 2).contiguous()))
+
+        def library(x, dz, x_lib, dz_lib):
+            return torch.nn.grad.conv1d_weight(
+                x_lib, (s["Cout"], s["Cin"], K), dz_lib, stride=stride)
+
+        x, dz, x_lib, dz_lib = sets[0]
+        want = sb.conv1d_bwd_dw_plain(x, dz, K, stride=stride, has_bias=True)
+        close(library(*sets[0]).permute(2, 1, 0), want[0], TOL,
+              f"library dw {name}", scaled=True)
+        lout = dz.shape[1]
+        nbytes = 4 * (x.numel() + dz.numel() + K * s["Cin"] * s["Cout"] + s["Cout"])
+        ops = 2 * s["B"] * lout * K * s["Cin"] * s["Cout"]
+        bms, by = bound_ms(nbytes, ops, torch.float32)
+        rows[name] = dict(
+            timings(cycling(lambda x, dz, *_: sb.conv1d_bwd_dw(
+                        x, dz, K, stride=stride, has_bias=True), sets),
+                    cycling(lambda x, dz, *_: sb.conv1d_bwd_dw_plain(
+                        x, dz, K, stride=stride, has_bias=True), sets),
+                    cycling(library, sets)),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        log(f"time dw {name} {s}: {json.dumps(rows[name])}")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")
+    both = rows.values()
+    total = {key: sum(r[key] for r in both) for key in keys}
+    total["bound_by"] = ("operations" if any(r["bound_by"] == "operations"
+                                             for r in both) else "bytes")
+    return dict(name="conv1d_bwd_dw", route="cuda",
+                source="src/repro_torch/kernels/csrc/sliding_conv_bwd.cu",
+                replaces="src/repro/kernels/sliding_conv_bwd.py:229",
+                launches=launches["conv1d_bwd_dw"], max_abs_err=err,
+                per="train step: conv1 80->1024 s1 + conv2 1024->1024 s2, "
+                    "B=4 L=514 f32, with db",
+                by_shape=rows, **total)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -524,12 +840,14 @@ def main() -> int:
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from repro_torch import configs, models
-    from repro_torch.distributed.sharding import map_tree
+    from repro_torch import configs, models, optim
+    from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import sliding_conv1d as sc
-    from repro_torch.launch import serve
+    from repro_torch.kernels import sliding_conv_bwd as sb
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import steps as steps_mod
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -544,13 +862,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    # -- 3-6 --------------------------------------------------------------------
+    # -- 3-6: serving -----------------------------------------------------------
     errs = phase_kernels(sc, ad)
     phase_smoke_serve(serve, models, configs, map_tree)
-    full = phase_full_serve(serve, models, configs, sc, ad, map_tree)
-    kernels = phase_times(sc, ad, full["launches"], errs)
+    full = phase_full_serve(serve, models, configs, sc, ad, sb, map_tree)
+    # -- 7-10: training -----------------------------------------------------------
+    errs["conv1d_bwd_dw"] = phase_train_kernels(sc, ad, sb, ops)
+    phase_smoke_train(models, configs, optim, steps_mod, train, map_tree)
+    trained = phase_full_train(models, configs, optim, steps_mod, train, sc, ad,
+                               sb, iter_leaves)
+    by_path = {"serve": full["launches"], "train": trained["launches"]}
+    launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
+    kernels = phase_times(sc, ad, launches, errs)
+    kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
+    for row in kernels:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
     log(f"done in {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": kernels, "serve": full}), flush=True)
+    print(json.dumps({"kernels": kernels, "serve": full, "train": trained}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

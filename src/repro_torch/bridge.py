@@ -5,18 +5,26 @@ as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the JAX side), into this package's nested dict of tensors with the same
 paths. JAX's random generator cannot be reproduced in torch, so parity
 tests build the weights once in the reference and move them here.
+
+``state_from_step_dir`` loads a ``CheckpointManager`` step directory,
+written by either package, onto the port's parameter and optimizer trees.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import from_numpy
 from repro_torch.distributed.sharding import ParamDef, iter_leaves
 
 
 def _to_tensor(a: Any, device, dtype) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype or a.dtype)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: torch has no numpy bf16
         t = torch.from_numpy(a.view(np.uint16).astype(np.int32) << 16)
@@ -51,3 +59,28 @@ def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
         return _to_tensor(t, device, dtype)
 
     return walk(tree)
+
+
+def state_from_step_dir(step_dir: str | Path, defs: Any, device) -> dict:
+    """A ``step_N/`` checkpoint directory → ``{"params": tree, "opt": {"m":
+    tree, "v": tree, "count": tensor}}`` on ``device`` (``"opt"`` only when
+    the checkpoint holds one). ``defs`` is the model's ``param_defs()``:
+    the parameters and both moments must have its paths and shapes."""
+    d = Path(step_dir)
+    manifest = json.loads((d / "manifest.json").read_text())
+    tree: dict = {}
+    for key, meta in manifest["leaves"].items():
+        *parents, name = key.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = from_numpy(np.load(d / meta["file"]), meta["dtype"])
+    if "params" not in tree:
+        raise ValueError(f"{d} holds no params leaves")
+    out = {"params": params_from_numpy(tree["params"], device, defs=defs)}
+    if "opt" in tree:
+        opt = tree["opt"]
+        out["opt"] = {m: params_from_numpy(opt[m], device, defs=defs)
+                      for m in ("m", "v")}
+        out["opt"]["count"] = opt["count"].to(device)
+    return out

@@ -10,7 +10,9 @@
 // with x (B, L, Cin), w (K, Cin, Cout), bias (Cout,) float32 or absent, and
 // y (B, Lout, Cout) in x's type. float32 or bfloat16 operands; the sum is
 // always taken in float32 and never in TF32. act: none, relu, gelu with the
-// tanh approximation, silu.
+// tanh approximation, silu. When z is not null the same epilogue also
+// stores z = bias + sum, the post-bias pre-activation in y's type (the
+// reference's save_preact output, kept for the backward pass).
 //
 // What bounds it on this card: at the shapes that whisper's frontend gives
 // it (B=4, L=514, 80->1024 at stride 1 and 1024->1024 at stride 2) the work
@@ -89,8 +91,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 sliding_conv1d_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       const float* __restrict__ bias, T* __restrict__ y,
-                      int L, int Cin, int Cout, int K, int stride, int Lout,
-                      int act) {
+                      T* __restrict__ z, int L, int Cin, int Cout, int K,
+                      int stride, int Lout, int act) {
   extern __shared__ __align__(16) float smem[];
   const int halo = (TL - 1) * stride + K;
   float* xs = smem;                             // [halo][XS_LD]
@@ -154,21 +156,22 @@ sliding_conv1d_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int i = 0; i < RM; ++i) {
     const int r = l0 + ty + 16 * i;
     if (r >= Lout) continue;
-    T* yr = y + ((size_t)b * Lout + r) * Cout;
+    const size_t row = ((size_t)b * Lout + r) * Cout;
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
       const int n = n0 + tx * RN + j;
       if (n >= Cout) continue;
       float v = acc[i][j];
       if (bias != nullptr) v += bias[n];
-      yr[n] = from_f32<T>(activate(v, act));
+      if (z != nullptr) z[row + n] = from_f32<T>(v);
+      y[row + n] = from_f32<T>(activate(v, act));
     }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* y,
-                   int B, int L, int Cin, int Cout, int K, int stride,
+                   void* z, int B, int L, int Cin, int Cout, int K, int stride,
                    int Lout, int act, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)halo_floats(stride, K) + (size_t)KT * CC * TN);
@@ -179,8 +182,8 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* y,
   const dim3 grid((Lout + TL - 1) / TL, (Cout + TN - 1) / TN, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(y), L, Cin, Cout, K,
-      stride, Lout, act);
+      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<T*>(z),
+      L, Cin, Cout, K, stride, Lout, act);
   return cudaGetLastError();
 }
 
@@ -188,11 +191,11 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* y,
 
 // Returns a cudaError_t code: 0 when the launch was accepted. Shared memory
 // grows with the halo, (TL-1)*stride + K rows; a shape that needs more than
-// the card offers is refused with cudaErrorInvalidValue.
+// the card offers is refused with cudaErrorInvalidValue. z may be null.
 extern "C" int sliding_conv1d(const void* x, const void* w, const void* bias,
-                              void* y, int B, int L, int Cin, int Cout, int K,
-                              int stride, int Lout, int act, int is_bf16,
-                              void* stream) {
+                              void* y, void* z, int B, int L, int Cin,
+                              int Cout, int K, int stride, int Lout, int act,
+                              int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || Cin < 1 || Cout < 1 || K < 1 || stride < 1 ||
       Lout < 1 || (Lout - 1) * stride + K > L || act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
@@ -201,10 +204,10 @@ extern "C" int sliding_conv1d(const void* x, const void* w, const void* bias,
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, B, L, Cin, Cout, K,
+      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, z, B, L, Cin, Cout, K,
                                       stride, Lout, act, s)
-              : launch<float>(x, w, bias, y, B, L, Cin, Cout, K, stride, Lout,
-                              act, s);
+              : launch<float>(x, w, bias, y, z, B, L, Cin, Cout, K, stride,
+                              Lout, act, s);
   return (int)err;
 }
 

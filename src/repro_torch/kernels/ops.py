@@ -1,12 +1,14 @@
 """Kernel dispatch: the layer-facing entry points of the kernels.
 
-The floating-point forward subset of ``repro.kernels.ops``:
+The floating-point subset of ``repro.kernels.ops``:
 
   * ``conv1d``: padding outside the kernel, then the backend. ``sliding``
     is the plain tap loop of ``core.conv`` with an unfused epilogue;
     ``sliding_pallas`` (the reference's name, kept so one command line
-    drives both packages) is the fused CUDA kernel; ``xla`` is
-    ``torch.nn.functional.conv1d`` with an unfused epilogue.
+    drives both packages) is the fused CUDA kernel, differentiable through
+    ``Conv1dSliding`` (the reference's ``_conv1d_sliding_op`` custom VJP);
+    ``xla`` is ``torch.nn.functional.conv1d`` with an unfused epilogue.
+    ``sliding`` and ``xla`` differentiate by plain autograd.
   * ``attention_decode``: the decode-attention kernel, with a dispatch log
     keyed like the reference's ``ATTN_DECODE_DISPATCH``.
 
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import conv as core_conv
 from repro_torch.kernels import attention_decode as attn_dec
-from repro_torch.kernels import autotune, sliding_conv1d
+from repro_torch.kernels import autotune, sliding_conv1d, sliding_conv_bwd
 from repro_torch.kernels.sliding_conv1d import apply_activation
 
 CONV_BACKENDS = ("sliding", "sliding_pallas", "xla")
@@ -76,6 +78,46 @@ def epilogue_unfused(y, bias, activation):
     return apply_activation(yf, activation).to(y.dtype)
 
 
+class Conv1dSliding(torch.autograd.Function):
+    """VALID sliding conv1d + bias + activation with its backward on the
+    kernels. Forward saves (x, w, bias, z), z the kernel's post-bias
+    pre-activation (none with activation "none": y is z then). Backward:
+    ``dz = act'(z) · dy`` in x's type; dx through the forward conv kernel
+    on the dilated gradient and the flipped weights; dw and db through the
+    dw kernel, cast to w's and bias's types. Grads nobody asked for are not
+    computed. CPU tensors run the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, activation):
+        if activation in (None, "none"):
+            y = sliding_conv1d.conv1d_sliding(x, w, bias, stride=stride)
+            z = None
+        else:
+            y, z = sliding_conv1d.conv1d_sliding(
+                x, w, bias, stride=stride, activation=activation,
+                save_preact=True)
+        ctx.save_for_backward(x, w, bias, z)
+        ctx.stride, ctx.activation = stride, activation
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias, z = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dz = sliding_conv_bwd.act_bwd(dy, z, ctx.activation).to(x.dtype)
+        dx = dw = db = None
+        if need_x:
+            dx = sliding_conv_bwd.conv1d_dx(dz, w, stride=ctx.stride,
+                                            L=x.shape[1])
+        if need_w or need_b:
+            dw, db = sliding_conv_bwd.conv1d_bwd_dw(
+                x, dz, w.shape[0], stride=ctx.stride,
+                has_bias=bias is not None)
+            dw = dw.to(w.dtype)
+            db = None if db is None else db.to(bias.dtype)
+        return dx, dw, db, None, None
+
+
 def conv1d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -97,6 +139,10 @@ def conv1d(
         return epilogue_unfused(y, bias, activation)
     x = _pad1d(x, padding, w.shape[0])
     if backend == "sliding_pallas":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, w, bias)):
+            return Conv1dSliding.apply(x, w, bias, stride, activation)
+        # nothing to differentiate (serving): the kernel saves no residual
         return sliding_conv1d.conv1d_sliding(
             x, w, bias, stride=stride, activation=activation
         )

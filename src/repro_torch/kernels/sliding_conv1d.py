@@ -9,7 +9,10 @@ Contract (the TPU kernel's, ``repro.kernels.sliding_conv1d``): VALID conv1d
 on an input the caller already padded. x (B, L, Cin), w (K, Cin, Cout) of
 x's type, float32 or bfloat16; bias (Cout,) or None; output
 (B, (L - K) // stride + 1, Cout) in x's type. The sum runs in float32; bias
-and activation are applied to the float32 sum, then one cast.
+and activation are applied to the float32 sum, then one cast. With
+``save_preact=True`` both return ``(y, z)``: z is the post-bias
+pre-activation in x's type, written by the same epilogue (the residual the
+backward pass forms ``dz = dy · act'(z)`` from).
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
-# x, w, bias, y; B, L, Cin, Cout, K, stride, Lout, act, is_bf16; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# x, w, bias, y, z; B, L, Cin, Cout, K, stride, Lout, act, is_bf16; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def apply_activation(x: torch.Tensor, activation: str | None) -> torch.Tensor:
@@ -58,8 +61,8 @@ def _check(x, w, bias, stride, activation) -> int:
 
 def conv1d_sliding_plain(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
-    stride: int = 1, activation: str = "none",
-) -> torch.Tensor:
+    stride: int = 1, activation: str = "none", save_preact: bool = False,
+):
     """The kernel's function in plain torch: one shifted float32 matrix
     product per tap, then bias, activation and the cast to x's type."""
     out_len = _check(x, w, bias, stride, activation)
@@ -71,10 +74,11 @@ def conv1d_sliding_plain(
         acc = acc + xf[:, k : k + span : stride] @ wf[k]
     if bias is not None:
         acc = acc + bias.float()
-    return apply_activation(acc, activation).to(x.dtype)
+    y = apply_activation(acc, activation).to(x.dtype)
+    return (y, acc.to(x.dtype)) if save_preact else y
 
 
-def _launch(x, w, bias, stride, activation, out_len) -> torch.Tensor:
+def _launch(x, w, bias, stride, activation, out_len, save_preact=False):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
                         f"same type, got {x.dtype} and {w.dtype}")
@@ -86,30 +90,33 @@ def _launch(x, w, bias, stride, activation, out_len) -> torch.Tensor:
     B, L, Cin = x.shape
     K, _, Cout = w.shape
     y = torch.empty((B, out_len, Cout), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(y) if save_preact else None
     code = fn(
         x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
-        y.data_ptr(), B, L, Cin, Cout, K, stride, out_len,
+        y.data_ptr(), None if z is None else z.data_ptr(),
+        B, L, Cin, Cout, K, stride, out_len,
         ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("sliding_conv1d", code)
     conv1d_sliding.launches += 1
-    return y
+    return (y, z) if save_preact else y
 
 
 def conv1d_sliding(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
-    stride: int = 1, activation: str = "none",
-) -> torch.Tensor:
+    stride: int = 1, activation: str = "none", save_preact: bool = False,
+):
     """VALID sliding conv1d + bias + activation: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor. ``conv1d_sliding.launches``
     counts kernel launches."""
     out_len = _check(x, w, bias, stride, activation)
     if x.device.type == "cuda":
-        return _launch(x, w, bias, stride, activation, out_len)
+        return _launch(x, w, bias, stride, activation, out_len, save_preact)
     if x.device.type == "cpu":
         return conv1d_sliding_plain(x, w, bias, stride=stride,
-                                    activation=activation)
+                                    activation=activation,
+                                    save_preact=save_preact)
     raise ValueError(f"no sliding_conv1d for device {x.device}")
 
 

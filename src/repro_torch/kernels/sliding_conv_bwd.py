@@ -1,0 +1,160 @@
+"""Backward pass of the sliding conv1d (``repro.kernels.sliding_conv_bwd``).
+
+  * ``act_bwd``: ``dz = dy · act'(z)`` from the saved post-bias
+    pre-activation ``z``, the exact derivative of the epilogue's float32
+    activation.
+  * dx: a stride-1 sliding correlation of the dilated, padded gradient with
+    the flipped, Cin↔Cout-transposed weights (``conv1d_dx_operands``). It
+    runs through the forward conv kernel, so it needs no kernel of its own.
+  * dw/db: ``conv1d_bwd_dw`` is the wrapper. On a CUDA tensor it launches
+    the Hopper kernel ``csrc/sliding_conv_bwd.cu``; on a CPU tensor it runs
+    ``conv1d_bwd_dw_plain``, the same sums in plain torch. Any other device
+    raises. Nothing falls back from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build, sliding_conv1d
+
+# x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, Cin, Cout, K, Lout
+
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def act_bwd(dy: torch.Tensor, z: torch.Tensor | None,
+            activation: str) -> torch.Tensor:
+    """dz = dy · act'(z) in float32, cast to dy's type. relu' is 0 at 0;
+    gelu is the tanh approximation, as in the forward epilogue."""
+    if activation in (None, "none"):
+        return dy
+    if z is None:
+        raise ValueError(f"activation {activation!r} needs the saved preact")
+    zf, g = z.float(), dy.float()
+    if activation == "relu":
+        d = (zf > 0).float()
+    elif activation == "gelu":
+        t = torch.tanh(_GELU_C * (zf + 0.044715 * zf ** 3))
+        d = 0.5 * (1 + t) + 0.5 * zf * (1 - t * t) * _GELU_C * (
+            1 + 3 * 0.044715 * zf * zf)
+    elif activation == "silu":
+        s = torch.sigmoid(zf)
+        d = s * (1 + zf * (1 - s))
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return (g * d).to(dy.dtype)
+
+
+def dilate1d(dy: torch.Tensor, stride: int) -> torch.Tensor:
+    """Insert ``stride - 1`` zero rows between dy's rows along axis 1."""
+    if stride == 1:
+        return dy
+    B, n, C = dy.shape
+    out = dy.new_zeros((B, (n - 1) * stride + 1, C))
+    out[:, ::stride] = dy
+    return out
+
+
+def conv1d_dx_operands(dz: torch.Tensor, w: torch.Tensor, *, stride: int):
+    """(dilated and padded dz, flipped Cin↔Cout-transposed weights) for dx."""
+    K = w.shape[0]
+    dzp = F.pad(dilate1d(dz, stride), (0, 0, K - 1, K - 1))
+    wt = torch.flip(w, (0,)).transpose(1, 2).contiguous()  # (K, Cout, Cin)
+    return dzp, wt
+
+
+def _fit_len(dx: torch.Tensor, L: int) -> torch.Tensor:
+    """Zero-pad dx up to the forward input length: trailing rows that the
+    forward pass never read get zero gradient."""
+    if dx.shape[1] < L:
+        dx = F.pad(dx, (0, 0, 0, L - dx.shape[1]))
+    return dx
+
+
+def conv1d_dx(dz: torch.Tensor, w: torch.Tensor, *, stride: int,
+              L: int) -> torch.Tensor:
+    """dx through the forward sliding conv (its kernel on a CUDA tensor) on
+    the dilated gradient: stride 1, no bias, no activation."""
+    dzp, wt = conv1d_dx_operands(dz, w, stride=stride)
+    return _fit_len(sliding_conv1d.conv1d_sliding(dzp, wt, None, stride=1), L)
+
+
+def _check(x, dz, K, stride) -> None:
+    if x.dim() != 3 or dz.dim() != 3 or x.shape[0] != dz.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and dz {tuple(dz.shape)} do not "
+                         "form (B, L, Cin) and (B, Lout, Cout)")
+    if K < 1 or stride < 1:
+        raise ValueError(f"K={K} and stride={stride} must be >= 1")
+    if (dz.shape[1] - 1) * stride + K > x.shape[1]:
+        raise ValueError(f"dz of {dz.shape[1]} rows at K={K}, stride {stride} "
+                         f"reads past x's {x.shape[1]} rows")
+
+
+def conv1d_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor, K: int, *,
+                        stride: int = 1, has_bias: bool = False):
+    """The kernel's function in plain torch: one float32 matrix product per
+    tap over all (batch, row) pairs. Returns (dw (K, Cin, Cout) float32,
+    db (Cout,) float32 or None)."""
+    _check(x, dz, K, stride)
+    Lout, Cout = dz.shape[1], dz.shape[2]
+    span = (Lout - 1) * stride + 1
+    xf, g = x.float(), dz.float().reshape(-1, Cout)
+    dw = torch.stack([
+        xf[:, k : k + span : stride].reshape(-1, x.shape[2]).T @ g
+        for k in range(K)
+    ])
+    return dw, (g.sum(dim=0) if has_bias else None)
+
+
+def _launch(x, dz, K, stride, has_bias):
+    if x.dtype not in (torch.float32, torch.bfloat16) or dz.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 x and dz of the "
+                        f"same type, got {x.dtype} and {dz.dtype}")
+    if dz.device != x.device:
+        raise ValueError("x and dz must lie on one device")
+    fn = build.entry("sliding_conv_bwd", "conv1d_bwd_dw", _ARGTYPES)
+    splits = build.entry("sliding_conv_bwd", "conv1d_bwd_dw_splits",
+                         _SPLIT_ARGTYPES)
+    x, dz = x.contiguous(), dz.contiguous()
+    B, L, Cin = x.shape
+    Lout, Cout = dz.shape[1], dz.shape[2]
+    dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=x.device)
+    db = (torch.empty((Cout,), dtype=torch.float32, device=x.device)
+          if has_bias else None)
+    S = splits(B, Cin, Cout, K, Lout)
+    ws = (torch.empty((S * (K * Cin * Cout + Cout),), dtype=torch.float32,
+                      device=x.device) if S > 1 else None)
+    code = fn(
+        x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+        None if db is None else db.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        B, L, Cin, Cout, K, stride, Lout, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("sliding_conv_bwd", code)
+    conv1d_bwd_dw.launches += 1
+    return dw, db
+
+
+def conv1d_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
+                  stride: int = 1, has_bias: bool = False):
+    """Weight and bias gradient of the VALID sliding conv1d: x (B, L, Cin)
+    the padded forward input, dz (B, Lout, Cout) the gradient after the
+    activation. Returns (dw (K, Cin, Cout) float32, db (Cout,) float32 or
+    None): the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor. ``conv1d_bwd_dw.launches`` counts kernel launches."""
+    _check(x, dz, K, stride)
+    if x.device.type == "cuda":
+        return _launch(x, dz, K, stride, has_bias)
+    if x.device.type == "cpu":
+        return conv1d_bwd_dw_plain(x, dz, K, stride=stride, has_bias=has_bias)
+    raise ValueError(f"no conv1d_bwd_dw for device {x.device}")
+
+
+conv1d_bwd_dw.launches = 0

@@ -21,13 +21,13 @@ from __future__ import annotations
 import argparse
 import math
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.distributed.ft import RestartPolicy
 from repro_torch.distributed.sharding import iter_leaves, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
@@ -115,24 +115,6 @@ def _screen_logits(logits: torch.Tensor, step: int):
     return bad
 
 
-@dataclass
-class RestartPolicy:
-    """Bounded exponential-backoff retry budget (the reference's policy
-    without jitter)."""
-
-    max_restarts: int = 2
-    base_backoff_s: float = 0.05
-    max_backoff_s: float = 2.0
-    restarts: int = 0
-
-    def next_backoff(self) -> float | None:
-        if self.restarts >= self.max_restarts:
-            return None
-        delay = min(self.base_backoff_s * 2 ** self.restarts, self.max_backoff_s)
-        self.restarts += 1
-        return delay
-
-
 def _generate_once(model, params, prompts, *, gen_len, cache_len,
                    temperature, seed, deadline_s, nan_guard, stats):
     cfg = model.cfg
@@ -194,7 +176,8 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
     first token) and ``step_s`` (one entry per decode step), host clock
     around work that ends in a device synchronise."""
     stats = {} if stats is None else stats
-    policy = RestartPolicy(max_restarts=max_retries)
+    policy = RestartPolicy(max_restarts=max_retries, base_backoff_s=0.05,
+                           max_backoff_s=2.0)
     while True:
         stats.clear()
         try:

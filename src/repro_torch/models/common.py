@@ -1,15 +1,15 @@
-"""Shared model plumbing: stacked ParamDefs, KV-cache defs and the
-per-token cache write. The reference's ``scan_blocks`` becomes a plain loop
-over layers in the models; serving needs no remat."""
+"""Shared model plumbing: stacked ParamDefs, the loop over layers, KV-cache
+defs and the per-token cache write."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, map_tree
+from repro_torch.distributed.sharding import ParamDef, iter_leaves, map_tree
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -23,8 +23,30 @@ def stack_defs(defs: Any, n: int) -> Any:
 
 
 def layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
+    """Layer ``i`` of a stacked tree: views, so writes reach the stack (the
+    serving cache)."""
     return map_tree(lambda t: t[i], tree)
+
+
+def unstack(tree: dict) -> list[dict]:
+    """The layers of a stacked tree, one ``torch.unbind`` per leaf. Its
+    backward is one ``stack`` per leaf; indexing each layer instead would
+    write a zero tensor the size of the whole stack per layer."""
+    leaves = map_tree(torch.unbind, tree)
+    n = len(next(iter(iter_leaves(leaves)))[1])
+    return [map_tree(lambda ts: ts[i], leaves) for i in range(n)]
+
+
+def scan_blocks(x: Any, stacked: dict, body: Callable[[Any, dict], Any], *,
+                remat: bool = True) -> Any:
+    """Run ``body(carry, layer_params)`` over the layers of ``stacked``
+    (the reference's ``scan_blocks``, as a loop). With ``remat`` and grad
+    enabled, each block runs under ``torch.utils.checkpoint``: its
+    activations are recomputed in backward instead of kept."""
+    ckpt = remat and torch.is_grad_enabled()
+    for lp in unstack(stacked):
+        x = checkpoint(body, x, lp, use_reentrant=False) if ckpt else body(x, lp)
+    return x
 
 
 def kv_cache_defs(cfg: ModelConfig, layers: int, batch: int, seq: int):

@@ -5,13 +5,14 @@ Conventions, as in the reference: activations in ``compute_dtype``;
 reductions, softmax and norms in float32; grouped-query attention with
 grouped einsums (no KV head repetition in memory); flash-style chunked
 attention past ``attn_chunk``; decode against a static KV cache; logits
-summed in float32. Rotary embeddings are not ported (whisper uses
-sinusoidal positions).
+summed in float32; the training loss chunked over the sequence. Rotary
+embeddings are not ported (whisper uses sinusoidal positions).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, torch_dtype
@@ -244,6 +245,12 @@ def self_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool):
     return _out_proj(o, p["wo"]), k, v
 
 
+def attention_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Causal self-attention over a full sequence (train), without rotary
+    embeddings: the projected output only."""
+    return self_attention(p, x, cfg, causal=True)[0]
+
+
 def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
                      lengths: torch.Tensor | None = None):
     """Single-token decode step against a static KV cache.
@@ -278,8 +285,8 @@ def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
 
 
 def cross_attention(p, x, enc_kv, cfg: ModelConfig):
-    """Decoder cross-attention; enc_kv = precomputed (k, v) of the encoder
-    output."""
+    """Decoder cross-attention over a whole sequence (prefill and train);
+    enc_kv = precomputed (k, v) of the encoder output."""
     q = _proj_heads(x, p["wq"])
     k, v = enc_kv
     if x.shape[1] > cfg.attn_chunk:
@@ -345,3 +352,35 @@ def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     reference's ``preferred_element_type=f32``."""
     w = unembed_matrix(p, cfg).to(h.dtype)
     return h.float() @ w.float()
+
+
+def _ce_chunk(p_embed, hb: torch.Tensor, yb: torch.Tensor, cfg: ModelConfig):
+    """(sum of masked next-token CE, count of unmasked labels) of one chunk,
+    from float32 logits."""
+    logits = lm_logits(p_embed, hb, cfg)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yb.clamp(min=0).long()[..., None])[..., 0]
+    mask = (yb >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(p_embed, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token CE over sequence chunks of ``cfg.loss_chunk``. Each
+    chunk runs under ``torch.utils.checkpoint``, so its (B, c, V) logits
+    are recomputed in backward and the logits of all chunks never exist at
+    once. h: (B, L, D); labels: (B, L), -1 masked. As in the reference,
+    rows past the last whole chunk are dropped."""
+    L = h.shape[1]
+    c = min(cfg.loss_chunk, L)
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(L // c):
+        hb, yb = h[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c]
+        if torch.is_grad_enabled():
+            t, n = checkpoint(_ce_chunk, p_embed, hb, yb, cfg,
+                              use_reentrant=False)
+        else:
+            t, n = _ce_chunk(p_embed, hb, yb, cfg)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -7,19 +7,26 @@ fused. Encoder: bidirectional self-attention + plain-GELU MLP, sinusoidal
 positions. Decoder: causal self-attention + cross-attention + MLP. Serving
 runs ``prefill`` once, then ``decode_step`` per token, whose self- and
 cross-attention reads go through the decode-attention CUDA kernel.
+Training takes ``loss``: the encoder and decoder stacks run block by block
+through ``scan_blocks`` (recomputed in backward unless ``cfg.remat`` is
+"none"), and the convs differentiate through the kernels' backward.
 
 Parameters are the reference's pytree (same paths and shapes), as nested
 dicts of tensors with a leading layer dim on the encoder and decoder
-stacks; the layer loops index into them.
+stacks.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, init_params, torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.common import kv_cache_defs, layer, stack_defs
+from repro_torch.models.common import (
+    kv_cache_defs, layer, scan_blocks, stack_defs,
+)
 
 N_MELS = 80
 
@@ -95,13 +102,41 @@ class Whisper:
             frames = conv_frontend(params["frontend"], frames, cfg)
         x = frames.to(L.cdtype(cfg))
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-        for i in range(cfg.encoder_layers):
-            lp = layer(params["encoder"], i)
-            h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            x = x + L.self_attention(lp["attn"], h, cfg, causal=False)[0]
-            h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], h, cfg)
+        x = scan_blocks(x, params["encoder"], self._enc_block,
+                        remat=cfg.remat != "none")
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _enc_block(self, x, lp):
+        cfg = self.cfg
+        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x = x + L.self_attention(lp["attn"], h, cfg, causal=False)[0]
+        h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        return x + L.mlp_apply(lp["mlp"], h, cfg)
+
+    # -- decoder (training) -----------------------------------------------------
+    def _dec_block(self, x, lp, enc_out):
+        cfg = self.cfg
+        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x = x + L.attention_train(lp["attn"], h, cfg)
+        h = L.rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
+        kv = L.encode_kv(lp["xattn"], enc_out, cfg)
+        x = x + L.cross_attention(lp["xattn"], h, kv, cfg)
+        h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        return x + L.mlp_apply(lp["mlp"], h, cfg)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token CE of ``batch["labels"]`` (-1 masked) given
+        ``batch["frames"]`` (mels or frame embeddings) and
+        ``batch["tokens"]``: a float32 scalar."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        x = scan_blocks(x, params["decoder"],
+                        functools.partial(self._dec_block, enc_out=enc_out),
+                        remat=cfg.remat != "none")
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return L.chunked_ce_loss(params["embed"], x, batch["labels"], cfg)
 
     # -- serving ----------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):

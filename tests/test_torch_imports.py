@@ -42,3 +42,13 @@ def test_checker_sees_forbidden_imports(tmp_path):
     f.write_text("import jax.numpy as jnp\nfrom repro.kernels import ops\n"
                  "from repro_torch import kernels\n")
     assert _imported_roots(f) & FORBIDDEN == {"jax", "repro"}
+
+
+def test_training_slice_modules_are_checked():
+    """The training slice's modules are among the files checked above."""
+    checked = set(_port_files())
+    for rel in ("optim/__init__.py", "optim/adamw.py", "data/__init__.py",
+                "data/pipeline.py", "checkpoint/__init__.py",
+                "checkpoint/manager.py", "distributed/ft.py", "launch/steps.py",
+                "launch/train.py", "kernels/sliding_conv_bwd.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
