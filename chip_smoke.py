@@ -46,7 +46,33 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      busy share of a step (profiler, device kernels only);
  10. train times: the dw kernel at the two full-width shapes beside its
      plain version, ``torch.nn.grad.conv1d_weight`` (cuDNN, TF32 off) and
-     the bound, timed as in phase 6.
+     the bound, timed as in phase 6;
+ 11. int8 conv kernel vs plain: the w8a8 and w8a16 sliding conv kernel
+     against its exact plain version (int8 sums in float64 on the card) at
+     the full-width frontend shapes (conv1 80->1024 stride 1, conv2
+     1024->1024 stride 2, B=4, L=514) and at edge shapes (K in
+     {1, 3, 5, 7, 17, 20}, stride 1 and 2, Cin 37 and 80, every
+     activation), requant off and on: float32 outputs within 1e-5, int8
+     codes equal but for ties (see ``codes_close``);
+ 12. int8 attention kernel vs plain: the decode-attention kernel over an
+     int8 cache at the serving shape and the edges of phase 3, a length-0
+     slot giving a zero row, rows past a length zero-padded;
+ 13. int8 smoke serve, card vs CPU: whisper smoke config (float32),
+     ``--quant int8 --kv-quant int8``, one set of quantized weights: equal
+     greedy tokens, prefill logits within tolerance, conv1's int8 codes as
+     in phase 11, one dequant site in the frontend;
+ 14. full-width int8 serve: whisper-medium as in phase 5 with
+     ``--quant int8 --kv-quant int8``: the calibration prefill (the fp conv
+     kernel, twice), then one request (the int8 conv kernel twice, the int8
+     attention kernel 48 times a decode step), with launch counts checked
+     and TTFT, decode step, tokens/s, card busy share, peak memory and the
+     cache bytes printed;
+ 15. int8 times: the int8 conv kernel at the two full-width shapes beside
+     its plain version and ``torch._int_mm`` on the input unfolded ahead
+     plus the epilogue in torch; the int8 attention kernel beside its plain
+     version and a dequantized cache through
+     ``F.scaled_dot_product_attention``; each with its bound, timed as in
+     phase 6.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -73,12 +99,18 @@ ROOT = Path(__file__).resolve().parent
 # (tests/test_kernels.py TOL); bfloat16 outputs are compared in float32
 TOL = dict(rtol=3e-4, atol=3e-4)
 BTOL = dict(rtol=5e-2, atol=5e-2)
+# the int8 conv's float32 outputs: w8a8 sums are exact, so only the
+# activation's last bits differ (tests/test_quant.py TIGHT); w8a16 sums in
+# float32 in another order, held to 1e-5 of the largest output
+TIGHT = dict(rtol=1e-5, atol=1e-5)
+# a bfloat16 output may round the other way: two bf16 steps
+QBTOL = dict(rtol=1e-2, atol=1e-2)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory rate
 # and arithmetic rate by operand type. f32 runs on the CUDA cores: the port
 # keeps TF32 off.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 
 DEV = "cuda"
 SERVE = dict(B=4, P=256, gen=32)  # full-width request
@@ -345,8 +377,8 @@ def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches(sc, ad, sb)
 
-    want = {"sliding_conv1d": 2, "attention_decode": 2 * cfg.num_layers * (gen - 1),
-            "conv1d_bwd_dw": 0}
+    want = only(sliding_conv1d=2,
+                attention_decode=2 * cfg.num_layers * (gen - 1))
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if tuple(toks.shape) != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -410,29 +442,50 @@ def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
 @contextlib.contextmanager
 def plain_kernels(sc, ad, sb):
     """Route every kernel wrapper to its plain version for the block."""
-    saved = sc._launch, ad._launch, sb._launch
+    from repro_torch.kernels import sliding_conv_quant as sq
+
+    saved = sc._launch, ad._launch, sb._launch, sq._launch
     sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
         sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
     ad._launch = ad.attention_decode_plain
     sb._launch = lambda x, dz, K, stride, has_bias: sb.conv1d_bwd_dw_plain(
         x, dz, K, stride=stride, has_bias=has_bias)
+    sq._launch = lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n: (
+        sq.conv1d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
+                              mode=mode, stride=stride, activation=act,
+                              out_dtype=odt))
     try:
         yield
     finally:
-        sc._launch, ad._launch, sb._launch = saved
+        sc._launch, ad._launch, sb._launch, sq._launch = saved
 
 
 def zero_launches(sc, ad, sb) -> None:
+    from repro_torch.kernels import sliding_conv_quant as sq
+
     sc.conv1d_sliding.launches = 0
     ad.decode_attention.launches = 0
+    ad.decode_attention.launches_int8 = 0
     sb.conv1d_bwd_dw.launches = 0
+    sq.conv1d_quant.launches = 0
 
 
 def read_launches(sc, ad, sb) -> dict:
+    from repro_torch.kernels import sliding_conv_quant as sq
+
     return {"sliding_conv1d": sc.conv1d_sliding.launches,
             "attention_decode": ad.decode_attention.launches,
-            "conv1d_bwd_dw": sb.conv1d_bwd_dw.launches}
+            "conv1d_bwd_dw": sb.conv1d_bwd_dw.launches,
+            "sliding_conv_quant": sq.conv1d_quant.launches,
+            "attention_decode_int8": ad.decode_attention.launches_int8}
+
+
+def only(**counts) -> dict:
+    """A launch-count dict with every kernel at 0 but those named."""
+    return {k: counts.get(k, 0) for k in (
+        "sliding_conv1d", "attention_decode", "conv1d_bwd_dw",
+        "sliding_conv_quant", "attention_decode_int8")}
 
 
 def profile_busy(fn, reps: int = 3) -> dict:
@@ -648,7 +701,7 @@ def phase_train_kernels(sc, ad, sb, ops) -> float:
     launches = read_launches(sc, ad, sb)
     with plain_kernels(sc, ad, sb):
         want = frontend_grads()
-    if launches != {"sliding_conv1d": 3, "attention_decode": 0, "conv1d_bwd_dw": 2}:
+    if launches != only(sliding_conv1d=3, conv1d_bwd_dw=2):
         raise AssertionError(f"frontend autograd launches {launches}")
     for name, a, b in zip(("conv1_w", "conv1_b", "conv2_w", "conv2_b"), got, want):
         err = close(a, b, TOL, f"frontend grad {name}", scaled=True)
@@ -740,7 +793,7 @@ def phase_full_train(models, configs, optim, steps_mod, train, sc, ad, sb,
         losses.append(float(metrics["loss"]))  # waits for the step
         times.append(time.perf_counter() - t0)
     launches = read_launches(sc, ad, sb)
-    want = {"sliding_conv1d": 3 * n, "attention_decode": 0, "conv1d_bwd_dw": 2 * n}
+    want = only(sliding_conv1d=3 * n, conv1d_bwd_dw=2 * n)
     if launches != want:
         raise AssertionError(f"train launch counts {launches}, expected {want}")
     if not np.isfinite(losses).all():
@@ -826,6 +879,427 @@ def phase_train_times(sb, launches, err) -> dict:
                 by_shape=rows, **total)
 
 
+# ---------------------------------------------------------------------------
+# int8 serving
+# ---------------------------------------------------------------------------
+
+# the int8 frontend at full width (512 mel frames, SAME padding): conv1
+# requantizes onto conv2's grid, conv2 reads the int8 codes and writes f32
+QCONV_MAIN = {
+    "conv1": dict(B=4, L=514, Cin=80, Cout=1024, K=3, stride=1, requant=True),
+    "conv2": dict(B=4, L=514, Cin=1024, Cout=1024, K=3, stride=2, requant=False),
+}
+ACTS = ("none", "relu", "gelu", "silu")
+
+
+def quant_inputs(seed, B, L, Cin, Cout, K, mode, x_dtype=torch.float32,
+                 with_bias=True):
+    """int8 weight codes with per-Cout scales, and an int8 input with its
+    scale (w8a8) or a float input (w8a16), scaled so outputs are O(1)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int32).to(torch.int8)
+
+    n = K * Cin
+    w = codes((K, Cin, Cout))
+    ws = (torch.rand((Cout,), generator=g, device=DEV) + 0.5) / (73 * n ** 0.5)
+    b = torch.randn((Cout,), generator=g, device=DEV) if with_bias else None
+    if mode == "w8a8":
+        x = codes((B, L, Cin))
+        xs = torch.tensor(1 / 73, device=DEV)
+    else:
+        x = torch.randn((B, L, Cin), generator=g, device=DEV).to(x_dtype)
+        xs = None
+    return x, w, ws, b, xs
+
+
+def codes_close(got, want, pre, what, *, tie, max_frac) -> int:
+    """Raise unless the int8 codes ``got`` equal ``want`` but for codes one
+    apart where ``pre`` (the plain version's float ``y / out_scale``) lies
+    within ``tie`` of a half-integer, and no more than ``max_frac`` of them:
+    two float32 evaluations of one activation may differ in the last bits
+    and round such a value the other way. Returns the codes that differ."""
+    if got.dtype != torch.int8 or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"int8 {tuple(want.shape)}")
+    diff = (got.int() - want.int()).abs()
+    off = diff > 0
+    n_off = int(off.sum())
+    near = ((pre - pre.floor()).abs() - 0.5).abs() < tie
+    if (diff.max().item() > 1 or bool((off & ~near).any())
+            or n_off > max_frac * diff.numel()):
+        raise AssertionError(
+            f"{what}: {n_off} codes differ (max {diff.max().item()}), "
+            f"{int((off & ~near).sum())} away from a tie")
+    return n_off
+
+
+def check_quant_conv(sq, x, w, ws, b, xs, *, mode, stride, act, requant,
+                     what) -> float:
+    """The int8 conv kernel against its plain version, float output and,
+    with ``requant``, int8 codes on a grid that clips the largest outputs;
+    returns the float output's max |err|."""
+    odt = x.dtype if mode == "w8a16" else torch.float32
+    args = dict(x_scale=xs, mode=mode, stride=stride, activation=act)
+    want = sq.conv1d_quant_plain(x, w, ws, b, out_dtype=odt, **args)
+    got = sq.conv1d_quant(x, w, ws, b, out_dtype=odt, **args)
+    tol = QBTOL if odt == torch.bfloat16 else TIGHT
+    err = close(got, want, tol, what, scaled=mode == "w8a16")
+    if requant:
+        y = sq.conv1d_quant_plain(x, w, ws, b, out_dtype=torch.float32, **args)
+        os = (y.abs().max() * 0.8 / 127).reshape(())
+        want_q = sq.conv1d_quant_plain(x, w, ws, b, out_scale=os, **args)
+        got_q = sq.conv1d_quant(x, w, ws, b, out_scale=os, **args)
+        if want_q.abs().max().item() != 127:
+            raise AssertionError(f"{what}: the requant clip is not exercised")
+        # w8a8 sums exactly: only the activation's last bits differ; w8a16
+        # sums in float32 in another order
+        exact = mode == "w8a8"
+        codes_close(got_q, want_q, y / os, what + " requant",
+                    tie=1e-4 if exact else 1e-3,
+                    max_frac=1e-4 if exact else 1e-3)
+    return err
+
+
+def phase_quant_kernels(sq) -> float:
+    """Returns the w8a8 kernel's max |err| at the full-width shapes."""
+    err_main = 0.0
+    for name, s in QCONV_MAIN.items():
+        for mode, x_dtype in (("w8a8", None), ("w8a16", torch.float32),
+                              ("w8a16", torch.bfloat16)):
+            x, w, ws, b, xs = quant_inputs(11, s["B"], s["L"], s["Cin"],
+                                           s["Cout"], s["K"], mode,
+                                           x_dtype or torch.float32)
+            what = f"quant conv {name} {mode} {x.dtype} gelu"
+            err = check_quant_conv(sq, x, w, ws, b, xs, mode=mode,
+                                   stride=s["stride"], act="gelu",
+                                   requant=True, what=what)
+            if mode == "w8a8":
+                err_main = max(err_main, err)
+            log(f"{what}: f32 max|err| {err:.3e}, requant codes checked")
+    n = 0
+    for K, stride, cin, mode in itertools.product(
+            (1, 3, 5, 7, 17, 20), (1, 2), (37, 80), ("w8a8", "w8a16")):
+        for i, act in enumerate(ACTS):
+            x, w, ws, b, xs = quant_inputs(K * 100 + stride * 10 + i, 3, 203,
+                                           cin, 70, K, mode,
+                                           with_bias=i % 2 == 0)
+            check_quant_conv(sq, x, w, ws, b, xs, mode=mode, stride=stride,
+                             act=act, requant=True,
+                             what=f"quant conv edge K={K} s={stride} "
+                                  f"Cin={cin} {mode} {act}")
+            n += 1
+    log(f"quant conv edge shapes: {n} cases, float and requant outputs checked")
+    torch.cuda.synchronize()
+    return err_main
+
+
+def attn_int8_inputs(seed, B, S, KV, G, D, q_dtype, lengths):
+    """q, an int8 cache (codes and per-row scales, through the cache's
+    quantizer) with rows past each length zeroed as the padded cross cache
+    is, and lengths."""
+    from repro_torch.models.common import quantize_kv_leaf
+
+    q, k, v, ln = attn_inputs(seed, B, S, KV, G, D, torch.float32, lengths)
+    kq, ks = quantize_kv_leaf(k)
+    vq, vs = quantize_kv_leaf(v)
+    pad = torch.arange(S, device=DEV)[None, :] >= ln[:, None]
+    for t in (kq, ks, vq, vs):
+        t[pad] = 0
+    return q.to(q_dtype), kq, vq, ln, ks, vs
+
+
+def phase_attention_int8(ad) -> float:
+    lens = [0, 1, 127, 288]
+    args = attn_int8_inputs(12, **ATTN_MAIN, q_dtype=torch.bfloat16,
+                            lengths=lens)
+    got = ad.decode_attention(*args)
+    err = close(got, ad.attention_decode_plain(*args), TOL,
+                "attention int8 main shape")
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("attention int8: a length-0 slot must give a "
+                             "zero row")
+    log(f"attention int8 {ATTN_MAIN} bf16 q lengths {lens}: max|err| {err:.3e}")
+    for G in (2, 4, 8):
+        for S, D in ((288, 64), (200, 128), (24, 32)):
+            lens = [0, 1, S // 2, S]
+            args = attn_int8_inputs(G * S + 1, 4, S, 2, G, D, torch.float32,
+                                    lens)
+            what = f"attention int8 G={G} S={S} D={D} lengths {lens}"
+            e = close(ad.decode_attention(*args),
+                      ad.attention_decode_plain(*args), TOL, what)
+            log(f"{what}: max|err| {e:.3e}")
+    for S, lens, G in ((65, [31, 32, 33, 65], 1), (1, [0, 1, 1, 0], 3)):
+        args = attn_int8_inputs(S + 1, 4, S, 3, G, 64, torch.float32, lens)
+        what = f"attention int8 G={G} S={S} D=64 lengths {lens}"
+        e = close(ad.decode_attention(*args), ad.attention_decode_plain(*args),
+                  TOL, what)
+        log(f"{what}: max|err| {e:.3e}")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_smoke_serve_int8(serve, models, configs, map_tree, quant, sq,
+                           layers):
+    """One set of float32 smoke weights, quantized for serving on the CPU
+    (``--quant int8``) and served from an int8 cache (``--kv-quant int8``)
+    on the CPU and on the card: equal greedy tokens, prefill logits within
+    TOL; the card's own calibration within 1e-5 of the CPU's; conv1's int8
+    codes as in phase 11; one dequant site in the frontend."""
+    cfg = configs.smoke_config(configs.get_config("whisper-medium")).replace(
+        conv_backend="sliding_pallas", kv_quant="int8")
+    model = models.build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(2, cfg.vocab_size, size=(SMOKE["B"], SMOKE["P"])
+                     ).astype(np.int32))
+    cfg_q, cpu_q = serve.quantize_for_serving(model, cpu_params, prompts)
+    _, card_own = serve.quantize_for_serving(
+        model, map_tree(lambda t: t.to(DEV), cpu_params), prompts.to(DEV))
+    for key in ("conv1_w", "conv2_w"):
+        a, b = card_own["frontend"][key], cpu_q["frontend"][key]
+        for f in ("scale", "x_scale", "out_scale"):
+            if (getattr(a, f) is None) != (getattr(b, f) is None):
+                raise AssertionError(f"card calibration {key}.{f}")
+            if getattr(a, f) is not None:
+                close(getattr(a, f).cpu(), getattr(b, f),
+                      dict(rtol=1e-5, atol=0), f"card calibration {key}.{f}")
+    model_q = models.build_model(cfg_q)
+    card_q = map_tree(lambda t: t.to(DEV), cpu_q)
+    cache_len = SMOKE["P"] + SMOKE["gen"]
+    out = {}
+    for dev, params in (("cpu", cpu_q), (DEV, card_q)):
+        with torch.no_grad(), quant.counting_dequants() as sites:
+            logits, _ = serve.prefill_cache(model_q, params, prompts.to(dev),
+                                            cache_len=cache_len)
+        if sites != ["whisper/conv2"]:
+            raise AssertionError(f"{dev}: dequant sites {sites}")
+        toks, _ = serve.generate(model_q, params, prompts.to(dev),
+                                 gen_len=SMOKE["gen"], cache_len=cache_len)
+        f = params["frontend"]
+        mels = serve.serve_batch(model_q, SMOKE["B"], SMOKE["P"],
+                                 prompts.to(dev))["frames"]
+        with torch.no_grad():
+            c1 = layers.conv1d_bias_act(
+                mels, f["conv1_w"], f["conv1_b"], activation="gelu",
+                padding="SAME", backend="sliding_pallas", precision="w8a8",
+                site="whisper/conv1")
+        out[dev] = (logits.cpu(), toks.cpu(), c1.cpu())
+    err = close(out[DEV][0], out["cpu"][0], TOL, "int8 smoke prefill logits")
+    if not torch.equal(out[DEV][1], out["cpu"][1]):
+        raise AssertionError(f"int8 smoke greedy tokens differ: card "
+                             f"{out[DEV][1].tolist()} vs CPU "
+                             f"{out['cpu'][1].tolist()}")
+    f = cpu_q["frontend"]
+    mels = serve.serve_batch(model_q, SMOKE["B"], SMOKE["P"], prompts)["frames"]
+    w1 = f["conv1_w"]
+    y = sq.conv1d_quant_plain(
+        F.pad(quant.quantize_act(mels, w1.x_scale), (0, 0, 1, 1)), w1.q,
+        w1.scale, f["conv1_b"], x_scale=w1.x_scale, activation="gelu")
+    n_off = codes_close(out[DEV][2], out["cpu"][2], y / w1.out_scale,
+                        "int8 smoke conv1 codes", tie=1e-4, max_frac=1e-4)
+    log(f"int8 smoke serve {SMOKE}: greedy tokens equal on card and CPU "
+        f"{out[DEV][1].tolist()}; prefill logits max|err| {err:.3e}; conv1 "
+        f"codes {n_off} of {y.numel()} one apart at ties; one dequant site")
+
+
+def phase_full_serve_int8(serve, models, configs, sc, ad, sb, quant) -> dict:
+    cfg = configs.get_config("whisper-medium").replace(
+        conv_backend="sliding_pallas", attn_decode="fused", kv_quant="int8")
+    model = models.build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    B, P, gen = SERVE["B"], SERVE["P"], SERVE["gen"]
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(B, P)),
+                              dtype=torch.int32, device=DEV)
+    cache_len = serve.resolve_cache_len(cfg, P + gen, P, gen)
+    torch.cuda.synchronize()
+    zero_launches(sc, ad, sb)
+    t0 = time.perf_counter()
+    cfg_q, qparams = serve.quantize_for_serving(model, params, prompts)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib = read_launches(sc, ad, sb)
+    if calib != only(sliding_conv1d=2) or cfg_q.conv_precision != "w8a8":
+        raise AssertionError(f"calibration launches {calib}")
+    model_q = models.build_model(cfg_q)
+    del params
+    serve.generate(model_q, qparams, prompts, gen_len=2, cache_len=cache_len)
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches(sc, ad, sb)
+    stats: dict = {}
+    t0 = time.perf_counter()
+    with quant.counting_dequants() as sites:
+        toks, _ = serve.generate(model_q, qparams, prompts, gen_len=gen,
+                                 cache_len=cache_len, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = read_launches(sc, ad, sb)
+    want = only(sliding_conv_quant=2,
+                attention_decode_int8=2 * cfg.num_layers * (gen - 1))
+    if launches != want:
+        raise AssertionError(f"int8 launch counts {launches}, expected {want}")
+    if sites != ["whisper/conv2"]:
+        raise AssertionError(f"int8 request dequant sites {sites}")
+    if tuple(toks.shape) != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+    with torch.no_grad():
+        logits, cache = serve.prefill_cache(model_q, qparams, prompts,
+                                            cache_len=cache_len)
+        step, _ = model_q.decode_step(qparams, cache, toks[:, :1], P)
+    for what, t in (("prefill", logits), ("decode step", step)):
+        if t.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(t).all():
+            raise AssertionError(f"int8 full-width {what} logits not finite / bad shape")
+    if cache["k"].dtype != torch.int8 or cache["xk"].dtype != torch.int8:
+        raise AssertionError("int8 full-width cache is not int8")
+    nbytes = serve.cache_nbytes(model_q.cache_defs(B, cache_len), cfg.param_dtype)
+    fp_model = models.build_model(cfg.replace(kv_quant="fp"))
+    nbytes_fp = serve.cache_nbytes(fp_model.cache_defs(B, cache_len),
+                                   cfg.param_dtype)
+    log(f"int8 full width kv-cache bytes: {nbytes} (fp {nbytes_fp}, ratio "
+        f"{nbytes_fp / nbytes:.2f}x)")
+    res_prof = {
+        "prefill": profile_busy(lambda: serve.prefill_cache(
+            model_q, qparams, prompts, cache_len=cache_len)),
+        "decode_step": profile_busy(lambda: model_q.decode_step(
+            qparams, cache, toks[:, :1], P)),
+    }
+    for what, r in res_prof.items():
+        log(f"profile int8 {what}: wall {r['wall_ms']:.3f} ms, card busy "
+            f"{r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%), "
+            f"{r['kernels']} kernels; top: {r['top']}")
+    step_ms = statistics.median(stats["step_s"]) * 1e3
+    res = dict(tok_per_s=B * gen / wall, ttft_ms=stats["ttft_s"] * 1e3,
+               decode_step_ms=step_ms, wall_s=wall, calibration_s=calib_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, calibration_launches=calib,
+               cache_len=cache_len, kv_cache_bytes=nbytes,
+               kv_cache_bytes_fp=nbytes_fp,
+               busy_share={k: r["busy_share"] for k, r in res_prof.items()},
+               busy_ms={k: r["busy_ms"] for k, r in res_prof.items()})
+    log(f"full-width int8 serve B={B} P={P} gen={gen}: {res['tok_per_s']:.1f} "
+        f"tok/s, TTFT {res['ttft_ms']:.2f} ms, decode step {step_ms:.3f} ms "
+        f"(median of {len(stats['step_s'])}), {wall:.3f}s, peak mem "
+        f"{res['peak_mem_gb']:.2f} GB, calibration {calib_s:.2f}s with "
+        f"launches {calib}, request launches {launches}, sample "
+        f"{toks[0, :16].tolist()}")
+    return res
+
+
+def phase_quant_times(sq, ad, launches, errs) -> list[dict]:
+    conv_rows = {}
+    for name, s in QCONV_MAIN.items():
+        K, stride, Cin, Cout = s["K"], s["stride"], s["Cin"], s["Cout"]
+        per_set = s["B"] * s["L"] * Cin + K * Cin * Cout
+        n_sets = min(256, int(64e6 // per_set) + 1)  # > 50 MB of inputs
+        lout = (s["L"] - K) // stride + 1
+        span = (lout - 1) * stride + 1
+        sets = []
+        for i in range(n_sets):
+            x, w, ws, b, xs = quant_inputs(20 + i, s["B"], s["L"], Cin, Cout,
+                                           K, "w8a8")
+            os = torch.tensor(0.05, device=DEV) if s["requant"] else None
+            # the library's operands, made ahead: the input unfolded to
+            # (B*Lout, K*Cin) and the weights to (K*Cin, Cout)
+            cols = torch.cat([x[:, k : k + span : stride] for k in range(K)],
+                             dim=-1).reshape(-1, K * Cin)
+            sets.append((x, w, ws, b, xs, os, cols, w.reshape(K * Cin, Cout)))
+
+        def kernel(x, w, ws, b, xs, os, *_):
+            return sq.conv1d_quant(x, w, ws, b, x_scale=xs, out_scale=os,
+                                   stride=stride, activation="gelu")
+
+        def plain(x, w, ws, b, xs, os, *_):
+            return sq.conv1d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
+                                         stride=stride, activation="gelu")
+
+        def library(x, w, ws, b, xs, os, cols, w2, B=s["B"]):
+            acc = torch._int_mm(cols, w2).reshape(B, -1, Cout)
+            y = F.gelu(acc.float() * (ws * xs) + b, approximate="tanh")
+            if os is None:
+                return y
+            return torch.clamp(torch.round(y / os), -127, 127).to(torch.int8)
+
+        want = plain(*sets[0])
+        lib = library(*sets[0])
+        if s["requant"]:
+            if (lib.int() - want.int()).abs().max().item() > 1:
+                raise AssertionError(f"library quant conv {name}")
+        else:
+            close(lib, want, TIGHT, f"library quant conv {name}")
+        out_bytes = 1 if s["requant"] else 4
+        nbytes = (s["B"] * s["L"] * Cin + K * Cin * Cout + 4 * 2 * Cout
+                  + out_bytes * s["B"] * lout * Cout)
+        ops = 2 * s["B"] * lout * Cout * Cin * K
+        bms, by = bound_ms(nbytes, ops, torch.int8)
+        conv_rows[name] = dict(
+            timings(cycling(kernel, sets), cycling(plain, sets),
+                    cycling(library, sets)),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        log(f"time quant conv {name} {s}: {json.dumps(conv_rows[name])}")
+        del sets
+
+    lens = [256] * ATTN_MAIN["B"]  # the cross-attention read's lengths
+    B, S, KV, G, D = (ATTN_MAIN[n] for n in ("B", "S", "KV", "G", "D"))
+    sets = []
+    for i in range(24):  # 24 caches of 2.5 MB: > 50 MB, as the 24 layers are
+        q, kq, vq, ln, ks, vs = attn_int8_inputs(30 + i, **ATTN_MAIN,
+                                                 q_dtype=torch.bfloat16,
+                                                 lengths=lens)
+        mask = (torch.arange(S, device=DEV)[None, :] < ln[:, None])[:, None, None, :]
+        sets.append((q, kq, vq, ln, ks, vs, mask))
+
+    def library(q, kq, vq, ln, ks, vs, mask):
+        k = (kq.float() * ks).to(q.dtype)
+        v = (vq.float() * vs).to(q.dtype)
+        return F.scaled_dot_product_attention(
+            q.reshape(B, KV * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask)
+
+    close(library(*sets[0]).float().reshape(B, KV, G, D),
+          ad.attention_decode_plain(*sets[0][:6]), BTOL, "library attention int8")
+    nbytes = (2 * B * KV * G * D + 2 * sum(lens) * KV * D
+              + 2 * 4 * sum(lens) * KV + 4 * B + 4 * B * KV * G * D)
+    ops = 4 * G * D * KV * sum(lens)
+    bms, by = bound_ms(nbytes, ops, torch.float32)
+    attn = dict(
+        timings(cycling(lambda *a: ad.decode_attention(*a[:6]), sets),
+                cycling(lambda *a: ad.attention_decode_plain(*a[:6]), sets),
+                cycling(library, sets)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    log(f"time attention int8 {ATTN_MAIN} lengths {lens}: {json.dumps(attn)}")
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")
+    both = conv_rows.values()
+    conv_sum = {key: sum(r[key] for r in both) for key in keys}
+    conv_sum["bound_by"] = ("operations" if any(r["bound_by"] == "operations"
+                                                for r in both) else "bytes")
+    return [
+        dict(name="sliding_conv_quant", route="cuda",
+             source="src/repro_torch/kernels/csrc/sliding_conv_quant.cu",
+             replaces="src/repro/kernels/sliding_conv_quant.py:220",
+             launches=launches["sliding_conv_quant"],
+             max_abs_err=errs["sliding_conv_quant"],
+             per="prefill: conv1 w8a8 80->1024 s1 requant + conv2 w8a8 "
+                 "1024->1024 s2 f32 out, B=4 L=514, gelu; library: "
+                 "torch._int_mm on the input unfolded ahead + epilogue",
+             by_shape=conv_rows, **conv_sum),
+        dict(name="attention_decode_int8", route="cuda",
+             source="src/repro_torch/kernels/csrc/attention_decode.cu",
+             replaces="src/repro/kernels/attention_decode.py:144",
+             launches=launches["attention_decode_int8"],
+             max_abs_err=errs["attention_decode_int8"],
+             per="launch: B=4 S=288 KV=16 G=1 D=64, bf16 q, int8 cache, "
+                 "lengths 256; library: dequant to bf16 + SDPA",
+             **{key: attn[key] for key in keys + ("bound_by",)}),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -840,14 +1314,16 @@ def main() -> int:
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from repro_torch import configs, models, optim
+    from repro_torch import configs, models, optim, quant
     from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import sliding_conv1d as sc
     from repro_torch.kernels import sliding_conv_bwd as sb
+    from repro_torch.kernels import sliding_conv_quant as sq
     from repro_torch.launch import serve, train
     from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import layers
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -871,15 +1347,26 @@ def main() -> int:
     phase_smoke_train(models, configs, optim, steps_mod, train, map_tree)
     trained = phase_full_train(models, configs, optim, steps_mod, train, sc, ad,
                                sb, iter_leaves)
-    by_path = {"serve": full["launches"], "train": trained["launches"]}
+    # -- 11-14: int8 serving ------------------------------------------------------
+    errs["sliding_conv_quant"] = phase_quant_kernels(sq)
+    errs["attention_decode_int8"] = phase_attention_int8(ad)
+    phase_smoke_serve_int8(serve, models, configs, map_tree, quant, sq, layers)
+    full_int8 = phase_full_serve_int8(serve, models, configs, sc, ad, sb, quant)
+    # the int8 path: its calibration prefill and its request
+    int8_path = {k: full_int8["calibration_launches"][k] + n
+                 for k, n in full_int8["launches"].items()}
+    by_path = {"serve": full["launches"], "train": trained["launches"],
+               "serve_int8": int8_path}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
+    # -- 15: int8 times -----------------------------------------------------------
+    kernels += phase_quant_times(sq, ad, launches, errs)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
     log(f"done in {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": kernels, "serve": full, "train": trained}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
+                      "serve_int8": full_int8}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,11 @@
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the JAX side), into this package's nested dict of tensors with the same
 paths. JAX's random generator cannot be reproduced in torch, so parity
-tests build the weights once in the reference and move them here.
+tests build the weights once in the reference and move them here. A
+quantized tree carries across too: the reference's ``QuantizedWeight``
+leaves (``jax.tree.map(np.asarray, ...)`` keeps them as named tuples of
+numpy arrays, ``None`` where a scale is absent) become this package's
+``quant.QuantizedWeight``, their types and shapes checked.
 
 ``state_from_step_dir`` loads a ``CheckpointManager`` step directory,
 written by either package, onto the port's parameter and optimizer trees.
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.checkpoint.manager import from_numpy
 from repro_torch.distributed.sharding import ParamDef, iter_leaves
+from repro_torch.quant.qconv import QuantizedWeight
 
 
 def _to_tensor(a: Any, device, dtype) -> torch.Tensor:
@@ -34,15 +39,50 @@ def _to_tensor(a: Any, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _is_quantized(a: Any) -> bool:
+    """A quantized leaf of either package: a named tuple with the fields of
+    ``QuantizedWeight``."""
+    return getattr(a, "_fields", None) == QuantizedWeight._fields
+
+
+def _quantized_leaf(a: Any, device) -> QuantizedWeight:
+    """The reference's quantized leaf as this package's, its int8 codes,
+    float32 (Cout,) scale and float32 scalar activation scales checked."""
+    q = _to_tensor(a.q, device, None)
+    scale = _to_tensor(a.scale, device, None)
+    if q.dtype != torch.int8:
+        raise ValueError(f"quantized leaf codes are {q.dtype}, not int8")
+    if scale.dtype != torch.float32 or scale.shape != q.shape[-1:]:
+        raise ValueError(f"quantized leaf scale {scale.dtype} "
+                         f"{tuple(scale.shape)} is not float32 "
+                         f"({q.shape[-1]},)")
+    extra = []
+    for name in ("x_scale", "out_scale"):
+        t = getattr(a, name)
+        if t is not None:
+            t = _to_tensor(t, device, None)
+            if t.dtype != torch.float32 or t.numel() != 1:
+                raise ValueError(f"quantized leaf {name} {t.dtype} "
+                                 f"{tuple(t.shape)} is not a float32 scalar")
+            t = t.reshape(())
+        extra.append(t)
+    return QuantizedWeight(q, scale, *extra)
+
+
+def _leaf_shape(a: Any) -> tuple:
+    return tuple(np.shape(a.q if _is_quantized(a) else a))
+
+
 def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
                       defs: Any = None) -> Any:
     """Nested dict of numpy arrays → nested dict of tensors on ``device``
-    (cast to ``dtype`` when given). With ``defs`` (the model's
-    ``param_defs()``), the paths and every leaf's shape must match them."""
+    (cast to ``dtype`` when given; quantized leaves keep their types). With
+    ``defs`` (the model's ``param_defs()``), the paths and every leaf's
+    shape (a quantized leaf's codes) must match them."""
     if defs is not None:
         want = {p: d.shape for p, d in iter_leaves(defs)
                 if isinstance(d, ParamDef)}
-        got = {p: tuple(np.shape(a)) for p, a in iter_leaves(tree)}
+        got = {p: _leaf_shape(a) for p, a in iter_leaves(tree)}
         if want != got:
             missing = sorted(set(want) - set(got))
             extra = sorted(set(got) - set(want))
@@ -56,6 +96,8 @@ def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
+        if _is_quantized(t):
+            return _quantized_leaf(t, device)
         return _to_tensor(t, device, dtype)
 
     return walk(tree)

@@ -16,6 +16,7 @@ DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "int32": torch.int32,
+    "int8": torch.int8,
 }
 
 

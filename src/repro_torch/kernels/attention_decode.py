@@ -1,4 +1,4 @@
-"""Single-query decode attention over a floating-point KV cache.
+"""Single-query decode attention over a floating-point or int8 KV cache.
 
 ``decode_attention`` is the wrapper: on CUDA tensors it launches the Hopper
 kernel ``csrc/attention_decode.cu``; on CPU tensors it runs
@@ -11,7 +11,13 @@ valid row (length 0) gives a zero row.
 
 Shapes: q (B, KV, G, D) grouped queries; k, v (B, S, KV, D) cache leaves;
 lengths (B,) int32 valid prefix per slot. Returns (B, KV, G, D) float32.
-The int8 cache variant of the reference is not ported yet.
+
+The int8 cache holds codes with float32 scales ``k_scale`` and ``v_scale``,
+(B, S, KV, 1), one per (position, head) row. As in the reference, the K
+scale folds into the scores after the dot, ``s * (k_scale * sm_scale)``,
+and the V scale into the probabilities before ``p . v``; the denominator
+sums the unscaled probabilities. No float copy of the cache is made except
+in the oracle, which dequantizes first.
 """
 from __future__ import annotations
 
@@ -25,9 +31,10 @@ from repro_torch.kernels import build
 DEFAULT_BLOCK_S = 128
 MAX_G = 8
 MAX_D = 128
-# q, k, v, lengths, out, workspace; B, S, KV, G, D; sm_scale; q_bf16,
-# kv_bf16; stream
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# q, k, v, k_scale, v_scale, lengths, out, workspace; B, S, KV, G, D;
+# sm_scale; q_bf16, kv_kind; stream
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -51,7 +58,7 @@ def _finish(l, acc):
     return acc / l_safe.unsqueeze(-1)
 
 
-def _check(q, k, v, lengths):
+def _check(q, k, v, lengths, k_scale=None, v_scale=None):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not form (B, KV, G, D) and "
@@ -62,13 +69,25 @@ def _check(q, k, v, lengths):
                          f"{tuple(q.shape)}")
     if lengths.shape != (B,):
         raise ValueError(f"lengths {tuple(lengths.shape)} is not ({B},)")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale travel as a pair")
+    if (k.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError("an int8 cache, and only an int8 cache, takes "
+                         "k_scale and v_scale")
+    if k_scale is not None:
+        want = (*k.shape[:3], 1)
+        if k_scale.shape != want or v_scale.shape != want:
+            raise ValueError(f"scales {tuple(k_scale.shape)}, "
+                             f"{tuple(v_scale.shape)} are not {want}")
 
 
-def attention_decode_plain(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK_S):
+def attention_decode_plain(q, k, v, lengths, k_scale=None, v_scale=None, *,
+                           block_s: int = DEFAULT_BLOCK_S):
     """Blocked online softmax over kv_seq blocks of ``block_s`` rows, with
-    the score pass as a multiply-reduce over D (the reference's
-    ``attention_decode_jax``, fp cache)."""
-    _check(q, k, v, lengths)
+    the score pass as a multiply-reduce over D and the scale folds of the
+    int8 cache (the reference's ``attention_decode_jax``: ``_block_pass``,
+    ``_block_pv``)."""
+    _check(q, k, v, lengths, k_scale, v_scale)
     B, KV, G, D = q.shape
     S = k.shape[1]
     qf = q.float()
@@ -82,21 +101,29 @@ def attention_decode_plain(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK_S):
         vc = v[:, s0 : s0 + bs].float()
         pos = torch.arange(s0, s0 + kc.shape[1], device=q.device)
         valid = pos[None, :] < lengths[:, None].to(pos.dtype)  # (B, s)
-        s = (qf[:, None] * kc[:, :, :, None, :]).sum(-1) * sm  # (B, s, KV, G)
+        s = (qf[:, None] * kc[:, :, :, None, :]).sum(-1)  # (B, s, KV, G)
+        if k_scale is None:
+            s = s * sm
+        else:  # the row's K scale, (B, s, KV, 1), folds in after the dot
+            s = s * (k_scale[:, s0 : s0 + bs] * sm)
         s = torch.where(valid[:, :, None, None], s,
                         torch.full_like(s, float("-inf")))
         m, p, corr, l = _softmax_step(s, m, l, dim=1)
-        pv = torch.einsum("bskg,bskd->bkgd", p, vc)
+        pw = p if v_scale is None else p * v_scale[:, s0 : s0 + bs]
+        pv = torch.einsum("bskg,bskd->bkgd", pw, vc)
         acc = acc * corr.unsqueeze(-1) + pv
     return _finish(l, acc)
 
 
-def attention_decode_ref(q, k, v, lengths):
-    """Dequant-view oracle (fp cache): float K/V, one full softmax."""
-    _check(q, k, v, lengths)
+def attention_decode_ref(q, k, v, lengths, k_scale=None, v_scale=None):
+    """Dequant-view oracle: float K/V (codes times scales for the int8
+    cache), one full softmax."""
+    _check(q, k, v, lengths, k_scale, v_scale)
     B, KV, G, D = q.shape
     S = k.shape[1]
     kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf, vf = kf * k_scale, vf * v_scale
     s = torch.einsum("bkgd,bskd->bkgs", q.float(), kf) * D ** -0.5
     valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
     s = torch.where(valid[:, None, None, :], s,
@@ -116,20 +143,25 @@ def _workspace_floats(B, S, KV, G, D) -> int:
     return fn(B, S, KV, G, D)
 
 
-def _launch(q, k, v, lengths) -> torch.Tensor:
+def _launch(q, k, v, lengths, k_scale=None, v_scale=None) -> torch.Tensor:
     B, KV, G, D = q.shape
     S = k.shape[1]
     if G > MAX_G or D > MAX_D:
         raise ValueError(f"kernel takes G <= {MAX_G} and D <= {MAX_D}, got "
                          f"G={G}, D={D}")
-    fl = (torch.float32, torch.bfloat16)
-    if q.dtype not in fl or k.dtype not in fl or v.dtype != k.dtype:
-        raise TypeError(f"kernel takes float32/bfloat16 q and one such type "
-                        f"for k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (k.device == v.device == lengths.device == q.device):
-        raise ValueError("q, k, v and lengths must lie on one device")
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or k.dtype not in _KV_KINDS or v.dtype != k.dtype):
+        raise TypeError(f"kernel takes float32/bfloat16 q and one of float32, "
+                        f"bfloat16, int8 for k and v, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    scales = () if k_scale is None else (k_scale, v_scale)
+    if any(t.device != q.device for t in (k, v, lengths, *scales)):
+        raise ValueError("q, k, v, lengths and scales must lie on one device")
     fn = build.entry("attention_decode", "decode_attention", _ARGTYPES)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    ks = vs = None
+    if scales:
+        ks, vs = (t.float().contiguous() for t in scales)
     if lengths.dtype != torch.int32:
         lengths = lengths.to(torch.int32)
     lengths = lengths.contiguous()
@@ -139,27 +171,36 @@ def _launch(q, k, v, lengths) -> torch.Tensor:
     buf = torch.empty(n_out + _workspace_floats(B, S, KV, G, D),
                       dtype=torch.float32, device=q.device)
     code = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), lengths.data_ptr(),
         buf.data_ptr(), buf.data_ptr() + 4 * n_out, B, S, KV, G, D, D ** -0.5,
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), _KV_KINDS[k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check("attention_decode", code)
-    decode_attention.launches += 1
+    if ks is None:
+        decode_attention.launches += 1
+    else:
+        decode_attention.launches_int8 += 1
     return buf[:n_out].view(B, KV, G, D)
 
 
-def decode_attention(q, k, v, lengths):
+def decode_attention(q, k, v, lengths, k_scale=None, v_scale=None):
     """Fused decode attention: the CUDA kernel for CUDA tensors, the plain
     blocked version (one block spanning the cache, as the reference's CPU
-    path runs it) for CPU tensors. Lengths above S count as S.
-    ``decode_attention.launches`` counts kernel launches."""
-    _check(q, k, v, lengths)
+    path runs it) for CPU tensors. An int8 cache comes with its float32
+    scales (B, S, KV, 1). Lengths above S count as S.
+    ``decode_attention.launches`` counts kernel launches over a float
+    cache, ``decode_attention.launches_int8`` over an int8 cache."""
+    _check(q, k, v, lengths, k_scale, v_scale)
     if q.device.type == "cuda":
-        return _launch(q, k, v, lengths)
+        return _launch(q, k, v, lengths, k_scale, v_scale)
     if q.device.type == "cpu":
-        return attention_decode_plain(q, k, v, lengths, block_s=k.shape[1])
+        return attention_decode_plain(q, k, v, lengths, k_scale, v_scale,
+                                      block_s=k.shape[1])
     raise ValueError(f"no decode_attention for device {q.device}")
 
 
 decode_attention.launches = 0
+decode_attention.launches_int8 = 0

@@ -6,8 +6,9 @@ shared library with a plain C interface and loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
-Each output is keyed on a hash of its source and the flags, so an unchanged
-tree loads what an earlier run built. All sources compile in parallel, one
+Each output is keyed on a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an unchanged tree loads what an earlier
+run built. All sources compile in parallel, one
 ``nvcc`` each. A missing ``nvcc`` or a failed build raises; nothing falls
 back. ``ptxas``'s report (registers, shared memory, spills) is kept beside
 each library as ``<name>-<hash>.log``.
@@ -47,6 +48,8 @@ def _nvcc() -> str:
 
 def _output(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

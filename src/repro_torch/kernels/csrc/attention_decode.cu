@@ -1,8 +1,8 @@
 // Single-query decode attention over a KV cache with a ragged valid prefix,
-// for Hopper (sm_90a). Floating-point cache; the int8 cache is later work.
+// for Hopper (sm_90a). Floating-point or int8 cache.
 //
 // Replaces: src/repro/kernels/attention_decode.py, decode_attention_pallas
-// (fp variant: _decode_kernel, _softmax_step, _online_update, _finish).
+// (both variants: _decode_kernel, _softmax_step, _online_update, _finish).
 //
 // What it computes: for every slot b, kv head h and grouped query g,
 //   out[b, h, g] = softmax_s(q[b, h, g] . k[b, s, h] / sqrt(D)) . v[b, s, h]
@@ -10,13 +10,22 @@
 // (B, S, KV, D), lengths (B,) int32 and out (B, KV, G, D) float32. q and the
 // cache may each be float32 or bfloat16; all arithmetic is float32. A slot
 // with length 0 gives a zero row. G is 1..8 and D at most 128.
+// int8 cache: k and v hold int8 codes with float32 scales k_scale and
+// v_scale, one per (slot, position, head), laid out (B, S, KV). The K scale
+// folds into the score after the dot, (q . k_code) * (k_scale * sm_scale),
+// and the V scale into the probability before p . v, p * v_scale, as the
+// Pallas kernel folds them (quantized=True), so no float copy of the cache
+// exists; the denominator sums the unscaled probabilities. Rows past a
+// slot's length are masked by the length, whatever their codes and scales
+// (the cross cache is zero-padded past the encoder length).
 //
 // What bounds it on this card: one call reads each valid K and V row once
 // and does 4*G*D operations per row, so it is bound by bytes: at whisper's
 // serving shape (B=4, S=288, KV=16, G=1, D=64, bf16 cache) about 4.2 MB, or
-// 1.3 us at 3.35 TB/s. At that size the real limits are latency and
-// parallelism: B*KV is only 64 (slot, head) pairs, fewer than the 132 SMs,
-// and a decode step makes 48 such calls.
+// 1.3 us at 3.35 TB/s; the int8 cache moves about half as many bytes (one
+// a value, and 4 bytes of scale per 64-value row). At that size the real
+// limits are latency and parallelism: B*KV is only 64 (slot, head) pairs,
+// fewer than the 132 SMs, and a decode step makes 48 such calls.
 //
 // What the design does about it (split-S, "flash decoding"): the first
 // kernel gives every (split of SPLIT cache rows, slot, head) its own block,
@@ -38,6 +47,7 @@
 
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -53,6 +63,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -68,12 +79,15 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One block per (split, slot * KV + head): the split's scores, softmax and
-// p.v, written as (m, l, acc) to the workspace for the merge.
+// p.v, written as (m, l, acc) to the workspace for the merge. ks and vs are
+// the int8 cache's scales, null for a float cache.
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_split_kernel(const TQ* __restrict__ q,
                               const TKV* __restrict__ k,
                               const TKV* __restrict__ v,
+                              const float* __restrict__ ks,
+                              const float* __restrict__ vs,
                               const int* __restrict__ lengths,
                               float* __restrict__ ws_m, float* __restrict__ ws_l,
                               float* __restrict__ ws_acc, int S, int KV, int G,
@@ -93,6 +107,8 @@ decode_attention_split_kernel(const TQ* __restrict__ q,
   const size_t row = (size_t)KV * D;  // elements between cache positions
   const TKV* kb = k + ((size_t)b * S + r0) * row + (size_t)h * D;
   const TKV* vb = v + ((size_t)b * S + r0) * row + (size_t)h * D;
+  // scale of row p of this split: sc[p * KV]
+  const size_t sc0 = ((size_t)b * S + r0) * KV + h;
 
   for (int e = tid; e < G * D; e += THREADS)
     qs[e] = to_f32(q[(size_t)bh * G * D + e]);
@@ -122,7 +138,10 @@ decode_attention_split_kernel(const TQ* __restrict__ q,
           if (d < D) t = fmaf(qs[g * D + d], kr[r][j], t);
         }
         t = warp_sum(t);
-        if (lane == 0 && p < n) ps[g * SPLIT + p] = t * sm_scale;
+        if (lane == 0 && p < n)
+          ps[g * SPLIT + p] =
+              ks != nullptr ? t * (ks[sc0 + (size_t)p * KV] * sm_scale)
+                            : t * sm_scale;
       }
     }
   }
@@ -134,7 +153,11 @@ decode_attention_split_kernel(const TQ* __restrict__ q,
     const float m = warp_max(sp);
     const float m_safe = isfinite(m) ? m : 0.f;
     const float e = isfinite(sp) ? expf(sp - m_safe) : 0.f;
-    if (lane < n) ps[g * SPLIT + lane] = e;
+    // p.v reads the probability with the row's V scale folded in; the
+    // denominator sums the unscaled probabilities
+    if (lane < n)
+      ps[g * SPLIT + lane] =
+          vs != nullptr ? e * vs[sc0 + (size_t)lane * KV] : e;
     const float l = warp_sum(e);
     if (lane == 0) {
       ws_m[((size_t)bh * nsplit + split) * G + g] = m;
@@ -200,6 +223,7 @@ decode_attention_combine_kernel(const int* __restrict__ lengths,
 
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* k_scale, const void* v_scale,
                    const void* lengths, void* out, float* ws, int B, int S,
                    int KV, int G, int D, float sm_scale,
                    cudaStream_t stream) {
@@ -211,14 +235,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid(nsplit, B * KV);
   decode_attention_split_kernel<TQ, TKV><<<grid, THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<const int*>(lengths), ws_m,
-      ws_l, ws_acc, S, KV, G, D, sm_scale);
+      static_cast<const TKV*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
+      ws_m, ws_l, ws_acc, S, KV, G, D, sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_attention_combine_kernel<<<B * KV, THREADS, 0, stream>>>(
       static_cast<const int*>(lengths), ws_m, ws_l, ws_acc,
       static_cast<float*>(out), S, KV, G, D, nsplit);
   return cudaGetLastError();
+}
+
+template <typename TQ>
+cudaError_t launch_kv(int kv_kind, const void* q, const void* k,
+                      const void* v, const void* k_scale, const void* v_scale,
+                      const void* lengths, void* out, float* ws, int B, int S,
+                      int KV, int G, int D, float sm_scale,
+                      cudaStream_t stream) {
+  if (kv_kind == 2)
+    return launch<TQ, int8_t>(q, k, v, k_scale, v_scale, lengths, out, ws, B,
+                              S, KV, G, D, sm_scale, stream);
+  if (kv_kind == 1)
+    return launch<TQ, __nv_bfloat16>(q, k, v, nullptr, nullptr, lengths, out,
+                                     ws, B, S, KV, G, D, sm_scale, stream);
+  return launch<TQ, float>(q, k, v, nullptr, nullptr, lengths, out, ws, B, S,
+                           KV, G, D, sm_scale, stream);
 }
 
 }  // namespace
@@ -231,30 +272,27 @@ extern "C" long long decode_attention_workspace(int B, int S, int KV, int G,
   return (long long)B * KV * nsplit * G * (2 + (long long)D);
 }
 
-// Returns a cudaError_t code: 0 when both launches were accepted.
+// Returns a cudaError_t code: 0 when both launches were accepted. kv_kind:
+// 0 float32, 1 bfloat16, 2 int8 codes with k_scale and v_scale (B, S, KV)
+// float32, which must not be null then and are not read otherwise.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
+                                const void* k_scale, const void* v_scale,
                                 const void* lengths, void* out, void* ws,
                                 int B, int S, int KV, int G, int D,
-                                float sm_scale, int q_bf16, int kv_bf16,
+                                float sm_scale, int q_bf16, int kv_kind,
                                 void* stream) {
   if (B < 1 || S < 1 || KV < 1 || G < 1 || G > MAXG || D < 1 || D > MAXD ||
-      (long long)B * KV > 65535)
+      (long long)B * KV > 65535 || kv_kind < 0 || kv_kind > 2 ||
+      (kv_kind == 2 && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
-  cudaError_t err;
-  if (q_bf16 && kv_bf16)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, lengths, out, w, B, S,
-                                                KV, G, D, sm_scale, s);
-  else if (q_bf16)
-    err = launch<__nv_bfloat16, float>(q, k, v, lengths, out, w, B, S, KV, G,
-                                       D, sm_scale, s);
-  else if (kv_bf16)
-    err = launch<float, __nv_bfloat16>(q, k, v, lengths, out, w, B, S, KV, G,
-                                       D, sm_scale, s);
-  else
-    err = launch<float, float>(q, k, v, lengths, out, w, B, S, KV, G, D,
-                               sm_scale, s);
+  cudaError_t err =
+      q_bf16 ? launch_kv<__nv_bfloat16>(kv_kind, q, k, v, k_scale, v_scale,
+                                        lengths, out, w, B, S, KV, G, D,
+                                        sm_scale, s)
+             : launch_kv<float>(kv_kind, q, k, v, k_scale, v_scale, lengths,
+                                out, w, B, S, KV, G, D, sm_scale, s);
   return (int)err;
 }
 

@@ -39,6 +39,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "conv_epilogue.cuh"
+
 namespace {
 
 constexpr int TL = 64;         // output rows per block
@@ -49,36 +51,6 @@ constexpr int KT = 4;          // filter taps per staged weight slice
 constexpr int THREADS = 256;   // 16 x 16 threads, a 4x4 output patch each
 constexpr int RM = TL / 16;
 constexpr int RN = TN / 16;
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(x, 0.f);
-    case ACT_GELU: {  // jax.nn.gelu(approximate=True)
-      const float c = 0.7978845608028654f;  // sqrt(2/pi)
-      return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-    }
-    case ACT_SILU:
-      return x / (1.f + expf(-x));
-    default:
-      return x;
-  }
-}
 
 // halo rows x XS_LD floats, rounded up so the weight slice after it is
 // 16-byte aligned for float4 reads

@@ -1,6 +1,7 @@
 """Kernel dispatch: the layer-facing entry points of the kernels.
 
-The floating-point subset of ``repro.kernels.ops``:
+The subset of ``repro.kernels.ops`` that whisper's serving and training
+paths reach:
 
   * ``conv1d``: padding outside the kernel, then the backend. ``sliding``
     is the plain tap loop of ``core.conv`` with an unfused epilogue;
@@ -8,13 +9,22 @@ The floating-point subset of ``repro.kernels.ops``:
     drives both packages) is the fused CUDA kernel, differentiable through
     ``Conv1dSliding`` (the reference's ``_conv1d_sliding_op`` custom VJP);
     ``xla`` is ``torch.nn.functional.conv1d`` with an unfused epilogue.
-    ``sliding`` and ``xla`` differentiate by plain autograd.
-  * ``attention_decode``: the decode-attention kernel, with a dispatch log
-    keyed like the reference's ``ATTN_DECODE_DISPATCH``.
+    ``sliding`` and ``xla`` differentiate by plain autograd. With
+    ``precision`` "w8a8" or "w8a16" it runs the int8 sliding conv kernel
+    (``sliding_pallas`` only, inference only): float operands quantize
+    here, ``out_scale`` fuses a requant, and ``_guard_quant_scales`` screens
+    unusable scales as the reference does.
+  * ``attention_decode``: the decode-attention kernel over a float or int8
+    cache, with a dispatch log keyed like the reference's
+    ``ATTN_DECODE_DISPATCH``.
 
 The reference demotes a failing Pallas kernel down a ladder of compiled
 twins. There is no ladder here: a CUDA tensor goes to the kernel or the
-call raises, and the plain versions serve only CPU tensors.
+call raises, and the plain versions serve only CPU tensors. For the same
+reason the reference's measured quant-regression guard
+(``_quant_fallback_reason``, which acts only on tuned timings in an
+autotune cache) has no counterpart: with no cache, as in the reference
+with an empty one, a quantized call goes to the quant kernel.
 """
 from __future__ import annotations
 
@@ -24,11 +34,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import conv as core_conv
+from repro_torch.health import HEALTH
 from repro_torch.kernels import attention_decode as attn_dec
-from repro_torch.kernels import autotune, sliding_conv1d, sliding_conv_bwd
+from repro_torch.kernels import (
+    autotune, sliding_conv1d, sliding_conv_bwd, sliding_conv_quant,
+)
 from repro_torch.kernels.sliding_conv1d import apply_activation
+from repro_torch.quant import qconv
+from repro_torch.quant.apply import scale_reason
 
 CONV_BACKENDS = ("sliding", "sliding_pallas", "xla")
+PRECISIONS = ("fp", "w8a8", "w8a16")
 
 
 class DispatchLog:
@@ -65,6 +81,74 @@ def _pad1d(x, padding, k, dilation=1):
     if lo or hi:
         x = F.pad(x, (0, 0, lo, hi))
     return x
+
+
+def _guard_quant_scales(site, x, w, w_scale, x_scale):
+    """Numeric guard of the int8 chain: a zero or non-finite scale would
+    emit all-zero or NaN codes. Returns ``(x_scale, to_float)``: with float
+    weights the site serves the fp path, with float activations it takes a
+    dynamic absmax scale, each with a health event; int8 operands whose
+    scale is unusable cannot be recovered here and raise. Reads the scales
+    on the host: a synchronise per quantized call on the card."""
+    bad_w = scale_reason(w_scale) if w.dtype == torch.int8 else None
+    if bad_w:
+        HEALTH.record(site, bad_w, "error:w_scale")
+        raise ValueError(f"unusable int8 w_scale at {site} ({bad_w})")
+    bad_x = scale_reason(x_scale)
+    if not bad_x:
+        return x_scale, False
+    if x.dtype == torch.int8:
+        HEALTH.record(site, bad_x, "error:x_scale")
+        raise ValueError(f"unusable x_scale for int8 input at {site} ({bad_x})")
+    if w.dtype != torch.int8:
+        HEALTH.record(site, bad_x, "fallback:fp")
+        return x_scale, True
+    HEALTH.record(site, bad_x, "fallback:dynamic_scale")
+    return None, False
+
+
+def _quant_operands(x, w, w_scale, x_scale, precision):
+    """Quantize the float operands onto their int8 grids (weights per
+    Cout, activations per tensor). Returns (x, w_q, w_scale, x_scale,
+    out_dtype)."""
+    out_dtype = torch.float32 if x.dtype == torch.int8 else x.dtype
+    if w.dtype != torch.int8:
+        qw = qconv.quantize_weight(w)
+        w, w_scale = qw.q, qw.scale
+    elif w_scale is None:
+        raise ValueError("int8 weights need their w_scale")
+    if precision == "w8a8" and x.dtype != torch.int8:
+        x_scale = qconv.act_scale(x) if x_scale is None else x_scale
+        x = qconv.quantize_act(x, x_scale)
+    return x, w, w_scale, x_scale, out_dtype
+
+
+def _check_quant_dispatch(precision, backend):
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    if backend != "sliding_pallas":
+        raise ValueError(
+            f"precision={precision!r} is implemented for the sliding_pallas "
+            f"backend only (got backend={backend!r})")
+
+
+def _conv1d_quant(x, w, *, stride, padding, backend, bias, activation,
+                  precision, w_scale, x_scale, out_scale):
+    """The quantized branch of ``conv1d``: pad (an int8 input with code 0),
+    screen the scales, quantize the float operands, then the int8 kernel."""
+    _check_quant_dispatch(precision, backend)
+    x = _pad1d(x, padding, w.shape[0])
+    site = f"conv1d.{precision}"
+    x_scale, to_float = _guard_quant_scales(site, x, w, w_scale, x_scale)
+    if to_float:  # unusable calibrated scale, float operands: the fp path
+        return conv1d(x, w, stride=stride, backend=backend, bias=bias,
+                      activation=activation)
+    x, w, w_scale, x_scale, out_dtype = _quant_operands(
+        x, w, w_scale, x_scale, precision)
+    return sliding_conv_quant.conv1d_quant(
+        x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+        mode=precision, stride=stride, activation=activation,
+        out_dtype=out_dtype)
 
 
 def epilogue_unfused(y, bias, activation):
@@ -127,9 +211,24 @@ def conv1d(
     backend: str = "sliding_pallas",
     bias: torch.Tensor | None = None,
     activation: str = "none",
+    precision: str = "fp",
+    w_scale: torch.Tensor | None = None,
+    x_scale: torch.Tensor | None = None,
+    out_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-channel 1-D convolution + bias + activation. x: (B, L, Cin),
-    w: (K, Cin, Cout); padding VALID / SAME / CAUSAL / (lo, hi)."""
+    w: (K, Cin, Cout); padding VALID / SAME / CAUSAL / (lo, hi).
+
+    ``precision`` "w8a8" / "w8a16" selects the int8 kernel: ``w`` is int8
+    with its per-Cout ``w_scale``, or float and quantized here; in w8a8 a
+    float ``x`` is quantized onto ``x_scale`` (dynamic absmax when None),
+    an int8 ``x`` comes with its ``x_scale``, and ``out_scale`` requantizes
+    the output to int8 after the activation."""
+    if precision != "fp":
+        return _conv1d_quant(
+            x, w, stride=stride, padding=padding, backend=backend, bias=bias,
+            activation=activation, precision=precision, w_scale=w_scale,
+            x_scale=x_scale, out_scale=out_scale)
     if backend == "xla":
         lo, hi = core_conv._resolve_pad_1d(padding, w.shape[0], 1)
         y = F.conv1d(
@@ -155,18 +254,26 @@ def conv1d(
 def attention_decode(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lengths: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Fused decode attention against the fp KV cache. q: (B, H, D) the new
-    token's query heads; k/v: (B, S, KV, D); lengths: (B,) int32 valid
-    prefix per slot (decode: pos + 1; cross-attention: encoder lengths; 0
-    gives a zero row). GQA: H = KV * G. Returns (B, H, D) float32."""
+    """Fused decode attention against the KV cache. q: (B, H, D) the new
+    token's query heads; k/v: (B, S, KV, D), float rows, or int8 codes with
+    their float32 ``k_scale``/``v_scale`` (B, S, KV, 1); lengths: (B,)
+    int32 valid prefix per slot (decode: pos + 1; cross-attention: encoder
+    lengths; 0 gives a zero row). GQA: H = KV * G. Returns (B, H, D)
+    float32."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     if H % KV:
         raise ValueError(f"H={H} not divisible by KV={KV}")
     G = H // KV
-    kind = str(k.dtype).removeprefix("torch.")
+    quantized = k.dtype == torch.int8
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError("int8 KV cache needs its k_scale/v_scale rows")
+    kind = "int8" if quantized else str(k.dtype).removeprefix("torch.")
     key = autotune.attn_dec_key(B, S, KV, G, D, kind)
     ATTN_DECODE_DISPATCH[key] = "cuda" if q.device.type == "cuda" else "plain"
-    out = attn_dec.decode_attention(q.reshape(B, KV, G, D), k, v, lengths)
+    out = attn_dec.decode_attention(q.reshape(B, KV, G, D), k, v, lengths,
+                                    k_scale, v_scale)
     return out.reshape(B, H, D)

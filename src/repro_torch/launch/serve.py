@@ -4,16 +4,26 @@ against a static KV cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
         --smoke --batch 2 --prompt-len 16 --gen 8 --conv-backend sliding_pallas
 
-The floating-point core of ``repro.launch.serve``, with the same flags and
-the same ``[serve]`` summary lines, so one command line drives both
-packages. It runs on the card unless ``--device cpu`` is given. One prefill
-per batch of requests, then one decode step per token; slots that emit
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --smoke --batch 2 --prompt-len 16 --gen 8 --quant int8 \
+        --kv-quant int8 --conv-backend sliding_pallas
+
+The core of ``repro.launch.serve``, with the same flags and the same
+``[serve]`` summary lines, so one command line drives both packages. It
+runs on the card unless ``--device cpu`` is given. One prefill per batch
+of requests, then one decode step per token; slots that emit
 ``cfg.eos_id`` are finished and keep decoding into masked positions.
 ``generate`` re-runs a request whose logits turn non-finite in every slot
 (bounded retries) and truncates it at ``deadline_s``.
 
-Not ported yet: int8 convs (``--quant``), the int8 KV cache
-(``--kv-quant``), the request journal, load shedding, the watchdog and
+``--quant int8`` quantizes the conv frontend post training
+(``quantize_for_serving``: an eager calibration prefill, then int8 weight
+leaves with their activation scales and the conv1 -> conv2 requant chain;
+w8a8 through the int8 sliding conv kernel). ``--kv-quant int8`` stores the
+serving KV cache as int8 codes with per-row scales, read by the
+decode-attention kernel with the scales folded into its softmax.
+
+Not ported yet: the request journal, load shedding, the watchdog and
 heartbeats (``--run-dir``) and span tracing (``--trace``).
 """
 from __future__ import annotations
@@ -25,12 +35,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import quant, resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed.ft import RestartPolicy
 from repro_torch.distributed.sharding import iter_leaves, torch_dtype
+from repro_torch.health import HEALTH
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
+from repro_torch.models.common import quantize_kv_leaf
 
 
 def log(msg: str) -> None:
@@ -49,6 +61,22 @@ def cache_nbytes(defs, param_dtype) -> int:
         math.prod(d.shape) * torch_dtype(d.dtype or param_dtype).itemsize
         for _, d in iter_leaves(defs)
     )
+
+
+def quantize_cache_to_defs(cache: dict, defs: dict) -> dict:
+    """Quantize the float prefill cache leaves that ``defs`` stores as int8
+    (those with a ``<name>_scale`` def), emitting the scale leaf beside
+    each, through ``common.quantize_kv_leaf``: the same quantizer as the
+    per-token decode write. Other leaves pass through."""
+    out = {}
+    for name, d in defs.items():
+        if name.endswith("_scale") and name[: -len("_scale")] in defs:
+            continue  # emitted with its int8 leaf
+        if d.dtype == "int8" and f"{name}_scale" in defs:
+            out[name], out[f"{name}_scale"] = quantize_kv_leaf(cache[name])
+        else:
+            out[name] = cache[name]
+    return out
 
 
 def pad_cache_to_defs(cache: dict, defs: dict, param_dtype) -> dict:
@@ -93,14 +121,17 @@ def resolve_cache_len(cfg, cache_len: int, P: int, gen_len: int) -> int:
 
 def prefill_cache(model, params, prompts: torch.Tensor, *, cache_len: int,
                   gen_len: int = 0):
-    """Prefill, then pad the emitted cache up to ``cache_len`` along each
-    leaf's kv_seq axis. Returns (last-token logits, cache)."""
+    """Prefill, quantize the cache where ``cfg.kv_quant`` is int8, then pad
+    it up to ``cache_len`` along each leaf's kv_seq axis (zero codes and
+    zero scales past the prefill). Returns (last-token logits, cache)."""
     cfg = model.cfg
     B, P = prompts.shape
     cache_len = resolve_cache_len(cfg, cache_len, P, gen_len)
     logits, cache = model.prefill(params, serve_batch(model, B, P, prompts))
-    return logits, pad_cache_to_defs(cache, model.cache_defs(B, cache_len),
-                                     cfg.param_dtype)
+    defs = model.cache_defs(B, cache_len)
+    if cfg.kv_quant == "int8":
+        cache = quantize_cache_to_defs(cache, defs)
+    return logits, pad_cache_to_defs(cache, defs, cfg.param_dtype)
 
 
 def _screen_logits(logits: torch.Tensor, step: int):
@@ -194,7 +225,29 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
             time.sleep(delay)
 
 
-NOT_PORTED = ("quant", "kv_quant", "run_dir", "trace")
+def quantize_for_serving(model, params, prompts):
+    """int8 post-training quantization of the model's conv path: an eager
+    calibration prefill, the activation scales with the requant chains
+    (``quant.CHAINS``), then int8 weight leaves. Returns (cfg', params'),
+    cfg' with ``conv_precision="w8a8"``."""
+    cfg = model.cfg
+    B, P = prompts.shape
+    calib = quant.Calibration()
+    with torch.no_grad(), quant.collecting(calib):
+        model.prefill(params, serve_batch(model, B, P, prompts))
+    spec = calib.spec(chains=quant.CHAINS)
+    qparams = quant.quantize_params(params, spec=spec)
+    n = quant.quantized_site_count(qparams)
+    if n == 0:
+        log(f"--quant: {cfg.name} has no conv sites; unchanged")
+        return cfg, params
+    chained = sum(1 for e in spec.values() if "out_scale" in e)
+    log(f"--quant: {n} conv weight(s) int8, {len(calib.seen)} calibrated "
+        f"site(s), {chained} chained")
+    return cfg.replace(conv_precision="w8a8"), qparams
+
+
+NOT_PORTED = ("run_dir", "trace")
 
 
 def main(argv=None):
@@ -213,6 +266,10 @@ def main(argv=None):
                     choices=["sliding", "sliding_pallas", "xla"],
                     help="conv evaluation for the conv frontend; "
                          "sliding_pallas runs the sliding conv1d CUDA kernel")
+    ap.add_argument("--quant", choices=["int8"], default=None,
+                    help="post-training-quantize the conv path (w8a8)")
+    ap.add_argument("--kv-quant", choices=["int8"], default=None,
+                    help="store the serving KV cache int8 + per-row scales")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     for flag in NOT_PORTED:
@@ -227,6 +284,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.kv_quant:
+        cfg = cfg.replace(kv_quant=args.kv_quant)
     if args.conv_backend:
         cfg = cfg.replace(conv_backend=args.conv_backend)
     cfg = cfg.replace(attn_decode=args.attn_decode)
@@ -237,6 +296,9 @@ def main(argv=None):
         rng.integers(2, cfg.vocab_size, size=(args.batch, args.prompt_len)),
         dtype=torch.int32, device=device,
     )
+    if args.quant:
+        cfg, params = quantize_for_serving(model, params, prompts)
+        model = build_model(cfg)
     cache_len = args.prompt_len + args.gen + (args.prompt_len + args.gen) % 2
     cache_len = resolve_cache_len(cfg, cache_len, args.prompt_len, args.gen)
     t0 = time.perf_counter()
@@ -253,8 +315,14 @@ def main(argv=None):
         log(f"attn-decode: impl={impl} key={akey} "
             f"calls={ops.ATTN_DECODE_DISPATCH.count(akey)}")
     nbytes = cache_nbytes(model.cache_defs(args.batch, cache_len), cfg.param_dtype)
-    log(f"kv-cache bytes: {nbytes} (fp {nbytes}, ratio 1.00x)")
+    fp_model = build_model(cfg.replace(kv_quant="fp"))
+    nbytes_fp = cache_nbytes(fp_model.cache_defs(args.batch, cache_len),
+                             cfg.param_dtype)
+    log(f"kv-cache bytes: {nbytes} (fp {nbytes_fp}, ratio "
+        f"{nbytes_fp / nbytes:.2f}x)")
     log(f"sample: {toks[0][:16].cpu().numpy()}")
+    for line in HEALTH.summary():
+        log(f"health: {line}")
 
 
 if __name__ == "__main__":

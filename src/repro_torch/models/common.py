@@ -1,5 +1,5 @@
 """Shared model plumbing: stacked ParamDefs, the loop over layers, KV-cache
-defs and the per-token cache write."""
+defs (float, or int8 with per-row scales) and the per-token cache write."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +10,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, iter_leaves, map_tree
+from repro_torch.optim.compress import quantize_int8
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -50,21 +51,57 @@ def scan_blocks(x: Any, stacked: dict, body: Callable[[Any, dict], Any], *,
 
 
 def kv_cache_defs(cfg: ModelConfig, layers: int, batch: int, seq: int):
-    if cfg.kv_quant != "fp":
-        raise NotImplementedError(f"kv_quant {cfg.kv_quant!r} is not ported yet")
+    """Self-attention K/V cache defs. With ``cfg.kv_quant == "int8"`` the
+    leaves store int8 codes, each with its ``<name>_scale`` sibling."""
+    if cfg.kv_quant not in ("fp", "int8"):
+        raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-    return dict(
-        k=ParamDef((layers, batch, seq, kv, hd), axes, init="zeros"),
-        v=ParamDef((layers, batch, seq, kv, hd), axes, init="zeros"),
+    dt = "int8" if cfg.kv_quant == "int8" else None  # None: param dtype
+    d = dict(
+        k=ParamDef((layers, batch, seq, kv, hd), axes, init="zeros", dtype=dt),
+        v=ParamDef((layers, batch, seq, kv, hd), axes, init="zeros", dtype=dt),
     )
+    if dt:
+        d.update(kv_scale_defs(d))
+    return d
+
+
+def kv_scale_defs(defs: dict) -> dict:
+    """float32 per-row scale leaves pairing int8 cache leaves: ``name``
+    gets ``<name>_scale`` of its shape with the row (last) axis 1, keeping
+    the ``kv_seq`` axis name so the prefill padding pads the pair alike."""
+    return {
+        f"{name}_scale": ParamDef((*d.shape[:-1], 1), (*d.axes[:-1], None),
+                                  init="zeros", dtype="float32")
+        for name, d in defs.items()
+    }
+
+
+def quantize_kv_leaf(value: torch.Tensor):
+    """THE int8 KV quantizer: absmax over the last (head_dim) axis per
+    (..., position, head) row, through ``optim.compress.quantize_int8``.
+    The prefill cache (``serve.quantize_cache_to_defs``) and the per-token
+    write (:func:`store_kv_token`) both go through it, so the two halves of
+    the (codes, scale) pair share one grid. Returns (int8 codes, float32
+    scales with the last axis 1)."""
+    return quantize_int8(value)
 
 
 def store_kv_token(cache: dict, name: str, fresh: torch.Tensor, pos: int, *,
                    axis: int = 1) -> None:
     """Write one new token's rows of cache leaf ``name`` at ``pos`` along
-    ``axis`` (the kv_seq axis of a per-layer decode leaf). Unlike the
-    reference, which returns new arrays, this updates the cache tensor **in
-    place**."""
+    ``axis`` (the kv_seq axis of a per-layer decode leaf). When the cache
+    stores int8 (a ``<name>_scale`` sibling exists), the fresh rows
+    quantize through :func:`quantize_kv_leaf` and both leaves of the pair
+    are written. Unlike the reference, which returns new arrays, this
+    updates the cache tensors **in place**."""
     leaf = cache[name]
-    leaf.narrow(axis, pos, fresh.shape[axis]).copy_(fresh.to(leaf.dtype))
+    n = fresh.shape[axis]
+    scale = cache.get(f"{name}_scale")
+    if scale is not None:
+        q, s = quantize_kv_leaf(fresh)
+        leaf.narrow(axis, pos, n).copy_(q)
+        scale.narrow(axis, pos, n).copy_(s)
+        return
+    leaf.narrow(axis, pos, n).copy_(fresh.to(leaf.dtype))

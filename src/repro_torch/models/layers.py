@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, torch_dtype
 from repro_torch.kernels import ops
+from repro_torch.quant import calibrate, qconv
 
 NEG_INF = float("-inf")
 
@@ -49,9 +50,17 @@ def act_fn(name: str):
 # fused conv -> bias -> activation
 # ---------------------------------------------------------------------------
 
+def _quant_mode(w, precision: str) -> str | None:
+    if precision in ("w8a8", "w8a16"):
+        return precision
+    if isinstance(w, qconv.QuantizedWeight):  # int8 leaf: weight-only
+        return "w8a16"
+    return None
+
+
 def conv1d_bias_act(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w,
     b: torch.Tensor | None,
     *,
     activation: str = "none",
@@ -59,13 +68,40 @@ def conv1d_bias_act(
     padding="VALID",
     backend: str = "sliding",
     precision: str = "fp",
+    site: str | None = None,
 ) -> torch.Tensor:
     """Multi-channel conv1d + bias + activation. x: (B, L, Cin), w:
-    (K, Cin, Cout), cast to x's type as the reference does. On
-    ``sliding_pallas`` bias and activation run in the CUDA kernel's
-    epilogue; the other backends apply them unfused."""
-    if precision != "fp":
-        raise NotImplementedError(f"conv precision {precision!r} is not ported yet")
+    (K, Cin, Cout) float, cast to x's type as the reference does, or a
+    ``QuantizedWeight``. On ``sliding_pallas`` bias and activation run in
+    the CUDA kernel's epilogue; the other backends apply them unfused.
+
+    A calibration site: under ``quant.calibrate.collecting`` the input is
+    observed under ``site``. With ``precision`` "w8a8" / "w8a16" (or an int8
+    leaf) the conv is quantized: on ``sliding_pallas`` through the int8
+    kernel, elsewhere through ``qconv.conv1d_q``'s float32 path. A leaf
+    with ``out_scale`` emits int8 on its consumer's grid (w8a8 only); an
+    int8 input is the other end of such a chain, on this site's
+    ``x_scale``."""
+    qleaf = isinstance(w, qconv.QuantizedWeight)
+    k, _, cout = (w.q if qleaf else w).shape
+    site = site or calibrate.conv_site("conv1d", x.shape[-1], cout, k)
+    calibrate.observe(site, x)
+    mode = _quant_mode(w, precision)
+    if mode is not None:
+        qw = w if qleaf else qconv.quantize_weight(w)
+        out_scale = qw.out_scale if mode == "w8a8" else None
+        if out_scale is None:
+            calibrate.note_dequant(site)
+        if backend == "sliding_pallas":
+            return ops.conv1d(
+                x, qw.q, stride=stride, padding=padding, backend=backend,
+                bias=b, activation=activation, precision=mode,
+                w_scale=qw.scale, x_scale=qw.x_scale, out_scale=out_scale)
+        out_dtype = torch.float32 if x.dtype == torch.int8 else x.dtype
+        return qconv.conv1d_q(
+            x, qw, b, mode=mode, stride=stride, padding=padding,
+            x_scale=qw.x_scale, out_scale=out_scale, activation=activation,
+            out_dtype=out_dtype, accumulate="fast")
     return ops.conv1d(
         x, w.to(x.dtype), stride=stride, padding=padding, backend=backend,
         bias=b, activation=activation,
@@ -251,14 +287,26 @@ def attention_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return self_attention(p, x, cfg, causal=True)[0]
 
 
+def dequant_cache_leaf(cache: dict, name: str, dtype) -> torch.Tensor:
+    """A cache leaf in ``dtype``, dequantized through its ``<name>_scale``
+    sibling where the cache stores int8."""
+    leaf = cache[name]
+    scale = cache.get(f"{name}_scale")
+    if scale is not None:
+        return (leaf.float() * scale).to(dtype)
+    return leaf.to(dtype)
+
+
 def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
                      lengths: torch.Tensor | None = None):
     """Single-token decode step against a static KV cache.
 
-    x: (B, 1, D); cache: {"k", "v": (B, S, KV, hd)}, updated in place at
+    x: (B, 1, D); cache: {"k", "v": (B, S, KV, hd)}, with ``k_scale`` and
+    ``v_scale`` (B, S, KV, 1) when it stores int8, updated in place at
     ``pos``; ``lengths`` (B,) int32 = pos + 1, made here when not given.
     ``cfg.attn_decode`` "fused" reads the cache through the decode-attention
-    kernel; "view" is the direct softmax over the whole cache."""
+    kernel (an int8 cache as codes, its scales folded into the softmax);
+    "view" is the direct softmax over the whole (dequantized) cache."""
     from repro_torch.models import common
 
     B = x.shape[0]
@@ -269,11 +317,12 @@ def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
         if lengths is None:
             lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
         out = ops.attention_decode(
-            q[:, 0], cache["k"], cache["v"], lengths=lengths
+            q[:, 0], cache["k"], cache["v"], lengths=lengths,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
         ).to(x.dtype)[:, None]
     else:
-        k = cache["k"].to(x.dtype)
-        v = cache["v"].to(x.dtype)
+        k = dequant_cache_leaf(cache, "k", x.dtype)
+        v = dequant_cache_leaf(cache, "v", x.dtype)
         S, KV = k.shape[1], k.shape[2]
         qg = _group(q, KV)
         s = torch.einsum("blkgd,bmkd->bkglm", qg, k).float() * q.shape[-1] ** -0.5
@@ -297,19 +346,23 @@ def cross_attention(p, x, enc_kv, cfg: ModelConfig):
 
 
 def cross_attention_decode(p, x, cache: dict, cfg: ModelConfig):
-    """Single-token cross-attention against the cached encoder K/V, which
-    is zero-padded past each slot's encoder length ``enc_len`` (written at
-    prefill). The fused read masks on those ragged lengths; length 0
-    attends nothing and gives 0."""
+    """Single-token cross-attention against the cached encoder K/V
+    (``xk``/``xv``, with ``_scale`` siblings when the cache stores int8),
+    which is zero-padded past each slot's encoder length ``enc_len``
+    (written at prefill): zero codes and zero scales in int8. A zero key
+    scores 0, not -inf, so both reads mask on those ragged lengths; length
+    0 attends nothing and gives 0."""
     dt = x.dtype
     q = _proj_heads(x, p["wq"])
     if cfg.attn_decode == "fused":
         out = ops.attention_decode(
             q[:, 0], cache["xk"], cache["xv"],
             lengths=cache["enc_len"].to(torch.int32),
+            k_scale=cache.get("xk_scale"), v_scale=cache.get("xv_scale"),
         ).to(dt)[:, None]
     else:
-        xk, xv = cache["xk"].to(dt), cache["xv"].to(dt)
+        xk = dequant_cache_leaf(cache, "xk", dt)
+        xv = dequant_cache_leaf(cache, "xv", dt)
         S = xk.shape[1]
         valid = torch.arange(S, device=x.device)[None, :] < cache["enc_len"][:, None]
         # enc_len 0: attend every (zero) row so the softmax stays finite

@@ -11,6 +11,14 @@ Training takes ``loss``: the encoder and decoder stacks run block by block
 through ``scan_blocks`` (recomputed in backward unless ``cfg.remat`` is
 "none"), and the convs differentiate through the kernels' backward.
 
+int8 serving: with ``cfg.conv_precision`` "w8a8" and the frontend weights
+swapped for ``QuantizedWeight`` leaves (``repro_torch.quant.apply``) each
+conv is one launch of the int8 sliding conv kernel; conv1's leaf carries
+conv2's input scale as ``out_scale``, so conv1 requantizes in its epilogue
+and hands conv2 int8 codes (no float tensor between the two). With
+``cfg.kv_quant == "int8"`` every cache leaf proportional to the sequence
+(self-attention k/v, cross xk/xv) stores int8 codes with per-row scales.
+
 Parameters are the reference's pytree (same paths and shapes), as nested
 dicts of tensors with a leading layer dim on the encoder and decoder
 stacks.
@@ -25,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, init_params, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
-    kv_cache_defs, layer, scan_blocks, stack_defs,
+    kv_cache_defs, kv_scale_defs, layer, scan_blocks, stack_defs,
 )
 
 N_MELS = 80
@@ -42,14 +50,17 @@ def frontend_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 
 
 def conv_frontend(p, mels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """mels: (B, T, 80) -> (B, T//2, d_model)."""
+    """mels: (B, T, 80) -> (B, T//2, d_model). The site names key the
+    calibration spec."""
     x = L.conv1d_bias_act(
         mels, p["conv1_w"], p["conv1_b"], activation="gelu", padding="SAME",
         backend=cfg.conv_backend, precision=cfg.conv_precision,
+        site="whisper/conv1",
     )
     return L.conv1d_bias_act(
         x, p["conv2_w"], p["conv2_b"], activation="gelu", stride=2,
         padding="SAME", backend=cfg.conv_backend, precision=cfg.conv_precision,
+        site="whisper/conv2",
     )
 
 
@@ -141,18 +152,24 @@ class Whisper:
     # -- serving ----------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):
         """Decoder self-attention cache (seq//2 rows) + cross K/V (seq//2
-        encoder frames) + the per-slot encoder length."""
+        encoder frames) + the per-slot encoder length. With ``cfg.kv_quant
+        == "int8"`` the self and cross K/V store int8 codes, each with its
+        per-row ``_scale`` sibling."""
         cfg = self.cfg
         s_dec, s_enc = seq // 2, seq // 2
         d = kv_cache_defs(cfg, cfg.num_layers, batch, s_dec)
         kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         axes = ("layers", "batch", "kv_seq", "kv_heads", None)
-        d["xk"] = ParamDef((cfg.num_layers, batch, s_enc, kv, hd), axes, init="zeros")
-        d["xv"] = ParamDef((cfg.num_layers, batch, s_enc, kv, hd), axes, init="zeros")
+        dt = "int8" if cfg.kv_quant == "int8" else None
+        for name in ("xk", "xv"):
+            d[name] = ParamDef((cfg.num_layers, batch, s_enc, kv, hd), axes,
+                               init="zeros", dtype=dt)
         # per-slot real encoder length (the cross cache is zero-padded past
         # it): written once at prefill, read by every decode step
         d["enc_len"] = ParamDef((cfg.num_layers, batch), ("layers", "batch"),
                                 init="zeros", dtype="int32")
+        if dt:
+            d.update(kv_scale_defs({"xk": d["xk"], "xv": d["xv"]}))
         return d
 
     def prefill(self, params, batch):
@@ -187,7 +204,8 @@ class Whisper:
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int):
         """One token for every slot at position ``pos``: logits (B, 1, V)
-        float32. The cache is updated in place and returned."""
+        float32. The cache (with its ``_scale`` leaves when int8) is updated
+        in place and returned."""
         cfg = self.cfg
         x = L.embed_tokens(params["embed"], tokens, cfg)
         B = x.shape[0]
@@ -198,8 +216,10 @@ class Whisper:
             lp = layer(params["decoder"], i)
             cl = layer(cache, i)
             h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            y, _ = L.attention_decode(lp["attn"], h, {"k": cl["k"], "v": cl["v"]},
-                                      pos, cfg, lengths=lengths)
+            sub = {n: cl[n] for n in ("k", "v", "k_scale", "v_scale")
+                   if n in cl}
+            y, _ = L.attention_decode(lp["attn"], h, sub, pos, cfg,
+                                      lengths=lengths)
             x = x + y
             h = L.rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
             x = x + L.cross_attention_decode(lp["xattn"], h, cl, cfg)

@@ -52,3 +52,12 @@ def test_training_slice_modules_are_checked():
                 "checkpoint/manager.py", "distributed/ft.py", "launch/steps.py",
                 "launch/train.py", "kernels/sliding_conv_bwd.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_int8_slice_modules_are_checked():
+    """The int8 serving slice's modules are among the files checked above."""
+    checked = set(_port_files())
+    for rel in ("health.py", "optim/compress.py", "quant/__init__.py",
+                "quant/qconv.py", "quant/calibrate.py", "quant/apply.py",
+                "kernels/sliding_conv_quant.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel

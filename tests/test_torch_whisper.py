@@ -154,7 +154,7 @@ def test_serve_cli_smoke_on_cpu(capsys):
     assert "[serve] kv-cache bytes:" in out and "[serve] sample:" in out
 
 
-@pytest.mark.parametrize("flag", ["--quant", "--kv-quant", "--run-dir", "--trace"])
+@pytest.mark.parametrize("flag", ["--run-dir", "--trace"])
 def test_serve_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu", flag])
