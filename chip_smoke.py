@@ -9,9 +9,10 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
 
   1. device: require a card; print ``nvidia-smi``'s name and power limit;
   2. build: compile every kernel under ``src/repro_torch/kernels/csrc``;
-  3. kernels vs plain: each CUDA kernel against its plain PyTorch version
-     on the card, at the shapes whisper-medium serving gives it and at edge
-     shapes (ragged tiles, K in {1, 3, 5, 7}, stride 3, lengths 0 and S,
+  3. kernels vs plain: each whisper kernel against its plain PyTorch
+     version on the card, at the shapes whisper-medium serving gives it and
+     at edge shapes (ragged tiles, K in {1, 3, 5, 7}, stride 3, lengths 0
+     and S,
      G in {1, 2, 4, 8}, float32 and bfloat16);
   4. smoke serve, card vs CPU: whisper smoke config (float32), one set of
      weights; equal greedy tokens and prefill logits within tolerance;
@@ -72,7 +73,34 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      plus the epilogue in torch; the int8 attention kernel beside its plain
      version and a dequantized cache through
      ``F.scaled_dot_product_attention``; each with its bound, timed as in
-     phase 6.
+     phase 6;
+ 16. depthwise kernels vs plain: the depthwise conv kernel at mamba's
+     prefill shape in jamba-1.5-large ((4, 259, 16384) bf16, K 4, bias,
+     silu) and at edge shapes (K in {2, 3, 4, 5}, stride 1 and 2, C 37,
+     600 and 1032, L shorter than a tile, bias or none, none or silu, an
+     unaligned base, float32 and bfloat16): float32 within 1e-6 of max |y|,
+     bfloat16 within one bf16 step; the int8 depthwise kernel, w8a8 and
+     w8a16, float and requantized outputs, at the same shapes; the
+     attention kernel, fp and int8, at jamba's (B 4, S 288, KV 8, G 8,
+     D 128) with a length-0 slot;
+ 17. jamba smoke serve, card vs CPU: jamba's smoke config (float32), one
+     set of weights, fp and ``--quant int8 --kv-quant int8``, each held to
+     what one float32 step of weight jitter does on the CPU (see
+     ``phase_smoke_serve_jamba``), every int8 conv of the card's prefill
+     held to its plain version on the card's own inputs;
+ 18. full-width jamba serve: jamba-1.5-large cut to one period (7 Mamba
+     blocks, 1 attention) and no experts, every width the published one
+     (8,999,034,880 parameters, bf16, random from a seed), B=4, P=256, 32
+     tokens, fp and then ``--quant int8 --kv-quant int8`` on the same
+     weights: launches checked, TTFT, decode step, tokens/s, busy share,
+     peak memory, cache bytes and max |x| after each layer (the random
+     model collapses after its first layer: see PERF.md);
+ 19. jamba times: the depthwise kernels at mamba's prefill shape beside
+     their plain versions, a library call (``F.conv1d(groups=C)`` + silu;
+     for int8, which no PyTorch call computes, the codes widened to bf16
+     ahead, then ``F.conv1d(groups=C)`` and the epilogue in torch) and the
+     bound; the attention kernels at G=8, D=128 beside their plain versions
+     and SDPA (``enable_gqa``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -81,6 +109,7 @@ named on the ``nvidia-smi`` line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import statistics
@@ -105,6 +134,9 @@ BTOL = dict(rtol=5e-2, atol=5e-2)
 TIGHT = dict(rtol=1e-5, atol=1e-5)
 # a bfloat16 output may round the other way: two bf16 steps
 QBTOL = dict(rtol=1e-2, atol=1e-2)
+# a library call that also rounds to bfloat16 before its activation
+# (cuDNN's depthwise conv, then silu): two bf16 steps
+LIBTOL = dict(rtol=2 ** -6, atol=2 ** -6)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory rate
 # and arithmetic rate by operand type. f32 runs on the CUDA cores: the port
@@ -347,7 +379,7 @@ def phase_smoke_serve(serve, models, configs, map_tree):
         f"{out[DEV][1].tolist()}; prefill logits max|err| {err:.3e}")
 
 
-def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
+def phase_full_serve(serve, models, configs, map_tree) -> dict:
     cfg = configs.get_config("whisper-medium").replace(
         conv_backend="sliding_pallas", attn_decode="fused")
     model = models.build_model(cfg)
@@ -369,13 +401,13 @@ def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
     serve.generate(model, params, prompts, gen_len=2, cache_len=cache_len)  # warm-up
     torch.cuda.reset_peak_memory_stats()
 
-    zero_launches(sc, ad, sb)
+    zero_launches()
     stats: dict = {}
     t0 = time.perf_counter()
     toks, _ = serve.generate(model, params, prompts, gen_len=gen,
                              cache_len=cache_len, stats=stats)
     wall = time.perf_counter() - t0
-    launches = read_launches(sc, ad, sb)
+    launches = read_launches()
 
     want = only(sliding_conv1d=2,
                 attention_decode=2 * cfg.num_layers * (gen - 1))
@@ -403,7 +435,7 @@ def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
     nudged = dict(batch, frames=batch["frames"] * (1 + 1e-6))
     runs = {}
     for name, ctx, bt in (("kernels", contextlib.nullcontext(), batch),
-                          ("plain versions", plain_kernels(sc, ad, sb), batch),
+                          ("plain versions", plain_kernels(), batch),
                           ("kernels on mels x (1 + 1e-6)",
                            contextlib.nullcontext(), nudged)):
         with torch.no_grad(), ctx:
@@ -440,11 +472,15 @@ def phase_full_serve(serve, models, configs, sc, ad, sb, map_tree) -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels(sc, ad, sb):
+def plain_kernels():
     """Route every kernel wrapper to its plain version for the block."""
+    from repro_torch.kernels import attention_decode as ad
+    from repro_torch.kernels import sliding_conv1d as sc
+    from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
 
-    saved = sc._launch, ad._launch, sb._launch, sq._launch
+    saved = (sc._launch, ad._launch, sb._launch, sq._launch,
+             sc._launch_depthwise, sq._launch_depthwise)
     sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
         sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
@@ -455,37 +491,49 @@ def plain_kernels(sc, ad, sb):
         sq.conv1d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
                               mode=mode, stride=stride, activation=act,
                               out_dtype=odt))
+    sc._launch_depthwise = lambda x, w, b, stride, act, _n: (
+        sc.conv1d_depthwise_plain(x, w, b, stride=stride, activation=act))
+    sq._launch_depthwise = (
+        lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n:
+        sq.conv1d_depthwise_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
+                                        mode=mode, stride=stride,
+                                        activation=act, out_dtype=odt))
     try:
         yield
     finally:
-        sc._launch, ad._launch, sb._launch, sq._launch = saved
+        (sc._launch, ad._launch, sb._launch, sq._launch,
+         sc._launch_depthwise, sq._launch_depthwise) = saved
 
 
-def zero_launches(sc, ad, sb) -> None:
+def _counters() -> dict:
+    """Each kernel's launch counter: the wrapper that holds it and the
+    attribute's name."""
+    from repro_torch.kernels import attention_decode as ad
+    from repro_torch.kernels import sliding_conv1d as sc
+    from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
 
-    sc.conv1d_sliding.launches = 0
-    ad.decode_attention.launches = 0
-    ad.decode_attention.launches_int8 = 0
-    sb.conv1d_bwd_dw.launches = 0
-    sq.conv1d_quant.launches = 0
+    return {"sliding_conv1d": (sc.conv1d_sliding, "launches"),
+            "attention_decode": (ad.decode_attention, "launches"),
+            "conv1d_bwd_dw": (sb.conv1d_bwd_dw, "launches"),
+            "sliding_conv_quant": (sq.conv1d_quant, "launches"),
+            "attention_decode_int8": (ad.decode_attention, "launches_int8"),
+            "conv1d_depthwise": (sc.conv1d_depthwise, "launches"),
+            "conv1d_depthwise_quant": (sq.conv1d_depthwise_quant, "launches")}
 
 
-def read_launches(sc, ad, sb) -> dict:
-    from repro_torch.kernels import sliding_conv_quant as sq
+def zero_launches() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
-    return {"sliding_conv1d": sc.conv1d_sliding.launches,
-            "attention_decode": ad.decode_attention.launches,
-            "conv1d_bwd_dw": sb.conv1d_bwd_dw.launches,
-            "sliding_conv_quant": sq.conv1d_quant.launches,
-            "attention_decode_int8": ad.decode_attention.launches_int8}
+
+def read_launches() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def only(**counts) -> dict:
     """A launch-count dict with every kernel at 0 but those named."""
-    return {k: counts.get(k, 0) for k in (
-        "sliding_conv1d", "attention_decode", "conv1d_bwd_dw",
-        "sliding_conv_quant", "attention_decode_int8")}
+    return {k: counts.get(k, 0) for k in _counters()}
 
 
 def profile_busy(fn, reps: int = 3) -> dict:
@@ -627,7 +675,7 @@ def dw_inputs(seed, B, L, Cin, Cout, K, stride, dtype):
     return x, dz
 
 
-def phase_train_kernels(sc, ad, sb, ops) -> float:
+def phase_train_kernels(sc, sb, ops) -> float:
     """dw kernel, saved pre-activation and the conv autograd Function
     against their plain versions; returns the dw kernel's max |err| at the
     full-width shapes."""
@@ -696,10 +744,10 @@ def phase_train_kernels(sc, ad, sb, ops) -> float:
                        stride=2)
         return torch.autograd.grad((y * ct).sum(), (w1, b1, w2, b2))
 
-    zero_launches(sc, ad, sb)
+    zero_launches()
     got = frontend_grads()
-    launches = read_launches(sc, ad, sb)
-    with plain_kernels(sc, ad, sb):
+    launches = read_launches()
+    with plain_kernels():
         want = frontend_grads()
     if launches != only(sliding_conv1d=3, conv1d_bwd_dw=2):
         raise AssertionError(f"frontend autograd launches {launches}")
@@ -769,7 +817,7 @@ def phase_smoke_train(models, configs, optim, steps_mod, train, map_tree):
         f"rel diff {rel_ctrl.tolist()}")
 
 
-def phase_full_train(models, configs, optim, steps_mod, train, sc, ad, sb,
+def phase_full_train(models, configs, optim, steps_mod, train,
                      iter_leaves) -> dict:
     cfg = configs.get_config("whisper-medium").replace(
         conv_backend="sliding_pallas")
@@ -785,14 +833,14 @@ def phase_full_train(models, configs, optim, steps_mod, train, sc, ad, sb,
     batches = train_batches(cfg, B, seq, n, 0, DEV, train)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(sc, ad, sb)
+    zero_launches()
     losses, times = [], []
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))  # waits for the step
         times.append(time.perf_counter() - t0)
-    launches = read_launches(sc, ad, sb)
+    launches = read_launches()
     want = only(sliding_conv1d=3 * n, conv1d_bwd_dw=2 * n)
     if launches != want:
         raise AssertionError(f"train launch counts {launches}, expected {want}")
@@ -1106,7 +1154,7 @@ def phase_smoke_serve_int8(serve, models, configs, map_tree, quant, sq,
         f"codes {n_off} of {y.numel()} one apart at ties; one dequant site")
 
 
-def phase_full_serve_int8(serve, models, configs, sc, ad, sb, quant) -> dict:
+def phase_full_serve_int8(serve, models, configs, quant) -> dict:
     cfg = configs.get_config("whisper-medium").replace(
         conv_backend="sliding_pallas", attn_decode="fused", kv_quant="int8")
     model = models.build_model(cfg)
@@ -1118,12 +1166,12 @@ def phase_full_serve_int8(serve, models, configs, sc, ad, sb, quant) -> dict:
                               dtype=torch.int32, device=DEV)
     cache_len = serve.resolve_cache_len(cfg, P + gen, P, gen)
     torch.cuda.synchronize()
-    zero_launches(sc, ad, sb)
+    zero_launches()
     t0 = time.perf_counter()
     cfg_q, qparams = serve.quantize_for_serving(model, params, prompts)
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
-    calib = read_launches(sc, ad, sb)
+    calib = read_launches()
     if calib != only(sliding_conv1d=2) or cfg_q.conv_precision != "w8a8":
         raise AssertionError(f"calibration launches {calib}")
     model_q = models.build_model(cfg_q)
@@ -1131,14 +1179,14 @@ def phase_full_serve_int8(serve, models, configs, sc, ad, sb, quant) -> dict:
     serve.generate(model_q, qparams, prompts, gen_len=2, cache_len=cache_len)
     torch.cuda.reset_peak_memory_stats()
 
-    zero_launches(sc, ad, sb)
+    zero_launches()
     stats: dict = {}
     t0 = time.perf_counter()
     with quant.counting_dequants() as sites:
         toks, _ = serve.generate(model_q, qparams, prompts, gen_len=gen,
                                  cache_len=cache_len, stats=stats)
     wall = time.perf_counter() - t0
-    launches = read_launches(sc, ad, sb)
+    launches = read_launches()
     want = only(sliding_conv_quant=2,
                 attention_decode_int8=2 * cfg.num_layers * (gen - 1))
     if launches != want:
@@ -1300,6 +1348,552 @@ def phase_quant_times(sq, ad, launches, errs) -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# jamba serving
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+# the full-width cut: one period (7 Mamba blocks, 1 attention), no experts;
+# every width the published one: 8,999,034,880 parameters
+JAMBA_CUT = dict(num_layers=8, num_experts=0)
+JAMBA_PARAMS = 8_999_034_880
+# mamba's prefill conv at the full-width request: B=4, P=256 prompt rows
+# and K-1=3 rows of CAUSAL padding, d_inner 16384, K 4, bf16
+DEPTHWISE_MAIN = dict(B=4, L=259, C=16384, K=4, stride=1)
+# jamba's decode read: 64 query heads over 8 KV heads, head dim 128, the
+# request's cache of 288 rows
+ATTN_JAMBA = dict(B=4, S=288, KV=8, G=8, D=128)
+
+
+def bf16_close(got, want, what) -> float:
+    """Raise unless the bfloat16 ``got`` is within one bfloat16 step of
+    ``want`` elementwise (the kernel's float32 sum equals the plain
+    version's but for the activation's last bits, which can round the
+    bfloat16 the other way); return max |err|."""
+    g, w = got.float(), want.float()
+    if got.dtype != torch.bfloat16 or g.shape != w.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(g.shape)} vs "
+                             f"bfloat16 {tuple(w.shape)}")
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite output")
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+    err = (g - w).abs()
+    bad = err > step
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements more than a "
+                             f"bf16 step off, max |err| {err.max().item():.3e}")
+    return err.max().item()
+
+
+def f32_close(got, want, what) -> float:
+    """float32: within 1e-6 of max |want| (the sums are the plain version's,
+    in its order and rounding; the activation's last bits differ)."""
+    return close(got, want, dict(rtol=0.0, atol=1e-6 * max(
+        1.0, want.abs().max().item())), what)
+
+
+def dw_check(got, want, what) -> float:
+    return (bf16_close(got, want, what) if want.dtype == torch.bfloat16
+            else f32_close(got, want, what))
+
+
+def depthwise_inputs(seed, B, L, C, K, dtype, with_bias=True, offset=0):
+    """x (B, L, C), w (K, C), bias; ``offset`` elements into its buffer, so
+    that x's base is not 16-byte aligned."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    buf = torch.randn((B * L * C + offset,), generator=g, device=DEV)
+    x = buf.to(dtype)[offset:].view(B, L, C)
+    w = (torch.randn((K, C), generator=g, device=DEV) / K ** 0.5).to(dtype)
+    b = torch.randn((C,), generator=g, device=DEV) if with_bias else None
+    return x, w, b
+
+
+def dw_quant_inputs(seed, B, L, C, K, mode, x_dtype=torch.float32,
+                    with_bias=True):
+    """int8 depthwise weight codes with per-channel scales (1, C), and int8
+    input codes with their scale (w8a8) or a float input (w8a16)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int32).to(torch.int8)
+
+    w = codes((K, C))
+    ws = (torch.rand((1, C), generator=g, device=DEV) + 0.5) / (73 * K ** 0.5)
+    b = torch.randn((C,), generator=g, device=DEV) if with_bias else None
+    if mode == "w8a8":
+        return codes((B, L, C)), w, ws, b, torch.tensor(1 / 73, device=DEV)
+    x = torch.randn((B, L, C), generator=g, device=DEV).to(x_dtype)
+    return x, w, ws, b, None
+
+
+def check_dw_quant(sq, x, w, ws, b, xs, *, mode, stride, act, out_dtype,
+                   requant, what) -> float:
+    """The int8 depthwise kernel against its plain version: float output,
+    and with ``requant`` int8 codes on a grid that clips the largest
+    outputs (equal but for ties, ``codes_close``)."""
+    args = dict(x_scale=xs, mode=mode, stride=stride, activation=act)
+    want = sq.conv1d_depthwise_quant_plain(x, w, ws, b, out_dtype=out_dtype,
+                                           **args)
+    got = sq.conv1d_depthwise_quant(x, w, ws, b, out_dtype=out_dtype, **args)
+    err = dw_check(got, want, what)
+    if requant:
+        y = want if out_dtype == torch.float32 else \
+            sq.conv1d_depthwise_quant_plain(x, w, ws, b, **args)
+        os = (y.abs().max() * 0.8 / 127).reshape(())
+        want_q = sq.conv1d_depthwise_quant_plain(x, w, ws, b, out_scale=os,
+                                                 **args)
+        got_q = sq.conv1d_depthwise_quant(x, w, ws, b, out_scale=os, **args)
+        if want_q.abs().max().item() != 127:
+            raise AssertionError(f"{what}: the requant clip is not exercised")
+        codes_close(got_q, want_q, y / os, what + " requant", tie=1e-4,
+                    max_frac=1e-4)
+    return err
+
+
+def phase_depthwise_kernels(sc, sq, ad) -> dict:
+    """The depthwise kernels, float and int8, against their plain versions
+    at mamba's prefill shape and at edge shapes; the attention kernels at
+    jamba's decode shape. Returns max |err| at the main shapes."""
+    s = DEPTHWISE_MAIN
+    errs = {}
+    x, w, b = depthwise_inputs(40, s["B"], s["L"], s["C"], s["K"],
+                               torch.bfloat16)
+    errs["conv1d_depthwise"] = dw_check(
+        sc.conv1d_depthwise(x, w, b, activation="silu"),
+        sc.conv1d_depthwise_plain(x, w, b, activation="silu"),
+        f"depthwise main {s} bf16 silu")
+    log(f"depthwise {s} bf16 silu: max|err| {errs['conv1d_depthwise']:.3e}")
+    combos = [(True, "silu"), (False, "none"), (True, "none"), (False, "silu")]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (K, stride, (C, L)) in enumerate(itertools.product(
+                (2, 3, 4, 5), (1, 2), ((37, 203), (600, 9), (1032, 64)))):
+            with_bias, act = combos[i % 4]
+            x, w, b = depthwise_inputs(i, 3, L, C, K, dtype, with_bias,
+                                       offset=i % 3)
+            what = (f"depthwise edge K={K} s={stride} C={C} L={L} {act} "
+                    f"bias={with_bias} offset={i % 3} {dtype}")
+            dw_check(sc.conv1d_depthwise(x, w, b, stride=stride, activation=act),
+                     sc.conv1d_depthwise_plain(x, w, b, stride=stride,
+                                               activation=act), what)
+            n += 1
+    log(f"depthwise edge shapes: {n} cases within tolerance")
+
+    err_q = 0.0
+    for mode, x_dtype in (("w8a8", None), ("w8a16", torch.bfloat16),
+                          ("w8a16", torch.float32)):
+        x, w, ws, b, xs = dw_quant_inputs(41, s["B"], s["L"], s["C"], s["K"],
+                                          mode, x_dtype or torch.float32)
+        odt = torch.bfloat16  # the model's compute type, bf16 at full width
+        what = f"int8 depthwise main {s} {mode} {x.dtype} silu"
+        err = check_dw_quant(sq, x, w, ws, b, xs, mode=mode, stride=1,
+                             act="silu", out_dtype=odt, requant=True, what=what)
+        if mode == "w8a8":
+            err_q = err
+        log(f"{what}: bf16 max|err| {err:.3e}, requant codes checked")
+    n = 0
+    for i, (K, stride, (C, L), mode) in enumerate(itertools.product(
+            (2, 3, 4, 5), (1, 2), ((37, 203), (600, 9)), ("w8a8", "w8a16"))):
+        with_bias, act = combos[i % 4]
+        for odt in (torch.float32, torch.bfloat16):
+            x, w, ws, b, xs = dw_quant_inputs(100 + i, 3, L, C, K, mode,
+                                              odt, with_bias)
+            check_dw_quant(sq, x, w, ws, b, xs, mode=mode, stride=stride,
+                           act=act, out_dtype=odt, requant=act == "silu",
+                           what=f"int8 depthwise edge K={K} s={stride} C={C} "
+                                f"L={L} {mode} {act} {odt}")
+            n += 1
+    log(f"int8 depthwise edge shapes: {n} cases, float and requant outputs "
+        "checked")
+    errs["conv1d_depthwise_quant"] = err_q
+
+    lens = [0, 1, 127, 288]
+    q, k, v, ln = attn_inputs(42, **ATTN_JAMBA, dtype=torch.bfloat16,
+                              lengths=lens)
+    got = ad.decode_attention(q, k, v, ln)
+    errs["attention_decode_jamba"] = close(
+        got, ad.attention_decode_plain(q, k, v, ln), BTOL,
+        "attention bf16 jamba shape")
+    args = attn_int8_inputs(43, **ATTN_JAMBA, q_dtype=torch.bfloat16,
+                            lengths=lens)
+    got8 = ad.decode_attention(*args)
+    errs["attention_decode_int8_jamba"] = close(
+        got8, ad.attention_decode_plain(*args), TOL,
+        "attention int8 jamba shape")
+    if got[0].abs().max().item() != 0.0 or got8[0].abs().max().item() != 0.0:
+        raise AssertionError("attention: a length-0 slot must give a zero row")
+    log(f"attention {ATTN_JAMBA} lengths {lens}: bf16 max|err| "
+        f"{errs['attention_decode_jamba']:.3e}, int8 max|err| "
+        f"{errs['attention_decode_int8_jamba']:.3e}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def _jitter_control(serve, model, params, prompts, cache_len, draws=3,
+                    eps=1e-7):
+    """What float rounding alone does to this random-weight model on the
+    CPU: the period weights scaled elementwise by (1 + eps * N(0, 1)), a
+    change of one float32 step, ``draws`` times. Returns the largest move
+    of the prefill logits (a share of max |logit|) and the most greedy
+    tokens changed."""
+    from repro_torch.distributed.sharding import map_tree
+
+    g = torch.Generator().manual_seed(1)
+
+    def jitter(t):
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            return t * (1 + eps * torch.randn(t.shape, generator=g))
+        return t
+
+    with torch.no_grad():
+        base, _ = serve.prefill_cache(model, params, prompts, cache_len=cache_len)
+    toks, _ = serve.generate(model, params, prompts, gen_len=SMOKE["gen"],
+                             cache_len=cache_len)
+    spread, changed = 0.0, 0
+    for _ in range(draws):
+        moved = dict(params, periods=map_tree(jitter, params["periods"]))
+        with torch.no_grad():
+            logits, _ = serve.prefill_cache(model, moved, prompts,
+                                            cache_len=cache_len)
+        t, _ = serve.generate(model, moved, prompts, gen_len=SMOKE["gen"],
+                              cache_len=cache_len)
+        spread = max(spread, ((logits - base).abs().max()
+                              / base.abs().max()).item())
+        changed = max(changed, int((t != toks).sum()))
+    return spread, changed
+
+
+def phase_smoke_serve_jamba(serve, models, configs, map_tree, sq):
+    """jamba's smoke config (float32, one period, 4 experts), one set of
+    weights on the CPU and on the card, fp and ``--quant int8 --kv-quant
+    int8`` (quantized on the CPU, the tree carried to the card). The
+    reference's init makes this model ill-conditioned, and its int8 path
+    quantizes every Mamba conv's input with a dynamic scale, where a code
+    at a tie flips with the last bit of its input. So each mode is held
+    to what one float32 step of jitter on the weights does on the CPU
+    (``_jitter_control``): prefill logits within three times its move (or
+    TOL, the larger), greedy tokens equal wherever the jitter leaves them
+    all equal. Every int8 conv of the card's prefill is also held to its
+    plain version on the card's own inputs (float32 out: 1e-6 of max)."""
+    base = configs.smoke_config(configs.get_config(JAMBA)).replace(
+        conv_backend="sliding_pallas")
+    model = models.build_model(base)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(2, base.vocab_size, size=(SMOKE["B"], SMOKE["P"])
+                     ).astype(np.int32))
+    cache_len = SMOKE["P"] + SMOKE["gen"]
+    model8 = models.build_model(base.replace(kv_quant="int8"))
+    cfg_q, cpu_q = serve.quantize_for_serving(model8, cpu_params, prompts)
+    for mode, m, cpu_p in (("fp", model, cpu_params),
+                           ("int8", models.build_model(cfg_q), cpu_q)):
+        spread, changed = _jitter_control(serve, m, cpu_p, prompts, cache_len)
+        out = {}
+        calls = []
+        for card, (dev, params) in enumerate((
+                ("cpu", cpu_p), (DEV, map_tree(lambda t: t.to(DEV), cpu_p)))):
+            zero_launches()
+            launch = sq._launch_depthwise
+            if card:  # keep the int8 convs' inputs and outputs
+                sq._launch_depthwise = lambda *a: calls.append(
+                    (a, launch(*a))) or calls[-1][1]
+            try:
+                with torch.no_grad():
+                    logits, _ = serve.prefill_cache(m, params, prompts.to(dev),
+                                                    cache_len=cache_len)
+            finally:
+                sq._launch_depthwise = launch
+            toks, _ = serve.generate(m, params, prompts.to(dev),
+                                     gen_len=SMOKE["gen"], cache_len=cache_len)
+            out["card" if card else "cpu"] = (logits.cpu(), toks.cpu(),
+                                              read_launches())
+        want = only(conv1d_depthwise=14, attention_decode=SMOKE["gen"] - 1) \
+            if mode == "fp" else only(conv1d_depthwise_quant=14,
+                                      attention_decode_int8=SMOKE["gen"] - 1)
+        if out["card"][2] != want:
+            raise AssertionError(f"jamba smoke {mode} launches {out["card"][2]}, "
+                                 f"expected {want}")
+        for (x, w, ws, b, xs, os, qmode, stride, act, odt, _n), y in calls:
+            f32_close(y, sq.conv1d_depthwise_quant_plain(
+                x, w, ws, b, x_scale=xs, out_scale=os, mode=qmode,
+                stride=stride, activation=act, out_dtype=odt),
+                "jamba smoke int8 conv on the card's inputs")
+        if len(calls) != (7 if mode == "int8" else 0):
+            raise AssertionError(f"jamba smoke {mode}: {len(calls)} int8 convs")
+        rel = ((out["card"][0] - out["cpu"][0]).abs().max()
+               / out["cpu"][0].abs().max()).item()
+        allowed = max(TOL["rtol"], 3 * spread)
+        if not torch.isfinite(out["card"][0]).all() or rel > allowed:
+            raise AssertionError(f"jamba smoke {mode} prefill logits {rel:.3e} "
+                                 f"of max apart, allowed {allowed:.3e}")
+        differ = int((out["card"][1] != out["cpu"][1]).sum())
+        if differ and not changed:
+            raise AssertionError(f"jamba smoke {mode} greedy tokens differ: "
+                                 f"card {out["card"][1].tolist()} vs CPU "
+                                 f"{out['cpu'][1].tolist()}")
+        log(f"jamba smoke serve {mode} {SMOKE}: greedy tokens card "
+            f"{out["card"][1].tolist()}, CPU {out['cpu'][1].tolist()}: {differ} "
+            f"differ (one float32 step of weight jitter on the CPU changes up "
+            f"to {changed}); prefill logits {rel:.3e} of max |logit| apart "
+            f"(jitter moves them {spread:.3e}, allowed {allowed:.3e}); "
+            f"{len(calls)} int8 convs equal to their plain versions on the "
+            f"card's inputs; card launches {out["card"][2]}")
+
+
+def _serve_request(serve, model, params, prompts, gen, want, what) -> dict:
+    """One full-width request after a warm-up one: launches (checked
+    against ``want``), TTFT, decode step, tokens/s, peak memory, the card's
+    busy share of a prefill and of a decode step, max |x| after each layer
+    and the cache bytes."""
+    cfg = model.cfg
+    B, P = prompts.shape
+    cache_len = serve.resolve_cache_len(cfg, P + gen, P, gen)
+    serve.generate(model, params, prompts, gen_len=2, cache_len=cache_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    toks, _ = serve.generate(model, params, prompts, gen_len=gen,
+                             cache_len=cache_len, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != want:
+        raise AssertionError(f"{what} launch counts {launches}, expected {want}")
+    if tuple(toks.shape) != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{what}: bad tokens {tuple(toks.shape)}")
+    layer_max: list = []
+    with torch.no_grad():
+        model.prefill(params, {"tokens": prompts}, record=layer_max)
+        logits, cache = serve.prefill_cache(model, params, prompts,
+                                            cache_len=cache_len)
+        step, _ = model.decode_step(params, cache, toks[:, :1], P)
+    for name, t in (("prefill", logits), ("decode step", step)):
+        if t.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(t).all():
+            raise AssertionError(f"{what} {name} logits not finite / bad shape")
+    nbytes = serve.cache_nbytes(model.cache_defs(B, cache_len), cfg.param_dtype)
+    prof = {
+        "prefill": profile_busy(lambda: serve.prefill_cache(
+            model, params, prompts, cache_len=cache_len)),
+        "decode_step": profile_busy(lambda: model.decode_step(
+            params, cache, toks[:, :1], P)),
+    }
+    for name, r in prof.items():
+        log(f"profile {what} {name}: wall {r['wall_ms']:.3f} ms, card busy "
+            f"{r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%), "
+            f"{r['kernels']} kernels; top: {r['top']}")
+    step_ms = statistics.median(stats["step_s"]) * 1e3
+    res = dict(tok_per_s=B * gen / wall, ttft_ms=stats["ttft_s"] * 1e3,
+               decode_step_ms=step_ms, wall_s=wall, peak_mem_gb=peak,
+               launches=launches, cache_len=cache_len, kv_cache_bytes=nbytes,
+               layer_absmax=layer_max,
+               max_abs_logit=logits.abs().max().item(),
+               busy_share={k: r["busy_share"] for k, r in prof.items()},
+               busy_ms={k: r["busy_ms"] for k, r in prof.items()})
+    log(f"{what} B={B} P={P} gen={gen}: {res['tok_per_s']:.1f} tok/s, TTFT "
+        f"{res['ttft_ms']:.2f} ms, decode step {step_ms:.3f} ms (median of "
+        f"{len(stats['step_s'])}), {wall:.3f}s, peak mem {peak:.2f} GB, "
+        f"kv-cache bytes {nbytes}, launches {launches}; max |x| after each "
+        f"layer {[f'{m:.3e}' for m in layer_max]}, max |logit| "
+        f"{res['max_abs_logit']:.3e}; sample {toks[0, :8].tolist()}")
+    return res
+
+
+def phase_full_serve_jamba(serve, models, configs) -> dict:
+    """jamba-1.5-large at full width, cut to one period and no experts
+    (bf16, random weights from a seeded generator), one request fp, then
+    the same weights with the seven conv weights quantized
+    (``--quant int8 --kv-quant int8``)."""
+    cfg = configs.get_config(JAMBA).replace(
+        **JAMBA_CUT, conv_backend="sliding_pallas", attn_decode="fused")
+    model = models.build_model(cfg)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    from repro_torch.distributed.sharding import iter_leaves
+
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    if n_params != JAMBA_PARAMS:
+        raise AssertionError(f"{n_params} params, expected {JAMBA_PARAMS}")
+    log(f"full width {cfg.name} cut to {JAMBA_CUT}: {n_params} params "
+        f"({cfg.param_dtype}), d {cfg.d_model}, d_inner {cfg.mamba_d_inner}, "
+        f"init {time.perf_counter() - t0:.2f}s")
+    B, P, gen = SERVE["B"], SERVE["P"], SERVE["gen"]
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(B, P)),
+                              dtype=torch.int32, device=DEV)
+    n_mamba = cfg.attn_every - 1
+    fp = _serve_request(serve, model, params, prompts, gen,
+                        only(conv1d_depthwise=n_mamba,
+                             attention_decode=gen - 1), "jamba full-width fp")
+
+    model8 = models.build_model(cfg.replace(kv_quant="int8"))
+    zero_launches()
+    t0 = time.perf_counter()
+    cfg_q, qparams = serve.quantize_for_serving(model8, params, prompts)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib = read_launches()
+    if calib != only(conv1d_depthwise=n_mamba) or cfg_q.conv_precision != "w8a8":
+        raise AssertionError(f"jamba calibration launches {calib}")
+    int8 = _serve_request(serve, models.build_model(cfg_q), qparams, prompts,
+                          gen, only(conv1d_depthwise_quant=n_mamba,
+                                    attention_decode_int8=gen - 1),
+                          "jamba full-width int8")
+    int8.update(calibration_s=calib_s, calibration_launches=calib,
+                kv_cache_bytes_fp=fp["kv_cache_bytes"])
+    log(f"jamba int8 kv-cache bytes {int8['kv_cache_bytes']} (fp "
+        f"{fp['kv_cache_bytes']}, ratio "
+        f"{fp['kv_cache_bytes'] / int8['kv_cache_bytes']:.2f}x); calibration "
+        f"{calib_s:.2f}s with launches {calib}")
+    return dict(fp=fp, int8=int8, n_params=n_params)
+
+
+def phase_jamba_times(sc, sq, ad, launches, errs) -> tuple[list, dict]:
+    """The depthwise kernels at mamba's prefill shape beside their plain
+    versions, one library call and the bound; the attention kernels at
+    jamba's decode shape (G=8, D=128). Returns the two depthwise rows and
+    the attention times by kernel name."""
+    s = DEPTHWISE_MAIN
+    B, L, C, K = s["B"], s["L"], s["C"], s["K"]
+    lout = L - K + 1
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")
+    # fp: the library is F.conv1d(groups=C) (cuDNN; TF32 off, bf16 anyway)
+    # on x in its (B, C, L) layout, made ahead, + bias + silu
+    sets = []
+    for i in range(4):  # 4 inputs of 34 MB: > 50 MB
+        x, w, b = depthwise_inputs(50 + i, B, L, C, K, torch.bfloat16)
+        sets.append((x, w, b, x.transpose(1, 2).contiguous(),
+                     w.t().contiguous()[:, None, :]))
+
+    def library(x, w, b, x_lib, w_lib):
+        return F.silu(F.conv1d(x_lib, w_lib, b.to(x_lib.dtype), groups=C))
+
+    x, w, b, x_lib, w_lib = sets[0]
+    close(library(*sets[0]).transpose(1, 2),
+          sc.conv1d_depthwise_plain(x, w, b, activation="silu"), LIBTOL,
+          "library depthwise")
+    nbytes = 2 * (B * L * C + K * C + B * lout * C) + 4 * C
+    ops = 2 * K * B * lout * C
+    bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+    fp = dict(timings(
+        cycling(lambda x, w, b, *_: sc.conv1d_depthwise(x, w, b,
+                                                        activation="silu"), sets),
+        cycling(lambda x, w, b, *_: sc.conv1d_depthwise_plain(
+            x, w, b, activation="silu"), sets),
+        cycling(library, sets)), bound_ms=bms, bound_by=by, bytes=nbytes,
+        ops=ops)
+    log(f"time depthwise {s} bf16 silu: {json.dumps(fp)}")
+    del sets
+
+    # int8 w8a8, bf16 out: no PyTorch call computes it; the library is the
+    # codes widened to bf16 ahead, F.conv1d(groups=C), then the dequant,
+    # bias and silu in torch
+    sets = []
+    for i in range(6):  # 6 inputs of 17 MB: > 50 MB
+        x, w, ws, b, xs = dw_quant_inputs(60 + i, B, L, C, K, "w8a8")
+        sets.append((x, w, ws, b, xs, x.transpose(1, 2).to(torch.bfloat16)
+                     .contiguous(), w.t().to(torch.bfloat16).contiguous()[:, None, :],
+                     (ws * xs).reshape(C, 1)))
+
+    def qkernel(x, w, ws, b, xs, *_):
+        return sq.conv1d_depthwise_quant(x, w, ws, b, x_scale=xs,
+                                         activation="silu",
+                                         out_dtype=torch.bfloat16)
+
+    def qplain(x, w, ws, b, xs, *_):
+        return sq.conv1d_depthwise_quant_plain(x, w, ws, b, x_scale=xs,
+                                               activation="silu",
+                                               out_dtype=torch.bfloat16)
+
+    def qlibrary(x, w, ws, b, xs, x_lib, w_lib, s_lib):
+        acc = F.conv1d(x_lib, w_lib, groups=C)
+        return F.silu(acc.float() * s_lib + b[:, None]).to(torch.bfloat16)
+
+    close(qlibrary(*sets[0]).transpose(1, 2), qplain(*sets[0]), LIBTOL,
+          "library int8 depthwise")
+    nbytes = B * L * C + K * C + 4 * C + 4 * C + 2 * B * lout * C
+    bms, by = bound_ms(nbytes, ops, torch.int8)
+    q = dict(timings(cycling(qkernel, sets), cycling(qplain, sets),
+                     cycling(qlibrary, sets)),
+             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    log(f"time int8 depthwise {s} w8a8 bf16 out silu: {json.dumps(q)}")
+    del sets
+
+    # attention at jamba's decode shape, the lengths of the request's middle
+    # decode step
+    Ba, S, KV, G, D = (ATTN_JAMBA[n] for n in ("B", "S", "KV", "G", "D"))
+    lens = [272] * Ba
+    attn = {}
+    for name, make in (
+            ("attention_decode", lambda i: attn_inputs(
+                70 + i, **ATTN_JAMBA, dtype=torch.bfloat16, lengths=lens)),
+            ("attention_decode_int8", lambda i: attn_int8_inputs(
+                90 + i, **ATTN_JAMBA, q_dtype=torch.bfloat16, lengths=lens))):
+        sets = []
+        for i in range(16):  # 16 caches of 4.7 MB (bf16): > 50 MB
+            args = make(i)
+            mask = (torch.arange(S, device=DEV)[None, :]
+                    < args[3][:, None])[:, None, None, :]
+            sets.append((*args, mask))
+        int8 = name.endswith("int8")
+
+        def alibrary(q, k, v, ln, *rest, int8=int8):
+            mask = rest[-1]
+            if int8:  # the cache dequantized to bf16 first
+                k = (k.float() * rest[0]).to(q.dtype)
+                v = (v.float() * rest[1]).to(q.dtype)
+            return F.scaled_dot_product_attention(
+                q.reshape(Ba, KV * G, 1, D), k.transpose(1, 2),
+                v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+        close(alibrary(*sets[0]).float().reshape(Ba, KV, G, D),
+              ad.attention_decode_plain(*sets[0][:-1]), BTOL,
+              f"library {name} jamba shape")
+        kv_bytes = (1 if int8 else 2) * 2 * sum(lens) * KV * D
+        scale_bytes = 2 * 4 * sum(lens) * KV if int8 else 0
+        nbytes = (2 * Ba * KV * G * D + kv_bytes + scale_bytes + 4 * Ba
+                  + 4 * Ba * KV * G * D)
+        a_ops = 4 * G * D * KV * sum(lens)
+        bms, by = bound_ms(nbytes, a_ops, torch.float32 if int8 else
+                           torch.bfloat16)
+        attn[name] = dict(timings(
+            cycling(lambda *a: ad.decode_attention(*a[:-1]), sets),
+            cycling(lambda *a: ad.attention_decode_plain(*a[:-1]), sets),
+            cycling(alibrary, sets)),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops,
+            per=f"launch: B=4 S=288 KV=8 G=8 D=128, bf16 q, "
+                f"{'int8' if int8 else 'bf16'} cache, lengths 272")
+        log(f"time {name} {ATTN_JAMBA} lengths {lens}: {json.dumps(attn[name])}")
+        del sets
+    rows = [
+        dict(name="conv1d_depthwise", route="cuda",
+             source="src/repro_torch/kernels/csrc/conv1d_depthwise.cu",
+             replaces="src/repro/kernels/sliding_conv1d.py:376",
+             launches=launches["conv1d_depthwise"],
+             max_abs_err=errs["conv1d_depthwise"],
+             per="launch: mamba prefill conv B=4 L=259 C=16384 K=4 bf16, "
+                 "bias + silu; library: F.conv1d(groups=C) + silu",
+             **{k: fp[k] for k in keys + ("bound_by",)}),
+        dict(name="conv1d_depthwise_quant", route="cuda",
+             source="src/repro_torch/kernels/csrc/conv1d_depthwise_quant.cu",
+             replaces="src/repro/kernels/sliding_conv_quant.py:534",
+             launches=launches["conv1d_depthwise_quant"],
+             max_abs_err=errs["conv1d_depthwise_quant"],
+             per="launch: mamba prefill conv w8a8 B=4 L=259 C=16384 K=4, "
+                 "bf16 out, bias + silu; library: no PyTorch call computes "
+                 "it: the codes widened to bf16 ahead, F.conv1d(groups=C), "
+                 "then dequant + bias + silu in torch",
+             **{k: q[k] for k in keys + ("bound_by",)}),
+    ]
+    return rows, attn
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -1341,32 +1935,52 @@ def main() -> int:
     # -- 3-6: serving -----------------------------------------------------------
     errs = phase_kernels(sc, ad)
     phase_smoke_serve(serve, models, configs, map_tree)
-    full = phase_full_serve(serve, models, configs, sc, ad, sb, map_tree)
+    full = phase_full_serve(serve, models, configs, map_tree)
     # -- 7-10: training -----------------------------------------------------------
-    errs["conv1d_bwd_dw"] = phase_train_kernels(sc, ad, sb, ops)
+    errs["conv1d_bwd_dw"] = phase_train_kernels(sc, sb, ops)
     phase_smoke_train(models, configs, optim, steps_mod, train, map_tree)
-    trained = phase_full_train(models, configs, optim, steps_mod, train, sc, ad,
-                               sb, iter_leaves)
+    trained = phase_full_train(models, configs, optim, steps_mod, train,
+                               iter_leaves)
     # -- 11-14: int8 serving ------------------------------------------------------
     errs["sliding_conv_quant"] = phase_quant_kernels(sq)
     errs["attention_decode_int8"] = phase_attention_int8(ad)
     phase_smoke_serve_int8(serve, models, configs, map_tree, quant, sq, layers)
-    full_int8 = phase_full_serve_int8(serve, models, configs, sc, ad, sb, quant)
-    # the int8 path: its calibration prefill and its request
-    int8_path = {k: full_int8["calibration_launches"][k] + n
-                 for k, n in full_int8["launches"].items()}
+    full_int8 = phase_full_serve_int8(serve, models, configs, quant)
+    # -- 16-18: jamba serving -----------------------------------------------------
+    errs.update(phase_depthwise_kernels(sc, sq, ad))
+    phase_smoke_serve_jamba(serve, models, configs, map_tree, sq)
+    gc.collect()
+    torch.cuda.empty_cache()  # whisper's full-width runs are done
+    jamba = phase_full_serve_jamba(serve, models, configs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def with_calibration(run):  # a quantized path: calibration + request
+        return {k: run["calibration_launches"][k] + n
+                for k, n in run["launches"].items()}
+
     by_path = {"serve": full["launches"], "train": trained["launches"],
-               "serve_int8": int8_path}
+               "serve_int8": with_calibration(full_int8),
+               "serve_jamba": jamba["fp"]["launches"],
+               "serve_jamba_int8": with_calibration(jamba["int8"])}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
     # -- 15: int8 times -----------------------------------------------------------
     kernels += phase_quant_times(sq, ad, launches, errs)
+    # -- 19: jamba times ----------------------------------------------------------
+    dw_rows, attn_jamba = phase_jamba_times(sc, sq, ad, launches, errs)
+    kernels += dw_rows
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
+        if row["name"] in attn_jamba:
+            row["jamba_shape"] = dict(
+                attn_jamba[row["name"]],
+                max_abs_err=errs[row["name"] + "_jamba"])
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
-                      "serve_int8": full_int8}), flush=True)
+                      "serve_int8": full_int8, "serve_jamba": jamba}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

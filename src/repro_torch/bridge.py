@@ -8,7 +8,8 @@ tests build the weights once in the reference and move them here. A
 quantized tree carries across too: the reference's ``QuantizedWeight``
 leaves (``jax.tree.map(np.asarray, ...)`` keeps them as named tuples of
 numpy arrays, ``None`` where a scale is absent) become this package's
-``quant.QuantizedWeight``, their types and shapes checked.
+``quant.QuantizedWeight``, their types and shapes checked, among them
+jamba's period-stacked depthwise ``conv_w`` leaves.
 
 ``state_from_step_dir`` loads a ``CheckpointManager`` step directory,
 written by either package, onto the port's parameter and optimizer trees.
@@ -46,25 +47,32 @@ def _is_quantized(a: Any) -> bool:
 
 
 def _quantized_leaf(a: Any, device) -> QuantizedWeight:
-    """The reference's quantized leaf as this package's, its int8 codes,
-    float32 (Cout,) scale and float32 scalar activation scales checked."""
+    """The reference's quantized leaf as this package's, its types and
+    shapes checked: int8 codes; a float32 scale, (Cout,) for a conv weight
+    or (…, 1, C) for a depthwise (…, K, C) weight (per channel over the tap
+    axis, periods stacked ahead); activation scales float32, one per leaf
+    (one per stacked layer for a depthwise leaf)."""
     q = _to_tensor(a.q, device, None)
     scale = _to_tensor(a.scale, device, None)
     if q.dtype != torch.int8:
         raise ValueError(f"quantized leaf codes are {q.dtype}, not int8")
-    if scale.dtype != torch.float32 or scale.shape != q.shape[-1:]:
+    depthwise = scale.shape == (*q.shape[:-2], 1, q.shape[-1])
+    if scale.dtype != torch.float32 or not (
+            depthwise or scale.shape == q.shape[-1:]):
         raise ValueError(f"quantized leaf scale {scale.dtype} "
                          f"{tuple(scale.shape)} is not float32 "
-                         f"({q.shape[-1]},)")
+                         f"({q.shape[-1]},) or (..., 1, {q.shape[-1]})")
+    act_shape = q.shape[:-2] if depthwise else torch.Size()
     extra = []
     for name in ("x_scale", "out_scale"):
         t = getattr(a, name)
         if t is not None:
             t = _to_tensor(t, device, None)
-            if t.dtype != torch.float32 or t.numel() != 1:
+            if t.dtype != torch.float32 or t.numel() != act_shape.numel():
                 raise ValueError(f"quantized leaf {name} {t.dtype} "
-                                 f"{tuple(t.shape)} is not a float32 scalar")
-            t = t.reshape(())
+                                 f"{tuple(t.shape)} is not float32 "
+                                 f"{tuple(act_shape)}")
+            t = t.reshape(act_shape)
         extra.append(t)
     return QuantizedWeight(q, scale, *extra)
 

@@ -70,13 +70,24 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
 # architectures this package serves; the rest of the reference's registry
 # raises "not ported yet" until its slice lands
-PORTED_ARCHS = {"whisper-medium": "whisper_medium"}
+PORTED_ARCHS = {
+    "whisper-medium": "whisper_medium",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -3,7 +3,8 @@
 The ``sliding`` backend of ``repro.core.conv``: every filter tap adds one
 (Cin × Cout) matrix product over a shifted slice of the unmodified input,
 so no im2col buffer is built. Layout NLC (batch, length, channels);
-weights (K, Cin, Cout). This is the backend that runs when the model asks
+weights (K, Cin, Cout), or (K, C) for the depthwise conv, where each tap is
+one shifted elementwise multiply-add. This is the backend that runs when the model asks
 for ``conv_backend="sliding"``; the CUDA kernel is reached through
 ``repro_torch.kernels.ops.conv1d`` (``sliding_pallas``).
 """
@@ -73,4 +74,37 @@ def conv1d_sliding(
     for k in range(K):  # unrolled tap loop: one shifted matmul per tap
         xs = xa[:, k * dilation : k * dilation + span : stride]
         acc = acc + xs @ wa[k]
+    return acc.to(x.dtype)
+
+
+def conv1d_depthwise_sliding(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    padding="CAUSAL",
+    stride: int = 1,
+    dilation: int = 1,
+) -> torch.Tensor:
+    """Depthwise sliding conv1d. x: (B, L, C), w: (K, C).
+
+    y[b, i, c] = sum_k w[k, c] * x[b, i*stride + k*dilation, c]
+
+    Every tap is one shifted elementwise multiply-add over the whole
+    input (the paper's vector slide); the sum runs in float32 (or wider)
+    and is cast back to ``x.dtype``.
+    """
+    B, L, C = x.shape
+    K, Cw = w.shape
+    if Cw != C:
+        raise ValueError(f"channel mismatch {Cw} != {C}")
+    lo, hi = _resolve_pad_1d(padding, K, dilation)
+    if lo or hi:
+        x = F.pad(x, (0, 0, lo, hi))
+    out_len = _out_len(L, K, stride, dilation, lo, hi)
+    span = (out_len - 1) * stride + 1
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    acc = torch.zeros((B, out_len, C), dtype=acc_dtype, device=x.device)
+    for k in range(K):
+        xs = x[:, k * dilation : k * dilation + span : stride]
+        acc = acc + xs.to(acc_dtype) * w[k].to(acc_dtype)
     return acc.to(x.dtype)

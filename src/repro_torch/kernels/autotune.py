@@ -3,6 +3,12 @@ logs of the two packages line up. No tuning cache is ported yet."""
 from __future__ import annotations
 
 
+def conv1d_dw_key(B, L, C, K, stride, dtype) -> str:
+    """Depthwise conv1d shape key (the mamba conv path; ``dtype`` is the
+    precision name for the quantized kernel, e.g. "w8a8")."""
+    return f"conv1ddw|B{B}|L{L}|C{C}|K{K}|s{stride}|{dtype}"
+
+
 def attn_dec_key(B, S, KV, G, D, kind) -> str:
     """Fused decode-attention shape key (``ops.attention_decode``). ``kind``
     is "int8" for the quantized cache, else the float cache dtype name."""

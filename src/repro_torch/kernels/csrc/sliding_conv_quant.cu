@@ -15,10 +15,9 @@
 //          int32; s = w_scale * x_scale, computed by the caller in float32.
 //   w8a16: x is float32 or bfloat16; the weight codes are converted to
 //          float as they are staged and the sum is float32; s = w_scale.
-// The output is int8 (requant), float32 or bfloat16. The epilogue's
-// multiply, add and divide are IEEE round-to-nearest operations that the
-// compiler may not contract into an FMA, and rint rounds half to even, so
-// from the same sum it rounds as the reference's float32 epilogue does.
+// The output is int8 (requant), float32 or bfloat16, stored by the shared
+// epilogue (conv_epilogue.cuh, store_out), which rounds as the reference's
+// float32 epilogue does.
 //
 // What bounds it on this card: at whisper's frontend shapes (B=4, L=514,
 // 80->1024 at stride 1 and 1024->1024 at stride 2, K=3) conv2 is 6.4 G
@@ -65,33 +64,11 @@ constexpr int XW_LD = CW + 1;  // halo row pitch in words, against bank conflict
 constexpr int CC = 32;
 constexpr int XS_LD = CC + 1;
 
-enum Out { OUT_F32 = 0, OUT_BF16 = 1, OUT_INT8 = 2 };
-
 // halo rows x pitch, rounded up so that the weight slice after it is
 // 16-byte aligned
 __host__ __device__ inline int halo_words(int stride, int K, int pitch) {
   const int halo = (TL - 1) * stride + K;
   return (halo * pitch + 3) & ~3;
-}
-
-// dequant, bias, activation, then the store: int8 on the out_scale grid,
-// or float32 / bfloat16
-__device__ __forceinline__ void store_out(void* y, size_t idx, float acc,
-                                          float s, const float* bias, int n,
-                                          int act, const float* out_scale,
-                                          int y_kind) {
-  float v = __fmul_rn(acc, s);
-  if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-  v = activate(v, act);
-  if (y_kind == OUT_INT8) {
-    float q = rintf(__fdiv_rn(v, *out_scale));
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    static_cast<int8_t*>(y)[idx] = static_cast<int8_t>(__float2int_rn(q));
-  } else if (y_kind == OUT_BF16) {
-    static_cast<__nv_bfloat16*>(y)[idx] = __float2bfloat16(v);
-  } else {
-    static_cast<float*>(y)[idx] = v;
-  }
 }
 
 __global__ void __launch_bounds__(THREADS)

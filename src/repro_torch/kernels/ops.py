@@ -1,7 +1,7 @@
 """Kernel dispatch: the layer-facing entry points of the kernels.
 
 The subset of ``repro.kernels.ops`` that whisper's serving and training
-paths reach:
+paths and jamba's serving path reach:
 
   * ``conv1d``: padding outside the kernel, then the backend. ``sliding``
     is the plain tap loop of ``core.conv`` with an unfused epilogue;
@@ -14,6 +14,13 @@ paths reach:
     (``sliding_pallas`` only, inference only): float operands quantize
     here, ``out_scale`` fuses a requant, and ``_guard_quant_scales`` screens
     unusable scales as the reference does.
+  * ``conv1d_depthwise``: the mamba conv. Padding outside the kernel, then
+    the depthwise CUDA kernel with bias and activation fused; with
+    ``precision`` "w8a8" or "w8a16" the int8 depthwise kernel (inference
+    only), float operands quantized here. Each call is logged in
+    ``CONV1D_DW_DISPATCH`` under the reference's ``conv1d_dw_key``. Its
+    backward (``conv1d_depthwise_bwd_dw``) is not ported yet: a call that
+    needs a gradient raises.
   * ``attention_decode``: the decode-attention kernel over a float or int8
     cache, with a dispatch log keyed like the reference's
     ``ATTN_DECODE_DISPATCH``.
@@ -41,7 +48,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.sliding_conv1d import apply_activation
 from repro_torch.quant import qconv
-from repro_torch.quant.apply import scale_reason
+from repro_torch.quant.apply import quantize_depthwise_weight, scale_reason
 
 CONV_BACKENDS = ("sliding", "sliding_pallas", "xla")
 PRECISIONS = ("fp", "w8a8", "w8a16")
@@ -74,6 +81,7 @@ class DispatchLog:
 
 
 ATTN_DECODE_DISPATCH = DispatchLog()
+CONV1D_DW_DISPATCH = DispatchLog()
 
 
 def _pad1d(x, padding, k, dilation=1):
@@ -107,13 +115,14 @@ def _guard_quant_scales(site, x, w, w_scale, x_scale):
     return None, False
 
 
-def _quant_operands(x, w, w_scale, x_scale, precision):
+def _quant_operands(x, w, w_scale, x_scale, precision,
+                    quantize_weight=qconv.quantize_weight):
     """Quantize the float operands onto their int8 grids (weights per
-    Cout, activations per tensor). Returns (x, w_q, w_scale, x_scale,
-    out_dtype)."""
+    output channel by ``quantize_weight``, activations per tensor).
+    Returns (x, w_q, w_scale, x_scale, out_dtype)."""
     out_dtype = torch.float32 if x.dtype == torch.int8 else x.dtype
     if w.dtype != torch.int8:
-        qw = qconv.quantize_weight(w)
+        qw = quantize_weight(w)
         w, w_scale = qw.q, qw.scale
     elif w_scale is None:
         raise ValueError("int8 weights need their w_scale")
@@ -249,6 +258,57 @@ def conv1d(
         y = core_conv.conv1d_sliding(x, w, stride=stride, padding="VALID")
         return epilogue_unfused(y, bias, activation)
     raise ValueError(f"unknown conv backend {backend!r}; one of {CONV_BACKENDS}")
+
+
+def conv1d_depthwise(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding="CAUSAL",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+    precision: str = "fp",
+    w_scale: torch.Tensor | None = None,
+    x_scale: torch.Tensor | None = None,
+    out_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Depthwise 1-D sliding conv + bias + activation in one launch (the
+    mamba conv path). x: (B, L, C), w: (K, C); padding VALID / SAME /
+    CAUSAL / (lo, hi).
+
+    ``precision`` "w8a8" / "w8a16" runs the int8 depthwise kernel: ``w``
+    is int8 with its per-channel ``w_scale`` ((C,) or (1, C)), or float and
+    quantized here; in w8a8 a float ``x`` is quantized onto ``x_scale``
+    (dynamic absmax when None) and ``out_scale`` requantizes the output."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        raise NotImplementedError(
+            "conv1d_depthwise has no backward yet (the depthwise dw kernel "
+            "is not ported)")
+    x = _pad1d(x, padding, w.shape[0])
+    impl = "cuda" if x.device.type == "cuda" else "plain"
+    if precision == "fp":
+        kind = str(x.dtype).removeprefix("torch.")
+        CONV1D_DW_DISPATCH[autotune.conv1d_dw_key(
+            *x.shape, w.shape[0], stride, kind)] = impl
+        return sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride,
+                                               activation=activation)
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    site = f"conv1d_depthwise.{precision}"
+    x_scale, to_float = _guard_quant_scales(site, x, w, w_scale, x_scale)
+    if to_float:  # unusable calibrated scale, float operands: the fp path
+        return conv1d_depthwise(x, w, stride=stride, padding="VALID",
+                                bias=bias, activation=activation)
+    x, w, w_scale, x_scale, out_dtype = _quant_operands(
+        x, w, w_scale, x_scale, precision, quantize_depthwise_weight)
+    CONV1D_DW_DISPATCH[autotune.conv1d_dw_key(
+        *x.shape, w.shape[0], stride, precision)] = impl
+    return sliding_conv_quant.conv1d_depthwise_quant(
+        x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+        mode=precision, stride=stride, activation=activation,
+        out_dtype=out_dtype)
 
 
 def attention_decode(

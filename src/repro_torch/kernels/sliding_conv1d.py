@@ -1,9 +1,12 @@
-"""Sliding-window conv1d with a fused bias + activation epilogue.
+"""Sliding-window conv1d, dense and depthwise, with a fused bias +
+activation epilogue.
 
-``conv1d_sliding`` is the wrapper: on a CUDA tensor it launches the Hopper
-kernel ``csrc/sliding_conv1d.cu``; on a CPU tensor it runs
-``conv1d_sliding_plain``, the same arithmetic in plain torch. Any other
-device raises. Nothing falls back from the kernel to the plain version.
+``conv1d_sliding`` is the wrapper of the dense conv: on a CUDA tensor it
+launches the Hopper kernel ``csrc/sliding_conv1d.cu``; on a CPU tensor it
+runs ``conv1d_sliding_plain``, the same arithmetic in plain torch. Any
+other device raises. Nothing falls back from the kernel to the plain
+version. ``conv1d_depthwise`` is the same for the depthwise conv (kernel
+``csrc/conv1d_depthwise.cu``, plain version ``conv1d_depthwise_plain``).
 
 Contract (the TPU kernel's, ``repro.kernels.sliding_conv1d``): VALID conv1d
 on an input the caller already padded. x (B, L, Cin), w (K, Cin, Cout) of
@@ -13,6 +16,13 @@ and activation are applied to the float32 sum, then one cast. With
 ``save_preact=True`` both return ``(y, z)``: z is the post-bias
 pre-activation in x's type, written by the same epilogue (the residual the
 backward pass forms ``dz = dy · act'(z)`` from).
+
+Depthwise contract (``conv1d_depthwise_pallas``): VALID depthwise conv1d on
+an already padded input. x (B, L, C) float32 or bfloat16, w (K, C) of x's
+type, bias (C,) or None; output (B, (L - K) // stride + 1, C) in x's type.
+Products and sums in float32, tap by tap; bias and activation on the
+float32 sum, then one cast. The pre-activation output (``save_preact``,
+training) is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ from repro_torch.kernels import build
 ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
 # x, w, bias, y, z; B, L, Cin, Cout, K, stride, Lout, act, is_bf16; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# x, w, bias, y; B, L, C, K, stride, Lout, act, is_bf16; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def apply_activation(x: torch.Tensor, activation: str | None) -> torch.Tensor:
@@ -121,3 +133,84 @@ def conv1d_sliding(
 
 
 conv1d_sliding.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# depthwise
+# ---------------------------------------------------------------------------
+
+def _check_depthwise(x, w, bias, stride, activation) -> int:
+    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
+                         "form (B, L, C) and (K, C)")
+    if bias is not None and bias.shape != (w.shape[1],):
+        raise ValueError(f"bias {tuple(bias.shape)} is not (C,)")
+    if stride < 1:
+        raise ValueError(f"stride {stride} < 1")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    out_len = (x.shape[1] - w.shape[0]) // stride + 1
+    if out_len < 1:
+        raise ValueError(f"filter K={w.shape[0]} (stride {stride}) exceeds "
+                         f"input length {x.shape[1]}")
+    return out_len
+
+
+def conv1d_depthwise_plain(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
+    stride: int = 1, activation: str = "none",
+) -> torch.Tensor:
+    """The depthwise kernel's function in plain torch: one shifted float32
+    multiply-add per tap, in tap order, then bias, activation and the cast
+    to x's type."""
+    out_len = _check_depthwise(x, w, bias, stride, activation)
+    xf, wf = x.float(), w.float()
+    span = (out_len - 1) * stride + 1
+    acc = None
+    for k in range(w.shape[0]):
+        t = xf[:, k : k + span : stride] * wf[k]
+        acc = t if acc is None else acc + t
+    if bias is not None:
+        acc = acc + bias.float()
+    return apply_activation(acc, activation).to(x.dtype)
+
+
+def _launch_depthwise(x, w, bias, stride, activation, out_len):
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
+                        f"same type, got {x.dtype} and {w.dtype}")
+    if w.device != x.device or (bias is not None and bias.device != x.device):
+        raise ValueError("x, w and bias must lie on one device")
+    fn = build.entry("conv1d_depthwise", "conv1d_depthwise", _DW_ARGTYPES)
+    x, w = x.contiguous(), w.contiguous()
+    b32 = None if bias is None else bias.float().contiguous()
+    B, L, C = x.shape
+    y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
+    code = fn(
+        x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
+        y.data_ptr(), B, L, C, w.shape[0], stride, out_len,
+        ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("conv1d_depthwise", code)
+    conv1d_depthwise.launches += 1
+    return y
+
+
+def conv1d_depthwise(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
+    stride: int = 1, activation: str = "none",
+) -> torch.Tensor:
+    """VALID depthwise sliding conv1d + bias + activation: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor.
+    ``conv1d_depthwise.launches`` counts kernel launches."""
+    out_len = _check_depthwise(x, w, bias, stride, activation)
+    if x.device.type == "cuda":
+        return _launch_depthwise(x, w, bias, stride, activation, out_len)
+    if x.device.type == "cpu":
+        return conv1d_depthwise_plain(x, w, bias, stride=stride,
+                                      activation=activation)
+    raise ValueError(f"no conv1d_depthwise for device {x.device}")
+
+
+conv1d_depthwise.launches = 0

@@ -4,9 +4,9 @@ against a static KV cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
         --smoke --batch 2 --prompt-len 16 --gen 8 --conv-backend sliding_pallas
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
-        --smoke --batch 2 --prompt-len 16 --gen 8 --quant int8 \
-        --kv-quant int8 --conv-backend sliding_pallas
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --batch 2 --prompt-len 16 \
+        --gen 8 --conv-backend sliding_pallas --quant int8 --kv-quant int8
 
 The core of ``repro.launch.serve``, with the same flags and the same
 ``[serve]`` summary lines, so one command line drives both packages. It
@@ -16,12 +16,18 @@ of requests, then one decode step per token; slots that emit
 ``generate`` re-runs a request whose logits turn non-finite in every slot
 (bounded retries) and truncates it at ``deadline_s``.
 
-``--quant int8`` quantizes the conv frontend post training
-(``quantize_for_serving``: an eager calibration prefill, then int8 weight
-leaves with their activation scales and the conv1 -> conv2 requant chain;
-w8a8 through the int8 sliding conv kernel). ``--kv-quant int8`` stores the
-serving KV cache as int8 codes with per-row scales, read by the
-decode-attention kernel with the scales folded into its softmax.
+``--quant int8`` runs the model's conv path (whisper's frontend, jamba's
+mamba convs) w8a8 (``quantize_for_serving``): an eager calibration
+prefill collects activation scales, int8 weight leaves are swapped into
+the params (whisper's conv1 -> conv2 requant chain gets ``out_scale``, so
+int8 codes flow between them), and the request runs with
+``conv_precision="w8a8"``: whisper's convs through the int8 sliding conv
+kernel, the mamba convs through the int8 depthwise kernel, each with a
+dynamic activation scale (the reference calibrates no mamba site). Conv-free
+archs pass through unchanged. ``--kv-quant int8`` stores the serving KV
+cache as int8 codes with per-row scales, read by the decode-attention
+kernel with the scales folded into its softmax; jamba's recurrent mamba
+states stay float.
 
 Not ported yet: the request journal, load shedding, the watchdog and
 heartbeats (``--run-dir``) and span tracing (``--trace``).
@@ -67,12 +73,15 @@ def quantize_cache_to_defs(cache: dict, defs: dict) -> dict:
     """Quantize the float prefill cache leaves that ``defs`` stores as int8
     (those with a ``<name>_scale`` def), emitting the scale leaf beside
     each, through ``common.quantize_kv_leaf``: the same quantizer as the
-    per-token decode write. Other leaves pass through."""
+    per-token decode write. Nested defs (jamba's ``mamba{j}: {conv, ssm}``
+    states) are walked; other leaves pass through."""
     out = {}
     for name, d in defs.items():
-        if name.endswith("_scale") and name[: -len("_scale")] in defs:
+        if isinstance(d, dict):
+            out[name] = quantize_cache_to_defs(cache[name], d)
+        elif name.endswith("_scale") and name[: -len("_scale")] in defs:
             continue  # emitted with its int8 leaf
-        if d.dtype == "int8" and f"{name}_scale" in defs:
+        elif d.dtype == "int8" and f"{name}_scale" in defs:
             out[name], out[f"{name}_scale"] = quantize_kv_leaf(cache[name])
         else:
             out[name] = cache[name]
@@ -82,11 +91,16 @@ def quantize_cache_to_defs(cache: dict, defs: dict) -> dict:
 def pad_cache_to_defs(cache: dict, defs: dict, param_dtype) -> dict:
     """Zero-pad each prefill cache leaf up to the decode cache shape along
     its sequence axis, the one named ``kv_seq`` in the leaf's
-    ``ParamDef.axes``, and cast it to the def's dtype. Leaves without a
-    ``kv_seq`` axis pass through (cast only)."""
+    ``ParamDef.axes``, and cast it to the def's dtype (the param dtype
+    where the def names none). Leaves without a ``kv_seq`` axis (jamba's
+    recurrent conv and ssm states, walked in their nested dicts) are cast
+    only."""
     out = {}
     for name, d in defs.items():
         c = cache[name]
+        if isinstance(d, dict):
+            out[name] = pad_cache_to_defs(c, d, param_dtype)
+            continue
         if "kv_seq" in d.axes:
             ax = d.axes.index("kv_seq")
             if c.shape[ax] != d.shape[ax]:
@@ -264,8 +278,9 @@ def main(argv=None):
                          "a direct softmax over the whole cache (view)")
     ap.add_argument("--conv-backend", default=None,
                     choices=["sliding", "sliding_pallas", "xla"],
-                    help="conv evaluation for the conv frontend; "
-                         "sliding_pallas runs the sliding conv1d CUDA kernel")
+                    help="conv evaluation for the model's conv layers "
+                         "(whisper's frontend, jamba's mamba convs); "
+                         "sliding_pallas runs them through the CUDA kernels")
     ap.add_argument("--quant", choices=["int8"], default=None,
                     help="post-training-quantize the conv path (w8a8)")
     ap.add_argument("--kv-quant", choices=["int8"], default=None,

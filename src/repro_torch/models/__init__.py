@@ -9,4 +9,8 @@ def build_model(cfg: ModelConfig):
         from repro_torch.models.whisper import Whisper
 
         return Whisper(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.jamba import Jamba
+
+        return Jamba(cfg)
     raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")

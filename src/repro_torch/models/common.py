@@ -1,5 +1,6 @@
 """Shared model plumbing: stacked ParamDefs, the loop over layers, KV-cache
-defs (float, or int8 with per-row scales) and the per-token cache write."""
+defs (float, or int8 with per-row scales), the per-token cache write and
+the ``attn_`` prefix views of a hybrid model's cache."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +12,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, iter_leaves, map_tree
 from repro_torch.optim.compress import quantize_int8
+from repro_torch.quant.qconv import QuantizedWeight
 
 
 def stack_defs(defs: Any, n: int) -> Any:
@@ -23,10 +25,18 @@ def stack_defs(defs: Any, n: int) -> Any:
     )
 
 
+def _index(t, i: int):
+    """Entry ``i`` along the leading (layers) axis of a leaf; a stacked
+    ``QuantizedWeight`` gives each of its tensors' entry ``i``."""
+    if isinstance(t, QuantizedWeight):
+        return QuantizedWeight(*(None if f is None else f[i] for f in t))
+    return t[i]
+
+
 def layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked tree: views, so writes reach the stack (the
     serving cache)."""
-    return map_tree(lambda t: t[i], tree)
+    return map_tree(lambda t: _index(t, i), tree)
 
 
 def unstack(tree: dict) -> list[dict]:
@@ -105,3 +115,17 @@ def store_kv_token(cache: dict, name: str, fresh: torch.Tensor, pos: int, *,
         scale.narrow(axis, pos, n).copy_(s)
         return
     leaf.narrow(axis, pos, n).copy_(fresh.to(leaf.dtype))
+
+
+def strip_kv_prefix(cache: dict, prefix: str) -> dict:
+    """The ``prefix``-named K/V leaves under their bare names (``attn_k`` →
+    ``k``), their ``_scale`` siblings with them, so a model hands
+    ``attention_decode`` the whole (codes, scale) set without naming the
+    scale leaves. The tensors are the cache's own: writes reach it."""
+    return {name[len(prefix):]: leaf for name, leaf in cache.items()
+            if name.startswith(prefix)}
+
+
+def add_kv_prefix(leaves: dict, prefix: str) -> dict:
+    """Inverse of :func:`strip_kv_prefix`."""
+    return {f"{prefix}{name}": leaf for name, leaf in leaves.items()}

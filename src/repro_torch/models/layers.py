@@ -1,12 +1,13 @@
-"""Transformer building blocks on tensors (the whisper subset of
-``repro.models.layers``).
+"""Transformer building blocks on tensors (the whisper and jamba subset
+of ``repro.models.layers``).
 
 Conventions, as in the reference: activations in ``compute_dtype``;
 reductions, softmax and norms in float32; grouped-query attention with
 grouped einsums (no KV head repetition in memory); flash-style chunked
 attention past ``attn_chunk``; decode against a static KV cache; logits
 summed in float32; the training loss chunked over the sequence. Rotary
-embeddings are not ported (whisper uses sinusoidal positions).
+embeddings (jamba) rotate q and k in float32 where the caller passes
+positions; whisper passes none and uses sinusoidal positions.
 """
 from __future__ import annotations
 
@@ -116,6 +117,29 @@ def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (
+        torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+        / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., L, H, D); positions: (..., L) integer. The two halves of
+    the head dim rotate as one complex pair, in float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (D/2,)
+    ang = positions[..., :, None].float() * freqs  # (..., L, D/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # parameter defs
 # ---------------------------------------------------------------------------
 
@@ -134,27 +158,29 @@ def attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     return defs
 
 
-def _check_ungated(cfg: ModelConfig) -> None:
-    if cfg.activation != "gelu_plain":
-        raise NotImplementedError(
-            f"gated MLP ({cfg.activation!r}) is not ported yet")
-
-
 def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict[str, ParamDef]:
-    """Ungated MLP (whisper); the reference's gated variants come with the
-    dense archs."""
-    _check_ungated(cfg)
+    """Ungated MLP for "gelu_plain" (whisper), else the gated one
+    (SwiGLU / GeGLU: ``act(x wg) * (x wu)``, then ``wd``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.activation == "gelu_plain":
+        return {
+            "wi": ParamDef((d, f), ("embed", "mlp"), init="fan_in"),
+            "wo": ParamDef((f, d), ("mlp", "embed"), init="fan_in"),
+        }
     return {
-        "wi": ParamDef((d, f), ("embed", "mlp"), init="fan_in"),
-        "wo": ParamDef((f, d), ("mlp", "embed"), init="fan_in"),
+        "wg": ParamDef((d, f), ("embed", "mlp"), init="fan_in"),
+        "wu": ParamDef((d, f), ("embed", "mlp"), init="fan_in"),
+        "wd": ParamDef((f, d), ("mlp", "embed"), init="fan_in"),
     }
 
 
 def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    _check_ungated(cfg)
-    h = act_fn(cfg.activation)(x @ p["wi"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+    f = act_fn(cfg.activation)
+    if cfg.activation == "gelu_plain":
+        return f(x @ p["wi"].to(x.dtype)) @ p["wo"].to(x.dtype)
+    g = x @ p["wg"].to(x.dtype)
+    u = x @ p["wu"].to(x.dtype)
+    return (f(g) * u) @ p["wd"].to(x.dtype)
 
 
 def cross_attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
@@ -177,13 +203,19 @@ def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
 
 
-def _qkv(p, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor | None = None):
+    """q, k, v (B, L, heads, hd); rotary embeddings on q and k at
+    ``positions`` (B or 1, L) when given."""
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -269,11 +301,12 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, kv_mask=None):
     return out[:, :Lq0]
 
 
-def self_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool):
-    """Self-attention over a whole sequence (encoder, prefill): q, k, v and
-    the projected output. Full attention up to ``attn_chunk``, chunked past
-    it."""
-    q, k, v = _qkv(p, x, cfg)
+def self_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
+                   positions: torch.Tensor | None = None):
+    """Self-attention over a whole sequence (encoder, prefill): the
+    projected output, k and v (rotated where ``positions`` are given). Full
+    attention up to ``attn_chunk``, chunked past it."""
+    q, k, v = _qkv(p, x, cfg, positions)
     if x.shape[1] > cfg.attn_chunk:
         o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     else:
@@ -298,19 +331,22 @@ def dequant_cache_leaf(cache: dict, name: str, dtype) -> torch.Tensor:
 
 
 def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
-                     lengths: torch.Tensor | None = None):
+                     lengths: torch.Tensor | None = None, rope: bool = False):
     """Single-token decode step against a static KV cache.
 
     x: (B, 1, D); cache: {"k", "v": (B, S, KV, hd)}, with ``k_scale`` and
     ``v_scale`` (B, S, KV, 1) when it stores int8, updated in place at
     ``pos``; ``lengths`` (B,) int32 = pos + 1, made here when not given.
+    ``rope``: q and the new k rotate at position ``pos`` (jamba).
     ``cfg.attn_decode`` "fused" reads the cache through the decode-attention
     kernel (an int8 cache as codes, its scales folded into the softmax);
     "view" is the direct softmax over the whole (dequantized) cache."""
     from repro_torch.models import common
 
     B = x.shape[0]
-    q, k_new, v_new = _qkv(p, x, cfg)
+    positions = (torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+                 if rope else None)
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
     for name, fresh in (("k", k_new), ("v", v_new)):
         common.store_kv_token(cache, name, fresh, pos)
     if cfg.attn_decode == "fused":

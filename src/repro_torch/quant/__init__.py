@@ -2,15 +2,23 @@
 path (``repro.quant``).
 
   * ``qconv``: quantizers, ``QuantizedWeight`` and the plain quantized
-    sliding conv1d (the exact int32 oracle and the float32 path);
+    sliding and depthwise conv1d (the exact int32 oracles and the float32
+    paths);
   * ``calibrate``: activation statistics per conv site into a ``QuantSpec``;
   * ``apply``: int8 weight leaves swapped into model params.
 
-The int8 kernel lives with the other kernels
-(``repro_torch.kernels.sliding_conv_quant``) and is reached through
-``repro_torch.kernels.ops.conv1d(precision=...)``.
+The int8 kernels live with the other kernels
+(``repro_torch.kernels.sliding_conv_quant``) and are reached through
+``repro_torch.kernels.ops.conv1d(precision=...)`` and
+``ops.conv1d_depthwise(precision=...)``.
 """
-from repro_torch.quant.apply import CHAINS, quantize_params, quantized_site_count
+from repro_torch.quant.apply import (
+    CHAINS,
+    WEIGHT_ONLY_KEYS,
+    quantize_depthwise_weight,
+    quantize_params,
+    quantized_site_count,
+)
 from repro_torch.quant.calibrate import (
     Calibration,
     QuantSpec,
@@ -21,6 +29,7 @@ from repro_torch.quant.calibrate import (
 from repro_torch.quant.qconv import (
     QuantizedWeight,
     act_scale,
+    conv1d_depthwise_q,
     conv1d_q,
     quantize_act,
     quantize_weight,
@@ -31,12 +40,15 @@ __all__ = [
     "Calibration",
     "QuantSpec",
     "QuantizedWeight",
+    "WEIGHT_ONLY_KEYS",
     "act_scale",
     "collecting",
+    "conv1d_depthwise_q",
     "conv1d_q",
     "counting_dequants",
     "observe",
     "quantize_act",
+    "quantize_depthwise_weight",
     "quantize_params",
     "quantize_weight",
     "quantized_site_count",

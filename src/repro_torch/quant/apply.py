@@ -12,14 +12,19 @@ input scale and, for a requant-chained producer, its ``out_scale``:
     qparams = quantize_params(params, spec=calib.spec(chains=CHAINS))
     # run with cfg.replace(conv_precision="w8a8")
 
+Depthwise conv weights (``WEIGHT_ONLY_KEYS``: mamba's ``conv_w``, (…, K, C)
+with jamba's periods stacked ahead) become int8 leaves with a per-channel
+scale over the tap axis, kept as (…, 1, C); their site, named from the
+shape (``conv1d_dw|Cin..|Cout..|K..``), gives the leaf its ``x_scale`` where
+it was calibrated. They serve w8a8 through the int8 depthwise kernel when
+the config asks for it, and dequantize as weights otherwise.
+
 An unusable calibrated scale (non-finite or not positive) is screened out
 here, with a health event: a bad input scale keeps the weight float (a
 quantized call site then quantizes it at call time, with a dynamic
 activation scale), a bad ``out_scale`` breaks the chain (the producer
-dequantizes to float instead).
-
-Not ported yet: the depthwise weight-only leaves (``WEIGHT_ONLY_KEYS``,
-mamba's ``conv_w``); they come with mamba.
+dequantizes to float instead); a depthwise leaf with a bad input scale is
+quantized all the same and takes a dynamic scale at call time.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.health import HEALTH
-from repro_torch.quant.calibrate import QuantSpec
+from repro_torch.quant.calibrate import QuantSpec, conv_site
 from repro_torch.quant.qconv import QuantizedWeight, quantize_weight
 
 # params-tree key -> calibration site of the fully quantized conv sites
@@ -47,6 +52,18 @@ CHAINS = {
     "edge/c2": "edge/c3",
     "llava/patch_embed": "llava/projector",
 }
+# depthwise conv weights: int8 with per-channel scales over the tap axis
+WEIGHT_ONLY_KEYS = ("conv_w",)
+
+
+def quantize_depthwise_weight(w: torch.Tensor, x_scale=None) -> QuantizedWeight:
+    """int8 codes of a depthwise (…, K, C) weight: the scale is per channel
+    over the tap axis, kept as (…, 1, C) so ``q * scale`` broadcasts under
+    any stacking ahead of K."""
+    wf = w.float()
+    s = wf.abs().amax(dim=-2, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return QuantizedWeight(q, s, x_scale)
 
 
 def scale_reason(s) -> str | None:
@@ -95,6 +112,19 @@ def quantize_params(params: Any, spec: QuantSpec | None = None) -> Any:
                 out[key] = quantize_weight(
                     val, None if x_scale is None else x_scale.to(dev),
                     None if out_scale is None else out_scale.to(dev))
+            elif key in WEIGHT_ONLY_KEYS:
+                c, k = val.shape[-1], val.shape[-2]
+                dw_site = conv_site("conv1d_dw", c, c, k)
+                x_scale = spec.get(dw_site, {}).get("x_scale")
+                bad = scale_reason(x_scale)
+                if bad is not None:
+                    HEALTH.record(dw_site, bad, "fallback:dynamic_scale")
+                    x_scale = None
+                if x_scale is not None:
+                    # one scale per stacked layer, as every leaf of the
+                    # stack has the layer axis
+                    x_scale = x_scale.to(val.device).expand(val.shape[:-2])
+                out[key] = quantize_depthwise_weight(val, x_scale)
             else:
                 out[key] = val
         return out

@@ -17,8 +17,14 @@
     in float32, exact only while |acc| < 2**24 (the layers' path off the
     kernel backend, as in the reference).
 
-Not ported yet: ``conv2d_q``, ``conv1d_depthwise_q`` and
-``conv2d_q_im2col``; they come with their kernels.
+  * ``conv1d_depthwise_q``: the quantized depthwise conv1d (mamba's conv)
+    in plain torch, the weight scale per channel over the tap axis.
+    ``accumulate="int32"`` sums the int8 products exactly in int32 (on the
+    card too: elementwise products need no matrix unit); ``"fast"`` in
+    float32. It is the plain version of the int8 depthwise kernel.
+
+Not ported yet: ``conv2d_q`` and ``conv2d_q_im2col``; they come with their
+kernels.
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ class QuantizedWeight(NamedTuple):
     scale: torch.Tensor
     x_scale: torch.Tensor | None = None
     out_scale: torch.Tensor | None = None
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        return (self.q.float() * self.scale).to(dtype)
 
     def to(self, *args, **kw) -> "QuantizedWeight":
         """Every tensor field moved by ``Tensor.to(*args, **kw)``, dtypes
@@ -137,6 +146,58 @@ def conv1d_q(
     acc = None
     for k in range(K):
         t = xm[:, k : k + span : stride] @ wm[k]
+        acc = t if acc is None else acc + t
+    if out_scale is not None:
+        out_scale = _as_scale(out_scale, x.device)
+    return _epilogue(acc.float() * dq, bias, activation, out_scale, out_dtype)
+
+
+def conv1d_depthwise_q(
+    x: torch.Tensor,
+    qw: QuantizedWeight,
+    bias: torch.Tensor | None = None,
+    *,
+    mode: str = "w8a8",
+    x_scale=None,
+    out_scale=None,
+    stride: int = 1,
+    padding="CAUSAL",
+    activation: str = "none",
+    accumulate: str = "int32",
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """Quantized depthwise sliding conv1d. x: (B, L, C) float (or int8 codes
+    in w8a8, with ``x_scale``); qw.q: (K, C) with its per-channel scale
+    over the tap axis, (1, C) or (C,) (``apply.quantize_depthwise_weight``).
+    One shifted elementwise product per tap, summed in tap order: int32
+    when exact, else float32."""
+    K = qw.q.shape[0]
+    lo, hi = _resolve_pad_1d(padding, K, 1)
+    if lo or hi:
+        x = F.pad(x, (0, 0, lo, hi))
+    wsc = qw.scale.float().reshape(1, -1)
+    if mode == "w8a8":
+        if x.dtype != torch.int8:
+            if x_scale is None:
+                x_scale = qw.x_scale if qw.x_scale is not None else act_scale(x)
+            x = quantize_act(x, x_scale)
+        elif x_scale is None:
+            raise ValueError("int8 input needs its x_scale")
+        dq = wsc * _as_scale(x_scale, x.device)
+    elif mode == "w8a16":
+        dq = wsc
+    else:
+        raise ValueError(f"unknown quant mode {mode!r}")
+    adt = torch.int32 if mode == "w8a8" and accumulate == "int32" else torch.float32
+    xm, wm = x.to(adt), qw.q.to(adt)
+    out_len = (x.shape[1] - K) // stride + 1
+    if out_len < 1:
+        raise ValueError(f"filter K={K} (stride {stride}) exceeds input "
+                         f"length {x.shape[1]}")
+    span = (out_len - 1) * stride + 1
+    acc = None
+    for k in range(K):
+        t = xm[:, k : k + span : stride] * wm[k]
         acc = t if acc is None else acc + t
     if out_scale is not None:
         out_scale = _as_scale(out_scale, x.device)

@@ -61,3 +61,14 @@ def test_int8_slice_modules_are_checked():
                 "quant/qconv.py", "quant/calibrate.py", "quant/apply.py",
                 "kernels/sliding_conv_quant.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_jamba_slice_modules_are_checked():
+    """The jamba serving slice's modules are among the files checked
+    above."""
+    checked = set(_port_files())
+    for rel in ("configs/jamba_1_5_large_398b.py", "models/mamba.py",
+                "models/moe.py", "models/jamba.py", "core/conv.py",
+                "kernels/sliding_conv1d.py", "kernels/sliding_conv_quant.py",
+                "kernels/autotune.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
