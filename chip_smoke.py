@@ -100,7 +100,28 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      for int8, which no PyTorch call computes, the codes widened to bf16
      ahead, then ``F.conv1d(groups=C)`` and the epilogue in torch) and the
      bound; the attention kernels at G=8, D=128 beside their plain versions
-     and SDPA (``enable_gqa``).
+     and SDPA (``enable_gqa``);
+ 20. depthwise training kernels vs plain: the depthwise dw kernel at a
+     full-width jamba training step's shape (x (2, 515, 16384), dz (2, 512,
+     16384), K 4, with db, float32 and bfloat16) and at edge shapes (K in
+     {1, 2, 3, 4, 5}, stride 1 and 2, C 37, 600 and 16384, ragged Lout
+     and Lout shorter than a tile, bias or none, an unaligned base,
+     float32 and bfloat16); the forward kernel's saved pre-activation z;
+     the whole ``Conv1dDepthwise`` on the card against the same Function
+     on the plain versions, grads of x, w and bias under one cotangent;
+ 21. jamba smoke train, card vs CPU: jamba's smoke config (float32) with
+     int8 moments, one set of weights rescaled to std 1/sqrt(input width),
+     4 steps through the depthwise kernels, the losses held to a CPU
+     control as in phase 8, launches per step checked;
+ 22. full-width jamba train: phase 18's cut (8,999,034,880 params, bf16),
+     int8 moments, remat per position, B=2, 512 tokens, 6 steps, on the
+     reference's init rescaled to std 1/sqrt(input width): finite losses,
+     a nonzero conv_w gradient in each of the 7 Mamba blocks, conv_w
+     moved, launches per step checked (21 forward depthwise, 7 dw); step
+     ms, tokens/s, peak memory, busy share and top kernels;
+ 23. jamba training times: the dw kernel at the training shape beside its
+     plain version, ``torch.nn.grad.conv1d_weight(groups=C)`` and the
+     bound; the forward depthwise kernel there with z written and without.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -480,7 +501,7 @@ def plain_kernels():
     from repro_torch.kernels import sliding_conv_quant as sq
 
     saved = (sc._launch, ad._launch, sb._launch, sq._launch,
-             sc._launch_depthwise, sq._launch_depthwise)
+             sc._launch_depthwise, sq._launch_depthwise, sb._launch_depthwise)
     sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
         sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
@@ -491,8 +512,12 @@ def plain_kernels():
         sq.conv1d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
                               mode=mode, stride=stride, activation=act,
                               out_dtype=odt))
-    sc._launch_depthwise = lambda x, w, b, stride, act, _n: (
-        sc.conv1d_depthwise_plain(x, w, b, stride=stride, activation=act))
+    sc._launch_depthwise = lambda x, w, b, stride, act, _n, save_preact=False: (
+        sc.conv1d_depthwise_plain(x, w, b, stride=stride, activation=act,
+                                  save_preact=save_preact))
+    sb._launch_depthwise = lambda x, dz, K, stride, has_bias: (
+        sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, stride=stride,
+                                         has_bias=has_bias))
     sq._launch_depthwise = (
         lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n:
         sq.conv1d_depthwise_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
@@ -502,7 +527,8 @@ def plain_kernels():
         yield
     finally:
         (sc._launch, ad._launch, sb._launch, sq._launch,
-         sc._launch_depthwise, sq._launch_depthwise) = saved
+         sc._launch_depthwise, sq._launch_depthwise,
+         sb._launch_depthwise) = saved
 
 
 def _counters() -> dict:
@@ -519,7 +545,8 @@ def _counters() -> dict:
             "sliding_conv_quant": (sq.conv1d_quant, "launches"),
             "attention_decode_int8": (ad.decode_attention, "launches_int8"),
             "conv1d_depthwise": (sc.conv1d_depthwise, "launches"),
-            "conv1d_depthwise_quant": (sq.conv1d_depthwise_quant, "launches")}
+            "conv1d_depthwise_quant": (sq.conv1d_depthwise_quant, "launches"),
+            "conv1d_depthwise_bwd_dw": (sb.conv1d_depthwise_bwd_dw, "launches")}
 
 
 def zero_launches() -> None:
@@ -667,10 +694,13 @@ TRAIN = dict(B=4, seq=512, steps=10, warmup=2)  # full-width train run
 SMOKE_TRAIN = dict(B=2, seq=64, steps=4)
 
 
-def dw_inputs(seed, B, L, Cin, Cout, K, stride, dtype):
+def dw_inputs(seed, B, L, Cin, Cout, K, stride, dtype, offset=0):
+    """x (B, L, Cin) and dz (B, Lout, Cout); ``offset`` elements into x's
+    buffer, so that its base is not 16-byte aligned."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     lout = (L - K) // stride + 1
-    x = torch.randn((B, L, Cin), generator=g, device=DEV).to(dtype)
+    buf = torch.randn((B * L * Cin + offset,), generator=g, device=DEV)
+    x = buf.to(dtype)[offset:].view(B, L, Cin)
     dz = torch.randn((B, lout, Cout), generator=g, device=DEV).to(dtype)
     return x, dz
 
@@ -760,8 +790,9 @@ def phase_train_kernels(sc, sb, ops) -> float:
 
 
 def train_batches(cfg, B, seq, steps, seed, device, train):
-    """The train loop's inputs for steps 0 .. steps-1: the token stream and
-    the per-step mel frames (``repro_torch.launch.train``)."""
+    """The train loop's inputs for steps 0 .. steps-1: the token stream
+    and, for the audio family, the per-step mel frames
+    (``repro_torch.launch.train``)."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.models.whisper import N_MELS
 
@@ -771,9 +802,10 @@ def train_batches(cfg, B, seq, steps, seed, device, train):
     for step in range(steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch_at(step).items()}
-        rng = train.step_stream(seed, step, train._TAG_FRAMES)
-        batch["frames"] = torch.from_numpy(rng.normal(
-            size=(B, seq, N_MELS)).astype(np.float32)).to(device)
+        if cfg.family == "audio":
+            rng = train.step_stream(seed, step, train._TAG_FRAMES)
+            batch["frames"] = torch.from_numpy(rng.normal(
+                size=(B, seq, N_MELS)).astype(np.float32)).to(device)
         out.append(batch)
     return out
 
@@ -796,7 +828,9 @@ def phase_smoke_train(models, configs, optim, steps_mod, train, map_tree):
                               ("control", "cpu", "xla")):
         cfg = base.replace(conv_backend=backend)
         model = models.build_model(cfg)
-        params = map_tree(lambda t: t.to(dev), cpu_params)
+        # a copy: the step updates the params in place, and the control
+        # starts from the same weights
+        params = map_tree(lambda t: t.to(dev, copy=True), cpu_params)
         state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
         step_fn = steps_mod.make_train_step(model, opt_cfg)
         losses[run] = []
@@ -1894,6 +1928,354 @@ def phase_jamba_times(sc, sq, ad, launches, errs) -> tuple[list, dict]:
     return rows, attn
 
 
+# ---------------------------------------------------------------------------
+# jamba training
+# ---------------------------------------------------------------------------
+
+# mamba's conv in a full-width training step: B=2, 512 tokens and K-1=3 rows
+# of CAUSAL padding, d_inner 16384, K 4, bf16
+DEPTHWISE_TRAIN = dict(B=2, L=515, C=16384, K=4, stride=1)
+# the full-width run: phase 18's cut, B=2, 512 tokens (two SSM chunks of
+# 256, so the carried state is exercised), 6 steps, 2 of them warm-up
+JAMBA_TRAIN = dict(B=2, seq=512, steps=6, warmup=2)
+MAMBA_POS = (0, 1, 2, 3, 5, 6, 7)  # the Mamba positions of a period
+
+
+def rescale_fan_in(params, defs, iter_leaves) -> None:
+    """Divide every period-stacked fan-in weight by sqrt of its input width
+    (experts and the attention output projection contract more), in place:
+    a well-conditioned model from the reference's init, whose fan-in quirk
+    draws these with std 1 when a model has one period (ROADMAP Queue 3).
+    No package's init changes."""
+    want = dict(iter_leaves(defs))
+    for path, t in iter_leaves(params):
+        d, parts = want[path], path.split("/")
+        if parts[0] != "periods" or d.init != "fan_in":
+            continue
+        fan = (d.shape[2] if "moe" in parts else
+               d.shape[1] * d.shape[2] if parts[-1] == "wo" else d.shape[1])
+        t.div_(fan ** 0.5)
+
+
+def phase_depthwise_train_kernels(sc, sb, ops) -> float:
+    """The depthwise dw kernel, the forward kernel's saved pre-activation
+    and the whole ``Conv1dDepthwise`` against their plain versions; returns
+    the dw kernel's max |err| at the full-width training shape."""
+    s = DEPTHWISE_TRAIN
+    err_main = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dz = dw_inputs(80, s["B"], s["L"], s["C"], s["C"], s["K"],
+                          s["stride"], dtype)
+        got = sb.conv1d_depthwise_bwd_dw(x, dz, s["K"], has_bias=True)
+        want = sb.conv1d_depthwise_bwd_dw_plain(x, dz, s["K"], has_bias=True)
+        what = f"depthwise dw main {s} {dtype}"
+        err = max(close(got[0], want[0], TOL, what, scaled=True),
+                  close(got[1], want[1], TOL, what + " db", scaled=True))
+        err_main = max(err_main, err)
+        log(f"{what}: max|err| {err:.3e} (of max |dw| "
+            f"{want[0].abs().max().item():.1f})")
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (K, stride, (C, L)) in enumerate(itertools.product(
+                (1, 2, 3, 4, 5), (1, 2), ((37, 203), (600, 9), (16384, 45)))):
+            with_bias = i % 2 == 0
+            x, dz = dw_inputs(i, 3, L, C, C, K, stride, dtype, offset=i % 3)
+            what = (f"depthwise dw edge K={K} s={stride} C={C} L={L} "
+                    f"bias={with_bias} offset={i % 3} {dtype}")
+            got = sb.conv1d_depthwise_bwd_dw(x, dz, K, stride=stride,
+                                             has_bias=with_bias)
+            want = sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, stride=stride,
+                                                    has_bias=with_bias)
+            close(got[0], want[0], TOL, what, scaled=True)
+            if with_bias:
+                close(got[1], want[1], TOL, what + " db", scaled=True)
+            elif got[1] is not None:
+                raise AssertionError(f"{what}: db without a bias")
+            n += 1
+    log(f"depthwise dw edge shapes: {n} cases within tolerance")
+
+    # the forward kernel's saved pre-activation: y as without it, z the
+    # post-bias sum (the plain version's bits in float32)
+    x, w, b = depthwise_inputs(81, s["B"], s["L"], s["C"], s["K"],
+                               torch.bfloat16)
+    y, z = sc.conv1d_depthwise(x, w, b, activation="silu", save_preact=True)
+    py, pz = sc.conv1d_depthwise_plain(x, w, b, activation="silu",
+                                       save_preact=True)
+    err = max(dw_check(y, py, "save_preact y main"),
+              dw_check(z, pz, "save_preact z main"))
+    if not torch.equal(y, sc.conv1d_depthwise(x, w, b, activation="silu")):
+        raise AssertionError("save_preact changes y")
+    log(f"depthwise save_preact {s} bf16 silu: y and z max|err| {err:.3e}")
+    for i, (dtype, K, stride, act) in enumerate(itertools.product(
+            (torch.float32, torch.bfloat16), (2, 4, 5), (1, 2),
+            ("silu", "gelu"))):
+        x, w, b = depthwise_inputs(90 + i, 3, 203, 600 if i % 2 else 37, K,
+                                   dtype, offset=i % 3)
+        args = dict(stride=stride, activation=act, save_preact=True)
+        what = f"depthwise save_preact edge K={K} s={stride} {act} {dtype}"
+        y, z = sc.conv1d_depthwise(x, w, b, **args)
+        py, pz = sc.conv1d_depthwise_plain(x, w, b, **args)
+        dw_check(y, py, what + " y")
+        dw_check(z, pz, what + " z")
+    log("depthwise save_preact edge shapes within tolerance")
+
+    # the whole autograd Function at the training shape, one cotangent
+    B, C, K = s["B"], s["C"], s["K"]
+    Lx = s["L"] - (K - 1)  # the unpadded input: CAUSAL padding adds K-1
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=DEV).manual_seed(82)
+        x = torch.randn((B, Lx, C), generator=g, device=DEV).to(dtype)
+        leaves = [x, (torch.randn((K, C), generator=g, device=DEV)
+                      / K ** 0.5).to(dtype),
+                  (torch.randn((C,), generator=g, device=DEV) * 0.1).to(dtype)]
+        ct = torch.randn((B, Lx, C), generator=g, device=DEV).to(dtype)
+
+        def conv_grads():
+            xg, wg, bg = (t.detach().requires_grad_(True) for t in leaves)
+            y = ops.conv1d_depthwise(xg, wg, bias=bg, activation="silu")
+            return torch.autograd.grad((y.float() * ct.float()).sum(),
+                                       (xg, wg, bg))
+
+        zero_launches()
+        got = conv_grads()
+        launches = read_launches()
+        with plain_kernels():
+            want = conv_grads()
+        if launches != only(conv1d_depthwise=2, conv1d_depthwise_bwd_dw=1):
+            raise AssertionError(f"depthwise autograd launches {launches}")
+        for name, a, b_ in zip(("dx", "dw", "db"), got, want):
+            what = f"Conv1dDepthwise {name} {dtype}"
+            err = (close(a, b_, TOL, what, scaled=True)
+                   if dtype == torch.float32 else bf16_close(a, b_, what))
+            log(f"Conv1dDepthwise (B={B}, L={Lx}, C={C}, K={K}) {dtype} silu, "
+                f"kernels vs plain: {name} max|err| {err:.3e} (of max "
+                f"{b_.float().abs().max().item():.2f})")
+    torch.cuda.synchronize()
+    return err_main
+
+
+def phase_smoke_train_jamba(models, configs, optim, steps_mod, train,
+                            map_tree, iter_leaves):
+    """jamba's smoke config (float32, 4 experts) with int8 moments, as
+    jamba's own config keeps them: one set of weights trained 4 steps
+    through the depthwise kernels on the card and through their plain
+    versions on the CPU, the same token batches. At the reference's init
+    this model's gradients are chaotic (on the CPU, summing the convs in
+    another order moves the loss by up to 5e-3 within 4 steps), so the
+    weights are rescaled to std 1/sqrt(input width) first
+    (``rescale_fan_in``); the control is the CPU run with the convs summed
+    in another order (``xla``), and the card is held to three times the
+    control's difference or 1e-4, the larger, as in phase 8."""
+    base = configs.smoke_config(configs.get_config(JAMBA)).replace(grad_accum=1)
+    B, seq, n = SMOKE_TRAIN["B"], SMOKE_TRAIN["seq"], SMOKE_TRAIN["steps"]
+    opt_cfg = optim.OptConfig(total_steps=n, warmup_steps=5,
+                              state_dtype="int8")
+    model = models.build_model(base)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    rescale_fan_in(cpu_params, model.param_defs(), iter_leaves)
+    losses, moved = {}, {}
+    for run, dev, backend in (("card", DEV, "sliding_pallas"),
+                              ("cpu", "cpu", "sliding_pallas"),
+                              ("control", "cpu", "xla")):
+        cfg = base.replace(conv_backend=backend)
+        m = models.build_model(cfg)
+        params = map_tree(lambda t: t.to(dev, copy=True), cpu_params)
+        state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+        step_fn = steps_mod.make_train_step(m, opt_cfg)
+        batches = train_batches(cfg, B, seq, n, 0, dev, train)
+        zero_launches()
+        losses[run] = []
+        for batch in batches:
+            state, metrics = step_fn(state, batch)
+            losses[run].append(float(metrics["loss"]))
+        if run == "card":
+            launches = read_launches()
+            want = only(conv1d_depthwise=21 * n, conv1d_depthwise_bwd_dw=7 * n)
+            if launches != want:
+                raise AssertionError(f"jamba smoke train launches {launches}, "
+                                     f"expected {want}")
+            moved = {j: (params["periods"][f"pos{j}"]["mamba"]["conv_w"].cpu()
+                         - cpu_params["periods"][f"pos{j}"]["mamba"]["conv_w"]
+                         ).abs().max().item() for j in MAMBA_POS}
+    card, cpu, ctrl = (np.array(losses[k]) for k in ("card", "cpu", "control"))
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    rel_ctrl = np.abs(ctrl - cpu) / np.abs(cpu)
+    allowed = np.maximum(1e-4, 3 * rel_ctrl)
+    if not (np.isfinite(card).all() and (rel <= allowed).all()):
+        raise AssertionError(f"jamba smoke train losses card {card} vs CPU "
+                             f"{cpu} (control {ctrl})")
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"jamba smoke conv_w did not move: {moved}")
+    log(f"jamba smoke train {SMOKE_TRAIN} (weights rescaled to std "
+        f"1/sqrt(input width), int8 moments): losses card {card.tolist()} vs "
+        f"CPU {cpu.tolist()}: rel diff {rel.tolist()}; control (CPU, xla "
+        f"convs) rel diff {rel_ctrl.tolist()}; card launches per step "
+        f"{{conv1d_depthwise: 21, conv1d_depthwise_bwd_dw: 7}}")
+
+
+def phase_full_train_jamba(models, configs, optim, steps_mod, train,
+                           iter_leaves) -> dict:
+    """jamba-1.5-large at full width, phase 18's cut (one period, no
+    experts, every width published), bf16 params, int8 moments, remat per
+    position, B=2, 512 tokens, 6 steps, on the reference's init rescaled to
+    std 1/sqrt(input width) (at the init itself the model collapses after
+    layer 0 and six of the seven Mamba blocks would see zero gradient)."""
+    cfg = configs.get_config(JAMBA).replace(
+        **JAMBA_CUT, conv_backend="sliding_pallas", grad_accum=1)
+    model = models.build_model(cfg)
+    B, seq, n, warm = (JAMBA_TRAIN[k] for k in ("B", "seq", "steps", "warmup"))
+    opt_cfg = optim.OptConfig(total_steps=n, warmup_steps=max(n // 20, 5),
+                              state_dtype=cfg.opt_state_dtype)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    if n_params != JAMBA_PARAMS:
+        raise AssertionError(f"{n_params} params, expected {JAMBA_PARAMS}")
+    log(f"full-width train {cfg.name} cut to {JAMBA_CUT} (one period, no "
+        f"experts, every width published): {n_params} params "
+        f"({cfg.param_dtype}), {cfg.opt_state_dtype} moments, remat "
+        f"{cfg.remat}; the reference's init rescaled to std 1/sqrt(input "
+        f"width); set-up {time.perf_counter() - t0:.2f}s")
+    conv0 = {j: params["periods"][f"pos{j}"]["mamba"]["conv_w"].clone()
+             for j in MAMBA_POS}
+    step_fn = steps_mod.make_train_step(model, opt_cfg)
+    batches = train_batches(cfg, B, seq, n, 0, DEV, train)
+    # every Mamba block's conv weight gets a gradient (before any update)
+    loss0, grads = steps_mod.loss_and_grads(model, params, batches[0])
+    conv_g = {j: grads["periods"][f"pos{j}"]["mamba"]["conv_w"].float().abs()
+              .max().item() for j in MAMBA_POS}
+    del grads
+    if not (all(g > 0 and np.isfinite(g) for g in conv_g.values())
+            and np.isfinite(float(loss0))):
+        raise AssertionError(f"conv_w grads {conv_g}, loss {float(loss0)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    want = only(conv1d_depthwise=21 * n, conv1d_depthwise_bwd_dw=7 * n)
+    if launches != want:
+        raise AssertionError(f"jamba train launch counts {launches}, "
+                             f"expected {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite jamba train loss: {losses}")
+    moved = {j: (params["periods"][f"pos{j}"]["mamba"]["conv_w"].float()
+                 - conv0[j].float()).abs().max().item() for j in MAMBA_POS}
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"conv_w did not move: {moved}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(times[warm:]) * 1e3
+
+    def one_step():
+        with torch.enable_grad():
+            step_fn(state, batches[0])
+
+    prof = profile_busy(one_step, reps=1)
+    # where a step's time goes: forward + backward, then the update
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = steps_mod.loss_and_grads(model, params, batches[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    optim.apply_updates(params, grads, state["opt"], opt_cfg)
+    torch.cuda.synchronize()
+    fwd_bwd_ms, update_ms = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    del grads
+    res = dict(losses=losses, step_ms=step_ms, fwd_bwd_ms=fwd_bwd_ms,
+               update_ms=update_ms, step_ms_all=[t * 1e3 for t in times],
+               tok_per_s=B * seq / (step_ms / 1e3), peak_mem_gb=peak,
+               launches=launches,
+               launches_per_step={k: v // n for k, v in launches.items()},
+               busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+               profiled_wall_ms=prof["wall_ms"],
+               kernels_per_step=prof["kernels"], top=prof["top"],
+               conv_w_grad_absmax=conv_g, conv_w_moved=moved,
+               n_params=n_params)
+    log(f"full-width jamba train B={B} seq={seq}: losses "
+        f"{[round(x, 4) for x in losses]}; conv_w max |grad| per Mamba "
+        f"block {[f'{g:.3e}' for g in conv_g.values()]}")
+    log(f"full-width jamba train: step {step_ms:.1f} ms (median of "
+        f"{n - warm} after {warm} warm-up), {res['tok_per_s']:.0f} tokens/s, "
+        f"peak mem {peak:.2f} GB, launches per step "
+        f"{res['launches_per_step']}, conv_w moved "
+        f"{[f'{m:.3e}' for m in moved.values()]}")
+    log(f"profile jamba train step: wall {prof['wall_ms']:.1f} ms, card busy "
+        f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%), "
+        f"{prof['kernels']} kernels; top: {prof['top']}; apart: forward + "
+        f"backward {fwd_bwd_ms:.1f} ms, AdamW update (int8 moments, in "
+        f"place) {update_ms:.1f} ms")
+    return res
+
+
+def phase_depthwise_train_times(sc, sb, launches, err) -> tuple[dict, dict]:
+    """The depthwise dw kernel at the full-width training shape beside its
+    plain version, ``torch.nn.grad.conv1d_weight(groups=C)`` (cuDNN, dw
+    only) and the bound; the forward depthwise kernel at the training
+    shape with z written and without. Returns the dw kernel's row and the
+    forward kernel's two times."""
+    s = DEPTHWISE_TRAIN
+    B, L, C, K = s["B"], s["L"], s["C"], s["K"]
+    lout = L - K + 1
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")
+    sets = []
+    for i in range(2):  # 2 inputs of 67 MB: > 50 MB
+        x, dz = dw_inputs(83 + i, B, L, C, C, K, 1, torch.bfloat16)
+        # the library's layouts, (B, C, L), made ahead
+        sets.append((x, dz, x.transpose(1, 2).contiguous(),
+                     dz.transpose(1, 2).contiguous()))
+
+    def library(x, dz, x_lib, dz_lib):
+        return torch.nn.grad.conv1d_weight(x_lib, (C, 1, K), dz_lib, groups=C)
+
+    x, dz, *_ = sets[0]
+    want = sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, has_bias=True)
+    close(library(*sets[0]).reshape(C, K).t(), want[0], BTOL,
+          "library depthwise dw", scaled=True)
+    nbytes = 2 * (B * L * C + B * lout * C) + 4 * (K * C + C)
+    ops = 2 * K * B * lout * C + B * lout * C
+    bms, by = bound_ms(nbytes, ops, torch.bfloat16)
+    t = dict(timings(
+        cycling(lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw(
+            x, dz, K, has_bias=True), sets),
+        cycling(lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw_plain(
+            x, dz, K, has_bias=True), sets),
+        cycling(library, sets)), bound_ms=bms, bound_by=by, bytes=nbytes,
+        ops=ops)
+    log(f"time depthwise dw {s} bf16 with db: {json.dumps(t)}")
+    del sets
+
+    sets = [depthwise_inputs(86 + i, B, L, C, K, torch.bfloat16)
+            for i in range(3)]  # 3 inputs of 34 MB: > 50 MB
+    fwd = {}
+    for name, z in (("no_z_ms", False), ("z_ms", True), ("no_z_ms_again", False),
+                    ("z_ms_again", True)):
+        fwd[name] = card_ms(cycling(
+            lambda x, w, b, z=z: sc.conv1d_depthwise(
+                x, w, b, activation="silu", save_preact=z), sets))
+    fwd["per"] = f"launch: B={B} L={L} C={C} K={K} bf16 silu, training shape"
+    log(f"time depthwise forward at the training shape, z written or not "
+        f"(in turns): {json.dumps(fwd)}")
+    row = dict(name="conv1d_depthwise_bwd_dw", route="cuda",
+               source="src/repro_torch/kernels/csrc/conv1d_depthwise_bwd.cu",
+               replaces="src/repro/kernels/sliding_conv_bwd.py:336",
+               launches=launches["conv1d_depthwise_bwd_dw"], max_abs_err=err,
+               per=f"launch: mamba conv dw+db in a jamba train step, x "
+                   f"({B}, {L}, {C}), dz ({B}, {lout}, {C}), K={K}, bf16; "
+                   f"library: torch.nn.grad.conv1d_weight(groups=C), dw only",
+               **{k: t[k] for k in keys + ("bound_by",)})
+    return row, fwd
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -1954,6 +2336,14 @@ def main() -> int:
     jamba = phase_full_serve_jamba(serve, models, configs)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 20-22: jamba training ------------------------------------------------------
+    errs["conv1d_depthwise_bwd_dw"] = phase_depthwise_train_kernels(sc, sb, ops)
+    phase_smoke_train_jamba(models, configs, optim, steps_mod, train,
+                            map_tree, iter_leaves)
+    jamba_train = phase_full_train_jamba(models, configs, optim, steps_mod,
+                                         train, iter_leaves)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -1962,7 +2352,8 @@ def main() -> int:
     by_path = {"serve": full["launches"], "train": trained["launches"],
                "serve_int8": with_calibration(full_int8),
                "serve_jamba": jamba["fp"]["launches"],
-               "serve_jamba_int8": with_calibration(jamba["int8"])}
+               "serve_jamba_int8": with_calibration(jamba["int8"]),
+               "train_jamba": jamba_train["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -1971,15 +2362,22 @@ def main() -> int:
     # -- 19: jamba times ----------------------------------------------------------
     dw_rows, attn_jamba = phase_jamba_times(sc, sq, ad, launches, errs)
     kernels += dw_rows
+    # -- 23: jamba training times ----------------------------------------------------
+    dw_train, fwd_z = phase_depthwise_train_times(
+        sc, sb, launches, errs["conv1d_depthwise_bwd_dw"])
+    kernels.append(dw_train)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
             row["jamba_shape"] = dict(
                 attn_jamba[row["name"]],
                 max_abs_err=errs[row["name"] + "_jamba"])
+        if row["name"] == "conv1d_depthwise":
+            row["train_shape"] = fwd_z
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
-                      "serve_int8": full_int8, "serve_jamba": jamba}),
+                      "serve_int8": full_int8, "serve_jamba": jamba,
+                      "train_jamba": jamba_train}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

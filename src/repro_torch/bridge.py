@@ -12,7 +12,8 @@ numpy arrays, ``None`` where a scale is absent) become this package's
 jamba's period-stacked depthwise ``conv_w`` leaves.
 
 ``state_from_step_dir`` loads a ``CheckpointManager`` step directory,
-written by either package, onto the port's parameter and optimizer trees.
+written by either package, onto the port's parameter and optimizer trees,
+int8 moments included.
 """
 from __future__ import annotations
 
@@ -78,7 +79,26 @@ def _quantized_leaf(a: Any, device) -> QuantizedWeight:
 
 
 def _leaf_shape(a: Any) -> tuple:
-    return tuple(np.shape(a.q if _is_quantized(a) else a))
+    if _is_quantized(a) or isinstance(a, tuple):  # quantized weight, moment
+        a = a[0]
+    return tuple(np.shape(a))
+
+
+def _check_defs(tree: Any, defs: Any) -> None:
+    """Raise unless ``tree`` has the paths of ``defs`` and every leaf's
+    shape (a quantized leaf's or an int8 moment's codes) is its def's."""
+    want = {p: d.shape for p, d in iter_leaves(defs)
+            if isinstance(d, ParamDef)}
+    got = {p: _leaf_shape(a) for p, a in iter_leaves(tree)}
+    if want != got:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        wrong = sorted(p for p in set(want) & set(got) if want[p] != got[p])
+        raise ValueError(
+            f"param tree does not match the model's defs: missing "
+            f"{missing}, unexpected {extra}, shape mismatch "
+            f"{[(p, got[p], want[p]) for p in wrong]}"
+        )
 
 
 def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
@@ -88,18 +108,7 @@ def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
     ``defs`` (the model's ``param_defs()``), the paths and every leaf's
     shape (a quantized leaf's codes) must match them."""
     if defs is not None:
-        want = {p: d.shape for p, d in iter_leaves(defs)
-                if isinstance(d, ParamDef)}
-        got = {p: _leaf_shape(a) for p, a in iter_leaves(tree)}
-        if want != got:
-            missing = sorted(set(want) - set(got))
-            extra = sorted(set(got) - set(want))
-            wrong = sorted(p for p in set(want) & set(got) if want[p] != got[p])
-            raise ValueError(
-                f"param tree does not match the model's defs: missing "
-                f"{missing}, unexpected {extra}, shape mismatch "
-                f"{[(p, got[p], want[p]) for p in wrong]}"
-            )
+        _check_defs(tree, defs)
 
     def walk(t):
         if isinstance(t, dict):
@@ -111,11 +120,29 @@ def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
     return walk(tree)
 
 
+def _moments(tree: Any, device) -> Any:
+    """A moment tree read back from a step dir, on ``device``. An int8
+    moment is saved as its (codes, scales) pair, the leaves ``<path>.0``
+    and ``<path>.1``; it comes back as that tuple, its types and the scales'
+    shape (one per last-axis row) checked."""
+    if isinstance(tree, dict) and set(tree) == {"0", "1"}:
+        q, s = (_to_tensor(tree[i], device, None) for i in ("0", "1"))
+        if (q.dtype != torch.int8 or s.dtype != torch.float32
+                or s.shape != (*q.shape[:-1], 1)):
+            raise ValueError(f"int8 moment {q.dtype} {tuple(q.shape)} with "
+                             f"scales {s.dtype} {tuple(s.shape)}")
+        return q, s
+    if isinstance(tree, dict):
+        return {k: _moments(v, device) for k, v in tree.items()}
+    return _to_tensor(tree, device, None)
+
+
 def state_from_step_dir(step_dir: str | Path, defs: Any, device) -> dict:
     """A ``step_N/`` checkpoint directory → ``{"params": tree, "opt": {"m":
     tree, "v": tree, "count": tensor}}`` on ``device`` (``"opt"`` only when
-    the checkpoint holds one). ``defs`` is the model's ``param_defs()``:
-    the parameters and both moments must have its paths and shapes."""
+    the checkpoint holds one; int8 moments as (codes, scales) pairs).
+    ``defs`` is the model's ``param_defs()``: the parameters and both
+    moments must have its paths and shapes."""
     d = Path(step_dir)
     manifest = json.loads((d / "manifest.json").read_text())
     tree: dict = {}
@@ -130,7 +157,8 @@ def state_from_step_dir(step_dir: str | Path, defs: Any, device) -> dict:
     out = {"params": params_from_numpy(tree["params"], device, defs=defs)}
     if "opt" in tree:
         opt = tree["opt"]
-        out["opt"] = {m: params_from_numpy(opt[m], device, defs=defs)
-                      for m in ("m", "v")}
+        out["opt"] = {m: _moments(opt[m], device) for m in ("m", "v")}
+        for m in ("m", "v"):
+            _check_defs(out["opt"][m], defs)
         out["opt"]["count"] = opt["count"].to(device)
     return out

@@ -3,7 +3,10 @@
 The format of ``repro.checkpoint.manager``, so either package restores the
 other's checkpoints: a ``step_N/`` directory with one ``.npy`` per leaf of
 the flattened state (keys joined by ".", the file named after the key) and
-a ``manifest.json`` of per-leaf file, shape, dtype and byte count.
+a ``manifest.json`` of per-leaf file, shape, dtype and byte count. A
+tuple in the state, such as an int8 moment's (codes, scales) pair, is
+flattened by position (``opt.m.<path>.0`` and ``.1``), as the reference's
+manager flattens it.
 
   * **atomic**: written to ``step_N.tmp/`` and renamed to ``step_N/`` once
     every leaf and the manifest are on disk;
@@ -65,9 +68,10 @@ def _unflatten_into(skeleton: Any, flat: dict[str, Any], prefix: str = ""):
 
 
 def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """(host array to write, manifest dtype name). bfloat16 goes out as its
-    bits in a 2-byte void array, as the reference writes it."""
-    t = t.detach().cpu()
+    """(host array to write, manifest dtype name): a copy, since training
+    updates the state in place while an async save writes. bfloat16 goes
+    out as its bits in a 2-byte void array, as the reference writes it."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2"), _BF16
     a = t.numpy()

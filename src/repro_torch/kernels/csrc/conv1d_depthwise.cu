@@ -13,7 +13,10 @@
 // and the sum are float32, taken tap by tap in order k = 0 .. K-1 with
 // IEEE round-to-nearest multiplies and adds (no FMA contraction), the
 // order and rounding of the plain version. act: none, relu, gelu with the
-// tanh approximation, silu.
+// tanh approximation, silu. With a z pointer (training, the Pallas
+// kernel's save_preact), the post-bias sum bias[c] + sum_k ... is written
+// to z (y's shape and type) by the same epilogue; serving passes null and
+// runs an instance compiled without that store.
 //
 // What bounds it on this card: each output element costs K multiply-adds
 // for one input element read and one output element written. At mamba's
@@ -42,63 +45,44 @@
 #include <stdint.h>
 
 #include "conv_epilogue.cuh"
+#include "depthwise_rows.cuh"
 
 namespace {
 
 constexpr int TL = 16;        // output rows per thread
 constexpr int THREADS = 128;  // channel vectors per block
 
-template <typename T> struct VecOf;  // values of T in 16 bytes
-template <> struct VecOf<float> { static constexpr int N = 4; };
-template <> struct VecOf<__nv_bfloat16> { static constexpr int N = 8; };
-
-// N values of a row from channel c0 on, as floats: one 16-byte load when
-// ALIGNED (then c0 + N <= C), else scalar loads, zero past C
-template <typename T, bool ALIGNED, int N = VecOf<T>::N>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int c0,
-                                         int C, float (&out)[N]) {
-  if (ALIGNED) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + c0));
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f32(v[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      out[j] = c0 + j < C ? to_f32(row[c0 + j]) : 0.f;
-  }
-}
-
 // bias, activation and the cast of one output row's N channels, stored as
-// one 16-byte vector when ALIGNED
-template <typename T, bool ALIGNED, int N = VecOf<T>::N>
-__device__ __forceinline__ void store_row(T* __restrict__ row, int c0, int C,
+// one 16-byte vector when ALIGNED; with SAVE_Z the post-bias sum is stored
+// to z's row too, cast to T (the backward pass's pre-activation)
+template <typename T, bool ALIGNED, bool SAVE_Z, int N = VecOf<T>::N>
+__device__ __forceinline__ void store_row(T* __restrict__ row,
+                                          T* __restrict__ zrow, int c0, int C,
                                           const float (&acc)[N],
                                           const float* __restrict__ bias,
                                           int act) {
   alignas(16) T out[N];
+  alignas(16) T pre[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     float v = acc[j];
     if (bias != nullptr && c0 + j < C) v = __fadd_rn(v, bias[c0 + j]);
+    if (SAVE_Z) pre[j] = from_f32<T>(v);
     out[j] = from_f32<T>(activate(v, act));
   }
-  if (ALIGNED) {
-    *reinterpret_cast<uint4*>(row + c0) = *reinterpret_cast<const uint4*>(out);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      if (c0 + j < C) row[c0 + j] = out[j];
-  }
+  store_vals<T, ALIGNED>(row, c0, C, out);
+  if (SAVE_Z) store_vals<T, ALIGNED>(zrow, c0, C, pre);
 }
 
 // KW > 0: the window of KW rows in registers (K == KW); KW == 0: any K,
-// each tap's row loaded per output row
-template <typename T, int KW, bool ALIGNED>
+// each tap's row loaded per output row. SAVE_Z: z (y's shape) receives the
+// post-bias pre-activation.
+template <typename T, int KW, bool ALIGNED, bool SAVE_Z>
 __global__ void __launch_bounds__(THREADS)
 depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ bias, T* __restrict__ y, int L,
-                 int C, int K, int stride, int Lout, int act) {
+                 const float* __restrict__ bias, T* __restrict__ y,
+                 T* __restrict__ z, int L, int C, int K, int stride, int Lout,
+                 int act) {
   constexpr int N = VecOf<T>::N;
   const int c0 = (blockIdx.x * THREADS + threadIdx.x) * N;
   if (c0 >= C) return;
@@ -107,6 +91,7 @@ depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int r1 = min(r0 + TL, Lout);
   const T* xb = x + (size_t)b * L * C;
   T* yb = y + (size_t)b * Lout * C;
+  T* zb = SAVE_Z ? z + (size_t)b * Lout * C : nullptr;
 
   if constexpr (KW > 0) {
     float wr[KW][N];
@@ -144,7 +129,9 @@ depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < N; ++j)
           acc[j] = __fadd_rn(acc[j], __fmul_rn(win[k][j], wr[k][j]));
-      store_row<T, ALIGNED>(yb + (size_t)r * C, c0, C, acc, bias, act);
+      store_row<T, ALIGNED, SAVE_Z>(yb + (size_t)r * C,
+                                     zb + (size_t)r * C, c0, C, acc, bias,
+                                     act);
     }
   } else {
     for (int r = r0; r < r1; ++r) {
@@ -157,67 +144,75 @@ depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
           acc[j] = k == 0 ? __fmul_rn(xv[j], wv[j])
                           : __fadd_rn(acc[j], __fmul_rn(xv[j], wv[j]));
       }
-      store_row<T, ALIGNED>(yb + (size_t)r * C, c0, C, acc, bias, act);
+      store_row<T, ALIGNED, SAVE_Z>(yb + (size_t)r * C,
+                                     zb + (size_t)r * C, c0, C, acc, bias,
+                                     act);
     }
   }
 }
 
 template <typename T, int KW>
 cudaError_t launch_k(bool aligned, const void* x, const void* w,
-                     const void* bias, void* y, int B, int L, int C, int K,
-                     int stride, int Lout, int act, cudaStream_t stream) {
+                     const void* bias, void* y, void* z, int B, int L, int C,
+                     int K, int stride, int Lout, int act,
+                     cudaStream_t stream) {
   constexpr int N = VecOf<T>::N;
   const int vecs = (C + N - 1) / N;
   const dim3 grid((vecs + THREADS - 1) / THREADS, (Lout + TL - 1) / TL, B);
-  auto kernel = aligned ? depthwise_kernel<T, KW, true>
-                        : depthwise_kernel<T, KW, false>;
+  auto kernel = z != nullptr ? (aligned ? depthwise_kernel<T, KW, true, true>
+                                        : depthwise_kernel<T, KW, false, true>)
+                             : (aligned ? depthwise_kernel<T, KW, true, false>
+                                        : depthwise_kernel<T, KW, false, false>);
   kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(y), L, C, K, stride,
-      Lout, act);
+      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<T*>(z),
+      L, C, K, stride, Lout, act);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* y,
-                   int B, int L, int C, int K, int stride, int Lout, int act,
-                   cudaStream_t stream) {
+                   void* z, int B, int L, int C, int K, int stride, int Lout,
+                   int act, cudaStream_t stream) {
   constexpr int N = VecOf<T>::N;
   const bool aligned = C % N == 0 && (uintptr_t)x % 16 == 0 &&
-                       (uintptr_t)w % 16 == 0 && (uintptr_t)y % 16 == 0;
+                       (uintptr_t)w % 16 == 0 && (uintptr_t)y % 16 == 0 &&
+                       (uintptr_t)z % 16 == 0;
   switch (K) {
     case 2:
-      return launch_k<T, 2>(aligned, x, w, bias, y, B, L, C, K, stride, Lout,
-                            act, stream);
+      return launch_k<T, 2>(aligned, x, w, bias, y, z, B, L, C, K, stride,
+                            Lout, act, stream);
     case 3:
-      return launch_k<T, 3>(aligned, x, w, bias, y, B, L, C, K, stride, Lout,
-                            act, stream);
+      return launch_k<T, 3>(aligned, x, w, bias, y, z, B, L, C, K, stride,
+                            Lout, act, stream);
     case 4:
-      return launch_k<T, 4>(aligned, x, w, bias, y, B, L, C, K, stride, Lout,
-                            act, stream);
+      return launch_k<T, 4>(aligned, x, w, bias, y, z, B, L, C, K, stride,
+                            Lout, act, stream);
     default:
-      return launch_k<T, 0>(aligned, x, w, bias, y, B, L, C, K, stride, Lout,
-                            act, stream);
+      return launch_k<T, 0>(aligned, x, w, bias, y, z, B, L, C, K, stride,
+                            Lout, act, stream);
   }
 }
 
 }  // namespace
 
 // Returns a cudaError_t code: 0 when the launch was accepted. bias may be
-// null. A shape the grid cannot hold is refused with cudaErrorInvalidValue.
+// null; z may be null (serving: no pre-activation is written). A shape the
+// grid cannot hold is refused with cudaErrorInvalidValue.
 extern "C" int conv1d_depthwise(const void* x, const void* w,
-                                const void* bias, void* y, int B, int L,
-                                int C, int K, int stride, int Lout, int act,
-                                int is_bf16, void* stream) {
+                                const void* bias, void* y, void* z, int B,
+                                int L, int C, int K, int stride, int Lout,
+                                int act, int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || C < 1 || K < 1 || stride < 1 || Lout < 1 ||
       (Lout + TL - 1) / TL > 65535 || (Lout - 1) * stride + K > L ||
       act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, B, L, C, K, stride, Lout,
-                                      act, s)
-              : launch<float>(x, w, bias, y, B, L, C, K, stride, Lout, act, s);
+      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, z, B, L, C, K, stride,
+                                      Lout, act, s)
+              : launch<float>(x, w, bias, y, z, B, L, C, K, stride, Lout, act,
+                              s);
   return (int)err;
 }
 

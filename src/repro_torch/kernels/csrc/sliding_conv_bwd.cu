@@ -37,6 +37,8 @@
 
 #include <stddef.h>
 
+#include "split_reduce.cuh"
+
 namespace {
 
 constexpr int TL = 32;        // dz rows per reduction step
@@ -157,17 +159,6 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ dz,
   }
   if (does_db && threadIdx.x < TN && n0 + threadIdx.x < Cout)
     db[(size_t)split * Cout + n0 + threadIdx.x] = dbs;
-}
-
-// out[i] = sum over s = 0 .. S-1 of ws[s * n + i], in that order
-__global__ void reduce_splits(const float* __restrict__ ws,
-                              float* __restrict__ out, size_t n, int S) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < S; ++s) v += ws[(size_t)s * n + i];
-    out[i] = v;
-  }
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 """Kernel dispatch: the layer-facing entry points of the kernels.
 
-The subset of ``repro.kernels.ops`` that whisper's serving and training
-paths and jamba's serving path reach:
+The subset of ``repro.kernels.ops`` that whisper's and jamba's serving and
+training paths reach:
 
   * ``conv1d``: padding outside the kernel, then the backend. ``sliding``
     is the plain tap loop of ``core.conv`` with an unfused epilogue;
@@ -15,12 +15,12 @@ paths and jamba's serving path reach:
     here, ``out_scale`` fuses a requant, and ``_guard_quant_scales`` screens
     unusable scales as the reference does.
   * ``conv1d_depthwise``: the mamba conv. Padding outside the kernel, then
-    the depthwise CUDA kernel with bias and activation fused; with
-    ``precision`` "w8a8" or "w8a16" the int8 depthwise kernel (inference
-    only), float operands quantized here. Each call is logged in
-    ``CONV1D_DW_DISPATCH`` under the reference's ``conv1d_dw_key``. Its
-    backward (``conv1d_depthwise_bwd_dw``) is not ported yet: a call that
-    needs a gradient raises.
+    the depthwise CUDA kernel with bias and activation fused,
+    differentiable through ``Conv1dDepthwise`` (the reference's
+    ``_conv1d_depthwise_op`` custom VJP); with ``precision`` "w8a8" or
+    "w8a16" the int8 depthwise kernel (inference only), float operands
+    quantized here. Each call is logged in ``CONV1D_DW_DISPATCH`` under the
+    reference's ``conv1d_dw_key``.
   * ``attention_decode``: the decode-attention kernel over a float or int8
     cache, with a dispatch log keyed like the reference's
     ``ATTN_DECODE_DISPATCH``.
@@ -211,6 +211,52 @@ class Conv1dSliding(torch.autograd.Function):
         return dx, dw, db, None, None
 
 
+class Conv1dDepthwise(torch.autograd.Function):
+    """VALID depthwise conv1d + bias + activation with its backward on the
+    kernels, as ``Conv1dSliding``: forward saves (x, w, bias, z), z the
+    depthwise kernel's post-bias pre-activation (none with activation
+    "none"). Backward: ``dz = act'(z) · dy`` in x's type; dx through the
+    forward depthwise kernel on the dilated gradient and the flipped taps;
+    dw and db through the depthwise dw kernel, cast to w's and bias's
+    types. Grads nobody asked for are not computed. CPU tensors run the
+    kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, activation):
+        if activation in (None, "none"):
+            y = sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride)
+            z = None
+        else:
+            y, z = sliding_conv1d.conv1d_depthwise(
+                x, w, bias, stride=stride, activation=activation,
+                save_preact=True)
+        ctx.save_for_backward(x, w, bias, z)
+        ctx.stride, ctx.activation = stride, activation
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias, z = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dz = sliding_conv_bwd.act_bwd(dy, z, ctx.activation).to(x.dtype)
+        dx = dw = db = None
+        if need_x:
+            dx = sliding_conv_bwd.conv1d_depthwise_dx(
+                dz, w, stride=ctx.stride, L=x.shape[1])
+        if need_w or need_b:
+            dw, db = sliding_conv_bwd.conv1d_depthwise_bwd_dw(
+                x, dz, w.shape[0], stride=ctx.stride,
+                has_bias=bias is not None)
+            dw = dw.to(w.dtype)
+            db = None if db is None else db.to(bias.dtype)
+        return dx, dw, db, None, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def conv1d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -247,8 +293,7 @@ def conv1d(
         return epilogue_unfused(y, bias, activation)
     x = _pad1d(x, padding, w.shape[0])
     if backend == "sliding_pallas":
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, w, bias)):
+        if _needs_grad(x, w, bias):
             return Conv1dSliding.apply(x, w, bias, stride, activation)
         # nothing to differentiate (serving): the kernel saves no residual
         return sliding_conv1d.conv1d_sliding(
@@ -280,22 +325,25 @@ def conv1d_depthwise(
     ``precision`` "w8a8" / "w8a16" runs the int8 depthwise kernel: ``w``
     is int8 with its per-channel ``w_scale`` ((C,) or (1, C)), or float and
     quantized here; in w8a8 a float ``x`` is quantized onto ``x_scale``
-    (dynamic absmax when None) and ``out_scale`` requantizes the output."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, bias)):
-        raise NotImplementedError(
-            "conv1d_depthwise has no backward yet (the depthwise dw kernel "
-            "is not ported)")
+    (dynamic absmax when None) and ``out_scale`` requantizes the output.
+    In floating point a call whose inputs need a gradient goes through
+    ``Conv1dDepthwise``; the int8 path is inference only."""
     x = _pad1d(x, padding, w.shape[0])
     impl = "cuda" if x.device.type == "cuda" else "plain"
     if precision == "fp":
         kind = str(x.dtype).removeprefix("torch.")
         CONV1D_DW_DISPATCH[autotune.conv1d_dw_key(
             *x.shape, w.shape[0], stride, kind)] = impl
+        if _needs_grad(x, w, bias):
+            return Conv1dDepthwise.apply(x, w, bias, stride, activation)
+        # nothing to differentiate (serving): the kernel saves no residual
         return sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride,
                                                activation=activation)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
+    if _needs_grad(x, w, bias):
+        raise NotImplementedError(
+            f"conv1d_depthwise precision={precision!r} is inference only")
     site = f"conv1d_depthwise.{precision}"
     x_scale, to_float = _guard_quant_scales(site, x, w, w_scale, x_scale)
     if to_float:  # unusable calibrated scale, float operands: the fp path

@@ -21,8 +21,9 @@ Depthwise contract (``conv1d_depthwise_pallas``): VALID depthwise conv1d on
 an already padded input. x (B, L, C) float32 or bfloat16, w (K, C) of x's
 type, bias (C,) or None; output (B, (L - K) // stride + 1, C) in x's type.
 Products and sums in float32, tap by tap; bias and activation on the
-float32 sum, then one cast. The pre-activation output (``save_preact``,
-training) is not ported yet.
+float32 sum, then one cast. With ``save_preact=True`` it returns
+``(y, z)``, z the post-bias pre-activation in x's type, as the dense conv
+does.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ from repro_torch.kernels import build
 ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
 # x, w, bias, y, z; B, L, Cin, Cout, K, stride, Lout, act, is_bf16; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# x, w, bias, y; B, L, C, K, stride, Lout, act, is_bf16; stream
-_DW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# x, w, bias, y, z; B, L, C, K, stride, Lout, act, is_bf16; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def apply_activation(x: torch.Tensor, activation: str | None) -> torch.Tensor:
@@ -158,11 +159,11 @@ def _check_depthwise(x, w, bias, stride, activation) -> int:
 
 def conv1d_depthwise_plain(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
-    stride: int = 1, activation: str = "none",
-) -> torch.Tensor:
+    stride: int = 1, activation: str = "none", save_preact: bool = False,
+):
     """The depthwise kernel's function in plain torch: one shifted float32
     multiply-add per tap, in tap order, then bias, activation and the cast
-    to x's type."""
+    to x's type (and the post-bias sum's, z, with ``save_preact``)."""
     out_len = _check_depthwise(x, w, bias, stride, activation)
     xf, wf = x.float(), w.float()
     span = (out_len - 1) * stride + 1
@@ -172,10 +173,12 @@ def conv1d_depthwise_plain(
         acc = t if acc is None else acc + t
     if bias is not None:
         acc = acc + bias.float()
-    return apply_activation(acc, activation).to(x.dtype)
+    y = apply_activation(acc, activation).to(x.dtype)
+    return (y, acc.to(x.dtype)) if save_preact else y
 
 
-def _launch_depthwise(x, w, bias, stride, activation, out_len):
+def _launch_depthwise(x, w, bias, stride, activation, out_len,
+                      save_preact=False):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
                         f"same type, got {x.dtype} and {w.dtype}")
@@ -186,30 +189,34 @@ def _launch_depthwise(x, w, bias, stride, activation, out_len):
     b32 = None if bias is None else bias.float().contiguous()
     B, L, C = x.shape
     y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(y) if save_preact else None
     code = fn(
         x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
-        y.data_ptr(), B, L, C, w.shape[0], stride, out_len,
+        y.data_ptr(), None if z is None else z.data_ptr(),
+        B, L, C, w.shape[0], stride, out_len,
         ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv1d_depthwise", code)
     conv1d_depthwise.launches += 1
-    return y
+    return (y, z) if save_preact else y
 
 
 def conv1d_depthwise(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
-    stride: int = 1, activation: str = "none",
-) -> torch.Tensor:
+    stride: int = 1, activation: str = "none", save_preact: bool = False,
+):
     """VALID depthwise sliding conv1d + bias + activation: the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor.
     ``conv1d_depthwise.launches`` counts kernel launches."""
     out_len = _check_depthwise(x, w, bias, stride, activation)
     if x.device.type == "cuda":
-        return _launch_depthwise(x, w, bias, stride, activation, out_len)
+        return _launch_depthwise(x, w, bias, stride, activation, out_len,
+                                 save_preact)
     if x.device.type == "cpu":
         return conv1d_depthwise_plain(x, w, bias, stride=stride,
-                                      activation=activation)
+                                      activation=activation,
+                                      save_preact=save_preact)
     raise ValueError(f"no conv1d_depthwise for device {x.device}")
 
 

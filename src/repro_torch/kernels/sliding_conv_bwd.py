@@ -10,6 +10,11 @@
     the Hopper kernel ``csrc/sliding_conv_bwd.cu``; on a CPU tensor it runs
     ``conv1d_bwd_dw_plain``, the same sums in plain torch. Any other device
     raises. Nothing falls back from the kernel to the plain version.
+  * depthwise: dx (``conv1d_depthwise_dx``) runs the forward depthwise
+    kernel on the dilated, padded gradient with the taps flipped; dw/db
+    through ``conv1d_depthwise_bwd_dw``, the wrapper of
+    ``csrc/conv1d_depthwise_bwd.cu`` (plain version
+    ``conv1d_depthwise_bwd_dw_plain``), on the same terms.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from repro_torch.kernels import build, sliding_conv1d
 # x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, Cin, Cout, K, Lout
+# x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_DW_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, C, K, Lout, is_bf16
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -158,3 +166,92 @@ def conv1d_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
 
 
 conv1d_bwd_dw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# depthwise
+# ---------------------------------------------------------------------------
+
+def conv1d_depthwise_dx(dz: torch.Tensor, w: torch.Tensor, *, stride: int,
+                        L: int) -> torch.Tensor:
+    """dx of the VALID depthwise conv through the forward depthwise conv
+    (its kernel on a CUDA tensor): dz dilated by the stride and padded
+    K-1 rows on each side, the taps flipped, stride 1, no bias, no
+    activation; then zero rows up to the input length ``L``."""
+    K = w.shape[0]
+    dzp = F.pad(dilate1d(dz, stride), (0, 0, K - 1, K - 1))
+    dx = sliding_conv1d.conv1d_depthwise(dzp, torch.flip(w, (0,)), None,
+                                         stride=1)
+    return _fit_len(dx, L)
+
+
+def _check_depthwise(x, dz, K, stride) -> None:
+    if (x.dim() != 3 or dz.dim() != 3 or x.shape[0] != dz.shape[0]
+            or x.shape[2] != dz.shape[2]):
+        raise ValueError(f"x {tuple(x.shape)} and dz {tuple(dz.shape)} do not "
+                         "form (B, L, C) and (B, Lout, C)")
+    _check(x, dz, K, stride)
+
+
+def conv1d_depthwise_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor, K: int,
+                                  *, stride: int = 1, has_bias: bool = False):
+    """The depthwise kernel's function in plain torch: one float32 multiply
+    and sum per tap over all (batch, row) pairs. Returns (dw (K, C)
+    float32, db (C,) float32 or None)."""
+    _check_depthwise(x, dz, K, stride)
+    span = (dz.shape[1] - 1) * stride + 1
+    xf, g = x.float(), dz.float()
+    dw = torch.stack([(xf[:, k : k + span : stride] * g).sum(dim=(0, 1))
+                      for k in range(K)])
+    return dw, (g.sum(dim=(0, 1)) if has_bias else None)
+
+
+def _launch_depthwise(x, dz, K, stride, has_bias):
+    if x.dtype not in (torch.float32, torch.bfloat16) or dz.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 x and dz of the "
+                        f"same type, got {x.dtype} and {dz.dtype}")
+    if dz.device != x.device:
+        raise ValueError("x and dz must lie on one device")
+    fn = build.entry("conv1d_depthwise_bwd", "conv1d_depthwise_bwd_dw",
+                     _DW_ARGTYPES)
+    splits = build.entry("conv1d_depthwise_bwd",
+                         "conv1d_depthwise_bwd_dw_splits", _DW_SPLIT_ARGTYPES)
+    x, dz = x.contiguous(), dz.contiguous()
+    B, L, C = x.shape
+    Lout = dz.shape[1]
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    dw = torch.empty((K, C), dtype=torch.float32, device=x.device)
+    db = (torch.empty((C,), dtype=torch.float32, device=x.device)
+          if has_bias else None)
+    S = splits(B, C, K, Lout, is_bf16)
+    ws = (torch.empty((S * (K * C + C),), dtype=torch.float32,
+                      device=x.device) if S > 1 else None)
+    code = fn(
+        x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+        None if db is None else db.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        B, L, C, K, stride, Lout, is_bf16,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("conv1d_depthwise_bwd", code)
+    conv1d_depthwise_bwd_dw.launches += 1
+    return dw, db
+
+
+def conv1d_depthwise_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
+                            stride: int = 1, has_bias: bool = False):
+    """Weight and bias gradient of the VALID depthwise conv1d: x (B, L, C)
+    the padded forward input, dz (B, Lout, C) the gradient after the
+    activation. Returns (dw (K, C) float32, db (C,) float32 or None): the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    ``conv1d_depthwise_bwd_dw.launches`` counts kernel launches."""
+    _check_depthwise(x, dz, K, stride)
+    if x.device.type == "cuda":
+        return _launch_depthwise(x, dz, K, stride, has_bias)
+    if x.device.type == "cpu":
+        return conv1d_depthwise_bwd_dw_plain(x, dz, K, stride=stride,
+                                             has_bias=has_bias)
+    raise ValueError(f"no conv1d_depthwise_bwd_dw for device {x.device}")
+
+
+conv1d_depthwise_bwd_dw.launches = 0

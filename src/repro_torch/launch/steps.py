@@ -22,8 +22,10 @@ def loss_and_grads(model, params, batch):
 
 def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
                     accum_dtype: str = "float32") -> Callable:
-    """``train_step(state, batch) -> (new_state, metrics)`` with state
-    ``{"params", "opt"}`` and metrics ``{"loss", "grad_norm", "lr"}``.
+    """``train_step(state, batch) -> (state, metrics)`` with state
+    ``{"params", "opt"}`` and metrics ``{"loss", "grad_norm", "lr"}``. The
+    parameters and moments are updated in place (``optim.apply_updates``);
+    the returned state holds the same tensors.
 
     ``accum_steps > 1`` splits the batch along dim 0 into microbatches run
     one after another; their grads add into a ``accum_dtype`` accumulator
@@ -40,18 +42,20 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
                                  f"grad_accum {accum_steps}")
             mb = b // accum_steps
             adt = torch_dtype(accum_dtype)
-            gsum = map_tree(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                  device=p.device), params)
+            grads = map_tree(lambda p: torch.zeros(p.shape, dtype=adt,
+                                                   device=p.device), params)
             loss = 0.0
             for i in range(accum_steps):
                 micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
                 l_i, g_i = loss_and_grads(model, params, micro)
                 loss = loss + l_i
-                for (_, acc), (_, g) in zip(iter_leaves(gsum),
+                for (_, acc), (_, g) in zip(iter_leaves(grads),
                                             iter_leaves(g_i)):
                     acc.add_(g.to(adt))
+                del g_i
             loss = loss / accum_steps
-            grads = map_tree(lambda g: g / accum_steps, gsum)
+            for _, acc in iter_leaves(grads):
+                acc.div_(accum_steps)
         new_p, new_opt, info = apply_updates(params, grads, state["opt"],
                                              opt_cfg)
         return {"params": new_p, "opt": new_opt}, {"loss": loss, **info}

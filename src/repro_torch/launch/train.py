@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \
         --smoke --steps 4 --batch 2 --seq 64 --audio-frontend mels \
         --conv-backend sliding_pallas --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch jamba-1.5-large-398b --smoke --steps 4 --batch 2 --seq 64 \
+        --conv-backend sliding_pallas --device cpu
 
 The core of ``repro.launch.train``, with the same flags (plus ``--device``)
 and the same ``[train]`` lines, so one command line drives both packages.
@@ -17,16 +20,24 @@ one at the end, the straggler watchdog and the heartbeat under
 With ``--audio-frontend mels --conv-backend sliding_pallas`` whisper's two
 frontend convs train through the CUDA kernels: the forward conv kernel with
 the saved pre-activation, dx through the same kernel, dw and db through the
-dw kernel.
+dw kernel. The hybrid family (jamba) trains on tokens alone; with
+``--conv-backend sliding_pallas`` every Mamba conv trains through the
+depthwise kernels in the same way, and the optimizer keeps the config's
+int8 moments (``opt_state_dtype``). The config's ``grad_accum`` (jamba:
+16 microbatches, bfloat16 accumulator) applies unless ``--grad-accum`` is
+given; where it does not divide ``--batch``, the reference's train step
+fails its assertion, and this loop takes the largest count that divides
+both and says so on a ``[train]`` line.
 
 Not ported yet: span tracing (``--trace``, which the CLI rejects), the
 runtime demotion and probation machinery of the reference's step loop (a
-failing kernel raises here), the obs metrics registry and its artifacts,
-and int8 optimizer moments.
+failing kernel raises here), the obs metrics registry and its artifacts
+and the patches stream of the vlm family.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -64,7 +75,12 @@ def train_loop(args) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    cfg = cfg.replace(grad_accum=args.grad_accum or cfg.grad_accum)
+    accum = args.grad_accum or cfg.grad_accum
+    if not args.grad_accum and args.batch % accum:
+        accum = math.gcd(args.batch, accum)
+        log(f"grad_accum {cfg.grad_accum} does not divide batch {args.batch}: "
+            f"{accum} microbatches")
+    cfg = cfg.replace(grad_accum=accum)
     if getattr(args, "conv_backend", None):
         cfg = cfg.replace(conv_backend=args.conv_backend)
     model = build_model(cfg)

@@ -15,21 +15,30 @@ The serving path through the kernels: with ``conv_backend ==
 "sliding_pallas"`` every Mamba block's prefill conv is one launch of the
 depthwise conv kernel (the int8 depthwise kernel under ``conv_precision ==
 "w8a8"``), and every decode step's attention read is one launch of the
-decode-attention kernel per period. Training (``hidden``, ``loss``) is
-not ported yet: it waits for the depthwise conv's backward kernel.
+decode-attention kernel per period.
+
+Training (``hidden``, ``loss``): each layer position runs under
+``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" (the
+reference's ``jax.checkpoint`` per position), and the loss is the chunked
+cross-entropy plus ``0.01 · aux / num_layers``, aux the MoE layers'
+load-balancing loss. Through ``sliding_pallas`` every Mamba conv trains on
+the kernels: the forward depthwise kernel with the saved pre-activation
+(again in the recompute), dx through the same kernel, dw and db through
+the depthwise dw kernel.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamDef, init_params, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
-    kv_scale_defs, layer, stack_defs, strip_kv_prefix,
+    kv_scale_defs, layer, stack_defs, strip_kv_prefix, unstack,
 )
 from repro_torch.models.mamba import mamba_apply, mamba_defs, mamba_state_defs
 
@@ -84,6 +93,50 @@ class Jamba:
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen``, on ``gen``'s device."""
         return init_params(self.param_defs(), gen, self.cfg.param_dtype)
+
+    # -- training -----------------------------------------------------------------
+    def _pos_block(self, x, aux, lp, pos: int):
+        """One layer position: (x, aux) -> (x, aux), aux summing the MoE
+        layers' load-balancing losses (float32)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+        if pos == _attn_pos(cfg):
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+            x = x + L.attention_train(lp["attn"], h, cfg, positions=positions)
+        else:
+            x = x + mamba_apply(lp["mamba"], h, cfg)[0]
+        h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        if "moe" in lp:
+            y, a = moe_lib.moe_apply(lp["moe"], h, cfg)
+            aux = aux + a
+        else:
+            y = L.mlp_apply(lp["mlp"], h, cfg)
+        return x + y, aux
+
+    def hidden(self, params, embeds):
+        """The periods over the embedded tokens: (final-normed hidden
+        states, aux)."""
+        cfg = self.cfg
+        ckpt = cfg.remat != "none" and torch.is_grad_enabled()
+        x = embeds
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pp in unstack(params["periods"]):
+            for j in range(self.period):
+                args = (x, aux, pp[f"pos{j}"], j)
+                x, aux = (checkpoint(self._pos_block, *args,
+                                     use_reentrant=False)
+                          if ckpt else self._pos_block(*args))
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token CE of ``batch["labels"]`` (-1 masked) given
+        ``batch["tokens"]``, plus ``0.01 · aux / num_layers``: a float32
+        scalar."""
+        cfg = self.cfg
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        h, aux = self.hidden(params, x)
+        ce = L.chunked_ce_loss(params["embed"], h, batch["labels"], cfg)
+        return ce + 0.01 * aux / max(cfg.num_layers, 1)
 
     # -- serving ------------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):

@@ -314,10 +314,12 @@ def self_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
     return _out_proj(o, p["wo"]), k, v
 
 
-def attention_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Causal self-attention over a full sequence (train), without rotary
-    embeddings: the projected output only."""
-    return self_attention(p, x, cfg, causal=True)[0]
+def attention_train(p, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal self-attention over a full sequence (train): the projected
+    output only; rotary embeddings at ``positions`` when given (jamba),
+    none otherwise (whisper's decoder)."""
+    return self_attention(p, x, cfg, causal=True, positions=positions)[0]
 
 
 def dequant_cache_leaf(cache: dict, name: str, dtype) -> torch.Tensor:

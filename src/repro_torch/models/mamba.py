@@ -21,7 +21,15 @@ Selective scan: chunks of ``SSM_CHUNK`` positions in order, the (B,
 d_inner, N) state carried across; inside a chunk the recurrence ``h_t =
 abar_t h_{t-1} + bx_t`` runs as the reference's associative scan (the same
 odd/even recursion as ``jax.lax.associative_scan``), so the (B, c,
-d_inner, N) float32 working set exists for one chunk at a time.
+d_inner, N) float32 working set exists for one chunk at a time. In
+training each chunk step runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan step) and is recomputed in
+backward from its carried state.
+
+Training through ``sliding_pallas``: the conv goes through
+``ops.Conv1dDepthwise``, so a step runs the forward depthwise kernel with
+the saved pre-activation, dx through the same kernel and dw and db through
+the depthwise dw kernel.
 
 The activation scale of an int8 conv is the leaf's calibrated ``x_scale``
 when it has one, else the dynamic absmax of each call. The conv sites are
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import conv as core_conv
@@ -184,6 +193,11 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
                       Cp.reshape(Bb * c, N, 1))
         return y.reshape(Bb, c, di)
 
+    def chunk_step(h, xc_blk):
+        abar, bx, Cp = ssm_params(xc_blk)
+        h_all, h_last = _assoc_scan(abar, bx, h)
+        return h_last, read_out(h_all, Cp)
+
     if state is None:
         c = min(SSM_CHUNK, Lt)
         n = -(-Lt // c)
@@ -191,12 +205,17 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
         # the reference, the final state has run through the padded rows
         xc_p = F.pad(xc, (0, 0, 0, n * c - Lt)) if n * c > Lt else xc
         h = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+        # training: each chunk step is recomputed in backward from its
+        # carried state (the reference's jax.checkpoint of ``step``), so
+        # autograd keeps one chunk's scan tensors at a time, not every
+        # chunk's
+        ckpt = torch.is_grad_enabled()
         ys = []
         for i in range(n):
-            abar, bx, Cp = ssm_params(xc_p[:, i * c : (i + 1) * c])
-            h_all, h = _assoc_scan(abar, bx, h)
-            ys.append(read_out(h_all, Cp))
-            del abar, bx, h_all
+            blk = xc_p[:, i * c : (i + 1) * c]
+            h, y_blk = (checkpoint(chunk_step, h, blk, use_reentrant=False)
+                        if ckpt else chunk_step(h, blk))
+            ys.append(y_blk)
         y = torch.cat(ys, dim=1)[:, :Lt]
         h_last = h
     else:

@@ -2,10 +2,10 @@
 
 ``quantize_int8`` / ``dequantize_int8``: absmax over the last axis, the
 scale ``max |x| / 127 + 1e-12`` in float32, codes ``round(x / s)`` (half to
-even) with no clip. The int8 KV cache quantizes through it
-(``models.common.quantize_kv_leaf``). Not ported yet: the error-feedback
-compressed gradient all-reduce (``ef_allreduce_grads``) and int8 optimizer
-moments.
+even) with no clip. The int8 KV cache (``models.common.quantize_kv_leaf``)
+and AdamW's int8 moments (``optim.adamw``) quantize through it. Not ported
+yet: the error-feedback compressed gradient all-reduce
+(``ef_allreduce_grads``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""The port's depthwise conv1d, float and int8, against the JAX reference on
-the CPU.
+"""The port's depthwise conv1d, float and int8, and the float conv's
+backward, against the JAX reference on the CPU.
 
 The same numpy inputs go through the reference's plain depthwise conv
 (``core.conv.conv1d_depthwise_sliding``, the rung that serves where its
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-pytest.importorskip("jax")
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import conv as jconv  # noqa: E402
@@ -29,6 +29,7 @@ from repro.quant import qconv as jq  # noqa: E402
 from repro_torch.core import conv as tconv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import sliding_conv1d as tsc  # noqa: E402
+from repro_torch.kernels import sliding_conv_bwd as tsb  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as tsq  # noqa: E402
 from repro_torch.quant import apply as tapply  # noqa: E402
 from repro_torch.quant import qconv as tq  # noqa: E402
@@ -128,6 +129,9 @@ def test_depthwise_dispatch_logs_the_reference_key():
 
 
 def test_depthwise_checks_and_no_backward():
+    """The wrappers' checks; a call whose inputs need a gradient goes
+    through ``Conv1dDepthwise`` (the no-backward refusal this test was named
+    for is gone); the int8 path stays inference only."""
     x, w, b = _inputs(0, 2, 8, 6, 4)
     with pytest.raises(ValueError, match="do not form"):
         tsc.conv1d_depthwise(_t(x), _t(w)[:, :5])
@@ -136,8 +140,110 @@ def test_depthwise_checks_and_no_backward():
     with pytest.raises(ValueError, match="no conv1d_depthwise for device"):
         tsc.conv1d_depthwise(_t(x).to("meta"), _t(w).to("meta"))
     wg = _t(w).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tops.conv1d_depthwise(_t(x), wg)
+    y = tops.conv1d_depthwise(_t(x), wg)
+    assert type(y.grad_fn).__name__ == "Conv1dDepthwiseBackward"
+    assert tops.conv1d_depthwise(_t(x), _t(w)).grad_fn is None  # serving
+    with pytest.raises(NotImplementedError, match="inference only"):
+        tops.conv1d_depthwise(_t(x), wg, precision="w8a16")
+    with pytest.raises(ValueError, match="do not form"):
+        tsb.conv1d_depthwise_bwd_dw(_t(x), _t(x)[:, :5, :4], 4)
+    with pytest.raises(ValueError, match="reads past"):
+        tsb.conv1d_depthwise_bwd_dw(_t(x), _t(x), 4)
+    with pytest.raises(ValueError, match="no conv1d_depthwise_bwd_dw for"):
+        tsb.conv1d_depthwise_bwd_dw(_t(x).to("meta"), _t(x)[:, :5].to("meta"), 4)
+
+
+# -- float backward ------------------------------------------------------------
+
+def _scaled(want):
+    """TOL with atol taken times max(1, max |want|): gradients are sums
+    whose terms reach above 1 (tests/test_grads.py ``_close_scaled``)."""
+    return dict(rtol=TOL["rtol"],
+                atol=TOL["atol"] * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("K,stride,activation,with_bias", list(
+    itertools.product((2, 3, 4, 5), (1, 2), ("silu", "none"), (True, False))))
+def test_depthwise_grads_match_reference(K, stride, activation, with_bias):
+    """``ops.conv1d_depthwise`` under autograd (``Conv1dDepthwise`` on the
+    plain versions: dx through the forward conv on the flipped taps, dw and
+    db through the dw kernel's plain version) against ``jax.vjp`` of the
+    reference's plain depthwise conv with the unfused epilogue, one
+    cotangent: y, dx, dw and db within TOL."""
+    x, w, b = _inputs(K * 3 + stride, 2, 37, 24, K, with_bias)
+    ct = np.random.default_rng(K).normal(
+        size=(2, (36 // stride) + 1, 24)).astype(np.float32)
+
+    def jfn(x, w, *b):
+        y = jconv.conv1d_depthwise_sliding(x, w, padding="CAUSAL",
+                                           stride=stride)
+        return jops.epilogue_unfused(y, b[0] if b else None, activation)
+
+    jargs = [jnp.asarray(a) for a in (x, w, b) if a is not None]
+    jy, vjp = jax.vjp(jfn, *jargs)
+    want = vjp(jnp.asarray(ct))
+    targs = [_t(a).requires_grad_(True) for a in (x, w, b) if a is not None]
+    y = tops.conv1d_depthwise(targs[0], targs[1], stride=stride,
+                              padding="CAUSAL", activation=activation,
+                              bias=targs[2] if with_bias else None)
+    assert y.shape == jy.shape
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **TOL)
+    got = torch.autograd.grad((y * _t(ct)).sum(), targs)
+    for name, g, wnt in zip(("dx", "dw", "db"), got, want):
+        wnt = np.asarray(wnt)
+        np.testing.assert_allclose(g.numpy(), wnt, err_msg=name, **_scaled(wnt))
+
+
+@pytest.mark.parametrize("K,stride", list(itertools.product((2, 3, 4, 5),
+                                                             (1, 2))))
+def test_depthwise_bwd_dw_plain_matches_reference(K, stride):
+    """The dw kernel's plain version on a padded input and a cotangent
+    against ``jax.vjp`` of the reference's VALID depthwise oracle
+    (``kernels.ref.conv1d_depthwise_ref``): dw within TOL; db the sum of
+    dz; float32 out from bfloat16 operands too."""
+    from repro.kernels import ref as jref
+
+    x, w, _ = _inputs(K + 10 * stride, 3, 29, 20, K)
+    lout = (29 - K) // stride + 1
+    dz = np.random.default_rng(stride).normal(size=(3, lout, 20)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda w: jref.conv1d_depthwise_ref(
+        jnp.asarray(x), w, stride=stride), jnp.asarray(w))
+    want = np.asarray(vjp(jnp.asarray(dz))[0])
+    dw, db = tsb.conv1d_depthwise_bwd_dw(_t(x), _t(dz), K, stride=stride,
+                                         has_bias=True)
+    assert dw.dtype == db.dtype == torch.float32 and dw.shape == (K, 20)
+    np.testing.assert_allclose(dw.numpy(), want, **_scaled(want))
+    np.testing.assert_allclose(db.numpy(), dz.sum(axis=(0, 1)), rtol=1e-5,
+                               atol=1e-5)
+    assert tsb.conv1d_depthwise_bwd_dw(_t(x), _t(dz), K, stride=stride)[1] is None
+    dwb, _ = tsb.conv1d_depthwise_bwd_dw(_t(x).bfloat16(), _t(dz).bfloat16(), K,
+                                         stride=stride)
+    want_b = tsb.conv1d_depthwise_bwd_dw_plain(
+        _t(x).bfloat16().float(), _t(dz).bfloat16().float(), K, stride=stride)[0]
+    assert dwb.dtype == torch.float32 and torch.equal(dwb, want_b)
+
+
+@pytest.mark.parametrize("activation", ACTS)
+def test_depthwise_preact_is_the_post_bias_sum(activation):
+    """``save_preact``: y as without it, and z the post-bias sum, in x's
+    type (the reference's unfused conv + bias, no activation)."""
+    x, w, b = _inputs(7, 2, 33, 16, 4)
+    y, z = tsc.conv1d_depthwise(_t(x), _t(w), _t(b), stride=2,
+                                activation=activation, save_preact=True)
+    assert torch.equal(y, tsc.conv1d_depthwise(_t(x), _t(w), _t(b), stride=2,
+                                               activation=activation))
+    jz = jops.epilogue_unfused(
+        jconv.conv1d_depthwise_sliding(jnp.asarray(x), jnp.asarray(w),
+                                       padding="VALID", stride=2),
+        jnp.asarray(b), "none")
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), **TOL)
+    yb, zb = tsc.conv1d_depthwise(_t(x).bfloat16(), _t(w).bfloat16(), _t(b),
+                                  activation=activation, save_preact=True)
+    assert zb.dtype == torch.bfloat16
+    exact = tsc.conv1d_depthwise_plain(_t(x).bfloat16().float(),
+                                       _t(w).bfloat16().float(), _t(b))
+    assert torch.equal(zb, exact.bfloat16())
 
 
 # -- int8 --------------------------------------------------------------------

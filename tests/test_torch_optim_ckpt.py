@@ -44,12 +44,21 @@ def _flat(tree):
             for p, t in iter_leaves(tree)}
 
 
-@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def _pairs(tree):
+    """{path: (codes, scales)} of an int8 moment tree, as numpy."""
+    if isinstance(tree, dict):
+        return {f"{k}/{p}" if p else k: v for k in tree
+                for p, v in _pairs(tree[k]).items()}
+    return {"": tuple(np.asarray(a) for a in tree)}
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("gscale", [0.01, 10.0])  # under and over clip_norm
 def test_adamw_step_matches_reference(state_dtype, gscale):
     """Two steps of apply_updates on shared params and grads: params, m, v,
     count, grad_norm and lr equal to the reference's within 1e-6 (moments
-    stored in bfloat16 within one bfloat16 rounding)."""
+    stored in bfloat16 within one bfloat16 rounding; int8 moments: codes
+    equal and per-row scales within 1e-6)."""
     params, g1, g2 = _tree(0), _tree(1, gscale), _tree(2, gscale)
     cfg = dict(lr=1e-2, warmup_steps=1, total_steps=10, state_dtype=state_dtype)
     jp, jo = params, jinit_opt_state(params, JOptConfig(**cfg))
@@ -60,14 +69,26 @@ def test_adamw_step_matches_reference(state_dtype, gscale):
         tp, to, tinfo = apply_updates(tp, _to_torch(g), to, OptConfig(**cfg))
     mtol = dict(rtol=1e-6, atol=1e-6) if state_dtype == "float32" else dict(
         rtol=1e-2, atol=1e-6)
-    for name, got, want, tol in (("params", tp, jp, dict(rtol=1e-6, atol=1e-6)),
-                                 ("m", to["m"], jo["m"], mtol),
-                                 ("v", to["v"], jo["v"], mtol)):
+    trees = [("params", tp, jp, dict(rtol=1e-6, atol=1e-6))]
+    if state_dtype == "int8":
+        for name in ("m", "v"):
+            got, want = _pairs(to[name]), _pairs(jax.tree.map(
+                np.asarray, jo[name]))
+            assert set(got) == set(want) == set(_flat(tp))
+            for p, (q, sc) in got.items():
+                assert q.dtype == np.int8 and sc.shape == (*q.shape[:-1], 1)
+                np.testing.assert_array_equal(q, want[p][0], err_msg=p)
+                np.testing.assert_allclose(sc, want[p][1], rtol=1e-6,
+                                           err_msg=p)
+        assert to["m"]["c"][0].dtype == torch.int8
+    else:
+        trees += [("m", to["m"], jo["m"], mtol), ("v", to["v"], jo["v"], mtol)]
+        assert to["m"]["c"].dtype == getattr(torch, state_dtype)
+    for name, got, want, tol in trees:
         g, w = _flat(got), _flat(jax.tree.map(np.asarray, want))
         assert set(g) == set(w)
         for p in g:
             np.testing.assert_allclose(g[p], w[p], err_msg=f"{name} {p}", **tol)
-    assert to["m"]["c"].dtype == getattr(torch, state_dtype)
     assert int(to["count"]) == int(jo["count"]) == 2
     np.testing.assert_allclose(float(tinfo["grad_norm"]), float(jinfo["grad_norm"]),
                                rtol=1e-6)
@@ -75,14 +96,32 @@ def test_adamw_step_matches_reference(state_dtype, gscale):
 
 
 def test_adamw_keeps_param_types_and_refuses_int8_moments():
+    """Parameters keep their type. The update is in place (the int8
+    refusal and the "arguments unchanged" check this test was named for
+    are gone with it): the params and moments passed in are the ones
+    returned, overwritten, the gradient tree is emptied as it is used, and
+    int8 moments are (codes, scales) pairs updated in place too."""
     p = {"w": torch.ones(2, 3, dtype=torch.bfloat16)}
-    cfg = OptConfig()
-    new_p, opt, _ = apply_updates(p, {"w": torch.ones(2, 3, dtype=torch.bfloat16)},
-                                  init_opt_state(p, cfg), cfg)
+    w0 = p["w"]
+    cfg = OptConfig(lr=0.1, warmup_steps=1)  # a step bf16 can see
+    opt0 = init_opt_state(p, cfg)
+    m0 = opt0["m"]["w"]
+    grads = {"w": torch.ones(2, 3, dtype=torch.bfloat16)}
+    new_p, opt, _ = apply_updates(p, grads, opt0, cfg)
     assert new_p["w"].dtype == torch.bfloat16 and opt["m"]["w"].dtype == torch.float32
-    assert torch.equal(p["w"], torch.ones(2, 3, dtype=torch.bfloat16))  # unchanged
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_opt_state(p, OptConfig(state_dtype="int8"))
+    assert new_p is p and new_p["w"] is w0 and opt["m"]["w"] is m0
+    assert not torch.equal(w0, torch.ones(2, 3, dtype=torch.bfloat16))  # moved
+    assert grads == {} and int(opt["count"]) == 1
+    cfg8 = OptConfig(lr=0.1, warmup_steps=1, state_dtype="int8")
+    opt8 = init_opt_state(p, cfg8)
+    q, sc = opt8["v"]["w"]
+    assert q.dtype == torch.int8 and sc.dtype == torch.float32
+    assert sc.shape == (2, 1) and not q.any()
+    apply_updates(p, {"w": torch.full((2, 3), 0.5, dtype=torch.bfloat16)},
+                  opt8, cfg8)
+    assert opt8["v"]["w"][0] is q and (q == 127).all()  # sqrt(v): one row max
+    with pytest.raises(ValueError, match="state_dtype"):
+        init_opt_state(p, OptConfig(state_dtype="int4"))
 
 
 def test_lr_schedule_matches_reference():
@@ -167,6 +206,58 @@ def test_reference_written_step_dir_validates_and_restores(tmp_path):
     assert int(back["opt"]["count"]) == 4
     meta = json.loads((tmp_path / "step_9" / "manifest.json").read_text())
     assert set(meta["leaves"]) == {"params.w", "opt.count"}
+
+
+def test_int8_moment_checkpoints_cross_both_ways(tmp_path):
+    """A state with int8 moments after one AdamW step, written by the
+    reference's manager, validates and restores in the port (manager and
+    bridge) with the reference's codes and scales; the port's own state
+    after the same step, written by the port, restores in the reference's
+    manager with the same codes and scales. Each (codes, scales) pair is
+    two leaves, ``<path>.0`` and ``<path>.1``, in both managers."""
+    from repro.checkpoint import CheckpointManager as JManager
+    from repro_torch.bridge import state_from_step_dir
+    from repro_torch.distributed.sharding import ParamDef
+
+    cfg = dict(lr=1e-2, warmup_steps=1, total_steps=10, state_dtype="int8")
+    params, grads = _tree(0), _tree(1)
+    jp, jo, _ = japply_updates(params, grads, jinit_opt_state(
+        params, JOptConfig(**cfg)), JOptConfig(**cfg))
+    JManager(tmp_path / "ref").save(1, {"params": jp, "opt": jo})
+    want = {n: _pairs(jax.tree.map(np.asarray, jo[n])) for n in ("m", "v")}
+    tp = _to_torch(params)
+    skeleton = {"params": tp, "opt": init_opt_state(tp, OptConfig(**cfg))}
+    mgr = CheckpointManager(tmp_path / "ref")
+    assert mgr.latest_valid_step() == 1
+    leaves = mgr.manifest(1)["leaves"]
+    assert leaves["opt.m.a.w.0"]["dtype"] == "int8"
+    assert leaves["opt.v.c.1"]["shape"] == [3, 2, 1]
+    defs = {"a": {"w": ParamDef((4, 6), (None, None)),
+                  "b": ParamDef((6,), (None,))},
+            "c": ParamDef((3, 2, 5), (None, None, None))}
+    for back in (mgr.restore(1, skeleton),
+                 state_from_step_dir(tmp_path / "ref" / "step_1", defs, "cpu")):
+        assert int(back["opt"]["count"]) == 1
+        for n in ("m", "v"):
+            got = _pairs(back["opt"][n])
+            assert set(got) == set(want[n])
+            for path, (q, sc) in got.items():
+                np.testing.assert_array_equal(q, want[n][path][0])
+                np.testing.assert_array_equal(sc, want[n][path][1])
+    bad = {**defs, "c": ParamDef((3, 2, 4), (None, None, None))}
+    with pytest.raises(ValueError, match="shape mismatch"):
+        state_from_step_dir(tmp_path / "ref" / "step_1", bad, "cpu")
+
+    tp, to, _ = apply_updates(tp, _to_torch(grads), skeleton["opt"],
+                              OptConfig(**cfg))
+    CheckpointManager(tmp_path / "port").save(1, {"params": tp, "opt": to})
+    got = JManager(tmp_path / "port").restore(1, {"params": jp, "opt": jo})
+    for n in ("m", "v"):
+        for path, (q, sc) in _pairs(got["opt"][n]).items():
+            np.testing.assert_array_equal(q, want[n][path][0])
+            np.testing.assert_allclose(sc, want[n][path][1], rtol=1e-6)
+    np.testing.assert_allclose(got["params"]["a"]["w"], np.asarray(jp["a"]["w"]),
+                               rtol=1e-6, atol=1e-6)
 
 
 # -- fault tolerance ------------------------------------------------------------

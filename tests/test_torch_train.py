@@ -107,18 +107,19 @@ def test_remat_changes_no_grad(reference):
 
 def test_grad_accumulation_averages_microbatches():
     """Two microbatches of one give the mean loss and the mean grads of the
-    two single-row steps."""
+    two single-row steps (taken first: the step updates the params in
+    place)."""
     cfg = smoke_config(get_config("whisper-medium")).replace(
         conv_backend="sliding_pallas")
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     opt_cfg = OptConfig(total_steps=10, warmup_steps=2)
     batch = {k: torch.from_numpy(v) for k, v in _batch(1).items()}
-    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
-    _, m2 = tsteps.make_train_step(model, opt_cfg, accum_steps=2)(state, batch)
     rows = [tsteps.loss_and_grads(model, params,
                                   {k: v[i:i + 1] for k, v in batch.items()})
             for i in range(2)]
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    _, m2 = tsteps.make_train_step(model, opt_cfg, accum_steps=2)(state, batch)
     np.testing.assert_allclose(float(m2["loss"]),
                                (float(rows[0][0]) + float(rows[1][0])) / 2,
                                rtol=1e-6)
