@@ -122,6 +122,31 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
  23. jamba training times: the dw kernel at the training shape beside its
      plain version, ``torch.nn.grad.conv1d_weight(groups=C)`` and the
      bound; the forward depthwise kernel there with z written and without.
+ 24. conv2d kernel vs plain: the 2-D sliding conv kernel against its plain
+     version at llava's patch embedding (x (20, 336, 336, 3), w (14, 14,
+     3, 1152), stride 14, bias or none), at the fig1 shapes ((1, 128, 128,
+     32) x (k, k, 32, 32), k in {3, 5, 17, 31}) and at edge shapes
+     (strides (2, 2), (2, 1), (1, 3), (3, 2), k in {1, 3, 5, 7, 20}, Cin 37,
+     Cout 70, every activation), bfloat16 within one bf16 step and float32
+     within TOL; the attention kernel at llava's decode shape (B 4, S 3168,
+     KV 8, G 7, D 128) with a length-0 slot;
+ 25. llava smoke serve, card vs CPU: llava's smoke config (float32), one
+     set of weights, image tiles through ``patch_embed`` (the 2-D kernel on
+     the card), then a request with those patches: equal greedy tokens,
+     patches and prefill logits within TOL, launches checked;
+ 26. full-width llava serve: llava-next-34b cut to 40 of its 60 layers,
+     every width the published one (23,291,426,816 params, bf16, the
+     reference's init rescaled to std 1/sqrt(input width)), B=4 slots of 5
+     image tiles (2,880 patches) through ``patch_embed`` (one conv2d
+     launch), P=256, 32 tokens (1,240 attention launches): TTFT with the
+     patch embedding's share, decode step, tokens/s, busy share, peak
+     memory, the kernels against their plain versions on the same request;
+     then one request through the CLI's own path (zero patches), its TTFT;
+ 27. llava times: the conv2d kernel at the patch embedding (bf16, the main
+     path's call, and f32) and at the fig1 shapes (f32, bias + gelu)
+     beside its plain version, ``F.conv2d`` on channels_last (cuDNN, TF32
+     off) and the bound; the attention kernel at llava's decode shape
+     beside its plain version and SDPA (``enable_gqa``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -497,11 +522,15 @@ def plain_kernels():
     """Route every kernel wrapper to its plain version for the block."""
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import sliding_conv1d as sc
+    from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
 
     saved = (sc._launch, ad._launch, sb._launch, sq._launch,
-             sc._launch_depthwise, sq._launch_depthwise, sb._launch_depthwise)
+             sc._launch_depthwise, sq._launch_depthwise, sb._launch_depthwise,
+             s2._launch)
+    s2._launch = lambda x, w, b, stride, act, _oh, _ow: (
+        s2.conv2d_sliding_plain(x, w, b, stride=stride, activation=act))
     sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
         sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
@@ -528,7 +557,7 @@ def plain_kernels():
     finally:
         (sc._launch, ad._launch, sb._launch, sq._launch,
          sc._launch_depthwise, sq._launch_depthwise,
-         sb._launch_depthwise) = saved
+         sb._launch_depthwise, s2._launch) = saved
 
 
 def _counters() -> dict:
@@ -536,6 +565,7 @@ def _counters() -> dict:
     attribute's name."""
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import sliding_conv1d as sc
+    from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
 
@@ -546,7 +576,8 @@ def _counters() -> dict:
             "attention_decode_int8": (ad.decode_attention, "launches_int8"),
             "conv1d_depthwise": (sc.conv1d_depthwise, "launches"),
             "conv1d_depthwise_quant": (sq.conv1d_depthwise_quant, "launches"),
-            "conv1d_depthwise_bwd_dw": (sb.conv1d_depthwise_bwd_dw, "launches")}
+            "conv1d_depthwise_bwd_dw": (sb.conv1d_depthwise_bwd_dw, "launches"),
+            "conv2d": (s2.conv2d_sliding, "launches")}
 
 
 def zero_launches() -> None:
@@ -1942,18 +1973,21 @@ MAMBA_POS = (0, 1, 2, 3, 5, 6, 7)  # the Mamba positions of a period
 
 
 def rescale_fan_in(params, defs, iter_leaves) -> None:
-    """Divide every period-stacked fan-in weight by sqrt of its input width
-    (experts and the attention output projection contract more), in place:
-    a well-conditioned model from the reference's init, whose fan-in quirk
-    draws these with std 1 when a model has one period (ROADMAP Queue 3).
-    No package's init changes."""
+    """Rescale every period- or layer-stacked fan-in weight to std 1/sqrt
+    of its input width (experts and the attention output projection
+    contract more), in place: a well-conditioned model from the reference's
+    init, whose fan-in quirk draws these with std 1/sqrt(stacked count),
+    1 when a jamba model has one period (ROADMAP Queue 3). No package's
+    init changes."""
     want = dict(iter_leaves(defs))
     for path, t in iter_leaves(params):
         d, parts = want[path], path.split("/")
-        if parts[0] != "periods" or d.init != "fan_in":
+        if parts[0] not in ("periods", "blocks") or d.init != "fan_in":
             continue
         fan = (d.shape[2] if "moe" in parts else
                d.shape[1] * d.shape[2] if parts[-1] == "wo" else d.shape[1])
+        if d.shape[0] > 1:  # drawn with std 1/sqrt(stacked layers)
+            t.mul_(d.shape[0] ** 0.5)
         t.div_(fan ** 0.5)
 
 
@@ -2276,6 +2310,409 @@ def phase_depthwise_train_times(sc, sb, launches, err) -> tuple[dict, dict]:
     return row, fwd
 
 
+# ---------------------------------------------------------------------------
+# llava serving
+# ---------------------------------------------------------------------------
+
+LLAVA = "llava-next-34b"
+# the full-width cut: 60 -> 40 layers, every width the published one
+# (23,291,426,816 params, 46.6 GB in bf16): the init draws a leaf in
+# float32, so at 40 layers it peaks near 69 GB of the card's 85
+LLAVA_CUT = dict(num_layers=40)
+LLAVA_PARAMS = 23_291_426_816
+LLAVA_TILES = 5  # anyres: 5 tiles of 336 x 336 (576 patches each) a slot
+LLAVA_TILE = 336
+# the patch embedding of the full-width request: B=4 slots x 5 tiles
+PATCH_MAIN = dict(B=20, H=336, W=336, Cin=3, Cout=1152, k=14, stride=14)
+# the paper's fig1 shapes: (1, 128, 128, 32) x (k, k, 32, 32), stride 1
+FIG1 = [dict(B=1, H=128, W=128, Cin=32, Cout=32, k=k, stride=1)
+        for k in (3, 5, 17, 31)]
+# llava's decode read: 56 query heads over 8 KV heads (G=7), head dim 128,
+# the request's cache of 2880 + 256 + 32 rows
+ATTN_LLAVA = dict(B=4, S=3168, KV=8, G=7, D=128)
+
+
+def conv2d_inputs(seed, B, H, W, Cin, Cout, k, dtype, with_bias=True,
+                  uniform=False):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = (torch.rand if uniform else torch.randn)(
+        (B, H, W, Cin), generator=g, device=DEV).to(dtype)
+    w = (torch.randn((k, k, Cin, Cout), generator=g, device=DEV)
+         / (k * k * Cin) ** 0.5).to(dtype)
+    b = torch.randn((Cout,), generator=g, device=DEV) if with_bias else None
+    return x, w, b
+
+
+def conv2d_check(s2, x, w, b, what, **args) -> float:
+    """The kernel against its plain version on the same inputs. float32:
+    within TOL. bfloat16: the kernel's output within one bf16 step of the
+    plain version's float32 sum (the plain version on the same bf16
+    operands, not rounded), plus 1e-5 of max |y| for summing hundreds of
+    terms in another float32 order: an output that cancels to near zero
+    moves by more than its own bf16 step from that alone."""
+    got = s2.conv2d_sliding(x, w, b, **args)
+    if x.dtype != torch.bfloat16:
+        return close(got, s2.conv2d_sliding_plain(x, w, b, **args), TOL, what)
+    want = s2.conv2d_sliding_plain(x.float(), w.float(), b, **args)
+    if got.dtype != torch.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"bfloat16 {tuple(want.shape)}")
+    g = got.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite output")
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    err = (g - want).abs()
+    bad = err > step + 1e-5 * want.abs().max()
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} elements more than a bf16 step off, "
+            f"max |err| {err.max().item():.3e}, worst at |want| "
+            f"{want[bad].abs().min().item():.3e}")
+    return err.max().item()
+
+
+def phase_conv2d_kernels(s2, ad) -> dict:
+    """The 2-D sliding conv kernel against its plain version at the patch
+    embedding's shape and at the fig1 shapes, strides, every activation,
+    bfloat16 and float32; the attention kernel at llava's decode shape
+    (G=7, D=128, S=3168)."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        s = PATCH_MAIN
+        st = (s["stride"],) * 2
+        x, w, b = conv2d_inputs(100, s["B"], s["H"], s["W"], s["Cin"],
+                                s["Cout"], s["k"], dtype, uniform=True)
+        for bias in (None, b):
+            what = f"conv2d patch_embed {s} {dtype} bias={bias is not None}"
+            err = conv2d_check(s2, x, w, bias, what, stride=st)
+            if dtype == torch.bfloat16 and bias is None:
+                errs["conv2d"] = err  # the main path's call
+            log(f"{what}: max|err| {err:.3e}")
+        for i, s in enumerate(FIG1):
+            act = ACTS[i % len(ACTS)]
+            x, w, b = conv2d_inputs(110 + i, s["B"], s["H"], s["W"], s["Cin"],
+                                    s["Cout"], s["k"], dtype)
+            what = f"conv2d fig1 k={s['k']} {dtype} bias {act}"
+            err = conv2d_check(s2, x, w, b, what, activation=act)
+            log(f"{what}: max|err| {err:.3e}")
+        # strides, every activation, Cin 37 (a ragged channel chunk), Cout
+        # 70 (a ragged block), odd sizes, bias or none
+        for j, (k, st, act, with_bias) in enumerate((
+                (3, (2, 2), "none", True), (5, (2, 1), "relu", False),
+                (7, (1, 3), "gelu", True), (1, (1, 1), "silu", True),
+                (20, (3, 2), "silu", False))):
+            x, w, b = conv2d_inputs(120 + j, 3, 61, 77, 37, 70, k, dtype,
+                                    with_bias)
+            what = f"conv2d edge k={k} s={st} {act} bias={with_bias} {dtype}"
+            err = conv2d_check(s2, x, w, b, what, stride=st, activation=act)
+            log(f"{what}: max|err| {err:.3e}")
+
+    lens = [0, 1, 3136, 3168]
+    q, k, v, ln = attn_inputs(130, **ATTN_LLAVA, dtype=torch.bfloat16,
+                              lengths=lens)
+    got = ad.decode_attention(q, k, v, ln)
+    err = close(got, ad.attention_decode_plain(q, k, v, ln), BTOL,
+                "attention llava shape")
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("attention: a length-0 slot must give a zero row")
+    errs["attention_decode_llava"] = err
+    log(f"attention {ATTN_LLAVA} bf16 lengths {lens}: max|err| {err:.3e}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def _llava_images(seed, n, size, dtype):
+    """``n`` image tiles of size x size x 3 in [0, 1) and the patch weight
+    (14, 14, 3, 1152), std 1/sqrt(588), from a seeded generator."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    img = torch.rand((n, size, size, 3), generator=g, device=DEV).to(dtype)
+    w = (torch.randn((14, 14, 3, 1152), generator=g, device=DEV)
+         / 588 ** 0.5).to(dtype)
+    return img, w
+
+
+def phase_smoke_serve_llava(serve, models, configs, map_tree, llava):
+    """llava's smoke config (float32, 2 layers, 16 patches), one set of
+    weights on the CPU and on the card: image tiles through
+    ``patch_embed`` (the 2-D kernel on the card, its plain version on the
+    CPU), then a request with those patches: equal greedy tokens, patches
+    and prefill logits within TOL."""
+    cfg = configs.smoke_config(configs.get_config(LLAVA))
+    model = models.build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    img, w = (t.cpu() for t in _llava_images(140, SMOKE["B"], 56,
+                                             torch.float32))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(2, cfg.vocab_size, size=(SMOKE["B"], SMOKE["P"])
+                     ).astype(np.int32))
+    cache_len = SMOKE["P"] + SMOKE["gen"]
+    out = {}
+    for dev, params in (("cpu", cpu_params),
+                        (DEV, map_tree(lambda t: t.to(DEV), cpu_params))):
+        zero_launches()
+        with torch.no_grad():
+            patches = llava.patch_embed(w.to(dev), img.to(dev),
+                                        backend="sliding_pallas")
+            logits, _ = serve.prefill_cache(model, params, prompts.to(dev),
+                                            cache_len=cache_len,
+                                            patches=patches)
+        toks, _ = serve.generate(model, params, prompts.to(dev),
+                                 gen_len=SMOKE["gen"], cache_len=cache_len,
+                                 patches=patches)
+        out[dev] = (patches.cpu(), logits.cpu(), toks.cpu(), read_launches())
+    want = only(conv2d=1, attention_decode=cfg.num_layers * (SMOKE["gen"] - 1))
+    if out[DEV][3] != want:
+        raise AssertionError(f"llava smoke card launches {out[DEV][3]}, "
+                             f"expected {want}")
+    perr = close(out[DEV][0], out["cpu"][0], TOL, "llava smoke patches")
+    err = close(out[DEV][1], out["cpu"][1], TOL, "llava smoke prefill logits")
+    if not torch.equal(out[DEV][2], out["cpu"][2]):
+        raise AssertionError(f"llava smoke greedy tokens differ: card "
+                             f"{out[DEV][2].tolist()} vs CPU "
+                             f"{out['cpu'][2].tolist()}")
+    log(f"llava smoke serve {SMOKE}, {cfg.num_patches} patches a slot: greedy "
+        f"tokens equal on card and CPU {out[DEV][2].tolist()}; patches max|err| "
+        f"{perr:.3e}, prefill logits max|err| {err:.3e}; card launches "
+        f"{out[DEV][3]}")
+
+
+def phase_full_serve_llava(serve, models, configs, llava,
+                           iter_leaves) -> dict:
+    """llava-next-34b at full width, cut to 40 layers (bf16, random weights
+    from a seeded generator, the reference's init rescaled to std
+    1/sqrt(input width)): a request of B=4 slots, each with 5 image tiles
+    through ``patch_embed`` on the 2-D kernel (one launch) and P=256
+    tokens, 32 generated; then one request through the CLI's own path, zero
+    patches as the reference serves them."""
+    cfg = configs.get_config(LLAVA).replace(**LLAVA_CUT, attn_decode="fused")
+    model = models.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    if n_params != LLAVA_PARAMS:
+        raise AssertionError(f"{n_params} params, expected {LLAVA_PARAMS}")
+    log(f"full width {cfg.name} cut to {LLAVA_CUT}: {n_params} params "
+        f"({cfg.param_dtype}), d {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, {cfg.num_patches} patches; the "
+        f"reference's init rescaled to std 1/sqrt(input width); init "
+        f"{time.perf_counter() - t0:.2f}s, peak {init_peak:.2f} GB")
+    B, P, gen = SERVE["B"], SERVE["P"], SERVE["gen"]
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(B, P)),
+                              dtype=torch.int32, device=DEV)
+    img, w_patch = _llava_images(150, B * LLAVA_TILES, LLAVA_TILE,
+                                 torch.bfloat16)
+    prefix = cfg.num_patches
+    cache_len = serve.resolve_cache_len(cfg, P + gen, P, gen, prefix)
+
+    def embed():
+        return llava.patch_embed(w_patch, img, backend="sliding_pallas"
+                                 ).reshape(B, prefix, llava.VISION_DIM)
+
+    with torch.no_grad():  # warm-up request
+        serve.generate(model, params, prompts, gen_len=2, cache_len=cache_len,
+                       patches=embed())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        patches = embed()
+    torch.cuda.synchronize()
+    embed_ms = (time.perf_counter() - t0) * 1e3
+    toks, _ = serve.generate(model, params, prompts, gen_len=gen,
+                             cache_len=cache_len, stats=stats, patches=patches)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = only(conv2d=1, attention_decode=cfg.num_layers * (gen - 1))
+    if launches != want:
+        raise AssertionError(f"llava launch counts {launches}, expected {want}")
+    if tuple(toks.shape) != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"llava: bad tokens {tuple(toks.shape)}")
+    if (tuple(patches.shape) != (B, prefix, llava.VISION_DIM)
+            or not torch.isfinite(patches).all()):
+        raise AssertionError(f"llava patches {tuple(patches.shape)} not finite")
+    ttft_ms = embed_ms + stats["ttft_s"] * 1e3
+    step_ms = statistics.median(stats["step_s"]) * 1e3
+    with torch.no_grad():
+        logits, cache = serve.prefill_cache(model, params, prompts,
+                                            cache_len=cache_len,
+                                            patches=patches)
+        step, _ = model.decode_step(params, cache, toks[:, :1], prefix + P)
+        # the same request with the kernels' plain versions on the card:
+        # patches, prefill logits and one decode step, printed
+        with plain_kernels():
+            p_plain = embed()
+            l_plain, c_plain = serve.prefill_cache(
+                model, params, prompts, cache_len=cache_len, patches=p_plain)
+            s_plain, _ = model.decode_step(params, c_plain, toks[:, :1],
+                                           prefix + P)
+    del c_plain
+    for what, t in (("prefill", logits), ("decode step", step)):
+        if t.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(t).all():
+            raise AssertionError(f"llava {what} logits not finite / bad shape")
+    for what, a, b in (("patches", patches, p_plain),
+                       ("prefill logits", logits, l_plain),
+                       ("decode-step logits", step, s_plain)):
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        agree = ((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                 if "logits" in what else float("nan"))
+        log(f"llava full width, kernels vs plain versions on the card: {what} "
+            f"max |diff| {rel:.3e} of max, argmax agreement {agree:.2f}")
+    nbytes = serve.cache_nbytes(model.cache_defs(B, cache_len), cfg.param_dtype)
+    prof = {
+        "patch_embed": profile_busy(embed, reps=3),
+        "prefill": profile_busy(lambda: serve.prefill_cache(
+            model, params, prompts, cache_len=cache_len, patches=patches),
+            reps=1),
+        "decode_step": profile_busy(lambda: model.decode_step(
+            params, cache, toks[:, :1], prefix + P)),
+    }
+    for what, r in prof.items():
+        log(f"profile llava {what}: wall {r['wall_ms']:.3f} ms, card busy "
+            f"{r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%), "
+            f"{r['kernels']} kernels; top: {r['top']}")
+    res = dict(tok_per_s=B * gen / wall, ttft_ms=ttft_ms,
+               patch_embed_ms=embed_ms, patch_embed_share=embed_ms / ttft_ms,
+               decode_step_ms=step_ms, wall_s=wall, peak_mem_gb=peak,
+               init_peak_mem_gb=init_peak, launches=launches,
+               cache_len=cache_len, kv_cache_bytes=nbytes,
+               max_abs_logit=logits.abs().max().item(),
+               busy_share={k: r["busy_share"] for k, r in prof.items()},
+               busy_ms={k: r["busy_ms"] for k, r in prof.items()},
+               n_params=n_params)
+    log(f"llava full-width serve B={B} P={P} gen={gen}, {prefix} patches a "
+        f"slot: {res['tok_per_s']:.1f} tok/s, TTFT {ttft_ms:.2f} ms "
+        f"(patch_embed {embed_ms:.3f} ms, {100 * res['patch_embed_share']:.2f}%), "
+        f"decode step {step_ms:.3f} ms (median of {len(stats['step_s'])}), "
+        f"{wall:.3f}s, peak mem {peak:.2f} GB, kv-cache bytes {nbytes}, "
+        f"launches {launches}; sample {toks[0, :8].tolist()}")
+    del cache, logits, step, patches, p_plain, l_plain, s_plain
+
+    # the CLI's own path: zero patches, as the reference serves them
+    zero_launches()
+    cli: dict = {}
+    serve.generate(model, params, prompts, gen_len=gen, cache_len=cache_len,
+                   stats=cli)
+    cli_launches = read_launches()
+    if cli_launches != only(attention_decode=cfg.num_layers * (gen - 1)):
+        raise AssertionError(f"llava CLI-path launches {cli_launches}")
+    res["cli"] = dict(ttft_ms=cli["ttft_s"] * 1e3,
+                      decode_step_ms=statistics.median(cli["step_s"]) * 1e3,
+                      launches=cli_launches)
+    log(f"llava full-width serve, the CLI's path (zero patches): TTFT "
+        f"{res['cli']['ttft_ms']:.2f} ms, decode step "
+        f"{res['cli']['decode_step_ms']:.3f} ms, launches {cli_launches}")
+    return res
+
+
+def phase_conv2d_times(s2, ad, launches, errs) -> tuple[dict, dict]:
+    """The 2-D sliding conv kernel at the patch embedding's shape (bf16, the
+    main path's call, and f32) and at the fig1 shapes (f32, bias + gelu)
+    beside its plain version, ``F.conv2d`` on channels_last (cuDNN, TF32
+    off) with the bias and activation, and the bound; the attention kernel
+    at llava's decode shape beside its plain version and SDPA
+    (``enable_gqa``). Returns the conv2d row and llava's attention times."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")
+
+    def conv_times(s, dtype, act, with_bias, seed, n_sets):
+        st = (s["stride"],) * 2
+        sets = []
+        for i in range(n_sets):
+            x, w, b = conv2d_inputs(seed + i, s["B"], s["H"], s["W"], s["Cin"],
+                                    s["Cout"], s["k"], dtype, with_bias,
+                                    uniform=s is PATCH_MAIN)
+            # the library's layouts made ahead: x as an NCHW view of its
+            # NHWC storage (channels_last), w as OIHW in channels_last
+            sets.append((x, w, b, x.permute(0, 3, 1, 2),
+                         w.permute(3, 2, 0, 1).contiguous(
+                             memory_format=torch.channels_last),
+                         None if b is None else b.to(dtype)))
+
+        def library(x, w, b, x_lib, w_lib, b_lib):
+            y = F.conv2d(x_lib, w_lib, b_lib, stride=st)
+            if act == "gelu":
+                y = F.gelu(y, approximate="tanh")
+            return y.permute(0, 2, 3, 1)
+
+        x, w, b = sets[0][:3]
+        want = s2.conv2d_sliding_plain(x, w, b, stride=st, activation=act)
+        close(library(*sets[0]), want,
+              LIBTOL if dtype == torch.bfloat16 else TOL,
+              f"library conv2d {s} {dtype}")
+        oh = (s["H"] - s["k"]) // s["stride"] + 1
+        ow = (s["W"] - s["k"]) // s["stride"] + 1
+        el = x.element_size()
+        nbytes = (el * (x.numel() + w.numel() + s["B"] * oh * ow * s["Cout"])
+                  + (4 * s["Cout"] if with_bias else 0))
+        ops = 2 * s["B"] * oh * ow * s["Cout"] * s["k"] ** 2 * s["Cin"]
+        bms, by = bound_ms(nbytes, ops, dtype)
+        t = dict(timings(
+            cycling(lambda x, w, b, *_: s2.conv2d_sliding(
+                x, w, b, stride=st, activation=act), sets),
+            cycling(lambda x, w, b, *_: s2.conv2d_sliding_plain(
+                x, w, b, stride=st, activation=act), sets),
+            cycling(library, sets)),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        log(f"time conv2d {s} {dtype} {act} bias={with_bias}: {json.dumps(t)}")
+        return t
+
+    main = conv_times(PATCH_MAIN, torch.bfloat16, "none", False, 160, 4)
+    extra = {"patch_embed_f32": conv_times(PATCH_MAIN, torch.float32, "none",
+                                           False, 170, 3)}
+    for i, s in enumerate(FIG1):  # 2 MB inputs: 26 sets exceed the L2
+        extra[f"fig1_k{s['k']}_f32"] = conv_times(s, torch.float32, "gelu",
+                                                  True, 180 + 30 * i, 26)
+
+    Ba, S, KV, G, D = (ATTN_LLAVA[n] for n in ("B", "S", "KV", "G", "D"))
+    lens = [3152] * Ba  # the request's middle decode step
+    sets = []
+    for i in range(3):  # 3 caches of 52 MB: > 50 MB
+        q, k, v, ln = attn_inputs(300 + i, **ATTN_LLAVA, dtype=torch.bfloat16,
+                                  lengths=lens)
+        mask = (torch.arange(S, device=DEV)[None, :] < ln[:, None])[:, None, None, :]
+        sets.append((q, k, v, ln, mask))
+
+    def alibrary(q, k, v, ln, mask):
+        return F.scaled_dot_product_attention(
+            q.reshape(Ba, KV * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    close(alibrary(*sets[0]).float().reshape(Ba, KV, G, D),
+          ad.attention_decode_plain(*sets[0][:-1]), BTOL,
+          "library attention llava shape")
+    nbytes = (2 * Ba * KV * G * D + 2 * 2 * sum(lens) * KV * D + 4 * Ba
+              + 4 * Ba * KV * G * D)
+    a_ops = 4 * G * D * KV * sum(lens)
+    bms, by = bound_ms(nbytes, a_ops, torch.bfloat16)
+    attn = dict(timings(
+        cycling(lambda *a: ad.decode_attention(*a[:-1]), sets),
+        cycling(lambda *a: ad.attention_decode_plain(*a[:-1]), sets),
+        cycling(alibrary, sets)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops,
+        max_abs_err=errs["attention_decode_llava"],
+        per="launch: B=4 S=3168 KV=8 G=7 D=128 bf16, lengths 3152")
+    log(f"time attention {ATTN_LLAVA} lengths {lens}: {json.dumps(attn)}")
+    row = dict(name="conv2d", route="cuda",
+               source="src/repro_torch/kernels/csrc/sliding_conv2d.cu",
+               replaces="src/repro/kernels/sliding_conv2d.py:130",
+               launches=launches["conv2d"], max_abs_err=errs["conv2d"],
+               per="launch: llava patch_embed x (20, 336, 336, 3) bf16, w "
+                   "(14, 14, 3, 1152), stride 14, no bias; library: F.conv2d "
+                   "channels_last, TF32 off",
+               **{k: main[k] for k in keys + ("bound_by",)}, shapes=extra)
+    return row, attn
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -2295,11 +2732,12 @@ def main() -> int:
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import sliding_conv1d as sc
+    from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
     from repro_torch.launch import serve, train
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models import layers
+    from repro_torch.models import layers, llava
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2344,6 +2782,15 @@ def main() -> int:
                                          train, iter_leaves)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 24-26: llava serving ---------------------------------------------------------
+    errs.update(phase_conv2d_kernels(s2, ad))
+    phase_smoke_serve_llava(serve, models, configs, map_tree, llava)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llava_serve = phase_full_serve_llava(serve, models, configs, llava,
+                                         iter_leaves)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -2353,7 +2800,8 @@ def main() -> int:
                "serve_int8": with_calibration(full_int8),
                "serve_jamba": jamba["fp"]["launches"],
                "serve_jamba_int8": with_calibration(jamba["int8"]),
-               "train_jamba": jamba_train["launches"]}
+               "train_jamba": jamba_train["launches"],
+               "serve_llava": llava_serve["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -2366,6 +2814,9 @@ def main() -> int:
     dw_train, fwd_z = phase_depthwise_train_times(
         sc, sb, launches, errs["conv1d_depthwise_bwd_dw"])
     kernels.append(dw_train)
+    # -- 27: llava times ----------------------------------------------------------------
+    conv2d_row, attn_llava = phase_conv2d_times(s2, ad, launches, errs)
+    kernels.append(conv2d_row)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -2374,10 +2825,12 @@ def main() -> int:
                 max_abs_err=errs[row["name"] + "_jamba"])
         if row["name"] == "conv1d_depthwise":
             row["train_shape"] = fwd_z
+        if row["name"] == "attention_decode":
+            row["llava_shape"] = attn_llava
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
                       "serve_int8": full_int8, "serve_jamba": jamba,
-                      "train_jamba": jamba_train}),
+                      "train_jamba": jamba_train, "serve_llava": llava_serve}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

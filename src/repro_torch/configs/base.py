@@ -87,6 +87,8 @@ class ModelConfig:
 PORTED_ARCHS = {
     "whisper-medium": "whisper_medium",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llava-next-34b": "llava_next_34b",
+    "qwen3-1.7b": "qwen3_1_7b",
 }
 
 

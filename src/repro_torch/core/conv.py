@@ -7,6 +7,12 @@ weights (K, Cin, Cout), or (K, C) for the depthwise conv, where each tap is
 one shifted elementwise multiply-add. This is the backend that runs when the model asks
 for ``conv_backend="sliding"``; the CUDA kernel is reached through
 ``repro_torch.kernels.ops.conv1d`` (``sliding_pallas``).
+
+The 2-D twins (layout NHWC, weights HWIO) are the same three backends as
+the reference's: ``conv2d_sliding`` (kh·kw shifted matrix products),
+``conv2d_im2col`` (the column tensor, then one product) and ``conv2d_xla``
+(``torch.nn.functional.conv2d``), behind ``conv2d``. The 2-D
+CUDA kernel is reached through ``repro_torch.kernels.ops.conv2d``.
 """
 from __future__ import annotations
 
@@ -108,3 +114,126 @@ def conv1d_depthwise_sliding(
         xs = x[:, k * dilation : k * dilation + span : stride]
         acc = acc + xs.to(acc_dtype) * w[k].to(acc_dtype)
     return acc.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# 2-D convolution
+# ---------------------------------------------------------------------------
+
+def _resolve_pad_2d(padding, kh: int, kw: int, dil) -> tuple:
+    if isinstance(padding, str):
+        return (_resolve_pad_1d(padding, kh, dil[0]),
+                _resolve_pad_1d(padding, kw, dil[1]))
+    (a, b), (c, d) = padding
+    return ((int(a), int(b)), (int(c), int(d)))
+
+
+def _pad_2d(x: torch.Tensor, pads) -> torch.Tensor:
+    (plo_h, phi_h), (plo_w, phi_w) = pads
+    if plo_h or phi_h or plo_w or phi_w:
+        x = F.pad(x, (0, 0, plo_w, phi_w, plo_h, phi_h))
+    return x
+
+
+def _shifted_views(x, kh, kw, oh, ow, stride, dilation):
+    """The kh·kw shifted (B, oh, ow, Cin) views of a padded input, tap
+    (i, j) at row i·dh and column j·dw, strided."""
+    span_h = (oh - 1) * stride[0] + 1
+    span_w = (ow - 1) * stride[1] + 1
+    for i in range(kh):
+        for j in range(kw):
+            r, c = i * dilation[0], j * dilation[1]
+            yield x[:, r : r + span_h : stride[0], c : c + span_w : stride[1]]
+
+
+def _out_hw(x, kh, kw, stride, dilation, pads):
+    (plo_h, phi_h), (plo_w, phi_w) = pads
+    return (_out_len(x.shape[1], kh, stride[0], dilation[0], plo_h, phi_h),
+            _out_len(x.shape[2], kw, stride[1], dilation[1], plo_w, phi_w))
+
+
+def conv2d_sliding(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: tuple[int, int] = (1, 1),
+    padding="VALID",
+    dilation: tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Sliding-window 2-D convolution. x: (B, H, W, Cin), w: (kh, kw, Cin,
+    Cout). The tap loop runs over kh·kw shifted views of the input, each
+    one (Cin × Cout) matrix product; the im2col buffer (kh·kw times the
+    input) is never formed. Sums in float32 (or wider), cast back to
+    ``x.dtype``."""
+    kh, kw, cin_w, cout = w.shape
+    if cin_w != x.shape[3]:
+        raise ValueError(f"Cin mismatch {cin_w} != {x.shape[3]}")
+    pads = _resolve_pad_2d(padding, kh, kw, dilation)
+    oh, ow = _out_hw(x, kh, kw, stride, dilation, pads)
+    x = _pad_2d(x, pads)
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xa, wa = x.to(acc_dtype), w.to(acc_dtype)
+    acc = torch.zeros((x.shape[0], oh, ow, cout), dtype=acc_dtype,
+                      device=x.device)
+    for t, xs in enumerate(_shifted_views(xa, kh, kw, oh, ow, stride,
+                                          dilation)):
+        acc = acc + xs @ wa[t // kw, t % kw]
+    return acc.to(x.dtype)
+
+
+def conv2d_im2col(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: tuple[int, int] = (1, 1),
+    padding="VALID",
+    dilation: tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Baseline: the (B, oh, ow, kh·kw·Cin) column tensor, then one matrix
+    product, summed in float32 (or wider)."""
+    kh, kw, cin, cout = w.shape
+    pads = _resolve_pad_2d(padding, kh, kw, dilation)
+    oh, ow = _out_hw(x, kh, kw, stride, dilation, pads)
+    x = _pad_2d(x, pads)
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    col = torch.stack(list(_shifted_views(x, kh, kw, oh, ow, stride,
+                                          dilation)), dim=3)
+    col = col.reshape(*col.shape[:3], kh * kw * cin).to(acc_dtype)
+    y = col @ w.reshape(kh * kw * cin, cout).to(acc_dtype)
+    return y.to(x.dtype)
+
+
+def conv2d_xla(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: tuple[int, int] = (1, 1),
+    padding="VALID",
+    dilation: tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """The library convolution: ``torch.nn.functional.conv2d`` (cuDNN on
+    the card, in full float32 once ``repro_torch.resolve_device`` has
+    turned TF32 off) in NHWC / HWIO, output in ``x.dtype``."""
+    pads = _resolve_pad_2d(padding, w.shape[0], w.shape[1], dilation)
+    x = _pad_2d(x, pads)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                 stride=tuple(stride), dilation=tuple(dilation))
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: tuple[int, int] = (1, 1),
+    padding="VALID",
+    dilation: tuple[int, int] = (1, 1),
+    backend: str = "sliding",
+) -> torch.Tensor:
+    fn = {
+        "sliding": conv2d_sliding,
+        "im2col_gemm": conv2d_im2col,
+        "xla": conv2d_xla,
+    }[backend]
+    return fn(x, w, stride=tuple(stride), padding=padding,
+              dilation=tuple(dilation))

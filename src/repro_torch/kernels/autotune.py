@@ -3,6 +3,14 @@ logs of the two packages line up. No tuning cache is ported yet."""
 from __future__ import annotations
 
 
+def conv2d_key(B, H, W, Cin, Cout, kh, kw, sh, sw, dtype,
+               grad: bool = False) -> str:
+    """conv2d shape key; ``grad=True`` keys the backward entry."""
+    base = (f"conv2d|B{B}|H{H}|W{W}|Cin{Cin}|Cout{Cout}"
+            f"|K{kh}x{kw}|s{sh}x{sw}|{dtype}")
+    return base + "|grad" if grad else base
+
+
 def conv1d_dw_key(B, L, C, K, stride, dtype) -> str:
     """Depthwise conv1d shape key (the mamba conv path; ``dtype`` is the
     precision name for the quantized kernel, e.g. "w8a8")."""

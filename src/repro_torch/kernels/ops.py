@@ -1,7 +1,7 @@
 """Kernel dispatch: the layer-facing entry points of the kernels.
 
 The subset of ``repro.kernels.ops`` that whisper's and jamba's serving and
-training paths reach:
+training paths and llava's serving path reach:
 
   * ``conv1d``: padding outside the kernel, then the backend. ``sliding``
     is the plain tap loop of ``core.conv`` with an unfused epilogue;
@@ -21,6 +21,14 @@ training paths reach:
     "w8a16" the int8 depthwise kernel (inference only), float operands
     quantized here. Each call is logged in ``CONV1D_DW_DISPATCH`` under the
     reference's ``conv1d_dw_key``.
+  * ``conv2d``: llava's patch embedding. ``sliding`` and ``sliding_pallas``
+    run the 2-D sliding conv kernel (the reference's Pallas rung) with
+    bias and activation fused, after padding outside it; ``xla`` is
+    ``torch.nn.functional.conv2d`` (TF32 off) and ``im2col_gemm`` the
+    plain column-tensor twin, each with an unfused epilogue; a dilated
+    conv goes to the ``core.conv`` twins, as in the reference. Floating
+    point and inference only: int8 and gradients raise. Each kernel call is
+    logged in ``CONV2D_DISPATCH`` under the reference's ``conv2d_key``.
   * ``attention_decode``: the decode-attention kernel over a float or int8
     cache, with a dispatch log keyed like the reference's
     ``ATTN_DECODE_DISPATCH``.
@@ -44,13 +52,15 @@ from repro_torch.core import conv as core_conv
 from repro_torch.health import HEALTH
 from repro_torch.kernels import attention_decode as attn_dec
 from repro_torch.kernels import (
-    autotune, sliding_conv1d, sliding_conv_bwd, sliding_conv_quant,
+    autotune, sliding_conv1d, sliding_conv2d, sliding_conv_bwd,
+    sliding_conv_quant,
 )
 from repro_torch.kernels.sliding_conv1d import apply_activation
 from repro_torch.quant import qconv
 from repro_torch.quant.apply import quantize_depthwise_weight, scale_reason
 
 CONV_BACKENDS = ("sliding", "sliding_pallas", "xla")
+CONV2D_BACKENDS = ("sliding", "sliding_pallas", "xla", "im2col_gemm")
 PRECISIONS = ("fp", "w8a8", "w8a16")
 
 
@@ -82,6 +92,7 @@ class DispatchLog:
 
 ATTN_DECODE_DISPATCH = DispatchLog()
 CONV1D_DW_DISPATCH = DispatchLog()
+CONV2D_DISPATCH = DispatchLog()
 
 
 def _pad1d(x, padding, k, dilation=1):
@@ -357,6 +368,69 @@ def conv1d_depthwise(
         x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
         mode=precision, stride=stride, activation=activation,
         out_dtype=out_dtype)
+
+
+def conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: tuple[int, int] = (1, 1),
+    padding="VALID",
+    dilation: tuple[int, int] = (1, 1),
+    backend: str = "sliding",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+    tile_h: int | None = None,
+    tile_w: int | None = None,
+    cin_block: int | None = None,
+    cout_block: int | None = None,
+    regime: str | None = None,
+    precision: str = "fp",
+) -> torch.Tensor:
+    """Multi-channel 2-D convolution + bias + activation. x: (B, H, W, Cin),
+    w: (kh, kw, Cin, Cout); padding VALID / SAME / ((lo, hi), (lo, hi)).
+
+    The tiling arguments are the reference's; they are checked and do not
+    change the result. ``precision`` other than "fp" (the int8 conv2d
+    kernel) and inputs that need a gradient (the conv2d custom VJP and its
+    weight-gradient kernel) are not ported and raise."""
+    if precision != "fp":
+        raise NotImplementedError(
+            f"conv2d precision={precision!r} needs the int8 conv2d kernel "
+            "(conv2d_quant_pallas), which is not ported")
+    if _needs_grad(x, w, bias):
+        raise NotImplementedError(
+            "conv2d with gradients needs the conv2d weight-gradient kernel "
+            "(conv2d_bwd_dw_pallas), which is not ported")
+    stride, dilation = tuple(stride), tuple(dilation)
+    if backend not in CONV2D_BACKENDS:
+        raise ValueError(
+            f"unknown conv backend {backend!r}; one of {CONV2D_BACKENDS}")
+    if backend == "xla":
+        y = core_conv.conv2d_xla(x, w, stride=stride, padding=padding,
+                                 dilation=dilation)
+        return epilogue_unfused(y, bias, activation)
+    if dilation != (1, 1):
+        y = core_conv.conv2d(
+            x, w, stride=stride, padding=padding, dilation=dilation,
+            backend="im2col_gemm" if backend == "im2col_gemm" else "sliding")
+        return epilogue_unfused(y, bias, activation)
+    kh, kw = w.shape[:2]
+    x = core_conv._pad_2d(x, core_conv._resolve_pad_2d(padding, kh, kw,
+                                                       dilation))
+    if backend == "im2col_gemm":
+        y = core_conv.conv2d_im2col(x, w, stride=stride)
+        return epilogue_unfused(y, bias, activation)
+    B, H, W, Cin = x.shape
+    key = autotune.conv2d_key(B, H, W, Cin, w.shape[3], kh, kw, *stride,
+                              str(x.dtype).removeprefix("torch."))
+    CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
+    tiles = dict(
+        tile_h=sliding_conv2d.DEFAULT_TILE_H if tile_h is None else tile_h,
+        tile_w=sliding_conv2d.DEFAULT_TILE_W if tile_w is None else tile_w,
+        cin_block=cin_block, cout_block=cout_block, regime=regime)
+    return sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
+                                         activation=activation, **tiles)
 
 
 def attention_decode(

@@ -8,6 +8,9 @@ against a static KV cache.
         --arch jamba-1.5-large-398b --smoke --batch 2 --prompt-len 16 \
         --gen 8 --conv-backend sliding_pallas --quant int8 --kv-quant int8
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llava-next-34b --smoke --batch 2 --prompt-len 8 --gen 4
+
 The core of ``repro.launch.serve``, with the same flags and the same
 ``[serve]`` summary lines, so one command line drives both packages. It
 runs on the card unless ``--device cpu`` is given. One prefill per batch
@@ -15,6 +18,15 @@ of requests, then one decode step per token; slots that emit
 ``cfg.eos_id`` are finished and keep decoding into masked positions.
 ``generate`` re-runs a request whose logits turn non-finite in every slot
 (bounded retries) and truncates it at ``deadline_s``.
+
+A vision-stub model (llava) prefills its patch embeddings ahead of the
+prompt: zeros of (B, num_patches, 1152), as the reference serves them, or
+the ``patches`` a caller passes to ``prefill_cache`` / ``generate`` (the
+output of ``models.llava.patch_embed``). The cache and the decode
+positions count that prefix: the cache holds at least prefix + prompt +
+generated rows, and decode step i runs at position prefix + P + i. (The
+reference's CLI sizes the cache and places the decode positions without
+the prefix, and fails for llava; see ROADMAP.)
 
 ``--quant int8`` runs the model's conv path (whisper's frontend, jamba's
 mamba convs) w8a8 (``quantize_for_serving``): an eager calibration
@@ -49,6 +61,7 @@ from repro_torch.health import HEALTH
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.common import quantize_kv_leaf
+from repro_torch.models.llava import VISION_DIM
 
 
 def log(msg: str) -> None:
@@ -111,7 +124,20 @@ def pad_cache_to_defs(cache: dict, defs: dict, param_dtype) -> dict:
     return out
 
 
-def serve_batch(model, B: int, P: int, prompts: torch.Tensor) -> dict:
+def prefix_len(cfg, patches: torch.Tensor | None = None) -> int:
+    """Positions the prefill puts ahead of the prompt: a vision stub's
+    patch prefix (``patches``' length, or ``cfg.num_patches`` for the zero
+    patches of ``serve_batch``), else none."""
+    if cfg.frontend != "vision_stub":
+        return 0
+    return cfg.num_patches if patches is None else patches.shape[1]
+
+
+def serve_batch(model, B: int, P: int, prompts: torch.Tensor,
+                patches: torch.Tensor | None = None) -> dict:
+    """The prefill batch: the prompts, a whisper request's mel frames, a
+    vision stub's ``patches`` (zeros of (B, num_patches, 1152) where none
+    are given, as the reference serves them)."""
     batch = {"tokens": prompts}
     if model.cfg.family == "audio":
         # real mels so serving runs the conv frontend: 2P mel frames give P
@@ -122,26 +148,37 @@ def serve_batch(model, B: int, P: int, prompts: torch.Tensor) -> dict:
         rng = np.random.default_rng(0)
         mels = rng.normal(size=(B, 2 * P, N_MELS)).astype(np.float32)
         batch["frames"] = torch.from_numpy(mels).to(prompts.device)
+    if model.cfg.family == "vlm":
+        batch["patches"] = patches if patches is not None else torch.zeros(
+            (B, model.cfg.num_patches, VISION_DIM), dtype=torch.float32,
+            device=prompts.device)
     return batch
 
 
-def resolve_cache_len(cfg, cache_len: int, P: int, gen_len: int) -> int:
-    """Enc-dec cache defs split ``seq`` evenly between encoder frames and
-    decoder tokens, so the decoder half alone must hold prompt + gen."""
+def resolve_cache_len(cfg, cache_len: int, P: int, gen_len: int,
+                      prefix: int = 0) -> int:
+    """Clamp an undersized cache request. Enc-dec cache defs split ``seq``
+    evenly between encoder frames and decoder tokens, so the decoder half
+    alone must hold prompt + gen; a decoder-only cache holds the prefill's
+    ``prefix`` (``prefix_len``) + prompt + gen."""
     if cfg.encoder_layers:
         return max(cache_len, 2 * (P + gen_len))
-    return cache_len
+    return max(cache_len, prefix + P + gen_len)
 
 
 def prefill_cache(model, params, prompts: torch.Tensor, *, cache_len: int,
-                  gen_len: int = 0):
+                  gen_len: int = 0, patches: torch.Tensor | None = None):
     """Prefill, quantize the cache where ``cfg.kv_quant`` is int8, then pad
-    it up to ``cache_len`` along each leaf's kv_seq axis (zero codes and
-    zero scales past the prefill). Returns (last-token logits, cache)."""
+    it up to ``cache_len`` (widened by ``resolve_cache_len``) along each
+    leaf's kv_seq axis (zero codes and zero scales past the prefill).
+    ``patches`` replaces a vision stub's zero patches. Returns (last-token
+    logits, cache)."""
     cfg = model.cfg
     B, P = prompts.shape
-    cache_len = resolve_cache_len(cfg, cache_len, P, gen_len)
-    logits, cache = model.prefill(params, serve_batch(model, B, P, prompts))
+    cache_len = resolve_cache_len(cfg, cache_len, P, gen_len,
+                                  prefix_len(cfg, patches))
+    logits, cache = model.prefill(params, serve_batch(model, B, P, prompts,
+                                                      patches))
     defs = model.cache_defs(B, cache_len)
     if cfg.kv_quant == "int8":
         cache = quantize_cache_to_defs(cache, defs)
@@ -161,14 +198,15 @@ def _screen_logits(logits: torch.Tensor, step: int):
 
 
 def _generate_once(model, params, prompts, *, gen_len, cache_len,
-                   temperature, seed, deadline_s, nan_guard, stats):
+                   temperature, seed, deadline_s, nan_guard, stats, patches):
     cfg = model.cfg
     dev = prompts.device
     eos = cfg.eos_id
     B, P = prompts.shape
+    start = prefix_len(cfg, patches) + P  # the first decode position
     t_start = time.perf_counter()
     logits, cache = prefill_cache(model, params, prompts, cache_len=cache_len,
-                                  gen_len=gen_len)
+                                  gen_len=gen_len, patches=patches)
     bad = _screen_logits(logits, -1) if nan_guard else None
     gen = torch.Generator(device=dev).manual_seed(seed)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
@@ -181,7 +219,7 @@ def _generate_once(model, params, prompts, *, gen_len, cache_len,
     out = [tok]
     for i in range(gen_len - 1):
         t_step = time.perf_counter()
-        logits, cache = model.decode_step(params, cache, tok, P + i)
+        logits, cache = model.decode_step(params, cache, tok, start + i)
         bad = _screen_logits(logits, i) if nan_guard else None
         if bad is not None:
             done = done | bad
@@ -209,9 +247,11 @@ def _generate_once(model, params, prompts, *, gen_len, cache_len,
 def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
              cache_len: int, temperature: float = 0.0, seed: int = 0,
              deadline_s: float | None = None, max_retries: int = 2,
-             nan_guard: bool = True, stats: dict | None = None):
+             nan_guard: bool = True, stats: dict | None = None,
+             patches: torch.Tensor | None = None):
     """prompts: (B, P) integer tensor on the serving device -> ((B, gen_len)
-    int32 tokens, (B,) bool done mask).
+    int32 tokens, (B,) bool done mask). ``patches`` (B, n, 1152) replaces
+    a vision stub's zero patches.
 
     A request whose logits are non-finite in every slot is re-run, up to
     ``max_retries`` times with short backoff, before the error propagates;
@@ -231,6 +271,7 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
                     model, params, prompts, gen_len=gen_len,
                     cache_len=cache_len, temperature=temperature, seed=seed,
                     deadline_s=deadline_s, nan_guard=nan_guard, stats=stats,
+                    patches=patches,
                 )
         except FloatingPointError:
             delay = policy.next_backoff()
@@ -315,7 +356,8 @@ def main(argv=None):
         cfg, params = quantize_for_serving(model, params, prompts)
         model = build_model(cfg)
     cache_len = args.prompt_len + args.gen + (args.prompt_len + args.gen) % 2
-    cache_len = resolve_cache_len(cfg, cache_len, args.prompt_len, args.gen)
+    cache_len = resolve_cache_len(cfg, cache_len, args.prompt_len, args.gen,
+                                  prefix_len(cfg))
     t0 = time.perf_counter()
     toks, done = generate(
         model, params, prompts, gen_len=args.gen, cache_len=cache_len,

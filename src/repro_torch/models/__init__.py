@@ -5,6 +5,14 @@ from repro_torch.configs.base import ModelConfig
 
 
 def build_model(cfg: ModelConfig):
+    if cfg.family in ("dense", "moe"):
+        from repro_torch.models.transformer import DenseLM
+
+        return DenseLM(cfg)
+    if cfg.family == "vlm":
+        from repro_torch.models.llava import Llava
+
+        return Llava(cfg)
     if cfg.family == "audio":
         from repro_torch.models.whisper import Whisper
 

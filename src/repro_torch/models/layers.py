@@ -1,5 +1,5 @@
-"""Transformer building blocks on tensors (the whisper and jamba subset
-of ``repro.models.layers``).
+"""Transformer building blocks on tensors (the whisper, jamba and dense /
+llava subset of ``repro.models.layers``).
 
 Conventions, as in the reference: activations in ``compute_dtype``;
 reductions, softmax and norms in float32; grouped-query attention with
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import conv as core_conv
 from repro_torch.distributed.sharding import ParamDef, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.quant import calibrate, qconv
@@ -107,6 +108,43 @@ def conv1d_bias_act(
         x, w.to(x.dtype), stride=stride, padding=padding, backend=backend,
         bias=b, activation=activation,
     )
+
+
+def conv2d_bias_act(
+    x: torch.Tensor,
+    w,
+    b: torch.Tensor | None,
+    *,
+    activation: str = "none",
+    stride: tuple[int, int] = (1, 1),
+    padding="VALID",
+    backend: str = "sliding",
+    precision: str = "fp",
+    site: str | None = None,
+) -> torch.Tensor:
+    """Multi-channel conv2d + bias + activation. x: (B, H, W, Cin), w:
+    (kh, kw, Cin, Cout) float, cast to x's type as the reference does. On
+    ``sliding_pallas`` bias and activation run in the 2-D CUDA kernel's
+    epilogue (``ops.conv2d``); the other backends are the ``core.conv``
+    twins with the epilogue unfused. A calibration site, observed under
+    ``site`` as in ``conv1d_bias_act``. The int8 conv2d (``precision``
+    "w8a8" / "w8a16", or an int8 leaf) is not ported and raises."""
+    qleaf = isinstance(w, qconv.QuantizedWeight)
+    wq = w.q if qleaf else w
+    site = site or calibrate.conv_site(
+        "conv2d", x.shape[-1], wq.shape[-1], f"{wq.shape[0]}x{wq.shape[1]}")
+    calibrate.observe(site, x)
+    if _quant_mode(w, precision) is not None:
+        raise NotImplementedError(
+            "int8 conv2d needs the int8 conv2d kernel (conv2d_quant_pallas), "
+            "which is not ported")
+    w = w.to(x.dtype)
+    if backend == "sliding_pallas":
+        return ops.conv2d(x, w, stride=stride, padding=padding, bias=b,
+                          activation=activation)
+    cb = "sliding" if backend.startswith("sliding") else backend
+    y = core_conv.conv2d(x, w, stride=stride, padding=padding, backend=cb)
+    return ops.epilogue_unfused(y, b, activation)
 
 
 def sinusoidal_positions(length: int, d_model: int, device=None) -> torch.Tensor:

@@ -21,3 +21,8 @@ def _hermetic_autotune_cache(tmp_path, monkeypatch):
     autotune.invalidate()
     yield
     autotune.invalidate()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels); skipped without one")

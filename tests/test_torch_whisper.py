@@ -163,9 +163,9 @@ def test_serve_cli_rejects_unported_flags(flag, capsys):
 
 def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("qwen3-1.7b")
+        get_config("llama3-8b")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(smoke_config(get_config("whisper-medium")).replace(family="dense"))
+        build_model(smoke_config(get_config("whisper-medium")).replace(family="ssm"))
 
 
 def test_default_device_needs_a_card():
