@@ -147,6 +147,44 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      beside its plain version, ``F.conv2d`` on channels_last (cuDNN, TF32
      off) and the bound; the attention kernel at llava's decode shape
      beside its plain version and SDPA (``enable_gqa``).
+ 28. int8 conv2d kernel vs plain: at the patch embedding (w8a8 with the
+     model path's bf16 output, f32 and requantized outputs; w8a16 bf16 and
+     f32), at fig1 (k 3, 5, 17, 31) and fig2 (k 3, 17) and at edge shapes
+     (k in {1, 3, 5, 7, 20}, strides (2, 2), (2, 1), (1, 3), (3, 2), Cin
+     37 and 130, every activation): f32 within 1e-5 of max |y|, bf16
+     within one bf16 step of the plain f32 value, requantized codes equal
+     (w8a8, no activation) or one apart at ties; the int8 attention kernel
+     at llava's decode shape (G=7, D=128, S=3168) with a length-0 slot;
+ 29. conv2d training kernels vs plain: the 2-D dw kernel at the patch
+     embedding (bf16 and f32), fig1 (k 3, 9, 31), fig2 (k 3, 17) and edge
+     shapes; the 2-D kernel's saved pre-activation z; the whole
+     ``Conv2dSliding`` at the grad/fig shapes with dx (strides 1 and 2,
+     activations none, relu, gelu), kernels against the plain versions,
+     launches checked (2 conv2d, 1 dw);
+     phase 26 then also serves the int8 request on its weights: the patch
+     embedding and projector calibrated on the request's tiles, w8a8
+     patch embedding (one ``conv2d_quant`` launch), an int8 cache (1,240
+     int8 attention launches at G=7, D=128, S=3168): TTFT, decode step,
+     tokens/s, busy share, cache bytes against fp's, peak memory; and the
+     chained variant once (one dequant site, ``llava/projector``);
+ 30. the patch-embedding training step at full width: x (20, 336, 336, 3)
+     bf16 through ``patch_embed`` on ``Conv2dSliding`` into the projector
+     (1152 -> 7168 -> 7168), squared distance to a fixed target, a descent
+     step of 0.1% of each leaf's norm: 1 forward conv,
+     1 dw kernel, no dx conv a step; grads held to the plain versions';
+     step ms, peak memory, busy share;
+ 31. llava int8 smoke serve, card vs CPU (quantized patch embedding, int8
+     cache, one set of weights), and the CLI's own ``--arch
+     llava-next-34b --smoke --quant int8 --kv-quant int8`` on both;
+ 32. int8 conv2d and 2-D dw times: each kernel at the patch embedding and
+     at fig1 / fig2 beside its plain version, one library call
+     (``torch._int_mm`` on the unfolded input + epilogue; w8a16
+     ``F.conv2d`` on the widened codes; ``torch.nn.grad.conv2d_weight``)
+     and the bound; the int8 attention kernel at llava's decode shape.
+
+Phases run in the order 1-25, 28, 29, 26, 31, 30, then the timings (6,
+10, 15, 19, 23, 27, 32): every kernel is held to its plain version before
+a path runs it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -156,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import itertools
 import json
 import statistics
@@ -528,9 +567,17 @@ def plain_kernels():
 
     saved = (sc._launch, ad._launch, sb._launch, sq._launch,
              sc._launch_depthwise, sq._launch_depthwise, sb._launch_depthwise,
-             s2._launch)
-    s2._launch = lambda x, w, b, stride, act, _oh, _ow: (
-        s2.conv2d_sliding_plain(x, w, b, stride=stride, activation=act))
+             s2._launch, sq._launch_2d, sb._launch_2d)
+    s2._launch = lambda x, w, b, stride, act, _oh, _ow, save_preact=False: (
+        s2.conv2d_sliding_plain(x, w, b, stride=stride, activation=act,
+                                save_preact=save_preact))
+    sq._launch_2d = lambda x, w, ws, b, xs, os, mode, stride, act, odt, *_: (
+        sq.conv2d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
+                              mode=mode, stride=stride, activation=act,
+                              out_dtype=odt))
+    sb._launch_2d = lambda x, dz, kh, kw, stride, has_bias: (
+        sb.conv2d_bwd_dw_plain(x, dz, (kh, kw), stride=stride,
+                               has_bias=has_bias))
     sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
         sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
@@ -557,7 +604,8 @@ def plain_kernels():
     finally:
         (sc._launch, ad._launch, sb._launch, sq._launch,
          sc._launch_depthwise, sq._launch_depthwise,
-         sb._launch_depthwise, s2._launch) = saved
+         sb._launch_depthwise, s2._launch, sq._launch_2d,
+         sb._launch_2d) = saved
 
 
 def _counters() -> dict:
@@ -577,7 +625,9 @@ def _counters() -> dict:
             "conv1d_depthwise": (sc.conv1d_depthwise, "launches"),
             "conv1d_depthwise_quant": (sq.conv1d_depthwise_quant, "launches"),
             "conv1d_depthwise_bwd_dw": (sb.conv1d_depthwise_bwd_dw, "launches"),
-            "conv2d": (s2.conv2d_sliding, "launches")}
+            "conv2d": (s2.conv2d_sliding, "launches"),
+            "conv2d_quant": (sq.conv2d_quant, "launches"),
+            "conv2d_bwd_dw": (sb.conv2d_bwd_dw, "launches")}
 
 
 def zero_launches() -> None:
@@ -2353,21 +2403,27 @@ def conv2d_check(s2, x, w, b, what, **args) -> float:
     got = s2.conv2d_sliding(x, w, b, **args)
     if x.dtype != torch.bfloat16:
         return close(got, s2.conv2d_sliding_plain(x, w, b, **args), TOL, what)
-    want = s2.conv2d_sliding_plain(x.float(), w.float(), b, **args)
+    return bf16_step_close(
+        got, s2.conv2d_sliding_plain(x.float(), w.float(), b, **args), what)
+
+
+def bf16_step_close(got, want, what) -> float:
+    """The kernel's bfloat16 output within one bf16 step of the plain
+    version's float32 value, plus 1e-5 of max |y|."""
     if got.dtype != torch.bfloat16 or got.shape != want.shape:
         raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
                              f"bfloat16 {tuple(want.shape)}")
-    g = got.float()
+    g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{what}: non-finite output")
-    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
-    err = (g - want).abs()
-    bad = err > step + 1e-5 * want.abs().max()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+    err = (g - w).abs()
+    bad = err > step + 1e-5 * w.abs().max()
     if bad.any():
         raise AssertionError(
             f"{what}: {int(bad.sum())} elements more than a bf16 step off, "
             f"max |err| {err.max().item():.3e}, worst at |want| "
-            f"{want[bad].abs().min().item():.3e}")
+            f"{w[bad].abs().min().item():.3e}")
     return err.max().item()
 
 
@@ -2477,14 +2533,15 @@ def phase_smoke_serve_llava(serve, models, configs, map_tree, llava):
         f"{out[DEV][3]}")
 
 
-def phase_full_serve_llava(serve, models, configs, llava,
-                           iter_leaves) -> dict:
+def phase_full_serve_llava(serve, models, configs, llava, iter_leaves, quant,
+                           transformer) -> dict:
     """llava-next-34b at full width, cut to 40 layers (bf16, random weights
     from a seeded generator, the reference's init rescaled to std
     1/sqrt(input width)): a request of B=4 slots, each with 5 image tiles
     through ``patch_embed`` on the 2-D kernel (one launch) and P=256
-    tokens, 32 generated; then one request through the CLI's own path, zero
-    patches as the reference serves them."""
+    tokens, 32 generated; the same request int8 on the same weights
+    (``_serve_llava_int8``); then one request through the CLI's own path,
+    zero patches as the reference serves them."""
     cfg = configs.get_config(LLAVA).replace(**LLAVA_CUT, attn_decode="fused")
     model = models.build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -2595,7 +2652,12 @@ def phase_full_serve_llava(serve, models, configs, llava,
         f"decode step {step_ms:.3f} ms (median of {len(stats['step_s'])}), "
         f"{wall:.3f}s, peak mem {peak:.2f} GB, kv-cache bytes {nbytes}, "
         f"launches {launches}; sample {toks[0, :8].tolist()}")
-    del cache, logits, step, patches, p_plain, l_plain, s_plain
+    fp_ref = dict(patches=patches, logits=logits, kv_cache_bytes=nbytes)
+    del cache, step, patches, logits, p_plain, l_plain, s_plain
+    res["int8"] = _serve_llava_int8(serve, models, quant, llava, transformer,
+                                    cfg, params, prompts, img, w_patch,
+                                    cache_len, fp_ref)
+    del fp_ref
 
     # the CLI's own path: zero patches, as the reference serves them
     zero_launches()
@@ -2713,6 +2775,784 @@ def phase_conv2d_times(s2, ad, launches, errs) -> tuple[dict, dict]:
     return row, attn
 
 
+# ---------------------------------------------------------------------------
+# llava int8 serving and the trained 2-D conv
+# ---------------------------------------------------------------------------
+
+# the paper's fig2 shapes: (1, 96, 96, 32) x (k, k, 32, 32), stride 1
+FIG2 = [dict(B=1, H=96, W=96, Cin=32, Cout=32, k=k, stride=1) for k in (3, 17)]
+# the 2-D conv's gradient at the grad/fig shapes, with dx: (fig, k, stride,
+# activation); strides 1 and 2, activations none, relu and gelu
+GRAD_FIG = [("fig1", 3, 1, "relu"), ("fig1", 9, 2, "gelu"),
+            ("fig1", 31, 1, "none"), ("fig2", 3, 2, "none"),
+            ("fig2", 17, 1, "gelu")]
+# the full-width patch-embedding training step: phase 26's tiles, the
+# projector at llava's widths (1152 -> 7168 -> 7168)
+PATCH_TRAIN = dict(d=7168, steps=4, warmup=1, step=1e-3)
+
+
+def conv2d_quant_inputs(seed, B, H, W, Cin, Cout, k, mode,
+                        x_dtype=torch.float32, with_bias=True):
+    """int8 weight codes (k, k, Cin, Cout) with per-Cout scales, and an int8
+    input with its scale (w8a8) or a float input (w8a16), scaled so that
+    the outputs are of order one."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int32).to(torch.int8)
+
+    n = k * k * Cin
+    w = codes((k, k, Cin, Cout))
+    ws = (torch.rand((Cout,), generator=g, device=DEV) + 0.5) / (73 * n ** 0.5)
+    b = torch.randn((Cout,), generator=g, device=DEV) if with_bias else None
+    if mode == "w8a8":
+        return codes((B, H, W, Cin)), w, ws, b, torch.tensor(1 / 73, device=DEV)
+    x = torch.randn((B, H, W, Cin), generator=g, device=DEV).to(x_dtype)
+    return x, w, ws, b, None
+
+
+def check_conv2d_quant(sq, x, w, ws, b, xs, *, mode, stride, act, out_dtype,
+                       requant, what) -> float:
+    """The int8 conv2d kernel against its plain version on the same
+    inputs: float32 outputs within 1e-5 of max |y|, bfloat16 within one
+    bf16 step of the plain float32 value; with ``requant`` the int8 codes
+    on a grid that clips the largest outputs: equal with no activation in
+    w8a8 (exact sums, the same float32 epilogue), else one apart at most
+    and only at ties. Returns the float output's max |err|."""
+    args = dict(x_scale=xs, mode=mode, stride=stride, activation=act)
+    y = sq.conv2d_quant_plain(x, w, ws, b, out_dtype=torch.float32, **args)
+    got = sq.conv2d_quant(x, w, ws, b, out_dtype=out_dtype, **args)
+    if out_dtype == torch.bfloat16:
+        err = bf16_step_close(got, y, what)
+    else:
+        err = close(got, y, dict(rtol=0.0, atol=1e-5 * max(
+            1.0, y.abs().max().item())), what)
+    if requant:
+        os = (y.abs().max() * 0.8 / 127).reshape(())
+        want_q = sq.conv2d_quant_plain(x, w, ws, b, out_scale=os, **args)
+        got_q = sq.conv2d_quant(x, w, ws, b, out_scale=os, **args)
+        if want_q.abs().max().item() != 127:
+            raise AssertionError(f"{what}: the requant clip is not exercised")
+        if mode == "w8a8" and act == "none":
+            if not torch.equal(got_q, want_q):
+                raise AssertionError(f"{what}: requant codes differ")
+        else:
+            codes_close(got_q, want_q, y / os, what + " requant",
+                        tie=1e-4 if mode == "w8a8" else 1e-3,
+                        max_frac=1e-4 if mode == "w8a8" else 1e-3)
+    return err
+
+
+def phase_conv2d_quant_kernels(sq, ad) -> dict:
+    """28: the int8 conv2d kernel against its plain version at the patch
+    embedding (the model path's w8a8 call with a bfloat16 output, float32
+    and requantized outputs, and w8a16), at the fig1 and fig2 shapes and at
+    edge shapes; the int8 attention kernel at llava's decode shape (G=7,
+    D=128, S=3168) with a length-0 slot. Returns the max |err| of the model
+    path's conv call and of the attention."""
+    s = PATCH_MAIN
+    st = (s["stride"],) * 2
+    dims = (s["B"], s["H"], s["W"], s["Cin"], s["Cout"], s["k"])
+    err_main = 0.0
+    for mode, x_dtype, out_dtype in (
+            ("w8a8", None, torch.bfloat16), ("w8a8", None, torch.float32),
+            ("w8a16", torch.bfloat16, torch.bfloat16),
+            ("w8a16", torch.float32, torch.float32)):
+        for with_bias in (False, True):
+            x, w, ws, b, xs = conv2d_quant_inputs(
+                200, *dims, mode, x_dtype or torch.float32, with_bias)
+            what = (f"conv2d_quant patch_embed {mode} x {x.dtype} -> "
+                    f"{out_dtype} bias={with_bias}")
+            err = check_conv2d_quant(sq, x, w, ws, b, xs, mode=mode,
+                                     stride=st, act="none",
+                                     out_dtype=out_dtype, requant=True,
+                                     what=what)
+            if mode == "w8a8" and out_dtype == torch.bfloat16 and not with_bias:
+                err_main = err  # the model path's call
+            log(f"{what}: max|err| {err:.3e}, requant codes checked")
+    for i, s in enumerate(FIG1 + FIG2):
+        for mode in ("w8a8", "w8a16"):
+            act = ACTS[i % len(ACTS)]
+            x, w, ws, b, xs = conv2d_quant_inputs(
+                210 + i, s["B"], s["H"], s["W"], s["Cin"], s["Cout"], s["k"],
+                mode)
+            what = (f"conv2d_quant fig {s['H']}x{s['W']} k={s['k']} {mode} "
+                    f"bias {act}")
+            err = check_conv2d_quant(sq, x, w, ws, b, xs, mode=mode,
+                                     stride=(1, 1), act=act,
+                                     out_dtype=torch.float32, requant=True,
+                                     what=what)
+            log(f"{what}: max|err| {err:.3e}, requant codes checked")
+    n = 0
+    # strides, every activation, Cin 37 (not a multiple of 4) and 130 (a
+    # ragged second and third channel chunk), Cout 70, bias or none
+    for j, (k, st, cin) in enumerate(((1, (1, 1), 37), (3, (2, 2), 130),
+                                      (5, (2, 1), 37), (7, (1, 3), 130),
+                                      (20, (3, 2), 37))):
+        for mode, act in itertools.product(("w8a8", "w8a16"), ACTS):
+            x, w, ws, b, xs = conv2d_quant_inputs(
+                220 + j, 3, 41, 47, cin, 70, k, mode,
+                with_bias=act in ("none", "gelu"))
+            check_conv2d_quant(sq, x, w, ws, b, xs, mode=mode, stride=st,
+                               act=act, out_dtype=torch.float32, requant=True,
+                               what=f"conv2d_quant edge k={k} s={st} Cin={cin} "
+                                    f"{mode} {act}")
+            n += 1
+    log(f"conv2d_quant edge shapes: {n} cases, float and requant outputs "
+        "checked")
+    S = ATTN_LLAVA["S"]
+    lens = [0, 1, S - 32, S]
+    args = attn_int8_inputs(290, **ATTN_LLAVA, q_dtype=torch.bfloat16,
+                            lengths=lens)
+    got = ad.decode_attention(*args)
+    err = close(got, ad.attention_decode_plain(*args), TOL,
+                "attention int8 llava shape")
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("attention int8: a length-0 slot must give a "
+                             "zero row")
+    log(f"attention int8 {ATTN_LLAVA} bf16 q lengths {lens}: max|err| "
+        f"{err:.3e}")
+    torch.cuda.synchronize()
+    return {"conv2d_quant": err_main, "attention_decode_int8_llava": err}
+
+
+def conv2d_dw_inputs(seed, B, H, W, Cin, Cout, k, stride, dtype):
+    """x (B, H, W, Cin) and dz (B, oh, ow, Cout)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    oh, ow = (H - k) // stride + 1, (W - k) // stride + 1
+    x = torch.randn((B, H, W, Cin), generator=g, device=DEV).to(dtype)
+    dz = torch.randn((B, oh, ow, Cout), generator=g, device=DEV).to(dtype)
+    return x, dz
+
+
+def fig_shape(name, k):
+    """fig1's or fig2's input and channels with filter k."""
+    s = FIG1[0] if name == "fig1" else FIG2[0]
+    return dict(B=s["B"], H=s["H"], W=s["W"], Cin=s["Cin"], Cout=s["Cout"],
+                k=k)
+
+
+def phase_conv2d_train_kernels(s2, sb, ops) -> float:
+    """29: the 2-D dw kernel, the 2-D kernel's saved pre-activation and the
+    whole ``Conv2dSliding`` against their plain versions. Returns the dw
+    kernel's max |err| at the patch embedding in bfloat16 (the main
+    path's call)."""
+    s = PATCH_MAIN
+    st = (s["stride"],) * 2
+    err_main = 0.0
+    shapes = ([("patch_embed", s, s["stride"], dt)
+               for dt in (torch.bfloat16, torch.float32)]
+              + [(f"{name} k={k}", fig_shape(name, k), 1, torch.float32)
+                 for name, k in (("fig1", 3), ("fig1", 9), ("fig1", 31),
+                                 ("fig2", 3), ("fig2", 17))])
+    for i, (name, d, stride, dtype) in enumerate(shapes):
+        x, dz = conv2d_dw_inputs(230 + i, d["B"], d["H"], d["W"], d["Cin"],
+                                 d["Cout"], d["k"], stride, dtype)
+        args = dict(stride=(stride, stride), has_bias=True)
+        got = sb.conv2d_bwd_dw(x, dz, (d["k"], d["k"]), **args)
+        want = sb.conv2d_bwd_dw_plain(x, dz, (d["k"], d["k"]), **args)
+        what = f"conv2d dw {name} {dtype}"
+        err = max(close(got[0], want[0], TOL, what, scaled=True),
+                  close(got[1], want[1], TOL, what + " db", scaled=True))
+        if i == 0:
+            err_main = err
+        log(f"{what}: max|err| {err:.3e} (of max |dw| "
+            f"{want[0].abs().max().item():.1f})")
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for j, (k, stride, cin) in enumerate(((1, (1, 1), 37), (3, (2, 2), 5),
+                                              (5, (2, 1), 37), (7, (1, 3), 70),
+                                              (20, (3, 2), 37))):
+            for with_bias in (True, False):
+                x, dz = conv2d_dw_inputs(240 + j, 3, 41, 47, cin, 70, k, 1,
+                                         dtype)
+                oh = (41 - k) // stride[0] + 1
+                ow = (47 - k) // stride[1] + 1
+                dz = dz[:, :oh, :ow].contiguous()
+                what = (f"conv2d dw edge k={k} s={stride} Cin={cin} "
+                        f"bias={with_bias} {dtype}")
+                got = sb.conv2d_bwd_dw(x, dz, (k, k), stride=stride,
+                                       has_bias=with_bias)
+                want = sb.conv2d_bwd_dw_plain(x, dz, (k, k), stride=stride,
+                                              has_bias=with_bias)
+                close(got[0], want[0], TOL, what, scaled=True)
+                if with_bias:
+                    close(got[1], want[1], TOL, what + " db", scaled=True)
+                elif got[1] is not None:
+                    raise AssertionError(f"{what}: db without a bias")
+                n += 1
+    log(f"conv2d dw edge shapes: {n} cases within tolerance")
+
+    # row 4's saved pre-activation: y as without it, z the post-bias sum
+    for i, (d, dtype, act, stride) in enumerate((
+            (PATCH_MAIN, torch.bfloat16, "gelu", PATCH_MAIN["stride"]),
+            (fig_shape("fig1", 3), torch.float32, "relu", 1),
+            (fig_shape("fig1", 31), torch.float32, "gelu", 2),
+            (dict(B=3, H=41, W=47, Cin=37, Cout=70, k=5), torch.bfloat16,
+             "silu", 2))):
+        x, w, b = conv2d_inputs(250 + i, d["B"], d["H"], d["W"], d["Cin"],
+                                d["Cout"], d["k"], dtype)
+        args = dict(stride=(stride, stride), activation=act)
+        y, z = s2.conv2d_sliding(x, w, b, save_preact=True, **args)
+        what = f"conv2d save_preact {d} {dtype} {act} s={stride}"
+        if not torch.equal(y, s2.conv2d_sliding(x, w, b, **args)):
+            raise AssertionError(f"{what}: save_preact changes y")
+        zf = s2.conv2d_sliding_plain(x.float(), w.float(), b,
+                                     stride=(stride, stride))
+        err = (bf16_step_close(z, zf, what + " z") if dtype == torch.bfloat16
+               else close(z, zf, TOL, what + " z"))
+        log(f"{what}: z max|err| {err:.3e}")
+
+    # the whole autograd Function at the grad/fig shapes, with dx
+    for i, (name, k, stride, act) in enumerate(GRAD_FIG):
+        d = fig_shape(name, k)
+        x, w, b = conv2d_inputs(260 + i, d["B"], d["H"], d["W"], d["Cin"],
+                                d["Cout"], k, torch.float32)
+        oh = (d["H"] - k) // stride + 1
+        g = torch.Generator(device=DEV).manual_seed(270 + i)
+        ct = torch.randn((1, oh, oh, d["Cout"]), generator=g, device=DEV)
+
+        def conv_grads():
+            leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+            y = ops.conv2d(*leaves[:2], bias=leaves[2], stride=(stride, stride),
+                           activation=act)
+            return torch.autograd.grad((y * ct).sum(), leaves)
+
+        zero_launches()
+        got = conv_grads()
+        launches = read_launches()
+        with plain_kernels():
+            want = conv_grads()
+        if launches != only(conv2d=2, conv2d_bwd_dw=1):
+            raise AssertionError(f"Conv2dSliding {name} launches {launches}")
+        errs = [close(a, b_, TOL, f"Conv2dSliding {name} k={k} d{n}",
+                      scaled=True)
+                for n, a, b_ in zip("xwb", got, want)]
+        log(f"Conv2dSliding grad/{name} k={k} s={stride} {act} f32, kernels "
+            f"vs plain: dx dw db max|err| {[f'{e:.3e}' for e in errs]}")
+    torch.cuda.synchronize()
+    return err_main
+
+
+def _serve_llava_int8(serve, models, quant, llava, transformer, cfg, params,
+                      prompts, img, w_patch, cache_len, fp) -> dict:
+    """26, int8: the request of phase 26 on the same weights with the patch
+    embedding and the projector calibrated on the request's tiles, the
+    patch weight quantized (w8a8 on the int8 conv2d kernel, dequantized in
+    its epilogue) and an int8 cache; then the chained variant once: the
+    patch embedding requantized onto the projector's grid, the projector
+    the one dequant site."""
+    B, P = prompts.shape
+    gen, prefix = SERVE["gen"], cfg.num_patches
+    zero_launches()
+    t0 = time.perf_counter()
+    calib = quant.Calibration()
+    with torch.no_grad(), quant.collecting(calib):
+        transformer.projector_apply(
+            params["projector"],
+            llava.patch_embed(w_patch, img, backend="sliding_pallas"))
+    spec = calib.spec(chains=quant.CHAINS)
+    pe, pr = spec["llava/patch_embed"], spec["llava/projector"]
+    qw = quant.quantize_weight(w_patch, pe["x_scale"].to(DEV))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_launches = read_launches()
+    if calib_launches != only(conv2d=1) or "out_scale" not in pe:
+        raise AssertionError(f"llava int8 calibration launches "
+                             f"{calib_launches}, spec {sorted(pe)}")
+    model_q = models.build_model(cfg.replace(kv_quant="int8"))
+
+    def embed():
+        return llava.patch_embed(qw, img, backend="sliding_pallas",
+                                 precision="w8a8").reshape(B, prefix,
+                                                           llava.VISION_DIM)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    with torch.no_grad(), quant.counting_dequants() as sites:
+        patches = embed()
+    torch.cuda.synchronize()
+    embed_ms = (time.perf_counter() - t0) * 1e3
+    toks, _ = serve.generate(model_q, params, prompts, gen_len=gen,
+                             cache_len=cache_len, stats=stats, patches=patches)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = only(conv2d_quant=1,
+                attention_decode_int8=cfg.num_layers * (gen - 1))
+    if launches != want:
+        raise AssertionError(f"llava int8 launch counts {launches}, "
+                             f"expected {want}")
+    if sites != ["llava/patch_embed"]:
+        raise AssertionError(f"llava int8 dequant sites {sites}")
+    if (tuple(patches.shape) != (B, prefix, llava.VISION_DIM)
+            or patches.dtype != img.dtype or not torch.isfinite(patches).all()):
+        raise AssertionError(f"llava int8 patches {tuple(patches.shape)} "
+                             f"{patches.dtype}")
+    if tuple(toks.shape) != (B, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"llava int8: bad tokens {tuple(toks.shape)}")
+    nbytes = serve.cache_nbytes(model_q.cache_defs(B, cache_len),
+                                cfg.param_dtype)
+    if nbytes >= fp["kv_cache_bytes"]:
+        raise AssertionError(f"int8 cache {nbytes} bytes, fp "
+                             f"{fp['kv_cache_bytes']}")
+    with torch.no_grad():
+        logits, cache = serve.prefill_cache(model_q, params, prompts,
+                                            cache_len=cache_len,
+                                            patches=patches)
+    if cache["k"].dtype != torch.int8 or not torch.isfinite(logits).all():
+        raise AssertionError("llava int8: cache not int8 or logits not finite")
+    p_fp = fp.pop("patches")
+    l_fp = fp.pop("logits")
+    dist = dict(
+        patches=((patches.float() - p_fp.float()).abs().max()
+                 / p_fp.float().abs().max()).item(),
+        prefill_logits=((logits.float() - l_fp.float()).abs().max()
+                        / l_fp.float().abs().max()).item(),
+        argmax_agreement=(logits.argmax(-1) == l_fp.argmax(-1)).float().mean().item())
+    prof = {
+        "patch_embed": profile_busy(embed, reps=3),
+        "decode_step": profile_busy(lambda: model_q.decode_step(
+            params, cache, toks[:, :1], prefix + P)),
+    }
+    for what, r in prof.items():
+        log(f"profile llava int8 {what}: wall {r['wall_ms']:.3f} ms, card "
+            f"busy {r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%), "
+            f"{r['kernels']} kernels; top: {r['top']}")
+    del cache, logits
+
+    # the chained variant: int8 codes into the projector, one dequant there
+    qc = quant.quantize_weight(w_patch, pe["x_scale"].to(DEV),
+                               pe["out_scale"].to(DEV))
+    zero_launches()
+    with torch.no_grad():
+        with quant.counting_dequants() as chain_sites:
+            codes = llava.patch_embed(qc, img, backend="sliding_pallas",
+                                      precision="w8a8")
+            v_chain = transformer.projector_apply(
+                params["projector"], codes, dtype=img.dtype,
+                x_scale=pr["x_scale"])
+        v_plain = transformer.projector_apply(
+            params["projector"], patches.reshape(codes.shape),
+            dtype=img.dtype)
+    chain_launches = read_launches()
+    if chain_sites != ["llava/projector"] or codes.dtype != torch.int8:
+        raise AssertionError(f"llava chain: dequant sites {chain_sites}, "
+                             f"codes {codes.dtype}")
+    if chain_launches != only(conv2d_quant=1):
+        raise AssertionError(f"llava chain launches {chain_launches}")
+    chain_dist = ((v_chain.float() - v_plain.float()).abs().max()
+                  / v_plain.float().abs().max()).item()
+    step_ms = statistics.median(stats["step_s"]) * 1e3
+    res = dict(tok_per_s=B * gen / wall, ttft_ms=embed_ms + stats["ttft_s"] * 1e3,
+               patch_embed_ms=embed_ms, decode_step_ms=step_ms, wall_s=wall,
+               peak_mem_gb=peak, calibration_s=calib_s,
+               calibration_launches=calib_launches, launches=launches,
+               kv_cache_bytes=nbytes, kv_cache_bytes_fp=fp["kv_cache_bytes"],
+               dequant_sites=sites, chain_dequant_sites=chain_sites,
+               chain_vs_unchained_projector=chain_dist, vs_fp=dist,
+               busy_share={k: r["busy_share"] for k, r in prof.items()},
+               busy_ms={k: r["busy_ms"] for k, r in prof.items()})
+    log(f"llava full-width int8 serve (w8a8 patch embedding, int8 cache) "
+        f"B={B} P={P} gen={gen}: {res['tok_per_s']:.1f} tok/s, TTFT "
+        f"{res['ttft_ms']:.2f} ms (patch_embed {embed_ms:.3f} ms), decode "
+        f"step {step_ms:.3f} ms (median of {len(stats['step_s'])}), peak mem "
+        f"{peak:.2f} GB, kv-cache bytes {nbytes} (fp {fp['kv_cache_bytes']}, "
+        f"ratio {fp['kv_cache_bytes'] / nbytes:.2f}x), calibration "
+        f"{calib_s:.2f}s, launches {launches}; vs fp: {dist}; sample "
+        f"{toks[0, :8].tolist()}")
+    log(f"llava chained int8 patch embedding: dequant sites {chain_sites}, "
+        f"projector output {chain_dist:.3e} of max from the unchained one")
+    return res
+
+
+def phase_smoke_serve_llava_int8(serve, models, configs, map_tree, llava,
+                                 quant, transformer):
+    """31: llava's smoke config with the patch embedding quantized (w8a8,
+    calibrated on the CPU) and an int8 cache, one set of weights on the
+    CPU and on the card: equal greedy tokens, patches and prefill logits
+    within TOL; then the CLI's own line, ``--arch llava-next-34b --smoke
+    --quant int8 --kv-quant int8``, on the card and on the CPU: the same
+    calibration report (no conv site among the params, as the reference's
+    CLI finds), cache bytes and attention keys."""
+    cfg = configs.smoke_config(configs.get_config(LLAVA)).replace(
+        kv_quant="int8")
+    model = models.build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    img, w = (t.cpu() for t in _llava_images(141, SMOKE["B"], 56,
+                                             torch.float32))
+    calib = quant.Calibration()
+    with torch.no_grad(), quant.collecting(calib):
+        transformer.projector_apply(cpu_params["projector"],
+                                    llava.patch_embed(w, img))
+    qw = quant.quantize_weight(w, calib.spec()["llava/patch_embed"]["x_scale"])
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(2, cfg.vocab_size, size=(SMOKE["B"], SMOKE["P"])
+                     ).astype(np.int32))
+    cache_len = SMOKE["P"] + SMOKE["gen"]
+    out = {}
+    for dev, params in (("cpu", cpu_params),
+                        (DEV, map_tree(lambda t: t.to(DEV), cpu_params))):
+        zero_launches()
+        with torch.no_grad():
+            patches = llava.patch_embed(qw.to(dev), img.to(dev),
+                                        backend="sliding_pallas",
+                                        precision="w8a8")
+            logits, _ = serve.prefill_cache(model, params, prompts.to(dev),
+                                            cache_len=cache_len,
+                                            patches=patches)
+        toks, _ = serve.generate(model, params, prompts.to(dev),
+                                 gen_len=SMOKE["gen"], cache_len=cache_len,
+                                 patches=patches)
+        out[dev] = (patches.cpu(), logits.cpu(), toks.cpu(), read_launches())
+    want = only(conv2d_quant=1,
+                attention_decode_int8=cfg.num_layers * (SMOKE["gen"] - 1))
+    if out[DEV][3] != want:
+        raise AssertionError(f"llava int8 smoke card launches {out[DEV][3]}, "
+                             f"expected {want}")
+    perr = close(out[DEV][0], out["cpu"][0], TOL, "llava int8 smoke patches")
+    err = close(out[DEV][1], out["cpu"][1], TOL,
+                "llava int8 smoke prefill logits")
+    if not torch.equal(out[DEV][2], out["cpu"][2]):
+        raise AssertionError(f"llava int8 smoke greedy tokens differ: card "
+                             f"{out[DEV][2].tolist()} vs CPU "
+                             f"{out['cpu'][2].tolist()}")
+    log(f"llava int8 smoke serve {SMOKE}: greedy tokens equal on card and CPU "
+        f"{out[DEV][2].tolist()}; patches max|err| {perr:.3e}, prefill "
+        f"logits max|err| {err:.3e}; card launches {out[DEV][3]}")
+
+    from repro_torch.kernels import ops
+
+    lines = {}
+    for dev in ("cpu", DEV):
+        ops.ATTN_DECODE_DISPATCH.clear()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--arch", LLAVA, "--smoke", "--quant", "int8",
+                        "--kv-quant", "int8", "--batch", "2", "--prompt-len",
+                        "8", "--gen", "4", "--device", dev])
+        text = buf.getvalue()
+        lines[dev] = [ln.replace("impl=cuda", "impl=plain")
+                      for ln in text.splitlines()
+                      if ln.startswith(("[serve] --quant", "[serve] kv-cache",
+                                        "[serve] attn-decode"))]
+        if "has no conv sites; unchanged" not in text:
+            raise AssertionError(f"llava int8 CLI on {dev}: {text}")
+    if lines["cpu"] != lines[DEV] or len(lines[DEV]) != 3:
+        raise AssertionError(f"llava int8 CLI lines differ: {lines}")
+    log(f"llava int8 CLI on card and CPU: {lines[DEV]}")
+
+
+def phase_patch_embed_train(llava, transformer) -> dict:
+    """30: a gradient step through ``patch_embed`` on the kernels'
+    ``Conv2dSliding`` into the projector at llava's full widths: x (20,
+    336, 336, 3) bf16, w (14, 14, 3, 1152) and its bias, the projector
+    1152 -> 7168 -> 7168, all bf16; the loss half the squared distance of
+    each patch's projection to a fixed target drawn from the seed, averaged
+    over the patches; a descent step in place, each leaf moved along its
+    gradient by a thousandth of its own norm. One forward
+    conv, one dw kernel and no dx conv a step; the first step's grads held
+    to the same step on the plain versions; step ms and peak memory."""
+    g = torch.Generator(device=DEV).manual_seed(280)
+    img, w = _llava_images(280, PATCH_MAIN["B"], LLAVA_TILE, torch.bfloat16)
+    d = PATCH_TRAIN["d"]
+    leaves = {
+        "w_patch": w,
+        "b_patch": (0.1 * torch.randn((1152,), generator=g, device=DEV)
+                    ).to(torch.bfloat16),
+        "w1": (torch.randn((1152, d), generator=g, device=DEV)
+               / 1152 ** 0.5).to(torch.bfloat16),
+        "b1": (0.1 * torch.randn((d,), generator=g, device=DEV)
+               ).to(torch.bfloat16),
+        "w2": (torch.randn((d, d), generator=g, device=DEV)
+               / d ** 0.5).to(torch.bfloat16),
+    }
+    n_patch = (LLAVA_TILE // 14) ** 2
+    target = torch.randn((PATCH_MAIN["B"], n_patch, d), generator=g,
+                         device=DEV).to(torch.bfloat16)
+
+    def grads(params):
+        p = {k: t.detach().requires_grad_(True) for k, t in params.items()}
+        patches = llava.patch_embed(p["w_patch"], img, backend="sliding_pallas",
+                                    bias=p["b_patch"])
+        out = transformer.projector_apply(
+            {k: p[k] for k in ("w1", "b1", "w2")}, patches)
+        loss = 0.5 * ((out.float() - target.float()) ** 2).sum(-1).mean()
+        return loss, torch.autograd.grad(loss, list(p.values()))
+
+    zero_launches()
+    loss0, got = grads(leaves)
+    launches = read_launches()
+    if launches != only(conv2d=1, conv2d_bwd_dw=1):
+        raise AssertionError(f"patch-embedding step launches {launches}")
+    with plain_kernels():
+        _, want = grads(leaves)
+    errs = {}
+    for name, a, b in zip(leaves, got, want):
+        if a.dtype != torch.bfloat16 or not torch.isfinite(a.float()).all():
+            raise AssertionError(f"patch-embedding grad {name}: {a.dtype}")
+        # bf16 grads: tests/test_grads.py's bf16 tolerance, scaled
+        errs[name] = close(a, b, BTOL, f"patch-embedding grad {name}",
+                           scaled=True)
+    log(f"patch-embedding step, kernels vs plain: grads max|err| "
+        f"{ {k: f'{e:.3e}' for k, e in errs.items()} }, loss {loss0.item():.3f}")
+
+    params = {k: t.clone() for k, t in leaves.items()}
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(PATCH_TRAIN["warmup"] + PATCH_TRAIN["steps"]):
+        zero_launches()
+        t0 = time.perf_counter()
+        loss, gs = grads(params)
+        with torch.no_grad():  # the gradient's scale sets no step size
+            for t, gr in zip(params.values(), gs):
+                rate = PATCH_TRAIN["step"] * t.float().norm() / gr.float().norm()
+                t.sub_((gr.float() * rate).to(t.dtype))
+        torch.cuda.synchronize()
+        if step >= PATCH_TRAIN["warmup"]:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        if read_launches() != only(conv2d=1, conv2d_bwd_dw=1):
+            raise AssertionError(f"patch-embedding step {step} launches "
+                                 f"{read_launches()}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"patch-embedding losses {losses}")
+    def step_grads():  # profile_busy turns gradients off; this step needs them
+        with torch.enable_grad():
+            return grads(params)
+
+    prof = profile_busy(step_grads, reps=2)
+    res = dict(step_ms=statistics.median(times), peak_mem_gb=peak,
+               losses=losses, launches=launches, grad_max_abs_err=errs,
+               busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+               top=prof["top"])
+    log(f"patch-embedding train step (x {tuple(img.shape)} bf16, projector "
+        f"1152->{d}->{d}): {res['step_ms']:.3f} ms (median of {len(times)}), "
+        f"peak mem {peak:.2f} GB, losses {[round(v, 3) for v in losses]}, "
+        f"busy {100 * prof['busy_share']:.1f}%, launches a step {launches}; "
+        f"top: {prof['top']}")
+    return res
+
+
+def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
+    """32: the int8 conv2d kernel at the patch embedding (the model path's
+    w8a8 call with a bf16 output, the chained one with an int8 output, and
+    w8a16) and at fig1 and fig2 (w8a8, f32 out, bias + gelu) beside its
+    plain version, ``torch._int_mm`` on the input unfolded ahead (K padded
+    to a multiple of 8) plus the epilogue in torch (w8a16: ``F.conv2d`` on
+    the widened weights, cuDNN, TF32 off), and the bound; the 2-D dw kernel
+    at the patch embedding (bf16, the main path's call, and f32) and at
+    fig1 and fig2 (f32) beside its plain version,
+    ``torch.nn.grad.conv2d_weight`` (cuDNN, TF32 off) plus the bias sum,
+    and the bound; the int8 attention kernel at llava's decode shape.
+    Returns the two kernel rows; the attention times go to row 2b."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
+            "plain_call_ms", "library_call_ms")
+
+    def unfolded(x, k, stride, kpad):
+        """x (B, H, W, Cin) -> (B*oh*ow, kpad): each position's k*k*Cin
+        values in (i, j, c) order, zero-padded to kpad."""
+        cols = x.unfold(1, k, stride).unfold(2, k, stride)  # B oh ow C i j
+        cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * x.shape[3])
+        return F.pad(cols, (0, kpad - cols.shape[1]))
+
+    def quant_times(name, s, mode, out, act, with_bias, seed, n_sets):
+        k, st = s["k"], (s["stride"],) * 2
+        oh = (s["H"] - k) // s["stride"] + 1
+        ow = (s["W"] - k) // s["stride"] + 1
+        K = k * k * s["Cin"]
+        kpad = (K + 7) // 8 * 8
+        sets, lib_sets = [], []
+        for i in range(n_sets):
+            x, w, ws, b, xs = conv2d_quant_inputs(
+                seed + i, s["B"], s["H"], s["W"], s["Cin"], s["Cout"], k,
+                mode, torch.bfloat16, with_bias)
+            sets.append((x, w, ws, b, xs))
+        os = torch.tensor(0.05, device=DEV) if out == "int8" else None
+        odt = torch.bfloat16 if out == "bf16" else torch.float32
+        for x, w, ws, b, xs in sets[:2]:  # each > 50 MB, or unfolded ahead
+            if mode == "w8a8":
+                lib_sets.append((unfolded(x, k, s["stride"], kpad),
+                                 F.pad(w.reshape(K, -1), (0, 0, 0, kpad - K)),
+                                 ws * xs, b))
+            else:
+                lib_sets.append((x.permute(0, 3, 1, 2),
+                                 w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+                                     memory_format=torch.channels_last),
+                                 ws, b))
+
+        def kernel(x, w, ws, b, xs):
+            return sq.conv2d_quant(x, w, ws, b, x_scale=xs, out_scale=os,
+                                   mode=mode, stride=st, activation=act,
+                                   out_dtype=odt)
+
+        def plain(x, w, ws, b, xs):
+            return sq.conv2d_quant_plain(x, w, ws, b, x_scale=xs,
+                                         out_scale=os, mode=mode, stride=st,
+                                         activation=act, out_dtype=odt)
+
+        def library(a, w2, s_row, b):
+            if mode == "w8a8":
+                y = torch._int_mm(a, w2).float().reshape(
+                    s["B"], oh, ow, -1) * s_row
+            else:
+                y = F.conv2d(a, w2, stride=st).permute(0, 2, 3, 1).float() * s_row
+            if b is not None:
+                y = y + b
+            if act == "gelu":
+                y = F.gelu(y, approximate="tanh")
+            if os is not None:
+                return torch.clamp(torch.round(y / os), -127, 127).to(torch.int8)
+            return y.to(odt)
+
+        want = plain(*sets[0])
+        lib = library(*lib_sets[0])
+        if os is not None:
+            if (lib.int() - want.int()).abs().max().item() > 1:
+                raise AssertionError(f"library conv2d_quant {name}")
+        else:  # cuDNN rounds the w8a16 sum to bf16 before the scale
+            close(lib, want, LIBTOL if mode == "w8a16" else
+                  QBTOL if odt == torch.bfloat16 else TIGHT,
+                  f"library conv2d_quant {name}", scaled=True)
+        x, w = sets[0][:2]
+        out_bytes = {"int8": 1, "bf16": 2, "f32": 4}[out]
+        nbytes = (x.numel() * x.element_size() + w.numel() + 4 * s["Cout"]
+                  + (4 * s["Cout"] if with_bias else 0)
+                  + out_bytes * s["B"] * oh * ow * s["Cout"])
+        ops = 2 * s["B"] * oh * ow * s["Cout"] * K
+        bms, by = bound_ms(nbytes, ops,
+                           torch.int8 if mode == "w8a8" else torch.bfloat16)
+        t = dict(timings(cycling(kernel, sets), cycling(plain, sets),
+                         cycling(library, lib_sets)),
+                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        log(f"time conv2d_quant {name} {s} {mode} -> {out} {act} "
+            f"bias={with_bias}: {json.dumps(t)}")
+        return t
+
+    q_main = quant_times("patch_embed", PATCH_MAIN, "w8a8", "bf16", "none",
+                         False, 300, 4)
+    q_shapes = {
+        "patch_embed_chained": quant_times("patch_embed chained", PATCH_MAIN,
+                                           "w8a8", "int8", "none", False, 310,
+                                           4),
+        "patch_embed_w8a16": quant_times("patch_embed w8a16", PATCH_MAIN,
+                                         "w8a16", "bf16", "none", False, 320,
+                                         3),
+    }
+    for i, (fig, s) in enumerate((("fig1", FIG1[0]), ("fig1", FIG1[-1]),
+                                  ("fig2", FIG2[0]), ("fig2", FIG2[1]))):
+        name = f"{fig}_k{s['k']}"
+        # 0.5 MB inputs: 100 sets exceed the L2
+        q_shapes[name] = quant_times(name, s, "w8a8", "f32", "gelu", True,
+                                     330 + 100 * i, 100)
+
+    def dw_times(name, s, dtype, seed, n_sets):
+        k, stride = s["k"], s["stride"]
+        sets = []
+        for i in range(n_sets):
+            x, dz = conv2d_dw_inputs(seed + i, s["B"], s["H"], s["W"],
+                                     s["Cin"], s["Cout"], k, stride, dtype)
+            sets.append((x, dz, x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)))
+        args = dict(stride=(stride, stride), has_bias=True)
+
+        def library(x, dz, x_lib, dz_lib):
+            dw = torch.nn.grad.conv2d_weight(
+                x_lib, (s["Cout"], s["Cin"], k, k), dz_lib, stride=stride)
+            return dw.permute(2, 3, 1, 0), dz.sum(dim=(0, 1, 2))
+
+        x, dz = sets[0][:2]
+        want = sb.conv2d_bwd_dw_plain(x, dz, (k, k), **args)
+        lib = library(*sets[0])
+        for a, b in zip(lib, want):
+            close(a, b, LIBTOL if dtype == torch.bfloat16 else TOL,
+                  f"library conv2d dw {name} {dtype}", scaled=True)
+        el = x.element_size()
+        nbytes = el * (x.numel() + dz.numel()) + 4 * (k * k * s["Cin"]
+                                                      * s["Cout"] + s["Cout"])
+        ops = 2 * dz.numel() * k * k * s["Cin"]
+        bms, by = bound_ms(nbytes, ops, dtype)
+        t = dict(timings(
+            cycling(lambda x, dz, *_: sb.conv2d_bwd_dw(x, dz, (k, k), **args),
+                    sets),
+            cycling(lambda x, dz, *_: sb.conv2d_bwd_dw_plain(x, dz, (k, k),
+                                                             **args), sets),
+            cycling(library, sets)),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+        log(f"time conv2d dw {name} {s} {dtype}: {json.dumps(t)}")
+        return t
+
+    d_main = dw_times("patch_embed", PATCH_MAIN, torch.bfloat16, 400, 3)
+    d_shapes = {"patch_embed_f32": dw_times("patch_embed", PATCH_MAIN,
+                                            torch.float32, 410, 2)}
+    for i, (name, k) in enumerate((("fig1", 3), ("fig1", 31), ("fig2", 17))):
+        s = dict(fig_shape(name, k), stride=1)
+        d_shapes[f"{name}_k{k}_f32"] = dw_times(name, s, torch.float32,
+                                                420 + 30 * i, 26)
+
+    Ba, S, KV, G, D = (ATTN_LLAVA[n] for n in ("B", "S", "KV", "G", "D"))
+    lens = [S - 16] * Ba  # the request's middle decode step
+    sets = []
+    for i in range(3):  # 3 int8 caches of 26 MB: > 50 MB
+        q, kq, vq, ln, ks, vs = attn_int8_inputs(430 + i, **ATTN_LLAVA,
+                                                 q_dtype=torch.bfloat16,
+                                                 lengths=lens)
+        mask = (torch.arange(S, device=DEV)[None, :] < ln[:, None])[:, None, None, :]
+        sets.append((q, kq, vq, ln, ks, vs, mask))
+
+    def alibrary(q, kq, vq, ln, ks, vs, mask):
+        k = (kq.float() * ks).to(q.dtype)
+        v = (vq.float() * vs).to(q.dtype)
+        return F.scaled_dot_product_attention(
+            q.reshape(Ba, KV * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    close(alibrary(*sets[0]).float().reshape(Ba, KV, G, D),
+          ad.attention_decode_plain(*sets[0][:6]), BTOL,
+          "library attention int8 llava shape")
+    nbytes = (2 * Ba * KV * G * D + 2 * sum(lens) * KV * D
+              + 2 * 4 * sum(lens) * KV + 4 * Ba + 4 * Ba * KV * G * D)
+    a_ops = 4 * G * D * KV * sum(lens)
+    bms, by = bound_ms(nbytes, a_ops, torch.float32)
+    attn = dict(timings(
+        cycling(lambda *a: ad.decode_attention(*a[:6]), sets),
+        cycling(lambda *a: ad.attention_decode_plain(*a[:6]), sets),
+        cycling(alibrary, sets)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops,
+        max_abs_err=errs["attention_decode_int8_llava"],
+        per="launch: B=4 S=3168 KV=8 G=7 D=128, bf16 q, int8 cache, lengths "
+            "3152; library: dequant to bf16 + SDPA (enable_gqa)")
+    log(f"time attention int8 {ATTN_LLAVA} lengths {lens}: {json.dumps(attn)}")
+    rows = [
+        dict(name="conv2d_quant", route="cuda",
+             source="src/repro_torch/kernels/csrc/sliding_conv2d_quant.cu",
+             replaces="src/repro/kernels/sliding_conv_quant.py:361",
+             launches=launches["conv2d_quant"],
+             max_abs_err=errs["conv2d_quant"],
+             per="launch: llava patch_embed w8a8, x (20, 336, 336, 3) int8, w "
+                 "(14, 14, 3, 1152) int8, stride 14, bf16 out, no bias; "
+                 "library: torch._int_mm on the input unfolded ahead (K 588 "
+                 "padded to 592) + epilogue",
+             **{k: q_main[k] for k in keys + ("bound_by",)}, shapes=q_shapes),
+        dict(name="conv2d_bwd_dw", route="cuda",
+             source="src/repro_torch/kernels/csrc/sliding_conv2d_bwd.cu",
+             replaces="src/repro/kernels/sliding_conv_bwd.py:440",
+             launches=launches["conv2d_bwd_dw"],
+             max_abs_err=errs["conv2d_bwd_dw"],
+             per="launch: llava patch_embed x (20, 336, 336, 3) bf16, dz (20, "
+                 "24, 24, 1152) bf16, stride 14, with db; library: "
+                 "torch.nn.grad.conv2d_weight (cuDNN, TF32 off) + dz.sum",
+             **{k: d_main[k] for k in keys + ("bound_by",)}, shapes=d_shapes),
+    ]
+    return rows, attn
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -2737,7 +3577,7 @@ def main() -> int:
     from repro_torch.kernels import sliding_conv_quant as sq
     from repro_torch.launch import serve, train
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models import layers, llava
+    from repro_torch.models import layers, llava, transformer
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2782,13 +3622,20 @@ def main() -> int:
                                          train, iter_leaves)
     gc.collect()
     torch.cuda.empty_cache()
-    # -- 24-26: llava serving ---------------------------------------------------------
+    # -- 24-26, 28-31: llava serving, fp and int8; the trained 2-D conv ----------------
     errs.update(phase_conv2d_kernels(s2, ad))
     phase_smoke_serve_llava(serve, models, configs, map_tree, llava)
+    errs.update(phase_conv2d_quant_kernels(sq, ad))
+    errs["conv2d_bwd_dw"] = phase_conv2d_train_kernels(s2, sb, ops)
     gc.collect()
     torch.cuda.empty_cache()
     llava_serve = phase_full_serve_llava(serve, models, configs, llava,
-                                         iter_leaves)
+                                         iter_leaves, quant, transformer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_smoke_serve_llava_int8(serve, models, configs, map_tree, llava,
+                                 quant, transformer)
+    patch_train = phase_patch_embed_train(llava, transformer)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2801,7 +3648,9 @@ def main() -> int:
                "serve_jamba": jamba["fp"]["launches"],
                "serve_jamba_int8": with_calibration(jamba["int8"]),
                "train_jamba": jamba_train["launches"],
-               "serve_llava": llava_serve["launches"]}
+               "serve_llava": llava_serve["launches"],
+               "serve_llava_int8": with_calibration(llava_serve["int8"]),
+               "train_conv2d": patch_train["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -2817,6 +3666,10 @@ def main() -> int:
     # -- 27: llava times ----------------------------------------------------------------
     conv2d_row, attn_llava = phase_conv2d_times(s2, ad, launches, errs)
     kernels.append(conv2d_row)
+    # -- 32: int8 conv2d and 2-D dw times -------------------------------------------------
+    conv2d_rows, attn_int8_llava = phase_conv2d_quant_train_times(
+        sq, sb, ad, launches, errs)
+    kernels += conv2d_rows
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -2827,10 +3680,13 @@ def main() -> int:
             row["train_shape"] = fwd_z
         if row["name"] == "attention_decode":
             row["llava_shape"] = attn_llava
+        if row["name"] == "attention_decode_int8":
+            row["llava_shape"] = attn_int8_llava
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
                       "serve_int8": full_int8, "serve_jamba": jamba,
-                      "train_jamba": jamba_train, "serve_llava": llava_serve}),
+                      "train_jamba": jamba_train, "serve_llava": llava_serve,
+                      "train_conv2d": patch_train}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

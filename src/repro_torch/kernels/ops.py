@@ -23,12 +23,18 @@ training paths and llava's serving path reach:
     reference's ``conv1d_dw_key``.
   * ``conv2d``: llava's patch embedding. ``sliding`` and ``sliding_pallas``
     run the 2-D sliding conv kernel (the reference's Pallas rung) with
-    bias and activation fused, after padding outside it; ``xla`` is
-    ``torch.nn.functional.conv2d`` (TF32 off) and ``im2col_gemm`` the
-    plain column-tensor twin, each with an unfused epilogue; a dilated
-    conv goes to the ``core.conv`` twins, as in the reference. Floating
-    point and inference only: int8 and gradients raise. Each kernel call is
-    logged in ``CONV2D_DISPATCH`` under the reference's ``conv2d_key``.
+    bias and activation fused, after padding outside it, differentiable
+    through ``Conv2dSliding`` (the reference's ``_conv2d_sliding_op``
+    custom VJP); ``xla`` is ``torch.nn.functional.conv2d`` (TF32 off) and
+    ``im2col_gemm`` the plain column-tensor twin, each with an unfused
+    epilogue and plain autograd; a dilated conv goes to the ``core.conv``
+    twins, as in the reference. Each kernel call is logged in
+    ``CONV2D_DISPATCH`` under the reference's ``conv2d_key``, a
+    differentiable call also under its ``grad=True`` key. With
+    ``precision`` "w8a8" or "w8a16" it runs the int8 conv2d kernel (the
+    sliding backends only, inference only), float operands quantized here,
+    each call logged in ``CONV2D_QUANT_DISPATCH`` under the
+    precision-keyed ``conv2d_key``.
   * ``attention_decode``: the decode-attention kernel over a float or int8
     cache, with a dispatch log keyed like the reference's
     ``ATTN_DECODE_DISPATCH``.
@@ -93,6 +99,7 @@ class DispatchLog:
 ATTN_DECODE_DISPATCH = DispatchLog()
 CONV1D_DW_DISPATCH = DispatchLog()
 CONV2D_DISPATCH = DispatchLog()
+CONV2D_QUANT_DISPATCH = DispatchLog()
 
 
 def _pad1d(x, padding, k, dilation=1):
@@ -143,13 +150,14 @@ def _quant_operands(x, w, w_scale, x_scale, precision,
     return x, w, w_scale, x_scale, out_dtype
 
 
-def _check_quant_dispatch(precision, backend):
+def _check_quant_dispatch(precision, backend, backends=("sliding_pallas",)):
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
-    if backend != "sliding_pallas":
+    if backend not in backends:
         raise ValueError(
-            f"precision={precision!r} is implemented for the sliding_pallas "
-            f"backend only (got backend={backend!r})")
+            f"precision={precision!r} is implemented for the "
+            f"{' and '.join(backends)} backend{'s' * (len(backends) > 1)} "
+            f"only (got backend={backend!r})")
 
 
 def _conv1d_quant(x, w, *, stride, padding, backend, bias, activation,
@@ -263,6 +271,49 @@ class Conv1dDepthwise(torch.autograd.Function):
         return dx, dw, db, None, None
 
 
+class Conv2dSliding(torch.autograd.Function):
+    """VALID sliding conv2d + bias + activation with its backward on the
+    kernels, as ``Conv1dSliding``: forward saves (x, w, bias, z), z the
+    2-D kernel's post-bias pre-activation (none with activation "none").
+    Backward: ``dz = act'(z) · dy`` in x's type; dx through the forward 2-D
+    kernel on the dilated gradient and the flipped, transposed weights; dw
+    and db through the 2-D dw kernel, cast to w's and bias's types. Grads
+    nobody asked for are not computed: an input that needs none (an image)
+    costs no dx conv. CPU tensors run the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, activation, tiles, bwd_tiles):
+        if activation in (None, "none"):
+            y = sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
+                                              **tiles)
+            z = None
+        else:
+            y, z = sliding_conv2d.conv2d_sliding(
+                x, w, bias, stride=stride, activation=activation,
+                save_preact=True, **tiles)
+        ctx.save_for_backward(x, w, bias, z)
+        ctx.stride, ctx.activation = stride, activation
+        ctx.bwd_tiles = bwd_tiles
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias, z = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dz = sliding_conv_bwd.act_bwd(dy, z, ctx.activation).to(x.dtype)
+        dx = dw = db = None
+        if need_x:
+            dx = sliding_conv_bwd.conv2d_dx(dz, w, stride=ctx.stride,
+                                            H=x.shape[1], W=x.shape[2])
+        if need_w or need_b:
+            dw, db = sliding_conv_bwd.conv2d_bwd_dw(
+                x, dz, w.shape[:2], stride=ctx.stride,
+                has_bias=bias is not None, **ctx.bwd_tiles)
+            dw = dw.to(w.dtype)
+            db = None if db is None else db.to(bias.dtype)
+        return dx, dw, db, None, None, None, None
+
+
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in ts)
@@ -370,6 +421,52 @@ def conv1d_depthwise(
         out_dtype=out_dtype)
 
 
+def _bwd_tile2d(x, w, stride, explicit_h, explicit_w):
+    """The dw kernel's tiles: the explicit ones, else the defaults (the
+    reference consults its tuning cache under the ``grad=True`` key here;
+    the port has none). The key is logged in ``CONV2D_DISPATCH``."""
+    B, H, W, Cin = x.shape
+    kh, kw, _, Cout = w.shape
+    key = autotune.conv2d_key(B, H, W, Cin, Cout, kh, kw, *stride,
+                              str(x.dtype).removeprefix("torch."), grad=True)
+    CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
+    return (sliding_conv2d.DEFAULT_TILE_H if explicit_h is None else explicit_h,
+            sliding_conv2d.DEFAULT_TILE_W if explicit_w is None else explicit_w)
+
+
+def _conv2d_quant(x, w, *, stride, padding, dilation, backend, bias,
+                  activation, tiles, precision, w_scale, x_scale, out_scale):
+    """The quantized branch of ``conv2d`` (the reference's ``ops.py``
+    int8 conv2d): pad (an int8 input with code 0), screen the scales,
+    quantize the float operands, then the int8 conv2d kernel. An unusable
+    calibrated scale with float operands demotes the call to the fp conv
+    kernel, as in the reference, logged as "fp" under the call's key."""
+    _check_quant_dispatch(precision, backend, ("sliding", "sliding_pallas"))
+    if dilation != (1, 1):
+        raise ValueError("quantized convs cover dilation == 1 only")
+    if _needs_grad(x, w, bias):
+        raise NotImplementedError(
+            f"conv2d precision={precision!r} is inference only")
+    kh, kw = w.shape[:2]
+    x = core_conv._pad_2d(x, core_conv._resolve_pad_2d(padding, kh, kw,
+                                                       (1, 1)))
+    key = autotune.conv2d_key(*x.shape, w.shape[3], kh, kw, *stride,
+                              precision)
+    site = f"conv2d.{precision}"
+    x_scale, to_float = _guard_quant_scales(site, x, w, w_scale, x_scale)
+    if to_float:  # unusable calibrated scale, float operands: the fp path
+        CONV2D_QUANT_DISPATCH[key] = "fp"
+        return conv2d(x, w, stride=stride, backend=backend, bias=bias,
+                      activation=activation, **tiles)
+    x, w, w_scale, x_scale, out_dtype = _quant_operands(
+        x, w, w_scale, x_scale, precision)
+    CONV2D_QUANT_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
+    return sliding_conv_quant.conv2d_quant(
+        x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+        mode=precision, stride=stride, activation=activation,
+        out_dtype=out_dtype, **tiles)
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -385,24 +482,35 @@ def conv2d(
     cin_block: int | None = None,
     cout_block: int | None = None,
     regime: str | None = None,
+    bwd_tile_h: int | None = None,
+    bwd_tile_w: int | None = None,
     precision: str = "fp",
+    w_scale: torch.Tensor | None = None,
+    x_scale: torch.Tensor | None = None,
+    out_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-channel 2-D convolution + bias + activation. x: (B, H, W, Cin),
     w: (kh, kw, Cin, Cout); padding VALID / SAME / ((lo, hi), (lo, hi)).
 
     The tiling arguments are the reference's; they are checked and do not
-    change the result. ``precision`` other than "fp" (the int8 conv2d
-    kernel) and inputs that need a gradient (the conv2d custom VJP and its
-    weight-gradient kernel) are not ported and raise."""
-    if precision != "fp":
-        raise NotImplementedError(
-            f"conv2d precision={precision!r} needs the int8 conv2d kernel "
-            "(conv2d_quant_pallas), which is not ported")
-    if _needs_grad(x, w, bias):
-        raise NotImplementedError(
-            "conv2d with gradients needs the conv2d weight-gradient kernel "
-            "(conv2d_bwd_dw_pallas), which is not ported")
+    change the result. On the sliding backends a call whose inputs need a
+    gradient goes through ``Conv2dSliding``. ``precision`` "w8a8" /
+    "w8a16" selects the int8 kernel (inference only): ``w`` is int8 with
+    its per-Cout ``w_scale``, or float and quantized here; in w8a8 a float
+    ``x`` is quantized onto ``x_scale`` (dynamic absmax when None), an int8
+    ``x`` comes with its ``x_scale``, and ``out_scale`` requantizes the
+    output to int8 after the activation."""
     stride, dilation = tuple(stride), tuple(dilation)
+    tiles = dict(
+        tile_h=sliding_conv2d.DEFAULT_TILE_H if tile_h is None else tile_h,
+        tile_w=sliding_conv2d.DEFAULT_TILE_W if tile_w is None else tile_w,
+        cin_block=cin_block, cout_block=cout_block, regime=regime)
+    if precision != "fp":
+        return _conv2d_quant(
+            x, w, stride=stride, padding=padding, dilation=dilation,
+            backend=backend, bias=bias, activation=activation, tiles=tiles,
+            precision=precision, w_scale=w_scale, x_scale=x_scale,
+            out_scale=out_scale)
     if backend not in CONV2D_BACKENDS:
         raise ValueError(
             f"unknown conv backend {backend!r}; one of {CONV2D_BACKENDS}")
@@ -425,10 +533,13 @@ def conv2d(
     key = autotune.conv2d_key(B, H, W, Cin, w.shape[3], kh, kw, *stride,
                               str(x.dtype).removeprefix("torch."))
     CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
-    tiles = dict(
-        tile_h=sliding_conv2d.DEFAULT_TILE_H if tile_h is None else tile_h,
-        tile_w=sliding_conv2d.DEFAULT_TILE_W if tile_w is None else tile_w,
-        cin_block=cin_block, cout_block=cout_block, regime=regime)
+    if _needs_grad(x, w, bias):
+        bth, btw = _bwd_tile2d(x, w, stride, bwd_tile_h, bwd_tile_w)
+        bwd_tiles = dict(tile_h=bth, tile_w=btw, cin_block=cin_block,
+                         cout_block=cout_block)
+        return Conv2dSliding.apply(x, w, bias, stride, activation, tiles,
+                                   bwd_tiles)
+    # nothing to differentiate (serving): the kernel saves no residual
     return sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
                                          activation=activation, **tiles)
 

@@ -10,14 +10,15 @@ on an input the caller already padded. x (B, H, W, Cin) NHWC, w (kh, kw,
 Cin, Cout) HWIO of x's type, float32 or bfloat16; stride (sh, sw); bias
 (Cout,) or None; output (B, (H - kh) // sh + 1, (W - kw) // sw + 1, Cout)
 in x's type. The sum runs in float32; bias and activation are applied to
-the float32 sum, then one cast.
+the float32 sum, then one cast. With ``save_preact=True`` it returns
+``(y, z)``: z is the post-bias pre-activation in x's type, written by the
+same epilogue (the residual the backward pass forms ``dz = dy · act'(z)``
+from).
 
 The reference's tiling arguments (``tile_h``, ``tile_w``, ``cin_block``,
 ``cout_block``, ``regime``) are accepted and checked by its rule; they
 choose how the TPU groups taps in VMEM and do not change the result, so
-the kernel tiles for the card on its own. ``save_preact`` (the
-pre-activation the backward pass keeps) comes with the conv2d training
-path and is refused until then.
+the kernel tiles for the card on its own.
 """
 from __future__ import annotations
 
@@ -32,9 +33,9 @@ from repro_torch.kernels.sliding_conv1d import ACTIVATIONS, apply_activation
 DEFAULT_TILE_H = 16
 DEFAULT_TILE_W = 128
 REGIMES = ("custom", "generic", "compound")
-# x, w, bias, y; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, act, is_bf16;
-# stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# x, w, bias, y, z; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, act,
+# is_bf16; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 def resolve_regime(kh: int, kw: int, regime: str | None) -> str:
@@ -47,8 +48,18 @@ def resolve_regime(kh: int, kw: int, regime: str | None) -> str:
     return regime
 
 
+def check_tiles(tile_h, tile_w, cin_block, cout_block) -> None:
+    """The reference's rule for its tiling arguments."""
+    for name, v in (("tile_h", tile_h), ("tile_w", tile_w)):
+        if v < 1:
+            raise ValueError(f"{name} {v} < 1")
+    for name, v in (("cin_block", cin_block), ("cout_block", cout_block)):
+        if v is not None and v < 0:
+            raise ValueError(f"{name} {v} < 0")
+
+
 def _check(x, w, bias, stride, activation, tile_h, tile_w, cin_block,
-           cout_block, regime, save_preact) -> tuple[int, int]:
+           cout_block, regime) -> tuple[int, int]:
     """Raise on what the kernel does not take; return (oh, ow)."""
     if x.dim() != 4 or w.dim() != 4 or w.shape[2] != x.shape[3]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not "
@@ -60,16 +71,7 @@ def _check(x, w, bias, stride, activation, tile_h, tile_w, cin_block,
         raise ValueError(f"stride {tuple(stride)} has an entry < 1")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
-    if save_preact:
-        raise NotImplementedError(
-            "conv2d save_preact (the pre-activation for the backward pass) "
-            "comes with the conv2d weight-gradient kernel and is not ported")
-    for name, v in (("tile_h", tile_h), ("tile_w", tile_w)):
-        if v < 1:
-            raise ValueError(f"{name} {v} < 1")
-    for name, v in (("cin_block", cin_block), ("cout_block", cout_block)):
-        if v is not None and v < 0:
-            raise ValueError(f"{name} {v} < 0")
+    check_tiles(tile_h, tile_w, cin_block, cout_block)
     kh, kw = w.shape[:2]
     resolve_regime(kh, kw, regime)
     H, W = x.shape[1:3]
@@ -83,13 +85,14 @@ def _check(x, w, bias, stride, activation, tile_h, tile_w, cin_block,
 def conv2d_sliding_plain(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     stride: tuple[int, int] = (1, 1), activation: str = "none",
-) -> torch.Tensor:
+    save_preact: bool = False,
+):
     """The kernel's function in plain torch: one filter row at a time, the
     (tap, channel) pairs of the row contracted together in one float32
     matrix product over the pixels' strided input rows, then bias,
     activation and the cast to x's type."""
     oh, ow = _check(x, w, bias, stride, activation, DEFAULT_TILE_H,
-                    DEFAULT_TILE_W, None, None, None, False)
+                    DEFAULT_TILE_W, None, None, None)
     sh, sw = stride
     kh, kw, cin, cout = w.shape
     xf, wf = x.float(), w.float()
@@ -103,10 +106,11 @@ def conv2d_sliding_plain(
             kw * cin, cout)
     if bias is not None:
         acc = acc + bias.float()
-    return apply_activation(acc, activation).to(x.dtype)
+    y = apply_activation(acc, activation).to(x.dtype)
+    return (y, acc.to(x.dtype)) if save_preact else y
 
 
-def _launch(x, w, bias, stride, activation, oh, ow):
+def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
                         f"same type, got {x.dtype} and {w.dtype}")
@@ -118,15 +122,17 @@ def _launch(x, w, bias, stride, activation, oh, ow):
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
     y = torch.empty((B, oh, ow, Cout), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(y) if save_preact else None
     code = fn(
         x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
-        y.data_ptr(), B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
+        y.data_ptr(), None if z is None else z.data_ptr(),
+        B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
         ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("sliding_conv2d", code)
     conv2d_sliding.launches += 1
-    return y
+    return (y, z) if save_preact else y
 
 
 def conv2d_sliding(
@@ -135,18 +141,19 @@ def conv2d_sliding(
     tile_h: int = DEFAULT_TILE_H, tile_w: int = DEFAULT_TILE_W,
     cin_block: int | None = None, cout_block: int | None = None,
     regime: str | None = None, save_preact: bool = False,
-) -> torch.Tensor:
+):
     """VALID sliding conv2d + bias + activation: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor.
     ``conv2d_sliding.launches`` counts kernel launches."""
     stride = tuple(stride)
     oh, ow = _check(x, w, bias, stride, activation, tile_h, tile_w, cin_block,
-                    cout_block, regime, save_preact)
+                    cout_block, regime)
     if x.device.type == "cuda":
-        return _launch(x, w, bias, stride, activation, oh, ow)
+        return _launch(x, w, bias, stride, activation, oh, ow, save_preact)
     if x.device.type == "cpu":
         return conv2d_sliding_plain(x, w, bias, stride=stride,
-                                    activation=activation)
+                                    activation=activation,
+                                    save_preact=save_preact)
     raise ValueError(f"no sliding_conv2d for device {x.device}")
 
 

@@ -1,4 +1,5 @@
-"""Backward pass of the sliding conv1d (``repro.kernels.sliding_conv_bwd``).
+"""Backward pass of the sliding conv1d and conv2d
+(``repro.kernels.sliding_conv_bwd``).
 
   * ``act_bwd``: ``dz = dy · act'(z)`` from the saved post-bias
     pre-activation ``z``, the exact derivative of the epilogue's float32
@@ -15,6 +16,11 @@
     through ``conv1d_depthwise_bwd_dw``, the wrapper of
     ``csrc/conv1d_depthwise_bwd.cu`` (plain version
     ``conv1d_depthwise_bwd_dw_plain``), on the same terms.
+  * conv2d: dx (``conv2d_dx``) runs the forward 2-D conv kernel on the
+    dilated, padded gradient with the flipped, Cin↔Cout-transposed
+    weights (``conv2d_dx_operands``); dw/db through ``conv2d_bwd_dw``, the
+    wrapper of ``csrc/sliding_conv2d_bwd.cu`` (plain version
+    ``conv2d_bwd_dw_plain``), on the same terms.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, sliding_conv1d
+from repro_torch.kernels import build, sliding_conv1d, sliding_conv2d
 
 # x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -32,6 +38,10 @@ _SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, Cin, Cout, K, Lout
 # x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16; stream
 _DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, C, K, Lout, is_bf16
+# x, dz, dw, db, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16;
+# stream
+_2D_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_2D_SPLIT_ARGTYPES = [ctypes.c_int] * 7  # B, Cin, Cout, kh, kw, oh, ow
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -77,11 +87,35 @@ def conv1d_dx_operands(dz: torch.Tensor, w: torch.Tensor, *, stride: int):
     return dzp, wt
 
 
-def _fit_len(dx: torch.Tensor, L: int) -> torch.Tensor:
-    """Zero-pad dx up to the forward input length: trailing rows that the
-    forward pass never read get zero gradient."""
-    if dx.shape[1] < L:
-        dx = F.pad(dx, (0, 0, 0, L - dx.shape[1]))
+def dilate2d(dy: torch.Tensor, stride: tuple[int, int]) -> torch.Tensor:
+    """Insert zeros between dy's rows and columns (axes 1 and 2)."""
+    sh, sw = stride
+    if sh == 1 and sw == 1:
+        return dy
+    B, h, w, C = dy.shape
+    out = dy.new_zeros((B, (h - 1) * sh + 1, (w - 1) * sw + 1, C))
+    out[:, ::sh, ::sw] = dy
+    return out
+
+
+def conv2d_dx_operands(dz: torch.Tensor, w: torch.Tensor, *,
+                       stride: tuple[int, int]):
+    """(dilated and padded dz, flipped Cin↔Cout-transposed weights) for dx."""
+    kh, kw = w.shape[:2]
+    dzp = F.pad(dilate2d(dz, stride), (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+    wt = torch.flip(w, (0, 1)).transpose(2, 3).contiguous()  # (kh, kw, Cout, Cin)
+    return dzp, wt
+
+
+def _fit_len(dx: torch.Tensor, L: int, axis: int = 1) -> torch.Tensor:
+    """Zero-pad dx along ``axis`` up to the forward input's length there:
+    trailing rows (or columns) that the forward pass never read get zero
+    gradient."""
+    short = L - dx.shape[axis]
+    if short > 0:
+        pads = [0, 0] * (dx.dim() - axis)
+        pads[-1] = short
+        dx = F.pad(dx, pads)
     return dx
 
 
@@ -255,3 +289,117 @@ def conv1d_depthwise_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
 
 
 conv1d_depthwise_bwd_dw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# conv2d
+# ---------------------------------------------------------------------------
+
+def conv2d_dx(dz: torch.Tensor, w: torch.Tensor, *, stride: tuple[int, int],
+              H: int, W: int) -> torch.Tensor:
+    """dx through the forward sliding conv2d (its kernel on a CUDA tensor)
+    on the dilated gradient: stride 1, no bias, no activation; then zero
+    rows and columns up to the input's (H, W)."""
+    dzp, wt = conv2d_dx_operands(dz, w, stride=stride)
+    dx = sliding_conv2d.conv2d_sliding(dzp, wt, None, stride=(1, 1))
+    return _fit_len(_fit_len(dx, H, 1), W, 2)
+
+
+def _check_2d(x, dz, kh, kw, stride, tile_h, tile_w, cin_block,
+              cout_block) -> None:
+    if x.dim() != 4 or dz.dim() != 4 or x.shape[0] != dz.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and dz {tuple(dz.shape)} do not "
+                         "form (B, H, W, Cin) and (B, oh, ow, Cout)")
+    sh, sw = stride
+    if kh < 1 or kw < 1 or sh < 1 or sw < 1:
+        raise ValueError(f"filter ({kh},{kw}) and stride {tuple(stride)} "
+                         "must be >= 1")
+    oh, ow = dz.shape[1:3]
+    if (oh - 1) * sh + kh > x.shape[1] or (ow - 1) * sw + kw > x.shape[2]:
+        raise ValueError(f"dz of ({oh},{ow}) at filter ({kh},{kw}), stride "
+                         f"{tuple(stride)} reads past x's "
+                         f"{tuple(x.shape[1:3])}")
+    sliding_conv2d.check_tiles(tile_h, tile_w, cin_block, cout_block)
+
+
+def conv2d_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor,
+                        w_shape_hw: tuple[int, int], *,
+                        stride: tuple[int, int] = (1, 1),
+                        has_bias: bool = False):
+    """The kernel's function in plain torch: one float32 matrix product per
+    filter row over all output positions, the row's (tap, channel) pairs
+    together. Returns (dw (kh, kw, Cin, Cout) float32, db (Cout,) float32
+    or None)."""
+    kh, kw = w_shape_hw
+    _check_2d(x, dz, kh, kw, stride, sliding_conv2d.DEFAULT_TILE_H,
+              sliding_conv2d.DEFAULT_TILE_W, None, None)
+    sh, sw = stride
+    B, oh, ow, cout = dz.shape
+    cin = x.shape[3]
+    xf, g = x.float(), dz.float().reshape(-1, cout)
+    rows = []
+    for i in range(kh):
+        xr = xf[:, i : i + (oh - 1) * sh + 1 : sh]  # (B, oh, W, Cin)
+        # (B, oh, ow, kw, Cin): position (oy, ox)'s taps of filter row i
+        taps = xr.unfold(2, kw, sw)[:, :, :ow].permute(0, 1, 2, 4, 3)
+        rows.append((taps.reshape(-1, kw * cin).T @ g).reshape(kw, cin, cout))
+    return torch.stack(rows), (g.sum(dim=0) if has_bias else None)
+
+
+def _launch_2d(x, dz, kh, kw, stride, has_bias):
+    if x.dtype not in (torch.float32, torch.bfloat16) or dz.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32 or bfloat16 x and dz of the "
+                        f"same type, got {x.dtype} and {dz.dtype}")
+    if dz.device != x.device:
+        raise ValueError("x and dz must lie on one device")
+    fn = build.entry("sliding_conv2d_bwd", "conv2d_bwd_dw", _2D_ARGTYPES)
+    splits = build.entry("sliding_conv2d_bwd", "conv2d_bwd_dw_splits",
+                         _2D_SPLIT_ARGTYPES)
+    x, dz = x.contiguous(), dz.contiguous()
+    B, H, W, Cin = x.shape
+    oh, ow, Cout = dz.shape[1:]
+    dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=x.device)
+    db = (torch.empty((Cout,), dtype=torch.float32, device=x.device)
+          if has_bias else None)
+    S = splits(B, Cin, Cout, kh, kw, oh, ow)
+    ws = (torch.empty((S * (dw.numel() + Cout),), dtype=torch.float32,
+                      device=x.device) if S > 1 else None)
+    code = fn(
+        x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+        None if db is None else db.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check("sliding_conv2d_bwd", code)
+    conv2d_bwd_dw.launches += 1
+    return dw, db
+
+
+def conv2d_bwd_dw(x: torch.Tensor, dz: torch.Tensor,
+                  w_shape_hw: tuple[int, int], *,
+                  stride: tuple[int, int] = (1, 1),
+                  tile_h: int = sliding_conv2d.DEFAULT_TILE_H,
+                  tile_w: int = sliding_conv2d.DEFAULT_TILE_W,
+                  cin_block: int | None = None, cout_block: int | None = None,
+                  has_bias: bool = False):
+    """Weight and bias gradient of the VALID sliding conv2d: x (B, H, W,
+    Cin) the padded forward input, dz (B, oh, ow, Cout) the gradient after
+    the activation. Returns (dw (kh, kw, Cin, Cout) float32, db (Cout,)
+    float32 or None): the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor. The reference's tiling arguments are checked and do
+    not change the result. ``conv2d_bwd_dw.launches`` counts kernel
+    launches."""
+    kh, kw = w_shape_hw
+    stride = tuple(stride)
+    _check_2d(x, dz, kh, kw, stride, tile_h, tile_w, cin_block, cout_block)
+    if x.device.type == "cuda":
+        return _launch_2d(x, dz, kh, kw, stride, has_bias)
+    if x.device.type == "cpu":
+        return conv2d_bwd_dw_plain(x, dz, (kh, kw), stride=stride,
+                                   has_bias=has_bias)
+    raise ValueError(f"no conv2d_bwd_dw for device {x.device}")
+
+
+conv2d_bwd_dw.launches = 0

@@ -20,6 +20,15 @@ With ``out_scale`` the output is int8, ``clip(round(y / out_scale))``
 after the activation (requant); otherwise ``out_dtype``. ``x_scale`` and
 ``out_scale`` are float32 scalars.
 
+``conv2d_quant`` is the 2-D counterpart (the TPU kernel
+``conv2d_quant_pallas``; CUDA ``csrc/sliding_conv2d_quant.cu``; plain
+version ``conv2d_quant_plain``, the exact ``quant.qconv.conv2d_q``): x
+(B, H, W, Cin), w_q int8 (kh, kw, Cin, Cout), w_scale float32 (Cout,),
+stride (sh, sw), the same two modes and the same epilogue. In w8a8 the
+int32 sums must not overflow: kh·kw·Cin·127² < 2³¹ is checked. The
+reference's tiling arguments are checked by its rule and do not change
+the result, as for the fp conv2d.
+
 ``conv1d_depthwise_quant`` is the depthwise counterpart (the TPU kernel
 ``conv1d_depthwise_quant_pallas``; CUDA ``csrc/conv1d_depthwise_quant.cu``;
 plain version ``conv1d_depthwise_quant_plain``, the exact
@@ -34,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sliding_conv2d
 from repro_torch.kernels.sliding_conv1d import ACTIVATIONS
 from repro_torch.quant import qconv
 
@@ -43,6 +52,9 @@ _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # x, w, scale, bias, out_scale, y; B, L, Cin, Cout, K, stride, Lout, act,
 # mode, x_kind, y_kind; stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# x, w, scale, bias, out_scale, y; B, H, W, Cin, Cout, kh, kw, sh, sw, oh,
+# ow, act, mode, x_kind, y_kind; stream
+_2D_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 # x, w, scale, bias, out_scale, y; B, L, C, K, stride, Lout, act, mode,
 # x_kind, y_kind; stream
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -55,14 +67,14 @@ def _check(x, w_q, w_scale, bias, x_scale, mode, stride, activation,
                          "form (B, L, Cin) and (K, Cin, Cout)")
     if w_scale.shape != (w_q.shape[2],):
         raise ValueError(f"w_scale {tuple(w_scale.shape)} is not (Cout,)")
-    return _check_common(x, w_q, bias, x_scale, mode, stride, activation,
-                         out_dtype)
+    _check_operands(x, w_q, bias, x_scale, mode, activation, out_dtype)
+    return _out_len(x, w_q, stride)
 
 
-def _check_common(x, w_q, bias, x_scale, mode, stride, activation,
-                  out_dtype) -> int:
-    """The checks both convs share (w_q's last axis is the output
-    channel); returns the output length."""
+def _check_operands(x, w_q, bias, x_scale, mode, activation,
+                    out_dtype) -> None:
+    """The checks every int8 conv shares (w_q's last axis is the output
+    channel)."""
     if w_q.dtype != torch.int8:
         raise TypeError(f"w_q must be int8, got {w_q.dtype}")
     if bias is not None and bias.shape != (w_q.shape[-1],):
@@ -78,10 +90,13 @@ def _check_common(x, w_q, bias, x_scale, mode, stride, activation,
         raise ValueError(f"unknown quant mode {mode!r}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if stride < 1:
-        raise ValueError(f"stride {stride} < 1")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
+
+
+def _out_len(x, w_q, stride) -> int:
+    if stride < 1:
+        raise ValueError(f"stride {stride} < 1")
     out_len = (x.shape[1] - w_q.shape[0]) // stride + 1
     if out_len < 1:
         raise ValueError(f"filter K={w_q.shape[0]} (stride {stride}) exceeds "
@@ -178,6 +193,102 @@ conv1d_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# 2-D
+# ---------------------------------------------------------------------------
+
+INT32_TERMS = 2 ** 31 // 127 ** 2  # w8a8: kh·kw·Cin below this cannot overflow
+
+
+def _check_2d(x, w_q, w_scale, bias, x_scale, mode, stride, activation,
+              out_dtype, tile_h=sliding_conv2d.DEFAULT_TILE_H,
+              tile_w=sliding_conv2d.DEFAULT_TILE_W, cin_block=None,
+              cout_block=None, regime=None) -> tuple[int, int]:
+    """Raise on what the kernel does not take; return (oh, ow)."""
+    oh, ow = sliding_conv2d._check(x, w_q, bias, stride, activation, tile_h,
+                                   tile_w, cin_block, cout_block, regime)
+    if w_scale.shape != (w_q.shape[3],):
+        raise ValueError(f"w_scale {tuple(w_scale.shape)} is not (Cout,)")
+    _check_operands(x, w_q, bias, x_scale, mode, activation, out_dtype)
+    kh, kw, cin = w_q.shape[:3]
+    if mode == "w8a8" and kh * kw * cin >= INT32_TERMS:
+        raise ValueError(f"{kh}x{kw}x{cin} int8 products can overflow the "
+                         "int32 sum")
+    return oh, ow
+
+
+def conv2d_quant_plain(
+    x, w_q, w_scale, bias=None, *, x_scale=None, out_scale=None,
+    mode: str = "w8a8", stride: tuple[int, int] = (1, 1),
+    activation: str = "none", out_dtype=torch.float32,
+):
+    """The 2-D kernel's function in plain torch: ``qconv.conv2d_q`` with
+    exact accumulation (w8a8) on an already padded input."""
+    stride = tuple(stride)
+    _check_2d(x, w_q, w_scale, bias, x_scale, mode, stride, activation,
+              out_dtype)
+    return qconv.conv2d_q(
+        x, qconv.QuantizedWeight(w_q, w_scale), bias, mode=mode,
+        x_scale=x_scale, out_scale=out_scale, stride=stride, padding="VALID",
+        activation=activation, accumulate="int32", out_dtype=out_dtype,
+    )
+
+
+def _launch_2d(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
+               activation, out_dtype, oh, ow):
+    dev = x.device
+    s, b32, os32 = _epilogue_operands(dev, w_q, w_scale, bias, x_scale,
+                                      out_scale, mode)
+    fn = build.entry("sliding_conv2d_quant", "sliding_conv2d_quant",
+                     _2D_ARGTYPES)
+    x, w_q = x.contiguous(), w_q.contiguous()
+    B, H, W, Cin = x.shape
+    kh, kw, _, Cout = w_q.shape
+    odt = torch.int8 if out_scale is not None else out_dtype
+    y = torch.empty((B, oh, ow, Cout), dtype=odt, device=dev)
+    code = fn(
+        x.data_ptr(), w_q.data_ptr(), s.data_ptr(),
+        None if b32 is None else b32.data_ptr(),
+        None if os32 is None else os32.data_ptr(), y.data_ptr(),
+        B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
+        ACTIVATIONS[activation], MODES[mode], _KINDS[x.dtype], _KINDS[odt],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check("sliding_conv2d_quant", code)
+    conv2d_quant.launches += 1
+    return y
+
+
+def conv2d_quant(
+    x, w_q, w_scale, bias=None, *, x_scale=None, out_scale=None,
+    mode: str = "w8a8", stride: tuple[int, int] = (1, 1),
+    activation: str = "none", out_dtype=torch.float32,
+    tile_h: int = sliding_conv2d.DEFAULT_TILE_H,
+    tile_w: int = sliding_conv2d.DEFAULT_TILE_W,
+    cin_block: int | None = None, cout_block: int | None = None,
+    regime: str | None = None,
+):
+    """VALID int8 sliding conv2d + dequant + bias + activation (+ requant):
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    ``conv2d_quant.launches`` counts kernel launches."""
+    stride = tuple(stride)
+    oh, ow = _check_2d(x, w_q, w_scale, bias, x_scale, mode, stride,
+                       activation, out_dtype, tile_h, tile_w, cin_block,
+                       cout_block, regime)
+    if x.device.type == "cuda":
+        return _launch_2d(x, w_q, w_scale, bias, x_scale, out_scale, mode,
+                          stride, activation, out_dtype, oh, ow)
+    if x.device.type == "cpu":
+        return conv2d_quant_plain(
+            x, w_q, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+            mode=mode, stride=stride, activation=activation,
+            out_dtype=out_dtype)
+    raise ValueError(f"no sliding_conv2d_quant for device {x.device}")
+
+
+conv2d_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # depthwise
 # ---------------------------------------------------------------------------
 
@@ -189,8 +300,8 @@ def _check_depthwise(x, w_q, w_scale, bias, x_scale, mode, stride,
     if w_scale.numel() != w_q.shape[1] or w_scale.shape[-1] != w_q.shape[1]:
         raise ValueError(f"w_scale {tuple(w_scale.shape)} is not (C,) or "
                          "(1, C)")
-    return _check_common(x, w_q, bias, x_scale, mode, stride, activation,
-                         out_dtype)
+    _check_operands(x, w_q, bias, x_scale, mode, activation, out_dtype)
+    return _out_len(x, w_q, stride)
 
 
 def conv1d_depthwise_quant_plain(

@@ -123,21 +123,36 @@ def conv2d_bias_act(
     site: str | None = None,
 ) -> torch.Tensor:
     """Multi-channel conv2d + bias + activation. x: (B, H, W, Cin), w:
-    (kh, kw, Cin, Cout) float, cast to x's type as the reference does. On
-    ``sliding_pallas`` bias and activation run in the 2-D CUDA kernel's
-    epilogue (``ops.conv2d``); the other backends are the ``core.conv``
-    twins with the epilogue unfused. A calibration site, observed under
-    ``site`` as in ``conv1d_bias_act``. The int8 conv2d (``precision``
-    "w8a8" / "w8a16", or an int8 leaf) is not ported and raises."""
+    (kh, kw, Cin, Cout) float, cast to x's type as the reference does, or a
+    ``QuantizedWeight``. On ``sliding_pallas`` bias and activation run in
+    the 2-D CUDA kernel's epilogue (``ops.conv2d``); the other backends are
+    the ``core.conv`` twins with the epilogue unfused. A calibration site,
+    observed under ``site`` as in ``conv1d_bias_act``. With ``precision``
+    "w8a8" / "w8a16" (or an int8 leaf) the conv is quantized: on
+    ``sliding_pallas`` through the int8 conv2d kernel, elsewhere through
+    ``qconv.conv2d_q``'s float32 path; a leaf with ``out_scale`` emits int8
+    on its consumer's grid (w8a8 only)."""
     qleaf = isinstance(w, qconv.QuantizedWeight)
     wq = w.q if qleaf else w
     site = site or calibrate.conv_site(
         "conv2d", x.shape[-1], wq.shape[-1], f"{wq.shape[0]}x{wq.shape[1]}")
     calibrate.observe(site, x)
-    if _quant_mode(w, precision) is not None:
-        raise NotImplementedError(
-            "int8 conv2d needs the int8 conv2d kernel (conv2d_quant_pallas), "
-            "which is not ported")
+    mode = _quant_mode(w, precision)
+    if mode is not None:
+        qw = w if qleaf else qconv.quantize_weight(w)
+        out_scale = qw.out_scale if mode == "w8a8" else None
+        if out_scale is None:
+            calibrate.note_dequant(site)
+        if backend == "sliding_pallas":
+            return ops.conv2d(
+                x, qw.q, stride=stride, padding=padding, bias=b,
+                activation=activation, precision=mode, w_scale=qw.scale,
+                x_scale=qw.x_scale, out_scale=out_scale)
+        out_dtype = torch.float32 if x.dtype == torch.int8 else x.dtype
+        return qconv.conv2d_q(
+            x, qw, b, mode=mode, stride=stride, padding=padding,
+            x_scale=qw.x_scale, out_scale=out_scale, activation=activation,
+            out_dtype=out_dtype, accumulate="fast")
     w = w.to(x.dtype)
     if backend == "sliding_pallas":
         return ops.conv2d(x, w, stride=stride, padding=padding, bias=b,

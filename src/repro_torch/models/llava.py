@@ -7,7 +7,9 @@ projector maps into the LM's embedding space (``DenseLM.embeds_for``).
 ``patch_embed`` is the non-stub patch embedding, a conv2d with k=14 and
 s=14 over image tiles through the paper's sliding conv2d: on
 ``backend="sliding_pallas"`` one launch of the 2-D sliding conv kernel,
-with the optional bias fused into its epilogue.
+with the optional bias fused into its epilogue, differentiable through
+``ops.Conv2dSliding``; with an int8 weight one launch of the int8 conv2d
+kernel.
 """
 from __future__ import annotations
 
@@ -28,8 +30,11 @@ def patch_embed(w: torch.Tensor, images: torch.Tensor, backend: str = "sliding",
     """images: (B, H, W, 3) -> (B, (H // 14) * (W // 14), VISION_DIM).
 
     conv2d k=14 s=14 is a non-overlapping sliding window; w: (14, 14, 3,
-    VISION_DIM). The int8 patch embedding (``precision`` "w8a8" / "w8a16"
-    or a quantized ``w``) is not ported and raises."""
+    VISION_DIM), or a ``quant.QuantizedWeight`` (and/or ``precision``
+    "w8a8" / "w8a16") for int8 inference. A weight whose ``out_scale`` is
+    the projector's input scale emits int8 codes for
+    ``transformer.projector_apply(..., x_scale=...)``, the chain's one
+    dequant."""
     y = conv2d_bias_act(
         images, w, bias, stride=(PATCH, PATCH), padding="VALID",
         backend=backend, precision=precision, site="llava/patch_embed",

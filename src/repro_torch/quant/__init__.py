@@ -2,15 +2,15 @@
 path (``repro.quant``).
 
   * ``qconv``: quantizers, ``QuantizedWeight`` and the plain quantized
-    sliding and depthwise conv1d (the exact int32 oracles and the float32
-    paths);
+    sliding conv1d and conv2d and depthwise conv1d (the exact int32
+    oracles and the float32 paths), and the int8 im2col conv2d baseline;
   * ``calibrate``: activation statistics per conv site into a ``QuantSpec``;
   * ``apply``: int8 weight leaves swapped into model params.
 
 The int8 kernels live with the other kernels
 (``repro_torch.kernels.sliding_conv_quant``) and are reached through
-``repro_torch.kernels.ops.conv1d(precision=...)`` and
-``ops.conv1d_depthwise(precision=...)``.
+``repro_torch.kernels.ops.conv1d(precision=...)``,
+``ops.conv2d(precision=...)`` and ``ops.conv1d_depthwise(precision=...)``.
 """
 from repro_torch.quant.apply import (
     CHAINS,
@@ -31,6 +31,8 @@ from repro_torch.quant.qconv import (
     act_scale,
     conv1d_depthwise_q,
     conv1d_q,
+    conv2d_q,
+    conv2d_q_im2col,
     quantize_act,
     quantize_weight,
 )
@@ -45,6 +47,8 @@ __all__ = [
     "collecting",
     "conv1d_depthwise_q",
     "conv1d_q",
+    "conv2d_q",
+    "conv2d_q_im2col",
     "counting_dequants",
     "observe",
     "quantize_act",

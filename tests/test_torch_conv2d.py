@@ -249,18 +249,17 @@ def test_errors():
         tops.conv2d(x, w, backend="im2col_hbm")
     with pytest.raises(ValueError, match="no sliding_conv2d for device"):
         ts2.conv2d_sliding(x.to("meta"), w.to("meta"))
-    for precision in ("w8a8", "w8a16"):
-        with pytest.raises(NotImplementedError, match="conv2d_quant_pallas"):
-            tops.conv2d(x, w, precision=precision)
-        with pytest.raises(NotImplementedError, match="conv2d_quant_pallas"):
-            tL.conv2d_bias_act(x, w, None, precision=precision,
-                               backend="sliding_pallas")
-    with pytest.raises(NotImplementedError, match="conv2d_bwd_dw_pallas"):
-        tops.conv2d(x, w.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="save_preact"):
-        ts2.conv2d_sliding(x, w, save_preact=True)
+    for precision in ("w8a8", "w8a16"):  # the int8 kernel's plain version
+        assert tops.conv2d(x, w, precision=precision).shape == (1, 6, 7, 4)
+        with pytest.raises(NotImplementedError, match="inference only"):
+            tops.conv2d(x.clone().requires_grad_(), w, precision=precision)
+    y = tops.conv2d(x, w.clone().requires_grad_())  # the autograd Function
+    assert type(y.grad_fn).__name__ == "Conv2dSlidingBackward"
+    y, z = ts2.conv2d_sliding(x, w, save_preact=True)
+    assert y.shape == z.shape == (1, 6, 7, 4)
     with torch.no_grad():  # no gradient asked for: served
-        assert tops.conv2d(x, w.clone().requires_grad_()).shape == (1, 6, 7, 4)
+        y = tops.conv2d(x, w.clone().requires_grad_())
+        assert y.shape == (1, 6, 7, 4) and y.grad_fn is None
 
 
 def test_cpu_calls_do_not_count_as_launches():

@@ -1,4 +1,6 @@
-"""The 2-D sliding conv CUDA kernel against its plain version, on the card.
+"""The 2-D sliding conv CUDA kernels against their plain versions, on the
+card: the fp conv (with its saved pre-activation), the int8 conv and the
+weight-gradient kernel.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
 jax nor the JAX package, so it runs where the port runs (``--noconftest``:
@@ -12,6 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import sliding_conv2d as ts2  # noqa: E402
+from repro_torch.kernels import sliding_conv_bwd as tbwd  # noqa: E402
+from repro_torch.kernels import sliding_conv_quant as tsq  # noqa: E402
 
 TOL = dict(rtol=3e-4, atol=3e-4)  # float32, sums in another order
 BTOL = dict(rtol=5e-2, atol=5e-2)  # bfloat16, compared in float32
@@ -51,3 +55,93 @@ def test_kernel_matches_plain_on_the_card(k, stride, dtype):
                                     activation="silu")
     torch.testing.assert_close(got.float(), want.float(),
                                **(TOL if dtype == "float32" else BTOL))
+
+
+@pytest.fixture
+def card():
+    """Skip without a card; full float32 (TF32 off) with one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch
+
+    repro_torch.resolve_device("cuda")
+    return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride", SHAPES)
+def test_saved_preact_matches_plain_on_the_card(card, k, stride):
+    """y as without ``save_preact``, z the plain post-bias sum (TOL)."""
+    x, w, b = _inputs(k + 50, k + 30, k + 33, 37, 70, k)
+    xt, wt, bt = (torch.from_numpy(a).to(card) for a in (x, w, b))
+    y, z = ts2.conv2d_sliding(xt, wt, bt, stride=stride, activation="gelu",
+                              save_preact=True)
+    assert torch.equal(y, ts2.conv2d_sliding(xt, wt, bt, stride=stride,
+                                             activation="gelu"))
+    _, pz = ts2.conv2d_sliding_plain(xt, wt, bt, stride=stride,
+                                     activation="gelu", save_preact=True)
+    torch.testing.assert_close(z, pz, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["w8a8", "w8a16"])
+@pytest.mark.parametrize("k,stride", SHAPES)
+def test_int8_kernel_matches_plain_on_the_card(card, k, stride, mode):
+    """One launch, counted. w8a8 sums exactly: float32 outputs within
+    1e-5 (the activation's last bits) and requantized codes equal but for
+    one-code ties; w8a16 sums in float32 in another order: within 1e-5 of
+    max |y|. Cin 37 is not a multiple of 4; Cin 3 at k 14 is the patch
+    embedding's odd-byte run."""
+    rng = np.random.default_rng(k + 60)
+    cin = 3 if k == 14 else 37
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, k, cin, 70),
+                                       dtype=np.int8)).to(card)
+    ws = torch.from_numpy((rng.uniform(0.5, 1.5, size=70)
+                           / (73 * np.sqrt(k * k * cin))).astype(np.float32)
+                          ).to(card)
+    b = torch.from_numpy(rng.normal(size=70).astype(np.float32)).to(card)
+    shape = (2, k + 30, k + 33, cin)
+    if mode == "w8a8":
+        x = torch.from_numpy(rng.integers(-127, 128, size=shape,
+                                          dtype=np.int8)).to(card)
+        xs = torch.tensor(1 / 73, device=card)
+    else:
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(card)
+        xs = None
+    args = dict(x_scale=xs, mode=mode, stride=stride, activation="silu")
+    before = tsq.conv2d_quant.launches
+    got = tsq.conv2d_quant(x, wq, ws, b, **args)
+    assert tsq.conv2d_quant.launches == before + 1
+    want = tsq.conv2d_quant_plain(x, wq, ws, b, **args)
+    atol = 1e-5 * (1.0 if mode == "w8a8" else want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    os = (want.abs().max() * 0.8 / 127).reshape(())
+    got_q = tsq.conv2d_quant(x, wq, ws, b, out_scale=os, **args)
+    want_q = tsq.conv2d_quant_plain(x, wq, ws, b, out_scale=os, **args)
+    diff = (got_q.int() - want_q.int()).abs()
+    assert diff.max().item() <= 1 and diff.float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,stride", SHAPES)
+def test_dw_kernel_matches_plain_on_the_card(card, k, stride, dtype):
+    """One launch, counted; dw and db in float32 within TOL of max |dw|
+    (sums over every output position in another order)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(k + 70)
+    cin = 3 if k == 14 else 37
+    H, W = k + 30, k + 33
+    oh, ow = (H - k) // stride[0] + 1, (W - k) // stride[1] + 1
+    x = torch.from_numpy(rng.normal(size=(2, H, W, cin)).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=(2, oh, ow, 70)).astype(np.float32))
+    x, dz = x.to(card, dt), dz.to(card, dt)
+    before = tbwd.conv2d_bwd_dw.launches
+    dw, db = tbwd.conv2d_bwd_dw(x, dz, (k, k), stride=stride, has_bias=True)
+    assert tbwd.conv2d_bwd_dw.launches == before + 1
+    pdw, pdb = tbwd.conv2d_bwd_dw_plain(x, dz, (k, k), stride=stride,
+                                        has_bias=True)
+    for got, want in ((dw, pdw), (db, pdb)):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * scale)

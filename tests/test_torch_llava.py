@@ -169,9 +169,12 @@ def test_patch_embed_observes_its_site_and_refuses_int8():
         tllava.patch_embed(torch.from_numpy(w), torch.from_numpy(img),
                            backend="sliding_pallas")
     assert calib.seen == ["llava/patch_embed"]
-    with pytest.raises(NotImplementedError, match="int8 conv2d"):
-        tllava.patch_embed(torch.from_numpy(w), torch.from_numpy(img),
-                           backend="sliding_pallas", precision="w8a8")
+    # int8 is served (tests/test_torch_conv2d_quant.py holds its values):
+    # the unchained patch embedding dequantizes at its own site
+    with quant.counting_dequants() as sites:
+        y = tllava.patch_embed(torch.from_numpy(w), torch.from_numpy(img),
+                               backend="sliding_pallas", precision="w8a8")
+    assert sites == ["llava/patch_embed"] and y.dtype == torch.float32
 
 
 def test_projector_matches_reference():
@@ -333,3 +336,28 @@ def test_serve_cli_completes(arch, capsys):
     cfg = smoke_config(get_config(arch))
     S = serve.prefix_len(cfg) + 8 + 4
     assert f"attn_dec|B2|S{S}|KV2|G2|D32|float32" in out
+
+
+def test_serve_cli_default_arch_matches_reference(monkeypatch):
+    """Both serve CLIs parse an empty command line to the same --arch
+    (qwen3-1.7b), so one command line serves one model in both packages."""
+    import argparse
+    import sys
+
+    class Parsed(Exception):
+        pass
+
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop_after_parsing(self, args=None, namespace=None):
+        raise Parsed(parse(self, args, namespace))
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args",
+                        stop_after_parsing)
+    monkeypatch.setattr(sys, "argv", ["serve"])  # the reference reads argv
+    defaults = []
+    for main in (jserve.main, lambda: serve.main([])):
+        with pytest.raises(Parsed) as parsed:
+            main()
+        defaults.append(parsed.value.args[0].arch)
+    assert defaults == ["qwen3-1.7b", "qwen3-1.7b"]

@@ -145,7 +145,8 @@ def test_params_from_numpy_carries_bf16():
 
 def test_serve_cli_smoke_on_cpu(capsys):
     tops.ATTN_DECODE_DISPATCH.clear()
-    serve.main(["--smoke", "--batch", "2", "--prompt-len", "16", "--gen", "4",
+    serve.main(["--arch", "whisper-medium", "--smoke", "--batch", "2",
+                "--prompt-len", "16", "--gen", "4",
                 "--conv-backend", "sliding_pallas", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "[serve] generated (2, 4) x1" in out
