@@ -181,10 +181,34 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      (``torch._int_mm`` on the unfolded input + epilogue; w8a16
      ``F.conv2d`` on the widened codes; ``torch.nn.grad.conv2d_weight``)
      and the bound; the int8 attention kernel at llava's decode shape.
+ 33. GEMM baselines vs plain: the tiled GEMM (row 5) at ragged shapes
+     ((200, 70) @ (70, 90), (333, 517) @ (517, 65), ...), the fused 1-D
+     and 2-D im2col kernels (rows 6, 7) and the hbm baselines (the column
+     by torch ops, then row 5) at the reference tests' filters (K 3, 7,
+     17; (3, 3, 1), (5, 5, 2), (7, 5, (2, 3))), strides 1-3, Cin 3 and 37,
+     and at phase 35's shapes, float32 within 1e-5 of max |y|, bfloat16
+     within one bf16 step + 1e-5 of max; ``ops.conv1d`` / ``ops.conv2d`` on
+     every backend and padding with bias + gelu, each call's launches
+     counted (one of row 6, 7 or 5 on the baselines); ``ops.matmul``; calls
+     needing a gradient raise; a ``QuantizedWeight`` built from
+     calibration's CPU scales runs through ``ops.conv2d`` on the card;
+     then the slice's main path: ``ops.conv2d`` at fig1 and fig2 and
+     ``ops.conv1d`` at the companion 1-D table on ``im2col_gemm`` and
+     ``im2col_hbm`` and one ``ops.matmul`` (6, 3 and 10 launches);
+ 34. whisper smoke served through ``--conv-backend im2col_gemm`` on the
+     card against ``sliding_pallas`` from the same weights: equal tokens,
+     prefill logits within TOL, equal CLI samples; jamba raises;
+ 35. the paper's comparison: at fig1, fig2, the companion 1-D table
+     ((1, 16384, 32) x (K, 32, 32), K 3, 17, 65), whisper's frontend and
+     llava's patch embedding (bf16, f32), the sliding kernel (row 1 or 4),
+     row 6 or 7, the hbm baseline (its column and row 5 timed apart),
+     cuDNN, row 5 against ``torch.matmul`` at the column's shape, the
+     plain version and the bounds; one line per shape with the ratio
+     sliding : im2col_fused : im2col_hbm : cuDNN.
 
-Phases run in the order 1-25, 28, 29, 26, 31, 30, then the timings (6,
-10, 15, 19, 23, 27, 32): every kernel is held to its plain version before
-a path runs it.
+Phases run in the order 1-25, 28, 29, 26, 31, 30, 33, 34 with the main
+path of the baselines, then the timings (6, 10, 15, 19, 23, 27, 32, 35):
+every kernel is held to its plain version before a path runs it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -560,6 +584,7 @@ def phase_full_serve(serve, models, configs, map_tree) -> dict:
 def plain_kernels():
     """Route every kernel wrapper to its plain version for the block."""
     from repro_torch.kernels import attention_decode as ad
+    from repro_torch.kernels import im2col_gemm as ig
     from repro_torch.kernels import sliding_conv1d as sc
     from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
@@ -567,7 +592,13 @@ def plain_kernels():
 
     saved = (sc._launch, ad._launch, sb._launch, sq._launch,
              sc._launch_depthwise, sq._launch_depthwise, sb._launch_depthwise,
-             s2._launch, sq._launch_2d, sb._launch_2d)
+             s2._launch, sq._launch_2d, sb._launch_2d, ig._launch_matmul,
+             ig._launch_conv1d, ig._launch_conv2d)
+    ig._launch_matmul = ig.matmul_plain
+    ig._launch_conv1d = lambda x, w, stride, _lout: (
+        ig.conv1d_im2col_fused_plain(x, w, stride=stride))
+    ig._launch_conv2d = lambda x, w, stride, _oh, _ow: (
+        ig.conv2d_im2col_fused_plain(x, w, stride=stride))
     s2._launch = lambda x, w, b, stride, act, _oh, _ow, save_preact=False: (
         s2.conv2d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
@@ -605,13 +636,15 @@ def plain_kernels():
         (sc._launch, ad._launch, sb._launch, sq._launch,
          sc._launch_depthwise, sq._launch_depthwise,
          sb._launch_depthwise, s2._launch, sq._launch_2d,
-         sb._launch_2d) = saved
+         sb._launch_2d, ig._launch_matmul, ig._launch_conv1d,
+         ig._launch_conv2d) = saved
 
 
 def _counters() -> dict:
     """Each kernel's launch counter: the wrapper that holds it and the
     attribute's name."""
     from repro_torch.kernels import attention_decode as ad
+    from repro_torch.kernels import im2col_gemm as ig
     from repro_torch.kernels import sliding_conv1d as sc
     from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
@@ -627,7 +660,10 @@ def _counters() -> dict:
             "conv1d_depthwise_bwd_dw": (sb.conv1d_depthwise_bwd_dw, "launches"),
             "conv2d": (s2.conv2d_sliding, "launches"),
             "conv2d_quant": (sq.conv2d_quant, "launches"),
-            "conv2d_bwd_dw": (sb.conv2d_bwd_dw, "launches")}
+            "conv2d_bwd_dw": (sb.conv2d_bwd_dw, "launches"),
+            "matmul": (ig.matmul, "launches"),
+            "im2col_conv1d": (ig.conv1d_im2col_fused, "launches"),
+            "im2col_conv2d": (ig.conv2d_im2col_fused, "launches")}
 
 
 def zero_launches() -> None:
@@ -3054,7 +3090,7 @@ def _serve_llava_int8(serve, models, quant, llava, transformer, cfg, params,
             llava.patch_embed(w_patch, img, backend="sliding_pallas"))
     spec = calib.spec(chains=quant.CHAINS)
     pe, pr = spec["llava/patch_embed"], spec["llava/projector"]
-    qw = quant.quantize_weight(w_patch, pe["x_scale"].to(DEV))
+    qw = quant.quantize_weight(w_patch, pe["x_scale"])
     torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
     calib_launches = read_launches()
@@ -3126,8 +3162,7 @@ def _serve_llava_int8(serve, models, quant, llava, transformer, cfg, params,
     del cache, logits
 
     # the chained variant: int8 codes into the projector, one dequant there
-    qc = quant.quantize_weight(w_patch, pe["x_scale"].to(DEV),
-                               pe["out_scale"].to(DEV))
+    qc = quant.quantize_weight(w_patch, pe["x_scale"], pe["out_scale"])
     zero_launches()
     with torch.no_grad():
         with quant.counting_dequants() as chain_sites:
@@ -3553,6 +3588,459 @@ def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
     return rows, attn
 
 
+
+# ---------------------------------------------------------------------------
+# the paper's GEMM-convolution baselines (rows 5, 6, 7)
+# ---------------------------------------------------------------------------
+
+# the paper's companion 1-D table: (1, 16384, 32) x (K, 32, 32), stride 1
+CONV1D_TABLE = [dict(B=1, L=16384, Cin=32, Cout=32, K=K, stride=1)
+                for K in (3, 17, 65)]
+
+
+def comparison_cases() -> list[dict]:
+    """Phase 35's shapes, each a conv the baselines and the sliding
+    kernels compute: fig1 and fig2 (f32), the companion 1-D table (f32),
+    whisper's frontend (f32) and llava's patch embedding (bf16, f32).
+    ``sets``: input sets cycled so that together they exceed the L2."""
+    cases = [dict(name=f"fig1_k{s['k']}", dims=2, s=s, dtype=torch.float32,
+                  sets=26) for s in FIG1]
+    cases += [dict(name=f"fig2_k{s['k']}", dims=2, s=s, dtype=torch.float32,
+                   sets=26) for s in FIG2]
+    cases += [dict(name=f"conv1d_K{s['K']}", dims=1, s=s,
+                   dtype=torch.float32, sets=26) for s in CONV1D_TABLE]
+    cases += [dict(name=f"whisper_{n}", dims=1, s=s, dtype=torch.float32,
+                   sets=8 if s["Cin"] < 512 else 4)
+              for n, s in CONV_MAIN.items()]
+    cases += [dict(name="patch_embed_bf16", dims=2, s=PATCH_MAIN,
+                   dtype=torch.bfloat16, sets=4),
+              dict(name="patch_embed_f32", dims=2, s=PATCH_MAIN,
+                   dtype=torch.float32, sets=3)]
+    return cases
+
+
+def main_cases() -> dict:
+    """Each kernel row's shape in the JSON line: the widest fig1 filter
+    (row 7, and row 5 on its hbm column) and the widest 1-D filter (row
+    6)."""
+    fig = f"fig1_k{FIG1[-1]['k']}"
+    return {"matmul": fig, "im2col_conv1d": f"conv1d_K{CONV1D_TABLE[-1]['K']}",
+            "im2col_conv2d": fig}
+
+
+def case_inputs(c, seed):
+    """x, w and the stride of a comparison case (no bias: the baselines'
+    kernels have no epilogue)."""
+    s = c["s"]
+    if c["dims"] == 1:
+        x, w, _ = conv_inputs(seed, s["B"], s["L"], s["Cin"], s["Cout"],
+                              s["K"], c["dtype"], with_bias=False)
+        return x, w, s["stride"]
+    x, w, _ = conv2d_inputs(seed, s["B"], s["H"], s["W"], s["Cin"], s["Cout"],
+                            s["k"], c["dtype"], with_bias=False,
+                            uniform=s is PATCH_MAIN)
+    return x, w, (s["stride"],) * 2
+
+
+def im2col_close(got, want, what) -> float:
+    """Rows 5-7 against their plain versions (``want``: the plain version
+    on the same operands widened to float32): float32 within 1e-5 of max
+    |want|, their float32 sums taken in another order; bfloat16 within one
+    bf16 step of the float32 value plus 1e-5 of max |want|."""
+    if got.dtype == torch.bfloat16:
+        return bf16_step_close(got, want, what)
+    return close(got, want, dict(rtol=0.0, atol=1e-5 * want.abs().max().item()),
+                 what)
+
+
+def _conv_fns(ig, dims):
+    """(fused, plain, hbm, columns) of the baselines for 1-D or 2-D."""
+    if dims == 1:
+        return (ig.conv1d_im2col_fused, ig.conv1d_im2col_fused_plain,
+                ig.conv1d_im2col_hbm,
+                lambda x, w, st: ig.columns_1d(x, w.shape[0], st))
+    return (ig.conv2d_im2col_fused, ig.conv2d_im2col_fused_plain,
+            ig.conv2d_im2col_hbm,
+            lambda x, w, st: ig.columns_2d(x, w.shape[0], w.shape[1], st))
+
+
+def phase_im2col_kernels(ig, ops, quant) -> dict:
+    """33: rows 5, 6 and 7 against their plain versions, float32 and
+    bfloat16: the GEMM at ragged shapes; the fused convs and the hbm
+    baseline (the column, then row 5) at the reference tests' filters,
+    strides 1-3, Cin 3 and 37, and at phase 35's real shapes. Then
+    ``ops.conv1d`` / ``ops.conv2d`` on every backend and padding with bias
+    and an activation, each call's launches counted, against ``xla``;
+    ``ops.matmul``; a call needing a gradient raising; a ``QuantizedWeight``
+    built from calibration's CPU scales through ``ops.conv2d`` on the card.
+    Returns each row's max |err| at its phase-35 shape."""
+    g = torch.Generator(device=DEV).manual_seed(330)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, K, N in ((200, 70, 90), (333, 517, 65), (1, 1, 1),
+                        (129, 31, 1152), (64, 32, 64)):
+            a, b = randn(M, K, dtype=dtype), randn(K, N, scale=K ** -0.5,
+                                                   dtype=dtype)
+            what = f"matmul ({M}, {K}) @ ({K}, {N}) {dtype}"
+            err = im2col_close(ig.matmul(a, b),
+                               ig.matmul_plain(a.float(), b.float()), what)
+            log(f"{what}: max|err| {err:.3e}")
+        for dims, cases in ((1, ((3, 1), (7, 2), (17, 3), (3, 3))),
+                            (2, ((3, 3, (1, 1)), (5, 5, (2, 2)),
+                                 (7, 5, (2, 3)), (3, 3, (3, 2))))):
+            fused, plain, hbm, _ = _conv_fns(ig, dims)
+            for case in cases:
+                for cin in (3, 37):
+                    if dims == 1:
+                        K, st = case
+                        x = randn(3, 301, cin, dtype=dtype)
+                        w = randn(K, cin, 70, scale=(K * cin) ** -0.5,
+                                  dtype=dtype)
+                    else:
+                        kh, kw, st = case
+                        x = randn(2, kh + 40, kw + 45, cin, dtype=dtype)
+                        w = randn(kh, kw, cin, 70,
+                                  scale=(kh * kw * cin) ** -0.5, dtype=dtype)
+                    want = plain(x.float(), w.float(), stride=st)
+                    for name, fn in (("fused", fused), ("hbm", hbm)):
+                        what = (f"im2col {dims}-D {name} w {tuple(w.shape)} "
+                                f"s={st} {dtype}")
+                        err = im2col_close(fn(x, w, stride=st), want, what)
+                    log(f"im2col {dims}-D w {tuple(w.shape)} s={st} {dtype}: "
+                        f"fused and hbm max|err| <= {err:.3e}")
+    main_case = main_cases()
+    for c in comparison_cases():
+        x, w, st = case_inputs(c, 340)
+        fused, plain, hbm, columns = _conv_fns(ig, c["dims"])
+        want = plain(x.float(), w.float(), stride=st)
+        e_f = im2col_close(fused(x, w, stride=st), want,
+                           f"im2col fused {c['name']} {c['dtype']}")
+        col = columns(x, w, st)
+        e_m = im2col_close(ig.matmul(col, w.reshape(col.shape[1], -1)),
+                           want.reshape(col.shape[0], -1),
+                           f"matmul on the hbm column {c['name']}")
+        del col
+        row = "im2col_conv1d" if c["dims"] == 1 else "im2col_conv2d"
+        if main_case[row] == c["name"]:
+            errs[row] = e_f
+        if main_case["matmul"] == c["name"]:
+            errs["matmul"] = e_m
+        log(f"im2col {c['name']} {c['dtype']}: fused max|err| {e_f:.3e}, "
+            f"row 5 on its column {e_m:.3e}")
+
+    # the ops entry points: every backend and padding, bias + activation,
+    # each call's launches, against the library conv
+    b = randn(70)
+    x1, w1 = randn(2, 130, 37), randn(5, 37, 70, scale=(5 * 37) ** -0.5)
+    x2, w2 = randn(2, 40, 45, 37), randn(3, 5, 37, 70,
+                                         scale=(15 * 37) ** -0.5)
+    want1 = {"sliding": {}, "sliding_pallas": {"sliding_conv1d": 1},
+             "xla": {}, "im2col_gemm": {"im2col_conv1d": 1},
+             "im2col_hbm": {"matmul": 1}}
+    want2 = dict(want1, sliding={"conv2d": 1},
+                 sliding_pallas={"conv2d": 1},
+                 im2col_gemm={"im2col_conv2d": 1})
+    for fn, x, w, pads, wants in (
+            (ops.conv1d, x1, w1, ("VALID", "SAME", "CAUSAL", (3, 1)), want1),
+            (ops.conv2d, x2, w2, ("VALID", "SAME", ((2, 1), (0, 3))), want2)):
+        for pad in pads:
+            args = dict(padding=pad, bias=b, activation="gelu")
+            ref = fn(x, w, backend="xla", **args)
+            for backend, counts in wants.items():
+                zero_launches()
+                got = fn(x, w, backend=backend, **args)
+                launches = read_launches()
+                if launches != only(**counts):
+                    raise AssertionError(f"ops.{fn.__name__} {backend} {pad}: "
+                                         f"launches {launches}")
+                close(got, ref, TOL, f"ops.{fn.__name__} {backend} {pad}")
+        log(f"ops.{fn.__name__}: every backend and padding {pads} against "
+            f"xla within TOL, launches as expected")
+    a, bm = randn(300, 77), randn(77, 50)
+    zero_launches()
+    got = ops.matmul(a, bm)
+    if read_launches() != only(matmul=1):
+        raise AssertionError(f"ops.matmul launches {read_launches()}")
+    im2col_close(got, ig.matmul_plain(a, bm), "ops.matmul")
+    for what, call in (
+            ("conv2d im2col_gemm", lambda: ops.conv2d(
+                x2, w2.clone().requires_grad_(), backend="im2col_gemm")),
+            ("conv1d im2col_hbm", lambda: ops.conv1d(
+                x1.clone().requires_grad_(), w1, backend="im2col_hbm")),
+            ("matmul", lambda: ops.matmul(a, bm.clone().requires_grad_()))):
+        try:
+            call()
+        except NotImplementedError as e:
+            if "forward only" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{what}: a call needing a gradient ran")
+    log("the baselines refuse calls that need a gradient")
+
+    # a QuantizedWeight built by hand from calibration's CPU scales
+    calib = quant.Calibration()
+    calib.observe("by_hand", x2)
+    xs = calib.spec()["by_hand"]["x_scale"]
+    if xs.device.type != "cpu":
+        raise AssertionError(f"calibration scale on {xs.device}")
+    qw = quant.quantize_weight(w2, xs)
+    if qw.x_scale.device != x2.device:
+        raise AssertionError(f"x_scale left on {qw.x_scale.device}")
+    args = dict(backend="sliding_pallas", bias=b, precision="w8a8",
+                w_scale=qw.scale)
+    got = ops.conv2d(x2, qw.q, x_scale=qw.x_scale, **args)
+    if not torch.equal(got, ops.conv2d(x2, qw.q, x_scale=xs.to(DEV), **args)):
+        raise AssertionError("w8a8 conv2d from CPU calibration scales differs "
+                             "from the same call with the scale moved")
+    log(f"a QuantizedWeight from CPU calibration scales runs on the card "
+        f"(x_scale on {qw.x_scale.device})")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_baselines(ops) -> dict:
+    """The slice's main path: the paper's comparison through the entry
+    points a user calls, at its real shapes: ``ops.conv2d`` at fig1 and
+    fig2 and ``ops.conv1d`` at the companion 1-D table, each on
+    ``im2col_gemm`` and ``im2col_hbm`` with bias + gelu, and one
+    ``ops.matmul``; launch counts read, every output held to ``xla``."""
+    g = torch.Generator(device=DEV).manual_seed(350)
+    zero_launches()
+    t0 = time.perf_counter()
+    outs = []
+    for c in comparison_cases():
+        if not c["name"].startswith(("fig", "conv1d_")):
+            continue
+        x, w, st = case_inputs(c, 351)
+        b = torch.randn((w.shape[-1],), generator=g, device=DEV)
+        fn = ops.conv1d if c["dims"] == 1 else ops.conv2d
+        for backend in ("im2col_gemm", "im2col_hbm"):
+            outs.append((c["name"], backend,
+                         fn(x, w, stride=st, backend=backend, bias=b,
+                            activation="gelu"), (fn, x, w, st, b)))
+    a = torch.randn((4096, 512), generator=g, device=DEV)
+    bm = torch.randn((512, 1024), generator=g, device=DEV) / 512 ** 0.5
+    mm = ops.matmul(a, bm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n2 = len(FIG1) + len(FIG2)
+    want = only(im2col_conv2d=n2, im2col_conv1d=len(CONV1D_TABLE),
+                matmul=n2 + len(CONV1D_TABLE) + 1)
+    if launches != want:
+        raise AssertionError(f"baselines launches {launches}, expected {want}")
+    for name, backend, y, (fn, x, w, st, b) in outs:
+        close(y, fn(x, w, stride=st, backend="xla", bias=b,
+                    activation="gelu"), TOL, f"baselines {name} {backend}")
+    close(mm, a @ bm, TOL, "baselines ops.matmul")
+    log(f"baselines path: {len(outs)} convs + 1 matmul in {wall:.3f}s, "
+        f"launches {launches}")
+    return dict(launches=launches, wall_s=wall)
+
+
+def phase_smoke_serve_im2col(serve, models, configs, map_tree):
+    """34: whisper's smoke config (float32) served on the card through
+    ``--conv-backend im2col_gemm`` (the frontend on the core column-tensor
+    twin, as the reference's layers route it) and through
+    ``sliding_pallas``, from one set of weights: equal greedy tokens,
+    prefill logits within TOL. Both sum the frontend's float32 products in
+    another order (the kernel's FMA chain, the library GEMM over the
+    column), about 1e-6 of the conv output apart; TOL is what the CPU
+    tests hold the two packages' whisper to end to end. The CLI on both
+    backends (same seed, same weights): equal sample lines. jamba's mamba
+    conv has no im2col_gemm and raises, as in the reference."""
+    cfg = configs.smoke_config(configs.get_config("whisper-medium"))
+    params = map_tree(lambda t: t.to(DEV), models.build_model(cfg).init(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(34)
+    prompts = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, size=(SMOKE["B"], SMOKE["P"])).astype(np.int32)
+    ).to(DEV)
+    cache_len = SMOKE["P"] + SMOKE["gen"]
+    out = {}
+    for backend in ("sliding_pallas", "im2col_gemm"):
+        model = models.build_model(cfg.replace(conv_backend=backend))
+        zero_launches()
+        with torch.no_grad():
+            logits, _ = serve.prefill_cache(model, params, prompts,
+                                            cache_len=cache_len)
+        toks, _ = serve.generate(model, params, prompts, gen_len=SMOKE["gen"],
+                                 cache_len=cache_len)
+        out[backend] = (logits.cpu(), toks.cpu(), read_launches())
+    conv_k = {k: v for k, v in out["im2col_gemm"][2].items()
+              if k != "attention_decode"}
+    if (any(conv_k.values()) or out["sliding_pallas"][2]["sliding_conv1d"] != 4
+            or out["im2col_gemm"][2]["attention_decode"]
+            != out["sliding_pallas"][2]["attention_decode"]):
+        raise AssertionError(f"smoke im2col_gemm launches {out['im2col_gemm'][2]}"
+                             f", sliding_pallas {out['sliding_pallas'][2]}")
+    err = close(out["im2col_gemm"][0], out["sliding_pallas"][0], TOL,
+                "smoke prefill logits, im2col_gemm vs sliding_pallas")
+    if not torch.equal(out["im2col_gemm"][1], out["sliding_pallas"][1]):
+        raise AssertionError(f"smoke tokens differ: im2col_gemm "
+                             f"{out['im2col_gemm'][1].tolist()}, sliding_pallas "
+                             f"{out['sliding_pallas'][1].tolist()}")
+    samples = {}
+    for backend in ("sliding_pallas", "im2col_gemm"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--arch", "whisper-medium", "--smoke", "--batch", "2",
+                        "--prompt-len", "8", "--gen", "4", "--conv-backend",
+                        backend])
+        samples[backend] = next(ln for ln in buf.getvalue().splitlines()
+                                if "[serve] sample:" in ln)
+    if samples["im2col_gemm"] != samples["sliding_pallas"]:
+        raise AssertionError(f"CLI samples differ: {samples}")
+    jcfg = configs.smoke_config(configs.get_config(JAMBA)).replace(
+        conv_backend="im2col_gemm")
+    jmodel = models.build_model(jcfg)
+    jparams = map_tree(lambda t: t.to(DEV), jmodel.init(
+        torch.Generator().manual_seed(0)))
+    jprompts = torch.from_numpy(rng.integers(
+        2, jcfg.vocab_size, size=(SMOKE["B"], SMOKE["P"])).astype(np.int32)
+    ).to(DEV)
+    try:
+        with torch.no_grad():
+            serve.prefill_cache(jmodel, jparams, jprompts, cache_len=cache_len)
+    except ValueError as e:
+        if "im2col_gemm" not in str(e):
+            raise
+    else:
+        raise AssertionError("jamba served on im2col_gemm")
+    log(f"smoke serve im2col_gemm {SMOKE}: tokens equal to sliding_pallas "
+        f"{out['im2col_gemm'][1].tolist()}, prefill logits max|err| "
+        f"{err:.3e}; CLI {samples['im2col_gemm']}; jamba raises ValueError")
+
+
+def phase_im2col_times(ig, sc, s2, launches, errs) -> list[dict]:
+    """35: the paper's comparison on this card. Each shape of
+    ``comparison_cases``: the sliding kernel (row 1 or row 4), the fused
+    im2col kernel (row 6 or 7), the hbm baseline whole and its two parts
+    timed apart (the column by torch ops, row 5 on it), cuDNN
+    (``F.conv1d`` / ``F.conv2d`` on channels_last, TF32 off), row 5 against
+    ``torch.matmul`` (TF32 off) at the column's shape, the plain version,
+    and the bounds (the conv's, row 5's at the column, and the hbm
+    baseline's with its column written and read). Card time per call from
+    CUDA events, queue filled, median of 10 batches of 5, inputs cycled
+    past the L2. Returns the JSON rows of rows 5, 6 and 7."""
+    rows = {}
+    for c in comparison_cases():
+        dims, dtype, el = c["dims"], c["dtype"], c["dtype"].itemsize
+        fused, plain, hbm, columns = _conv_fns(ig, dims)
+        sets = []
+        for i in range(c["sets"]):
+            x, w, st = case_inputs(c, 360 + 40 * i)
+            if dims == 1:  # the library's layouts, made ahead
+                lib = (x.transpose(1, 2), w.permute(2, 1, 0).contiguous())
+            else:
+                lib = (x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last))
+            sets.append((x, w, *lib))
+        x, w = sets[0][:2]
+        cout = w.shape[-1]
+        col = columns(x, w, st)
+        M, Kr = col.shape
+        col_bytes = el * col.numel()
+        # enough columns to exceed the L2 (one when a column alone does)
+        n_col = min(len(sets), -(-120_000_000 // col_bytes))
+        cols = [(col, w.reshape(Kr, cout))] + [
+            (columns(xx, ww, st), ww.reshape(Kr, cout))
+            for xx, ww, *_ in sets[1:n_col]]
+
+        if dims == 1:
+            def sliding(x, w, *_):
+                return sc.conv1d_sliding(x, w, None, stride=st)
+
+            def library(x, w, x_lib, w_lib):
+                return F.conv1d(x_lib, w_lib, stride=st).transpose(1, 2)
+        else:
+            def sliding(x, w, *_):
+                return s2.conv2d_sliding(x, w, None, stride=st)
+
+            def library(x, w, x_lib, w_lib):
+                return F.conv2d(x_lib, w_lib, stride=st).permute(0, 2, 3, 1)
+
+        want = plain(x, w, stride=st)
+        close(library(*sets[0]), want,
+              LIBTOL if dtype == torch.bfloat16 else TOL,
+              f"library conv {c['name']}")
+        close(torch.matmul(*cols[0]).reshape(want.shape), want,
+              LIBTOL if dtype == torch.bfloat16 else TOL,
+              f"library matmul {c['name']}")
+        ops_n = 2 * M * cout * Kr
+        y_bytes = el * M * cout
+        conv_bytes = el * (x.numel() + w.numel()) + y_bytes
+        bms, by = bound_ms(conv_bytes, ops_n, dtype)
+        mm_bms, mm_by = bound_ms(col_bytes + el * w.numel() + y_bytes, ops_n,
+                                 dtype)
+        hbm_bms, hbm_by = bound_ms(conv_bytes + 2 * col_bytes, ops_n, dtype)
+        t = {}
+        for key, fn, args in (
+                ("sliding_ms", sliding, sets), ("ms", lambda x, w, *_: fused(
+                    x, w, stride=st), sets),
+                ("plain_ms", lambda x, w, *_: plain(x, w, stride=st), sets),
+                ("hbm_ms", lambda x, w, *_: hbm(x, w, stride=st), sets),
+                ("column_ms", lambda x, w, *_: columns(x, w, st), sets),
+                ("matmul_ms", ig.matmul, cols),
+                ("matmul_library_ms", torch.matmul, cols),
+                ("matmul_plain_ms", ig.matmul_plain, cols),
+                ("library_ms", library, sets)):
+            t[key] = card_ms(cycling(fn, args), batches=10, inner=5)
+        del cols, col
+        r = dict(t, bound_ms=bms, bound_by=by, bytes=conv_bytes, ops=ops_n,
+                 column=(M, Kr), column_bytes=col_bytes, matmul_bound_ms=mm_bms,
+                 matmul_bound_by=mm_by, hbm_bound_ms=hbm_bms,
+                 hbm_bound_by=hbm_by)
+        rows[c["name"]] = r
+        sl = t["sliding_ms"]
+        log(f"compare {c['name']} {c['s']} {dtype}: sliding {sl:.4f} / "
+            f"im2col_fused {t['ms']:.4f} / im2col_hbm {t['hbm_ms']:.4f} "
+            f"(column {t['column_ms']:.4f} + row 5 {t['matmul_ms']:.4f}) / "
+            f"cuDNN {t['library_ms']:.4f} ms = 1 : {t['ms'] / sl:.3f} : "
+            f"{t['hbm_ms'] / sl:.3f} : {t['library_ms'] / sl:.3f}; bound "
+            f"{bms:.5f} ({by}), hbm bound {hbm_bms:.5f} ({hbm_by}); row 5 vs "
+            f"torch.matmul {t['matmul_library_ms']:.4f}, bound {mm_bms:.5f}; "
+            f"plain {t['plain_ms']:.4f}")
+        torch.cuda.empty_cache()
+
+    def is_1d(n):
+        return n.startswith(("conv1d_", "whisper_"))
+
+    def kernel_row(name, source_line, key, plain_key, lib_key, bkey, per):
+        main = main_cases()[name]
+        m = rows[main]
+        others = [n for n in rows if n != main and (
+            name == "matmul" or is_1d(n) == (name == "im2col_conv1d"))]
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/im2col_gemm.cu",
+            replaces=f"src/repro/kernels/im2col_gemm.py:{source_line}",
+            launches=launches[name], max_abs_err=errs[name], ms=m[key],
+            plain_ms=m[plain_key], library_ms=m[lib_key],
+            bound_ms=m[bkey], bound_by=m[bkey.replace("_ms", "_by")], per=per,
+            shapes={n: {k: rows[n][k] for k in (key, plain_key, lib_key, bkey)}
+                    for n in others})
+
+    return [
+        kernel_row("matmul", 48, "matmul_ms", "matmul_plain_ms",
+                   "matmul_library_ms", "matmul_bound_ms",
+                   "launch: fig1 k=31's hbm column (9604, 30752) @ (30752, "
+                   "32) f32; library: torch.matmul, TF32 off"),
+        kernel_row("im2col_conv1d", 104, "ms", "plain_ms",
+                   "library_ms", "bound_ms",
+                   "launch: (1, 16384, 32) x (65, 32, 32) f32; library: "
+                   "F.conv1d (cuDNN, TF32 off)"),
+        kernel_row("im2col_conv2d", 183, "ms", "plain_ms",
+                   "library_ms", "bound_ms",
+                   "launch: fig1 (1, 128, 128, 32) x (31, 31, 32, 32) f32; "
+                   "library: F.conv2d channels_last (cuDNN, TF32 off)"),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -3571,6 +4059,7 @@ def main() -> int:
     from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import im2col_gemm as ig
     from repro_torch.kernels import sliding_conv1d as sc
     from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
@@ -3638,6 +4127,10 @@ def main() -> int:
     patch_train = phase_patch_embed_train(llava, transformer)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 33-34: the GEMM-convolution baselines, and their main path -------------
+    errs.update(phase_im2col_kernels(ig, ops, quant))
+    phase_smoke_serve_im2col(serve, models, configs, map_tree)
+    baselines = phase_baselines(ops)
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -3650,7 +4143,8 @@ def main() -> int:
                "train_jamba": jamba_train["launches"],
                "serve_llava": llava_serve["launches"],
                "serve_llava_int8": with_calibration(llava_serve["int8"]),
-               "train_conv2d": patch_train["launches"]}
+               "train_conv2d": patch_train["launches"],
+               "baselines": baselines["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -3670,6 +4164,8 @@ def main() -> int:
     conv2d_rows, attn_int8_llava = phase_conv2d_quant_train_times(
         sq, sb, ad, launches, errs)
     kernels += conv2d_rows
+    # -- 35: the paper's comparison -----------------------------------------------
+    kernels += phase_im2col_times(ig, sc, s2, launches, errs)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -3686,7 +4182,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
                       "serve_int8": full_int8, "serve_jamba": jamba,
                       "train_jamba": jamba_train, "serve_llava": llava_serve,
-                      "train_conv2d": patch_train}),
+                      "train_conv2d": patch_train, "baselines": baselines}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ so no im2col buffer is built. Layout NLC (batch, length, channels);
 weights (K, Cin, Cout), or (K, C) for the depthwise conv, where each tap is
 one shifted elementwise multiply-add. This is the backend that runs when the model asks
 for ``conv_backend="sliding"``; the CUDA kernel is reached through
-``repro_torch.kernels.ops.conv1d`` (``sliding_pallas``).
+``repro_torch.kernels.ops.conv1d`` (``sliding_pallas``). Beside it, as in
+the reference, ``conv1d_im2col`` (the (B, out, K·Cin) column tensor, then
+one product) and ``conv1d_xla`` (``torch.nn.functional.conv1d``), behind
+the ``conv1d`` dispatcher; each takes ``groups``.
 
 The 2-D twins (layout NHWC, weights HWIO) are the same three backends as
 the reference's: ``conv2d_sliding`` (kh·kw shifted matrix products),
@@ -15,6 +18,8 @@ the reference's: ``conv2d_sliding`` (kh·kw shifted matrix products),
 CUDA kernel is reached through ``repro_torch.kernels.ops.conv2d``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +56,13 @@ def _out_len(n: int, k: int, stride: int, dilation: int, lo: int, hi: int) -> in
     return (n + lo + hi - eff) // stride + 1
 
 
+def _check_groups(Cin: int, Cin_g: int, Cout: int, groups: int) -> None:
+    if Cin_g * groups != Cin:
+        raise ValueError(f"groups mismatch: {Cin_g}*{groups} != {Cin}")
+    if Cout % groups:
+        raise ValueError("Cout must be divisible by groups")
+
+
 def conv1d_sliding(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -58,17 +70,19 @@ def conv1d_sliding(
     stride: int = 1,
     padding="VALID",
     dilation: int = 1,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """Sliding-window 1-D convolution. x: (B, L, Cin), w: (K, Cin, Cout).
+    """Sliding-window 1-D convolution. x: (B, L, Cin), w: (K, Cin//groups,
+    Cout).
 
     y[b, i, co] = sum_k sum_ci w[k, ci, co] * x[b, i*stride + k*dilation, ci]
 
-    Accumulates in float32 (or wider) and casts back to ``x.dtype``.
+    (ci over the input channels of co's group.) Accumulates in float32 (or
+    wider) and casts back to ``x.dtype``.
     """
     B, L, Cin = x.shape
-    K, Cin_w, Cout = w.shape
-    if Cin_w != Cin:
-        raise ValueError(f"w has Cin={Cin_w}, x has {Cin}")
+    K, Cin_g, Cout = w.shape
+    _check_groups(Cin, Cin_g, Cout, groups)
     lo, hi = _resolve_pad_1d(padding, K, dilation)
     if lo or hi:
         x = F.pad(x, (0, 0, lo, hi))
@@ -79,7 +93,15 @@ def conv1d_sliding(
     span = (out_len - 1) * stride + 1
     for k in range(K):  # unrolled tap loop: one shifted matmul per tap
         xs = xa[:, k * dilation : k * dilation + span : stride]
-        acc = acc + xs @ wa[k]
+        if groups == 1:
+            acc = acc + xs @ wa[k]
+        else:
+            # the reference's grouping of w[k]'s (Cin//groups, Cout)
+            # storage (see ``conv1d``)
+            wk = wa[k].reshape(groups, Cin_g, Cout // groups)
+            acc = acc + torch.einsum(
+                "blgc,gcd->blgd", xs.reshape(B, out_len, groups, Cin_g),
+                wk).reshape(B, out_len, Cout)
     return acc.to(x.dtype)
 
 
@@ -114,6 +136,88 @@ def conv1d_depthwise_sliding(
         xs = x[:, k * dilation : k * dilation + span : stride]
         acc = acc + xs.to(acc_dtype) * w[k].to(acc_dtype)
     return acc.to(x.dtype)
+
+
+def conv1d_im2col(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding="VALID",
+    dilation: int = 1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """Baseline: the (B, out_len, K·Cin) column tensor, then one product,
+    summed in float32 (or wider), cast back to ``x.dtype``."""
+    B, L, Cin = x.shape
+    K, Cin_g, Cout = w.shape
+    _check_groups(Cin, Cin_g, Cout, groups)
+    lo, hi = _resolve_pad_1d(padding, K, dilation)
+    if lo or hi:
+        x = F.pad(x, (0, 0, lo, hi))
+    out_len = _out_len(L, K, stride, dilation, lo, hi)
+    span = (out_len - 1) * stride + 1
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    # (B, out, K, Cin): the K-fold bloated buffer
+    col = torch.stack([x[:, k * dilation : k * dilation + span : stride]
+                       for k in range(K)], dim=2).to(acc_dtype)
+    wa = w.to(acc_dtype)
+    if groups == 1:
+        y = torch.einsum("blkc,kcd->bld", col, wa)
+    else:
+        col = col.reshape(B, out_len, K, groups, Cin_g)
+        wg = wa.reshape(K, groups, Cin_g, Cout // groups)
+        y = torch.einsum("blkgc,kgcd->blgd", col, wg).reshape(B, out_len, Cout)
+    return y.to(x.dtype)
+
+
+def conv1d_xla(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding="VALID",
+    dilation: int = 1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """The library convolution: ``torch.nn.functional.conv1d`` (cuDNN on
+    the card, in full float32 once ``repro_torch.resolve_device`` has
+    turned TF32 off) in NLC / (K, Cin//groups, Cout), output in
+    ``x.dtype``."""
+    lo, hi = _resolve_pad_1d(padding, w.shape[0], dilation)
+    if lo or hi:
+        x = F.pad(x, (0, 0, lo, hi))
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype).permute(2, 1, 0),
+                 stride=stride, dilation=dilation, groups=groups)
+    return y.transpose(1, 2).to(x.dtype)
+
+
+def conv1d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: int = 1,
+    padding="VALID",
+    dilation: int = 1,
+    groups: int = 1,
+    backend: str = "sliding",
+) -> torch.Tensor:
+    """Dispatching 1-D convolution: ``sliding``, ``im2col_gemm`` or
+    ``xla``.
+
+    With ``groups`` > 1 and more than one input channel a group, the
+    ``sliding`` and ``im2col_gemm`` twins read group g's weights as the
+    reference's twins do, from the reshape of each tap's (Cin//groups,
+    Cout) storage to (groups, Cin//groups, Cout//groups); ``xla`` takes
+    output channel co from w[:, :, co], as ``lax.conv_general_dilated``
+    does. The two agree only for one input channel a group (depthwise)."""
+    fn = {
+        "sliding": conv1d_sliding,
+        "im2col_gemm": conv1d_im2col,
+        "xla": conv1d_xla,
+    }[backend]
+    return fn(x, w, stride=stride, padding=padding, dilation=dilation,
+              groups=groups)
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +341,14 @@ def conv2d(
     }[backend]
     return fn(x, w, stride=tuple(stride), padding=padding,
               dilation=tuple(dilation))
+
+
+def conv_flops(batch, out_spatial, k_spatial, cin, cout) -> int:
+    """2 × the multiply-adds of a convolution: the same for every backend
+    (the paper's §2: the sliding convolution does as many arithmetic
+    operations as the naive or GEMM-based algorithms)."""
+    out = (math.prod(out_spatial) if isinstance(out_spatial, (tuple, list))
+           else out_spatial)
+    k = (math.prod(k_spatial) if isinstance(k_spatial, (tuple, list))
+         else k_spatial)
+    return 2 * batch * out * k * cin * cout

@@ -9,7 +9,12 @@ training paths and llava's serving path reach:
     drives both packages) is the fused CUDA kernel, differentiable through
     ``Conv1dSliding`` (the reference's ``_conv1d_sliding_op`` custom VJP);
     ``xla`` is ``torch.nn.functional.conv1d`` with an unfused epilogue.
-    ``sliding`` and ``xla`` differentiate by plain autograd. With
+    ``sliding`` and ``xla`` differentiate by plain autograd. The paper's
+    GEMM baselines, forward only and each with an unfused epilogue:
+    ``im2col_gemm`` is the fused im2col kernel (the column built on chip),
+    ``im2col_hbm`` the column tensor in device memory, then the GEMM
+    kernel. A dilated conv goes to the ``core.conv`` twins, as in the
+    reference. With
     ``precision`` "w8a8" or "w8a16" it runs the int8 sliding conv kernel
     (``sliding_pallas`` only, inference only): float operands quantize
     here, ``out_scale`` fuses a requant, and ``_guard_quant_scales`` screens
@@ -25,10 +30,12 @@ training paths and llava's serving path reach:
     run the 2-D sliding conv kernel (the reference's Pallas rung) with
     bias and activation fused, after padding outside it, differentiable
     through ``Conv2dSliding`` (the reference's ``_conv2d_sliding_op``
-    custom VJP); ``xla`` is ``torch.nn.functional.conv2d`` (TF32 off) and
-    ``im2col_gemm`` the plain column-tensor twin, each with an unfused
-    epilogue and plain autograd; a dilated conv goes to the ``core.conv``
-    twins, as in the reference. Each kernel call is logged in
+    custom VJP); ``xla`` is ``torch.nn.functional.conv2d`` (TF32 off),
+    with an unfused epilogue and plain autograd; ``im2col_gemm`` and
+    ``im2col_hbm`` are the GEMM baselines as for ``conv1d`` (the 2-D
+    fused im2col kernel; the column tensor, then the GEMM kernel); a
+    dilated conv goes to the ``core.conv`` twins, as in the reference.
+    Each sliding kernel call is logged in
     ``CONV2D_DISPATCH`` under the reference's ``conv2d_key``, a
     differentiable call also under its ``grad=True`` key. With
     ``precision`` "w8a8" or "w8a16" it runs the int8 conv2d kernel (the
@@ -38,6 +45,7 @@ training paths and llava's serving path reach:
   * ``attention_decode``: the decode-attention kernel over a float or int8
     cache, with a dispatch log keyed like the reference's
     ``ATTN_DECODE_DISPATCH``.
+  * ``matmul``: the tiled GEMM kernel of the baselines.
 
 The reference demotes a failing Pallas kernel down a ladder of compiled
 twins. There is no ladder here: a CUDA tensor goes to the kernel or the
@@ -58,15 +66,16 @@ from repro_torch.core import conv as core_conv
 from repro_torch.health import HEALTH
 from repro_torch.kernels import attention_decode as attn_dec
 from repro_torch.kernels import (
-    autotune, sliding_conv1d, sliding_conv2d, sliding_conv_bwd,
+    autotune, im2col_gemm, sliding_conv1d, sliding_conv2d, sliding_conv_bwd,
     sliding_conv_quant,
 )
 from repro_torch.kernels.sliding_conv1d import apply_activation
 from repro_torch.quant import qconv
 from repro_torch.quant.apply import quantize_depthwise_weight, scale_reason
 
-CONV_BACKENDS = ("sliding", "sliding_pallas", "xla")
-CONV2D_BACKENDS = ("sliding", "sliding_pallas", "xla", "im2col_gemm")
+CONV_BACKENDS = ("sliding", "sliding_pallas", "xla", "im2col_gemm",
+                 "im2col_hbm")
+CONV2D_BACKENDS = CONV_BACKENDS  # conv2d takes the same five
 PRECISIONS = ("fp", "w8a8", "w8a16")
 
 
@@ -160,11 +169,13 @@ def _check_quant_dispatch(precision, backend, backends=("sliding_pallas",)):
             f"only (got backend={backend!r})")
 
 
-def _conv1d_quant(x, w, *, stride, padding, backend, bias, activation,
-                  precision, w_scale, x_scale, out_scale):
+def _conv1d_quant(x, w, *, stride, padding, dilation, backend, bias,
+                  activation, precision, w_scale, x_scale, out_scale):
     """The quantized branch of ``conv1d``: pad (an int8 input with code 0),
     screen the scales, quantize the float operands, then the int8 kernel."""
     _check_quant_dispatch(precision, backend)
+    if dilation != 1:
+        raise ValueError("quantized convs cover dilation == 1 only")
     x = _pad1d(x, padding, w.shape[0])
     site = f"conv1d.{precision}"
     x_scale, to_float = _guard_quant_scales(site, x, w, w_scale, x_scale)
@@ -325,6 +336,7 @@ def conv1d(
     *,
     stride: int = 1,
     padding="VALID",
+    dilation: int = 1,
     backend: str = "sliding_pallas",
     bias: torch.Tensor | None = None,
     activation: str = "none",
@@ -334,7 +346,9 @@ def conv1d(
     out_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-channel 1-D convolution + bias + activation. x: (B, L, Cin),
-    w: (K, Cin, Cout); padding VALID / SAME / CAUSAL / (lo, hi).
+    w: (K, Cin, Cout); padding VALID / SAME / CAUSAL / (lo, hi). The
+    ``im2col_gemm`` and ``im2col_hbm`` baselines are forward only: a CUDA
+    call whose inputs need a gradient raises.
 
     ``precision`` "w8a8" / "w8a16" selects the int8 kernel: ``w`` is int8
     with its per-Cout ``w_scale``, or float and quantized here; in w8a8 a
@@ -343,15 +357,22 @@ def conv1d(
     the output to int8 after the activation."""
     if precision != "fp":
         return _conv1d_quant(
-            x, w, stride=stride, padding=padding, backend=backend, bias=bias,
-            activation=activation, precision=precision, w_scale=w_scale,
-            x_scale=x_scale, out_scale=out_scale)
+            x, w, stride=stride, padding=padding, dilation=dilation,
+            backend=backend, bias=bias, activation=activation,
+            precision=precision, w_scale=w_scale, x_scale=x_scale,
+            out_scale=out_scale)
+    if backend not in CONV_BACKENDS:
+        raise ValueError(
+            f"unknown conv backend {backend!r}; one of {CONV_BACKENDS}")
     if backend == "xla":
-        lo, hi = core_conv._resolve_pad_1d(padding, w.shape[0], 1)
-        y = F.conv1d(
-            F.pad(x, (0, 0, lo, hi)).transpose(1, 2), w.permute(2, 1, 0),
-            stride=stride,
-        ).transpose(1, 2).to(x.dtype)
+        y = core_conv.conv1d_xla(x, w, stride=stride, padding=padding,
+                                 dilation=dilation)
+        return epilogue_unfused(y, bias, activation)
+    if dilation > 1:  # the kernels cover dilation 1; core the rest
+        y = core_conv.conv1d(
+            x, w, stride=stride, padding=padding, dilation=dilation,
+            backend="sliding" if backend.startswith("sliding")
+            else "im2col_gemm")
         return epilogue_unfused(y, bias, activation)
     x = _pad1d(x, padding, w.shape[0])
     if backend == "sliding_pallas":
@@ -363,8 +384,11 @@ def conv1d(
         )
     if backend == "sliding":
         y = core_conv.conv1d_sliding(x, w, stride=stride, padding="VALID")
-        return epilogue_unfused(y, bias, activation)
-    raise ValueError(f"unknown conv backend {backend!r}; one of {CONV_BACKENDS}")
+    elif backend == "im2col_gemm":
+        y = im2col_gemm.conv1d_im2col_fused(x, w, stride=stride)
+    else:
+        y = im2col_gemm.conv1d_im2col_hbm(x, w, stride=stride)
+    return epilogue_unfused(y, bias, activation)
 
 
 def conv1d_depthwise(
@@ -494,7 +518,9 @@ def conv2d(
 
     The tiling arguments are the reference's; they are checked and do not
     change the result. On the sliding backends a call whose inputs need a
-    gradient goes through ``Conv2dSliding``. ``precision`` "w8a8" /
+    gradient goes through ``Conv2dSliding``; the ``im2col_gemm`` and
+    ``im2col_hbm`` baselines are forward only (a CUDA call whose inputs
+    need a gradient raises). ``precision`` "w8a8" /
     "w8a16" selects the int8 kernel (inference only): ``w`` is int8 with
     its per-Cout ``w_scale``, or float and quantized here; in w8a8 a float
     ``x`` is quantized onto ``x_scale`` (dynamic absmax when None), an int8
@@ -521,13 +547,17 @@ def conv2d(
     if dilation != (1, 1):
         y = core_conv.conv2d(
             x, w, stride=stride, padding=padding, dilation=dilation,
-            backend="im2col_gemm" if backend == "im2col_gemm" else "sliding")
+            backend="sliding" if backend.startswith("sliding")
+            else "im2col_gemm")
         return epilogue_unfused(y, bias, activation)
     kh, kw = w.shape[:2]
     x = core_conv._pad_2d(x, core_conv._resolve_pad_2d(padding, kh, kw,
                                                        dilation))
-    if backend == "im2col_gemm":
-        y = core_conv.conv2d_im2col(x, w, stride=stride)
+    if backend == "im2col_gemm":  # the fused baseline, not the hbm one
+        y = im2col_gemm.conv2d_im2col_fused(x, w, stride=stride)
+        return epilogue_unfused(y, bias, activation)
+    if backend == "im2col_hbm":
+        y = im2col_gemm.conv2d_im2col_hbm(x, w, stride=stride)
         return epilogue_unfused(y, bias, activation)
     B, H, W, Cin = x.shape
     key = autotune.conv2d_key(B, H, W, Cin, w.shape[3], kh, kw, *stride,
@@ -570,3 +600,9 @@ def attention_decode(
     out = attn_dec.decode_attention(q.reshape(B, KV, G, D), k, v, lengths,
                                     k_scale, v_scale)
     return out.reshape(B, H, D)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B on the tiled GEMM kernel (float32 sums, output in A's
+    type; forward only)."""
+    return im2col_gemm.matmul(a, b)

@@ -318,7 +318,8 @@ def main(argv=None):
                     help="decode-attention read: the CUDA kernel (fused) or "
                          "a direct softmax over the whole cache (view)")
     ap.add_argument("--conv-backend", default=None,
-                    choices=["sliding", "sliding_pallas", "xla"],
+                    choices=["sliding", "sliding_pallas", "im2col_gemm",
+                             "xla"],
                     help="conv evaluation for the model's conv layers "
                          "(whisper's frontend, jamba's mamba convs); "
                          "sliding_pallas runs them through the CUDA kernels")

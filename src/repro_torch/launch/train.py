@@ -167,7 +167,8 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--grad-accum", type=int, default=None)
     ap.add_argument("--conv-backend", default=None,
-                    choices=["sliding", "sliding_pallas", "xla"],
+                    choices=["sliding", "sliding_pallas", "im2col_gemm",
+                             "xla"],
                     help="conv evaluation for the conv frontend; "
                          "sliding_pallas trains through the CUDA kernels")
     ap.add_argument("--audio-frontend", default="stub", choices=["stub", "mels"],

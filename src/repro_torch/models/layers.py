@@ -75,7 +75,9 @@ def conv1d_bias_act(
     """Multi-channel conv1d + bias + activation. x: (B, L, Cin), w:
     (K, Cin, Cout) float, cast to x's type as the reference does, or a
     ``QuantizedWeight``. On ``sliding_pallas`` bias and activation run in
-    the CUDA kernel's epilogue; the other backends apply them unfused.
+    the CUDA kernel's epilogue; the other backends are the ``core.conv``
+    twins (``im2col_gemm`` the column-tensor twin, not the fused kernel, as
+    in the reference) with the epilogue unfused.
 
     A calibration site: under ``quant.calibrate.collecting`` the input is
     observed under ``site``. With ``precision`` "w8a8" / "w8a16" (or an int8
@@ -104,10 +106,13 @@ def conv1d_bias_act(
             x, qw, b, mode=mode, stride=stride, padding=padding,
             x_scale=qw.x_scale, out_scale=out_scale, activation=activation,
             out_dtype=out_dtype, accumulate="fast")
-    return ops.conv1d(
-        x, w.to(x.dtype), stride=stride, padding=padding, backend=backend,
-        bias=b, activation=activation,
-    )
+    w = w.to(x.dtype)
+    if backend == "sliding_pallas":
+        return ops.conv1d(x, w, stride=stride, padding=padding, bias=b,
+                          activation=activation)
+    cb = "sliding" if backend.startswith("sliding") else backend
+    y = core_conv.conv1d(x, w, stride=stride, padding=padding, backend=cb)
+    return ops.epilogue_unfused(y, b, activation)
 
 
 def conv2d_bias_act(

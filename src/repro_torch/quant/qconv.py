@@ -65,11 +65,17 @@ class QuantizedWeight(NamedTuple):
 
 def quantize_weight(w: torch.Tensor, x_scale=None,
                     out_scale=None) -> QuantizedWeight:
-    """Symmetric per-output-channel (last axis) absmax int8 quantization."""
+    """Symmetric per-output-channel (last axis) absmax int8 quantization.
+    The calibrated ``x_scale`` and ``out_scale`` (CPU tensors from
+    ``Calibration.spec()``) are placed on the weight's device, beside the
+    codes and their scale."""
     wf = w.float()
     red = tuple(range(w.dim() - 1))
     s = wf.abs().amax(dim=red) / 127.0 + 1e-12
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    x_scale, out_scale = (
+        None if t is None else torch.as_tensor(t, device=w.device)
+        for t in (x_scale, out_scale))
     return QuantizedWeight(q, s, x_scale, out_scale)
 
 

@@ -246,7 +246,7 @@ def test_errors():
     with pytest.raises(ValueError, match="tile_w"):
         ts2.conv2d_sliding(x, w, tile_w=0)
     with pytest.raises(ValueError, match="unknown conv backend"):
-        tops.conv2d(x, w, backend="im2col_hbm")
+        tops.conv2d(x, w, backend="winograd")
     with pytest.raises(ValueError, match="no sliding_conv2d for device"):
         ts2.conv2d_sliding(x.to("meta"), w.to("meta"))
     for precision in ("w8a8", "w8a16"):  # the int8 kernel's plain version

@@ -1,0 +1,130 @@
+"""The GEMM-convolution baseline kernels against their plain versions, on
+the card: the tiled GEMM (``im2col_gemm.matmul``), the fused 1-D and 2-D
+im2col convolutions, the column-tensor (hbm) baselines on the GEMM kernel,
+and ``ops``'s im2col backends.
+
+Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
+jax nor the JAX package, so it runs where the port runs (``--noconftest``:
+the suite's conftest imports the JAX package):
+
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_im2col_card.py -m cuda
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import im2col_gemm as tig  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+
+
+@pytest.fixture
+def card():
+    """Skip without a card; full float32 (TF32 off) with one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch
+
+    repro_torch.resolve_device("cuda")
+    return "cuda"
+
+
+def _close(got, want, dtype):
+    """float32: within 1e-5 of max |want| (sums in another order);
+    bfloat16: within one bf16 step of the plain float32 value plus 1e-5 of
+    max |want|."""
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape and torch.isfinite(g).all()
+    top = w.abs().max().item()
+    if dtype == torch.float32:
+        tol = 1e-5 * max(1.0, top)
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7
+                         ) + 1e-5 * top
+    assert ((g - w).abs() <= tol).all(), (g - w).abs().max().item()
+
+
+def _randn(rng, shape, scale, dev, dtype):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+        np.float32)).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(200, 70, 90), (64, 32, 64), (1, 1, 1),
+                                   (333, 517, 65), (129, 31, 1152)])
+def test_matmul_kernel_matches_plain(card, M, K, N, dtype):
+    """One launch, counted; ragged M, N and K."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(M + K + N)
+    a = _randn(rng, (M, K), 1.0, card, dt)
+    b = _randn(rng, (K, N), K ** -0.5, card, dt)
+    before = tig.matmul.launches
+    got = tig.matmul(a, b)
+    assert tig.matmul.launches == before + 1 and got.dtype == dt
+    want = a.float() @ b.float()
+    _close(got, want if dt == torch.bfloat16 else tig.matmul_plain(a, b), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,stride,cin", [(3, 1, 37), (7, 2, 3), (17, 3, 37),
+                                          (1, 1, 5)])
+def test_conv1d_kernel_matches_plain(card, K, stride, cin, dtype):
+    """Row 6 and the hbm baseline (row 5 once), each one launch."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(K * 10 + stride)
+    x = _randn(rng, (3, 301, cin), 1.0, card, dt)
+    w = _randn(rng, (K, cin, 70), (K * cin) ** -0.5, card, dt)
+    want = tig.conv1d_im2col_fused_plain(x.float(), w.float(), stride=stride)
+    before = (tig.conv1d_im2col_fused.launches, tig.matmul.launches)
+    got = tig.conv1d_im2col_fused(x, w, stride=stride)
+    hbm = tig.conv1d_im2col_hbm(x, w, stride=stride)
+    assert (tig.conv1d_im2col_fused.launches, tig.matmul.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(got, want, dt)
+    _close(hbm, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,kw,stride,cin", [
+    (3, 3, (1, 1), 37), (5, 5, (2, 2), 3), (7, 5, (2, 3), 37),
+    (14, 14, (14, 14), 3)])
+def test_conv2d_kernel_matches_plain(card, kh, kw, stride, cin, dtype):
+    """Row 7 and the hbm baseline (row 5 once), each one launch."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(kh * 10 + kw)
+    x = _randn(rng, (2, kh + 40, kw + 45, cin), 1.0, card, dt)
+    w = _randn(rng, (kh, kw, cin, 70), (kh * kw * cin) ** -0.5, card, dt)
+    want = tig.conv2d_im2col_fused_plain(x.float(), w.float(), stride=stride)
+    before = (tig.conv2d_im2col_fused.launches, tig.matmul.launches)
+    got = tig.conv2d_im2col_fused(x, w, stride=stride)
+    hbm = tig.conv2d_im2col_hbm(x, w, stride=stride)
+    assert (tig.conv2d_im2col_fused.launches, tig.matmul.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(got, want, dt)
+    _close(hbm, want, dt)
+
+
+@pytest.mark.cuda
+def test_ops_backends_launch_the_kernels_and_refuse_grads(card):
+    """``ops.conv2d(im2col_gemm)`` runs row 7 once (not the column twin),
+    ``im2col_hbm`` row 5 once; a call that needs a gradient raises."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (2, 20, 23, 4), 1.0, card, torch.float32)
+    w = _randn(rng, (3, 3, 4, 6), 1 / 6, card, torch.float32)
+    b = _randn(rng, (6,), 1.0, card, torch.float32)
+    want = tops.conv2d(x, w, bias=b, activation="gelu", padding="SAME",
+                       backend="xla")
+    for backend, counter in (("im2col_gemm", tig.conv2d_im2col_fused),
+                             ("im2col_hbm", tig.matmul)):
+        before = counter.launches
+        got = tops.conv2d(x, w, bias=b, activation="gelu", padding="SAME",
+                          backend=backend)
+        assert counter.launches == before + 1, backend
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+        with pytest.raises(NotImplementedError, match="forward only"):
+            tops.conv2d(x, w.clone().requires_grad_(), backend=backend)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        tops.matmul(x[0, 0], w[0, 0].clone().requires_grad_())
