@@ -205,10 +205,31 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      cuDNN, row 5 against ``torch.matmul`` at the column's shape, the
      plain version and the bounds; one line per shape with the ratio
      sliding : im2col_fused : im2col_hbm : cuDNN.
+ 36. pool kernels vs plain: row 8 (sum, avg, max scan, max shift), row 8
+     on the padded cotangent (the sum gradient) and row 9 (the max
+     gradient, two launches) at the companion paper's pooling shape (1,
+     16384, 32) f32 and bf16, w in {4, 16, 64, 256}, and at edges (w = 1,
+     w = L, (1, 300, 8) at w 100 and 256, (8, 16384, 1), C 37 with ragged
+     tiles) on normals, zeros and post-relu normals: f32 within 1e-5 of
+     max, bf16 within one step, max exact and scan equal to shift, the max
+     gradient's mass conserved; a float16 call refused;
+ 37. scan kernel vs plain: row 16 at jamba-1.5-large's prefill chunk (4,
+     256, 16384, 16) f32 (row 16's path: one launch, counted from zero)
+     and bf16, and at L in {1, 37}, D 200, N in {4, 8, 16};
+ 38. the pooling path: ``ops.pool1d`` forward and backward through
+     ``Pool1d`` at (1, 16384, 32) f32, sum, avg and max at each window,
+     launches counted per call and over the path, against the same calls
+     on CPU tensors; ``ops.conv1d(backend="sliding")`` on one row-1 launch;
+ 39. pooling and scan times: rows 8 and 9 at the paper's shape (every
+     window) and at (8, 16384, 1024) f32 w 16 beside their plain versions,
+     ``F.avg_pool1d`` / ``F.max_pool1d`` / autograd of ``F.max_pool1d``
+     and the bound; row 16 at the jamba chunk (f32, bf16) beside its plain
+     version, the port's associative scan and the bound.
 
 Phases run in the order 1-25, 28, 29, 26, 31, 30, 33, 34 with the main
-path of the baselines, then the timings (6, 10, 15, 19, 23, 27, 32, 35):
-every kernel is held to its plain version before a path runs it.
+path of the baselines, 36-38, then the timings (6, 10, 15, 19, 23, 27,
+32, 35, 39): every kernel is held to its plain version before a path runs
+it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -649,6 +670,8 @@ def _counters() -> dict:
     from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
+    from repro_torch.kernels import sliding_pool as sp
+    from repro_torch.kernels import ssm_scan as ss
 
     return {"sliding_conv1d": (sc.conv1d_sliding, "launches"),
             "attention_decode": (ad.decode_attention, "launches"),
@@ -663,7 +686,12 @@ def _counters() -> dict:
             "conv2d_bwd_dw": (sb.conv2d_bwd_dw, "launches"),
             "matmul": (ig.matmul, "launches"),
             "im2col_conv1d": (ig.conv1d_im2col_fused, "launches"),
-            "im2col_conv2d": (ig.conv2d_im2col_fused, "launches")}
+            "im2col_conv2d": (ig.conv2d_im2col_fused, "launches"),
+            **{name: (sp.sliding_pool, "launches_" + name.removeprefix(
+                "sliding_pool_")) for name, _, _ in POOL_FORMS},
+            "sum_pool_bwd": (sp.sum_pool_bwd, "launches"),
+            "max_pool_bwd": (sp.max_pool_bwd, "launches"),
+            "ssm_scan": (ss.ssm_scan, "launches")}
 
 
 def zero_launches() -> None:
@@ -3643,10 +3671,11 @@ def case_inputs(c, seed):
 
 
 def im2col_close(got, want, what) -> float:
-    """Rows 5-7 against their plain versions (``want``: the plain version
-    on the same operands widened to float32): float32 within 1e-5 of max
-    |want|, their float32 sums taken in another order; bfloat16 within one
-    bf16 step of the float32 value plus 1e-5 of max |want|."""
+    """Rows 5-9 and 16 against their plain versions (``want``: for rows
+    5-7 the plain version on the same operands widened to float32):
+    float32 within 1e-5 of max |want|, their float32 sums (prefix sums,
+    read-outs) taken in another order; bfloat16 within one bf16 step of
+    the plain value plus 1e-5 of max |want|."""
     if got.dtype == torch.bfloat16:
         return bf16_step_close(got, want, what)
     return close(got, want, dict(rtol=0.0, atol=1e-5 * want.abs().max().item()),
@@ -3738,7 +3767,8 @@ def phase_im2col_kernels(ig, ops, quant) -> dict:
     x1, w1 = randn(2, 130, 37), randn(5, 37, 70, scale=(5 * 37) ** -0.5)
     x2, w2 = randn(2, 40, 45, 37), randn(3, 5, 37, 70,
                                          scale=(15 * 37) ** -0.5)
-    want1 = {"sliding": {}, "sliding_pallas": {"sliding_conv1d": 1},
+    want1 = {"sliding": {"sliding_conv1d": 1},
+             "sliding_pallas": {"sliding_conv1d": 1},
              "xla": {}, "im2col_gemm": {"im2col_conv1d": 1},
              "im2col_hbm": {"matmul": 1}}
     want2 = dict(want1, sliding={"conv2d": 1},
@@ -4041,6 +4071,384 @@ def phase_im2col_times(ig, sc, s2, launches, errs) -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# sliding-window pooling (rows 8, 9) and the selective scan (row 16)
+# ---------------------------------------------------------------------------
+
+# the companion paper's pooling shape and windows (the reference
+# benchmark's autotune/pool1d rows, benchmarks/run.py:106-113); one
+# bandwidth-sized shape; the scan at one chunk of jamba-1.5-large's prefill
+# (d_inner 16384, d_state 16, SSM_CHUNK 256)
+POOL_PAPER = dict(B=1, L=16384, C=32)
+POOL_WINDOWS = (4, 16, 64, 256)
+POOL_WIDE = dict(B=8, L=16384, C=1024, w=16)
+SCAN_MAIN = dict(B=4, L=256, D=16384, N=16)
+# row 8's forms: (counter and JSON name, op, method)
+POOL_FORMS = (("sliding_pool_sum", "sum", "scan"),
+              ("sliding_pool_avg", "avg", "scan"),
+              ("sliding_pool_max_scan", "max", "scan"),
+              ("sliding_pool_max_shift", "max", "shift"))
+
+
+def pool_input(seed, B, L, C, dtype, kind="normal"):
+    """x (B, L, C): normals, zeros, post-relu normals (ties at 0), or
+    "distinct": each (b, c) column a random permutation of L distinct
+    values in [-4, 4) (no ties in any window, whatever its size)."""
+    if kind == "zeros":
+        return torch.zeros((B, L, C), device=DEV, dtype=dtype)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((B, L, C), generator=g, device=DEV)
+    if kind == "distinct":
+        x = (torch.argsort(x, dim=1).float() / L - 0.5) * 8
+    return (x.clamp(min=0) if kind == "relu" else x).to(dtype)
+
+
+def check_pool(sp, x, window, what) -> dict:
+    """Every form of row 8, the sum gradient (row 8 on the padded
+    cotangent) and row 9 on one input, each against its plain version; the
+    max forms exact and equal to each other; in float32 the max gradient's
+    mass conserved (dy = 1: every window's unit split over its ties, so
+    each (b, c) column of dx sums to the number of windows). Returns max
+    |err| by counter name."""
+    errs, ys = {}, {}
+    for name, op, method in POOL_FORMS:
+        got = sp.sliding_pool(x, window=window, op=op, method=method)
+        want = sp.sliding_pool_plain(x, window=window, op=op, method=method)
+        if op == "max" and not torch.equal(got, want):
+            raise AssertionError(f"{what} {name}: not exact")
+        errs[name] = im2col_close(got, want, f"{what} {name}")
+        ys[name] = got
+    y = ys["sliding_pool_max_scan"]
+    if not torch.equal(y, ys["sliding_pool_max_shift"]):
+        raise AssertionError(f"{what}: max scan and max shift differ")
+    g = torch.Generator(device=DEV).manual_seed(window)
+    dy = torch.randn(y.shape, generator=g, device=DEV).to(x.dtype)
+    errs["sum_pool_bwd"] = im2col_close(
+        sp.sum_pool_bwd(dy, window=window),
+        sp.sum_pool_bwd_plain(dy, window=window), f"{what} sum_pool_bwd")
+    errs["max_pool_bwd"] = im2col_close(
+        sp.max_pool_bwd(x, y, dy, window=window),
+        sp.max_pool_bwd_plain(x, y, dy, window=window),
+        f"{what} max_pool_bwd")
+    if x.dtype == torch.float32:
+        mass = sp.max_pool_bwd(x, y, torch.ones_like(y), window=window).sum(1)
+        n = y.shape[1]
+        if not torch.allclose(mass, torch.full_like(mass, n), rtol=1e-5,
+                              atol=1e-5 * n):
+            raise AssertionError(f"{what}: max-pool gradient mass "
+                                 f"{mass.min().item()}..{mass.max().item()}, "
+                                 f"expected {n} a channel")
+    return errs
+
+
+def phase_pool_kernels(sp) -> dict:
+    """36: rows 8 and 9 against their plain versions (``check_pool``): the
+    paper's shape (1, 16384, 32) f32 and bf16 at w in {4, 16, 64, 256};
+    the edges w = 1, w = L, (1, 300, 8) at w 100 and 256, C = 1 as (8,
+    16384, 1) (``benchmarks/table_conv1d.py``'s layout), C = 37 with ragged
+    last tiles, each on normals, zeros and post-relu normals; a float16
+    call refused. Returns each row's max |err| at the paper's shape."""
+    P = POOL_PAPER
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = pool_input(360, P["B"], P["L"], P["C"], dtype)
+        for w in POOL_WINDOWS:
+            for k, v in check_pool(sp, x, w, f"pool {P} w={w} {dtype}").items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    edges = (((2, 300, 37), 1), ((2, 300, 37), 300), ((1, 300, 8), 100),
+             ((1, 300, 8), 256), ((8, P["L"], 1), 16), ((2, 1001, 37), 7),
+             ((3, 5000, 64), 33))
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, L, C), w in edges:
+            for kind in ("normal", "zeros", "relu"):
+                check_pool(sp, pool_input(361 + w, B, L, C, dtype, kind), w,
+                           f"pool ({B}, {L}, {C}) w={w} {kind} {dtype}")
+    try:
+        sp.sliding_pool(torch.zeros((1, 8, 2), device=DEV,
+                                    dtype=torch.float16), window=3)
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("a float16 pool call was not refused")
+    torch.cuda.synchronize()
+    log(f"pool kernels vs plain: max|err| {errs}")
+    return errs
+
+
+def scan_inputs(seed, B, L, D, N, dtype):
+    """abar in [0.3, 1), bx and c normal, in ``dtype``; h0 normal, float32."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    abar = (torch.rand((B, L, D, N), generator=g, device=DEV) * 0.7 + 0.3)
+    bx = torch.randn((B, L, D, N), generator=g, device=DEV)
+    c = torch.randn((B, L, N), generator=g, device=DEV)
+    h0 = torch.randn((B, D, N), generator=g, device=DEV)
+    return abar.to(dtype), bx.to(dtype), c.to(dtype), h0
+
+
+def check_scan(ss, args, what) -> float:
+    y, h = ss.ssm_scan(*args)
+    yw, hw = ss.ssm_scan_plain(*args)
+    return max(im2col_close(y, yw, f"{what} y"),
+               im2col_close(h, hw, f"{what} h_last"))
+
+
+def phase_scan_kernels(ss) -> tuple[float, dict]:
+    """37: row 16 against its plain version: jamba-1.5-large's prefill
+    chunk (4, 256, 16384, 16) f32, random h0, is row 16's path (one call,
+    launches counted from zero), then bf16 there; the edges L in {1, 37},
+    D 200 (not a multiple of the block of 128 d), N in {4, 8, 16}, f32 and
+    bf16. y and h_last within 1e-5 of max (f32), y within one bf16 step
+    (bf16). Returns max |err| at the jamba chunk (f32) and the path."""
+    S = SCAN_MAIN
+    args = scan_inputs(370, S["B"], S["L"], S["D"], S["N"], torch.float32)
+    zero_launches()
+    t0 = time.perf_counter()
+    y, h = ss.ssm_scan(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != only(ssm_scan=1):
+        raise AssertionError(f"ssm_scan path launches {launches}")
+    yw, hw = ss.ssm_scan_plain(*args)
+    err = max(im2col_close(y, yw, "ssm_scan jamba chunk f32 y"),
+              im2col_close(h, hw, "ssm_scan jamba chunk f32 h_last"))
+    del args, y, h, yw, hw
+    args = scan_inputs(371, S["B"], S["L"], S["D"], S["N"], torch.bfloat16)
+    err_bf16 = check_scan(ss, args, "ssm_scan jamba chunk bf16")
+    del args
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in (1, 37):
+            for N in (4, 8, 16):
+                check_scan(ss, scan_inputs(372 + L + N, 2, L, 200, N, dtype),
+                           f"ssm_scan (2, {L}, 200, {N}) {dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"ssm_scan vs plain: jamba chunk {S} f32 max|err| {err:.3e}, bf16 "
+        f"{err_bf16:.3e}; path {wall:.3f}s, launches {launches}")
+    return err, dict(launches=launches, wall_s=wall)
+
+
+def phase_pool_path(sp, ops) -> dict:
+    """38: the pooling path through the entry point a user calls:
+    ``ops.pool1d`` forward and backward (``Pool1d``) at the paper's shape
+    (1, 16384, 32) f32 for sum, avg and max at each window of
+    ``POOL_WINDOWS``, the max method resolved by ``_pool_method`` (shift
+    at 4 and 16, scan at 64 and 256); launches counted from zero over the
+    path, and per call (sum/avg: 1 row-8 launch forward, 1 backward; max:
+    1 forward, 2 row-9); every output and gradient held to the same call
+    on CPU tensors (the plain versions). Then ``ops.conv1d(backend=
+    "sliding")`` on a CUDA tensor: one row-1 launch."""
+    P = POOL_PAPER
+    x = pool_input(380, P["B"], P["L"], P["C"], torch.float32)
+    g = torch.Generator(device=DEV).manual_seed(381)
+    runs = []
+    zero_launches()
+    t0 = time.perf_counter()
+    for op in ("sum", "avg", "max"):
+        for w in POOL_WINDOWS:
+            before = read_launches()
+            xd = x.detach().requires_grad_()
+            y = ops.pool1d(xd, window=w, op=op)
+            dy = torch.randn(y.shape, generator=g, device=DEV)
+            y.backward(dy)
+            after = read_launches()
+            method = ops._pool_method(x, w, op, None)
+            form = f"sliding_pool_{op if op != 'max' else 'max_' + method}"
+            bwd = {"max_pool_bwd": 2} if op == "max" else {"sum_pool_bwd": 1}
+            got = {k: after[k] - before[k] for k in after}
+            if got != only(**{form: 1}, **bwd):
+                raise AssertionError(f"pool1d {op} w={w}: launches {got}")
+            runs.append((op, w, y.detach(), xd.grad, dy))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    errs = {}
+    for op, w, y, dx, dy in runs:
+        xc = x.cpu().detach().requires_grad_()
+        yc = ops.pool1d(xc, window=w, op=op)
+        yc.backward(dy.cpu())
+        what = f"pool path {op} w={w}"
+        errs[f"{op}_w{w}"] = max(im2col_close(y.cpu(), yc.detach(), what),
+                                 im2col_close(dx.cpu(), xc.grad, what + " dx"))
+    xs, ws, bs = conv_inputs(382, 2, 514, 80, 1024, 3, torch.float32)
+    zero_launches()
+    ys = ops.conv1d(xs, ws, bias=bs, padding="SAME", backend="sliding",
+                    activation="gelu")
+    torch.cuda.synchronize()
+    if read_launches() != only(sliding_conv1d=1):
+        raise AssertionError(f"ops.conv1d(backend='sliding'): launches "
+                             f"{read_launches()}, expected one row-1 launch")
+    if not torch.equal(ys, ops.conv1d(xs, ws, bias=bs, padding="SAME",
+                                      backend="sliding_pallas",
+                                      activation="gelu")):
+        raise AssertionError("ops.conv1d: sliding and sliding_pallas differ")
+    close(ys, ops.conv1d(xs, ws, bias=bs, padding="SAME", backend="xla",
+                         activation="gelu"), TOL, "ops.conv1d sliding vs xla")
+    log(f"pool path: {len(runs)} pool1d calls with backward in {wall:.3f}s, "
+        f"launches {launches}; vs CPU max|err| {max(errs.values()):.3e}; "
+        "ops.conv1d(backend='sliding') on one row-1 launch")
+    return dict(launches=launches, wall_s=wall, max_abs_err_vs_cpu=errs)
+
+
+def _pool_case_times(sp, B, L, C, w, n_sets, batches, inner) -> dict:
+    """Row 8's forms, the sum gradient and row 9 at one shape (f32): card
+    ms per call of the kernel, its plain version and one library call, on
+    input sets cycled past the L2 (tie-free, so that autograd of
+    ``F.max_pool1d``, one argmax a window, computes row 9's function); the
+    bytes bound of each."""
+    el = 4
+    n_out = L - w + 1
+    xs = [pool_input(390 + i, B, L, C, torch.float32, "distinct")
+          for i in range(n_sets)]
+    g = torch.Generator(device=DEV).manual_seed(391)
+    dys = [torch.randn((B, n_out, C), generator=g, device=DEV)
+           for _ in range(n_sets)]
+    x_lib = [x.transpose(1, 2).contiguous() for x in xs]  # (B, C, L), ahead
+    # the padded cotangent in the library's layout, made ahead
+    dyp_lib = [F.pad(dy, (0, 0, w - 1, w - 1)).transpose(1, 2).contiguous()
+               for dy in dys]
+    ys = [sp.sliding_pool(x, window=w, op="max") for x in xs]
+    # autograd of F.max_pool1d: its graph (argmax indices) made ahead
+    lib_graphs = []
+    for xl, dy in zip(x_lib, dys):
+        xr = xl.detach().requires_grad_()
+        lib_graphs.append((xr, F.max_pool1d(xr, w, stride=1),
+                           dy.transpose(1, 2).contiguous()))
+    io = el * (B * L * C + B * n_out * C)
+    lib = {
+        "sum": lambda i: F.avg_pool1d(x_lib[i], w, stride=1) * w,
+        "avg": lambda i: F.avg_pool1d(x_lib[i], w, stride=1),
+        "max": lambda i: F.max_pool1d(x_lib[i], w, stride=1),
+    }
+    fns = {}
+    for name, op, method in POOL_FORMS:
+        fns[name] = (
+            lambda i, op=op, m=method: sp.sliding_pool(xs[i], window=w, op=op,
+                                                       method=m),
+            lambda i, op=op, m=method: sp.sliding_pool_plain(
+                xs[i], window=w, op=op, method=m),
+            lib[op], io, (2 if op == "sum" else 3) * B * L * C)
+    fns["sum_pool_bwd"] = (
+        lambda i: sp.sum_pool_bwd(dys[i], window=w),
+        lambda i: sp.sum_pool_bwd_plain(dys[i], window=w),
+        lambda i: F.avg_pool1d(dyp_lib[i], w, stride=1) * w, io,
+        2 * B * L * C)
+    fns["max_pool_bwd"] = (
+        lambda i: sp.max_pool_bwd(xs[i], ys[i], dys[i], window=w),
+        lambda i: sp.max_pool_bwd_plain(xs[i], ys[i], dys[i], window=w),
+        lambda i: torch.autograd.grad(lib_graphs[i][1], lib_graphs[i][0],
+                                      lib_graphs[i][2], retain_graph=True)[0],
+        el * (2 * B * L * C + 2 * B * n_out * C), 2 * B * (L + n_out) * C)
+    out = {}
+    for name, (kernel, plain, library, nbytes, ops_n) in fns.items():
+        want = plain(0)
+        got = library(0)
+        got = got.transpose(1, 2)  # back to (B, L, C)
+        close(got, want, TOL, f"library {name} w={w}")
+        bms, by = bound_ms(nbytes, ops_n, torch.float32)
+        t = {}
+        for key, fn in (("ms", kernel), ("plain_ms", plain),
+                        ("library_ms", library)):
+            t[key] = card_ms(cycling(fn, [(i,) for i in range(n_sets)]),
+                             batches=batches, inner=inner)
+        out[name] = dict(t, bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops_n)
+    del xs, dys, x_lib, dyp_lib, ys, lib_graphs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
+    """39: rows 8, 9 and 16 on this card. Each pool row at the paper's
+    shape (1, 16384, 32) f32 at every window of ``POOL_WINDOWS`` (26 input
+    sets cycled past the L2; the shape is launch-bound) and at (8, 16384,
+    1024) f32, w 16 (512 MiB an input); library calls: ``F.avg_pool1d``
+    (× w for sum; on the padded cotangent for the sum gradient),
+    ``F.max_pool1d`` and autograd of it (one argmax per window on tie-free
+    input), each on the (B, C, L) layout made ahead. Row 16 at the jamba
+    chunk (4, 256, 16384, 16), f32 and bf16; no PyTorch call computes the
+    scan, so ``library_ms`` is null and the port's mamba
+    ``_assoc_scan`` with its read-out (what jamba's prefill runs today)
+    stands beside it. Card ms per call from CUDA events, queue filled,
+    median of 10 batches of 5."""
+    P, W = POOL_PAPER, POOL_WIDE
+    cases = {f"paper_w{w}": _pool_case_times(sp, P["B"], P["L"], P["C"], w,
+                                             26, 10, 5)
+             for w in POOL_WINDOWS}
+    cases[f"wide_w{W['w']}"] = _pool_case_times(sp, W["B"], W["L"], W["C"],
+                                                W["w"], 2, 10, 5)
+    for case, rows in cases.items():
+        log(f"time pool {case}: " + "; ".join(
+            f"{n} {r['ms']:.4f} (plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f})"
+            for n, r in rows.items()))
+
+    S = SCAN_MAIN
+    scan = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = scan_inputs(392, S["B"], S["L"], S["D"], S["N"], dtype)
+        el = dtype.itemsize
+        B, L, D, N = S["B"], S["L"], S["D"], S["N"]
+        nbytes = (el * (2 * B * L * D * N + B * L * N + B * L * D)
+                  + 4 * 2 * B * D * N)
+        bms, by = bound_ms(nbytes, 4 * B * L * D * N, torch.float32)
+        t = dict(ms=card_ms(lambda: ss.ssm_scan(*args), batches=10, inner=5),
+                 plain_ms=card_ms(lambda: ss.ssm_scan_plain(*args),
+                                  batches=10, inner=5),
+                 library_ms=None, bound_ms=bms, bound_by=by, bytes=nbytes,
+                 ops=4 * B * L * D * N)
+        if dtype == torch.float32:
+            def assoc(abar, bx, c, h0):
+                h_all, h_last = mamba._assoc_scan(abar, bx, h0)
+                y = torch.bmm(h_all.reshape(B * L, D, N),
+                              c.reshape(B * L, N, 1)).reshape(B, L, D)
+                return y, h_last
+
+            yw, hw = ss.ssm_scan_plain(*args)
+            ya, ha = assoc(*args)
+            close(ya, yw, TOL, "assoc scan y")
+            close(ha, hw, TOL, "assoc scan h_last")
+            del yw, hw, ya, ha
+            t["assoc_scan_ms"] = card_ms(lambda: assoc(*args), batches=10,
+                                         inner=5)
+        scan[str(dtype).removeprefix("torch.")] = t
+        del args
+        torch.cuda.empty_cache()
+    log(f"time ssm_scan {S}: {json.dumps(scan)}")
+
+    main_w = {"sliding_pool_max_shift": 16}
+    sources = {"sum_pool_bwd": 142, "max_pool_bwd": 180}
+    rows = []
+    for name in [n for n, _, _ in POOL_FORMS] + ["sum_pool_bwd",
+                                                 "max_pool_bwd"]:
+        main = f"paper_w{main_w.get(name, 64)}"
+        m = cases[main][name]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/sliding_pool.cu",
+            replaces=f"src/repro/kernels/sliding_pool.py:"
+                     f"{sources.get(name, 87)}",
+            launches=launches[name], max_abs_err=errs[name],
+            **{k: m[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")},
+            per=f"launch: {main} (1, 16384, 32) f32",
+            shapes={c: {k: r[name][k] for k in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms")}
+                    for c, r in cases.items() if c != main}))
+    f32 = scan["float32"]
+    rows.append(dict(
+        name="ssm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:61",
+        launches=launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
+        **{k: f32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "assoc_scan_ms")},
+        per="launch: jamba prefill chunk (4, 256, 16384, 16) f32, random "
+            "h0; library: none (no PyTorch call computes the scan); "
+            "assoc_scan_ms: the port's mamba._assoc_scan + read-out",
+        shapes={"bfloat16": scan["bfloat16"]}))
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -4064,9 +4472,11 @@ def main() -> int:
     from repro_torch.kernels import sliding_conv2d as s2
     from repro_torch.kernels import sliding_conv_bwd as sb
     from repro_torch.kernels import sliding_conv_quant as sq
+    from repro_torch.kernels import sliding_pool as sp
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.launch import serve, train
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models import layers, llava, transformer
+    from repro_torch.models import layers, llava, mamba, transformer
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4131,6 +4541,12 @@ def main() -> int:
     errs.update(phase_im2col_kernels(ig, ops, quant))
     phase_smoke_serve_im2col(serve, models, configs, map_tree)
     baselines = phase_baselines(ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 36-38: pooling (rows 8, 9), the selective scan (row 16), their paths --
+    errs.update(phase_pool_kernels(sp))
+    errs["ssm_scan"], scan_path = phase_scan_kernels(ss)
+    pool_path = phase_pool_path(sp, ops)
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -4144,7 +4560,9 @@ def main() -> int:
                "serve_llava": llava_serve["launches"],
                "serve_llava_int8": with_calibration(llava_serve["int8"]),
                "train_conv2d": patch_train["launches"],
-               "baselines": baselines["launches"]}
+               "baselines": baselines["launches"],
+               "pool": pool_path["launches"],
+               "ssm_scan": scan_path["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -4166,6 +4584,8 @@ def main() -> int:
     kernels += conv2d_rows
     # -- 35: the paper's comparison -----------------------------------------------
     kernels += phase_im2col_times(ig, sc, s2, launches, errs)
+    # -- 39: pooling and scan times -------------------------------------------------
+    kernels += phase_pool_times(sp, ss, mamba, launches, errs)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -4182,7 +4602,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
                       "serve_int8": full_int8, "serve_jamba": jamba,
                       "train_jamba": jamba_train, "serve_llava": llava_serve,
-                      "train_conv2d": patch_train, "baselines": baselines}),
+                      "train_conv2d": patch_train, "baselines": baselines,
+                      "pool": pool_path, "ssm_scan": scan_path}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,3 +21,9 @@ def attn_dec_key(B, S, KV, G, D, kind) -> str:
     """Fused decode-attention shape key (``ops.attention_decode``). ``kind``
     is "int8" for the quantized cache, else the float cache dtype name."""
     return f"attn_dec|B{B}|S{S}|KV{KV}|G{G}|D{D}|{kind}"
+
+
+def pool1d_key(B, L, C, window, op, dtype) -> str:
+    """Sliding-pool shape key (``ops.pool1d``); the reference's tuned entry
+    under it selects the max-pool evaluation (``scan`` or ``shift``)."""
+    return f"pool1d|B{B}|L{L}|C{C}|w{window}|{op}|{dtype}"

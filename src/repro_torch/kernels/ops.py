@@ -3,13 +3,15 @@
 The subset of ``repro.kernels.ops`` that whisper's and jamba's serving and
 training paths and llava's serving path reach:
 
-  * ``conv1d``: padding outside the kernel, then the backend. ``sliding``
-    is the plain tap loop of ``core.conv`` with an unfused epilogue;
-    ``sliding_pallas`` (the reference's name, kept so one command line
+  * ``conv1d``: padding outside the kernel, then the backend.
+    ``sliding_pallas`` (the model layers' name, kept so one command line
     drives both packages) is the fused CUDA kernel, differentiable through
     ``Conv1dSliding`` (the reference's ``_conv1d_sliding_op`` custom VJP);
-    ``xla`` is ``torch.nn.functional.conv1d`` with an unfused epilogue.
-    ``sliding`` and ``xla`` differentiate by plain autograd. The paper's
+    ``sliding``, the reference's name for its kernel, is the same on a CUDA
+    tensor and the plain tap loop of ``core.conv`` with an unfused epilogue
+    and plain autograd on a CPU tensor; ``xla`` is
+    ``torch.nn.functional.conv1d`` with an unfused epilogue and plain
+    autograd. The paper's
     GEMM baselines, forward only and each with an unfused epilogue:
     ``im2col_gemm`` is the fused im2col kernel (the column built on chip),
     ``im2col_hbm`` the column tensor in device memory, then the GEMM
@@ -46,6 +48,12 @@ training paths and llava's serving path reach:
     cache, with a dispatch log keyed like the reference's
     ``ATTN_DECODE_DISPATCH``.
   * ``matmul``: the tiled GEMM kernel of the baselines.
+  * ``pool1d``: VALID sliding pooling along L (sum, avg, max) on the pool
+    kernel, differentiable through ``Pool1d`` (the reference's
+    ``_pool1d_op`` custom VJP): sum/avg backward on the forward sum kernel
+    over the padded cotangent, max backward on the two-launch max-gradient
+    kernel. Each call is logged in ``POOL1D_DISPATCH`` under the
+    reference's ``pool1d_key``.
 
 The reference demotes a failing Pallas kernel down a ladder of compiled
 twins. There is no ladder here: a CUDA tensor goes to the kernel or the
@@ -67,7 +75,7 @@ from repro_torch.health import HEALTH
 from repro_torch.kernels import attention_decode as attn_dec
 from repro_torch.kernels import (
     autotune, im2col_gemm, sliding_conv1d, sliding_conv2d, sliding_conv_bwd,
-    sliding_conv_quant,
+    sliding_conv_quant, sliding_pool,
 )
 from repro_torch.kernels.sliding_conv1d import apply_activation
 from repro_torch.quant import qconv
@@ -109,6 +117,7 @@ ATTN_DECODE_DISPATCH = DispatchLog()
 CONV1D_DW_DISPATCH = DispatchLog()
 CONV2D_DISPATCH = DispatchLog()
 CONV2D_QUANT_DISPATCH = DispatchLog()
+POOL1D_DISPATCH = DispatchLog()
 
 
 def _pad1d(x, padding, k, dilation=1):
@@ -375,7 +384,8 @@ def conv1d(
             else "im2col_gemm")
         return epilogue_unfused(y, bias, activation)
     x = _pad1d(x, padding, w.shape[0])
-    if backend == "sliding_pallas":
+    if backend == "sliding_pallas" or (backend == "sliding"
+                                       and x.device.type == "cuda"):
         if _needs_grad(x, w, bias):
             return Conv1dSliding.apply(x, w, bias, stride, activation)
         # nothing to differentiate (serving): the kernel saves no residual
@@ -606,3 +616,70 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B on the tiled GEMM kernel (float32 sums, output in A's
     type; forward only)."""
     return im2col_gemm.matmul(a, b)
+
+
+# ---------------------------------------------------------------------------
+# pool1d
+# ---------------------------------------------------------------------------
+
+class Pool1d(torch.autograd.Function):
+    """VALID sliding pooling with its backward on the kernels (the
+    reference's ``_pool1d_op`` custom VJP). Forward: the pool kernel; it
+    saves (x, y) for max only, y the argmax witness. Backward: sum,
+    ``sum_pool_bwd(dy)``; avg, ``sum_pool_bwd`` of dy / w (in float32,
+    rounded to dy's type); max, ``max_pool_bwd(x, y, dy)`` (two launches),
+    each window's gradient split evenly over its tied maxima. dx is cast to
+    dy's type. CPU tensors run the kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, window, op, method):
+        y = sliding_pool.sliding_pool(x, window=window, op=op, method=method)
+        if op == "max":
+            ctx.save_for_backward(x, y)
+        ctx.window, ctx.op = window, op
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        w = ctx.window
+        if ctx.op == "max":
+            x, y = ctx.saved_tensors
+            dx = sliding_pool.max_pool_bwd(x, y, dy, window=w)
+        else:
+            g = dy if ctx.op == "sum" else (dy.float() / w).to(dy.dtype)
+            dx = sliding_pool.sum_pool_bwd(g, window=w)
+        return dx.to(dy.dtype), None, None, None
+
+
+# max-pool method crossover (the reference's, measured on its BENCH pool
+# rows): shift-and-max (lower constant) below, the two-phase block scan
+# (O(n), window-independent) from here up
+POOL_SHIFT_MAX_WINDOW = 32
+
+
+def _pool_method(x, window: int, op: str, explicit: str | None) -> str:
+    """explicit argument → heuristic. The reference consults its tuned
+    cache (``autotune_pool1d``'s entry under ``pool1d_key``) between the
+    two; the port has no tuning cache yet, and with an empty cache the
+    reference resolves as this does: sum/avg always "scan", max "shift"
+    below ``POOL_SHIFT_MAX_WINDOW`` and "scan" from it up."""
+    if explicit is not None:
+        return explicit
+    if op != "max":
+        return "scan"
+    return "shift" if window < POOL_SHIFT_MAX_WINDOW else "scan"
+
+
+def pool1d(x: torch.Tensor, *, window: int, op: str = "sum",
+           method: str | None = None) -> torch.Tensor:
+    """VALID sliding pooling along axis 1. x: (B, L, C) -> (B, L-w+1, C),
+    op "sum", "avg" or "max". A call whose input needs a gradient goes
+    through ``Pool1d``. ``method`` picks the max-pool forward evaluation
+    ("scan" | "shift"); None resolves it by ``_pool_method``."""
+    resolved = _pool_method(x, window, op, method)
+    POOL1D_DISPATCH[autotune.pool1d_key(
+        *x.shape, window, op, str(x.dtype).removeprefix("torch."))] = (
+        "cuda" if x.device.type == "cuda" else "plain")
+    if _needs_grad(x):
+        return Pool1d.apply(x, window, op, resolved)
+    return sliding_pool.sliding_pool(x, window=window, op=op, method=resolved)

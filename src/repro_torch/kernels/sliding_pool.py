@@ -1,0 +1,297 @@
+"""Sliding-window pooling along L and its gradient (``repro.kernels.sliding_pool``).
+
+  * ``sliding_pool``: VALID pooling of x (B, L, C) into (B, L - w + 1, C)
+    in x's type. sum/avg: a float32 prefix per tile over the tile's halo of
+    tile + w - 1 rows, then the strided difference, cast to x's type (avg
+    then divides that already-cast sum by w in float32 and casts again).
+    max: the van Herk / Gil-Werman block prefix/suffix max (``method``
+    "scan") or the shift-and-max loop ("shift"); both exact.
+  * ``sum_pool_bwd``: dx of sum pooling, the forward sum on dy padded by
+    w - 1 zero rows on both sides.
+  * ``max_pool_bwd``: dx of max pooling in two launches: per window the
+    tie count cnt = #{m < w : x[i+m] == y[i]} and the split dy / max(cnt,
+    1), rounded to dy's type; then dx[j] = sum_k dys[j-k] * [x[j] == y[j-k]]
+    over the windows that exist, summed in float32, one cast to x's type.
+    Each window's gradient is shared evenly by its tied maxima.
+
+Each wrapper launches its Hopper kernel (``csrc/sliding_pool.cu``) on a
+CUDA tensor and runs its plain version (``sliding_pool_plain``,
+``sum_pool_bwd_plain``, ``max_pool_bwd_plain``: the kernel bodies'
+arithmetic in torch) on a CPU tensor. Any other device raises; nothing falls
+back from the kernel to the plain version. The kernels take float32 or
+bfloat16; another type raises ``TypeError`` on the card (the plain versions
+also pool other types, int8 codes included). Launch counters:
+``sliding_pool.launches`` (and per form ``launches_sum``, ``launches_avg``,
+``launches_max_scan``, ``launches_max_shift``), ``sum_pool_bwd.launches``,
+``max_pool_bwd.launches`` (two a call).
+
+The tile (``pool_tile``) is the number of rows one kernel thread walks, and
+the span of one float32 prefix. The reference fixes it at 512; here it comes
+from the shape so that the card has enough threads: the smallest power of
+two from 32 to 1024 that keeps B·C·⌈n/tile⌉ within 132 · 1024 threads,
+and never more than n. The max forms and the gradient do not depend on it;
+the sum rounds per tile, and the plain version takes the same tile.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.sliding import _extreme
+from repro_torch.kernels import build
+
+OPS = ("sum", "avg", "max")
+METHODS = ("scan", "shift")
+_OP_CODE = {"sum": 0, "avg": 1, ("max", "scan"): 2, ("max", "shift"): 3}
+# threads that keep all 132 SMs busy (half of what they can hold)
+TARGET_THREADS = 132 * 1024
+MIN_TILE, MAX_TILE = 32, 1024
+# x, y; B, L, lead, Lsrc, C, window, Lout, tile, op, is_bf16; stream
+_POOL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# x, y, dy|dys, dys|dx; B, L, C, window, Lout, tile, is_bf16; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def pool_tile(B: int, n: int, C: int) -> int:
+    """Rows a kernel thread walks for n rows of B·C sequences: the
+    smallest power of two in [32, 1024] that keeps the thread count within
+    ``TARGET_THREADS``, capped at n."""
+    tile = MIN_TILE
+    while tile < MAX_TILE and B * C * -(-n // tile) > TARGET_THREADS:
+        tile *= 2
+    return min(tile, n)
+
+
+def _check(x, window, op, method) -> int:
+    if x.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)} is not (B, L, C)")
+    if op not in OPS:
+        raise ValueError(f"unknown pool op {op!r}; one of {OPS}")
+    if method not in METHODS:
+        raise ValueError(f"unknown pool method {method!r}; one of {METHODS}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    out_len = x.shape[1] - window + 1
+    if out_len < 1:
+        raise ValueError(f"window {window} exceeds length {x.shape[1]}")
+    return out_len
+
+
+def _kernel_dtype(*ts) -> bool:
+    dt = ts[0].dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != dt for t in ts):
+        raise TypeError("pool kernels take float32 or bfloat16 tensors of "
+                        f"one type, got {[t.dtype for t in ts]}")
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError("tensors must lie on one device")
+    return dt == torch.bfloat16
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _halos(x, window, tile, fill):
+    """The tiles' halos of x: (B, n_tiles, C, tile + w - 1), x padded past
+    its end with ``fill`` to whole tiles."""
+    B, L, C = x.shape
+    n_tiles = -(-(L - window + 1) // tile)
+    need = n_tiles * tile + window - 1
+    if need > L:
+        x = F.pad(x, (0, 0, 0, need - L), value=fill)
+    return x.unfold(1, tile + window - 1, tile)
+
+
+def _untile(t, out_len):
+    """(B, n_tiles, C, tile) -> (B, out_len, C)."""
+    B, nt, C, tile = t.shape
+    return t.permute(0, 1, 3, 2).reshape(B, nt * tile, C)[:, :out_len]
+
+
+def sliding_pool_plain(x: torch.Tensor, *, window: int, op: str = "sum",
+                       method: str = "scan", tile: int | None = None):
+    """The kernel's function in plain torch, tile by tile as the kernel
+    walks it (``tile`` defaults to ``pool_tile`` of the shape)."""
+    out_len = _check(x, window, op, method)
+    B, L, C = x.shape
+    tile = pool_tile(B, out_len, C) if tile is None else min(tile, out_len)
+    if op in ("sum", "avg"):
+        s = torch.cumsum(_halos(x.float(), window, tile, 0.0), dim=-1)
+        upper = s[..., window - 1 : window - 1 + tile]
+        lower = F.pad(s[..., : tile - 1], (1, 0))
+        y = _untile(upper - lower, out_len).to(x.dtype)
+        if op == "avg":
+            y = (y.float() / window).to(x.dtype)
+        return y
+    if method == "shift":
+        acc = x[:, :out_len]
+        for k in range(1, window):
+            acc = torch.maximum(acc, x[:, k : k + out_len])
+        return acc.clone() if window == 1 else acc
+    lowest = _extreme(x.dtype, lo=True)  # -inf, or an int type's minimum
+    halo = _halos(x, window, tile, lowest)
+    H = tile + window - 1
+    nb = -(-H // window)
+    if nb * window > H:
+        halo = F.pad(halo, (0, nb * window - H), value=lowest)
+    blocks = halo.reshape(*halo.shape[:3], nb, window)
+    pre = torch.cummax(blocks, dim=-1).values.flatten(-2)
+    suf = torch.cummax(blocks.flip(-1), dim=-1).values.flip(-1).flatten(-2)
+    y = torch.maximum(suf[..., :tile], pre[..., window - 1 : window - 1 + tile])
+    return _untile(y, out_len)
+
+
+def sum_pool_bwd_plain(dy: torch.Tensor, *, window: int) -> torch.Tensor:
+    """dx of sum pooling: the sum pool of dy padded by w - 1 zero rows on
+    both sides (length L = out_len + w - 1)."""
+    dyp = F.pad(dy, (0, 0, window - 1, window - 1))
+    return sliding_pool_plain(dyp, window=window, op="sum")
+
+
+def max_pool_bwd_plain(x, y, dy, *, window: int) -> torch.Tensor:
+    """The kernels' function in plain torch: each window's tie count and
+    its dy split over the ties (float32, rounded to dy's type), then the
+    scatter onto the argmaxes in window order (k = 0 .. w-1), float32
+    sums, one cast to x's type."""
+    _check_bwd(x, y, dy, window)
+    out_len = y.shape[1]
+    cnt = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
+    for m in range(window):
+        cnt += (x[:, m : m + out_len] == y).float()
+    dys = (dy.float() / cnt.clamp(min=1.0)).to(dy.dtype).float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(window):  # input rows j = win + k of window win
+        hit = x[:, k : k + out_len] == y
+        acc[:, k : k + out_len] += torch.where(hit, dys, 0.0)
+    return acc.to(x.dtype)
+
+
+def _check_bwd(x, y, dy, window) -> None:
+    if x.dim() != 3 or y.dim() != 3 or dy.shape != y.shape:
+        raise ValueError(f"x {tuple(x.shape)}, y {tuple(y.shape)}, dy "
+                         f"{tuple(dy.shape)} are not (B, L, C) and two "
+                         "(B, L - w + 1, C)")
+    B, L, C = x.shape
+    if window < 1 or y.shape != (B, L - window + 1, C):
+        raise ValueError(f"y {tuple(y.shape)} is not the window-{window} "
+                         f"pool of x {tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def _pool_kernel(x, window, code, lead, L, out_len):
+    """One launch of the forward kernel on the (zero-padded, lead rows
+    before x) sequence of length L; returns y (B, out_len, C)."""
+    is_bf16 = _kernel_dtype(x)
+    fn = build.entry("sliding_pool", "sliding_pool", _POOL_ARGTYPES)
+    x = x.contiguous()
+    B, Lsrc, C = x.shape
+    y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
+    code_ = fn(x.data_ptr(), y.data_ptr(), B, L, lead, Lsrc, C, window,
+               out_len, pool_tile(B, out_len, C), code, int(is_bf16),
+               _stream(x))
+    build.check("sliding_pool", code_)
+    return y
+
+
+def _launch(x, window, op, method, out_len):
+    code = _OP_CODE[op] if op != "max" else _OP_CODE[(op, method)]
+    y = _pool_kernel(x, window, code, 0, x.shape[1], out_len)
+    sliding_pool.launches += 1
+    form = op if op != "max" else f"max_{method}"
+    setattr(sliding_pool, f"launches_{form}",
+            getattr(sliding_pool, f"launches_{form}") + 1)
+    return y
+
+
+def _launch_sum_bwd(dy, window):
+    L = dy.shape[1] + window - 1
+    dx = _pool_kernel(dy, window, _OP_CODE["sum"], window - 1,
+                      L + window - 1, L)
+    sum_pool_bwd.launches += 1
+    return dx
+
+
+def _launch_max_bwd(x, y, dy, window):
+    is_bf16 = _kernel_dtype(x, y, dy)
+    count = build.entry("sliding_pool", "max_pool_count", _BWD_ARGTYPES)
+    scatter = build.entry("sliding_pool", "max_pool_scatter", _BWD_ARGTYPES)
+    x, y, dy = x.contiguous(), y.contiguous(), dy.contiguous()
+    B, L, C = x.shape
+    out_len = y.shape[1]
+    dys = torch.empty_like(dy)
+    code = count(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dys.data_ptr(),
+                 B, L, C, window, out_len, pool_tile(B, out_len, C),
+                 int(is_bf16), _stream(x))
+    build.check("sliding_pool", code)
+    max_pool_bwd.launches += 1
+    dx = torch.empty_like(x)
+    code = scatter(x.data_ptr(), y.data_ptr(), dys.data_ptr(), dx.data_ptr(),
+                   B, L, C, window, out_len, pool_tile(B, L, C),
+                   int(is_bf16), _stream(x))
+    build.check("sliding_pool", code)
+    max_pool_bwd.launches += 1
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def sliding_pool(x: torch.Tensor, *, window: int, op: str = "sum",
+                 method: str = "scan") -> torch.Tensor:
+    """VALID sliding pooling along axis 1. x: (B, L, C) -> (B, L-w+1, C):
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    ``method`` selects the max evaluation ("scan" | "shift"); sum/avg
+    always scan."""
+    out_len = _check(x, window, op, method)
+    if x.device.type == "cuda":
+        return _launch(x, window, op, method, out_len)
+    if x.device.type == "cpu":
+        return sliding_pool_plain(x, window=window, op=op, method=method)
+    raise ValueError(f"no sliding_pool for device {x.device}")
+
+
+def sum_pool_bwd(dy: torch.Tensor, *, window: int) -> torch.Tensor:
+    """dx of sum pooling: the forward sum kernel over dy padded by w - 1
+    zero rows on both sides (read in place, no padded copy on the card)."""
+    if dy.dim() != 3 or window < 1:
+        raise ValueError(f"dy {tuple(dy.shape)} is not (B, L - w + 1, C) "
+                         f"or window {window} < 1")
+    if dy.device.type == "cuda":
+        return _launch_sum_bwd(dy, window)
+    if dy.device.type == "cpu":
+        return sum_pool_bwd_plain(dy, window=window)
+    raise ValueError(f"no sum_pool_bwd for device {dy.device}")
+
+
+def max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor, *,
+                 window: int) -> torch.Tensor:
+    """dx of max pooling. x: (B, L, C) the forward input, y/dy: (B,
+    L-w+1, C) the forward output and upstream gradient (dy of x's type on
+    the card). Each window's gradient is split evenly across its tied
+    maxima."""
+    _check_bwd(x, y, dy, window)
+    if x.device.type == "cuda":
+        return _launch_max_bwd(x, y, dy, window)
+    if x.device.type == "cpu":
+        return max_pool_bwd_plain(x, y, dy, window=window)
+    raise ValueError(f"no max_pool_bwd for device {x.device}")
+
+
+sliding_pool.launches = 0
+sliding_pool.launches_sum = 0
+sliding_pool.launches_avg = 0
+sliding_pool.launches_max_scan = 0
+sliding_pool.launches_max_shift = 0
+sum_pool_bwd.launches = 0
+max_pool_bwd.launches = 0

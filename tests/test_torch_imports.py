@@ -72,3 +72,13 @@ def test_jamba_slice_modules_are_checked():
                 "kernels/sliding_conv1d.py", "kernels/sliding_conv_quant.py",
                 "kernels/autotune.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_pool_and_scan_slice_modules_are_checked():
+    """The pooling and scan slice's modules are among the files checked
+    above."""
+    checked = set(_port_files())
+    for rel in ("core/sliding.py", "kernels/sliding_pool.py",
+                "kernels/ssm_scan.py", "kernels/ops.py",
+                "kernels/autotune.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel

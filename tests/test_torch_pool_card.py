@@ -1,0 +1,207 @@
+"""The pooling kernels (sliding pool forward, the sum-pool gradient, the
+two-launch max-pool gradient) and the selective-scan kernel against their
+plain versions, on the card; ``ops.pool1d`` through ``Pool1d`` on the card
+against the same call on CPU tensors; ``ops.conv1d(backend="sliding")`` on
+the conv kernel.
+
+Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
+jax nor the JAX package, so it runs where the port runs (``--noconftest``:
+the suite's conftest imports the JAX package):
+
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_pool_card.py -m cuda
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import sliding_conv1d as tsc  # noqa: E402
+from repro_torch.kernels import sliding_pool as tsp  # noqa: E402
+from repro_torch.kernels import ssm_scan as tss  # noqa: E402
+
+
+@pytest.fixture
+def card():
+    """Skip without a card; full float32 (TF32 off) with one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import repro_torch
+
+    repro_torch.resolve_device("cuda")
+    return "cuda"
+
+
+def _close(got, want):
+    """float32: within 1e-5 of max |want| (the prefix sums run in another
+    order); bfloat16: within one bf16 step of the plain value plus 1e-5 of
+    max |want|."""
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape and torch.isfinite(g).all()
+    top = w.abs().max().item()
+    if got.dtype == torch.float32:
+        tol = 1e-5 * max(1.0, top)
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7
+                         ) + 1e-5 * top
+    assert ((g - w).abs() <= tol).all(), (g - w).abs().max().item()
+
+
+def _randn(seed, shape, dev, dtype, relu=False):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    if relu:
+        x = np.maximum(x, 0)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["sum", "avg", "max_scan", "max_shift"])
+@pytest.mark.parametrize("B,L,C,window", [(2, 300, 37, 1), (2, 300, 37, 5),
+                                          (1, 300, 8, 100), (1, 300, 8, 256),
+                                          (3, 77, 1, 77), (2, 1100, 33, 64)])
+def test_pool_kernel_matches_plain(card, B, L, C, window, form, dtype):
+    """Row 8: one launch, counted under its form; max exact (and scan equal
+    to shift), sum/avg as ``_close``; ragged last tiles, C = 1, w = L."""
+    dt = getattr(torch, dtype)
+    op, _, method = form.partition("_")
+    x = _randn(L + C + window, (B, L, C), card, dt)
+    before = (tsp.sliding_pool.launches, getattr(
+        tsp.sliding_pool, f"launches_{form}"))
+    got = tsp.sliding_pool(x, window=window, op=op, method=method or "scan")
+    assert (tsp.sliding_pool.launches, getattr(
+        tsp.sliding_pool, f"launches_{form}")) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert got.dtype == dt and got.shape == (B, L - window + 1, C)
+    want = tsp.sliding_pool_plain(x, window=window, op=op,
+                                  method=method or "scan")
+    if op == "max":
+        assert torch.equal(got, want)
+        other = "shift" if method == "scan" else "scan"
+        assert torch.equal(got, tsp.sliding_pool(x, window=window, op="max",
+                                                 method=other))
+    else:
+        _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [1, 3, 64])
+def test_sum_pool_bwd_kernel_matches_plain(card, window, dtype):
+    dt = getattr(torch, dtype)
+    dy = _randn(window, (2, 300 - window + 1, 37), card, dt)
+    before = tsp.sum_pool_bwd.launches
+    got = tsp.sum_pool_bwd(dy, window=window)
+    assert tsp.sum_pool_bwd.launches == before + 1
+    assert got.shape == (2, 300, 37) and got.dtype == dt
+    _close(got, tsp.sum_pool_bwd_plain(dy, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("window", [1, 3, 9, 100])
+def test_max_pool_bwd_kernel_matches_plain(card, window, relu, dtype):
+    """Row 9: two launches; as ``_close`` to the plain version (the same
+    float32 sums in the same order); at ties (post-relu) mass is conserved
+    per channel."""
+    dt = getattr(torch, dtype)
+    x = _randn(window, (2, 300, 37), card, dt, relu=relu)
+    y = tsp.sliding_pool(x, window=window, op="max")
+    dy = torch.ones_like(y) if relu else _randn(7, y.shape, card, dt)
+    before = tsp.max_pool_bwd.launches
+    got = tsp.max_pool_bwd(x, y, dy, window=window)
+    assert tsp.max_pool_bwd.launches == before + 2
+    assert got.shape == x.shape and got.dtype == dt
+    _close(got, tsp.max_pool_bwd_plain(x, y, dy, window=window))
+    if relu and dtype == "float32":
+        torch.testing.assert_close(got.sum(dim=(0, 1)),
+                                   torch.full((37,), 2.0 * y.shape[1],
+                                              device=card),
+                                   rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,D,N", [(2, 37, 24, 8), (1, 1, 5, 4),
+                                     (2, 130, 200, 16), (1, 64, 129, 3)])
+def test_ssm_scan_kernel_matches_plain(card, B, L, D, N, dtype):
+    """Row 16: one launch; y and h_last within 1e-5 of max (f32), y within
+    one bf16 step (bf16); any L and D, no padding."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(L + D + N)
+    abar = torch.from_numpy(rng.uniform(0.3, 1.0, size=(B, L, D, N)).astype(
+        np.float32)).to(card, dt)
+    bx = _randn(1, (B, L, D, N), card, dt)
+    c = _randn(2, (B, L, N), card, dt)
+    h0 = _randn(3, (B, D, N), card, torch.float32)
+    before = tss.ssm_scan.launches
+    y, h = tss.ssm_scan(abar, bx, c, h0)
+    assert tss.ssm_scan.launches == before + 1
+    assert y.dtype == dt and h.dtype == torch.float32
+    yw, hw = tss.ssm_scan_plain(abar, bx, c, h0)
+    _close(y, yw)
+    _close(h, hw)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_types(card):
+    x = torch.zeros(1, 10, 2, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tsp.sliding_pool(x, window=3)
+    with pytest.raises(TypeError):
+        tsp.sum_pool_bwd(x, window=3)
+    with pytest.raises(TypeError):
+        tsp.max_pool_bwd(x, x[:, :8], x[:, :8], window=3)
+    a = torch.zeros(1, 4, 3, 2, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tss.ssm_scan(a, a, torch.zeros(1, 4, 2, device=card,
+                                       dtype=torch.float16),
+                     torch.zeros(1, 3, 2, device=card))
+    with pytest.raises(ValueError, match="state widths"):
+        a = torch.zeros(1, 4, 3, 17, device=card)
+        tss.ssm_scan(a, a, torch.zeros(1, 4, 17, device=card),
+                     torch.zeros(1, 3, 17, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,method", [("sum", None), ("avg", None),
+                                       ("max", "scan"), ("max", "shift")])
+def test_pool1d_grad_on_the_card_matches_cpu(card, op, method):
+    """ops.pool1d forward and backward through Pool1d: 1 row-8 launch
+    forward; backward 1 sum-bwd launch (sum, avg) or 2 row-9 launches."""
+    x = _randn(0, (2, 300, 37), "cpu", torch.float32)
+    dy = _randn(1, (2, 292, 37), "cpu", torch.float32)
+    outs = []
+    for dev in ("cpu", card):
+        xd = x.to(dev).detach().requires_grad_()
+        before = (tsp.sliding_pool.launches, tsp.sum_pool_bwd.launches,
+                  tsp.max_pool_bwd.launches)
+        y = tops.pool1d(xd, window=9, op=op, method=method)
+        y.backward(dy.to(dev))
+        counts = (tsp.sliding_pool.launches - before[0],
+                  tsp.sum_pool_bwd.launches - before[1],
+                  tsp.max_pool_bwd.launches - before[2])
+        if dev == card:
+            assert counts == ((1, 0, 2) if op == "max" else (1, 1, 0))
+        else:
+            assert counts == (0, 0, 0)
+        outs.append((y.detach().cpu(), xd.grad.cpu()))
+    (yc, gc), (yd, gd) = outs
+    _close(yd, yc)
+    _close(gd, gc)
+
+
+@pytest.mark.cuda
+def test_conv1d_sliding_backend_runs_the_kernel(card):
+    """ops.conv1d(backend="sliding") on a CUDA tensor: one row-1 launch,
+    as the reference's "sliding" is its kernel."""
+    x = _randn(0, (2, 50, 8), card, torch.float32)
+    w = _randn(1, (3, 8, 16), card, torch.float32) / 5
+    before = tsc.conv1d_sliding.launches
+    got = tops.conv1d(x, w, backend="sliding", padding="SAME",
+                      activation="gelu")
+    assert tsc.conv1d_sliding.launches == before + 1
+    want = tops.conv1d(x.cpu(), w.cpu(), backend="sliding", padding="SAME",
+                       activation="gelu")
+    _close(got.cpu(), want)
