@@ -13,7 +13,10 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version on the card, at the shapes whisper-medium serving gives it and
      at edge shapes (ragged tiles, K in {1, 3, 5, 7}, stride 3, lengths 0
      and S,
-     G in {1, 2, 4, 8}, float32 and bfloat16);
+     G in {1, 2, 4, 8}, float32 and bfloat16); rows 2 and 2b at the split
+     design's edges (float32, bfloat16 and int8 caches, G in {1, 7, 8}, D
+     in {64, 128, 256}, lengths 0, 1, a split boundary +- 1 and S, two
+     calls bitwise equal);
   4. smoke serve, card vs CPU: whisper smoke config (float32), one set of
      weights; equal greedy tokens and prefill logits within tolerance;
   5. full-width serve: whisper-medium (24+24 layers, d 1024, bf16, random
@@ -207,15 +210,18 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      sliding : im2col_fused : im2col_hbm : cuDNN.
  36. pool kernels vs plain: row 8 (sum, avg, max scan, max shift), row 8
      on the padded cotangent (the sum gradient) and row 9 (the max
-     gradient, two launches) at the companion paper's pooling shape (1,
+     gradient, one launch) at the companion paper's pooling shape (1,
      16384, 32) f32 and bf16, w in {4, 16, 64, 256}, and at edges (w = 1,
      w = L, (1, 300, 8) at w 100 and 256, (8, 16384, 1), C 37 with ragged
-     tiles) on normals, zeros and post-relu normals: f32 within 1e-5 of
+     tiles, row 9's lanes of 4 blocks; row 9 alone with its slots in
+     global scratch) on
+     normals, zeros and post-relu normals: f32 within 1e-5 of
      max, bf16 within one step, max exact and scan equal to shift, the max
      gradient's mass conserved; a float16 call refused;
  37. scan kernel vs plain: row 16 at jamba-1.5-large's prefill chunk (4,
      256, 16384, 16) f32 (row 16's path: one launch, counted from zero)
-     and bf16, and at L in {1, 37}, D 200, N in {4, 8, 16};
+     and bf16, and at L in {1, 37}, D 200, N in {4, 8, 16, 17, 20, 65,
+     128};
  38. the pooling path: ``ops.pool1d`` forward and backward through
      ``Pool1d`` at (1, 16384, 32) f32, sum, avg and max at each window,
      launches counted per call and over the path, against the same calls
@@ -225,11 +231,15 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      ``F.avg_pool1d`` / ``F.max_pool1d`` / autograd of ``F.max_pool1d``
      and the bound; row 16 at the jamba chunk (f32, bf16) beside its plain
      version, the port's associative scan and the bound.
+ 40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
+     shapes beside its plain version, SDPA (float32) and the bound; then
+     each redesigned row (2, 2b, 9) at each timed shape beside its time
+     before the redesign (``EARLIER_MS``).
 
 Phases run in the order 1-25, 28, 29, 26, 31, 30, 33, 34 with the main
 path of the baselines, 36-38, then the timings (6, 10, 15, 19, 23, 27,
-32, 35, 39): every kernel is held to its plain version before a path runs
-it.
+32, 35, 39, 40): every kernel is held to its plain version before a path
+runs it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -475,8 +485,43 @@ def phase_kernels(sc, ad) -> dict:
         err = close(ad.decode_attention(q, k, v, ln),
                     ad.attention_decode_plain(q, k, v, ln), TOL, what)
         log(f"{what}: max|err| {err:.3e}")
+    attention_edges(ad)
     torch.cuda.synchronize()
     return errs
+
+
+def attention_edges(ad) -> None:
+    """Rows 2 and 2b at the edges of the split design: float32, bfloat16
+    and int8 caches, G in {1, 7, 8}, D in {64, 128, 256}, lengths 0, 1, a
+    split boundary - 1 and + 1, and S, on a cache of several splits; each
+    against its plain version (TOL, BTOL; the int8 cache TOL) and two calls
+    bitwise equal."""
+    S, KV = 700, 2
+    sms = ad.build.sm_count(torch.device(DEV))
+    _, rows = ad.decode_splits(5 * KV, S, sms)
+    lens = [0, 1, rows - 1, rows + 1, S]
+    n = 0
+    for G, D in ((1, 64), (7, 128), (8, 128), (8, 256), (1, 256)):
+        for kind in ("float32", "bfloat16", "int8"):
+            if kind == "int8":
+                args = attn_int8_inputs(G + D, 5, S, KV, G, D, torch.bfloat16,
+                                        lens)
+                tol = TOL
+            else:
+                dt = getattr(torch, kind)
+                args = attn_inputs(G + D, 5, S, KV, G, D, dt, lens)
+                tol = TOL if kind == "float32" else BTOL
+            what = f"attention {kind} cache G={G} D={D} S={S} lengths {lens}"
+            got = ad.decode_attention(*args)
+            close(got, ad.attention_decode_plain(*args), tol, what)
+            if got[0].abs().max().item() != 0.0:
+                raise AssertionError(f"{what}: a length-0 slot must give a "
+                                     "zero row")
+            if not torch.equal(got, ad.decode_attention(*args)):
+                raise AssertionError(f"{what}: two calls differ")
+            n += 1
+    log(f"attention edges: {n} cases ({rows} rows a split) within tolerance, "
+        "each bitwise repeatable")
 
 
 def phase_smoke_serve(serve, models, configs, map_tree):
@@ -4146,8 +4191,11 @@ def phase_pool_kernels(sp) -> dict:
     paper's shape (1, 16384, 32) f32 and bf16 at w in {4, 16, 64, 256};
     the edges w = 1, w = L, (1, 300, 8) at w 100 and 256, C = 1 as (8,
     16384, 1) (``benchmarks/table_conv1d.py``'s layout), C = 37 with ragged
-    last tiles, each on normals, zeros and post-relu normals; a float16
-    call refused. Returns each row's max |err| at the paper's shape."""
+    last tiles, (4, 4096, 64) at w 3 (row 9's threads walk 4 blocks each),
+    each on normals, zeros and post-relu normals; row 9 alone at (8, 3000,
+    1024), w 300 (its slots in global scratch); a float16 call refused. Row
+    9 shares each block among lanes at the paper's shape from w 64 and at
+    the small edges. Returns each row's max |err| at the paper's shape."""
     P = POOL_PAPER
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4157,12 +4205,27 @@ def phase_pool_kernels(sp) -> dict:
                 errs[k] = max(errs.get(k, 0.0), v)
     edges = (((2, 300, 37), 1), ((2, 300, 37), 300), ((1, 300, 8), 100),
              ((1, 300, 8), 256), ((8, P["L"], 1), 16), ((2, 1001, 37), 7),
-             ((3, 5000, 64), 33))
+             ((3, 5000, 64), 33), ((4, 4096, 64), 3))
     for dtype in (torch.float32, torch.bfloat16):
         for (B, L, C), w in edges:
             for kind in ("normal", "zeros", "relu"):
                 check_pool(sp, pool_input(361 + w, B, L, C, dtype, kind), w,
                            f"pool ({B}, {L}, {C}) w={w} {kind} {dtype}")
+        # row 9 alone where its slots live in global scratch (one lane a
+        # block of 300 rows), on the exact max forward
+        for kind in ("normal", "relu"):
+            x = pool_input(362, 8, 3000, 1024, dtype, kind)
+            y = sp.sliding_pool(x, window=300, op="max")
+            if not torch.equal(y, sp.sliding_pool_plain(x, window=300,
+                                                        op="max")):
+                raise AssertionError("pool (8, 3000, 1024) w=300: max not "
+                                     "exact")
+            dy = pool_input(363, 8, 2701, 1024, dtype)
+            im2col_close(sp.max_pool_bwd(x, y, dy, window=300),
+                         sp.max_pool_bwd_plain(x, y, dy, window=300),
+                         f"pool (8, 3000, 1024) w=300 {kind} {dtype} "
+                         "max_pool_bwd")
+            del x, y, dy
     try:
         sp.sliding_pool(torch.zeros((1, 8, 2), device=DEV,
                                     dtype=torch.float16), window=3)
@@ -4196,9 +4259,11 @@ def phase_scan_kernels(ss) -> tuple[float, dict]:
     """37: row 16 against its plain version: jamba-1.5-large's prefill
     chunk (4, 256, 16384, 16) f32, random h0, is row 16's path (one call,
     launches counted from zero), then bf16 there; the edges L in {1, 37},
-    D 200 (not a multiple of the block of 128 d), N in {4, 8, 16}, f32 and
-    bf16. y and h_last within 1e-5 of max (f32), y within one bf16 step
-    (bf16). Returns max |err| at the jamba chunk (f32) and the path."""
+    D 200 (not a multiple of the block of 128 d), N in {4, 8, 16, 17, 20,
+    65, 128} (17 and 20 at the next compiled width, the lanes past N
+    masked; 65 and 128 in groups of 64), f32 and bf16. y and h_last within
+    1e-5 of max (f32), y within one bf16 step (bf16). Returns max |err| at
+    the jamba chunk (f32) and the path."""
     S = SCAN_MAIN
     args = scan_inputs(370, S["B"], S["L"], S["D"], S["N"], torch.float32)
     zero_launches()
@@ -4218,7 +4283,7 @@ def phase_scan_kernels(ss) -> tuple[float, dict]:
     del args
     for dtype in (torch.float32, torch.bfloat16):
         for L in (1, 37):
-            for N in (4, 8, 16):
+            for N in (4, 8, 16, 17, 20, 65, 128):
                 check_scan(ss, scan_inputs(372 + L + N, 2, L, 200, N, dtype),
                            f"ssm_scan (2, {L}, 200, {N}) {dtype}")
     torch.cuda.synchronize()
@@ -4235,7 +4300,7 @@ def phase_pool_path(sp, ops) -> dict:
     ``POOL_WINDOWS``, the max method resolved by ``_pool_method`` (shift
     at 4 and 16, scan at 64 and 256); launches counted from zero over the
     path, and per call (sum/avg: 1 row-8 launch forward, 1 backward; max:
-    1 forward, 2 row-9); every output and gradient held to the same call
+    1 forward, 1 row-9); every output and gradient held to the same call
     on CPU tensors (the plain versions). Then ``ops.conv1d(backend=
     "sliding")`` on a CUDA tensor: one row-1 launch."""
     P = POOL_PAPER
@@ -4254,7 +4319,7 @@ def phase_pool_path(sp, ops) -> dict:
             after = read_launches()
             method = ops._pool_method(x, w, op, None)
             form = f"sliding_pool_{op if op != 'max' else 'max_' + method}"
-            bwd = {"max_pool_bwd": 2} if op == "max" else {"sum_pool_bwd": 1}
+            bwd = {"max_pool_bwd": 1} if op == "max" else {"sum_pool_bwd": 1}
             got = {k: after[k] - before[k] for k in after}
             if got != only(**{form: 1}, **bwd):
                 raise AssertionError(f"pool1d {op} w={w}: launches {got}")
@@ -4338,7 +4403,7 @@ def _pool_case_times(sp, B, L, C, w, n_sets, batches, inner) -> dict:
         lambda i: sp.max_pool_bwd_plain(xs[i], ys[i], dys[i], window=w),
         lambda i: torch.autograd.grad(lib_graphs[i][1], lib_graphs[i][0],
                                       lib_graphs[i][2], retain_graph=True)[0],
-        el * (2 * B * L * C + 2 * B * n_out * C), 2 * B * (L + n_out) * C)
+        el * (2 * B * L * C + B * n_out * C), 2 * B * (L + n_out) * C)
     out = {}
     for name, (kernel, plain, library, nbytes, ops_n) in fns.items():
         want = plain(0)
@@ -4447,6 +4512,91 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
             "assoc_scan_ms: the port's mamba._assoc_scan + read-out",
         shapes={"bfloat16": scan["bfloat16"]}))
     return rows
+
+
+# the redesigned rows' times with the kernels they replaced, measured by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6 names the
+# runs)
+EARLIER_MS = {
+    "attention_decode": {"whisper": 0.0242, "jamba": 0.0524,
+                         "llava": 0.3325},
+    "attention_decode_int8": {"whisper": 0.0198, "jamba": 0.0444,
+                              "llava": 0.2754},
+    "max_pool_bwd": {"paper_w4": 0.0742, "paper_w16": 0.1320,
+                     "paper_w64": 0.3113, "paper_w256": 0.9754,
+                     "wide_w16": 5.4306},
+}
+# rows 2 and 2b at the three decode shapes: (shape, the lengths of the
+# request's middle decode step)
+ATTN_TIMED = {"whisper": (ATTN_MAIN, 256), "jamba": (ATTN_JAMBA, 272),
+              "llava": (ATTN_LLAVA, 3152)}
+
+
+def phase_attention_f32_times(ad) -> dict:
+    """40: row 2 over a float32 cache (float32 q) at the three decode
+    shapes of ``ATTN_TIMED``, beside its plain version, SDPA in float32
+    (``enable_gqa`` where G > 1) and the bound; caches cycled past the L2,
+    timed as in phase 6."""
+    out = {}
+    for name, (shape, ln0) in ATTN_TIMED.items():
+        B, S, KV, G, D = (shape[n] for n in ("B", "S", "KV", "G", "D"))
+        lens = [ln0] * B
+        n_sets = max(2, -(-64 * 2 ** 20 // (8 * B * S * KV * D)))
+        sets = []
+        for i in range(n_sets):
+            q, k, v, ln = attn_inputs(400 + i, **shape, dtype=torch.float32,
+                                      lengths=lens)
+            mask = (torch.arange(S, device=DEV)[None, :]
+                    < ln[:, None])[:, None, None, :]
+            sets.append((q, k, v, ln, mask))
+
+        def library(q, k, v, ln, mask, B=B, KV=KV, G=G, D=D):
+            return F.scaled_dot_product_attention(
+                q.reshape(B, KV * G, 1, D), k.transpose(1, 2),
+                v.transpose(1, 2), attn_mask=mask, enable_gqa=G > 1)
+
+        want = ad.attention_decode_plain(*sets[0][:-1])
+        close(library(*sets[0]).reshape(B, KV, G, D), want, TOL,
+              f"library attention f32 {name}")
+        err = close(ad.decode_attention(*sets[0][:-1]), want, TOL,
+                    f"attention f32 {name}")
+        nbytes = (4 * B * KV * G * D + 4 * 2 * sum(lens) * KV * D + 4 * B
+                  + 4 * B * KV * G * D)
+        a_ops = 4 * G * D * KV * sum(lens)
+        bms, by = bound_ms(nbytes, a_ops, torch.float32)
+        out[name] = dict(timings(
+            cycling(lambda *a: ad.decode_attention(*a[:-1]), sets),
+            cycling(lambda *a: ad.attention_decode_plain(*a[:-1]), sets),
+            cycling(library, sets)),
+            bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops,
+            max_abs_err=err,
+            per=f"launch: B={B} S={S} KV={KV} G={G} D={D}, f32 q, f32 "
+                f"cache, lengths {ln0}; library: SDPA f32")
+        log(f"time attention f32 cache {name} {shape} lengths {ln0}: "
+            f"{json.dumps(out[name])}")
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def report_redesigned(kernels) -> None:
+    """Each redesigned row's time in this run beside its earlier one
+    (``EARLIER_MS``), the library call's and the bound, one line a shape.
+    The earlier times go to the log only: the kernels' JSON line holds
+    what this run measured."""
+    for row in kernels:
+        before = EARLIER_MS.get(row["name"])
+        if before is None:
+            continue
+        if row["name"] == "max_pool_bwd":
+            now = {"paper_w64": row, **row["shapes"]}
+        else:
+            now = {"whisper": row, "jamba": row["jamba_shape"],
+                   "llava": row["llava_shape"]}
+        for shape, t in now.items():
+            log(f"redesigned {row['name']} {shape}: {t['ms']:.4f} ms (earlier "
+                f"{before[shape]:.4f}, {before[shape] / t['ms']:.2f}x), "
+                f"library {t['library_ms']:.4f}, bound {t['bound_ms']:.5f}")
 
 
 def main() -> int:
@@ -4586,6 +4736,8 @@ def main() -> int:
     kernels += phase_im2col_times(ig, sc, s2, launches, errs)
     # -- 39: pooling and scan times -------------------------------------------------
     kernels += phase_pool_times(sp, ss, mamba, launches, errs)
+    # -- 40: row 2 over a float32 cache ------------------------------------------------
+    attn_f32 = phase_attention_f32_times(ad)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -4598,6 +4750,9 @@ def main() -> int:
             row["llava_shape"] = attn_llava
         if row["name"] == "attention_decode_int8":
             row["llava_shape"] = attn_int8_llava
+        if row["name"] == "attention_decode":
+            row["f32_cache"] = attn_f32
+    report_redesigned(kernels)
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
                       "serve_int8": full_int8, "serve_jamba": jamba,

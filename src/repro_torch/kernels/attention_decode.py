@@ -30,12 +30,35 @@ from repro_torch.kernels import build
 
 DEFAULT_BLOCK_S = 128
 MAX_G = 8
-MAX_D = 128
+MAX_D = 256
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# q, k, v, k_scale, v_scale, lengths, out, workspace; B, S, KV, G, D;
-# sm_scale; q_bf16, kv_kind; stream
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+# q, k, v, k_scale, v_scale, lengths, out, workspace, tickets; B, S, KV, G,
+# D, rows, nsplit; sm_scale; q_bf16, kv_kind; stream
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# the kernel's split choice: as many blocks as the card's SMs hold at once
+# (two of 256 threads each), and no split shorter than 64 rows (a tile of
+# the kernel's)
+BLOCKS_PER_SM = 2
+MIN_SPLIT_ROWS = 64
+# a split's scores stay in the block's shared memory
+MAX_SPLIT_ROWS = 512
+
+
+def decode_splits(bkv: int, n: int,
+                  sms: int = build.DEFAULT_SMS) -> tuple[int, int]:
+    """(splits, rows a split) for ``bkv`` (slot, head) pairs over ``n``
+    cache rows on a card of ``sms`` SMs: about ``BLOCKS_PER_SM * sms``
+    blocks in all, from
+    ``MIN_SPLIT_ROWS`` (all n in one split below that) to
+    ``MAX_SPLIT_ROWS`` rows a split. The splits [i * rows, min(n, (i + 1)
+    * rows)) cover the n rows and each holds at least one. The wrapper
+    passes n = S, the rows a slot may hold: the lengths live on the card,
+    and a slot's splits past its length do nothing."""
+    want = max(1, BLOCKS_PER_SM * sms // max(1, bkv))
+    rows = max(MIN_SPLIT_ROWS, -(-n // want))
+    rows = max(1, min(n, rows, MAX_SPLIT_ROWS))
+    return -(-n // rows), rows
 
 
 def _softmax_step(s, m_prev, l_prev, *, dim):
@@ -135,12 +158,25 @@ def attention_decode_ref(q, k, v, lengths, k_scale=None, v_scale=None):
 
 
 @functools.lru_cache(maxsize=64)
-def _workspace_floats(B, S, KV, G, D) -> int:
-    """Float32 workspace the kernel's split pass writes for its merge pass."""
+def _workspace_floats(B, KV, G, D, nsplit) -> int:
+    """Float32 workspace the kernel's splits write for the merge."""
     fn = build.library("attention_decode").decode_attention_workspace
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    return fn(B, S, KV, G, D)
+    return fn(B, KV, G, D, nsplit)
+
+
+# the kernel's per-(slot, head) merge counters, by (device, stream): zeroed
+# once, and left zeroed by every launch
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
 
 
 def _launch(q, k, v, lengths, k_scale=None, v_scale=None) -> torch.Tensor:
@@ -165,18 +201,21 @@ def _launch(q, k, v, lengths, k_scale=None, v_scale=None) -> torch.Tensor:
     if lengths.dtype != torch.int32:
         lengths = lengths.to(torch.int32)
     lengths = lengths.contiguous()
-    # one allocation: the output, then the per-split softmax state that the
-    # kernel's second pass merges
+    nsplit, rows = decode_splits(B * KV, S, build.sm_count(q.device))
+    # one allocation: the output, then the splits' softmax state that the
+    # last block of each (slot, head) merges
     n_out = B * KV * G * D
-    buf = torch.empty(n_out + _workspace_floats(B, S, KV, G, D),
+    buf = torch.empty(n_out + _workspace_floats(B, KV, G, D, nsplit),
                       dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(q.device, stream, B * KV)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(), lengths.data_ptr(),
-        buf.data_ptr(), buf.data_ptr() + 4 * n_out, B, S, KV, G, D, D ** -0.5,
-        int(q.dtype == torch.bfloat16), _KV_KINDS[k.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        buf.data_ptr(), buf.data_ptr() + 4 * n_out if nsplit > 1 else None,
+        tickets.data_ptr(), B, S, KV, G, D, rows, nsplit, D ** -0.5,
+        int(q.dtype == torch.bfloat16), _KV_KINDS[k.dtype], stream,
     )
     build.check("attention_decode", code)
     if ks is None:

@@ -16,11 +16,14 @@ each library as ``<name>-<hash>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,7 +32,28 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# streaming multiprocessors of the H100 SXM: the launch geometry that the
+# plain versions follow for tensors that lie on no card
+DEFAULT_SMS = 132
+
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``'s card, from which the
+    wrappers size their launches; ``DEFAULT_SMS`` for a device that is no
+    card."""
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _card_sms(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sources() -> dict[str, Path]:

@@ -20,20 +20,21 @@
 // The input may be read through `lead` zero rows placed before it and zero
 // rows after it (L = lead + Lsrc + trailing): the sum-pool gradient pools
 // dy padded by w-1 rows on both sides without building the padded copy.
-// Gradient of max (two launches): max_pool_count writes, for each window,
-// dy / max(cnt, 1) in dy's type, cnt = #{m < w : x[i+m] == y[i]} the ties
-// (the split is rounded to dy's type before the scatter, as the TPU kernel's
-// wrapper does); max_pool_scatter writes
-//   dx[j] = sum_{k<w} dys[j-k] * [x[j] == y[j-k]]
-// over the windows j-k that exist, summed in float32 in k order, one cast
-// to x's type.
+// Gradient of max (max_pool_bwd, one launch): for each window i the tie
+// count cnt = #{m < w : x[i+m] == y[i]} and the split dys = dy / max(cnt,
+// 1) in dy's type (rounded before the scatter, as the TPU kernel's wrapper
+// does), then dx[j] = sum of dys[i] over the windows i that hold j with
+// x[j] == y[i], summed in float32, one cast to x's type: each window's
+// gradient is shared evenly by its tied maxima. The contract is that y is
+// x's sliding max, as sliding_pool(x, op="max") gives it: the kernel takes
+// the maximum from the block decomposition below and does not read y.
 //
 // What bounds it on this card: pooling is one pass over the input with a
 // few adds or compares per element, far below the card's arithmetic rate,
 // so bytes bound it: at the paper's shape (1, 16384, 32) f32 that is 4.2 MB
 // (1.3 us at 3.35 TB/s), below what one launch costs; at (8, 16384, 1024)
-// 1 GB (0.32 ms). The shift forms and the count and scatter are O(n*w)
-// reads, served from L1/L2 since each thread walks its own rows.
+// 1 GB (0.32 ms). The shift form is O(n*w) reads, served from L1/L2 since
+// each thread walks its own rows.
 //
 // What the design does about it: one thread owns one channel of one tile of
 // TL rows and walks them in order; neighbouring threads own neighbouring
@@ -46,6 +47,45 @@
 // suffix max in y itself (a max of x's values is exact in x's type), then
 // a forward pass maxes in the block prefix at i+w-1. TL comes from the
 // wrapper, chosen from the shape so that enough threads fill the card.
+//
+// The max gradient is O(n) a channel, not O(n*w): the TPU kernel bodies
+// count each window's ties over its w rows, then gather w windows a row.
+// Here the rows are cut into blocks of w aligned at row 0 (the forward's
+// decomposition); window i is block i/w when i % w == 0, else the suffix
+// of block i/w and the prefix of the next. A group of K lanes (K from the
+// shape, a power of two up to 32: one where B*C*blocks alone fill the card,
+// more where there are few blocks) walks TB consecutive blocks of one
+// channel (TB = 1 when K > 1), lane k its share of sb = ceil(w/K) rows of
+// each block, keeping two float4 slots a row, the block's (S, count, pc,
+// x) and the next block's (P, b, pc, x), in shared memory (in global
+// scratch when even 32 threads' slots do not fit). For each block m of
+// windows (from the block before its own, whose windows reach into its
+// first block):
+//   A. backward over block m: the suffix max S(i) and the number of rows
+//      attaining it, cS(i), each lane over its share with the (max, count)
+//      of the shares to its right folded in;
+//   B. forward over the windows i of block m, the prefix max P and its
+//      count cP over block m+1 carried up to the window's last row e (from
+//      the (max, count) of the shares to the left): y = max(S(i), P), cnt
+//      = [S == y] cS + [P == y] cP, the split d; the suffix share a = [S ==
+//      y] d. S does not increase along the block, so the windows whose
+//      suffix part credits row i are the run of equal S ending at i, and
+//      only if x(i) == S(i): a running sum of a that restarts when S
+//      changes (plus, for a lane's first run, the sum carried in from the
+//      shares to its left) gives row i its suffix credit, which with the
+//      prefix credit pc from the block before is dx(i). The prefix share
+//      b = [P == y] d is parked in block m+1's slot at e;
+//   C. backward over block m+1: P does not decrease along a block, so the
+//      windows whose prefix part credits row e are the run of equal P
+//      starting at e, when x(e) == P(e): a backward running sum of b (plus
+//      the sum carried in from the right) gives pc(e), kept for block
+//      m+1's pass B.
+// The lanes pass these carries by shuffles within the group. Each window
+// gives its split to each tied position once, through the part that holds
+// it, so the sums are the kernel bodies' but for the float32 order. Each x
+// and dy row is read from device memory once (plus one halo block a
+// group), each dx row written once; the rows are staged sixteen loads at a
+// time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -167,67 +207,398 @@ pool_max_shift_kernel(const T* __restrict__ x, T* __restrict__ y, int L,
   }
 }
 
-// launch 1 of the max gradient: the tie count of each window and the split
+// n rows of a channel (src, sstride elements apart) into dst (st floats
+// apart), widened: sixteen loads issued before any is stored, four at a
+// time for the last few.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-max_count_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                 const T* __restrict__ dy, T* __restrict__ dys, int L, int C,
-                 int w, int Lout, int TL, int n_tiles, int B) {
-  Item it;
-  if (!item_of((long long)blockIdx.x * THREADS + threadIdx.x, n_tiles, C, B,
-               &it))
-    return;
-  const int t0 = it.t * TL;
-  const int n_out = min(TL, Lout - t0);
-  const T* xb = x + ((long long)it.b * L + t0) * C + it.c;
-  const long long o = ((long long)it.b * Lout + t0) * C + it.c;
-  for (int i = 0; i < n_out; ++i) {
-    const float yi = to_f32(y[o + (long long)i * C]);
-    const T* xi = xb + (long long)i * C;
-    float cnt = 0.f;
-    for (int m = 0; m < w; ++m)
-      cnt += (to_f32(xi[(long long)m * C]) == yi) ? 1.f : 0.f;
-    const float g = to_f32(dy[o + (long long)i * C]);
-    dys[o + (long long)i * C] = from_f32<T>(__fdiv_rn(g, fmaxf(cnt, 1.f)));
+__device__ __forceinline__ void fetch_rows(float* dst, long long st,
+                                           const T* __restrict__ src,
+                                           long long sstride, int n) {
+  int q0 = 0;
+  for (; q0 + 16 <= n; q0 += 16) {
+    float v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      v[j] = to_f32(src[(long long)(q0 + j) * sstride]);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dst[(long long)(q0 + j) * st] = v[j];
+  }
+  for (; q0 < n; q0 += 4) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = q0 + j < n ? to_f32(src[(long long)(q0 + j) * sstride]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (q0 + j < n) dst[(long long)(q0 + j) * st] = v[j];
   }
 }
 
-// launch 2: each input row gathers the split gradient of every window
-// whose maximum it holds
+// One thread's blocks [m0, m1) of one channel. Per row of a block it keeps
+// a float4 slot (S or P, its count or b, pc, x) and two staged floats: xn,
+// the next block's x, and dv, the block's dy; rows st apart. See the
+// header for the three passes.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-max_scatter_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                   const T* __restrict__ dys, T* __restrict__ dx, int L,
-                   int C, int w, int Lout, int TL, int n_tiles, int B) {
-  Item it;
-  if (!item_of((long long)blockIdx.x * THREADS + threadIdx.x, n_tiles, C, B,
-               &it))
-    return;
-  const int t0 = it.t * TL;
-  const int n_in = min(TL, L - t0);
-  const long long xo = ((long long)it.b * L) * C + it.c;
-  const long long yo = ((long long)it.b * Lout) * C + it.c;
-  for (int jj = 0; jj < n_in; ++jj) {
-    const int j = t0 + jj;
-    const float xj = to_f32(x[xo + (long long)j * C]);
-    float acc = 0.f;
-    for (int k = 0; k < w; ++k) {
-      const int win = j - k;  // the window starting at row j - k
-      if (win < 0) break;
-      if (win >= Lout) continue;
-      const long long p = yo + (long long)win * C;
-      if (xj == to_f32(y[p])) acc += to_f32(dys[p]);
+__device__ __forceinline__ void max_bwd_thread(
+    const T* __restrict__ xb, const T* __restrict__ dyb, T* __restrict__ dxb,
+    float4* sl, float* xn, float* dv, long long st, int L, int C, int w,
+    int Lout, int m0, int m1) {
+  if (m0 == 0)  // no window of an earlier block credits block 0
+    for (int r = 0; r < min(w, L); ++r) sl[r * st].z = 0.f;
+  bool first = true;
+  for (int mb = max(m0 - 1, 0); mb < m1; ++mb) {
+    const int base = mb * w, nb1 = base + w, nrow = min(w, L - base);
+    if (first)  // this block's x, into the slots' x
+      fetch_rows(&sl->w, 4 * st, xb + (long long)base * C, C, nrow);
+    fetch_rows(xn, st, xb + (long long)nb1 * C, C,
+               nb1 < L ? min(w, L - nb1) : 0);
+    fetch_rows(dv, st, dyb + (long long)base * C, C,
+               max(0, min(nrow, Lout - base)));
+    first = false;
+    // A: backward over block mb, its suffix max and the rows attaining it
+    float S = -INFINITY, cS = 0.f;
+#pragma unroll 4
+    for (int r = nrow - 1; r >= 0; --r) {
+      float4* p = sl + r * st;
+      const float v = p->w;
+      if (v > S) {
+        S = v;
+        cS = 1.f;
+      } else if (v == S) {
+        cS += 1.f;
+      }
+      p->x = S;
+      p->y = cS;
     }
-    dx[xo + (long long)j * C] = from_f32<T>(acc);
+    // B: forward over the windows i of block mb, the prefix max of block
+    // mb + 1 carried along up to the window's last row e
+    const bool own = mb >= m0;
+    float P = -INFINITY, cP = 0.f, R = 0.f, Sp = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < nrow; ++r) {
+      const int i = base + r, e = nb1 + r - 1;
+      const float4 s = sl[r * st];  // S, cS, pc, x of row i
+      float xe = 0.f;
+      if (r > 0 && e < L) {
+        xe = xn[(r - 1) * st];
+        if (xe > P) {
+          P = xe;
+          cP = 1.f;
+        } else if (xe == P) {
+          cP += 1.f;
+        }
+      }
+      float a = 0.f, b = 0.f;
+      if (i < Lout) {
+        const float y = r == 0 ? s.x : fmaxf(s.x, P);
+        const float cnt =
+            (s.x == y ? s.y : 0.f) + (r > 0 && P == y ? cP : 0.f);
+        const float d =
+            to_f32(from_f32<T>(__fdiv_rn(dv[r * st], fmaxf(cnt, 1.f))));
+        a = s.x == y ? d : 0.f;
+        b = r > 0 && P == y ? d : 0.f;
+      }
+      R = (r > 0 && s.x == Sp) ? __fadd_rn(R, a) : a;
+      Sp = s.x;
+      if (own)
+        dxb[(long long)i * C] =
+            from_f32<T>(__fadd_rn(s.z, s.w == s.x ? R : 0.f));
+      if (r > 0) sl[(r - 1) * st] = make_float4(P, b, 0.f, xe);
+    }
+    // C: backward over block mb + 1, the prefix credits of its rows
+    if (mb + 1 < m1 && nb1 < L) {
+      float Q = 0.f, Pn = 0.f;
+      bool fresh = true;
+      for (int q = min(w - 1, L - 1 - nb1); q >= 0; --q) {
+        float4* p = sl + q * st;
+        if (q == w - 1) {  // no window's prefix part ends at a block's end
+          p->w = xn[q * st];
+          p->z = 0.f;
+          continue;
+        }
+        const float4 v = *p;  // P, b, -, x
+        Q = (!fresh && v.x == Pn) ? __fadd_rn(Q, v.y) : v.y;
+        fresh = false;
+        Pn = v.x;
+        p->z = v.w == v.x ? Q : 0.f;
+      }
+    }
   }
+}
+
+// (max, count) of two disjoint ranges into the first.
+__device__ __forceinline__ void fold_max(float& m, float& c, float om,
+                                         float oc) {
+  if (om > m) {
+    m = om;
+    c = oc;
+  } else if (om == m) {
+    c += oc;
+  }
+}
+
+// One group of K lanes (k = 0..K-1, K a power of two) walking blocks
+// [m0, m1) of one channel; lane k owns rows [k*sb, (k+1)*sb) of each
+// block, sb = ceil(w / K). Per row it keeps two float4 slots, cur for the
+// block's rows (S, cS, pc, x) and nxt for the next block's (P, b, pc, x),
+// which swap after each block, and dv (the row's dy, then its partial dx);
+// rows st apart. The lanes pass the (max, count) of their rows and the
+// running sums of runs that cross from one lane's rows into the next by
+// shuffles in the group (gmask). See the header for the three passes.
+template <typename T>
+__device__ __forceinline__ void max_bwd_group(
+    const T* __restrict__ xb, const T* __restrict__ dyb, T* __restrict__ dxb,
+    float4* cur, float4* nxt, float* dv, long long st, int L, int C, int w,
+    int Lout, int m0, int m1, int K, int k, unsigned gmask) {
+  const int sb = (w + K - 1) / K;
+  const int a0 = k * sb;
+  bool first = true;
+  for (int mb = max(m0 - 1, 0); mb < m1; ++mb) {
+    const int base = mb * w, nb1 = base + w, nrow = min(w, L - base);
+    const int nnext = nb1 < L ? min(w, L - nb1) : 0;
+    const int na = max(0, min(a0 + sb, nrow) - a0);   // the lane's rows
+    const int nn = max(0, min(a0 + sb, nnext) - a0);  // and the next block's
+    const bool own = mb >= m0;
+    if (first) {  // this block's x; no window before block 0
+      fetch_rows(&cur->w, 4 * st, xb + (long long)(base + a0) * C, C, na);
+      if (m0 == 0)
+        for (int j = 0; j < na; ++j) cur[j * st].z = 0.f;
+    }
+    fetch_rows(&nxt->w, 4 * st, xb + (long long)(nb1 + a0) * C, C, nn);
+    fetch_rows(dv, st, dyb + (long long)(base + a0) * C, C,
+               max(0, min(a0 + na, Lout - base) - a0));
+    first = false;
+
+    // A: backward over the lane's rows, the suffix max and its count, then
+    // the (max, count) of the lanes to the right folded in
+    float S = -INFINITY, cS = 0.f;
+#pragma unroll 4
+    for (int j = na - 1; j >= 0; --j) {
+      float4* p = cur + j * st;
+      fold_max(S, cS, p->w, 1.f);
+      p->x = S;
+      p->y = cS;
+    }
+    float cm = -INFINITY, cc = 0.f;
+    for (int j = K - 1; j >= 1; --j) {
+      const float om = __shfl_sync(gmask, S, j, K);
+      const float oc = __shfl_sync(gmask, cS, j, K);
+      if (j > k) fold_max(cm, cc, om, oc);
+    }
+    if (cc > 0.f)
+      for (int j = 0; j < na; ++j) {
+        float4* p = cur + j * st;
+        const float s2 = fmaxf(p->x, cm);
+        p->y = (p->x == s2 ? p->y : 0.f) + (cm == s2 ? cc : 0.f);
+        p->x = s2;
+      }
+
+    // B: the next block's prefix (max, count) of the lanes to the left,
+    // then forward over the lane's windows, the prefix carried up to each
+    // window's last row
+    float pm = -INFINITY, pcn = 0.f;
+    for (int j = 0; j < nn; ++j) fold_max(pm, pcn, nxt[j * st].w, 1.f);
+    float P = -INFINITY, cP = 0.f;
+    for (int j = 0; j < K - 1; ++j) {
+      const float om = __shfl_sync(gmask, pm, j, K);
+      const float oc = __shfl_sync(gmask, pcn, j, K);
+      if (j < k) fold_max(P, cP, om, oc);
+    }
+    float R = 0.f, Sp = 0.f, sendP = 0.f, sendB = 0.f;
+    int fr = na;  // rows [0, fr) are the lane's first run of equal S
+    bool whole = true;
+#pragma unroll 4
+    for (int j = 0; j < na; ++j) {
+      const int r = a0 + j, i = base + r;
+      const float4 s = cur[j * st];  // S, cS, pc, x of row i
+      if (j > 0 && r - 1 < nnext) fold_max(P, cP, nxt[(j - 1) * st].w, 1.f);
+      float a = 0.f, b = 0.f;
+      if (i < Lout) {
+        const float y = r == 0 ? s.x : fmaxf(s.x, P);
+        const float cnt =
+            (s.x == y ? s.y : 0.f) + (r > 0 && P == y ? cP : 0.f);
+        const float d =
+            to_f32(from_f32<T>(__fdiv_rn(dv[j * st], fmaxf(cnt, 1.f))));
+        a = s.x == y ? d : 0.f;
+        b = r > 0 && P == y ? d : 0.f;
+      }
+      if (j > 0 && s.x == Sp) {
+        R = __fadd_rn(R, a);
+      } else {
+        if (j > 0 && whole) {
+          fr = j;
+          whole = false;
+        }
+        R = a;
+      }
+      Sp = s.x;
+      dv[j * st] = __fadd_rn(s.z, s.w == s.x ? R : 0.f);
+      if (r > 0) {
+        if (j == 0) {  // window r's last row is lane k-1's
+          sendP = P;
+          sendB = b;
+        } else {
+          nxt[(j - 1) * st].x = P;
+          nxt[(j - 1) * st].y = b;
+        }
+      }
+    }
+    // the running sum that enters the lane's first run from the left
+    const float Slast = na > 0 ? cur[(na - 1) * st].x : 0.f;
+    const float Sprev = __shfl_up_sync(gmask, Slast, 1, K);
+    const int nprev = __shfl_up_sync(gmask, na, 1, K);
+    const bool conn = k > 0 && na > 0 && nprev > 0 && cur[0].x == Sprev;
+    float run = 0.f, cin = 0.f;
+    for (int j = 1; j < K; ++j) {
+      const float tp = __shfl_sync(gmask, R, j - 1, K);
+      const int wp = __shfl_sync(gmask, (int)whole, j - 1, K);
+      const int cj = __shfl_sync(gmask, (int)conn, j, K);
+      run = cj ? __fadd_rn(tp, wp ? run : 0.f) : 0.f;
+      if (j == k) cin = run;
+    }
+    if (own)
+      for (int j = 0; j < na; ++j) {
+        const float4 s = cur[j * st];
+        float v = dv[j * st];
+        if (j < fr && cin != 0.f && s.w == s.x) v = __fadd_rn(v, cin);
+        dxb[(long long)(base + a0 + j) * C] = from_f32<T>(v);
+      }
+
+    // C: backward over the next block's rows, the prefix shares summed
+    // over runs of equal P, then the sum entering from the right
+    if (mb + 1 < m1 && nb1 < L) {
+      const int qtop = min(w - 1, L - 1 - nb1);
+      const float rP = __shfl_down_sync(gmask, sendP, 1, K);
+      const float rB = __shfl_down_sync(gmask, sendB, 1, K);
+      const int rn = __shfl_down_sync(gmask, na, 1, K);
+      if (k < K - 1 && rn > 0 && sb - 1 < nn) {
+        nxt[(sb - 1) * st].x = rP;
+        nxt[(sb - 1) * st].y = rB;
+      }
+      const int hi = max(0, min(nn, qtop + 1 - a0));
+      float Q = 0.f, Pn = 0.f;
+      bool have = false, whole2 = true;
+      int lr = 0;  // rows [lr, hi) are the lane's last run of equal P
+      for (int j = hi - 1; j >= 0; --j) {
+        float4* p = nxt + j * st;
+        if (a0 + j == w - 1) {  // no window's prefix part ends at a block's end
+          p->z = 0.f;
+          have = false;
+          continue;
+        }
+        const float4 v = *p;  // P, b, -, x
+        if (have && v.x == Pn) {
+          Q = __fadd_rn(Q, v.y);
+        } else {
+          if (have && whole2) {
+            lr = j + 1;
+            whole2 = false;
+          }
+          Q = v.y;
+        }
+        have = true;
+        Pn = v.x;
+        p->z = v.w == v.x ? Q : 0.f;
+      }
+      const float Pfirst = hi > 0 ? nxt[0].x : 0.f;
+      const float Pnext = __shfl_down_sync(gmask, Pfirst, 1, K);
+      const int hnext = __shfl_down_sync(gmask, hi, 1, K);
+      const bool conn2 = k < K - 1 && hi > 0 && hnext > 0 &&
+                         a0 + hi - 1 != w - 1 && a0 + sb != w - 1 &&
+                         nxt[(hi - 1) * st].x == Pnext;
+      float run2 = 0.f, cin2 = 0.f;
+      for (int j = K - 2; j >= 0; --j) {
+        const float hn = __shfl_sync(gmask, Q, j + 1, K);
+        const int wn = __shfl_sync(gmask, (int)whole2, j + 1, K);
+        const int cj = __shfl_sync(gmask, (int)conn2, j, K);
+        run2 = cj ? __fadd_rn(hn, wn ? run2 : 0.f) : 0.f;
+        if (j == k) cin2 = run2;
+      }
+      if (cin2 != 0.f)
+        for (int j = lr; j < hi; ++j) {
+          float4* p = nxt + j * st;
+          if (a0 + j != w - 1 && p->w == p->x) p->z = __fadd_rn(p->z, cin2);
+        }
+    }
+    float4* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+}
+
+// Bytes a lane keeps per row of its share of a block: one float4 slot, xn
+// and dv alone (K = 1); two float4 slots and dv in a group (K > 1).
+__host__ __device__ inline int slot_bytes(int K) {
+  return K == 1 ? (int)sizeof(float4) + 2 * (int)sizeof(float)
+                : 2 * (int)sizeof(float4) + (int)sizeof(float);
+}
+
+// The max-pool gradient, one launch: groups of K lanes, each group one
+// (b, tile of TB blocks of w rows, c), lanes fastest; one lane a group
+// walks its blocks alone (max_bwd_thread), more share each block
+// (max_bwd_group). Slots in shared memory (threadIdx.x fastest), or, for a
+// share of a block too wide for it, in the caller's global scratch (thread
+// index fastest).
+template <typename T, bool GLOBAL_SLOTS>
+__global__ void __launch_bounds__(THREADS)
+max_pool_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                    T* __restrict__ dx, float* __restrict__ gslots, int L,
+                    int C, int w, int Lout, int TB, int n_tiles, int B,
+                    int K) {
+  extern __shared__ float4 sslots[];
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  Item it;
+  if (!item_of(gid / K, n_tiles, C, B, &it)) return;  // whole groups
+  const int nb = (L + w - 1) / w;
+  const int m0 = it.t * TB, m1 = min(nb, m0 + TB);
+  const int sb = (w + K - 1) / K;
+  const long long xo = (long long)it.b * L * C + it.c;
+  const T* dyb = dy + (long long)it.b * Lout * C + it.c;
+  // rows st apart: the float4 slots (sb rows, twice in a group), then the
+  // floats (xn and dv alone, dv in a group)
+  const long long st = GLOBAL_SLOTS ? (long long)B * n_tiles * C * K
+                                    : (long long)blockDim.x;
+  float4* s4 = GLOBAL_SLOTS ? reinterpret_cast<float4*>(gslots) : sslots;
+  const long long me = GLOBAL_SLOTS ? gid : threadIdx.x;
+  if (K == 1) {
+    float* f = reinterpret_cast<float*>(s4 + (long long)sb * st);
+    max_bwd_thread<T>(x + xo, dyb, dx + xo, s4 + me, f + me,
+                      f + (long long)sb * st + me, st, L, C, w, Lout, m0,
+                      m1);
+  } else {
+    const int k = (int)(gid % K);
+    const int lane = threadIdx.x & 31;
+    const unsigned gmask =
+        K == 32 ? 0xffffffffu : ((1u << K) - 1) << (lane & ~(K - 1));
+    float* f = reinterpret_cast<float*>(s4 + 2LL * sb * st);
+    max_bwd_group<T>(x + xo, dyb, dx + xo, s4 + me,
+                     s4 + (long long)sb * st + me, f + me, st, L, C, w, Lout,
+                     m0, m1, K, k, gmask);
+  }
+}
+
+// Shared memory the slots may take in one block.
+constexpr int SLOT_SMEM = 200 * 1024;
+
+// Threads a block for the gradient with sb rows a lane of K over `total`
+// threads on a card of `sms` SMs: the most (up to 256, a multiple of 32)
+// whose slots fit in SLOT_SMEM, fewer while that leaves under two blocks an
+// SM; 0 when even 32 threads' slots do not fit (the slots then live in
+// global scratch, 256 threads a block).
+inline int bwd_block_threads(int sb, int K, long long total, int sms) {
+  const long long fit = SLOT_SMEM / ((long long)sb * slot_bytes(K));
+  if (fit < 32) return 0;
+  int t = THREADS;
+  while (t > 32 && (t > fit || (total + t - 1) / t < 2LL * sms)) t /= 2;
+  return t;
 }
 
 inline int n_blocks(int B, int n_tiles, int C) {
   return (int)(((long long)B * n_tiles * C + THREADS - 1) / THREADS);
 }
 
-inline bool grid_ok(int B, int n_tiles, int C) {
-  return (long long)B * n_tiles * C <= (long long)THREADS * 0x7fffffff;
+inline bool grid_ok(int B, int n_tiles, int C, int threads = THREADS) {
+  return (long long)B * n_tiles * C <= (long long)threads * 0x7fffffff;
 }
 
 template <typename T>
@@ -273,56 +644,69 @@ extern "C" int sliding_pool(const void* x, void* y, int B, int L, int lead,
                                             Lout, tile, op, s));
 }
 
-// The max-pool gradient's first launch: dys = dy / max(ties, 1) in dy's
-// type, one entry per window (Lout of them).
-extern "C" int max_pool_count(const void* x, const void* y, const void* dy,
-                              void* dys, int B, int L, int C, int window,
-                              int Lout, int tile, int is_bf16, void* stream) {
-  if (B < 1 || C < 1 || window < 1 || tile < 1 || Lout != L - window + 1 ||
-      Lout < 1 || !grid_ok(B, (Lout + tile - 1) / tile, C))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (Lout + tile - 1) / tile;
-  const int grid = n_blocks(B, n_tiles, C);
-  if (is_bf16)
-    max_count_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(y),
-        static_cast<const __nv_bfloat16*>(dy),
-        static_cast<__nv_bfloat16*>(dys), L, C, window, Lout, tile, n_tiles,
-        B);
-  else
-    max_count_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(dy), static_cast<float*>(dys), L, C, window,
-        Lout, tile, n_tiles, B);
-  return (int)cudaGetLastError();
+// float32 scratch the gradient needs (0 when its slots fit in shared
+// memory); tile is the number of w-row blocks a group walks, lanes (K) the
+// threads a group, sms the card's streaming multiprocessors.
+extern "C" long long max_pool_bwd_scratch(int B, int L, int C, int window,
+                                          int tile, int lanes, int sms) {
+  if (window < 1 || tile < 1 || L < 1 || lanes < 1 || sms < 1) return 0;
+  const long long n_tiles = ((L + window - 1) / window + tile - 1) / tile;
+  const long long total = (long long)B * n_tiles * C * lanes;
+  const int sb = (window + lanes - 1) / lanes;
+  if (bwd_block_threads(sb, lanes, total, sms) > 0) return 0;
+  return total * sb * (slot_bytes(lanes) / (long long)sizeof(float));
 }
 
-// The max-pool gradient's second launch: dx (B, L, C) in x's type; tile is
-// the tile of input rows a thread walks.
-extern "C" int max_pool_scatter(const void* x, const void* y, const void* dys,
-                                void* dx, int B, int L, int C, int window,
-                                int Lout, int tile, int is_bf16,
-                                void* stream) {
+// The max-pool gradient: dx (B, L, C) in x's type from x and dy (B, Lout,
+// C) of x's type, y being x's sliding max (not read). tile: the w-row
+// blocks a group walks; lanes: the threads of a group (a power of two up
+// to 32, at most the window; tile 1 when above 1); sms: the card's
+// streaming multiprocessors; scratch: max_pool_bwd_scratch floats (may be
+// null when that is 0).
+extern "C" int max_pool_bwd(const void* x, const void* dy, void* dx,
+                            void* scratch, int B, int L, int C, int window,
+                            int Lout, int tile, int lanes, int sms,
+                            int is_bf16, void* stream) {
+  const int nb = L >= 1 && window >= 1 ? (L + window - 1) / window : 0;
   if (B < 1 || C < 1 || window < 1 || tile < 1 || Lout != L - window + 1 ||
-      Lout < 1 || !grid_ok(B, (L + tile - 1) / tile, C))
+      Lout < 1 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      sms < 1 ||
+      (lanes > 1 && tile != 1) ||
+      !grid_ok(B, (nb + tile - 1) / tile, C * lanes, 32))
     return (int)cudaErrorInvalidValue;
+  const int n_tiles = (nb + tile - 1) / tile;
+  const long long total = (long long)B * n_tiles * C * lanes;
+  const int sb = (window + lanes - 1) / lanes;
+  const int smem_threads = bwd_block_threads(sb, lanes, total, sms);
+  const bool global = smem_threads == 0;
+  if (global && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int threads = global ? THREADS : smem_threads;
+  const size_t smem =
+      global ? 0 : (size_t)threads * sb * slot_bytes(lanes);
+  const int grid = (int)((total + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (L + tile - 1) / tile;
-  const int grid = n_blocks(B, n_tiles, C);
-  if (is_bf16)
-    max_scatter_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(y),
-        static_cast<const __nv_bfloat16*>(dys),
-        static_cast<__nv_bfloat16*>(dx), L, C, window, Lout, tile, n_tiles,
-        B);
-  else
-    max_scatter_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(dys), static_cast<float*>(dx), L, C, window,
-        Lout, tile, n_tiles, B);
+  float* gs = static_cast<float*>(scratch);
+#define MAX_BWD(T, G)                                                       \
+  do {                                                                      \
+    if (smem > 48 * 1024) {                                                 \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          max_pool_bwd_kernel<T, G>,                                        \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);          \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    max_pool_bwd_kernel<T, G><<<grid, threads, smem, s>>>(                  \
+        static_cast<const T*>(x), static_cast<const T*>(dy),                \
+        static_cast<T*>(dx), gs, L, C, window, Lout, tile, n_tiles, B,      \
+        lanes);                                                             \
+  } while (0)
+  if (is_bf16) {
+    if (global) MAX_BWD(__nv_bfloat16, true);
+    else MAX_BWD(__nv_bfloat16, false);
+  } else {
+    if (global) MAX_BWD(float, true);
+    else MAX_BWD(float, false);
+  }
+#undef MAX_BWD
   return (int)cudaGetLastError();
 }
 

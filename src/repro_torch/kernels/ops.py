@@ -627,7 +627,7 @@ class Pool1d(torch.autograd.Function):
     reference's ``_pool1d_op`` custom VJP). Forward: the pool kernel; it
     saves (x, y) for max only, y the argmax witness. Backward: sum,
     ``sum_pool_bwd(dy)``; avg, ``sum_pool_bwd`` of dy / w (in float32,
-    rounded to dy's type); max, ``max_pool_bwd(x, y, dy)`` (two launches),
+    rounded to dy's type); max, ``max_pool_bwd(x, y, dy)`` (one launch),
     each window's gradient split evenly over its tied maxima. dx is cast to
     dy's type. CPU tensors run the kernels' plain versions."""
 

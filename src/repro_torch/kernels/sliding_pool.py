@@ -8,11 +8,14 @@
     "scan") or the shift-and-max loop ("shift"); both exact.
   * ``sum_pool_bwd``: dx of sum pooling, the forward sum on dy padded by
     w - 1 zero rows on both sides.
-  * ``max_pool_bwd``: dx of max pooling in two launches: per window the
+  * ``max_pool_bwd``: dx of max pooling in one launch: per window the
     tie count cnt = #{m < w : x[i+m] == y[i]} and the split dy / max(cnt,
     1), rounded to dy's type; then dx[j] = sum_k dys[j-k] * [x[j] == y[j-k]]
     over the windows that exist, summed in float32, one cast to x's type.
-    Each window's gradient is shared evenly by its tied maxima.
+    Each window's gradient is shared evenly by its tied maxima. The kernel
+    is O(n) a channel: blocks of w rows, runs of equal suffix and prefix
+    maxima, running sums over them (``csrc/sliding_pool.cu``); y must be
+    x's sliding max, as ``sliding_pool(x, op="max")`` gives it.
 
 Each wrapper launches its Hopper kernel (``csrc/sliding_pool.cu``) on a
 CUDA tensor and runs its plain version (``sliding_pool_plain``,
@@ -23,18 +26,23 @@ bfloat16; another type raises ``TypeError`` on the card (the plain versions
 also pool other types, int8 codes included). Launch counters:
 ``sliding_pool.launches`` (and per form ``launches_sum``, ``launches_avg``,
 ``launches_max_scan``, ``launches_max_shift``), ``sum_pool_bwd.launches``,
-``max_pool_bwd.launches`` (two a call).
+``max_pool_bwd.launches`` (one a call).
 
 The tile (``pool_tile``) is the number of rows one kernel thread walks, and
 the span of one float32 prefix. The reference fixes it at 512; here it comes
 from the shape so that the card has enough threads: the smallest power of
-two from 32 to 1024 that keeps B·C·⌈n/tile⌉ within 132 · 1024 threads,
-and never more than n. The max forms and the gradient do not depend on it;
-the sum rounds per tile, and the plain version takes the same tile.
+two from 32 to 1024 that keeps B·C·⌈n/tile⌉ within 1024 threads an SM of
+the card (``build.sm_count``), and never more than n. The max forms and
+the gradient do not depend on it; the sum rounds per tile, and the plain
+version takes the same tile (on the CPU, that of an H100's 132 SMs).
+The gradient's layout (``max_bwd_layout``) is chosen the same way: the
+blocks of w rows a group of threads walks, and the threads (lanes) that
+share each block when the shape gives few blocks.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,23 +53,52 @@ from repro_torch.kernels import build
 OPS = ("sum", "avg", "max")
 METHODS = ("scan", "shift")
 _OP_CODE = {"sum": 0, "avg": 1, ("max", "scan"): 2, ("max", "shift"): 3}
-# threads that keep all 132 SMs busy (half of what they can hold)
-TARGET_THREADS = 132 * 1024
+# threads that keep an SM busy (half of what it can hold)
+THREADS_PER_SM = 1024
 MIN_TILE, MAX_TILE = 32, 1024
+# the fewest rows of a block a lane of the max gradient takes when lanes
+# share a block (fewer rows, more of its time goes to the lanes' shuffles)
+MIN_LANE_ROWS = 16
 # x, y; B, L, lead, Lsrc, C, window, Lout, tile, op, is_bf16; stream
 _POOL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-# x, y, dy|dys, dys|dx; B, L, C, window, Lout, tile, is_bf16; stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# x, dy, dx, scratch; B, L, C, window, Lout, tile, lanes, sms, is_bf16;
+# stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
-def pool_tile(B: int, n: int, C: int) -> int:
-    """Rows a kernel thread walks for n rows of B·C sequences: the
-    smallest power of two in [32, 1024] that keeps the thread count within
-    ``TARGET_THREADS``, capped at n."""
+def pool_tile(B: int, n: int, C: int, sms: int = build.DEFAULT_SMS) -> int:
+    """Rows a kernel thread walks for n rows of B·C sequences on a card of
+    ``sms`` SMs: the smallest power of two in [32, 1024] that keeps the
+    thread count within ``THREADS_PER_SM`` an SM, capped at n."""
+    target = sms * THREADS_PER_SM
     tile = MIN_TILE
-    while tile < MAX_TILE and B * C * -(-n // tile) > TARGET_THREADS:
+    while tile < MAX_TILE and B * C * -(-n // tile) > target:
         tile *= 2
     return min(tile, n)
+
+
+def max_bwd_layout(B: int, L: int, C: int, window: int,
+                   sms: int = build.DEFAULT_SMS) -> tuple[int, int]:
+    """(tile, lanes) of the max-gradient kernel on a card of ``sms`` SMs:
+    each group of ``lanes`` threads walks ``tile`` blocks of ``window``
+    rows of one channel, lane k the k-th share of each block. Where
+    B·C·blocks alone give fewer than half of ``THREADS_PER_SM`` an SM, a
+    block is shared by up to 32 lanes (a power of two, each lane at least
+    ``MIN_LANE_ROWS`` rows) until they give about that many, one block a
+    group; otherwise one lane, and the smallest power-of-two tile that
+    keeps the thread count within ``THREADS_PER_SM`` an SM."""
+    target = sms * THREADS_PER_SM
+    blocks = -(-L // window)
+    lanes = 1
+    while (lanes < 32 and 2 * lanes * MIN_LANE_ROWS <= window
+           and B * C * blocks * lanes < target // 2):
+        lanes *= 2
+    if lanes > 1:
+        return 1, lanes
+    tile = 1
+    while tile < blocks and B * C * -(-blocks // tile) > target:
+        tile *= 2
+    return min(tile, blocks), 1
 
 
 def _check(x, window, op, method) -> int:
@@ -121,7 +158,9 @@ def sliding_pool_plain(x: torch.Tensor, *, window: int, op: str = "sum",
     walks it (``tile`` defaults to ``pool_tile`` of the shape)."""
     out_len = _check(x, window, op, method)
     B, L, C = x.shape
-    tile = pool_tile(B, out_len, C) if tile is None else min(tile, out_len)
+    if tile is None:
+        tile = pool_tile(B, out_len, C, build.sm_count(x.device))
+    tile = min(tile, out_len)
     if op in ("sum", "avg"):
         s = torch.cumsum(_halos(x.float(), window, tile, 0.0), dim=-1)
         upper = s[..., window - 1 : window - 1 + tile]
@@ -197,7 +236,8 @@ def _pool_kernel(x, window, code, lead, L, out_len):
     B, Lsrc, C = x.shape
     y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
     code_ = fn(x.data_ptr(), y.data_ptr(), B, L, lead, Lsrc, C, window,
-               out_len, pool_tile(B, out_len, C), code, int(is_bf16),
+               out_len, pool_tile(B, out_len, C, build.sm_count(x.device)),
+               code, int(is_bf16),
                _stream(x))
     build.check("sliding_pool", code_)
     return y
@@ -221,23 +261,31 @@ def _launch_sum_bwd(dy, window):
     return dx
 
 
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch(B, L, C, window, tile, lanes, sms) -> int:
+    """float32 global scratch the gradient kernel needs (0: its slots fit
+    in shared memory)."""
+    fn = build.library("sliding_pool").max_pool_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    return fn(B, L, C, window, tile, lanes, sms)
+
+
 def _launch_max_bwd(x, y, dy, window):
     is_bf16 = _kernel_dtype(x, y, dy)
-    count = build.entry("sliding_pool", "max_pool_count", _BWD_ARGTYPES)
-    scatter = build.entry("sliding_pool", "max_pool_scatter", _BWD_ARGTYPES)
-    x, y, dy = x.contiguous(), y.contiguous(), dy.contiguous()
+    fn = build.entry("sliding_pool", "max_pool_bwd", _BWD_ARGTYPES)
+    x, dy = x.contiguous(), dy.contiguous()
     B, L, C = x.shape
-    out_len = y.shape[1]
-    dys = torch.empty_like(dy)
-    code = count(x.data_ptr(), y.data_ptr(), dy.data_ptr(), dys.data_ptr(),
-                 B, L, C, window, out_len, pool_tile(B, out_len, C),
-                 int(is_bf16), _stream(x))
-    build.check("sliding_pool", code)
-    max_pool_bwd.launches += 1
+    sms = build.sm_count(x.device)
+    tile, lanes = max_bwd_layout(B, L, C, window, sms)
+    n = _bwd_scratch(B, L, C, window, tile, lanes, sms)
+    scratch = (torch.empty(n, dtype=torch.float32, device=x.device)
+               if n else None)
     dx = torch.empty_like(x)
-    code = scatter(x.data_ptr(), y.data_ptr(), dys.data_ptr(), dx.data_ptr(),
-                   B, L, C, window, out_len, pool_tile(B, L, C),
-                   int(is_bf16), _stream(x))
+    code = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+              None if scratch is None else scratch.data_ptr(), B, L, C,
+              window, y.shape[1], tile, lanes, sms, int(is_bf16),
+              _stream(x))
     build.check("sliding_pool", code)
     max_pool_bwd.launches += 1
     return dx
@@ -278,8 +326,8 @@ def max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor, *,
                  window: int) -> torch.Tensor:
     """dx of max pooling. x: (B, L, C) the forward input, y/dy: (B,
     L-w+1, C) the forward output and upstream gradient (dy of x's type on
-    the card). Each window's gradient is split evenly across its tied
-    maxima."""
+    the card; y must be x's sliding max: the kernel does not read it).
+    Each window's gradient is split evenly across its tied maxima."""
     _check_bwd(x, y, dy, window)
     if x.device.type == "cuda":
         return _launch_max_bwd(x, y, dy, window)

@@ -12,10 +12,13 @@ nothing falls back from the kernel to the plain version.
 Contract (the TPU kernel's ``ssm_scan_pallas``): abar, bx (B, L, D, N) and
 c (B, L, N) float32 or bfloat16 of one type, h0 (B, D, N), taken as
 float32; returns y (B, L, D) in abar's type and h_last (B, D, N) float32,
-the state after position L - 1. The kernel takes N in 1–16, 24, 32, 48 and
-64 (jamba's d_state is 16) and raises for another; the plain version takes
-any N. The reference's ``tile_d`` and ``chunk_l`` tile its grid and have
-no counterpart: the kernel walks all of L in one thread per (b, d).
+the state after position L - 1. Both take any N, as the reference does
+(jamba's d_state is 16): the kernel is compiled for N in 1–16, 24, 32, 48
+and 64, runs another N up to 64 at the next of those widths with the extra
+state lanes masked, and walks L once for each group of 64 lanes above 64,
+adding the groups' float32 partial y in order before the one cast. The
+reference's ``tile_d`` and ``chunk_l`` tile its grid and have no
+counterpart: the kernel walks all of L in one thread per (b, d).
 
 No model path calls it: the port's mamba prefill runs the associative
 scan, as the reference's does.
@@ -28,9 +31,10 @@ import torch
 
 from repro_torch.kernels import build
 
-KERNEL_N = tuple(range(1, 17)) + (24, 32, 48, 64)
-# abar, bx, c, h0, y, h_last; B, L, D, N, is_bf16; stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the widest group of state lanes the kernel walks at once
+GROUP_N = 64
+# abar, bx, c, h0, y, h_last, yacc; B, L, D, N, is_bf16; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(abar, bx, c, h0) -> None:
@@ -67,15 +71,17 @@ def _launch(abar, bx, c, h0):
     if any(t.device != abar.device for t in (bx, c, h0)):
         raise ValueError("abar, bx, c and h0 must lie on one device")
     B, L, D, N = abar.shape
-    if N not in KERNEL_N:
-        raise ValueError(f"kernel takes state widths {KERNEL_N}, got N={N}")
     fn = build.entry("ssm_scan", "ssm_scan", _ARGTYPES)
     abar, bx, c = abar.contiguous(), bx.contiguous(), c.contiguous()
     h0 = h0.float().contiguous()
     y = torch.empty((B, L, D), dtype=dt, device=abar.device)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=abar.device)
+    # the groups' partial y, summed in float32 before the one cast
+    yacc = (torch.empty((B, L, D), dtype=torch.float32, device=abar.device)
+            if N > GROUP_N else None)
     code = fn(abar.data_ptr(), bx.data_ptr(), c.data_ptr(), h0.data_ptr(),
-              y.data_ptr(), h_last.data_ptr(), B, L, D, N,
+              y.data_ptr(), h_last.data_ptr(),
+              None if yacc is None else yacc.data_ptr(), B, L, D, N,
               int(dt == torch.bfloat16),
               torch.cuda.current_stream(abar.device).cuda_stream)
     build.check("ssm_scan", code)
