@@ -233,13 +233,18 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version, the port's associative scan and the bound.
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
-     each redesigned row (2, 2b, 9) at each timed shape beside its time
-     before the redesign (``EARLIER_MS``).
+     each redesigned row (2, 2b, 9, 5, 12) at each timed shape
+     beside its time before the redesign (``EARLIER_MS``): row 5 at the
+     five hbm columns phase 35 times it on, row 12 at phase 32's five
+     shapes.
+ 41. the port's train CLI for llava (``--arch llava-next-34b --smoke
+     --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
+     losses.
 
-Phases run in the order 1-25, 28, 29, 26, 31, 30, 33, 34 with the main
-path of the baselines, 36-38, then the timings (6, 10, 15, 19, 23, 27,
-32, 35, 39, 40): every kernel is held to its plain version before a path
-runs it.
+Phases run in the order 1-25, 28, 29, 26, 31, 41, 30, 33, 34 with the
+main path of the baselines, 36-38, then the timings (6, 10, 15, 19, 23,
+27, 32, 35, 39, 40): every kernel is held to its plain version before a
+path runs it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -252,6 +257,7 @@ import gc
 import io
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -981,8 +987,8 @@ def phase_train_kernels(sc, sb, ops) -> float:
 
 def train_batches(cfg, B, seq, steps, seed, device, train):
     """The train loop's inputs for steps 0 .. steps-1: the token stream
-    and, for the audio family, the per-step mel frames
-    (``repro_torch.launch.train``)."""
+    and, for the audio family, the per-step mel frames, for the vlm family
+    the per-step patches (``repro_torch.launch.train``)."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.models.whisper import N_MELS
 
@@ -996,6 +1002,10 @@ def train_batches(cfg, B, seq, steps, seed, device, train):
             rng = train.step_stream(seed, step, train._TAG_FRAMES)
             batch["frames"] = torch.from_numpy(rng.normal(
                 size=(B, seq, N_MELS)).astype(np.float32)).to(device)
+        extras = train.build_batch_extras(
+            cfg, B, train.step_stream(seed, step, train._TAG_PATCHES))
+        batch.update({k: torch.from_numpy(v).to(device)
+                      for k, v in extras.items()})
         out.append(batch)
     return out
 
@@ -3062,6 +3072,9 @@ def phase_conv2d_train_kernels(s2, sb, ops) -> float:
         got = sb.conv2d_bwd_dw(x, dz, (d["k"], d["k"]), **args)
         want = sb.conv2d_bwd_dw_plain(x, dz, (d["k"], d["k"]), **args)
         what = f"conv2d dw {name} {dtype}"
+        again = sb.conv2d_bwd_dw(x, dz, (d["k"], d["k"]), **args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: two calls differ")
         err = max(close(got[0], want[0], TOL, what, scaled=True),
                   close(got[1], want[1], TOL, what + " db", scaled=True))
         if i == 0:
@@ -3449,6 +3462,28 @@ def phase_patch_embed_train(llava, transformer) -> dict:
     return res
 
 
+def phase_llava_train_cli(train) -> dict:
+    """41: the port's train CLI for llava at the smoke config on the card,
+    as the reference's own command runs it (2 steps, batch 2, seq 32, the
+    per-step patches of ``build_batch_extras``): finite losses."""
+    run_dir = ROOT / "build" / "chip_smoke_llava_train"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = train.main(["--arch", LLAVA, "--smoke", "--steps", "2",
+                          "--batch", "2", "--grad-accum", "1", "--seq", "32",
+                          "--log-every", "1", "--run-dir", str(run_dir)])
+    shutil.rmtree(run_dir, ignore_errors=True)
+    losses = res["losses"]
+    if len(losses) != 2 or not all(np.isfinite(losses)):
+        raise AssertionError(f"llava train CLI losses {losses}:\n"
+                             f"{out.getvalue()}")
+    log(f"llava train CLI on the card (--smoke, 2 steps): losses "
+        f"{[round(v, 4) for v in losses]} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return dict(losses=losses)
+
+
 def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
     """32: the int8 conv2d kernel at the patch embedding (the model path's
     w8a8 call with a bf16 output, the chained one with an int8 output, and
@@ -3755,13 +3790,19 @@ def phase_im2col_kernels(ig, ops, quant) -> dict:
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        # and row 5's edges: K 588 (8-byte bf16 rows), N 1 and
+        # 32, M < 16, splits; two calls bitwise equal
         for M, K, N in ((200, 70, 90), (333, 517, 65), (1, 1, 1),
-                        (129, 31, 1152), (64, 32, 64)):
+                        (129, 31, 1152), (64, 32, 64), (15, 588, 32),
+                        (300, 588, 1), (1000, 588, 1152), (9604, 4096, 32)):
             a, b = randn(M, K, dtype=dtype), randn(K, N, scale=K ** -0.5,
                                                    dtype=dtype)
             what = f"matmul ({M}, {K}) @ ({K}, {N}) {dtype}"
-            err = im2col_close(ig.matmul(a, b),
-                               ig.matmul_plain(a.float(), b.float()), what)
+            got = ig.matmul(a, b)
+            err = im2col_close(got, ig.matmul_plain(a.float(), b.float()),
+                               what)
+            if not torch.equal(got, ig.matmul(a, b)):
+                raise AssertionError(f"{what}: two calls differ")
             log(f"{what}: max|err| {err:.3e}")
         for dims, cases in ((1, ((3, 1), (7, 2), (17, 3), (3, 3))),
                             (2, ((3, 3, (1, 1)), (5, 5, (2, 2)),
@@ -4525,6 +4566,12 @@ EARLIER_MS = {
     "max_pool_bwd": {"paper_w4": 0.0742, "paper_w16": 0.1320,
                      "paper_w64": 0.3113, "paper_w256": 0.9754,
                      "wide_w16": 5.4306},
+    # row 5 on the hbm columns, row 12 at phase 32's shapes
+    "matmul": {"fig1_k31": 3.0528, "fig1_k3": 0.0325, "conv1d_K65": 0.2075,
+               "patch_embed_bf16": 0.5933, "patch_embed_f32": 0.5930},
+    "conv2d_bwd_dw": {"patch_embed": 1.3744, "patch_embed_f32": 1.4075,
+                      "fig1_k3_f32": 0.0539, "fig1_k31_f32": 1.7963,
+                      "fig2_k17_f32": 0.4667},
 }
 # rows 2 and 2b at the three decode shapes: (shape, the lengths of the
 # request's middle decode step)
@@ -4584,19 +4631,26 @@ def report_redesigned(kernels) -> None:
     (``EARLIER_MS``), the library call's and the bound, one line a shape.
     The earlier times go to the log only: the kernels' JSON line holds
     what this run measured."""
+    main_shape = {"max_pool_bwd": "paper_w64", "matmul": "fig1_k31",
+                  "conv2d_bwd_dw": "patch_embed"}
     for row in kernels:
         before = EARLIER_MS.get(row["name"])
         if before is None:
             continue
-        if row["name"] == "max_pool_bwd":
-            now = {"paper_w64": row, **row["shapes"]}
+        if row["name"] in main_shape:
+            now = {main_shape[row["name"]]: row,
+                   **{k: row["shapes"][k] for k in before
+                      if k != main_shape[row["name"]]}}
         else:
             now = {"whisper": row, "jamba": row["jamba_shape"],
                    "llava": row["llava_shape"]}
         for shape, t in now.items():
-            log(f"redesigned {row['name']} {shape}: {t['ms']:.4f} ms (earlier "
-                f"{before[shape]:.4f}, {before[shape] / t['ms']:.2f}x), "
-                f"library {t['library_ms']:.4f}, bound {t['bound_ms']:.5f}")
+            # row 5's other shapes keep the comparison's key names
+            ms, lib, bound = (t.get(k, t.get("matmul_" + k)) for k in
+                              ("ms", "library_ms", "bound_ms"))
+            log(f"redesigned {row['name']} {shape}: {ms:.4f} ms (earlier "
+                f"{before[shape]:.4f}, {before[shape] / ms:.2f}x), "
+                f"library {lib:.4f}, bound {bound:.5f}")
 
 
 def main() -> int:
@@ -4684,6 +4738,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_smoke_serve_llava_int8(serve, models, configs, map_tree, llava,
                                  quant, transformer)
+    llava_train_cli = phase_llava_train_cli(train)
     patch_train = phase_patch_embed_train(llava, transformer)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4757,7 +4812,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
                       "serve_int8": full_int8, "serve_jamba": jamba,
                       "train_jamba": jamba_train, "serve_llava": llava_serve,
-                      "train_conv2d": patch_train, "baselines": baselines,
+                      "train_conv2d": patch_train,
+                      "train_llava_cli": llava_train_cli,
+                      "baselines": baselines,
                       "pool": pool_path, "ssm_scan": scan_path}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // The paper's GEMM-convolution baselines, for Hopper (sm_90a): a tiled
-// GEMM and the two fused im2col convolutions, all on the main loop of
-// gemm_tile.cuh.
+// GEMM on the tensor-core / split-K main loop of gemm_mma.cuh, and the two
+// fused im2col convolutions on the main loop of gemm_tile.cuh.
 //
 // Replaces: src/repro/kernels/im2col_gemm.py,
 //   matmul_pallas (row 5)             -> im2col_matmul
@@ -24,43 +24,45 @@
 // position, the position's K*Cin or kh*kw*Cin input elements in (tap,
 // channel) order) with the weights read as a (K*Cin, Cout) matrix.
 //
-// What bounds them on this card: the float32 rate of the CUDA cores
-// (67 TFLOP/s at 700 W), for bfloat16 too, since they sum on the CUDA
-// cores. A fused conv does the direct convolution's operations (fig1
-// (1, 128, 128, 32) x (31, 31, 32, 32): 18.9 GFLOP, 0.282 ms; llava's patch
-// embedding (20, 336, 336, 3) x (14, 14, 3, 1152) stride 14: 15.6 GFLOP,
-// 0.233 ms) and reads each input a few times from L2, well under its
-// operation bound in bytes. The hbm baseline's GEMM reads the column the
-// torch ops wrote: at fig1 k=31 that is 9,604 x 30,752 float32 = 1.18 GB,
-// 0.35 ms at 3.35 TB/s to read and again to write, more than its
-// operations take: the memory bloat the paper measures.
+// What bounds them on this card. The GEMM: in bfloat16 the tensor cores'
+// rate (llava's patch column, 11,520 x 588 @ 588 x 1,152: 15.6 GFLOP,
+// 0.0158 ms at 989 TFLOP/s); in float32 the CUDA cores' 67 TFLOP/s, or
+// the column's bytes where the column is long and N narrow (fig1 k=31's
+// hbm column, 9,604 x 30,752 float32 = 1.18 GB, 0.354 ms at 3.35 TB/s:
+// the memory bloat the paper measures). The fused convs sum on the CUDA
+// cores for both types and do the direct convolution's operations (fig1
+// (1, 128, 128, 32) x (31, 31, 32, 32): 18.9 GFLOP, 0.282 ms), reading
+// each input a few times from L2.
 //
-// What the design does about it: the TPU kernels hold a tile's whole
-// column in VMEM (for fig1 k=31 at the 16 x 64 tile, 126 MB); a Hopper
-// block has 227 KB. So these kernels build the column tile chunk by chunk
-// along the reduction: each 32-wide chunk of the 64-position tile's
-// column is gathered from the input into shared memory (strides applied,
-// rows past the output masked) beside the matching 32 x 64 weight slice,
-// and contracted by the 64 x 64 register-tiled main loop before the next
-// chunk is gathered. The column never reaches device memory, and the
-// explicit on-chip copy, the cost the paper's baseline carries, remains.
-// The three kernels differ only in the gather. Output positions run
-// flat over (batch, rows, columns), so small images still give many
-// blocks. The plain FMA loop from shared memory is the simple, right
-// first version: tensor cores (mma.sync, wgmma), cp.async or TMA staging
-// and double buffering are later work.
+// What the design does about it. The GEMM (gemm_mma.cuh): bfloat16 on
+// mma.sync tiles, float32 on 8 x 8 register tiles with a 32-wide N tile
+// where N <= 32, a cp.async ring of stages, and split-K where the blocks
+// alone would leave the card idle (a long, narrow column gives few
+// tiles). The fused convs: the TPU kernels hold a tile's whole column in
+// VMEM (for fig1 k=31 at the 16 x 64 tile, 126 MB); a Hopper block has
+// 227 KB. So they build the column tile chunk by chunk along the
+// reduction: each 32-wide chunk of the 64-position tile's column is
+// gathered from the input into shared memory (strides applied, rows past
+// the output masked) beside the matching 32 x 64 weight slice, and
+// contracted by the 64 x 64 register-tiled main loop before the next chunk
+// is gathered. The column never reaches device memory, and the explicit
+// on-chip copy, the cost the paper's baseline carries, remains. The two
+// differ only in the gather. Output positions run flat over (batch, rows,
+// columns), so small images still give many blocks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <limits.h>
 #include <stddef.h>
 
+#include "gemm_mma.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
 
-// A row-major (M, K) matrix with leading dimension K.
+// A row-major (M, K) matrix with leading dimension K: contiguous along k.
 struct MatrixRows {
+  static constexpr bool kMajor = true;
   int ld;
   __device__ long long row(int m) const { return (long long)m * ld; }
   __device__ long long col(int r) const { return r; }
@@ -128,9 +130,23 @@ int launch(const void* a, const void* b, void* c, long long M, long long N,
 // Empty or out-of-range shapes (a dimension past INT_MAX, more than
 // 65535 column tiles, a filter that does not fit the input) are refused
 // with cudaErrorInvalidValue.
-extern "C" int im2col_matmul(const void* a, const void* b, void* c, int M,
-                             int N, int K, int is_bf16, void* stream) {
-  return launch(a, b, c, M, N, K, is_bf16, MatrixRows{K}, stream);
+//
+// im2col_matmul runs on tile `tile` in `splits` splits of `per` chunks of
+// the reduction (gemm_plan.py's choice), with copies of va bytes of A and
+// vb of B; ws holds splits * M * N floats when splits > 1 (else null).
+extern "C" int im2col_matmul(const void* a, const void* b, void* c, float* ws,
+                             int M, int N, int K, int is_bf16, int tile,
+                             int splits, int per, int va, int vb,
+                             void* stream) {
+  if (is_bf16) {
+    auto* cb = static_cast<__nv_bfloat16*>(c);
+    return gm::gemm(static_cast<const __nv_bfloat16*>(a),
+                    static_cast<const __nv_bfloat16*>(b), cb, ws, nullptr, M,
+                    N, K, MatrixRows{K}, tile, splits, per, va, vb, stream);
+  }
+  return gm::gemm(static_cast<const float*>(a), static_cast<const float*>(b),
+                  static_cast<float*>(c), ws, nullptr, M, N, K, MatrixRows{K},
+                  tile, splits, per, va, vb, stream);
 }
 
 extern "C" int im2col_conv1d(const void* x, const void* w, void* y, int B,

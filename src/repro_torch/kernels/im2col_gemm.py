@@ -2,7 +2,8 @@
 convolutions (``repro.kernels.im2col_gemm``).
 
   * ``matmul``: C = A @ B, (M, K) @ (K, N), float32 sums, output in A's
-    type (the TPU kernel ``matmul_pallas``).
+    type (the TPU kernel ``matmul_pallas``). Its tile, split-K and copy
+    widths come from ``gemm_plan`` and the card's SM count.
   * ``conv1d_im2col_fused`` / ``conv2d_im2col_fused``: VALID conv1d (x (B,
     L, Cin) NLC, w (K, Cin, Cout)) and conv2d (x (B, H, W, Cin) NHWC, w
     (kh, kw, Cin, Cout) HWIO), any stride, output in x's type: each tile's
@@ -37,13 +38,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 
 DEFAULT_TM = DEFAULT_TN = DEFAULT_TK = 128
 DEFAULT_TILE_L = 256
 DEFAULT_TILE_H, DEFAULT_TILE_W = 16, 64
-# a, b, c; M, N, K, is_bf16; stream
-_MM_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# a, b, c, ws; M, N, K, is_bf16, tile, splits, per, va, vb; stream
+_MM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # x, w, y; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
 _1D_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # x, w, y; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16; stream
@@ -156,9 +157,17 @@ def _launch_matmul(a, b):
     a, b = a.contiguous(), b.contiguous()
     M, K = a.shape
     N = b.shape[1]
+    plan = gemm_plan.gemm_plan(M, N, K, a.dtype, build.sm_count(a.device))
+    el = a.element_size()
+    va = gemm_plan.copy_bytes(el, [a.data_ptr()], [K])
+    vb = gemm_plan.copy_bytes(el, [b.data_ptr()], [N])
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-              int(a.dtype == torch.bfloat16), _stream(a))
+    ws = (torch.empty((plan.splits * M * N,), dtype=torch.float32,
+                      device=a.device) if plan.splits > 1 else None)
+    code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+              None if ws is None else ws.data_ptr(), M, N, K,
+              int(a.dtype == torch.bfloat16), plan.tile.id, plan.splits,
+              plan.per, va, vb, _stream(a))
     build.check("im2col_gemm", code)
     matmul.launches += 1
     return c

@@ -30,7 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build, sliding_conv1d, sliding_conv2d
+from repro_torch.kernels import (build, gemm_plan, sliding_conv1d,
+                                  sliding_conv2d)
 
 # x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -38,10 +39,9 @@ _SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, Cin, Cout, K, Lout
 # x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16; stream
 _DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, C, K, Lout, is_bf16
-# x, dz, dw, db, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16;
-# stream
-_2D_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-_2D_SPLIT_ARGTYPES = [ctypes.c_int] * 7  # B, Cin, Cout, kh, kw, oh, ow
+# x, dz, dw, db, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16,
+# tile, splits, per, va, vb; stream
+_2D_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 
@@ -353,24 +353,31 @@ def _launch_2d(x, dz, kh, kw, stride, has_bias):
     if dz.device != x.device:
         raise ValueError("x and dz must lie on one device")
     fn = build.entry("sliding_conv2d_bwd", "conv2d_bwd_dw", _2D_ARGTYPES)
-    splits = build.entry("sliding_conv2d_bwd", "conv2d_bwd_dw_splits",
-                         _2D_SPLIT_ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
     B, H, W, Cin = x.shape
     oh, ow, Cout = dz.shape[1:]
+    # dw (kh*kw*Cin, Cout) = the product over the B*oh*ow positions
+    plan = gemm_plan.gemm_plan(kh * kw * Cin, Cout, B * oh * ow, x.dtype,
+                               build.sm_count(x.device))
+    el = x.element_size()
+    # x's vectors start at a filter row's run, one input row or one
+    # position's stride apart
+    va = gemm_plan.copy_bytes(el, [x.data_ptr()],
+                              [kw * Cin, W * Cin, stride[1] * Cin])
+    vb = gemm_plan.copy_bytes(el, [dz.data_ptr()], [Cout])
     dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=x.device)
     db = (torch.empty((Cout,), dtype=torch.float32, device=x.device)
           if has_bias else None)
-    S = splits(B, Cin, Cout, kh, kw, oh, ow)
-    ws = (torch.empty((S * (dw.numel() + Cout),), dtype=torch.float32,
-                      device=x.device) if S > 1 else None)
+    ws = (torch.empty((plan.splits * (dw.numel() + Cout),),
+                      dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else None)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
         None if db is None else db.data_ptr(),
         None if ws is None else ws.data_ptr(),
         B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16), plan.tile.id, plan.splits, plan.per,
+        va, vb, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("sliding_conv2d_bwd", code)
     conv2d_bwd_dw.launches += 1

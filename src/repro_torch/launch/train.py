@@ -6,12 +6,15 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch jamba-1.5-large-398b --smoke --steps 4 --batch 2 --seq 64 \
         --conv-backend sliding_pallas --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llava-next-34b --smoke --steps 2 --batch 2 --grad-accum 1 \
+        --seq 32 --device cpu
 
 The core of ``repro.launch.train``, with the same flags (plus ``--device``)
 and the same ``[train]`` lines, so one command line drives both packages.
 It runs on the card unless ``--device cpu`` is given. Deterministic
-resumable data (the token stream and the per-step frame stream are pure
-functions of (seed, step)), resume from the newest checkpoint that
+resumable data (the token stream and the per-step frame and patch streams
+are pure functions of (seed, step)), resume from the newest checkpoint that
 validates, async checkpoints every ``--ckpt-every`` steps and a blocking
 one at the end, the straggler watchdog and the heartbeat under
 ``--run-dir``, and a bounded restart loop around the whole run
@@ -27,12 +30,14 @@ int8 moments (``opt_state_dtype``). The config's ``grad_accum`` (jamba:
 16 microbatches, bfloat16 accumulator) applies unless ``--grad-accum`` is
 given; where it does not divide ``--batch``, the reference's train step
 fails its assertion, and this loop takes the largest count that divides
-both and says so on a ``[train]`` line.
+both and says so on a ``[train]`` line. The vlm family (llava) trains on
+tokens and the patch embeddings of ``build_batch_extras``, drawn per step
+as the reference draws them.
 
 Not ported yet: span tracing (``--trace``, which the CLI rejects), the
 runtime demotion and probation machinery of the reference's step loop (a
-failing kernel raises here), the obs metrics registry and its artifacts
-and the patches stream of the vlm family.
+failing kernel raises here), and the obs metrics registry and its
+artifacts.
 """
 from __future__ import annotations
 
@@ -55,9 +60,11 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import OptConfig, init_opt_state
 
-# the frames stream's tag keeps it disjoint from the token pipeline's
-# SeedSequence([seed, row]) (the reference's value, so both draw the same)
+# the frames and patches streams' tags keep them disjoint from each other
+# and from the token pipeline's SeedSequence([seed, row]) (the reference's
+# values, so both draw the same)
 _TAG_FRAMES = 1_000_003
+_TAG_PATCHES = 1_000_033
 
 
 def log(msg: str) -> None:
@@ -68,6 +75,17 @@ def step_stream(seed: int, step: int, tag: int) -> np.random.Generator:
     """Generator that is a pure function of (seed, tag, step): a resumed
     run replays the exact inputs an uninterrupted run saw at every step."""
     return np.random.default_rng(np.random.SeedSequence([seed, tag, step]))
+
+
+def build_batch_extras(cfg, B: int, rng: np.random.Generator) -> dict:
+    """Synthetic modality inputs, one draw per step: the vlm family's patch
+    embeddings (B, num_patches, 1152) float32; nothing for other
+    families. Host arrays, as the reference draws them."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["patches"] = rng.normal(
+            size=(B, cfg.num_patches, 1152)).astype(np.float32)
+    return extras
 
 
 def train_loop(args) -> dict:
@@ -130,6 +148,10 @@ def train_loop(args) -> dict:
                 batch["frames"] = torch.from_numpy(srng.normal(
                     size=(args.batch, args.seq, frame_dim)).astype(np.float32)
                 ).to(device)
+            extras = build_batch_extras(
+                cfg, args.batch, step_stream(args.seed, step, _TAG_PATCHES))
+            batch.update({k: torch.from_numpy(v).to(device)
+                          for k, v in extras.items()})
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])  # waits for the step
@@ -153,7 +175,7 @@ def train_loop(args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="whisper-medium")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)

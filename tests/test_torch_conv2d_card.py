@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build, gemm_plan  # noqa: E402
 from repro_torch.kernels import sliding_conv2d as ts2  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as tbwd  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as tsq  # noqa: E402
@@ -127,21 +128,56 @@ def test_int8_kernel_matches_plain_on_the_card(card, k, stride, mode):
 @pytest.mark.parametrize("k,stride", SHAPES)
 def test_dw_kernel_matches_plain_on_the_card(card, k, stride, dtype):
     """One launch, counted; dw and db in float32 within TOL of max |dw|
-    (sums over every output position in another order)."""
-    dt = getattr(torch, dtype)
-    rng = np.random.default_rng(k + 70)
+    (sums over every output position in another order); two calls bitwise
+    equal."""
     cin = 3 if k == 14 else 37
-    H, W = k + 30, k + 33
+    _dw_case(card, dtype, k + 70, 2, k + 30, k + 33, cin, 70, k, stride)
+
+
+def _dw_case(card, dtype, seed, B, H, W, cin, cout, k, stride, offset=0):
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
     oh, ow = (H - k) // stride[0] + 1, (W - k) // stride[1] + 1
-    x = torch.from_numpy(rng.normal(size=(2, H, W, cin)).astype(np.float32))
-    dz = torch.from_numpy(rng.normal(size=(2, oh, ow, 70)).astype(np.float32))
-    x, dz = x.to(card, dt), dz.to(card, dt)
+    x = torch.from_numpy(rng.normal(size=(B * H * W * cin + offset,)).astype(
+        np.float32)).to(card, dt)[offset:].view(B, H, W, cin)
+    dz = torch.from_numpy(rng.normal(size=(B, oh, ow, cout)).astype(
+        np.float32)).to(card, dt)
     before = tbwd.conv2d_bwd_dw.launches
     dw, db = tbwd.conv2d_bwd_dw(x, dz, (k, k), stride=stride, has_bias=True)
     assert tbwd.conv2d_bwd_dw.launches == before + 1
+    again = tbwd.conv2d_bwd_dw(x, dz, (k, k), stride=stride, has_bias=True)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
     pdw, pdb = tbwd.conv2d_bwd_dw_plain(x, dz, (k, k), stride=stride,
                                         has_bias=True)
     for got, want in ((dw, pdw), (db, pdb)):
         scale = max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, rtol=TOL["rtol"],
                                    atol=TOL["atol"] * scale)
+    return gemm_plan.gemm_plan(k * k * cin, cout, B * oh * ow, dt,
+                               build.sm_count(x.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,W,cin,cout,k,stride,offset,splits", [
+    # llava's patch runs (42 values: 4-byte copies in bf16), Cout 1152
+    (2, 56, 56, 3, 1152, 14, (14, 14), 0, False),
+    (8, 112, 112, 3, 1152, 14, (14, 14), 0, True),
+    (20, 336, 336, 3, 1152, 14, (14, 14), 0, True),  # the patch itself
+    (8, 112, 112, 3, 1152, 14, (14, 14), 1, True),   # x 1 element off
+    (1, 50, 50, 32, 32, 21, (1, 1), 0, True),        # fig1-like, Cout 32
+    (2, 40, 45, 8, 70, 5, (1, 1), 0, True),          # Cin 8, Cout 70
+    (2, 40, 44, 16, 32, 9, (2, 2), 0, True),         # stride 2
+    (2, 20, 23, 5, 1, 1, (1, 1), 0, True),           # M = 5 < 16, Cout 1
+    (1, 9, 9, 3, 33, 3, (2, 2), 0, False),           # one chunk
+    (1, 8, 8, 512, 1024, 3, (1, 1), 0, False),       # tiles fill the card
+])
+def test_dw_kernel_edges_and_repeatable(card, B, H, W, cin, cout, k, stride,
+                                        offset, splits, dtype):
+    """Row 12 where nothing is a multiple of a tile, on runs that allow
+    16-, 8-, 4- or 2-byte copies, blocks over up to five filter rows, split
+    and not (as ``gemm_plan`` says for this card): within TOL, two calls
+    bitwise equal."""
+    plan = _dw_case(card, dtype, B + cin + cout + k, B, H, W, cin, cout, k,
+                    stride, offset)
+    assert (plan.splits > 1) == splits

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build, gemm_plan  # noqa: E402
 from repro_torch.kernels import im2col_gemm as tig  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
@@ -62,6 +63,39 @@ def test_matmul_kernel_matches_plain(card, M, K, N, dtype):
     before = tig.matmul.launches
     got = tig.matmul(a, b)
     assert tig.matmul.launches == before + 1 and got.dtype == dt
+    want = a.float() @ b.float()
+    _close(got, want if dt == torch.bfloat16 else tig.matmul_plain(a, b), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,offset,splits", [
+    (11520, 588, 1152, 0, False),  # llava's patch column: bf16 rows 8-byte
+    (1000, 588, 1152, 2, True),    # 4-byte aligned A (bf16), split
+    (300, 588, 1, 1, True),        # N = 1; A 2 bytes past alignment
+    (15, 588, 32, 0, True),        # M < 16, N = 32: the narrow f32 tile
+    (9604, 4096, 32, 0, True),     # a long column, N = 32, split
+    (777, 31, 33, 0, False),       # K, N under a chunk and ragged
+    (40000, 64, 128, 0, False),    # the blocks alone fill the card
+])
+def test_matmul_kernel_edges_and_repeatable(card, M, K, N, offset, splits,
+                                            dtype):
+    """Row 5 where nothing is a multiple of a tile, on operands whose rows
+    allow 16-, 8-, 4- or 2-byte copies (A ``offset`` elements into its
+    storage), split and not (as ``gemm_plan`` says for this card): one
+    launch, counted, within the tolerance of the test above, and two
+    calls bitwise equal."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(M + K + N + offset)
+    flat = _randn(rng, (M * K + offset,), 1.0, card, dt)
+    a = flat[offset:].view(M, K)
+    b = _randn(rng, (K, N), K ** -0.5, card, dt)
+    plan = gemm_plan.gemm_plan(M, N, K, dt, build.sm_count(a.device))
+    assert (plan.splits > 1) == splits
+    before = tig.matmul.launches
+    got = tig.matmul(a, b)
+    assert tig.matmul.launches == before + 1 and got.dtype == dt
+    assert torch.equal(got, tig.matmul(a, b))
     want = a.float() @ b.float()
     _close(got, want if dt == torch.bfloat16 else tig.matmul_plain(a, b), dt)
 

@@ -33,13 +33,17 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
 from repro.models import llava as jllava  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro_torch import quant  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import PORTED_ARCHS, get_config, smoke_config  # noqa: E402
+from repro_torch.distributed.sharding import iter_leaves  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import llava as tllava  # noqa: E402
 from repro_torch.models import transformer as ttransformer  # noqa: E402
@@ -357,6 +361,106 @@ def test_serve_cli_default_arch_matches_reference(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["serve"])  # the reference reads argv
     defaults = []
     for main in (jserve.main, lambda: serve.main([])):
+        with pytest.raises(Parsed) as parsed:
+            main()
+        defaults.append(parsed.value.args[0].arch)
+    assert defaults == ["qwen3-1.7b", "qwen3-1.7b"]
+
+
+# -- training ------------------------------------------------------------------------
+
+def test_loss_and_every_grad_match_reference(ref):
+    """One train step's loss and the gradient of every leaf, on the
+    conditioned weights: the loss within 1e-5, each leaf within TOL with
+    atol taken times max(1, max |g|) (``tests/test_grads.py``
+    ``_close_scaled``), as the jamba slice holds its grads."""
+    jm, tm = ref["jm"], ref["tm"]
+    batch = _batch(ref["jcfg"], labels=True)
+    jloss, jgrads = jax.value_and_grad(jm.loss)(
+        ref["jcond"], jax.tree.map(jnp.asarray, batch))
+    jgrads = dict(iter_leaves(jax.tree.map(np.asarray, jgrads)))
+    loss, grads = tsteps.loss_and_grads(tm, ref["tcond"], _tb(batch))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    got = dict(iter_leaves(grads))
+    assert set(got) == set(jgrads)
+    for path, g in got.items():
+        want = jgrads[path]
+        np.testing.assert_allclose(
+            g.numpy(), want, rtol=TOL["rtol"],
+            atol=TOL["atol"] * max(1.0, np.abs(want).max()), err_msg=path)
+        assert np.abs(want).max() > 0, path
+
+
+@pytest.mark.parametrize("step", [0, 1, 7])
+def test_batch_extras_match_the_reference_draw(step):
+    """The vlm family's patches of a step are the reference's draw for the
+    same (seed, step), bit for bit; other families draw nothing."""
+    cfg = smoke_config(get_config("llava-next-34b"))
+    jcfg = jsmoke_config(jget_config("llava-next-34b"))
+    assert ttrain._TAG_PATCHES == jtrain._TAG_PATCHES
+    got = ttrain.build_batch_extras(
+        cfg, 2, ttrain.step_stream(3, step, ttrain._TAG_PATCHES))
+    want = jtrain.build_batch_extras(
+        jcfg, 2, jtrain.step_stream(3, step, jtrain._TAG_PATCHES))
+    assert set(got) == set(want) == {"patches"}
+    assert got["patches"].shape == (2, cfg.num_patches, 1152)
+    np.testing.assert_array_equal(got["patches"], np.asarray(want["patches"]))
+    qwen = smoke_config(get_config("qwen3-1.7b"))
+    assert ttrain.build_batch_extras(
+        qwen, 2, ttrain.step_stream(3, step, ttrain._TAG_PATCHES)) == {}
+
+
+def test_train_cli_trains_llava(tmp_path, capsys, monkeypatch):
+    """The reference's llava train command on the CPU: 2 steps with finite
+    losses, and every step fed the reference's patches for its (seed,
+    step)."""
+    fed = []
+    make = ttrain.make_train_step
+
+    def spying(*a, **k):
+        step_fn = make(*a, **k)
+
+        def step(state, batch):
+            fed.append(batch["patches"].clone())
+            return step_fn(state, batch)
+        return step
+
+    monkeypatch.setattr(ttrain, "make_train_step", spying)
+    out = ttrain.main([
+        "--arch", "llava-next-34b", "--smoke", "--steps", "2", "--batch",
+        "2", "--grad-accum", "1", "--seq", "32", "--device", "cpu",
+        "--run-dir", str(tmp_path), "--log-every", "1",
+    ])
+    text = capsys.readouterr().out
+    assert "[train] step 1 loss " in text
+    assert "[train] done; final loss" in text
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    jcfg = jsmoke_config(jget_config("llava-next-34b"))
+    assert len(fed) == 2
+    for s, patches in enumerate(fed):
+        want = jtrain.build_batch_extras(
+            jcfg, 2, jtrain.step_stream(0, s, jtrain._TAG_PATCHES))["patches"]
+        np.testing.assert_array_equal(patches.numpy(), np.asarray(want))
+
+
+def test_train_cli_default_arch_matches_reference(monkeypatch):
+    """Both train CLIs parse an empty command line to --arch qwen3-1.7b."""
+    import argparse
+    import sys
+
+    class Parsed(Exception):
+        pass
+
+    parse = argparse.ArgumentParser.parse_args
+
+    def stop_after_parsing(self, args=None, namespace=None):
+        raise Parsed(parse(self, args, namespace))
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args",
+                        stop_after_parsing)
+    monkeypatch.setattr(sys, "argv", ["train"])  # the reference reads argv
+    defaults = []
+    for main in (jtrain.main, lambda: ttrain.main([])):
         with pytest.raises(Parsed) as parsed:
             main()
         defaults.append(parsed.value.args[0].arch)

@@ -218,6 +218,7 @@ def test_resume_after_a_crash_replays_the_same_losses(tmp_path):
 
 def test_train_cli_restarts_and_finishes(tmp_path, capsys):
     out = ttrain.main([
+        "--arch", "whisper-medium",
         "--smoke", "--device", "cpu", "--steps", "3", "--batch", "2",
         "--seq", "32", "--audio-frontend", "mels", "--conv-backend",
         "sliding_pallas", "--run-dir", str(tmp_path), "--ckpt-every", "1",
