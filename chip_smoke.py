@@ -233,10 +233,10 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version, the port's associative scan and the bound.
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
-     each redesigned row (2, 2b, 9, 5, 12) at each timed shape
+     each redesigned row (2, 2b, 9, 5, 12, 4, 14) at each timed shape
      beside its time before the redesign (``EARLIER_MS``): row 5 at the
      five hbm columns phase 35 times it on, row 12 at phase 32's five
-     shapes.
+     shapes, row 4 at phase 27's six, row 14 at phase 32's seven.
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
@@ -2795,6 +2795,53 @@ def phase_full_serve_llava(serve, models, configs, llava, iter_leaves, quant,
     return res
 
 
+def conv2d_times(s2, s, dtype, act, with_bias, seed, n_sets) -> dict:
+    """Row 4 at shape ``s`` (x of ``dtype``, bias or none, activation
+    ``act``) beside its plain version, ``F.conv2d`` on channels_last (cuDNN,
+    TF32 off) with the bias and activation, and the bound; ``n_sets`` input
+    sets cycled (together past the L2)."""
+    st = (s["stride"],) * 2
+    sets = []
+    for i in range(n_sets):
+        x, w, b = conv2d_inputs(seed + i, s["B"], s["H"], s["W"], s["Cin"],
+                                s["Cout"], s["k"], dtype, with_bias,
+                                uniform=s is PATCH_MAIN)
+        # the library's layouts made ahead: x as an NCHW view of its
+        # NHWC storage (channels_last), w as OIHW in channels_last
+        sets.append((x, w, b, x.permute(0, 3, 1, 2),
+                     w.permute(3, 2, 0, 1).contiguous(
+                         memory_format=torch.channels_last),
+                     None if b is None else b.to(dtype)))
+
+    def library(x, w, b, x_lib, w_lib, b_lib):
+        y = F.conv2d(x_lib, w_lib, b_lib, stride=st)
+        if act == "gelu":
+            y = F.gelu(y, approximate="tanh")
+        return y.permute(0, 2, 3, 1)
+
+    x, w, b = sets[0][:3]
+    want = s2.conv2d_sliding_plain(x, w, b, stride=st, activation=act)
+    close(library(*sets[0]), want,
+          LIBTOL if dtype == torch.bfloat16 else TOL,
+          f"library conv2d {s} {dtype}")
+    oh = (s["H"] - s["k"]) // s["stride"] + 1
+    ow = (s["W"] - s["k"]) // s["stride"] + 1
+    el = x.element_size()
+    nbytes = (el * (x.numel() + w.numel() + s["B"] * oh * ow * s["Cout"])
+              + (4 * s["Cout"] if with_bias else 0))
+    ops = 2 * s["B"] * oh * ow * s["Cout"] * s["k"] ** 2 * s["Cin"]
+    bms, by = bound_ms(nbytes, ops, dtype)
+    t = dict(timings(
+        cycling(lambda x, w, b, *_: s2.conv2d_sliding(
+            x, w, b, stride=st, activation=act), sets),
+        cycling(lambda x, w, b, *_: s2.conv2d_sliding_plain(
+            x, w, b, stride=st, activation=act), sets),
+        cycling(library, sets)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    log(f"time conv2d {s} {dtype} {act} bias={with_bias}: {json.dumps(t)}")
+    return t
+
+
 def phase_conv2d_times(s2, ad, launches, errs) -> tuple[dict, dict]:
     """The 2-D sliding conv kernel at the patch embedding's shape (bf16, the
     main path's call, and f32) and at the fig1 shapes (f32, bias + gelu)
@@ -2805,54 +2852,12 @@ def phase_conv2d_times(s2, ad, launches, errs) -> tuple[dict, dict]:
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
             "plain_call_ms", "library_call_ms")
 
-    def conv_times(s, dtype, act, with_bias, seed, n_sets):
-        st = (s["stride"],) * 2
-        sets = []
-        for i in range(n_sets):
-            x, w, b = conv2d_inputs(seed + i, s["B"], s["H"], s["W"], s["Cin"],
-                                    s["Cout"], s["k"], dtype, with_bias,
-                                    uniform=s is PATCH_MAIN)
-            # the library's layouts made ahead: x as an NCHW view of its
-            # NHWC storage (channels_last), w as OIHW in channels_last
-            sets.append((x, w, b, x.permute(0, 3, 1, 2),
-                         w.permute(3, 2, 0, 1).contiguous(
-                             memory_format=torch.channels_last),
-                         None if b is None else b.to(dtype)))
-
-        def library(x, w, b, x_lib, w_lib, b_lib):
-            y = F.conv2d(x_lib, w_lib, b_lib, stride=st)
-            if act == "gelu":
-                y = F.gelu(y, approximate="tanh")
-            return y.permute(0, 2, 3, 1)
-
-        x, w, b = sets[0][:3]
-        want = s2.conv2d_sliding_plain(x, w, b, stride=st, activation=act)
-        close(library(*sets[0]), want,
-              LIBTOL if dtype == torch.bfloat16 else TOL,
-              f"library conv2d {s} {dtype}")
-        oh = (s["H"] - s["k"]) // s["stride"] + 1
-        ow = (s["W"] - s["k"]) // s["stride"] + 1
-        el = x.element_size()
-        nbytes = (el * (x.numel() + w.numel() + s["B"] * oh * ow * s["Cout"])
-                  + (4 * s["Cout"] if with_bias else 0))
-        ops = 2 * s["B"] * oh * ow * s["Cout"] * s["k"] ** 2 * s["Cin"]
-        bms, by = bound_ms(nbytes, ops, dtype)
-        t = dict(timings(
-            cycling(lambda x, w, b, *_: s2.conv2d_sliding(
-                x, w, b, stride=st, activation=act), sets),
-            cycling(lambda x, w, b, *_: s2.conv2d_sliding_plain(
-                x, w, b, stride=st, activation=act), sets),
-            cycling(library, sets)),
-            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-        log(f"time conv2d {s} {dtype} {act} bias={with_bias}: {json.dumps(t)}")
-        return t
-
-    main = conv_times(PATCH_MAIN, torch.bfloat16, "none", False, 160, 4)
-    extra = {"patch_embed_f32": conv_times(PATCH_MAIN, torch.float32, "none",
-                                           False, 170, 3)}
+    main = conv2d_times(s2, PATCH_MAIN, torch.bfloat16, "none", False, 160, 4)
+    extra = {"patch_embed_f32": conv2d_times(s2, PATCH_MAIN, torch.float32,
+                                             "none", False, 170, 3)}
     for i, s in enumerate(FIG1):  # 2 MB inputs: 26 sets exceed the L2
-        extra[f"fig1_k{s['k']}_f32"] = conv_times(s, torch.float32, "gelu",
-                                                  True, 180 + 30 * i, 26)
+        extra[f"fig1_k{s['k']}_f32"] = conv2d_times(
+            s2, s, torch.float32, "gelu", True, 180 + 30 * i, 26)
 
     Ba, S, KV, G, D = (ATTN_LLAVA[n] for n in ("B", "S", "KV", "G", "D"))
     lens = [3152] * Ba  # the request's middle decode step
@@ -3484,6 +3489,94 @@ def phase_llava_train_cli(train) -> dict:
     return dict(losses=losses)
 
 
+def unfolded(x, k, stride, kpad):
+    """x (B, H, W, Cin) -> (B*oh*ow, kpad): each position's k*k*Cin
+    values in (i, j, c) order, zero-padded to kpad."""
+    cols = x.unfold(1, k, stride).unfold(2, k, stride)  # B oh ow C i j
+    cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * x.shape[3])
+    return F.pad(cols, (0, kpad - cols.shape[1]))
+
+
+def conv2d_quant_times(sq, name, s, mode, out, act, with_bias, seed,
+                       n_sets) -> dict:
+    """Row 14 at shape ``s`` (``mode``; w8a16 on bf16 x; output ``out``:
+    "bf16", "f32" or "int8", requantized) beside its plain version,
+    ``torch._int_mm`` on the input unfolded ahead (K padded to a multiple
+    of 8) plus the epilogue in torch (w8a16: ``F.conv2d`` on the widened
+    codes, cuDNN, TF32 off), and the bound; ``n_sets`` input sets cycled."""
+    k, st = s["k"], (s["stride"],) * 2
+    oh = (s["H"] - k) // s["stride"] + 1
+    ow = (s["W"] - k) // s["stride"] + 1
+    K = k * k * s["Cin"]
+    kpad = (K + 7) // 8 * 8
+    sets, lib_sets = [], []
+    for i in range(n_sets):
+        x, w, ws, b, xs = conv2d_quant_inputs(
+            seed + i, s["B"], s["H"], s["W"], s["Cin"], s["Cout"], k,
+            mode, torch.bfloat16, with_bias)
+        sets.append((x, w, ws, b, xs))
+    os = torch.tensor(0.05, device=DEV) if out == "int8" else None
+    odt = torch.bfloat16 if out == "bf16" else torch.float32
+    for x, w, ws, b, xs in sets[:2]:  # each > 50 MB, or unfolded ahead
+        if mode == "w8a8":
+            lib_sets.append((unfolded(x, k, s["stride"], kpad),
+                             F.pad(w.reshape(K, -1), (0, 0, 0, kpad - K)),
+                             ws * xs, b))
+        else:
+            lib_sets.append((x.permute(0, 3, 1, 2),
+                             w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+                                 memory_format=torch.channels_last),
+                             ws, b))
+
+    def kernel(x, w, ws, b, xs):
+        return sq.conv2d_quant(x, w, ws, b, x_scale=xs, out_scale=os,
+                               mode=mode, stride=st, activation=act,
+                               out_dtype=odt)
+
+    def plain(x, w, ws, b, xs):
+        return sq.conv2d_quant_plain(x, w, ws, b, x_scale=xs,
+                                     out_scale=os, mode=mode, stride=st,
+                                     activation=act, out_dtype=odt)
+
+    def library(a, w2, s_row, b):
+        if mode == "w8a8":
+            y = torch._int_mm(a, w2).float().reshape(
+                s["B"], oh, ow, -1) * s_row
+        else:
+            y = F.conv2d(a, w2, stride=st).permute(0, 2, 3, 1).float() * s_row
+        if b is not None:
+            y = y + b
+        if act == "gelu":
+            y = F.gelu(y, approximate="tanh")
+        if os is not None:
+            return torch.clamp(torch.round(y / os), -127, 127).to(torch.int8)
+        return y.to(odt)
+
+    want = plain(*sets[0])
+    lib = library(*lib_sets[0])
+    if os is not None:
+        if (lib.int() - want.int()).abs().max().item() > 1:
+            raise AssertionError(f"library conv2d_quant {name}")
+    else:  # cuDNN rounds the w8a16 sum to bf16 before the scale
+        close(lib, want, LIBTOL if mode == "w8a16" else
+              QBTOL if odt == torch.bfloat16 else TIGHT,
+              f"library conv2d_quant {name}", scaled=True)
+    x, w = sets[0][:2]
+    out_bytes = {"int8": 1, "bf16": 2, "f32": 4}[out]
+    nbytes = (x.numel() * x.element_size() + w.numel() + 4 * s["Cout"]
+              + (4 * s["Cout"] if with_bias else 0)
+              + out_bytes * s["B"] * oh * ow * s["Cout"])
+    ops = 2 * s["B"] * oh * ow * s["Cout"] * K
+    bms, by = bound_ms(nbytes, ops,
+                       torch.int8 if mode == "w8a8" else torch.bfloat16)
+    t = dict(timings(cycling(kernel, sets), cycling(plain, sets),
+                     cycling(library, lib_sets)),
+             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    log(f"time conv2d_quant {name} {s} {mode} -> {out} {act} "
+        f"bias={with_bias}: {json.dumps(t)}")
+    return t
+
+
 def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
     """32: the int8 conv2d kernel at the patch embedding (the model path's
     w8a8 call with a bf16 output, the chained one with an int8 output, and
@@ -3499,102 +3592,22 @@ def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
             "plain_call_ms", "library_call_ms")
 
-    def unfolded(x, k, stride, kpad):
-        """x (B, H, W, Cin) -> (B*oh*ow, kpad): each position's k*k*Cin
-        values in (i, j, c) order, zero-padded to kpad."""
-        cols = x.unfold(1, k, stride).unfold(2, k, stride)  # B oh ow C i j
-        cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * x.shape[3])
-        return F.pad(cols, (0, kpad - cols.shape[1]))
-
-    def quant_times(name, s, mode, out, act, with_bias, seed, n_sets):
-        k, st = s["k"], (s["stride"],) * 2
-        oh = (s["H"] - k) // s["stride"] + 1
-        ow = (s["W"] - k) // s["stride"] + 1
-        K = k * k * s["Cin"]
-        kpad = (K + 7) // 8 * 8
-        sets, lib_sets = [], []
-        for i in range(n_sets):
-            x, w, ws, b, xs = conv2d_quant_inputs(
-                seed + i, s["B"], s["H"], s["W"], s["Cin"], s["Cout"], k,
-                mode, torch.bfloat16, with_bias)
-            sets.append((x, w, ws, b, xs))
-        os = torch.tensor(0.05, device=DEV) if out == "int8" else None
-        odt = torch.bfloat16 if out == "bf16" else torch.float32
-        for x, w, ws, b, xs in sets[:2]:  # each > 50 MB, or unfolded ahead
-            if mode == "w8a8":
-                lib_sets.append((unfolded(x, k, s["stride"], kpad),
-                                 F.pad(w.reshape(K, -1), (0, 0, 0, kpad - K)),
-                                 ws * xs, b))
-            else:
-                lib_sets.append((x.permute(0, 3, 1, 2),
-                                 w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
-                                     memory_format=torch.channels_last),
-                                 ws, b))
-
-        def kernel(x, w, ws, b, xs):
-            return sq.conv2d_quant(x, w, ws, b, x_scale=xs, out_scale=os,
-                                   mode=mode, stride=st, activation=act,
-                                   out_dtype=odt)
-
-        def plain(x, w, ws, b, xs):
-            return sq.conv2d_quant_plain(x, w, ws, b, x_scale=xs,
-                                         out_scale=os, mode=mode, stride=st,
-                                         activation=act, out_dtype=odt)
-
-        def library(a, w2, s_row, b):
-            if mode == "w8a8":
-                y = torch._int_mm(a, w2).float().reshape(
-                    s["B"], oh, ow, -1) * s_row
-            else:
-                y = F.conv2d(a, w2, stride=st).permute(0, 2, 3, 1).float() * s_row
-            if b is not None:
-                y = y + b
-            if act == "gelu":
-                y = F.gelu(y, approximate="tanh")
-            if os is not None:
-                return torch.clamp(torch.round(y / os), -127, 127).to(torch.int8)
-            return y.to(odt)
-
-        want = plain(*sets[0])
-        lib = library(*lib_sets[0])
-        if os is not None:
-            if (lib.int() - want.int()).abs().max().item() > 1:
-                raise AssertionError(f"library conv2d_quant {name}")
-        else:  # cuDNN rounds the w8a16 sum to bf16 before the scale
-            close(lib, want, LIBTOL if mode == "w8a16" else
-                  QBTOL if odt == torch.bfloat16 else TIGHT,
-                  f"library conv2d_quant {name}", scaled=True)
-        x, w = sets[0][:2]
-        out_bytes = {"int8": 1, "bf16": 2, "f32": 4}[out]
-        nbytes = (x.numel() * x.element_size() + w.numel() + 4 * s["Cout"]
-                  + (4 * s["Cout"] if with_bias else 0)
-                  + out_bytes * s["B"] * oh * ow * s["Cout"])
-        ops = 2 * s["B"] * oh * ow * s["Cout"] * K
-        bms, by = bound_ms(nbytes, ops,
-                           torch.int8 if mode == "w8a8" else torch.bfloat16)
-        t = dict(timings(cycling(kernel, sets), cycling(plain, sets),
-                         cycling(library, lib_sets)),
-                 bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-        log(f"time conv2d_quant {name} {s} {mode} -> {out} {act} "
-            f"bias={with_bias}: {json.dumps(t)}")
-        return t
-
-    q_main = quant_times("patch_embed", PATCH_MAIN, "w8a8", "bf16", "none",
-                         False, 300, 4)
+    q_main = conv2d_quant_times(sq, "patch_embed", PATCH_MAIN, "w8a8",
+                                "bf16", "none", False, 300, 4)
     q_shapes = {
-        "patch_embed_chained": quant_times("patch_embed chained", PATCH_MAIN,
-                                           "w8a8", "int8", "none", False, 310,
-                                           4),
-        "patch_embed_w8a16": quant_times("patch_embed w8a16", PATCH_MAIN,
-                                         "w8a16", "bf16", "none", False, 320,
-                                         3),
+        "patch_embed_chained": conv2d_quant_times(
+            sq, "patch_embed chained", PATCH_MAIN, "w8a8", "int8", "none",
+            False, 310, 4),
+        "patch_embed_w8a16": conv2d_quant_times(
+            sq, "patch_embed w8a16", PATCH_MAIN, "w8a16", "bf16", "none",
+            False, 320, 3),
     }
     for i, (fig, s) in enumerate((("fig1", FIG1[0]), ("fig1", FIG1[-1]),
                                   ("fig2", FIG2[0]), ("fig2", FIG2[1]))):
         name = f"{fig}_k{s['k']}"
         # 0.5 MB inputs: 100 sets exceed the L2
-        q_shapes[name] = quant_times(name, s, "w8a8", "f32", "gelu", True,
-                                     330 + 100 * i, 100)
+        q_shapes[name] = conv2d_quant_times(sq, name, s, "w8a8", "f32",
+                                            "gelu", True, 330 + 100 * i, 100)
 
     def dw_times(name, s, dtype, seed, n_sets):
         k, stride = s["k"], s["stride"]
@@ -4572,6 +4585,15 @@ EARLIER_MS = {
     "conv2d_bwd_dw": {"patch_embed": 1.3744, "patch_embed_f32": 1.4075,
                       "fig1_k3_f32": 0.0539, "fig1_k31_f32": 1.7963,
                       "fig2_k17_f32": 0.4667},
+    # rows 4 and 14 on their CUDA-core tiles, at phase 27's and phase 32's
+    # shapes
+    "conv2d": {"patch_embed": 1.2553, "patch_embed_f32": 1.1914,
+               "fig1_k3_f32": 0.0628, "fig1_k5_f32": 0.1526,
+               "fig1_k17_f32": 1.6148, "fig1_k31_f32": 5.4151},
+    "conv2d_quant": {"patch_embed": 0.6467, "patch_embed_chained": 0.6495,
+                     "patch_embed_w8a16": 1.3017, "fig1_k3": 0.0401,
+                     "fig1_k31": 2.8601, "fig2_k3": 0.0347,
+                     "fig2_k17": 0.9205},
 }
 # rows 2 and 2b at the three decode shapes: (shape, the lengths of the
 # request's middle decode step)
@@ -4632,7 +4654,8 @@ def report_redesigned(kernels) -> None:
     The earlier times go to the log only: the kernels' JSON line holds
     what this run measured."""
     main_shape = {"max_pool_bwd": "paper_w64", "matmul": "fig1_k31",
-                  "conv2d_bwd_dw": "patch_embed"}
+                  "conv2d_bwd_dw": "patch_embed", "conv2d": "patch_embed",
+                  "conv2d_quant": "patch_embed"}
     for row in kernels:
         before = EARLIER_MS.get(row["name"])
         if before is None:

@@ -1,9 +1,12 @@
-"""The tiled GEMM (row 5) and the 2-D weight gradient (row 12) on one card,
-alone: each held to its plain version, then timed beside its plain
-version, one PyTorch call and the bound, at the shapes PERF.md §6 times
-them at.
+"""The products on ``csrc/gemm_mma.cuh`` on one card, alone: the tiled GEMM
+(row 5), the 2-D weight gradient (row 12) and the 2-D sliding conv, fp
+(row 4) and int8 (row 14). Each is held to its plain version (and two
+calls to each other, bitwise), then timed beside its plain version, one
+PyTorch call and the bound, at the shapes PERF.md §6 times it at.
 
-    python3 scripts/gemm_times.py
+    python3 scripts/gemm_times.py [matmul] [conv2d_bwd_dw] [conv2d] [conv2d_quant]
+
+(no names: all four).
 
 Row 5 on random operands of the hbm columns' shapes (fig1 k=31, fig1 k=3,
 the 1-D table's K=65, f32; llava's patch column, bf16 and f32) against
@@ -11,9 +14,15 @@ the 1-D table's K=65, f32; llava's patch column, bf16 and f32) against
 f32), fig1 k=3 and k=31 and fig2 k=17 (f32) against
 ``torch.nn.grad.conv2d_weight`` plus the bias sum (cuDNN, TF32 off), as
 ``chip_smoke.py`` phases 32 and 35 time them (``chip_smoke.card_ms``:
-CUDA events, queue filled, inputs cycled past the L2). Prints the
-``ptxas`` lines of both libraries, a line a shape and, last, one JSON
-object with every reading. Needs one card and ``nvcc``.
+CUDA events, queue filled, inputs cycled past the L2). Row 4 at the patch
+embedding (bf16, f32), fig1 k=3, 5, 17, 31 and fig2 k=3, 17 (f32, bias +
+gelu) against ``F.conv2d`` (``chip_smoke.conv2d_times``, phase 27's
+timing); row 14 at the patch embedding (w8a8 to bf16 and to int8, w8a16
+on bf16), fig1 k=3, 31 and fig2 k=3, 17 (w8a8, f32 out, bias + gelu)
+against ``torch._int_mm`` or ``F.conv2d`` plus the epilogue
+(``chip_smoke.conv2d_quant_times``, phase 32's). Prints the ``ptxas``
+lines of the libraries, a line a shape and, last, one JSON object with
+every reading. Needs one card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -31,7 +40,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, gemm_plan  # noqa: E402
 from repro_torch.kernels import im2col_gemm as ig  # noqa: E402
+from repro_torch.kernels import sliding_conv2d as s2  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as sb  # noqa: E402
+from repro_torch.kernels import sliding_conv_quant as sq  # noqa: E402
 
 F32, BF16 = torch.float32, torch.bfloat16
 # row 5: (name, M, K, N, dtype, input sets)
@@ -46,6 +57,21 @@ DW = [("patch_embed", cs.PATCH_MAIN, BF16, 3),
       ("fig1_k3_f32", dict(cs.fig_shape("fig1", 3), stride=1), F32, 26),
       ("fig1_k31_f32", dict(cs.fig_shape("fig1", 31), stride=1), F32, 26),
       ("fig2_k17_f32", dict(cs.fig_shape("fig2", 17), stride=1), F32, 26)]
+# row 4: (name, shape, dtype, activation, bias, input sets)
+CONV = [("patch_embed", cs.PATCH_MAIN, BF16, "none", False, 4),
+        ("patch_embed_f32", cs.PATCH_MAIN, F32, "none", False, 3),
+        *[(f"{fig}_k{s['k']}_f32", s, F32, "gelu", True, 26)
+          for fig, figs in (("fig1", cs.FIG1), ("fig2", cs.FIG2))
+          for s in figs]]
+# row 14: (name, shape, mode, output, activation, bias, input sets)
+QUANT = [("patch_embed", cs.PATCH_MAIN, "w8a8", "bf16", "none", False, 4),
+         ("patch_embed_chained", cs.PATCH_MAIN, "w8a8", "int8", "none", False,
+          4),
+         ("patch_embed_w8a16", cs.PATCH_MAIN, "w8a16", "bf16", "none", False,
+          3),
+         *[(f"{fig}_k{s['k']}", s, "w8a8", "f32", "gelu", True, 100)
+           for fig, s in (("fig1", cs.FIG1[0]), ("fig1", cs.FIG1[-1]),
+                          ("fig2", cs.FIG2[0]), ("fig2", cs.FIG2[1]))]]
 
 
 def matmul_row(name, M, K, N, dtype, n_sets) -> dict:
@@ -107,6 +133,49 @@ def dw_row(name, s, dtype, n_sets) -> dict:
                 splits=plan.splits, tile=plan.tile.id)
 
 
+def _conv_plan(s, dtype) -> dict:
+    oh = (s["H"] - s["k"]) // s["stride"] + 1
+    ow = (s["W"] - s["k"]) // s["stride"] + 1
+    plan = gemm_plan.gemm_plan(s["B"] * oh * ow, s["Cout"],
+                               s["k"] ** 2 * s["Cin"], dtype,
+                               build.sm_count(torch.device("cuda")))
+    return dict(splits=plan.splits, tile=plan.tile.id)
+
+
+def conv_row(name, s, dtype, act, with_bias, n_sets) -> dict:
+    st = (s["stride"],) * 2
+    x, w, b = cs.conv2d_inputs(600, s["B"], s["H"], s["W"], s["Cin"],
+                               s["Cout"], s["k"], dtype, with_bias,
+                               uniform=s is cs.PATCH_MAIN)
+    args = dict(stride=st, activation=act)
+    err = cs.conv2d_check(s2, x, w, b, f"conv2d {name}", **args)
+    if not torch.equal(s2.conv2d_sliding(x, w, b, **args),
+                       s2.conv2d_sliding(x, w, b, **args)):
+        raise AssertionError(f"conv2d {name}: two calls differ")
+    t = cs.conv2d_times(s2, s, dtype, act, with_bias, 610, n_sets)
+    return dict(t, max_abs_err=err, **_conv_plan(s, dtype))
+
+
+def quant_row(name, s, mode, out, act, with_bias, n_sets) -> dict:
+    st = (s["stride"],) * 2
+    x, w, ws, b, xs = cs.conv2d_quant_inputs(
+        620, s["B"], s["H"], s["W"], s["Cin"], s["Cout"], s["k"], mode,
+        BF16, with_bias)
+    odt = BF16 if out == "bf16" else F32
+    err = cs.check_conv2d_quant(sq, x, w, ws, b, xs, mode=mode, stride=st,
+                                act=act, out_dtype=odt, requant=True,
+                                what=f"conv2d_quant {name}")
+    args = dict(x_scale=xs, mode=mode, stride=st, activation=act,
+                out_dtype=odt)
+    if not torch.equal(sq.conv2d_quant(x, w, ws, b, **args),
+                       sq.conv2d_quant(x, w, ws, b, **args)):
+        raise AssertionError(f"conv2d_quant {name}: two calls differ")
+    t = cs.conv2d_quant_times(sq, name, s, mode, out, act, with_bias, 630,
+                              n_sets)
+    return dict(t, max_abs_err=err,
+                **_conv_plan(s, torch.int8 if mode == "w8a8" else BF16))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("gemm_times: no CUDA device", file=sys.stderr)
@@ -119,20 +188,35 @@ def main() -> int:
     import repro_torch
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
+    rows = sys.argv[1:] or ["matmul", "conv2d_bwd_dw", "conv2d",
+                            "conv2d_quant"]
     build.build_all()
-    for lib in ("im2col_gemm", "sliding_conv2d_bwd"):
+    for lib in ("im2col_gemm", "sliding_conv2d_bwd", "sliding_conv2d",
+                "sliding_conv2d_quant"):
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {lib}: {line.strip()}", flush=True)
-    out = {"device": smi, "matmul": {}, "conv2d_bwd_dw": {}}
-    for name, M, K, N, dtype, n_sets in MATMUL:
+    out = {"device": smi, **{r: {} for r in rows}}
+    for name, M, K, N, dtype, n_sets in MATMUL * ("matmul" in rows):
         out["matmul"][name] = r = matmul_row(name, M, K, N, dtype, n_sets)
         print(f"matmul {name} ({M}, {K}) @ ({K}, {N}) {dtype}: "
               f"{json.dumps(r)}", flush=True)
         torch.cuda.empty_cache()
-    for name, s, dtype, n_sets in DW:
+    for name, s, dtype, n_sets in DW * ("conv2d_bwd_dw" in rows):
         out["conv2d_bwd_dw"][name] = r = dw_row(name, s, dtype, n_sets)
         print(f"conv2d_bwd_dw {name} {s} {dtype}: {json.dumps(r)}", flush=True)
+        torch.cuda.empty_cache()
+    for name, s, dtype, act, with_bias, n_sets in CONV * ("conv2d" in rows):
+        out["conv2d"][name] = r = conv_row(name, s, dtype, act, with_bias,
+                                           n_sets)
+        print(f"conv2d {name} {s} {dtype}: {json.dumps(r)}", flush=True)
+        torch.cuda.empty_cache()
+    for name, s, mode, o, act, with_bias, n_sets in QUANT * (
+            "conv2d_quant" in rows):
+        out["conv2d_quant"][name] = r = quant_row(name, s, mode, o, act,
+                                                  with_bias, n_sets)
+        print(f"conv2d_quant {name} {s} {mode} -> {o}: {json.dumps(r)}",
+              flush=True)
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

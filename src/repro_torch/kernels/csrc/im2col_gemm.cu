@@ -62,9 +62,10 @@ namespace {
 
 // A row-major (M, K) matrix with leading dimension K: contiguous along k.
 struct MatrixRows {
-  static constexpr bool kMajor = true;
+  static constexpr bool kMajor = true, kCacheRows = false;
   int ld;
-  __device__ long long row(int m) const { return (long long)m * ld; }
+  __device__ int row(int m) const { return m; }
+  __device__ long long at(int m) const { return (long long)m * ld; }
   __device__ long long col(int r) const { return r; }
 };
 
@@ -139,14 +140,14 @@ extern "C" int im2col_matmul(const void* a, const void* b, void* c, float* ws,
                              int splits, int per, int va, int vb,
                              void* stream) {
   if (is_bf16) {
-    auto* cb = static_cast<__nv_bfloat16*>(c);
+    const gm::Store<__nv_bfloat16> out{static_cast<__nv_bfloat16*>(c), N};
     return gm::gemm(static_cast<const __nv_bfloat16*>(a),
-                    static_cast<const __nv_bfloat16*>(b), cb, ws, nullptr, M,
+                    static_cast<const __nv_bfloat16*>(b), out, ws, nullptr, M,
                     N, K, MatrixRows{K}, tile, splits, per, va, vb, stream);
   }
   return gm::gemm(static_cast<const float*>(a), static_cast<const float*>(b),
-                  static_cast<float*>(c), ws, nullptr, M, N, K, MatrixRows{K},
-                  tile, splits, per, va, vb, stream);
+                  gm::Store<float>{static_cast<float*>(c), N}, ws, nullptr, M,
+                  N, K, MatrixRows{K}, tile, splits, per, va, vb, stream);
 }
 
 extern "C" int im2col_conv1d(const void* x, const void* w, void* y, int B,

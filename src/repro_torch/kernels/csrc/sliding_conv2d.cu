@@ -3,7 +3,7 @@
 //
 // Replaces: src/repro/kernels/sliding_conv2d.py, conv2d_sliding_pallas (the
 // custom / generic / compound kernel bodies, their Cin-block f32 revisit
-// and the fused epilogue).
+// and the fused epilogue, _finish).
 //
 // What it computes: VALID conv2d, NHWC input and HWIO weights, on an input
 // the caller has already padded,
@@ -11,124 +11,104 @@
 //                         * x[b, oy*sh + i, ox*sw + j, c])
 // with x (B, H, W, Cin), w (kh, kw, Cin, Cout), bias (Cout,) float32 or
 // absent, and y (B, oh, ow, Cout) in x's type. float32 or bfloat16
-// operands; the sum is always taken in float32 and never in TF32. act:
-// none, relu, gelu with the tanh approximation, silu.
+// operands; the sum is always taken in float32 and never in TF32 (bf16
+// products are exact in float32). act: none, relu, gelu with the tanh
+// approximation, silu. With z it also stores the post-bias pre-activation
+// in y's type (the residual the backward pass forms dz = dy * act'(z)
+// from).
 //
 // What bounds it on this card: at llava's patch embedding (x (20, 336, 336,
 // 3), w (14, 14, 3, 1152), stride 14) the work is 15.6 GFLOP against 40 MB
-// of traffic (bf16), so it is bound by arithmetic: 0.016 ms on the bf16
-// tensor cores, 0.23 ms on the CUDA cores' float32 rate. This kernel sums
-// on the CUDA cores in float32 (both types), so the second is its ceiling;
-// tensor-core (wgmma) tiles for bf16 are later work.
+// of traffic in bf16: bound by arithmetic, 0.0158 ms on the bf16 tensor
+// cores; in float32 0.233 ms at the CUDA cores' rate. The paper's fig1
+// k=31 in float32 ((1, 128, 128, 32) x (31, 31, 32, 32)) is 18.9 GFLOP,
+// 0.282 ms.
 //
-// What the design does about it: the tiling and main loop of
-// conv2d_rows.cuh (shared with the int8 conv2d's w8a16 kernel): 64 output
-// pixels x 64 output channels a block, a 4x4 register tile of float32 sums
-// a thread, one filter row staged at a time so that the reduction over a
-// row runs over its (tap, channel) pairs together, every pixel's operand
-// an offset into the same staged input row (the paper's vector slide): no
-// im2col buffer in device memory. Staging one filter row at a time (the
-// compound regime's ROW_CHUNK taken to 1) keeps shared memory independent
-// of kh and wastes no staged rows at strides above 1: at the patch
-// embedding (kw*CC = 42, stride = kernel) each staged row is read by
-// exactly one output row, with no gaps. The epilogue (bias, activation,
-// cast) runs once, after the last chunk; with z it also stores the
-// post-bias pre-activation in y's type (the residual the backward pass
-// forms dz = dy * act'(z) from). The custom / generic / compound split is
-// a TPU tiling choice (how taps group in VMEM); this one kernel covers
-// every kh, kw >= 1 and every stride >= 1.
+// What the design does about it: the conv is one product on gemm_mma.cuh's
+// main loop, y[p, n] = epilogue(sum_k A[p, k] * w[k, n]), with p = (b, oy,
+// ox) the output positions (B*oh*ow rows), k = (i, j, c) the flat HWIO
+// filter index (the weight is already the row-major (kh*kw*Cin, Cout)
+// matrix) and A[p, k] = x[base(p) + i*W*Cin + j*Cin + c]. In NHWC a
+// position's kw*Cin values of filter row i are one contiguous run of x
+// (the paper's vector slide), so A is staged along k run by run, straight
+// from x, in copies as wide as the runs' alignment allows: no im2col
+// buffer reaches device memory, and no copy crosses from one filter row
+// to the next (its width divides kw*Cin). bfloat16 runs on mma.sync tiles
+// (128 x 128, 8 warps), float32 on 8 x 8 register tiles (a 32-wide Cout
+// tile where Cout <= 32, as at every fig1 and fig2 shape), both behind a
+// ring of cp.async stages, the reduction split over blocks where the
+// tiles alone would leave the card idle. The epilogue (bias, activation,
+// the cast, z) runs once an output: in the block's store, or after the
+// splits' float32 partials are added in split order. The custom / generic
+// / compound split is a TPU tiling choice (how taps group in VMEM); this
+// one kernel covers every kh, kw >= 1 and every stride >= 1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <math.h>
 #include <stddef.h>
 
-#include "conv2d_rows.cuh"
+#include "gemm_mma.cuh"
 
 namespace {
 
+// y = act(sum + bias) and, where z is not null, z = sum + bias, both in T
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sliding_conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const float* __restrict__ bias, T* __restrict__ y,
-                      T* __restrict__ z, int H, int W, int Cin, int Cout,
-                      int kh, int kw, int sh, int sw, int oh, int ow, int tw,
-                      int cc, int tiles_w, int act) {
-  extern __shared__ __align__(16) float smem[];
-  float acc[RM][RN];
-  sum_rows<T, T>(x, w, smem, H, W, Cin, Cout, kh, kw, sh, sw, tw, cc,
-                 tiles_w, acc);
-
-  // epilogue, once per output element: bias, activation, cast, store
-  const int th = TM / tw;
-  const int b = blockIdx.z;
-  const int oy0 = (blockIdx.x / tiles_w) * th;
-  const int ox0 = (blockIdx.x % tiles_w) * tw;
-  const int n0 = blockIdx.y * TN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int m = ty + 16 * i;
-    const int oy = oy0 + m / tw, ox = ox0 + m % tw;
-    if (oy >= oh || ox >= ow) continue;
-    const size_t row = (((size_t)b * oh + oy) * ow + ox) * Cout;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int n = n0 + tx * RN + j;
-      if (n >= Cout) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += bias[n];
-      if (z != nullptr) z[row + n] = from_f32<T>(v);
-      y[row + n] = from_f32<T>(activate(v, act));
-    }
+struct BiasAct {
+  T* y;
+  T* z;
+  const float* bias;
+  int N, act;
+  __device__ void one(size_t i, int n, float v) const {
+    if (bias != nullptr) v += bias[n];
+    if (z != nullptr) z[i] = from_f32<T>(v);
+    y[i] = from_f32<T>(activate(v, act));
   }
-}
+  __device__ void pair(size_t i, int n, float v0, float v1) const {
+    if (bias != nullptr) {
+      if (n < N) v0 += bias[n];
+      if (n + 1 < N) v1 += bias[n + 1];
+    }
+    if (z != nullptr) gm::store_pair(z, i, n, N, v0, v1);
+    gm::store_pair(y, i, n, N, activate(v0, act), activate(v1, act));
+  }
+};
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* bias, void* y,
-                   void* z, int B, int H, int W, int Cin, int Cout, int kh,
-                   int kw, int sh, int sw, int oh, int ow, int act,
-                   const Tiling& t, cudaStream_t stream) {
-  auto kernel = sliding_conv2d_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(t.tiles_h * t.tiles_w, (Cout + TN - 1) / TN, B);
-  kernel<<<grid, THREADS, t.smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<T*>(z),
-      H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, t.tw, t.cc, t.tiles_w, act);
-  return cudaGetLastError();
+int run(const void* x, const void* w, const void* bias, void* y, void* z,
+        void* ws, int M, int K, int Cout, int act, const gm::ConvPositions& g,
+        int tile, int splits, int per, int va, int vb, void* stream) {
+  const BiasAct<T> epi{static_cast<T*>(y), static_cast<T*>(z),
+                       static_cast<const float*>(bias), Cout, act};
+  return gm::gemm(static_cast<const T*>(x), static_cast<const T*>(w), epi, ws,
+                  nullptr, M, Cout, K, g, tile, splits, per, va, vb, stream);
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted. A shape whose
-// staged rows exceed the card's shared memory even at one channel a chunk
-// (a filter row wider than about 3,000 columns) is refused with
-// cudaErrorInvalidValue, as is a grid the card cannot launch. bias and z
-// may be null.
+// Returns a cudaError_t code: 0 when the launches were accepted. bias and
+// z may be null. The product runs on tile `tile` in `splits` splits of
+// `per` chunks of the kh*kw*Cin filter taps (gemm_plan.py's choice), with
+// copies of va bytes of x and vb of w; ws holds splits * B*oh*ow * Cout
+// floats when splits > 1 (else null). A shape or a grid the card cannot
+// take (more than INT_MAX input pixels or output positions) is refused
+// with cudaErrorInvalidValue.
 extern "C" int sliding_conv2d(const void* x, const void* w, const void* bias,
-                              void* y, void* z, int B, int H, int W, int Cin,
-                              int Cout, int kh, int kw, int sh, int sw,
-                              int oh, int ow, int act, int is_bf16,
+                              void* y, void* z, void* ws, int B, int H, int W,
+                              int Cin, int Cout, int kh, int kw, int sh,
+                              int sw, int oh, int ow, int act, int is_bf16,
+                              int tile, int splits, int per, int va, int vb,
                               void* stream) {
-  if (B < 1 || B > 65535 || Cin < 1 || Cout < 1 || kh < 1 || kw < 1 ||
-      sh < 1 || sw < 1 || oh < 1 || ow < 1 || (oh - 1) * sh + kh > H ||
-      (ow - 1) * sw + kw > W || act < 0 || act > 3 ||
-      (Cout + TN - 1) / TN > 65535)
+  if (!gm::conv_shape_ok(B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow) ||
+      act < 0 || act > 3)
     return (int)cudaErrorInvalidValue;
-  const Tiling t = choose_tiling(Cin, kw, sw, oh, ow);
-  if (t.smem > 227 * 1024 || (long)t.tiles_h * t.tiles_w > 0x7fffffffL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, z, B, H, W, Cin, Cout, kh,
-                                      kw, sh, sw, oh, ow, act, t, s)
-              : launch<float>(x, w, bias, y, z, B, H, W, Cin, Cout, kh, kw, sh,
-                              sw, oh, ow, act, t, s);
-  return (int)err;
+  const gm::ConvPositions g = gm::conv_positions(H, W, Cin, kw, sh, sw, oh,
+                                                 ow);
+  const int M = B * oh * ow, K = kh * kw * Cin;
+  if (is_bf16)
+    return run<__nv_bfloat16>(x, w, bias, y, z, ws, M, K, Cout, act, g, tile,
+                              splits, per, va, vb, stream);
+  return run<float>(x, w, bias, y, z, ws, M, K, Cout, act, g, tile, splits,
+                    per, va, vb, stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -88,12 +88,14 @@ extern "C" int conv2d_bwd_dw(const void* x, const void* dz, float* dw,
   const int M = kh * kw * Cin, K = B * oh * ow;
   const FilterRuns g{H, W, Cin, sh, sw, kw * Cin, gm::FastDiv(oh * ow),
                      gm::FastDiv(ow)};
+  const gm::Store<float> out{dw, Cout};
   if (is_bf16)
     return gm::gemm(static_cast<const __nv_bfloat16*>(x),
-                    static_cast<const __nv_bfloat16*>(dz), dw, ws, db, M, Cout,
-                    K, g, tile, splits, per, va, vb, stream);
+                    static_cast<const __nv_bfloat16*>(dz), out, ws, db, M,
+                    Cout, K, g, tile, splits, per, va, vb, stream);
   return gm::gemm(static_cast<const float*>(x), static_cast<const float*>(dz),
-                  dw, ws, db, M, Cout, K, g, tile, splits, per, va, vb, stream);
+                  out, ws, db, M, Cout, K, g, tile, splits, per, va, vb,
+                  stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,9 +1,13 @@
 """Sliding-window conv2d with a fused bias + activation epilogue.
 
 ``conv2d_sliding`` is the wrapper: on a CUDA tensor it launches the Hopper
-kernel ``csrc/sliding_conv2d.cu``; on a CPU tensor it runs
-``conv2d_sliding_plain``, the same arithmetic in plain torch. Any other
-device raises. Nothing falls back from the kernel to the plain version.
+kernel ``csrc/sliding_conv2d.cu``, the conv as one product on
+``csrc/gemm_mma.cuh``'s main loop (output positions by filter taps, x
+gathered a filter row's run at a time), with the tile, the split of the
+taps and the copy widths from ``gemm_plan`` and the card's SM count; on a
+CPU tensor it runs ``conv2d_sliding_plain``, the same arithmetic in plain
+torch. Any other device raises. Nothing falls back from the kernel to the
+plain version.
 
 Contract (the TPU kernel's, ``repro.kernels.sliding_conv2d``): VALID conv2d
 on an input the caller already padded. x (B, H, W, Cin) NHWC, w (kh, kw,
@@ -27,15 +31,15 @@ import ctypes
 import torch
 
 from repro_torch.core.conv import regime_for
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 from repro_torch.kernels.sliding_conv1d import ACTIVATIONS, apply_activation
 
 DEFAULT_TILE_H = 16
 DEFAULT_TILE_W = 128
 REGIMES = ("custom", "generic", "compound")
-# x, w, bias, y, z; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, act,
-# is_bf16; stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# x, w, bias, y, z, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, act,
+# is_bf16, tile, splits, per, va, vb; stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
 
 
 def resolve_regime(kh: int, kw: int, regime: str | None) -> str:
@@ -110,6 +114,28 @@ def conv2d_sliding_plain(
     return (y, acc.to(x.dtype)) if save_preact else y
 
 
+def product_launch(x, w, stride, oh, ow):
+    """The launch geometry of the conv's product on ``csrc/gemm_mma.cuh``
+    (rows 4 and 14), for contiguous x and w: the plan (tile and split of
+    the kh·kw·Cin taps), the copy widths of x and w, and the splits'
+    workspace (None for one split; int32 partials for int8 x)."""
+    B, H, W, Cin = x.shape
+    kh, kw, _, Cout = w.shape
+    M = B * oh * ow
+    plan = gemm_plan.gemm_plan(M, Cout, kh * kw * Cin, x.dtype,
+                               build.sm_count(x.device))
+    va = gemm_plan.copy_bytes(
+        x.element_size(), [x.data_ptr()],
+        gemm_plan.conv2d_copy_strides(H, W, Cin, kw, stride))
+    vb = gemm_plan.copy_bytes(w.element_size(), [w.data_ptr()], [Cout])
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits * M * Cout,), device=x.device,
+                         dtype=torch.int32 if x.dtype == torch.int8
+                         else torch.float32)
+    return plan, va, vb, ws
+
+
 def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
@@ -121,13 +147,16 @@ def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):
     b32 = None if bias is None else bias.float().contiguous()
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
+    plan, va, vb, ws = product_launch(x, w, stride, oh, ow)
     y = torch.empty((B, oh, ow, Cout), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     code = fn(
         x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
         y.data_ptr(), None if z is None else z.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
         ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
+        plan.tile.id, plan.splits, plan.per, va, vb,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("sliding_conv2d", code)

@@ -21,8 +21,11 @@ after the activation (requant); otherwise ``out_dtype``. ``x_scale`` and
 ``out_scale`` are float32 scalars.
 
 ``conv2d_quant`` is the 2-D counterpart (the TPU kernel
-``conv2d_quant_pallas``; CUDA ``csrc/sliding_conv2d_quant.cu``; plain
-version ``conv2d_quant_plain``, the exact ``quant.qconv.conv2d_q``): x
+``conv2d_quant_pallas``; CUDA ``csrc/sliding_conv2d_quant.cu``, the conv
+as one product on ``csrc/gemm_mma.cuh``'s main loop as for the fp conv:
+w8a8 on its int8 tensor-core tile, w8a16 on the fp conv's tiles with the
+codes widened; plain version ``conv2d_quant_plain``, the exact
+``quant.qconv.conv2d_q``): x
 (B, H, W, Cin), w_q int8 (kh, kw, Cin, Cout), w_scale float32 (Cout,),
 stride (sh, sw), the same two modes and the same epilogue. In w8a8 the
 int32 sums must not overflow: kh·kw·Cin·127² < 2³¹ is checked. The
@@ -52,9 +55,9 @@ _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # x, w, scale, bias, out_scale, y; B, L, Cin, Cout, K, stride, Lout, act,
 # mode, x_kind, y_kind; stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-# x, w, scale, bias, out_scale, y; B, H, W, Cin, Cout, kh, kw, sh, sw, oh,
-# ow, act, mode, x_kind, y_kind; stream
-_2D_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+# x, w, scale, bias, out_scale, y, ws; B, H, W, Cin, Cout, kh, kw, sh, sw,
+# oh, ow, act, mode, x_kind, y_kind, tile, splits, per, va, vb; stream
+_2D_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 # x, w, scale, bias, out_scale, y; B, L, C, K, stride, Lout, act, mode,
 # x_kind, y_kind; stream
 _DW_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -243,14 +246,17 @@ def _launch_2d(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
     x, w_q = x.contiguous(), w_q.contiguous()
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w_q.shape
+    plan, va, vb, ws = sliding_conv2d.product_launch(x, w_q, stride, oh, ow)
     odt = torch.int8 if out_scale is not None else out_dtype
     y = torch.empty((B, oh, ow, Cout), dtype=odt, device=dev)
     code = fn(
         x.data_ptr(), w_q.data_ptr(), s.data_ptr(),
         None if b32 is None else b32.data_ptr(),
         None if os32 is None else os32.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
         ACTIVATIONS[activation], MODES[mode], _KINDS[x.dtype], _KINDS[odt],
+        plan.tile.id, plan.splits, plan.per, va, vb,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("sliding_conv2d_quant", code)
