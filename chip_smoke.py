@@ -213,11 +213,13 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      gradient, one launch) at the companion paper's pooling shape (1,
      16384, 32) f32 and bf16, w in {4, 16, 64, 256}, and at edges (w = 1,
      w = L, (1, 300, 8) at w 100 and 256, (8, 16384, 1), C 37 with ragged
-     tiles, row 9's lanes of 4 blocks; row 9 alone with its slots in
-     global scratch) on
-     normals, zeros and post-relu normals: f32 within 1e-5 of
-     max, bf16 within one step, max exact and scan equal to shift, the max
-     gradient's mass conserved; a float16 call refused;
+     blocks, row 9's lanes of 4 blocks, (2, 3000, 37) at w 2000, where
+     row 8's blocks stream their halos; row 9 alone with its slots in
+     global scratch; (8, 2000, 1024) at w 200 in bf16) on normals, zeros
+     and post-relu normals: f32 within 1e-5 of max, bf16 within one step,
+     sum, avg and the sum gradient bit for bit equal to their plain
+     versions, max exact and scan equal to shift, the max gradient's mass
+     conserved; a float16 call refused;
  37. scan kernel vs plain: row 16 at jamba-1.5-large's prefill chunk (4,
      256, 16384, 16) f32 (row 16's path: one launch, counted from zero)
      and bf16, and at L in {1, 37}, D 200, N in {4, 8, 16, 17, 20, 65,
@@ -233,10 +235,12 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version, the port's associative scan and the bound.
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
-     each redesigned row (2, 2b, 9, 5, 12, 4, 14) at each timed shape
-     beside its time before the redesign (``EARLIER_MS``): row 5 at the
-     five hbm columns phase 35 times it on, row 12 at phase 32's five
-     shapes, row 4 at phase 27's six, row 14 at phase 32's seven.
+     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8) at each timed
+     shape beside its time before the redesign (``EARLIER_MS``): row 5 at
+     the five hbm columns phase 35 times it on, row 12 at phase 32's five
+     shapes, row 4 at phase 27's six, row 14 at phase 32's seven, row 7
+     at phase 35's eight 2-D shapes, row 8's forms and the sum gradient
+     at phase 39's shapes timed before.
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
@@ -4204,27 +4208,33 @@ def pool_input(seed, B, L, C, dtype, kind="normal"):
 
 def check_pool(sp, x, window, what) -> dict:
     """Every form of row 8, the sum gradient (row 8 on the padded
-    cotangent) and row 9 on one input, each against its plain version; the
-    max forms exact and equal to each other; in float32 the max gradient's
-    mass conserved (dy = 1: every window's unit split over its ties, so
-    each (b, c) column of dx sums to the number of windows). Returns max
-    |err| by counter name."""
+    cotangent) and row 9 on one input, each against its plain version:
+    row 8 within ``im2col_close`` and equal (sum, avg and the sum gradient
+    bit for bit: the plain version walks the kernel's layout in its float32
+    order); the max forms equal to each other; in float32 the max
+    gradient's mass conserved (dy = 1: every window's unit split over its
+    ties, so each (b, c) column of dx sums to the number of windows).
+    Returns max |err| by counter name."""
     errs, ys = {}, {}
     for name, op, method in POOL_FORMS:
         got = sp.sliding_pool(x, window=window, op=op, method=method)
         want = sp.sliding_pool_plain(x, window=window, op=op, method=method)
-        if op == "max" and not torch.equal(got, want):
-            raise AssertionError(f"{what} {name}: not exact")
         errs[name] = im2col_close(got, want, f"{what} {name}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} {name}: not equal to its plain "
+                                 "version")
         ys[name] = got
     y = ys["sliding_pool_max_scan"]
     if not torch.equal(y, ys["sliding_pool_max_shift"]):
         raise AssertionError(f"{what}: max scan and max shift differ")
     g = torch.Generator(device=DEV).manual_seed(window)
     dy = torch.randn(y.shape, generator=g, device=DEV).to(x.dtype)
-    errs["sum_pool_bwd"] = im2col_close(
-        sp.sum_pool_bwd(dy, window=window),
-        sp.sum_pool_bwd_plain(dy, window=window), f"{what} sum_pool_bwd")
+    got = sp.sum_pool_bwd(dy, window=window)
+    want = sp.sum_pool_bwd_plain(dy, window=window)
+    errs["sum_pool_bwd"] = im2col_close(got, want, f"{what} sum_pool_bwd")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} sum_pool_bwd: not equal to its plain "
+                             "version")
     errs["max_pool_bwd"] = im2col_close(
         sp.max_pool_bwd(x, y, dy, window=window),
         sp.max_pool_bwd_plain(x, y, dy, window=window),
@@ -4245,11 +4255,14 @@ def phase_pool_kernels(sp) -> dict:
     paper's shape (1, 16384, 32) f32 and bf16 at w in {4, 16, 64, 256};
     the edges w = 1, w = L, (1, 300, 8) at w 100 and 256, C = 1 as (8,
     16384, 1) (``benchmarks/table_conv1d.py``'s layout), C = 37 with ragged
-    last tiles, (4, 4096, 64) at w 3 (row 9's threads walk 4 blocks each),
+    last blocks, (4, 4096, 64) at w 3 (row 9's threads walk 4 blocks
+    each), (2, 3000, 37) at w 2000 (row 8's halos streamed in pieces),
     each on normals, zeros and post-relu normals; row 9 alone at (8, 3000,
-    1024), w 300 (its slots in global scratch); a float16 call refused. Row
-    9 shares each block among lanes at the paper's shape from w 64 and at
-    the small edges. Returns each row's max |err| at the paper's shape."""
+    1024), w 300 (its slots in global scratch); (8, 2000, 1024) at w 200 in
+    bf16, the case a parallel prefix once moved the average two bf16
+    steps from, on the three inputs; a float16 call refused. Row 9 shares
+    each block among lanes at the paper's shape from w 64 and at the small
+    edges. Returns each row's max |err| at the paper's shape."""
     P = POOL_PAPER
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4259,7 +4272,7 @@ def phase_pool_kernels(sp) -> dict:
                 errs[k] = max(errs.get(k, 0.0), v)
     edges = (((2, 300, 37), 1), ((2, 300, 37), 300), ((1, 300, 8), 100),
              ((1, 300, 8), 256), ((8, P["L"], 1), 16), ((2, 1001, 37), 7),
-             ((3, 5000, 64), 33), ((4, 4096, 64), 3))
+             ((3, 5000, 64), 33), ((4, 4096, 64), 3), ((2, 3000, 37), 2000))
     for dtype in (torch.float32, torch.bfloat16):
         for (B, L, C), w in edges:
             for kind in ("normal", "zeros", "relu"):
@@ -4280,6 +4293,9 @@ def phase_pool_kernels(sp) -> dict:
                          f"pool (8, 3000, 1024) w=300 {kind} {dtype} "
                          "max_pool_bwd")
             del x, y, dy
+    for kind in ("normal", "zeros", "relu"):
+        check_pool(sp, pool_input(364, 8, 2000, 1024, torch.bfloat16, kind),
+                   200, f"pool (8, 2000, 1024) w=200 {kind} bf16")
     try:
         sp.sliding_pool(torch.zeros((1, 8, 2), device=DEV,
                                     dtype=torch.float16), window=3)
@@ -4409,18 +4425,19 @@ def phase_pool_path(sp, ops) -> dict:
     return dict(launches=launches, wall_s=wall, max_abs_err_vs_cpu=errs)
 
 
-def _pool_case_times(sp, B, L, C, w, n_sets, batches, inner) -> dict:
-    """Row 8's forms, the sum gradient and row 9 at one shape (f32): card
-    ms per call of the kernel, its plain version and one library call, on
-    input sets cycled past the L2 (tie-free, so that autograd of
-    ``F.max_pool1d``, one argmax a window, computes row 9's function); the
-    bytes bound of each."""
-    el = 4
+def _pool_case_times(sp, B, L, C, w, n_sets, batches, inner,
+                     dtype=torch.float32) -> dict:
+    """Row 8's forms, the sum gradient and, in float32, row 9 at one shape:
+    card ms per call of the kernel, its plain version and one library call,
+    on input sets cycled past the L2 (tie-free in float32, so that autograd
+    of ``F.max_pool1d``, one argmax a window, computes row 9's function);
+    the bytes bound of each."""
+    el = dtype.itemsize
     n_out = L - w + 1
-    xs = [pool_input(390 + i, B, L, C, torch.float32, "distinct")
+    xs = [pool_input(390 + i, B, L, C, dtype, "distinct")
           for i in range(n_sets)]
     g = torch.Generator(device=DEV).manual_seed(391)
-    dys = [torch.randn((B, n_out, C), generator=g, device=DEV)
+    dys = [torch.randn((B, n_out, C), generator=g, device=DEV).to(dtype)
            for _ in range(n_sets)]
     x_lib = [x.transpose(1, 2).contiguous() for x in xs]  # (B, C, L), ahead
     # the padded cotangent in the library's layout, made ahead
@@ -4458,12 +4475,15 @@ def _pool_case_times(sp, B, L, C, w, n_sets, batches, inner) -> dict:
         lambda i: torch.autograd.grad(lib_graphs[i][1], lib_graphs[i][0],
                                       lib_graphs[i][2], retain_graph=True)[0],
         el * (2 * B * L * C + B * n_out * C), 2 * B * (L + n_out) * C)
+    if dtype != torch.float32:  # ties in bf16: the library takes one argmax
+        del fns["max_pool_bwd"]
     out = {}
     for name, (kernel, plain, library, nbytes, ops_n) in fns.items():
         want = plain(0)
         got = library(0)
         got = got.transpose(1, 2)  # back to (B, L, C)
-        close(got, want, TOL, f"library {name} w={w}")
+        close(got, want, TOL if dtype == torch.float32 else LIBTOL,
+              f"library {name} w={w} {dtype}")
         bms, by = bound_ms(nbytes, ops_n, torch.float32)
         t = {}
         for key, fn in (("ms", kernel), ("plain_ms", plain),
@@ -4570,7 +4590,7 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
 
 # the redesigned rows' times with the kernels they replaced, measured by
 # this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6 names the
-# runs)
+# runs; rows 7 and 8 from the runs that first timed them)
 EARLIER_MS = {
     "attention_decode": {"whisper": 0.0242, "jamba": 0.0524,
                          "llava": 0.3325},
@@ -4594,6 +4614,19 @@ EARLIER_MS = {
                      "patch_embed_w8a16": 1.3017, "fig1_k3": 0.0401,
                      "fig1_k31": 2.8601, "fig2_k3": 0.0347,
                      "fig2_k17": 0.9205},
+    # row 7 on gemm_tile.cuh at phase 35's 2-D shapes
+    "im2col_conv2d": {"fig1_k31": 2.7651, "fig1_k3": 0.0319,
+                      "fig1_k5": 0.0777, "fig1_k17": 0.8362,
+                      "fig2_k3": 0.0308, "fig2_k17": 0.6302,
+                      "patch_embed_bf16": 0.6164, "patch_embed_f32": 0.6178},
+    # row 8 a thread a (batch, tile, channel), at phase 39's shapes
+    "sliding_pool_sum": {"paper_w4": 0.0095, "paper_w64": 0.0123,
+                         "paper_w256": 0.0329, "wide_w16": 0.4768},
+    "sliding_pool_avg": {"paper_w64": 0.0186, "wide_w16": 0.7368},
+    "sliding_pool_max_scan": {"paper_w64": 0.0280, "wide_w16": 1.2393},
+    "sliding_pool_max_shift": {"paper_w16": 0.0237, "paper_w256": 0.0878,
+                               "wide_w16": 0.9268},
+    "sum_pool_bwd": {"paper_w64": 0.0123, "wide_w16": 0.4693},
 }
 # rows 2 and 2b at the three decode shapes: (shape, the lengths of the
 # request's middle decode step)
@@ -4655,7 +4688,12 @@ def report_redesigned(kernels) -> None:
     what this run measured."""
     main_shape = {"max_pool_bwd": "paper_w64", "matmul": "fig1_k31",
                   "conv2d_bwd_dw": "patch_embed", "conv2d": "patch_embed",
-                  "conv2d_quant": "patch_embed"}
+                  "conv2d_quant": "patch_embed", "im2col_conv2d": "fig1_k31",
+                  "sliding_pool_sum": "paper_w64",
+                  "sliding_pool_avg": "paper_w64",
+                  "sliding_pool_max_scan": "paper_w64",
+                  "sliding_pool_max_shift": "paper_w16",
+                  "sum_pool_bwd": "paper_w64"}
     for row in kernels:
         before = EARLIER_MS.get(row["name"])
         if before is None:

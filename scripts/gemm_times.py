@@ -1,12 +1,14 @@
 """The products on ``csrc/gemm_mma.cuh`` on one card, alone: the tiled GEMM
-(row 5), the 2-D weight gradient (row 12) and the 2-D sliding conv, fp
-(row 4) and int8 (row 14). Each is held to its plain version (and two
-calls to each other, bitwise), then timed beside its plain version, one
-PyTorch call and the bound, at the shapes PERF.md §6 times it at.
+(row 5), the 2-D weight gradient (row 12), the 2-D sliding conv, fp (row
+4) and int8 (row 14), and the fused 2-D im2col conv (row 7). Each is held
+to its plain version (and two calls to each other, bitwise), then timed
+beside its plain version, one PyTorch call and the bound, at the shapes
+PERF.md §6 times it at.
 
-    python3 scripts/gemm_times.py [matmul] [conv2d_bwd_dw] [conv2d] [conv2d_quant]
+    python3 scripts/gemm_times.py [matmul] [conv2d_bwd_dw] [conv2d] \
+        [conv2d_quant] [im2col_conv2d]
 
-(no names: all four).
+(no names: all five).
 
 Row 5 on random operands of the hbm columns' shapes (fig1 k=31, fig1 k=3,
 the 1-D table's K=65, f32; llava's patch column, bf16 and f32) against
@@ -20,7 +22,10 @@ gelu) against ``F.conv2d`` (``chip_smoke.conv2d_times``, phase 27's
 timing); row 14 at the patch embedding (w8a8 to bf16 and to int8, w8a16
 on bf16), fig1 k=3, 31 and fig2 k=3, 17 (w8a8, f32 out, bias + gelu)
 against ``torch._int_mm`` or ``F.conv2d`` plus the epilogue
-(``chip_smoke.conv2d_quant_times``, phase 32's). Prints the ``ptxas``
+(``chip_smoke.conv2d_quant_times``, phase 32's); row 7 at phase 35's
+2-D shapes (fig1 and fig2 f32, the patch embedding bf16 and f32, no
+epilogue) beside row 4 on the same inputs (``sliding_ms``) and
+``F.conv2d`` on channels_last, as phase 35 times them. Prints the ``ptxas``
 lines of the libraries, a line a shape and, last, one JSON object with
 every reading. Needs one card and ``nvcc``.
 """
@@ -176,6 +181,42 @@ def quant_row(name, s, mode, out, act, with_bias, n_sets) -> dict:
                 **_conv_plan(s, torch.int8 if mode == "w8a8" else BF16))
 
 
+def im2col_row(c) -> dict:
+    """Row 7 at one of phase 35's 2-D cases: held to its plain version on
+    the operands widened to float32, two calls bitwise equal, then timed
+    beside row 4 (no epilogue), the plain version, ``F.conv2d`` and the
+    bound, with the plan and x's copy width."""
+    sets = []
+    for i in range(c["sets"]):
+        x, w, st = cs.case_inputs(c, 360 + 40 * i)
+        sets.append((x, w, x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+                     .contiguous(memory_format=torch.channels_last)))
+    x, w = sets[0][:2]
+    got = ig.conv2d_im2col_fused(x, w, stride=st)
+    err = cs.im2col_close(got, ig.conv2d_im2col_fused_plain(
+        x.float(), w.float(), stride=st), f"im2col_conv2d {c['name']}")
+    if not torch.equal(got, ig.conv2d_im2col_fused(x, w, stride=st)):
+        raise AssertionError(f"im2col_conv2d {c['name']}: two calls differ")
+    oh, ow = got.shape[1:3]
+    plan, va, _, _ = ig.conv2d_launch(x, w, st, oh, ow)
+    el = x.element_size()
+    M, cout = got.numel() // got.shape[-1], got.shape[-1]
+    ops_n = 2 * M * cout * w.shape[0] * w.shape[1] * w.shape[2]
+    bms, by = cs.bound_ms(el * (x.numel() + w.numel() + got.numel()), ops_n,
+                          x.dtype)
+    t = {key: cs.card_ms(cs.cycling(fn, sets), batches=10, inner=5)
+         for key, fn in (
+             ("ms", lambda x, w, *_: ig.conv2d_im2col_fused(x, w, stride=st)),
+             ("sliding_ms", lambda x, w, *_: s2.conv2d_sliding(x, w, None,
+                                                               stride=st)),
+             ("plain_ms", lambda x, w, *_: ig.conv2d_im2col_fused_plain(
+                 x, w, stride=st)),
+             ("library_ms", lambda x, w, xl, wl: torch.nn.functional.conv2d(
+                 xl, wl, stride=st)))}
+    return dict(t, bound_ms=bms, bound_by=by, max_abs_err=err,
+                splits=plan.splits, tile=plan.tile.id, va=va)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("gemm_times: no CUDA device", file=sys.stderr)
@@ -189,7 +230,7 @@ def main() -> int:
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     rows = sys.argv[1:] or ["matmul", "conv2d_bwd_dw", "conv2d",
-                            "conv2d_quant"]
+                            "conv2d_quant", "im2col_conv2d"]
     build.build_all()
     for lib in ("im2col_gemm", "sliding_conv2d_bwd", "sliding_conv2d",
                 "sliding_conv2d_quant"):
@@ -217,6 +258,12 @@ def main() -> int:
                                                   with_bias, n_sets)
         print(f"conv2d_quant {name} {s} {mode} -> {o}: {json.dumps(r)}",
               flush=True)
+        torch.cuda.empty_cache()
+    for c in [c for c in cs.comparison_cases() if c["dims"] == 2] * (
+            "im2col_conv2d" in rows):
+        out["im2col_conv2d"][c["name"]] = r = im2col_row(c)
+        print(f"im2col_conv2d {c['name']} {c['s']} {c['dtype']}: "
+              f"{json.dumps(r)}", flush=True)
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

@@ -1,7 +1,7 @@
-// Shared by the tiled GEMM (im2col_gemm.cu, row 5), the 2-D weight
-// gradient (sliding_conv2d_bwd.cu, row 12) and the 2-D sliding conv, fp
-// and int8 (sliding_conv2d.cu, row 4; sliding_conv2d_quant.cu, row 14): a
-// block-tiled product
+// Shared by the tiled GEMM and the fused 2-D im2col conv (im2col_gemm.cu,
+// rows 5 and 7), the 2-D weight gradient (sliding_conv2d_bwd.cu, row 12)
+// and the 2-D sliding conv, fp and int8 (sliding_conv2d.cu, row 4;
+// sliding_conv2d_quant.cu, row 14): a block-tiled product
 //
 //   C[M, N] = epilogue(sum_k A[m, k] * B[k, n])
 //

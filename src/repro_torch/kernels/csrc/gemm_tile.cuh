@@ -1,7 +1,9 @@
-// Shared by the GEMM-convolution baselines (im2col_gemm.cu): the block
-// tiling and the main loop of a register-tiled matrix product C = A @ B
-// whose A operand is gathered, chunk by chunk, into shared memory.
-// build.py keys every kernel library on this header's text.
+// Used by the fused 1-D im2col convolution alone (im2col_gemm.cu,
+// im2col_conv1d, row 6), whose first design it is: the block tiling and
+// the main loop of a register-tiled matrix product C = A @ B whose A
+// operand is gathered, chunk by chunk, into shared memory. Rows 4, 5, 7,
+// 12 and 14 run on gemm_mma.cuh. build.py keys every kernel library on
+// this header's text.
 //
 // The design: each block owns a GM x GN = 64 x 64 tile of C (64 rows of
 // A, 64 columns of B) and keeps a 4x4 register tile of float32 sums a

@@ -1,6 +1,7 @@
 // The paper's GEMM-convolution baselines, for Hopper (sm_90a): a tiled
-// GEMM on the tensor-core / split-K main loop of gemm_mma.cuh, and the two
-// fused im2col convolutions on the main loop of gemm_tile.cuh.
+// GEMM and the fused 2-D im2col convolution on the tensor-core / split-K
+// main loop of gemm_mma.cuh, and the fused 1-D one on the main loop of
+// gemm_tile.cuh.
 //
 // Replaces: src/repro/kernels/im2col_gemm.py,
 //   matmul_pallas (row 5)             -> im2col_matmul
@@ -24,31 +25,33 @@
 // position, the position's K*Cin or kh*kw*Cin input elements in (tap,
 // channel) order) with the weights read as a (K*Cin, Cout) matrix.
 //
-// What bounds them on this card. The GEMM: in bfloat16 the tensor cores'
-// rate (llava's patch column, 11,520 x 588 @ 588 x 1,152: 15.6 GFLOP,
-// 0.0158 ms at 989 TFLOP/s); in float32 the CUDA cores' 67 TFLOP/s, or
-// the column's bytes where the column is long and N narrow (fig1 k=31's
-// hbm column, 9,604 x 30,752 float32 = 1.18 GB, 0.354 ms at 3.35 TB/s:
-// the memory bloat the paper measures). The fused convs sum on the CUDA
-// cores for both types and do the direct convolution's operations (fig1
-// (1, 128, 128, 32) x (31, 31, 32, 32): 18.9 GFLOP, 0.282 ms), reading
-// each input a few times from L2.
+// What bounds them on this card. The GEMM and the 2-D conv: in bfloat16
+// the tensor cores' rate (llava's patch column, 11,520 x 588 @ 588 x
+// 1,152: 15.6 GFLOP, 0.0158 ms at 989 TFLOP/s); in float32 the CUDA
+// cores' 67 TFLOP/s (fig1 (1, 128, 128, 32) x (31, 31, 32, 32): 18.9
+// GFLOP, 0.282 ms), or, for the GEMM, the column's bytes where the column
+// is long and N narrow (fig1 k=31's hbm column, 9,604 x 30,752 float32 =
+// 1.18 GB, 0.354 ms at 3.35 TB/s: the memory bloat the paper measures).
+// The 1-D conv sums on the CUDA cores for both types and reads each input
+// a few times from L2.
 //
-// What the design does about it. The GEMM (gemm_mma.cuh): bfloat16 on
-// mma.sync tiles, float32 on 8 x 8 register tiles with a 32-wide N tile
-// where N <= 32, a cp.async ring of stages, and split-K where the blocks
-// alone would leave the card idle (a long, narrow column gives few
-// tiles). The fused convs: the TPU kernels hold a tile's whole column in
-// VMEM (for fig1 k=31 at the 16 x 64 tile, 126 MB); a Hopper block has
-// 227 KB. So they build the column tile chunk by chunk along the
-// reduction: each 32-wide chunk of the 64-position tile's column is
-// gathered from the input into shared memory (strides applied, rows past
-// the output masked) beside the matching 32 x 64 weight slice, and
-// contracted by the 64 x 64 register-tiled main loop before the next chunk
-// is gathered. The column never reaches device memory, and the explicit
-// on-chip copy, the cost the paper's baseline carries, remains. The two
-// differ only in the gather. Output positions run flat over (batch, rows,
-// columns), so small images still give many blocks.
+// What the design does about it. The GEMM and the 2-D conv
+// (gemm_mma.cuh): bfloat16 on mma.sync tiles, float32 on 8 x 8 register
+// tiles with a 32-wide N tile where N <= 32, a cp.async ring of stages,
+// and split-K where the blocks alone would leave the card idle (a long,
+// narrow column gives few tiles), the splits' float32 partials added in
+// split order. The TPU kernels hold a tile's whole column in VMEM (for
+// fig1 k=31 at the 16 x 64 tile, 126 MB); a Hopper block has 227 KB. So
+// the 2-D conv builds its column tile chunk by chunk along the reduction,
+// as the reference's body does, tap by tap: A[p, t*Cin + c] is channel c
+// of tap t = i*kw + j of position p, and each copy into a stage moves part
+// of one tap's Cin channels of one position (TapColumns), never crossing
+// into the next tap; the row 4 sliding conv on the same loop copies along
+// whole filter-row runs of kw*Cin values instead (the paper's vector
+// slide). The column never reaches device memory; the two differ in the
+// gather alone. The 1-D conv (gemm_tile.cuh) gathers each 32-wide chunk
+// of its 64-position tile's column into shared memory beside the matching
+// 32 x 64 weight slice and contracts it on a 64 x 64 register tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -80,21 +83,23 @@ struct Cols1d {
   __device__ long long col(int r) const { return r; }
 };
 
-// The im2col matrix of a VALID 2-D conv: row m = (b, oy, ox) starts at
-// input pixel (oy*sh, ox*sw) of image b; column r = (i*kw + j)*Cin + c
-// lies i input rows down and j*Cin + c elements along.
-struct Cols2d {
-  int H, W, Cin, sh, sw, oh, ow;
-  int kwc;  // kw * Cin: one filter row's run
-  __device__ long long row(int m) const {
-    const int b = m / (oh * ow), p = m - b * (oh * ow);
-    const int oy = p / ow, ox = p - oy * ow;
-    return (((long long)b * H + (long long)oy * sh) * W + (long long)ox * sw) *
-           Cin;
-  }
-  __device__ long long col(int r) const {
-    const int i = r / kwc;
-    return (long long)i * W * Cin + (r - i * kwc);
+// The im2col matrix of a VALID 2-D conv as the reference's body builds
+// it, tap by tap: row p = (b, oy, ox) is ConvPositions' output position,
+// column k = t*Cin + c is channel c of tap t = i*kw + j, which lies i input
+// rows down and j pixels along from the position's first pixel. The
+// wrapper's copy width divides Cin, so no copy crosses from one tap to
+// the next.
+struct TapColumns {
+  static constexpr bool kMajor = true, kCacheRows = true;
+  gm::ConvPositions pos;
+  gm::FastDiv cin, kw;
+  int W;
+  __device__ int row(int p) const { return pos.row(p); }
+  __device__ long long at(int pix) const { return pos.at(pix); }
+  __device__ long long col(int k) const {
+    const int t = cin.div(k), c = k - t * cin.d;
+    const int i = kw.div(t), j = t - i * kw.d;
+    return ((long long)i * W + j) * cin.d + c;
   }
 };
 
@@ -160,18 +165,31 @@ extern "C" int im2col_conv1d(const void* x, const void* w, void* y, int B,
                 is_bf16, Cols1d{L, Cin, stride, lout}, stream);
 }
 
-extern "C" int im2col_conv2d(const void* x, const void* w, void* y, int B,
-                             int H, int W, int Cin, int Cout, int kh, int kw,
-                             int sh, int sw, int oh, int ow, int is_bf16,
-                             void* stream) {
-  if (B < 1 || Cin < 1 || kh < 1 || kw < 1 || sh < 1 || sw < 1 || oh < 1 ||
-      ow < 1 || (long long)(oh - 1) * sh + kh > H ||
-      (long long)(ow - 1) * sw + kw > W || (long long)kw * Cin > INT_MAX ||
-      (long long)oh * ow > INT_MAX)
+// im2col_conv2d runs on tile `tile` in `splits` splits of `per` chunks of
+// the kh*kw*Cin taps (gemm_plan.py's choice), with copies of va bytes of x
+// (a divisor of Cin's bytes) and vb of w; ws holds splits * B*oh*ow * Cout
+// floats when splits > 1 (else null).
+extern "C" int im2col_conv2d(const void* x, const void* w, void* y, float* ws,
+                             int B, int H, int W, int Cin, int Cout, int kh,
+                             int kw, int sh, int sw, int oh, int ow,
+                             int is_bf16, int tile, int splits, int per,
+                             int va, int vb, void* stream) {
+  if (!gm::conv_shape_ok(B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow) ||
+      va < 1 || ((long long)Cin * (is_bf16 ? 2 : 4)) % va != 0)
     return (int)cudaErrorInvalidValue;
-  return launch(x, w, y, (long long)B * oh * ow, Cout,
-                (long long)kh * kw * Cin, is_bf16,
-                Cols2d{H, W, Cin, sh, sw, oh, ow, kw * Cin}, stream);
+  const TapColumns g{gm::conv_positions(H, W, Cin, kw, sh, sw, oh, ow),
+                     gm::FastDiv(Cin), gm::FastDiv(kw), W};
+  const int M = B * oh * ow, K = kh * kw * Cin;
+  if (is_bf16)
+    return gm::gemm(static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const __nv_bfloat16*>(w),
+                    gm::Store<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y),
+                                             Cout},
+                    ws, nullptr, M, Cout, K, g, tile, splits, per, va, vb,
+                    stream);
+  return gm::gemm(static_cast<const float*>(x), static_cast<const float*>(w),
+                  gm::Store<float>{static_cast<float*>(y), Cout}, ws, nullptr,
+                  M, Cout, K, g, tile, splits, per, va, vb, stream);
 }
 
 extern "C" const char* error_string(int code) {

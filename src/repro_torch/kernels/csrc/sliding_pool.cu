@@ -7,9 +7,13 @@
 // _max_pool_bwd_kernel).
 //
 // What it computes. Forward (sliding_pool): VALID pooling of x (B, L, C)
-// along L into y (B, L-w+1, C) in x's type, float32 or bfloat16.
-//   sum: per tile of TL outputs, a float32 prefix S over the tile's halo of
-//        TL+w-1 rows that starts at the tile's first row, then
+// along L into y (B, L-w+1, C) in x's type, float32 or bfloat16. A block
+// owns R output rows of one batch row and CB channels; its halo is the
+// R+w-1 input rows they read, from the block's first output row on.
+//   sum: a float32 prefix S over the halo in one fixed order: the halo is
+//        cut into runs of Q rows from its first row, each run summed in
+//        sequence (p), the runs' totals carried in run order (c_0 = 0,
+//        c_{q+1} = c_q + total of run q) and S = c_q + p; then
 //        y[i] = S[i+w-1] - S[i-1] (S[-1] = 0), cast to x's type;
 //   avg: the sum cast to x's type, widened, divided by w in float32 and
 //        cast again (the TPU kernel's sum rounds, then its wrapper
@@ -17,6 +21,9 @@
 //   max: the van Herk / Gil-Werman block decomposition (blocks of w rows
 //        aligned to the halo's first row; y[i] = max(suffix max at i,
 //        prefix max at i+w-1)) or the shift-and-max loop; both exact.
+// R, CB, Q and the rows a stage holds come from the wrapper
+// (sliding_pool.py's pool_layout), whose plain version sums in the same
+// order: sum and avg agree with it bit for bit, max exactly.
 // The input may be read through `lead` zero rows placed before it and zero
 // rows after it (L = lead + Lsrc + trailing): the sum-pool gradient pools
 // dy padded by w-1 rows on both sides without building the padded copy.
@@ -32,21 +39,33 @@
 // What bounds it on this card: pooling is one pass over the input with a
 // few adds or compares per element, far below the card's arithmetic rate,
 // so bytes bound it: at the paper's shape (1, 16384, 32) f32 that is 4.2 MB
-// (1.3 us at 3.35 TB/s), below what one launch costs; at (8, 16384, 1024)
-// 1 GB (0.32 ms). The shift form is O(n*w) reads, served from L1/L2 since
-// each thread walks its own rows.
+// (1.3 us at 3.35 TB/s), less than a launch and a round trip to device
+// memory take, so there the length of the serial chains and the number of
+// blocks in flight set the time; at (8, 16384, 1024) 1 GB (0.32 ms), where
+// the bytes do.
 //
-// What the design does about it: one thread owns one channel of one tile of
-// TL rows and walks them in order; neighbouring threads own neighbouring
-// channels, so a warp's loads and stores of a row are contiguous. The
-// per-tile prefix is carried by two running float32 sums, one at row
-// i+w-1 and one at row i-1, each accumulating the same rows in the same
-// order, so both read S exactly as a stored prefix would hold it and no
-// window size caps shared memory (any w <= L works). The block max needs a
-// suffix pass: it goes backwards over the tile's blocks and parks each
-// suffix max in y itself (a max of x's values is exact in x's type), then
-// a forward pass maxes in the block prefix at i+w-1. TL comes from the
-// wrapper, chosen from the shape so that enough threads fill the card.
+// What the design does about it: a block stages its halo once into shared
+// memory with coalesced copies (cp.async, 16 bytes where the alignment
+// allows; the `lead` zero rows and the rows past the input are written as
+// zeros, not read), and its 256 threads share it: the lanes run along the
+// CB channels and the block's 256/CB thread groups split the rows (at C =
+// 1, CB = 1: the lanes run along the rows). Each halo row is read from
+// device memory once a block; (w-1)/R of them are read by the next block
+// too. The sum's runs are summed by one thread each, in parallel, the
+// carry folds a few totals (Q is about the root of the halo), and the
+// average's divides are one an output, off any chain. The max scan's block
+// prefix and suffix maxima are taken in shared memory, one w-row block a
+// thread, and y is written once; the shift form's w compares an output
+// read shared memory, four neighbouring outputs a thread sharing their
+// loads. R is the largest power of two up to 256 that still
+// gives two blocks an SM (build.sm_count), halved down to 32 while the
+// halo does not fit in the wrapper's budget; where it still does not (a
+// wide window), the block streams its halo through a stage of P rows: the
+// sum carries its prefix from piece to piece and keeps S[i-1] for the
+// outputs of later pieces, the shift form keeps its running maxima, and
+// the scan (R <= w there) takes the suffix maxima of rows [0, R) with the
+// maximum of rows [R, w) gathered piece by piece, and the next block's
+// prefix maxima over rows [w, w+R-1).
 //
 // The max gradient is O(n) a channel, not O(n*w): the TPU kernel bodies
 // count each window's ties over its w rows, then gather w windows a row.
@@ -89,8 +108,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "conv_epilogue.cuh"
 
@@ -116,95 +137,318 @@ __device__ __forceinline__ bool item_of(long long idx, int n_tiles, int C,
   return true;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pool_sum_kernel(const T* __restrict__ x, T* __restrict__ y, int lead,
-                int Lsrc, int C, int w, int Lout, int TL, int n_tiles, int B,
-                int avg) {
-  Item it;
-  if (!item_of((long long)blockIdx.x * THREADS + threadIdx.x, n_tiles, C, B,
-               &it))
-    return;
-  const int t0 = it.t * TL;
-  const int n_out = min(TL, Lout - t0);
-  const T* xb = x + (long long)it.b * Lsrc * C + it.c;
-  T* yb = y + ((long long)it.b * Lout + t0) * C + it.c;
-  // logical row r of the (zero-padded) input: source row r - lead
-  auto row = [&](int r) -> float {
-    const int s = r - lead;
-    return (s >= 0 && s < Lsrc) ? to_f32(xb[(long long)s * C]) : 0.f;
-  };
-  float hi = 0.f;  // S at halo row i + w - 1 (after the add below)
-  for (int j = 0; j < w - 1; ++j) hi += row(t0 + j);
-  float lo = 0.f;  // S at halo row i - 1
-  for (int i = 0; i < n_out; ++i) {
-    hi += row(t0 + i + w - 1);
-    float v = to_f32(from_f32<T>(hi - lo));
-    if (avg) v = __fdiv_rn(v, (float)w);
-    yb[(long long)i * C] = from_f32<T>(v);
-    lo += row(t0 + i);
+// ---------------------------------------------------------------------------
+// forward: a block stages its halo and its threads share it
+// ---------------------------------------------------------------------------
+
+// Shared memory is cut into arrays of whole 16-byte lines, so that each
+// starts where a 16-byte copy may land.
+__host__ __device__ inline long long line16(long long bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// The forward's geometry: the input (B batch rows of L rows: `lead` zero
+// rows, the Lsrc rows of x, zeros; C channels), the window, Lout outputs,
+// the layout (R outputs and CB channels a block, runs of Q rows, stages of
+// P rows), the blocks along the rows and the channels, and avg.
+struct PoolGeom {
+  int B, L, lead, Lsrc, C, w, Lout;
+  int R, CB, Q, P;
+  int n_rb, n_cb, avg;
+};
+
+// Shared memory of one forward block (sliding_pool.py's pool_smem_bytes):
+// the stage of min(P, H) rows (H = R + w - 1; P < H: the halo streams),
+// and for the sum its float32 prefix, the runs' totals and, streamed,
+// S[i-1] of the block's outputs; for the scan the suffix maxima or,
+// streamed, the two R-row blocks and the groups' maxima; for the shift
+// form, streamed, its running maxima.
+inline long long pool_smem(int op, int elem, int R, int CB, int P, int w) {
+  const long long H = (long long)R + w - 1, PS = P < H ? P : H;
+  const bool streamed = P < H;
+  const long long G = THREADS / CB, rows = (long long)R * CB;
+  if (op == OP_SUM || op == OP_AVG)
+    return (elem == 4 ? 0 : line16(PS * CB * elem)) + line16(PS * CB * 4) +
+           line16(G * CB * 4) + (streamed ? line16(rows * 4) : 0);
+  if (op == OP_MAX_SCAN)
+    return streamed ? 2 * line16(rows * elem) + line16(PS * CB * elem) +
+                          line16(G * CB * 4)
+                    : line16(H * CB * elem) + line16(rows * elem);
+  return line16(PS * CB * elem) + (streamed ? line16(rows * 4) : 0);
+}
+
+// This block's batch row, first output row and first channel (channel
+// blocks fastest, so neighbouring blocks share rows in L2), its outputs,
+// and this thread's lane (channel) and group (rows).
+struct BlockPos {
+  int b, r0, c0, nout, cl, g, G;
+};
+
+__device__ __forceinline__ BlockPos block_pos(const PoolGeom& p) {
+  long long id = blockIdx.x;
+  BlockPos q;
+  q.c0 = (int)(id % p.n_cb) * p.CB;
+  id /= p.n_cb;
+  q.r0 = (int)(id % p.n_rb) * p.R;
+  q.b = (int)(id / p.n_rb);
+  q.nout = min(p.R, p.Lout - q.r0);
+  q.cl = threadIdx.x % p.CB;
+  q.g = threadIdx.x / p.CB;
+  q.G = THREADS / p.CB;
+  return q;
+}
+
+// V bytes from global to shared memory, or zeros where !valid: cp.async
+// for 16, 8 and 4 (src-size 0 reads nothing), a plain load for 2.
+template <int V>
+__device__ __forceinline__ void copy_in(void* dst, const void* src,
+                                        bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? V : 0;
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else if constexpr (V == 8 || V == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(V), "r"(n));
+  else
+    *static_cast<unsigned short*>(dst) =
+        valid ? *static_cast<const unsigned short*>(src)
+              : static_cast<unsigned short>(0);
+}
+
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Halo rows [h0, h0 + n) of the block (input rows r0 + h0 + j) into buf,
+// [n][CB] of T, in copies of V bytes, neighbouring threads on neighbouring
+// addresses; the rows before `lead` and past the Lsrc rows of x, and the
+// channels past C, as zeros. The caller waits with copies_landed().
+template <typename T, int V>
+__device__ __forceinline__ void stage_rows(T* buf, const T* __restrict__ x,
+                                           const PoolGeom& p,
+                                           const BlockPos& q, int h0, int n) {
+  constexpr int VE = V / (int)sizeof(T);
+  const int per_row = p.CB / VE;
+  const T* xb = x + (long long)q.b * p.Lsrc * p.C + q.c0;
+  for (int u = threadIdx.x; u < n * per_row; u += THREADS) {
+    const int j = u / per_row, cc = (u - j * per_row) * VE;
+    const int s = q.r0 + h0 + j - p.lead;
+    const bool ok = s >= 0 && s < p.Lsrc && q.c0 + cc < p.C;
+    copy_in<V>(buf + j * p.CB + cc, ok ? xb + (long long)s * p.C + cc : x,
+               ok);
   }
 }
 
-template <typename T>
+// sum and avg. Per stage of np rows: A, each group's run of Q rows summed
+// in sequence; B, the carry into each run (the totals before it added in
+// run order to the carry from earlier stages); C, the outputs whose last
+// row lies in the stage.
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
-pool_max_scan_kernel(const T* __restrict__ x, T* __restrict__ y, int L,
-                     int C, int w, int Lout, int TL, int n_tiles, int B) {
-  Item it;
-  if (!item_of((long long)blockIdx.x * THREADS + threadIdx.x, n_tiles, C, B,
-               &it))
-    return;
-  const int t0 = it.t * TL;
-  const int n_out = min(TL, Lout - t0);
-  const T* xb = x + ((long long)it.b * L + t0) * C + it.c;
-  T* yb = y + ((long long)it.b * Lout + t0) * C + it.c;
-  // halo row r (past L: -inf, the TPU kernel's pad value for max)
-  auto row = [&](int r) -> float {
-    return (t0 + r < L) ? to_f32(xb[(long long)r * C]) : -INFINITY;
-  };
-  // phase 1, backwards over the blocks that hold outputs 0..n_out-1: the
-  // suffix max within each block of w, parked in y
-  const int last_blk = (n_out - 1) / w;
-  for (int k = last_blk; k >= 0; --k) {
-    float suf = -INFINITY;
-    for (int r = w - 1; r >= 0; --r) {
-      const int i = k * w + r;
-      suf = fmaxf(suf, row(i));
-      if (i < n_out) yb[(long long)i * C] = from_f32<T>(suf);
+pool_sum_kernel(const T* __restrict__ x, T* __restrict__ y, PoolGeom p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockPos q = block_pos(p);
+  const int H = p.R + p.w - 1, PS = min(p.P, H), CB = p.CB, cl = q.cl;
+  const bool streamed = p.P < H;
+  unsigned char* at = smem;
+  T* st = reinterpret_cast<T*>(at);  // the stage; float32: S itself
+  if (sizeof(T) != 4) at += line16((long long)PS * CB * sizeof(T));
+  float* S = reinterpret_cast<float*>(at);
+  at += line16((long long)PS * CB * 4);
+  float* tot = reinterpret_cast<float*>(at);
+  at += line16((long long)q.G * CB * 4);
+  float* lo = reinterpret_cast<float*>(at);  // lo[i] = S[i-1], streamed
+  const int c = q.c0 + cl;
+  T* yb = y + ((long long)q.b * p.Lout + q.r0) * p.C + c;
+  float carry = 0.f;
+  for (int p0 = 0; p0 < H; p0 += p.P) {
+    const int np = min(p.P, H - p0), nrun = (np + p.Q - 1) / p.Q;
+    stage_rows<T, V>(st, x, p, q, p0, np);
+    copies_landed();
+    const int a = min(q.g * p.Q, np), e = min(a + p.Q, np);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = a; j < e; ++j) {
+      acc += to_f32(st[j * CB + cl]);
+      S[j * CB + cl] = acc;
     }
-  }
-  // phase 2, forwards: the prefix max within each block at halo row
-  // i + w - 1, maxed into the parked suffix
-  float pre = -INFINITY;
-  for (int j = 0; j < n_out + w - 1; ++j) {
-    if (j % w == 0) pre = -INFINITY;
-    pre = fmaxf(pre, row(j));
-    const int i = j - (w - 1);
-    if (i >= 0) {
-      const float s = to_f32(yb[(long long)i * C]);
-      yb[(long long)i * C] = from_f32<T>(fmaxf(s, pre));
-    }
+    tot[q.g * CB + cl] = acc;
+    __syncthreads();
+    float cq = carry;
+    for (int r = 0; r < q.g && r < nrun; ++r) cq += tot[r * CB + cl];
+    for (int j = a; j < e; ++j) S[j * CB + cl] = cq + S[j * CB + cl];
+    for (int r = 0; r < nrun; ++r) carry += tot[r * CB + cl];
+    __syncthreads();
+    if (streamed)  // S[h], h < R - 1: the lower end of output h + 1
+      for (int h = p0 + q.g; h < min(p0 + np, p.R - 1); h += q.G)
+        lo[(h + 1) * CB + cl] = S[(h - p0) * CB + cl];
+    if (c < p.C)
+      for (int i = max(0, p0 - (p.w - 1)) + q.g;
+           i < min(q.nout, p0 + np - (p.w - 1)); i += q.G) {
+        const int l = i - 1 - p0;  // S[i-1]'s row in this stage
+        const float s_lo = i == 0 ? 0.f : l >= 0 ? S[l * CB + cl]
+                                                  : lo[i * CB + cl];
+        float v = to_f32(from_f32<T>(S[(i + p.w - 1 - p0) * CB + cl] - s_lo));
+        if (p.avg) v = __fdiv_rn(v, (float)p.w);
+        yb[(long long)i * p.C] = from_f32<T>(v);
+      }
+    __syncthreads();  // the next stage overwrites this one
   }
 }
 
-template <typename T>
+// The shift form: output i is the maximum of rows [i, i + w). Whole halo:
+// a thread takes four neighbouring outputs, whose windows share their
+// loads (w + 3 a quad, not 4w: the stage's reads bound this form).
+// Streamed: one output at a time, its running maximum kept between stages.
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
-pool_max_shift_kernel(const T* __restrict__ x, T* __restrict__ y, int L,
-                      int C, int w, int Lout, int TL, int n_tiles, int B) {
-  Item it;
-  if (!item_of((long long)blockIdx.x * THREADS + threadIdx.x, n_tiles, C, B,
-               &it))
+pool_max_shift_kernel(const T* __restrict__ x, T* __restrict__ y,
+                      PoolGeom p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockPos q = block_pos(p);
+  const int H = p.R + p.w - 1, PS = min(p.P, H), CB = p.CB, cl = q.cl;
+  T* st = reinterpret_cast<T*>(smem);
+  float* run = reinterpret_cast<float*>(
+      smem + line16((long long)PS * CB * sizeof(T)));  // streamed only
+  const int c = q.c0 + cl;
+  T* yb = y + ((long long)q.b * p.Lout + q.r0) * p.C + c;
+  if (p.P >= H) {
+    stage_rows<T, V>(st, x, p, q, 0, H);
+    copies_landed();
+    if (c >= p.C) return;
+    auto at = [&](int h) { return to_f32(st[min(h, H - 1) * CB + cl]); };
+    for (int i = 4 * q.g; i < q.nout; i += 4 * q.G) {
+      float a0 = at(i), a1 = at(i + 1), a2 = at(i + 2);
+      float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
+#pragma unroll 4
+      for (int k = 0; k < p.w; ++k) {  // m_j takes row i + j + k
+        const float a3 = at(i + k + 3);
+        m0 = fmaxf(m0, a0);
+        m1 = fmaxf(m1, a1);
+        m2 = fmaxf(m2, a2);
+        m3 = fmaxf(m3, a3);
+        a0 = a1;
+        a1 = a2;
+        a2 = a3;
+      }
+      T* yi = yb + (long long)i * p.C;
+      yi[0] = from_f32<T>(m0);
+      if (i + 1 < q.nout) yi[p.C] = from_f32<T>(m1);
+      if (i + 2 < q.nout) yi[2LL * p.C] = from_f32<T>(m2);
+      if (i + 3 < q.nout) yi[3LL * p.C] = from_f32<T>(m3);
+    }
     return;
-  const int t0 = it.t * TL;
-  const int n_out = min(TL, Lout - t0);
-  const T* xb = x + ((long long)it.b * L + t0) * C + it.c;
-  T* yb = y + ((long long)it.b * Lout + t0) * C + it.c;
-  for (int i = 0; i < n_out; ++i) {
-    const T* xi = xb + (long long)i * C;
-    float acc = to_f32(xi[0]);
-    for (int m = 1; m < w; ++m) acc = fmaxf(acc, to_f32(xi[(long long)m * C]));
-    yb[(long long)i * C] = from_f32<T>(acc);
   }
+  for (int p0 = 0; p0 < H; p0 += p.P) {
+    const int np = min(p.P, H - p0);
+    stage_rows<T, V>(st, x, p, q, p0, np);
+    copies_landed();
+    if (c < p.C)
+      for (int i = max(0, p0 - (p.w - 1)) + q.g; i < min(q.nout, p0 + np);
+           i += q.G) {
+        const int h0 = max(i, p0), h1 = min(i + p.w, p0 + np);
+        float m = h0 == i ? -INFINITY : run[i * CB + cl];
+#pragma unroll 4
+        for (int h = h0; h < h1; ++h)
+          m = fmaxf(m, to_f32(st[(h - p0) * CB + cl]));
+        if (h1 == i + p.w)
+          yb[(long long)i * p.C] = from_f32<T>(m);
+        else
+          run[i * CB + cl] = m;
+      }
+    __syncthreads();
+  }
+}
+
+// The scan form. Whole halo: one thread group a w-row block, its suffix
+// maxima for the rows of the block's outputs (into suf) and its prefix
+// maxima from row w - 1 on (in place), then y[i] = max(suf[i], st[i+w-1]).
+// Streamed (R <= w): block 0's suffix maxima over rows [0, R), with the
+// maximum of its rows [R, w) gathered stage by stage, and block 1's prefix
+// maxima over rows [w, w + R - 1).
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+pool_max_scan_kernel(const T* __restrict__ x, T* __restrict__ y,
+                     PoolGeom p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BlockPos q = block_pos(p);
+  const int H = p.R + p.w - 1, CB = p.CB, cl = q.cl, w = p.w;
+  const int c = q.c0 + cl;
+  T* yb = y + ((long long)q.b * p.Lout + q.r0) * p.C + c;
+  if (p.P >= H) {
+    T* st = reinterpret_cast<T*>(smem);
+    T* suf =
+        reinterpret_cast<T*>(smem + line16((long long)H * CB * sizeof(T)));
+    stage_rows<T, V>(st, x, p, q, 0, H);
+    copies_landed();
+    const int last = q.nout + w - 1;  // rows past it feed no output
+    for (int k = q.g; k * w < last; k += q.G) {
+      const int bs = k * w, be = min(bs + w, last);
+      if (bs < q.nout) {
+        float m = -INFINITY;
+        for (int j = be - 1; j >= bs; --j) {
+          m = fmaxf(m, to_f32(st[j * CB + cl]));
+          if (j < q.nout) suf[j * CB + cl] = from_f32<T>(m);
+        }
+      }
+      if (be > w - 1) {
+        float m = -INFINITY;
+        for (int j = bs; j < be; ++j) {
+          m = fmaxf(m, to_f32(st[j * CB + cl]));
+          if (j >= w - 1) st[j * CB + cl] = from_f32<T>(m);
+        }
+      }
+    }
+    __syncthreads();
+    if (c < p.C)
+      for (int i = q.g; i < q.nout; i += q.G)
+        yb[(long long)i * p.C] = from_f32<T>(fmaxf(
+            to_f32(suf[i * CB + cl]), to_f32(st[(i + w - 1) * CB + cl])));
+    return;
+  }
+  const int R = p.R;
+  const long long rb = line16((long long)R * CB * sizeof(T));
+  T* A = reinterpret_cast<T*>(smem);       // rows [0, R)
+  T* Bn = reinterpret_cast<T*>(smem + rb);  // rows [w, w + R - 1)
+  T* st = reinterpret_cast<T*>(smem + 2 * rb);
+  float* red = reinterpret_cast<float*>(
+      smem + 2 * rb + line16((long long)p.P * CB * sizeof(T)));
+  stage_rows<T, V>(A, x, p, q, 0, R);
+  float m = -INFINITY;
+  for (int h0 = R; h0 < w; h0 += p.P) {
+    const int n = min(p.P, w - h0);
+    stage_rows<T, V>(st, x, p, q, h0, n);
+    copies_landed();
+    for (int j = q.g; j < n; j += q.G) m = fmaxf(m, to_f32(st[j * CB + cl]));
+    __syncthreads();
+  }
+  stage_rows<T, V>(Bn, x, p, q, w, R - 1);
+  red[q.g * CB + cl] = m;
+  copies_landed();
+  if (q.g == 0) {
+    float s = -INFINITY;
+    for (int r = 0; r < q.G; ++r) s = fmaxf(s, red[r * CB + cl]);
+    for (int j = R - 1; j >= 0; --j) {
+      s = fmaxf(s, to_f32(A[j * CB + cl]));
+      A[j * CB + cl] = from_f32<T>(s);
+    }
+  } else if (q.g == 1) {
+    float s = -INFINITY;
+    for (int j = 0; j < R - 1; ++j) {
+      s = fmaxf(s, to_f32(Bn[j * CB + cl]));
+      Bn[j * CB + cl] = from_f32<T>(s);
+    }
+  }
+  __syncthreads();
+  if (c < p.C)
+    for (int i = q.g; i < q.nout; i += q.G) {
+      float v = to_f32(A[i * CB + cl]);
+      if (i > 0) v = fmaxf(v, to_f32(Bn[(i - 1) * CB + cl]));
+      yb[(long long)i * p.C] = from_f32<T>(v);
+    }
 }
 
 // n rows of a channel (src, sstride elements apart) into dst (st floats
@@ -593,32 +837,42 @@ inline int bwd_block_threads(int sb, int K, long long total, int sms) {
   return t;
 }
 
-inline int n_blocks(int B, int n_tiles, int C) {
-  return (int)(((long long)B * n_tiles * C + THREADS - 1) / THREADS);
-}
-
 inline bool grid_ok(int B, int n_tiles, int C, int threads = THREADS) {
   return (long long)B * n_tiles * C <= (long long)threads * 0x7fffffff;
 }
 
-template <typename T>
-cudaError_t launch_pool(const void* x, void* y, int B, int L, int lead,
-                        int Lsrc, int C, int w, int Lout, int TL, int op,
-                        cudaStream_t s) {
-  const int n_tiles = (Lout + TL - 1) / TL;
-  const int grid = n_blocks(B, n_tiles, C);
-  const T* xp = static_cast<const T*>(x);
-  T* yp = static_cast<T*>(y);
-  if (op == OP_SUM || op == OP_AVG)
-    pool_sum_kernel<T><<<grid, THREADS, 0, s>>>(
-        xp, yp, lead, Lsrc, C, w, Lout, TL, n_tiles, B, op == OP_AVG);
-  else if (op == OP_MAX_SCAN)
-    pool_max_scan_kernel<T><<<grid, THREADS, 0, s>>>(xp, yp, L, C, w, Lout,
-                                                     TL, n_tiles, B);
-  else
-    pool_max_shift_kernel<T><<<grid, THREADS, 0, s>>>(xp, yp, L, C, w, Lout,
-                                                      TL, n_tiles, B);
+// the most shared memory a block may have on this card
+constexpr long long MAX_BLOCK_SMEM = 227 * 1024;
+
+template <typename T, int V>
+cudaError_t launch_pool(const void* x, void* y, const PoolGeom& p, int op,
+                        int smem, cudaStream_t s) {
+  auto kernel = op == OP_MAX_SCAN    ? pool_max_scan_kernel<T, V>
+                : op == OP_MAX_SHIFT ? pool_max_shift_kernel<T, V>
+                                     : pool_sum_kernel<T, V>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const long long grid = (long long)p.B * p.n_rb * p.n_cb;
+  kernel<<<(unsigned)grid, THREADS, smem, s>>>(static_cast<const T*>(x),
+                                               static_cast<T*>(y), p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_width(const void* x, void* y, const PoolGeom& p, int op,
+                         int smem, int copy, cudaStream_t s) {
+  switch (copy) {
+    case 16: return launch_pool<T, 16>(x, y, p, op, smem, s);
+    case 8: return launch_pool<T, 8>(x, y, p, op, smem, s);
+    case 4: return launch_pool<T, 4>(x, y, p, op, smem, s);
+    default:
+      if constexpr (sizeof(T) == 2)
+        return launch_pool<T, 2>(x, y, p, op, smem, s);
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -626,22 +880,46 @@ cudaError_t launch_pool(const void* x, void* y, int B, int L, int lead,
 // Returns a cudaError_t code: 0 when the launch was accepted. x holds Lsrc
 // rows of C channels a batch; the pooled sequence is L = lead + Lsrc + the
 // zero rows after it (sum and avg only: max takes lead 0 and L = Lsrc).
-// y holds Lout = L - w + 1 rows; TL is the tile of output rows a thread
-// walks.
+// y holds Lout = L - w + 1 rows. The layout (sliding_pool.py's
+// pool_layout): `rows` outputs and `chans` channels (a power of two up to
+// 32) a block, runs of `run` rows, stages of `piece` rows (at least the
+// halo of rows + window - 1: one stage); `copy` the bytes a copy of x
+// moves (16, 8, 4, or 2 for bfloat16), which x's pointer, C and chans
+// allow. A layout the kernel cannot take is refused with
+// cudaErrorInvalidValue.
 extern "C" int sliding_pool(const void* x, void* y, int B, int L, int lead,
-                            int Lsrc, int C, int window, int Lout, int tile,
-                            int op, int is_bf16, void* stream) {
-  if (B < 1 || C < 1 || window < 1 || tile < 1 || op < OP_SUM ||
-      op > OP_MAX_SHIFT || Lout != L - window + 1 || Lout < 1 || lead < 0 ||
-      Lsrc < 1 || lead + Lsrc > L ||
-      (op >= OP_MAX_SCAN && (lead != 0 || Lsrc != L)) ||
-      !grid_ok(B, (Lout + tile - 1) / tile, C))
+                            int Lsrc, int C, int window, int Lout, int rows,
+                            int chans, int run, int piece, int copy, int op,
+                            int is_bf16, void* stream) {
+  const int elem = is_bf16 ? 2 : 4;
+  const long long H = (long long)rows + window - 1;
+  const bool streamed = piece < H;
+  const int G = chans >= 1 && chans <= 32 ? THREADS / chans : 0;
+  const bool sum = op == OP_SUM || op == OP_AVG;
+  if (B < 1 || C < 1 || window < 1 || op < OP_SUM || op > OP_MAX_SHIFT ||
+      Lout != L - window + 1 || Lout < 1 || lead < 0 || Lsrc < 1 ||
+      lead + Lsrc > L || (op >= OP_MAX_SCAN && (lead != 0 || Lsrc != L)) ||
+      rows < 1 || G == 0 || (chans & (chans - 1)) != 0 || run < 1 ||
+      piece < 1 || H > INT_MAX ||
+      (sum && (streamed ? piece % run != 0 || piece / run > G
+                        : (H + run - 1) / run > G)) ||
+      (op == OP_MAX_SCAN && streamed && rows > window) ||
+      (copy != 16 && copy != 8 && copy != 4 && copy != 2) || copy < elem ||
+      (chans * elem) % copy != 0 || ((long long)C * elem) % copy != 0 ||
+      reinterpret_cast<uintptr_t>(x) % copy != 0)
     return (int)cudaErrorInvalidValue;
+  const long long n_rb = (Lout + rows - 1) / rows;
+  const long long n_cb = (C + chans - 1) / chans;
+  const long long smem = pool_smem(op, elem, rows, chans, piece, window);
+  if ((long long)B * n_rb * n_cb > 0x7fffffff || smem > MAX_BLOCK_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const PoolGeom p{B,    L,     lead,  Lsrc,        C,           window,
+                   Lout, rows,  chans, run,         piece,       (int)n_rb,
+                   (int)n_cb, op == OP_AVG};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_pool<__nv_bfloat16>(x, y, B, L, lead, Lsrc, C,
-                                                    window, Lout, tile, op, s)
-                       : launch_pool<float>(x, y, B, L, lead, Lsrc, C, window,
-                                            Lout, tile, op, s));
+  return (int)(is_bf16 ? launch_width<__nv_bfloat16>(x, y, p, op, (int)smem,
+                                                     copy, s)
+                       : launch_width<float>(x, y, p, op, (int)smem, copy, s));
 }
 
 // float32 scratch the gradient needs (0 when its slots fit in shared

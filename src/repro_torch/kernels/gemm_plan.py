@@ -1,5 +1,6 @@
 """Launch geometry of the products on ``csrc/gemm_mma.cuh``: the tiled GEMM
-(``im2col_gemm.matmul``, row 5), the 2-D weight gradient
+(``im2col_gemm.matmul``, row 5), the fused 2-D im2col conv
+(``im2col_gemm.conv2d_im2col_fused``, row 7), the 2-D weight gradient
 (``sliding_conv_bwd.conv2d_bwd_dw``, row 12) and the 2-D sliding conv, fp
 and int8 (``sliding_conv2d.conv2d_sliding``, row 4;
 ``sliding_conv_quant.conv2d_quant``, row 14).
@@ -21,7 +22,8 @@ tests can hold it:
     2 bytes, or for int8 1) that every start address of an operand's
     vectors allows: a pointer and the strides between the vectors' starts
     must be multiples of it. ``conv2d_copy_strides`` lists those strides
-    for the sliding conv's gather of x.
+    for the sliding conv's gather of x, ``im2col_copy_strides`` for row
+    7's tap-by-tap gather.
 """
 from __future__ import annotations
 
@@ -120,3 +122,14 @@ def conv2d_copy_strides(H: int, W: int, Cin: int, kw: int,
     from one filter row's run into the next."""
     sh, sw = stride
     return [sw * Cin, kw * Cin, W * Cin, sh * W * Cin, H * W * Cin]
+
+
+def im2col_copy_strides(H: int, W: int, Cin: int,
+                        stride: tuple[int, int]) -> list[int]:
+    """The strides, in elements, between the starts of row 7's copies of x
+    (B, H, W, Cin), which builds its column tap by tap: neighbouring output
+    positions along a row, one tap's Cin channels, an input row,
+    neighbouring output rows, images. A copy of a width that divides them
+    all starts aligned and never crosses from one tap into the next."""
+    sh, sw = stride
+    return [sw * Cin, Cin, W * Cin, sh * W * Cin, H * W * Cin]

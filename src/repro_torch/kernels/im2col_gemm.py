@@ -8,7 +8,9 @@ convolutions (``repro.kernels.im2col_gemm``).
     L, Cin) NLC, w (K, Cin, Cout)) and conv2d (x (B, H, W, Cin) NHWC, w
     (kh, kw, Cin, Cout) HWIO), any stride, output in x's type: each tile's
     im2col column is built on chip and contracted by one GEMM (the TPU
-    kernels ``conv{1d,2d}_im2col_fused_pallas``).
+    kernels ``conv{1d,2d}_im2col_fused_pallas``). The 2-D one runs on
+    row 5's loop, its column built tap by tap; its plan and copy widths
+    come from ``gemm_plan`` (``im2col_copy_strides``).
   * ``conv1d_im2col_hbm`` / ``conv2d_im2col_hbm``: the whole (B·out,
     K·Cin) column tensor built in device memory by torch ops, in x's type,
     then one ``matmul``: the memory-bloat baseline. Not kernels of their
@@ -47,8 +49,9 @@ DEFAULT_TILE_H, DEFAULT_TILE_W = 16, 64
 _MM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # x, w, y; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
 _1D_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-# x, w, y; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16; stream
-_2D_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# x, w, y, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16, tile,
+# splits, per, va, vb; stream
+_2D_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 
 def _check_tiles(**tiles) -> None:
@@ -252,16 +255,37 @@ def conv2d_im2col_fused_plain(x: torch.Tensor, w: torch.Tensor, *,
     return y.reshape(x.shape[0], oh, ow, Cout).to(x.dtype)
 
 
+def conv2d_launch(x, w, stride, oh, ow):
+    """Row 7's launch geometry on ``csrc/gemm_mma.cuh`` for contiguous x
+    and w: the plan (tile and split of the kh·kw·Cin taps), the copy
+    widths of x (tap by tap) and w, and the splits' float32 workspace
+    (None for one split)."""
+    B, H, W, Cin = x.shape
+    kh, kw, _, Cout = w.shape
+    M = B * oh * ow
+    plan = gemm_plan.gemm_plan(M, Cout, kh * kw * Cin, x.dtype,
+                               build.sm_count(x.device))
+    va = gemm_plan.copy_bytes(x.element_size(), [x.data_ptr()],
+                              gemm_plan.im2col_copy_strides(H, W, Cin, stride))
+    vb = gemm_plan.copy_bytes(w.element_size(), [w.data_ptr()], [Cout])
+    ws = (torch.empty((plan.splits * M * Cout,), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
+    return plan, va, vb, ws
+
+
 def _launch_conv2d(x, w, stride, oh, ow):
     _kernel_operands(x, w)
     fn = build.entry("im2col_gemm", "im2col_conv2d", _2D_ARGTYPES)
     x, w = x.contiguous(), w.contiguous()
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
+    plan, va, vb, ws = conv2d_launch(x, w, stride, oh, ow)
     y = torch.empty((B, oh, ow, Cout), dtype=x.dtype, device=x.device)
-    code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, Cin, Cout,
+    code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+              None if ws is None else ws.data_ptr(), B, H, W, Cin, Cout,
               kh, kw, stride[0], stride[1], oh, ow,
-              int(x.dtype == torch.bfloat16), _stream(x))
+              int(x.dtype == torch.bfloat16), plan.tile.id, plan.splits,
+              plan.per, va, vb, _stream(x))
     build.check("im2col_gemm", code)
     conv2d_im2col_fused.launches += 1
     return y

@@ -1,8 +1,8 @@
 """Sliding-window pooling along L and its gradient (``repro.kernels.sliding_pool``).
 
   * ``sliding_pool``: VALID pooling of x (B, L, C) into (B, L - w + 1, C)
-    in x's type. sum/avg: a float32 prefix per tile over the tile's halo of
-    tile + w - 1 rows, then the strided difference, cast to x's type (avg
+    in x's type. sum/avg: a float32 prefix over each block's halo of
+    R + w - 1 rows, then the strided difference, cast to x's type (avg
     then divides that already-cast sum by w in float32 and casts again).
     max: the van Herk / Gil-Werman block prefix/suffix max (``method``
     "scan") or the shift-and-max loop ("shift"); both exact.
@@ -28,53 +28,167 @@ also pool other types, int8 codes included). Launch counters:
 ``launches_max_scan``, ``launches_max_shift``), ``sum_pool_bwd.launches``,
 ``max_pool_bwd.launches`` (one a call).
 
-The tile (``pool_tile``) is the number of rows one kernel thread walks, and
-the span of one float32 prefix. The reference fixes it at 512; here it comes
-from the shape so that the card has enough threads: the smallest power of
-two from 32 to 1024 that keeps B·C·⌈n/tile⌉ within 1024 threads an SM of
-the card (``build.sm_count``), and never more than n. The max forms and
-the gradient do not depend on it; the sum rounds per tile, and the plain
-version takes the same tile (on the CPU, that of an H100's 132 SMs).
-The gradient's layout (``max_bwd_layout``) is chosen the same way: the
-blocks of w rows a group of threads walks, and the threads (lanes) that
-share each block when the shape gives few blocks.
+The forward's layout (``pool_layout``) comes from the shape, the form and
+the card (``build.sm_count``): a block of ``POOL_THREADS`` threads owns R
+output rows of one batch row and CB channels (a power of two up to 32, the
+lanes; the threads' groups split the rows), stages their halo of R + w - 1
+rows in shared memory, and, where the halo does not fit ``POOL_SMEM``,
+streams it through stages of P rows. The sum's float32 prefix runs over
+the halo in runs of Q rows, each summed in sequence, then the runs' totals
+carried in run order. The plain version walks the same layout in the same
+order (on the CPU, that of an H100's 132 SMs), so sum and avg agree with
+the kernel bit for bit on the card; the max forms are exact either way.
+The max gradient's layout (``max_bwd_layout``): the blocks of w rows a
+group of threads walks, and the threads (lanes) that share each block
+when the shape gives few blocks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.sliding import _extreme
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 
 OPS = ("sum", "avg", "max")
 METHODS = ("scan", "shift")
 _OP_CODE = {"sum": 0, "avg": 1, ("max", "scan"): 2, ("max", "shift"): 3}
-# threads that keep an SM busy (half of what it can hold)
+# threads that keep an SM busy (half of what it can hold): the max
+# gradient's sizing
 THREADS_PER_SM = 1024
-MIN_TILE, MAX_TILE = 32, 1024
+# the forward: threads a block, the most shared memory its stage takes (two
+# blocks an SM at least), the most output rows a block and the fewest it is
+# cut to before its halo streams
+POOL_THREADS = 256
+POOL_SMEM = 96 * 1024
+MAX_ROWS, FIT_ROWS = 256, 32
 # the fewest rows of a block a lane of the max gradient takes when lanes
 # share a block (fewer rows, more of its time goes to the lanes' shuffles)
 MIN_LANE_ROWS = 16
-# x, y; B, L, lead, Lsrc, C, window, Lout, tile, op, is_bf16; stream
-_POOL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# x, y; B, L, lead, Lsrc, C, window, Lout, rows, chans, run, piece, copy,
+# op, is_bf16; stream
+_POOL_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 14
+                  + [ctypes.c_void_p])
 # x, dy, dx, scratch; B, L, C, window, Lout, tile, lanes, sms, is_bf16;
 # stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# the forward's forms: sum and avg share the kernel's layout
+FORMS = ("sum", "max_scan", "max_shift")
 
 
-def pool_tile(B: int, n: int, C: int, sms: int = build.DEFAULT_SMS) -> int:
-    """Rows a kernel thread walks for n rows of B·C sequences on a card of
-    ``sms`` SMs: the smallest power of two in [32, 1024] that keeps the
-    thread count within ``THREADS_PER_SM`` an SM, capped at n."""
-    target = sms * THREADS_PER_SM
-    tile = MIN_TILE
-    while tile < MAX_TILE and B * C * -(-n // tile) > target:
-        tile *= 2
-    return min(tile, n)
+@dataclass(frozen=True)
+class PoolLayout:
+    """A forward block: ``rows`` outputs (R) and ``chans`` channels (CB) of
+    one batch row, its halo of R + w - 1 rows staged ``piece`` rows (P) at
+    a time (one stage where P covers the halo), the sum's prefix in runs of
+    ``run`` rows (Q)."""
+    rows: int
+    chans: int
+    run: int
+    piece: int
+
+    @property
+    def groups(self) -> int:
+        """Thread groups a block: they split the rows."""
+        return POOL_THREADS // self.chans
+
+    def streamed(self, window: int) -> bool:
+        return self.piece < self.rows + window - 1
+
+
+def _line16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pool_smem_bytes(form: str, elem: int, rows: int, chans: int, piece: int,
+                    window: int) -> int:
+    """Shared memory of one forward block (``csrc/sliding_pool.cu``'s
+    pool_smem): the stage of min(P, H) rows and, for the sum, its float32
+    prefix, the runs' totals and, streamed, S[i-1] of the outputs; for the
+    scan its suffix maxima or, streamed, two R-row blocks and the groups'
+    maxima; for the shift form, streamed, its running maxima. Each array
+    is a whole number of 16-byte lines."""
+    H = rows + window - 1
+    ps, streamed = min(piece, H), piece < H
+    G = POOL_THREADS // chans
+    if form == "sum":
+        return ((0 if elem == 4 else _line16(ps * chans * elem))
+                + _line16(ps * chans * 4) + _line16(G * chans * 4)
+                + (_line16(rows * chans * 4) if streamed else 0))
+    if form == "max_scan":
+        if streamed:
+            return (2 * _line16(rows * chans * elem)
+                    + _line16(ps * chans * elem) + _line16(G * chans * 4))
+        return _line16(H * chans * elem) + _line16(rows * chans * elem)
+    if form == "max_shift":
+        return (_line16(ps * chans * elem)
+                + (_line16(rows * chans * 4) if streamed else 0))
+    raise ValueError(f"unknown pool form {form!r}; one of {FORMS}")
+
+
+def _chans(C: int) -> int:
+    """Channels a forward block: the lanes, C rounded up to a power of two,
+    at most 32."""
+    return min(32, 1 << (C - 1).bit_length())
+
+
+def _run_rows(halo: int, chans: int) -> int:
+    """Q over a whole halo: about its root (so a thread's run and the
+    carry's fold are both short), at most one run a thread group; odd
+    where a warp spans several groups (CB < 32), so that their rows fall
+    in different banks."""
+    runs = min(POOL_THREADS // chans, math.isqrt(halo - 1) + 1)
+    run = -(-halo // runs)
+    return run | 1 if chans < 32 else run
+
+
+def pool_layout(B: int, n_out: int, C: int, window: int, form: str,
+                elem: int, sms: int = build.DEFAULT_SMS) -> PoolLayout:
+    """The forward's layout for ``n_out`` outputs of B·C sequences in
+    elements of ``elem`` bytes, form "sum" (also avg), "max_scan" or
+    "max_shift", on a card of ``sms`` SMs. R: the largest power of two up
+    to ``MAX_ROWS`` that still gives two blocks an SM (never above
+    ``n_out``), halved down to ``FIT_ROWS`` while the halo's stage does not
+    fit ``POOL_SMEM``; if it still does not, the first R stays and the halo
+    streams through the largest stage that fits (the scan then takes R <=
+    w)."""
+    chans = _chans(C)
+    G = POOL_THREADS // chans
+    per = B * -(-C // chans)
+    rows = MAX_ROWS
+    while rows > 1 and per * -(-n_out // rows) < 2 * sms:
+        rows //= 2
+    rows = min(rows, n_out)
+
+    def fits(r):
+        return pool_smem_bytes(form, elem, r, chans, r + window - 1,
+                               window) <= POOL_SMEM
+
+    fit = rows
+    while fit > FIT_ROWS and not fits(fit):
+        fit //= 2
+    if fits(fit):
+        halo = fit + window - 1
+        return PoolLayout(fit, chans, _run_rows(halo, chans), halo)
+    if form == "max_scan":
+        rows = min(rows, window)
+    # the largest stage that fits; the sum's a whole number of runs, one a
+    # thread group
+    piece = POOL_SMEM // (chans * elem)
+    while pool_smem_bytes(form, elem, rows, chans, piece, window) > POOL_SMEM:
+        piece -= 1
+    run = piece
+    if form == "sum":
+        run = piece // G
+        if chans < 32 and run % 2 == 0:
+            run -= 1
+        piece = run * G
+    return PoolLayout(rows, chans, run, piece)
 
 
 def max_bwd_layout(B: int, L: int, C: int, window: int,
@@ -136,8 +250,8 @@ def _stream(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 def _halos(x, window, tile, fill):
-    """The tiles' halos of x: (B, n_tiles, C, tile + w - 1), x padded past
-    its end with ``fill`` to whole tiles."""
+    """The blocks' halos of x: (B, n_blocks, C, tile + w - 1), x padded past
+    its end with ``fill`` to whole blocks of ``tile`` outputs."""
     B, L, C = x.shape
     n_tiles = -(-(L - window + 1) // tile)
     need = n_tiles * tile + window - 1
@@ -152,22 +266,53 @@ def _untile(t, out_len):
     return t.permute(0, 1, 3, 2).reshape(B, nt * tile, C)[:, :out_len]
 
 
+def _halo_prefix(halo, run):
+    """The kernel's float32 prefix over each halo (..., H): runs of ``run``
+    rows from the first, each summed in sequence (a loop over a run's
+    rows, every run at once), then the runs' totals carried in run order
+    (c_0 = 0, c_{q+1} = c_q + total of run q), S = c_q + p."""
+    H = halo.shape[-1]
+    n_runs = -(-H // run)
+    runs = F.pad(halo, (0, n_runs * run - H)).unflatten(-1, (n_runs, run))
+    p = torch.empty_like(runs)
+    acc = torch.zeros_like(runs[..., 0])
+    for t in range(run):
+        acc = acc + runs[..., t]
+        p[..., t] = acc
+    carry = torch.zeros_like(runs[..., 0, 0])
+    for q in range(n_runs):
+        total = p[..., q, run - 1].clone()
+        p[..., q, :] = carry[..., None] + p[..., q, :]
+        carry = carry + total
+    return p.flatten(-2)[..., :H]
+
+
 def sliding_pool_plain(x: torch.Tensor, *, window: int, op: str = "sum",
-                       method: str = "scan", tile: int | None = None):
-    """The kernel's function in plain torch, tile by tile as the kernel
-    walks it (``tile`` defaults to ``pool_tile`` of the shape)."""
+                       method: str = "scan", tile: int | None = None,
+                       run: int | None = None):
+    """The kernel's function in plain torch, block by block as the kernel
+    walks it: ``tile`` outputs a block (R) and, for sum and avg, the
+    prefix in runs of ``run`` rows (Q), both from ``pool_layout`` of the
+    shape by default (``run`` then from R alone if only ``tile`` is
+    given)."""
     out_len = _check(x, window, op, method)
     B, L, C = x.shape
+    form = "sum" if op in ("sum", "avg") else f"max_{method}"
     if tile is None:
-        tile = pool_tile(B, out_len, C, build.sm_count(x.device))
+        lay = pool_layout(B, out_len, C, window, form, x.element_size(),
+                          build.sm_count(x.device))
+        tile, run = lay.rows, run or lay.run
     tile = min(tile, out_len)
     if op in ("sum", "avg"):
-        s = torch.cumsum(_halos(x.float(), window, tile, 0.0), dim=-1)
+        if run is None:
+            run = _run_rows(tile + window - 1, _chans(C))
+        s = _halo_prefix(_halos(x.float(), window, tile, 0.0), run)
         upper = s[..., window - 1 : window - 1 + tile]
         lower = F.pad(s[..., : tile - 1], (1, 0))
         y = _untile(upper - lower, out_len).to(x.dtype)
-        if op == "avg":
-            y = (y.float() / window).to(x.dtype)
+        if op == "avg":  # a true divide, as the kernel's (not a reciprocal)
+            w = torch.full((), float(window), device=x.device)
+            y = (y.float() / w).to(x.dtype)
         return y
     if method == "shift":
         acc = x[:, :out_len]
@@ -227,25 +372,30 @@ def _check_bwd(x, y, dy, window) -> None:
 # kernels
 # ---------------------------------------------------------------------------
 
-def _pool_kernel(x, window, code, lead, L, out_len):
-    """One launch of the forward kernel on the (zero-padded, lead rows
-    before x) sequence of length L; returns y (B, out_len, C)."""
+def _pool_kernel(x, window, code, form, lead, L, out_len):
+    """One launch of the forward kernel (op ``code``, laid out for
+    ``form``) on the (zero-padded, lead rows before x) sequence of length
+    L; returns y (B, out_len, C)."""
     is_bf16 = _kernel_dtype(x)
     fn = build.entry("sliding_pool", "sliding_pool", _POOL_ARGTYPES)
     x = x.contiguous()
     B, Lsrc, C = x.shape
+    lay = pool_layout(B, out_len, C, window, form, x.element_size(),
+                      build.sm_count(x.device))
+    copy = gemm_plan.copy_bytes(x.element_size(), [x.data_ptr()],
+                                [C, lay.chans])
     y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
     code_ = fn(x.data_ptr(), y.data_ptr(), B, L, lead, Lsrc, C, window,
-               out_len, pool_tile(B, out_len, C, build.sm_count(x.device)),
-               code, int(is_bf16),
-               _stream(x))
+               out_len, lay.rows, lay.chans, lay.run, lay.piece, copy, code,
+               int(is_bf16), _stream(x))
     build.check("sliding_pool", code_)
     return y
 
 
 def _launch(x, window, op, method, out_len):
     code = _OP_CODE[op] if op != "max" else _OP_CODE[(op, method)]
-    y = _pool_kernel(x, window, code, 0, x.shape[1], out_len)
+    y = _pool_kernel(x, window, code, "sum" if op != "max" else
+                     f"max_{method}", 0, x.shape[1], out_len)
     sliding_pool.launches += 1
     form = op if op != "max" else f"max_{method}"
     setattr(sliding_pool, f"launches_{form}",
@@ -255,7 +405,7 @@ def _launch(x, window, op, method, out_len):
 
 def _launch_sum_bwd(dy, window):
     L = dy.shape[1] + window - 1
-    dx = _pool_kernel(dy, window, _OP_CODE["sum"], window - 1,
+    dx = _pool_kernel(dy, window, _OP_CODE["sum"], "sum", window - 1,
                       L + window - 1, L)
     sum_pool_bwd.launches += 1
     return dx

@@ -468,3 +468,151 @@ def test_row4_and_row14_sources_are_on_the_product_loop():
         assert '#include "gemm_mma.cuh"' in text
         for gone in ("conv2d_rows.cuh", "__dp4a", "Tiling", "choose_tiling"):
             assert gone not in text, (name, gone)
+
+
+# ---------------------------------------------------------------------------
+# row 7: the fused 2-D im2col conv on the same loop, its column tap by tap
+# ---------------------------------------------------------------------------
+
+# (what, B, H, W, Cin, Cout, kh, kw, stride, dtype, va): phase 35's 2-D
+# shapes and phase 33's edges (Cin 3 and 37, strides up to 3 and (2, 3)),
+# with x's copy width: one tap's Cin channels at most
+IM2COL_TABLE = [
+    ("patch", 20, 336, 336, 3, 1152, 14, 14, (14, 14), BF16, 2),
+    ("patch", 20, 336, 336, 3, 1152, 14, 14, (14, 14), F32, 4),
+    *[(f"fig1 k{k}", 1, 128, 128, 32, 32, k, k, (1, 1), F32, 16)
+      for k in (3, 5, 17, 31)],
+    *[(f"fig2 k{k}", 1, 96, 96, 32, 32, k, k, (1, 1), F32, 16)
+      for k in (3, 17)],
+    *[(f"phase 33 {kh}x{kw} s{st} Cin {cin}", 2, kh + 40, kw + 45, cin, 70,
+       kh, kw, st, dt, cin * dt.itemsize & -(cin * dt.itemsize))
+      for kh, kw, st in ((3, 3, (1, 1)), (5, 5, (2, 2)), (7, 5, (2, 3)),
+                         (3, 3, (3, 2)))
+      for cin in (3, 37) for dt in (F32, BF16)],
+]
+
+
+@pytest.mark.parametrize("sms", (build.DEFAULT_SMS, 8))
+@pytest.mark.parametrize(
+    "what,B,H,W,Cin,Cout,kh,kw,stride,dtype,va", IM2COL_TABLE,
+    ids=[f"{t[0]} {t[9]}" for t in IM2COL_TABLE])
+def test_im2col_plan_and_copy_widths(what, B, H, W, Cin, Cout, kh, kw, stride,
+                                     dtype, va, sms):
+    """Row 7's plan is gemm_plan's for its product (positions by kh·kw·Cin
+    taps by Cout) and x's copies are as wide as one tap's Cin channels
+    allow: patch bf16 2 bytes, patch f32 4, fig1 and fig2 16, Cin 37 f32
+    4, so that no copy crosses from one tap into the next."""
+    oh, ow = (H - kh) // stride[0] + 1, (W - kw) // stride[1] + 1
+    M, K = B * oh * ow, kh * kw * Cin
+    _check_plan(gp.gemm_plan(M, Cout, K, dtype, sms), M, Cout, K, dtype, sms)
+    el = dtype.itemsize
+    got = gp.copy_bytes(el, [0], gp.im2col_copy_strides(H, W, Cin, stride))
+    assert got == va and (Cin * el) % got == 0
+
+
+def test_im2col_copy_widths_follow_the_pointer():
+    """An x whose storage starts off 16 bytes copies narrower, as row 4's."""
+    strides = gp.im2col_copy_strides(128, 128, 32, (1, 1))
+    assert gp.copy_bytes(4, [4], strides) == 4
+    assert gp.copy_bytes(4, [8], strides) == 8
+    assert gp.copy_bytes(2, [2], gp.im2col_copy_strides(56, 56, 4, (2, 2))) \
+        == 2
+
+
+def tap_offsets(B, H, W, Cin, kh, kw, stride):
+    """Row 7's gather transcribed (``TapColumns``): x's flat offset of A[p,
+    k], ConvPositions' row(p) times Cin plus col(k), k = t·Cin + c with
+    tap t = i·kw + j, every divide a FastDiv."""
+    sh, sw = stride
+    oh, ow = (H - kh) // sh + 1, (W - kw) // sw + 1
+    cols = []
+    for k in range(kh * kw * Cin):
+        t = fast_div(k, Cin)
+        c = k - t * Cin
+        i = fast_div(t, kw)
+        j = t - i * kw
+        cols.append((i * W + j) * Cin + c)
+    offs = np.empty((B * oh * ow, kh * kw * Cin), dtype=np.int64)
+    for p in range(B * oh * ow):
+        b = fast_div(p, oh * ow)
+        rem = p - b * oh * ow
+        oy = fast_div(rem, ow)
+        ox = rem - oy * ow
+        offs[p] = ((b * H + oy * sh) * W + ox * sw) * Cin + np.array(cols)
+    return offs
+
+
+@pytest.mark.parametrize("B,H,W,Cin,kh,kw,stride", [
+    (2, 56, 56, 3, 14, 14, (14, 14)), (1, 20, 22, 4, 5, 5, (1, 1)),
+    (2, 13, 17, 37, 7, 5, (2, 3)), (2, 9, 11, 5, 1, 1, (3, 2)),
+    (1, 12, 14, 3, 3, 3, (3, 2))])
+def test_im2col_gather_is_the_column_matrix(B, H, W, Cin, kh, kw, stride):
+    """A[p, k] read through row 7's tap-by-tap gather is the im2col
+    matrix, and each copy (va / element bytes channels, va from the
+    strides) stays within one tap."""
+    x = torch.arange(B * H * W * Cin, dtype=torch.int64).reshape(B, H, W, Cin)
+    offs = tap_offsets(B, H, W, Cin, kh, kw, stride)
+    got = x.reshape(-1)[torch.from_numpy(offs)]
+    assert torch.equal(got, ig.columns_2d(x, kh, kw, stride))
+    for el in (2, 4):
+        n = gp.copy_bytes(el, [0], gp.im2col_copy_strides(H, W, Cin,
+                                                          stride)) // el
+        # a copy's n values are contiguous in x: k .. k + n - 1 of one tap
+        runs = offs[:, ::n]
+        for d in range(1, n):
+            assert np.array_equal(offs[:, d::n], runs + d)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,H,W,Cin,Cout,kh,kw,stride,sms", [
+    (2, 56, 56, 3, 1152, 14, 14, (14, 14), 132),  # the patch embedding cut
+    (1, 40, 40, 32, 32, 31, 31, (1, 1), 132),     # fig1-like, Cout 32, split
+    (2, 45, 50, 37, 70, 7, 5, (2, 3), 8),
+    (2, 20, 23, 5, 1, 1, 1, (1, 1), 132),
+])
+def test_split_order_matches_conv2d_im2col_fused_plain(B, H, W, Cin, Cout,
+                                                       kh, kw, stride, sms,
+                                                       dtype):
+    """Row 7: the columns (the tap gather) times the (kh·kw·Cin, Cout)
+    weights in the kernel's split order, float32 partials added in split
+    order, one cast: against the plain version, float32 within 1e-5 of
+    max |y|, bf16 one rounding from the same float32 value."""
+    rng = np.random.default_rng(Cin + Cout + kh)
+    x = torch.from_numpy(rng.normal(size=(B, H, W, Cin)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=(kh, kw, Cin, Cout))
+                          / np.sqrt(kh * kw * Cin)).astype(np.float32)).to(
+        dtype)
+    oh, ow = (H - kh) // stride[0] + 1, (W - kw) // stride[1] + 1
+    M, K = B * oh * ow, kh * kw * Cin
+    plan = gp.gemm_plan(M, Cout, K, dtype, sms)
+    if (kh, sms) == (31, 132):
+        assert plan.splits > 1
+    cols = x.reshape(-1)[torch.from_numpy(tap_offsets(B, H, W, Cin, kh, kw,
+                                                       stride))]
+    got = split_k(cols, w.reshape(K, Cout), plan).to(dtype).reshape(
+        B, oh, ow, Cout)
+    want = ig.conv2d_im2col_fused_plain(x, w, stride=stride)
+    assert got.dtype == want.dtype == dtype
+    if dtype == F32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5)
+
+
+def test_row7_source_is_on_the_product_loop():
+    """Row 7 calls gm::gemm with its tap gather; Cols2d and row 7's
+    gemm_tile.cuh path are gone; gemm_tile.cuh serves row 6 alone."""
+    text = (build.CSRC / "im2col_gemm.cu").read_text()
+    entry = text[text.index('extern "C" int im2col_conv2d'):]
+    entry = entry[:entry.index('extern "C"', 10)]
+    assert "gm::gemm" in entry and "TapColumns" in entry
+    assert "Cols2d" not in text and "launch(" not in entry
+    assert "Cols1d" in text
+    assert "row 6" in (build.CSRC / "gemm_tile.cuh").read_text()
+    params = entry[entry.index("(") + 1 : entry.index(")")].split(",")
+    assert len(params) == len(ig._2D_ARGTYPES)
+    for prm, t in zip(params, ig._2D_ARGTYPES):
+        assert ("*" in prm) == (t is ig.ctypes.c_void_p), prm

@@ -1,6 +1,7 @@
 """The GEMM-convolution baseline kernels against their plain versions, on
 the card: the tiled GEMM (``im2col_gemm.matmul``), the fused 1-D and 2-D
-im2col convolutions, the column-tensor (hbm) baselines on the GEMM kernel,
+im2col convolutions (the 2-D one at each copy width of its tap-by-tap
+gather, split and not), the column-tensor (hbm) baselines on the GEMM kernel,
 and ``ops``'s im2col backends.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
@@ -9,6 +10,8 @@ the suite's conftest imports the JAX package):
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_im2col_card.py -m cuda
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -139,6 +142,65 @@ def test_conv2d_kernel_matches_plain(card, kh, kw, stride, cin, dtype):
         before[0] + 1, before[1] + 1)
     _close(got, want, dt)
     _close(hbm, want, dt)
+
+
+@pytest.fixture
+def forced_splits(monkeypatch):
+    """force(n): every plan the wrappers make from here on splits its
+    reduction n ways (as far as its chunks allow)."""
+    real = gemm_plan.gemm_plan
+
+    def force(n):
+        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS):
+            p = real(M, N, K, dtype, sms)
+            per = -(-p.chunks // n)
+            return dataclasses.replace(p, splits=-(-p.chunks // per), per=per)
+
+        monkeypatch.setattr(gemm_plan, "gemm_plan", plan)
+    return force
+
+
+# (dtype, B, H, W, Cin, Cout, k, stride, va): row 7's copy width of x, one
+# tap's Cin channels at most
+ROW7_WIDTHS = [
+    ("float32", 2, 40, 45, 32, 70, 3, (1, 1), 16),
+    ("float32", 2, 40, 44, 6, 70, 3, (2, 2), 8),
+    ("float32", 2, 41, 47, 37, 70, 5, (2, 1), 4),
+    ("float32", 2, 56, 56, 3, 1152, 14, (14, 14), 4),
+    ("bfloat16", 2, 40, 45, 32, 70, 3, (1, 1), 16),
+    ("bfloat16", 2, 40, 44, 4, 70, 3, (2, 2), 8),
+    ("bfloat16", 2, 40, 44, 6, 33, 5, (2, 3), 4),
+    ("bfloat16", 2, 56, 56, 3, 1152, 14, (14, 14), 2),
+    ("bfloat16", 2, 41, 47, 37, 70, 3, (2, 1), 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("dtype,B,H,W,cin,cout,k,stride,va", ROW7_WIDTHS)
+def test_conv2d_kernel_copy_widths_and_splits(card, forced_splits, splits,
+                                              dtype, B, H, W, cin, cout, k,
+                                              stride, va):
+    """Row 7 on gemm_mma.cuh's loop at each copy width of x (16, 8, 4 and,
+    in bf16, 2 bytes), with the plan's split and forced to 3 (the
+    partials added in split order): one launch, as the test above to the
+    plain version, two calls bitwise equal."""
+    if splits:
+        forced_splits(splits)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(ROW7_WIDTHS.index(
+        (dtype, B, H, W, cin, cout, k, stride, va)))
+    x = _randn(rng, (B, H, W, cin), 1.0, card, dt)
+    w = _randn(rng, (k, k, cin, cout), (k * k * cin) ** -0.5, card, dt)
+    oh, ow = (H - k) // stride[0] + 1, (W - k) // stride[1] + 1
+    plan, got_va, _, _ = tig.conv2d_launch(x, w, stride, oh, ow)
+    assert got_va == va and (plan.splits > 1 or not splits)
+    before = tig.conv2d_im2col_fused.launches
+    got = tig.conv2d_im2col_fused(x, w, stride=stride)
+    assert tig.conv2d_im2col_fused.launches == before + 1
+    assert torch.equal(got, tig.conv2d_im2col_fused(x, w, stride=stride))
+    _close(got, tig.conv2d_im2col_fused_plain(x.float(), w.float(),
+                                              stride=stride), dt)
 
 
 @pytest.mark.cuda

@@ -103,14 +103,170 @@ def test_plain_pool_tiles_agree(op, tile):
 
 
 def test_pool_tile_rule():
-    """Small shapes walk 32 rows; wide ones grow the tile to keep about
-    132·1024 threads; a tile never exceeds the rows."""
-    assert tsp.pool_tile(1, 16384, 32) == 32
-    assert tsp.pool_tile(8, 16384, 1024) == 1024
-    assert tsp.pool_tile(8, 16384, 1) == 32
-    assert tsp.pool_tile(4, 16384, 64) == 32
-    assert tsp.pool_tile(16, 16384, 64) == 128
-    assert tsp.pool_tile(1, 5, 4) == 5
+    """A block's output rows: the paper's shape (1, 16384, 32) takes 32 (512
+    blocks: about four an SM of 132), the wide (8, 16384, 1024) and the
+    one-channel (8, 16384, 1) 256, (1, 4096, 32) 8; as few as one where
+    the outputs cannot fill the card."""
+    def rows(B, n, C, w=16):
+        return tsp.pool_layout(B, n, C, w, "sum", 4).rows
+
+    assert rows(1, 16384, 32) == 32
+    assert rows(8, 16384, 1024) == 256
+    assert rows(8, 16384, 1) == 256
+    assert rows(4, 16384, 64) == 256
+    assert rows(1, 4096, 32) == 8
+    assert rows(1, 5, 4, 3) == 1  # too few outputs to fill the card
+
+
+# the layout's shapes: (B, L, C) and windows: the paper's and phase 39's,
+# the wide one, the one-channel layout of benchmarks/table_conv1d.py, the
+# restored bf16 edge, phase 36's edges, and windows that stream
+LAYOUT_SHAPES = [((1, 16384, 32), (4, 16, 64, 256)), ((8, 16384, 1024), (16,)),
+                 ((8, 16384, 1), (16, 64)), ((8, 2000, 1024), (200,)),
+                 ((2, 300, 37), (1, 5, 300)), ((1, 300, 8), (100, 256)),
+                 ((3, 5000, 64), (33,)), ((8, 3000, 1024), (300,)),
+                 ((2, 3000, 37), (2000,)), ((3, 70011, 1), (60000,)),
+                 ((1, 16384, 32), (16384,))]
+
+
+@pytest.mark.parametrize("sms", [8, 132])
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("form", tsp.FORMS)
+@pytest.mark.parametrize("shape,windows", LAYOUT_SHAPES,
+                         ids=[str(s) for s, _ in LAYOUT_SHAPES])
+def test_pool_layout(shape, windows, form, elem, sms):
+    """Every layout the kernel's C entry takes: channels a power of two up
+    to 32 (lanes) and 256 threads in whole groups; the block's shared
+    memory within ``POOL_SMEM``; the halo in one stage, or streamed in
+    stages (the sum's a whole number of runs, one a thread group; the
+    scan's block no longer than the window); at the paper's shape at
+    least two blocks an SM."""
+    B, L, C = shape
+    for w in windows:
+        n = L - w + 1
+        lay = tsp.pool_layout(B, n, C, w, form, elem, sms)
+        assert lay.chans & (lay.chans - 1) == 0 and lay.chans <= 32
+        assert lay.chans >= min(C, 32) and lay.groups * lay.chans == 256
+        assert 1 <= lay.rows <= min(n, tsp.MAX_ROWS) and lay.run >= 1
+        assert tsp.pool_smem_bytes(form, elem, lay.rows, lay.chans, lay.piece,
+                                   w) <= tsp.POOL_SMEM
+        halo = lay.rows + w - 1
+        if lay.streamed(w):
+            assert lay.piece >= 1
+            if form == "sum":
+                assert lay.piece == lay.run * lay.groups
+            if form == "max_scan":
+                assert lay.rows <= w
+        else:
+            assert lay.piece == halo
+            if form == "sum":
+                assert -(-halo // lay.run) <= lay.groups
+        blocks = B * -(-n // lay.rows) * -(-C // lay.chans)
+        if shape == (1, 16384, 32) and w <= 256:
+            assert blocks >= 2 * sms
+        if w >= 2000:  # the card tests' and phase 36's streamed halos
+            assert lay.streamed(w)
+
+
+def _bf16(a):
+    return np.asarray(a, dtype=np.float32).astype(BF16)
+
+
+def kernel_sum(x, window, lay, avg):
+    """``pool_sum_kernel`` transcribed in numpy float32: per block of
+    ``lay.rows`` outputs, its halo in stages of ``lay.piece`` rows; in each
+    stage the runs of ``lay.run`` rows summed in sequence, the carry into
+    each run the totals before it added in run order to the carry of the
+    earlier stages, S[i-1] kept for later stages; y = S[i+w-1] - S[i-1]
+    cast to x's type, avg divided by w in float32 and cast again."""
+    B, L, C = x.shape
+    n_out = L - window + 1
+    R, Q, P = lay.rows, lay.run, lay.piece
+    H = R + window - 1
+    xf = np.asarray(x, dtype=np.float32)
+    y = np.zeros((B, n_out, C), np.float32)
+    for b in range(B):
+        for r0 in range(0, n_out, R):
+            nout = min(R, n_out - r0)
+            halo = np.zeros((H, C), np.float32)
+            top = min(L, r0 + H)
+            halo[: top - r0] = xf[b, r0:top]
+            carry = np.zeros(C, np.float32)
+            lo = np.zeros((R, C), np.float32)
+            for p0 in range(0, H, P):
+                n = min(P, H - p0)
+                st = halo[p0 : p0 + n]
+                S = np.zeros_like(st)
+                nrun = -(-n // Q)
+                tot = np.zeros((nrun, C), np.float32)
+                for g in range(nrun):
+                    acc = np.zeros(C, np.float32)
+                    for j in range(g * Q, min(g * Q + Q, n)):
+                        acc = acc + st[j]
+                        S[j] = acc
+                    tot[g] = acc
+                for g in range(nrun):
+                    cq = carry.copy()
+                    for r in range(g):
+                        cq = cq + tot[r]
+                    S[g * Q : g * Q + Q] = cq + S[g * Q : g * Q + Q]
+                for r in range(nrun):
+                    carry = carry + tot[r]
+                for h in range(p0, min(p0 + n, R - 1)):
+                    lo[h + 1] = S[h - p0]
+                for i in range(max(0, p0 - window + 1),
+                               min(nout, p0 + n - window + 1)):
+                    l = i - 1 - p0
+                    s_lo = (np.zeros(C, np.float32) if i == 0
+                            else S[l] if l >= 0 else lo[i])
+                    y[b, r0 + i] = S[i + window - 1 - p0] - s_lo
+    if x.dtype == np.float32:
+        return (y / np.float32(window)).astype(np.float32) if avg else y
+    y = _bf16(y)
+    return _bf16(y.astype(np.float32) / np.float32(window)) if avg else y
+
+
+# (B, L, C, w, dtype, layout): the plan's layout, then ones forced to
+# stream (stages of a few runs) and to cut the halo into many runs
+EMULATED = [(2, 300, 5, 7, "float32", None),
+            (1, 600, 8, 200, "bfloat16", None),
+            (2, 150, 3, 9, "bfloat16", None), (3, 77, 1, 77, "float32", None),
+            (2, 300, 37, 20, "float32", tsp.PoolLayout(16, 32, 5, 40)),
+            (1, 600, 8, 200, "bfloat16", tsp.PoolLayout(24, 8, 7, 224)),
+            (2, 500, 1, 300, "float32", tsp.PoolLayout(32, 1, 3, 768)),
+            (1, 700, 4, 450, "float32", tsp.PoolLayout(64, 4, 9, 9 * 64))]
+
+
+@pytest.mark.parametrize("op", ["sum", "avg"])
+@pytest.mark.parametrize("B,L,C,window,dtype,layout", EMULATED)
+def test_plain_sum_is_the_kernels_order(B, L, C, window, dtype, layout, op):
+    """The plain version's sum and avg equal, bit for bit, the kernel's
+    float32 order transcribed in numpy (stages included: the carry across
+    them is the runs' order), and so does the sum gradient (the forward on
+    dy padded by w - 1 zero rows); the layout the plain version takes is
+    the kernel's (on the CPU, an H100's)."""
+    rng = np.random.default_rng(L + C + window)
+    xn = rng.normal(size=(B, L, C)).astype(np.float32) * 3
+    x = torch.from_numpy(xn).to(getattr(torch, dtype))
+    xe = xn if dtype == "float32" else _bf16(xn)
+    lay = layout or tsp.pool_layout(B, L - window + 1, C, window, "sum",
+                                    x.element_size())
+    got = tsp.sliding_pool_plain(x, window=window, op=op, tile=lay.rows,
+                                 run=lay.run)
+    want = kernel_sum(xe, window, lay, op == "avg")
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    if layout is None:
+        assert torch.equal(got, tsp.sliding_pool_plain(x, window=window,
+                                                       op=op))
+        if op == "sum":
+            dy = x[:, : L - window + 1]
+            pad = np.pad(np.asarray(xe)[:, : L - window + 1],
+                         ((0, 0), (window - 1, window - 1), (0, 0)))
+            lb = tsp.pool_layout(B, L, C, window, "sum", x.element_size())
+            np.testing.assert_array_equal(
+                tsp.sum_pool_bwd_plain(dy, window=window).float().numpy(),
+                np.asarray(kernel_sum(pad, window, lb, False), np.float32))
 
 
 # -- gradients --------------------------------------------------------------
@@ -293,3 +449,17 @@ def test_pool_wrappers_refuse_bad_arguments_and_count_no_cpu_launch():
     tops.pool1d(xg, window=3, op="avg").sum().backward()
     assert (tsp.sliding_pool.launches, tsp.sum_pool_bwd.launches,
             tsp.max_pool_bwd.launches) == counts
+
+
+@pytest.mark.parametrize("symbol,argtypes", [
+    ("sliding_pool", tsp._POOL_ARGTYPES), ("max_pool_bwd", tsp._BWD_ARGTYPES)])
+def test_entry_argtypes_match_the_c_signatures(symbol, argtypes):
+    """The ctypes argument lists name as many arguments, pointers where
+    the C entry takes pointers, as ``csrc/sliding_pool.cu`` declares."""
+    text = (tsp.build.CSRC / "sliding_pool.cu").read_text()
+    sig = text[text.index(f'extern "C" int {symbol}('):]
+    params = [p.strip() for p in sig[sig.index("(") + 1 : sig.index(")")]
+              .split(",")]
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        assert ("*" in p) == (t is tsp.ctypes.c_void_p), p

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import sliding_conv1d as tsc  # noqa: E402
 from repro_torch.kernels import sliding_pool as tsp  # noqa: E402
@@ -80,8 +81,67 @@ def test_pool_kernel_matches_plain(card, B, L, C, window, form, dtype):
         other = "shift" if method == "scan" else "scan"
         assert torch.equal(got, tsp.sliding_pool(x, window=window, op="max",
                                                  method=other))
-    else:
+    else:  # the plain version's layout and float32 order: bit for bit
+        assert torch.equal(got, want)
         _close(got, want)
+
+
+def _pool_forms_match_plain(x, window):
+    """Every form of row 8 and the sum gradient on one input, each one
+    launch: sum, avg and the gradient bit for bit equal to the plain
+    version (the same layout, the same float32 order) and as ``_close``;
+    max exact, scan equal to shift."""
+    ys = {}
+    for form in ("sum", "avg", "max_scan", "max_shift"):
+        op, _, method = form.partition("_")
+        before = getattr(tsp.sliding_pool, f"launches_{form}")
+        got = tsp.sliding_pool(x, window=window, op=op,
+                               method=method or "scan")
+        assert getattr(tsp.sliding_pool, f"launches_{form}") == before + 1
+        want = tsp.sliding_pool_plain(x, window=window, op=op,
+                                      method=method or "scan")
+        assert torch.equal(got, want), form
+        _close(got, want)
+        ys[form] = got
+    assert torch.equal(ys["max_scan"], ys["max_shift"])
+    dy = _randn(window + 1, ys["sum"].shape, x.device, x.dtype)
+    before = tsp.sum_pool_bwd.launches
+    got = tsp.sum_pool_bwd(dy, window=window)
+    assert tsp.sum_pool_bwd.launches == before + 1
+    want = tsp.sum_pool_bwd_plain(dy, window=window)
+    assert torch.equal(got, want)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "zeros", "relu"])
+def test_pool_forms_at_the_wide_bf16_window(card, kind):
+    """(8, 2000, 1024) at w = 200 in bf16, where a parallel scan's float32
+    order once moved the average two bf16 steps: every form and the sum
+    gradient on normals, zeros and post-relu normals."""
+    shape = (8, 2000, 1024)
+    x = (torch.zeros(shape, device=card, dtype=torch.bfloat16)
+         if kind == "zeros" else
+         _randn(200, shape, card, torch.bfloat16, relu=kind == "relu"))
+    _pool_forms_match_plain(x, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,C,window", [(2, 3000, 37, 2000),
+                                          (3, 70011, 1, 60000),
+                                          (1, 2500, 32, 2500)])
+def test_pool_forms_on_a_streamed_halo(card, B, L, C, window, dtype):
+    """Windows whose halo does not fit a block's shared memory: the block
+    streams it in pieces (``pool_layout`` says so for every form), at C =
+    37 and C = 1 with ragged last blocks, and w = L."""
+    dt = getattr(torch, dtype)
+    el = dt.itemsize
+    for form in tsp.FORMS:
+        lay = tsp.pool_layout(B, L - window + 1, C, window, form, el,
+                              build.sm_count(torch.device(card)))
+        assert lay.streamed(window), form
+    _pool_forms_match_plain(_randn(L + C, (B, L, C), card, dt), window)
 
 
 @pytest.mark.cuda
