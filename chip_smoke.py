@@ -10,9 +10,9 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
   1. device: require a card; print ``nvidia-smi``'s name and power limit;
   2. build: compile every kernel under ``src/repro_torch/kernels/csrc``;
   3. kernels vs plain: each whisper kernel against its plain PyTorch
-     version on the card, at the shapes whisper-medium serving gives it and
-     at edge shapes (ragged tiles, K in {1, 3, 5, 7}, stride 3, lengths 0
-     and S,
+     version on the card, at the shapes whisper-medium serving gives it
+     (row 1 in float32 and bfloat16) and at edge shapes (ragged tiles, K in
+     {1, 3, 5, 7}, stride 3, lengths 0 and S,
      G in {1, 2, 4, 8}, float32 and bfloat16); rows 2 and 2b at the split
      design's edges (float32, bfloat16 and int8 caches, G in {1, 7, 8}, D
      in {64, 128, 256}, lengths 0, 1, a split boundary +- 1 and S, two
@@ -24,7 +24,8 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      kernels' launch counts checked over that one request;
   6. times: each kernel at the serving shapes beside its plain version,
      one PyTorch library call computing the same function, and the card's
-     bound for the work. ``ms`` is card time per call from CUDA events,
+     bound for the work; row 1 in float32 and in bfloat16, the type
+     whisper serves in (``F.conv1d`` in the same type). ``ms`` is card time per call from CUDA events,
      median of 20 batches of 10 calls after warm-up, with the card's queue
      filled first so that the host's queueing time does not count;
      ``call_ms`` is the same without the filled queue (host time
@@ -235,12 +236,13 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version, the port's associative scan and the bound.
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
-     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8) at each timed
-     shape beside its time before the redesign (``EARLIER_MS``): row 5 at
-     the five hbm columns phase 35 times it on, row 12 at phase 32's five
-     shapes, row 4 at phase 27's six, row 14 at phase 32's seven, row 7
-     at phase 35's eight 2-D shapes, row 8's forms and the sum gradient
-     at phase 39's shapes timed before.
+     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8, 1, 6) at each
+     timed shape beside its time before the redesign (``EARLIER_MS``):
+     row 5 at the five hbm columns phase 35 times it on, row 12 at phase
+     32's five shapes, row 4 at phase 27's six, row 14 at phase 32's
+     seven, row 7 at phase 35's eight 2-D shapes, row 8's forms and the
+     sum gradient at phase 39's shapes timed before, row 1 at phase 6's
+     four (f32 and bf16), row 6 at phase 35's five 1-D shapes.
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
@@ -452,15 +454,19 @@ ATTN_MAIN = dict(B=4, S=288, KV=16, G=1, D=64)
 
 
 def phase_kernels(sc, ad) -> dict:
-    errs = {"sliding_conv1d": 0.0, "attention_decode": 0.0}
-    for name, s in CONV_MAIN.items():
+    errs = {"sliding_conv1d": 0.0, "sliding_conv1d_bf16": 0.0,
+            "attention_decode": 0.0}
+    for (name, s), (dtype, tol, key) in itertools.product(
+            CONV_MAIN.items(), ((torch.float32, TOL, "sliding_conv1d"),
+                                (torch.bfloat16, BTOL, "sliding_conv1d_bf16"))):
         x, w, b = conv_inputs(1, s["B"], s["L"], s["Cin"], s["Cout"], s["K"],
-                              torch.float32)
+                              dtype)
         args = dict(stride=s["stride"], activation="gelu")
         err = close(sc.conv1d_sliding(x, w, b, **args),
-                    sc.conv1d_sliding_plain(x, w, b, **args), TOL, name)
-        errs["sliding_conv1d"] = max(errs["sliding_conv1d"], err)
-        log(f"conv {name} {s} f32 gelu: max|err| {err:.3e}")
+                    sc.conv1d_sliding_plain(x, w, b, **args), tol,
+                    f"{name} {dtype}")
+        errs[key] = max(errs[key], err)
+        log(f"conv {name} {s} {dtype} gelu: max|err| {err:.3e}")
     edge = [(1, 3, "none", True), (3, 3, "gelu", False), (5, 3, "silu", True),
             (7, 3, "relu", True), (3, 1, "gelu", True), (4, 2, "silu", False)]
     for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BTOL)):
@@ -794,37 +800,48 @@ def cycling(fn, sets):
     return lambda: fn(*next(it))
 
 
+def conv_main_times(sc, name, s, dtype) -> dict:
+    """Row 1 at one of ``CONV_MAIN``'s shapes, bias + gelu, in ``dtype``:
+    its times beside its plain version and ``F.conv1d`` + gelu in the same
+    type (cuDNN, TF32 off), the bound, bytes and operations."""
+    args = dict(stride=s["stride"], activation="gelu")
+    n_sets = 8 if s["Cin"] < 512 else 4  # > 50 MB of inputs in all (f32)
+    sets = []
+    for i in range(n_sets):
+        x, w, b = conv_inputs(3 + i, s["B"], s["L"], s["Cin"], s["Cout"],
+                              s["K"], dtype)
+        # the library's layout and types, (Cout, Cin, K), made ahead
+        sets.append((x, w, b, w.permute(2, 1, 0).contiguous(), b.to(dtype)))
+
+    def library(x, w, b, w_lib, b_lib, stride=s["stride"]):
+        y = F.conv1d(x.transpose(1, 2), w_lib, b_lib, stride=stride)
+        return F.gelu(y, approximate="tanh").transpose(1, 2)
+
+    x, w, b = sets[0][:3]
+    close(library(*sets[0]), sc.conv1d_sliding_plain(x, w, b, **args),
+          TOL if dtype == torch.float32 else BTOL, f"library conv {name}")
+    lout = (s["L"] - s["K"]) // s["stride"] + 1
+    nbytes = (x.element_size() * (x.numel() + w.numel()
+                                  + s["B"] * lout * s["Cout"])
+              + 4 * b.numel())
+    ops = 2 * s["B"] * lout * s["Cout"] * s["Cin"] * s["K"]
+    bms, by = bound_ms(nbytes, ops, dtype)
+    row = dict(
+        timings(cycling(lambda x, w, b, *_: sc.conv1d_sliding(x, w, b, **args),
+                        sets),
+                cycling(lambda x, w, b, *_: sc.conv1d_sliding_plain(
+                    x, w, b, **args), sets),
+                cycling(library, sets)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
+    log(f"time conv {name} {s} {dtype}: {json.dumps(row)}")
+    return row
+
+
 def phase_times(sc, ad, launches, errs) -> list[dict]:
-    conv_rows = {}
-    for name, s in CONV_MAIN.items():
-        args = dict(stride=s["stride"], activation="gelu")
-        n_sets = 8 if s["Cin"] < 512 else 4  # > 50 MB of inputs in all
-        sets = []
-        for i in range(n_sets):
-            x, w, b = conv_inputs(3 + i, s["B"], s["L"], s["Cin"], s["Cout"],
-                                  s["K"], torch.float32)
-            # the library's weight layout, (Cout, Cin, K), made ahead
-            sets.append((x, w, b, w.permute(2, 1, 0).contiguous()))
-
-        def library(x, w, b, w_lib, stride=s["stride"]):
-            y = F.conv1d(x.transpose(1, 2), w_lib, b, stride=stride)
-            return F.gelu(y, approximate="tanh").transpose(1, 2)
-
-        x, w, b, w_lib = sets[0]
-        close(library(x, w, b, w_lib), sc.conv1d_sliding_plain(x, w, b, **args),
-              TOL, f"library conv {name}")
-        lout = (s["L"] - s["K"]) // s["stride"] + 1
-        nbytes = 4 * (x.numel() + w.numel() + b.numel() + s["B"] * lout * s["Cout"])
-        ops = 2 * s["B"] * lout * s["Cout"] * s["Cin"] * s["K"]
-        bms, by = bound_ms(nbytes, ops, torch.float32)
-        conv_rows[name] = dict(
-            timings(cycling(lambda x, w, b, _: sc.conv1d_sliding(x, w, b, **args),
-                            sets),
-                    cycling(lambda x, w, b, _: sc.conv1d_sliding_plain(
-                        x, w, b, **args), sets),
-                    cycling(library, sets)),
-            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
-        log(f"time conv {name} {s}: {json.dumps(conv_rows[name])}")
+    conv_rows = {name: conv_main_times(sc, name, s, torch.float32)
+                 for name, s in CONV_MAIN.items()}
+    bf16_rows = {name: conv_main_times(sc, name, s, torch.bfloat16)
+                 for name, s in CONV_MAIN.items()}
 
     lens = [256] * ATTN_MAIN["B"]  # the cross-attention read's lengths
     B, S, KV, G, D = (ATTN_MAIN[n] for n in ("B", "S", "KV", "G", "D"))
@@ -855,20 +872,30 @@ def phase_times(sc, ad, launches, errs) -> list[dict]:
         bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
     log(f"time attention {ATTN_MAIN} bf16 lengths {lens}: {json.dumps(attn)}")
 
-    both = conv_rows.values()
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
             "plain_call_ms", "library_call_ms")
-    conv_sum = {key: sum(r[key] for r in both) for key in keys}
-    conv_sum["bound_by"] = ("operations" if sum(r["bound_by"] == "operations"
-                                                for r in both) else "bytes")
+
+    def conv_sum(rows):
+        out = {key: sum(r[key] for r in rows.values()) for key in keys}
+        out["bound_by"] = ("operations" if any(
+            r["bound_by"] == "operations" for r in rows.values()) else "bytes")
+        return out
+
+    bf16_sum = conv_sum(bf16_rows)
     return [
         dict(name="sliding_conv1d", route="cuda",
              source="src/repro_torch/kernels/csrc/sliding_conv1d.cu",
              replaces="src/repro/kernels/sliding_conv1d.py:235",
              launches=launches["sliding_conv1d"],
              max_abs_err=errs["sliding_conv1d"],
-             per="prefill: conv1 80->1024 s1 + conv2 1024->1024 s2, B=4 L=514 f32",
-             **conv_sum),
+             per="prefill: conv1 80->1024 s1 + conv2 1024->1024 s2, B=4 L=514 "
+                 "f32, bias + gelu; bf16_*: the same in bf16 (whisper serves "
+                 "in bf16), library F.conv1d in bf16",
+             **conv_sum(conv_rows),
+             **{"bf16_" + k: v for k, v in bf16_sum.items()},
+             bf16_max_abs_err=errs["sliding_conv1d_bf16"],
+             shapes={**conv_rows,
+                     **{f"{n}_bf16": r for n, r in bf16_rows.items()}}),
         dict(name="attention_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/attention_decode.cu",
              replaces="src/repro/kernels/attention_decode.py:144",
@@ -4590,8 +4617,16 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
 
 # the redesigned rows' times with the kernels they replaced, measured by
 # this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6 names the
-# runs; rows 7 and 8 from the runs that first timed them)
+# runs; rows 7 and 8 from the runs that first timed them; row 1 in bf16 by
+# scripts/conv1d_times.py on the tree before its redesign)
 EARLIER_MS = {
+    # row 1 on its 64 x 64 CUDA-core tile at phase 6's shapes (bias + gelu)
+    "sliding_conv1d": {"conv1": 0.0638, "conv2": 0.4253,
+                       "conv1_bf16": 0.0637, "conv2_bf16": 0.5375},
+    # row 6 on gemm_tile.cuh at phase 35's 1-D shapes
+    "im2col_conv1d": {"conv1d_K3": 0.0135, "conv1d_K17": 0.0531,
+                      "conv1d_K65": 0.1880, "whisper_conv1": 0.0468,
+                      "whisper_conv2": 0.2875},
     "attention_decode": {"whisper": 0.0242, "jamba": 0.0524,
                          "llava": 0.3325},
     "attention_decode_int8": {"whisper": 0.0198, "jamba": 0.0444,
@@ -4689,6 +4724,7 @@ def report_redesigned(kernels) -> None:
     main_shape = {"max_pool_bwd": "paper_w64", "matmul": "fig1_k31",
                   "conv2d_bwd_dw": "patch_embed", "conv2d": "patch_embed",
                   "conv2d_quant": "patch_embed", "im2col_conv2d": "fig1_k31",
+                  "im2col_conv1d": "conv1d_K65",
                   "sliding_pool_sum": "paper_w64",
                   "sliding_pool_avg": "paper_w64",
                   "sliding_pool_max_scan": "paper_w64",
@@ -4702,6 +4738,8 @@ def report_redesigned(kernels) -> None:
             now = {main_shape[row["name"]]: row,
                    **{k: row["shapes"][k] for k in before
                       if k != main_shape[row["name"]]}}
+        elif "shapes" in row:  # row 1: the row sums its shapes
+            now = {k: row["shapes"][k] for k in before}
         else:
             now = {"whisper": row, "jamba": row["jamba_shape"],
                    "llava": row["llava_shape"]}

@@ -1,6 +1,7 @@
-// Shared by the tiled GEMM and the fused 2-D im2col conv (im2col_gemm.cu,
-// rows 5 and 7), the 2-D weight gradient (sliding_conv2d_bwd.cu, row 12)
-// and the 2-D sliding conv, fp and int8 (sliding_conv2d.cu, row 4;
+// Shared by the tiled GEMM and the fused 1-D and 2-D im2col convs
+// (im2col_gemm.cu, rows 5, 6 and 7), the 2-D weight gradient
+// (sliding_conv2d_bwd.cu, row 12) and the sliding convs: 1-D (sliding_conv1d.cu,
+// row 1) and 2-D, fp and int8 (sliding_conv2d.cu, row 4;
 // sliding_conv2d_quant.cu, row 14): a block-tiled product
 //
 //   C[M, N] = epilogue(sum_k A[m, k] * B[k, n])
@@ -8,9 +9,9 @@
 // whose A comes through a gather functor and whose B is a row-major (K, N)
 // matrix. build.py keys every kernel library on this header's text.
 //
-// Why it exists: rows 4, 5, 12 and 14 are each one product whose
+// Why it exists: rows 1, 4, 5, 6, 7, 12 and 14 are each one product whose
 // reduction is the length of one operand (row 5's K, row 12's B*oh*ow
-// output positions, rows 4 and 14's kh*kw*Cin filter taps), and their
+// output positions, the convs' K*Cin or kh*kw*Cin filter taps), and their
 // first versions summed on the CUDA cores from 64 x 64 tiles staged one
 // chunk at a time, with no overlap of loads and math, no tensor cores for
 // bfloat16 or int8, and no split of the reduction where the blocks alone
@@ -46,13 +47,14 @@
 //     16-bit elements only. Rows, columns and reduction elements past M,
 //     N and K stage as zeros and store nothing.
 //   * A's two layouts. Where A runs along k in memory (Gather::kMajor:
-//     row 5's row-major matrix; rows 4 and 14, where an output position's
-//     filter row is one run of kw*Cin values of x in NHWC, the paper's
-//     vector slide) a stage holds A as [m][k]; where it runs along m (row
-//     12: a filter row's (tap, channel) run) as [k][m]. A thread keeps
-//     the row keys of the values of m it stages in registers for the
-//     whole block: always for [k][m] stages, for [m][k] ones where a key
-//     costs divisions (Gather::kCacheRows: rows 4 and 14); row 5's key, m
+//     row 5's row-major matrix; rows 1, 4 and 14, where an output
+//     position's filter row is one run of kw*Cin values of x in NLC or
+//     NHWC, the paper's vector slide; rows 6 and 7, the same runs copied
+//     a tap at a time) a stage holds A as [m][k]; where it runs along m
+//     (row 12: a filter row's (tap, channel) run) as [k][m]. A thread
+//     keeps the row keys of the values of m it stages in registers for
+//     the whole block: always for [k][m] stages, for [m][k] ones where a
+//     key costs divisions (Gather::kCacheRows: the convs); row 5's key, m
 //     itself, is formed at each copy.
 //   * Split-K. Blocks are (M tiles, N tiles, splits); split z walks chunks
 //     [z * per, min((z + 1) * per, chunks)) of BK reduction elements.
@@ -63,8 +65,9 @@
 //     int32 on the int8 tile) to the caller's workspace and
 //     reduce_splits adds them in split order (as split_reduce.cuh's
 //     reduce_splits does) before it: no atomics, so a result is the same
-//     from run to run. Store (a cast to C's type) is rows 5 and 12's; the
-//     convs bring bias, activation and (int8) dequant and requant.
+//     from run to run. Store (a cast to C's type) is rows 5, 6, 7 and
+//     12's; BiasAct (bias, activation, the post-bias z) rows 1 and 4's;
+//     row 14 brings dequant and requant.
 //   * An optional column sum of B (row 12's bias gradient, db[n] = sum_k
 //     B[k, n]) is taken by the blocks of the first M tile from the stages
 //     they hold anyway.
@@ -125,6 +128,31 @@ struct Store {
   template <typename V>
   __device__ void pair(size_t i, int n, V v0, V v1) const {
     store_pair(c, i, n, N, v0, v1);
+  }
+};
+
+// The fp sliding convs' epilogue (rows 1 and 4): y = act(sum + bias) and,
+// where z is not null, z = sum + bias (the post-bias pre-activation the
+// backward pass forms dz = dy * act'(z) from), both in T. bias may be
+// null.
+template <typename T>
+struct BiasAct {
+  T* y;
+  T* z;
+  const float* bias;
+  int N, act;
+  __device__ void one(size_t i, int n, float v) const {
+    if (bias != nullptr) v += bias[n];
+    if (z != nullptr) z[i] = from_f32<T>(v);
+    y[i] = from_f32<T>(activate(v, act));
+  }
+  __device__ void pair(size_t i, int n, float v0, float v1) const {
+    if (bias != nullptr) {
+      if (n < N) v0 += bias[n];
+      if (n + 1 < N) v1 += bias[n + 1];
+    }
+    if (z != nullptr) store_pair(z, i, n, N, v0, v1);
+    store_pair(y, i, n, N, activate(v0, act), activate(v1, act));
   }
 };
 
@@ -213,7 +241,9 @@ struct FastDiv {
 // In NHWC a position's kw*Cin values of filter row i are one contiguous
 // run of x, so the stage along k is a series of runs. row(p) is the
 // position's first input pixel, (b*H + oy*sh)*W + ox*sw (< B*H*W, which
-// the entry bounds by INT_MAX).
+// the entry bounds by INT_MAX). The 1-D conv (row 1) is the case H = oh =
+// kh = 1, x (B, L, Cin) NLC read as (B, 1, L, Cin): a position's whole
+// K*Cin column is one run.
 struct ConvPositions {
   static constexpr bool kMajor = true, kCacheRows = true;
   int H, W, Cin, sh, sw;
@@ -230,8 +260,9 @@ struct ConvPositions {
   }
 };
 
-// the shape checks of rows 4 and 14's C entries: a filter within the
-// input, and every index the kernel forms within an int
+// the shape checks of the convs' C entries (rows 1, 4, 6, 7 and 14; the
+// 1-D ones at H = oh = kh = 1): a filter within the input, and every index
+// the kernel forms within an int
 inline bool conv_shape_ok(int B, int H, int W, int Cin, int Cout, int kh,
                           int kw, int sh, int sw, int oh, int ow) {
   return B >= 1 && Cin >= 1 && Cout >= 1 && kh >= 1 && kw >= 1 && sh >= 1 &&
@@ -975,6 +1006,26 @@ int gemm(const T* a, const TB* b, const Epi& epi, void* ws, float* db, int M,
                                vb, s);
     return (int)cudaErrorInvalidValue;
   }
+}
+
+// The fp sliding convs' product (rows 1 and 4): y (and z) = BiasAct(A @
+// w), x and w float32, or bfloat16 where is_bf16, A gathered from x by g.
+template <class Gather>
+int bias_act_gemm(const void* x, const void* w, const void* bias, void* y,
+                  void* z, void* ws, int M, int N, int K, int act,
+                  int is_bf16, const Gather& g, int tile, int splits, int per,
+                  int va, int vb, void* stream) {
+  const float* b = static_cast<const float*>(bias);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return gemm(static_cast<const T*>(x), static_cast<const T*>(w),
+                BiasAct<T>{static_cast<T*>(y), static_cast<T*>(z), b, N, act},
+                ws, nullptr, M, N, K, g, tile, splits, per, va, vb, stream);
+  }
+  return gemm(static_cast<const float*>(x), static_cast<const float*>(w),
+              BiasAct<float>{static_cast<float*>(y), static_cast<float*>(z), b,
+                             N, act},
+              ws, nullptr, M, N, K, g, tile, splits, per, va, vb, stream);
 }
 
 }  // namespace gm

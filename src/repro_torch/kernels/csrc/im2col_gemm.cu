@@ -1,7 +1,6 @@
 // The paper's GEMM-convolution baselines, for Hopper (sm_90a): a tiled
-// GEMM and the fused 2-D im2col convolution on the tensor-core / split-K
-// main loop of gemm_mma.cuh, and the fused 1-D one on the main loop of
-// gemm_tile.cuh.
+// GEMM and the fused 1-D and 2-D im2col convolutions, all three on the
+// tensor-core / split-K main loop of gemm_mma.cuh.
 //
 // Replaces: src/repro/kernels/im2col_gemm.py,
 //   matmul_pallas (row 5)             -> im2col_matmul
@@ -25,41 +24,36 @@
 // position, the position's K*Cin or kh*kw*Cin input elements in (tap,
 // channel) order) with the weights read as a (K*Cin, Cout) matrix.
 //
-// What bounds them on this card. The GEMM and the 2-D conv: in bfloat16
-// the tensor cores' rate (llava's patch column, 11,520 x 588 @ 588 x
-// 1,152: 15.6 GFLOP, 0.0158 ms at 989 TFLOP/s); in float32 the CUDA
-// cores' 67 TFLOP/s (fig1 (1, 128, 128, 32) x (31, 31, 32, 32): 18.9
-// GFLOP, 0.282 ms), or, for the GEMM, the column's bytes where the column
-// is long and N narrow (fig1 k=31's hbm column, 9,604 x 30,752 float32 =
-// 1.18 GB, 0.354 ms at 3.35 TB/s: the memory bloat the paper measures).
-// The 1-D conv sums on the CUDA cores for both types and reads each input
-// a few times from L2.
+// What bounds them on this card: in bfloat16 the tensor cores' rate
+// (llava's patch column, 11,520 x 588 @ 588 x 1,152: 15.6 GFLOP, 0.0158
+// ms at 989 TFLOP/s); in float32 the CUDA cores' 67 TFLOP/s (fig1 (1, 128,
+// 128, 32) x (31, 31, 32, 32): 18.9 GFLOP, 0.282 ms; the 1-D table's (1,
+// 16384, 32) x (65, 32, 32): 2.2 GFLOP, 0.0324 ms), or, for the GEMM, the
+// column's bytes where the column is long and N narrow (fig1 k=31's hbm
+// column, 9,604 x 30,752 float32 = 1.18 GB, 0.354 ms at 3.35 TB/s: the
+// memory bloat the paper measures).
 //
-// What the design does about it. The GEMM and the 2-D conv
-// (gemm_mma.cuh): bfloat16 on mma.sync tiles, float32 on 8 x 8 register
-// tiles with a 32-wide N tile where N <= 32, a cp.async ring of stages,
-// and split-K where the blocks alone would leave the card idle (a long,
-// narrow column gives few tiles), the splits' float32 partials added in
-// split order. The TPU kernels hold a tile's whole column in VMEM (for
-// fig1 k=31 at the 16 x 64 tile, 126 MB); a Hopper block has 227 KB. So
-// the 2-D conv builds its column tile chunk by chunk along the reduction,
-// as the reference's body does, tap by tap: A[p, t*Cin + c] is channel c
-// of tap t = i*kw + j of position p, and each copy into a stage moves part
-// of one tap's Cin channels of one position (TapColumns), never crossing
-// into the next tap; the row 4 sliding conv on the same loop copies along
-// whole filter-row runs of kw*Cin values instead (the paper's vector
-// slide). The column never reaches device memory; the two differ in the
-// gather alone. The 1-D conv (gemm_tile.cuh) gathers each 32-wide chunk
-// of its 64-position tile's column into shared memory beside the matching
-// 32 x 64 weight slice and contracts it on a 64 x 64 register tile.
+// What the design does about it (gemm_mma.cuh): bfloat16 on mma.sync
+// tiles, float32 on 8 x 8 register tiles with a 32-wide N tile where N <=
+// 32, a cp.async ring of stages, and split-K where the blocks alone would
+// leave the card idle (a long, narrow column gives few tiles), the splits'
+// float32 partials added in split order. The TPU kernels hold a tile's
+// whole column in VMEM (for fig1 k=31 at the 16 x 64 tile, 126 MB); a
+// Hopper block has 227 KB. So the convs build their column tile chunk by
+// chunk along the reduction, as the reference's body does, tap by tap:
+// A[p, t*Cin + c] is channel c of tap t of position p, and each copy into
+// a stage moves part of one tap's Cin channels of one position
+// (TapColumns; the 1-D conv is its case H = oh = kh = 1), never crossing
+// into the next tap. The sliding convs on the same loop (rows 1 and 4)
+// copy along whole filter-row runs of kw*Cin values instead (the paper's
+// vector slide). The column never reaches device memory; a fused baseline
+// and its sliding conv differ in the gather alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <limits.h>
 #include <stddef.h>
 
 #include "gemm_mma.cuh"
-#include "gemm_tile.cuh"
 
 namespace {
 
@@ -72,23 +66,12 @@ struct MatrixRows {
   __device__ long long col(int r) const { return r; }
 };
 
-// The im2col matrix of a VALID 1-D conv: row m = (b, l) starts at input
-// row l*s of image b, and its K*Cin elements are contiguous there.
-struct Cols1d {
-  int L, Cin, stride, lout;
-  __device__ long long row(int m) const {
-    const int b = m / lout, l = m - b * lout;
-    return ((long long)b * L + (long long)l * stride) * Cin;
-  }
-  __device__ long long col(int r) const { return r; }
-};
-
-// The im2col matrix of a VALID 2-D conv as the reference's body builds
-// it, tap by tap: row p = (b, oy, ox) is ConvPositions' output position,
+// The im2col matrix of a VALID conv as the reference's body builds it,
+// tap by tap: row p = (b, oy, ox) is ConvPositions' output position,
 // column k = t*Cin + c is channel c of tap t = i*kw + j, which lies i input
-// rows down and j pixels along from the position's first pixel. The
-// wrapper's copy width divides Cin, so no copy crosses from one tap to
-// the next.
+// rows down and j pixels along from the position's first pixel (the 1-D
+// conv: H = oh = kh = 1, W = L, t = j). The wrapper's copy width divides
+// Cin, so no copy crosses from one tap to the next.
 struct TapColumns {
   static constexpr bool kMajor = true, kCacheRows = true;
   gm::ConvPositions pos;
@@ -103,31 +86,21 @@ struct TapColumns {
   }
 };
 
-template <typename T, typename Gather>
-__global__ void __launch_bounds__(GTHREADS)
-gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-            T* __restrict__ c, int M, int N, int K, Gather g) {
-  gemm_tile<T>(a, b, c, M, N, K, g);
-}
-
-template <typename Gather>
-int launch(const void* a, const void* b, void* c, long long M, long long N,
-           long long K, int is_bf16, const Gather& g, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || M > INT_MAX || N > INT_MAX || K > INT_MAX ||
-      (N + GN - 1) / GN > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((M + GM - 1) / GM), (unsigned)((N + GN - 1) / GN));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    gemm_kernel<__nv_bfloat16, Gather><<<grid, GTHREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(c),
-        (int)M, (int)N, (int)K, g);
-  else
-    gemm_kernel<float, Gather><<<grid, GTHREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(c), (int)M, (int)N, (int)K, g);
-  return (int)cudaGetLastError();
+// C = A @ B cast to A's type (no epilogue), float32 operands or, where
+// is_bf16, bfloat16 ones, A gathered by g
+template <class Gather>
+int store_gemm(const void* a, const void* b, void* c, float* ws, int M, int N,
+               int K, const Gather& g, int is_bf16, int tile, int splits,
+               int per, int va, int vb, void* stream) {
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return gm::gemm(static_cast<const T*>(a), static_cast<const T*>(b),
+                    gm::Store<T>{static_cast<T*>(c), N}, ws, nullptr, M, N, K,
+                    g, tile, splits, per, va, vb, stream);
+  }
+  return gm::gemm(static_cast<const float*>(a), static_cast<const float*>(b),
+                  gm::Store<float>{static_cast<float*>(c), N}, ws, nullptr, M,
+                  N, K, g, tile, splits, per, va, vb, stream);
 }
 
 }  // namespace
@@ -144,31 +117,28 @@ extern "C" int im2col_matmul(const void* a, const void* b, void* c, float* ws,
                              int M, int N, int K, int is_bf16, int tile,
                              int splits, int per, int va, int vb,
                              void* stream) {
-  if (is_bf16) {
-    const gm::Store<__nv_bfloat16> out{static_cast<__nv_bfloat16*>(c), N};
-    return gm::gemm(static_cast<const __nv_bfloat16*>(a),
-                    static_cast<const __nv_bfloat16*>(b), out, ws, nullptr, M,
-                    N, K, MatrixRows{K}, tile, splits, per, va, vb, stream);
-  }
-  return gm::gemm(static_cast<const float*>(a), static_cast<const float*>(b),
-                  gm::Store<float>{static_cast<float*>(c), N}, ws, nullptr, M,
-                  N, K, MatrixRows{K}, tile, splits, per, va, vb, stream);
+  return store_gemm(a, b, c, ws, M, N, K, MatrixRows{K}, is_bf16, tile,
+                    splits, per, va, vb, stream);
 }
 
-extern "C" int im2col_conv1d(const void* x, const void* w, void* y, int B,
-                             int L, int Cin, int Cout, int K, int stride,
-                             int lout, int is_bf16, void* stream) {
-  if (B < 1 || Cin < 1 || K < 1 || stride < 1 || lout < 1 ||
-      (long long)(lout - 1) * stride + K > L)
+// im2col_conv1d and im2col_conv2d run on tile `tile` in `splits` splits
+// of `per` chunks of the K*Cin or kh*kw*Cin taps (gemm_plan.py's choice),
+// with copies of va bytes of x (a divisor of Cin's bytes) and vb of w; ws
+// holds splits * (positions) * Cout floats when splits > 1 (else null).
+extern "C" int im2col_conv1d(const void* x, const void* w, void* y, float* ws,
+                             int B, int L, int Cin, int Cout, int K,
+                             int stride, int lout, int is_bf16, int tile,
+                             int splits, int per, int va, int vb,
+                             void* stream) {
+  if (!gm::conv_shape_ok(B, 1, L, Cin, Cout, 1, K, 1, stride, 1, lout) ||
+      va < 1 || ((long long)Cin * (is_bf16 ? 2 : 4)) % va != 0)
     return (int)cudaErrorInvalidValue;
-  return launch(x, w, y, (long long)B * lout, Cout, (long long)K * Cin,
-                is_bf16, Cols1d{L, Cin, stride, lout}, stream);
+  const TapColumns g{gm::conv_positions(1, L, Cin, K, 1, stride, 1, lout),
+                     gm::FastDiv(Cin), gm::FastDiv(K), L};
+  return store_gemm(x, w, y, ws, B * lout, Cout, K * Cin, g, is_bf16, tile,
+                    splits, per, va, vb, stream);
 }
 
-// im2col_conv2d runs on tile `tile` in `splits` splits of `per` chunks of
-// the kh*kw*Cin taps (gemm_plan.py's choice), with copies of va bytes of x
-// (a divisor of Cin's bytes) and vb of w; ws holds splits * B*oh*ow * Cout
-// floats when splits > 1 (else null).
 extern "C" int im2col_conv2d(const void* x, const void* w, void* y, float* ws,
                              int B, int H, int W, int Cin, int Cout, int kh,
                              int kw, int sh, int sw, int oh, int ow,
@@ -179,17 +149,8 @@ extern "C" int im2col_conv2d(const void* x, const void* w, void* y, float* ws,
     return (int)cudaErrorInvalidValue;
   const TapColumns g{gm::conv_positions(H, W, Cin, kw, sh, sw, oh, ow),
                      gm::FastDiv(Cin), gm::FastDiv(kw), W};
-  const int M = B * oh * ow, K = kh * kw * Cin;
-  if (is_bf16)
-    return gm::gemm(static_cast<const __nv_bfloat16*>(x),
-                    static_cast<const __nv_bfloat16*>(w),
-                    gm::Store<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y),
-                                             Cout},
-                    ws, nullptr, M, Cout, K, g, tile, splits, per, va, vb,
-                    stream);
-  return gm::gemm(static_cast<const float*>(x), static_cast<const float*>(w),
-                  gm::Store<float>{static_cast<float*>(y), Cout}, ws, nullptr,
-                  M, Cout, K, g, tile, splits, per, va, vb, stream);
+  return store_gemm(x, w, y, ws, B * oh * ow, Cout, kh * kw * Cin, g,
+                    is_bf16, tile, splits, per, va, vb, stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -49,42 +49,6 @@
 
 #include "gemm_mma.cuh"
 
-namespace {
-
-// y = act(sum + bias) and, where z is not null, z = sum + bias, both in T
-template <typename T>
-struct BiasAct {
-  T* y;
-  T* z;
-  const float* bias;
-  int N, act;
-  __device__ void one(size_t i, int n, float v) const {
-    if (bias != nullptr) v += bias[n];
-    if (z != nullptr) z[i] = from_f32<T>(v);
-    y[i] = from_f32<T>(activate(v, act));
-  }
-  __device__ void pair(size_t i, int n, float v0, float v1) const {
-    if (bias != nullptr) {
-      if (n < N) v0 += bias[n];
-      if (n + 1 < N) v1 += bias[n + 1];
-    }
-    if (z != nullptr) gm::store_pair(z, i, n, N, v0, v1);
-    gm::store_pair(y, i, n, N, activate(v0, act), activate(v1, act));
-  }
-};
-
-template <typename T>
-int run(const void* x, const void* w, const void* bias, void* y, void* z,
-        void* ws, int M, int K, int Cout, int act, const gm::ConvPositions& g,
-        int tile, int splits, int per, int va, int vb, void* stream) {
-  const BiasAct<T> epi{static_cast<T*>(y), static_cast<T*>(z),
-                       static_cast<const float*>(bias), Cout, act};
-  return gm::gemm(static_cast<const T*>(x), static_cast<const T*>(w), epi, ws,
-                  nullptr, M, Cout, K, g, tile, splits, per, va, vb, stream);
-}
-
-}  // namespace
-
 // Returns a cudaError_t code: 0 when the launches were accepted. bias and
 // z may be null. The product runs on tile `tile` in `splits` splits of
 // `per` chunks of the kh*kw*Cin filter taps (gemm_plan.py's choice), with
@@ -103,12 +67,9 @@ extern "C" int sliding_conv2d(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   const gm::ConvPositions g = gm::conv_positions(H, W, Cin, kw, sh, sw, oh,
                                                  ow);
-  const int M = B * oh * ow, K = kh * kw * Cin;
-  if (is_bf16)
-    return run<__nv_bfloat16>(x, w, bias, y, z, ws, M, K, Cout, act, g, tile,
-                              splits, per, va, vb, stream);
-  return run<float>(x, w, bias, y, z, ws, M, K, Cout, act, g, tile, splits,
-                    per, va, vb, stream);
+  return gm::bias_act_gemm(x, w, bias, y, z, ws, B * oh * ow, Cout,
+                           kh * kw * Cin, act, is_bf16, g, tile, splits, per,
+                           va, vb, stream);
 }
 
 extern "C" const char* error_string(int code) {

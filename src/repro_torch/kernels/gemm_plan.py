@@ -1,8 +1,9 @@
 """Launch geometry of the products on ``csrc/gemm_mma.cuh``: the tiled GEMM
-(``im2col_gemm.matmul``, row 5), the fused 2-D im2col conv
-(``im2col_gemm.conv2d_im2col_fused``, row 7), the 2-D weight gradient
-(``sliding_conv_bwd.conv2d_bwd_dw``, row 12) and the 2-D sliding conv, fp
-and int8 (``sliding_conv2d.conv2d_sliding``, row 4;
+(``im2col_gemm.matmul``, row 5), the fused 1-D and 2-D im2col convs
+(``im2col_gemm.conv1d_im2col_fused``, row 6; ``conv2d_im2col_fused``,
+row 7), the 2-D weight gradient (``sliding_conv_bwd.conv2d_bwd_dw``, row
+12), the 1-D sliding conv (``sliding_conv1d.conv1d_sliding``, row 1) and
+the 2-D one, fp and int8 (``sliding_conv2d.conv2d_sliding``, row 4;
 ``sliding_conv_quant.conv2d_quant``, row 14).
 
 The kernels take their tile, their split of the reduction and the width of
@@ -18,12 +19,15 @@ tests can hold it:
     long as the first), each at least ``MIN_SPLIT_CHUNKS`` chunks of the
     reduction long, the splits covering the chunks exactly and each
     holding at least one.
+  * ``launch``: a wrapper's whole launch geometry, the plan and copy
+    widths for its operands and the splits' workspace.
   * ``copy_bytes``: the widest copy (16, 8, 4 or, for bfloat16 and int8,
     2 bytes, or for int8 1) that every start address of an operand's
     vectors allows: a pointer and the strides between the vectors' starts
     must be multiples of it. ``conv2d_copy_strides`` lists those strides
-    for the sliding conv's gather of x, ``im2col_copy_strides`` for row
-    7's tap-by-tap gather.
+    for the sliding convs' gather of x, ``im2col_copy_strides`` for rows 6
+    and 7's tap-by-tap gather; a 1-D conv over x (B, L, Cin) is the case H
+    = 1, W = L, kw = K, stride (1, stride).
 """
 from __future__ import annotations
 
@@ -113,9 +117,29 @@ def copy_bytes(elem: int, ptrs, strides) -> int:
     raise ValueError(f"no copy width for {elem}-byte elements")
 
 
+def launch(x: torch.Tensor, w: torch.Tensor, M: int, K: int,
+           x_strides) -> tuple[GemmPlan, int, int, torch.Tensor | None]:
+    """The launch of a product whose A is gathered from contiguous x and
+    whose B is the contiguous (K, N) matrix w (N its last dimension): the
+    plan on x's card, the copy widths of x (``x_strides``: the strides, in
+    elements, between the starts of its copies) and of w, and the splits'
+    workspace (int32 partials for int8 x, float32 otherwise; None for one
+    split)."""
+    N = w.shape[-1]
+    plan = gemm_plan(M, N, K, x.dtype, build.sm_count(x.device))
+    va = copy_bytes(x.element_size(), [x.data_ptr()], x_strides)
+    vb = copy_bytes(w.element_size(), [w.data_ptr()], [N])
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits * M * N,), device=x.device,
+                         dtype=torch.int32 if x.dtype == torch.int8
+                         else torch.float32)
+    return plan, va, vb, ws
+
+
 def conv2d_copy_strides(H: int, W: int, Cin: int, kw: int,
                         stride: tuple[int, int]) -> list[int]:
-    """The strides, in elements, between the starts of the sliding conv's
+    """The strides, in elements, between the starts of the sliding convs'
     copies of x (B, H, W, Cin): neighbouring output positions along a row,
     a filter row's run, an input row, neighbouring output rows, images. A
     copy of a width that divides them all starts aligned and never crosses
@@ -126,10 +150,11 @@ def conv2d_copy_strides(H: int, W: int, Cin: int, kw: int,
 
 def im2col_copy_strides(H: int, W: int, Cin: int,
                         stride: tuple[int, int]) -> list[int]:
-    """The strides, in elements, between the starts of row 7's copies of x
-    (B, H, W, Cin), which builds its column tap by tap: neighbouring output
-    positions along a row, one tap's Cin channels, an input row,
-    neighbouring output rows, images. A copy of a width that divides them
-    all starts aligned and never crosses from one tap into the next."""
+    """The strides, in elements, between the starts of rows 6 and 7's
+    copies of x (B, H, W, Cin), which build their column tap by tap:
+    neighbouring output positions along a row, one tap's Cin channels, an
+    input row, neighbouring output rows, images. A copy of a width that
+    divides them all starts aligned and never crosses from one tap into
+    the next."""
     sh, sw = stride
     return [sw * Cin, Cin, W * Cin, sh * W * Cin, H * W * Cin]

@@ -8,9 +8,9 @@ convolutions (``repro.kernels.im2col_gemm``).
     L, Cin) NLC, w (K, Cin, Cout)) and conv2d (x (B, H, W, Cin) NHWC, w
     (kh, kw, Cin, Cout) HWIO), any stride, output in x's type: each tile's
     im2col column is built on chip and contracted by one GEMM (the TPU
-    kernels ``conv{1d,2d}_im2col_fused_pallas``). The 2-D one runs on
-    row 5's loop, its column built tap by tap; its plan and copy widths
-    come from ``gemm_plan`` (``im2col_copy_strides``).
+    kernels ``conv{1d,2d}_im2col_fused_pallas``). Both run on row 5's
+    loop, their column built tap by tap; their plans and copy widths come
+    from ``gemm_plan`` (``im2col_copy_strides``).
   * ``conv1d_im2col_hbm`` / ``conv2d_im2col_hbm``: the whole (B·out,
     K·Cin) column tensor built in device memory by torch ops, in x's type,
     then one ``matmul``: the memory-bloat baseline. Not kernels of their
@@ -47,8 +47,9 @@ DEFAULT_TILE_L = 256
 DEFAULT_TILE_H, DEFAULT_TILE_W = 16, 64
 # a, b, c, ws; M, N, K, is_bf16, tile, splits, per, va, vb; stream
 _MM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# x, w, y; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
-_1D_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# x, w, y, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16, tile, splits,
+# per, va, vb; stream
+_1D_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 # x, w, y, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16, tile,
 # splits, per, va, vb; stream
 _2D_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
@@ -160,13 +161,8 @@ def _launch_matmul(a, b):
     a, b = a.contiguous(), b.contiguous()
     M, K = a.shape
     N = b.shape[1]
-    plan = gemm_plan.gemm_plan(M, N, K, a.dtype, build.sm_count(a.device))
-    el = a.element_size()
-    va = gemm_plan.copy_bytes(el, [a.data_ptr()], [K])
-    vb = gemm_plan.copy_bytes(el, [b.data_ptr()], [N])
+    plan, va, vb, ws = gemm_plan.launch(a, b, M, K, [K])
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    ws = (torch.empty((plan.splits * M * N,), dtype=torch.float32,
-                      device=a.device) if plan.splits > 1 else None)
     code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
               None if ws is None else ws.data_ptr(), M, N, K,
               int(a.dtype == torch.bfloat16), plan.tile.id, plan.splits,
@@ -208,15 +204,29 @@ def conv1d_im2col_fused_plain(x: torch.Tensor, w: torch.Tensor, *,
     return y.reshape(x.shape[0], lout, Cout).to(x.dtype)
 
 
+def conv1d_launch(x, w, stride, lout):
+    """Row 6's launch geometry on ``csrc/gemm_mma.cuh`` for contiguous x
+    and w: the plan (tile and split of the K·Cin taps), the copy widths of
+    x (tap by tap) and w, and the splits' float32 workspace (None for one
+    split)."""
+    B, L, Cin = x.shape
+    return gemm_plan.launch(x, w, B * lout, w.shape[0] * Cin,
+                            gemm_plan.im2col_copy_strides(1, L, Cin,
+                                                          (1, stride)))
+
+
 def _launch_conv1d(x, w, stride, lout):
     _kernel_operands(x, w)
     fn = build.entry("im2col_gemm", "im2col_conv1d", _1D_ARGTYPES)
     x, w = x.contiguous(), w.contiguous()
     B, L, Cin = x.shape
     K, _, Cout = w.shape
+    plan, va, vb, ws = conv1d_launch(x, w, stride, lout)
     y = torch.empty((B, lout, Cout), dtype=x.dtype, device=x.device)
-    code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, L, Cin, Cout, K,
-              stride, lout, int(x.dtype == torch.bfloat16), _stream(x))
+    code = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+              None if ws is None else ws.data_ptr(), B, L, Cin, Cout, K,
+              stride, lout, int(x.dtype == torch.bfloat16), plan.tile.id,
+              plan.splits, plan.per, va, vb, _stream(x))
     build.check("im2col_gemm", code)
     conv1d_im2col_fused.launches += 1
     return y
@@ -261,16 +271,9 @@ def conv2d_launch(x, w, stride, oh, ow):
     widths of x (tap by tap) and w, and the splits' float32 workspace
     (None for one split)."""
     B, H, W, Cin = x.shape
-    kh, kw, _, Cout = w.shape
-    M = B * oh * ow
-    plan = gemm_plan.gemm_plan(M, Cout, kh * kw * Cin, x.dtype,
-                               build.sm_count(x.device))
-    va = gemm_plan.copy_bytes(x.element_size(), [x.data_ptr()],
-                              gemm_plan.im2col_copy_strides(H, W, Cin, stride))
-    vb = gemm_plan.copy_bytes(w.element_size(), [w.data_ptr()], [Cout])
-    ws = (torch.empty((plan.splits * M * Cout,), dtype=torch.float32,
-                      device=x.device) if plan.splits > 1 else None)
-    return plan, va, vb, ws
+    kh, kw = w.shape[:2]
+    return gemm_plan.launch(x, w, B * oh * ow, kh * kw * Cin,
+                            gemm_plan.im2col_copy_strides(H, W, Cin, stride))
 
 
 def _launch_conv2d(x, w, stride, oh, ow):

@@ -2,9 +2,13 @@
 activation epilogue.
 
 ``conv1d_sliding`` is the wrapper of the dense conv: on a CUDA tensor it
-launches the Hopper kernel ``csrc/sliding_conv1d.cu``; on a CPU tensor it
-runs ``conv1d_sliding_plain``, the same arithmetic in plain torch. Any
-other device raises. Nothing falls back from the kernel to the plain
+launches the Hopper kernel ``csrc/sliding_conv1d.cu``, the conv as one
+product on ``csrc/gemm_mma.cuh``'s main loop (output positions by (tap,
+channel) pairs, each position's K·Cin column one run of x), with the
+tile, the split of the taps and the copy widths from ``gemm_plan`` and
+the card's SM count (``conv1d_launch``); on a CPU tensor it runs
+``conv1d_sliding_plain``, the same arithmetic in plain torch. Any other
+device raises. Nothing falls back from the kernel to the plain
 version. ``conv1d_depthwise`` is the same for the depthwise conv (kernel
 ``csrc/conv1d_depthwise.cu``, plain version ``conv1d_depthwise_plain``).
 
@@ -32,11 +36,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 
 ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
-# x, w, bias, y, z; B, L, Cin, Cout, K, stride, Lout, act, is_bf16; stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# x, w, bias, y, z, ws; B, L, Cin, Cout, K, stride, Lout, act, is_bf16,
+# tile, splits, per, va, vb; stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 # x, w, bias, y, z; B, L, C, K, stride, Lout, act, is_bf16; stream
 _DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
@@ -91,6 +96,18 @@ def conv1d_sliding_plain(
     return (y, acc.to(x.dtype)) if save_preact else y
 
 
+def conv1d_launch(x, w, stride, lout):
+    """The launch geometry of the conv's product on ``csrc/gemm_mma.cuh``
+    (row 1), for contiguous x and w: the plan (tile and split of the K·Cin
+    taps), the copy widths of x (along each position's whole column) and
+    of w, and the splits' float32 workspace (None for one split)."""
+    B, L, Cin = x.shape
+    K = w.shape[0]
+    return gemm_plan.launch(x, w, B * lout, K * Cin,
+                            gemm_plan.conv2d_copy_strides(1, L, Cin, K,
+                                                          (1, stride)))
+
+
 def _launch(x, w, bias, stride, activation, out_len, save_preact=False):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
@@ -102,13 +119,16 @@ def _launch(x, w, bias, stride, activation, out_len, save_preact=False):
     b32 = None if bias is None else bias.float().contiguous()
     B, L, Cin = x.shape
     K, _, Cout = w.shape
+    plan, va, vb, ws = conv1d_launch(x, w, stride, out_len)
     y = torch.empty((B, out_len, Cout), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     code = fn(
         x.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
         y.data_ptr(), None if z is None else z.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         B, L, Cin, Cout, K, stride, out_len,
         ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
+        plan.tile.id, plan.splits, plan.per, va, vb,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("sliding_conv1d", code)

@@ -120,20 +120,10 @@ def product_launch(x, w, stride, oh, ow):
     the kh·kw·Cin taps), the copy widths of x and w, and the splits'
     workspace (None for one split; int32 partials for int8 x)."""
     B, H, W, Cin = x.shape
-    kh, kw, _, Cout = w.shape
-    M = B * oh * ow
-    plan = gemm_plan.gemm_plan(M, Cout, kh * kw * Cin, x.dtype,
-                               build.sm_count(x.device))
-    va = gemm_plan.copy_bytes(
-        x.element_size(), [x.data_ptr()],
-        gemm_plan.conv2d_copy_strides(H, W, Cin, kw, stride))
-    vb = gemm_plan.copy_bytes(w.element_size(), [w.data_ptr()], [Cout])
-    ws = None
-    if plan.splits > 1:
-        ws = torch.empty((plan.splits * M * Cout,), device=x.device,
-                         dtype=torch.int32 if x.dtype == torch.int8
-                         else torch.float32)
-    return plan, va, vb, ws
+    kh, kw = w.shape[:2]
+    return gemm_plan.launch(x, w, B * oh * ow, kh * kw * Cin,
+                            gemm_plan.conv2d_copy_strides(H, W, Cin, kw,
+                                                          stride))
 
 
 def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):

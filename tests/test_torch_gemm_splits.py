@@ -1,6 +1,7 @@
 """The launch geometry of the products on ``csrc/gemm_mma.cuh`` (the tiled
-GEMM, row 5, the 2-D weight gradient, row 12, and the 2-D sliding conv,
-fp and int8, rows 4 and 14), on the CPU, where no kernel runs:
+GEMM, row 5, the fused 1-D and 2-D im2col convs, rows 6 and 7, the 2-D
+weight gradient, row 12, and the sliding convs: 1-D, row 1, and 2-D, fp
+and int8, rows 4 and 14), on the CPU, where no kernel runs:
 ``kernels/gemm_plan.py``'s tile, split-K and copy widths, the conv's
 gather of x transcribed, and a plain-torch transcription of the kernels'
 summation order held to the plain versions.
@@ -21,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, gemm_plan as gp  # noqa: E402
 from repro_torch.kernels import im2col_gemm as ig  # noqa: E402
+from repro_torch.kernels import sliding_conv1d as s1  # noqa: E402
 from repro_torch.kernels import sliding_conv2d as s2  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as sb  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as sq  # noqa: E402
@@ -139,6 +141,47 @@ def test_sources_hold_no_sm_count():
 ])
 def test_copy_bytes(elem, ptrs, strides, want):
     assert gp.copy_bytes(elem, ptrs, strides) == want
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, I8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_wrappers_launch_geometry(dtype, offset):
+    """Each product wrapper's launch geometry (``gemm_plan.launch`` on its
+    operands, here CPU tensors, which take an H100's SM count): the plan
+    for its (M, N, K), x's copy width from its strides and pointer, w's
+    from Cout, and a workspace of splits·M·N partials (int32 for int8 x)
+    exactly when the plan splits."""
+    def tensor(*shape, off=0):
+        n = math.prod(shape)
+        return torch.zeros(n + off, dtype=dtype)[off:].view(*shape)
+
+    x1, w1 = tensor(2, 130, 1024, off=offset), tensor(3, 1024, 1024)
+    x2, w2 = tensor(2, 40, 44, 6, off=offset), tensor(5, 5, 6, 70)
+    lout, (oh, ow) = 64, (18, 20)
+    cases = [
+        (s1.conv1d_launch(x1, w1, 2, lout), x1, w1, 2 * lout, 3 * 1024,
+         gp.conv2d_copy_strides(1, 130, 1024, 3, (1, 2))),
+        (ig.conv1d_launch(x1, w1, 2, lout), x1, w1, 2 * lout, 3 * 1024,
+         gp.im2col_copy_strides(1, 130, 1024, (1, 2))),
+        (s2.product_launch(x2, w2, (2, 2), oh, ow), x2, w2, 2 * oh * ow,
+         150, gp.conv2d_copy_strides(40, 44, 6, 5, (2, 2))),
+        (ig.conv2d_launch(x2, w2, (2, 2), oh, ow), x2, w2, 2 * oh * ow, 150,
+         gp.im2col_copy_strides(40, 44, 6, (2, 2))),
+    ]
+    for (plan, va, vb, ws), x, w, M, K, strides in cases:
+        N = w.shape[-1]
+        assert plan == gp.gemm_plan(M, N, K, dtype, build.DEFAULT_SMS)
+        assert va == gp.copy_bytes(dtype.itemsize, [x.data_ptr()], strides)
+        assert vb == gp.copy_bytes(dtype.itemsize, [w.data_ptr()], [N])
+        if plan.splits == 1:
+            assert ws is None
+        else:
+            assert ws.shape == (plan.splits * M * N,)
+            assert ws.dtype == (torch.int32 if dtype == I8 else F32)
+    # whisper's conv2 cut: 8 tiles, split on an H100
+    assert cases[0][0][0].splits > 1
+    if offset:
+        assert cases[0][0][1] == dtype.itemsize
 
 
 def split_k(a, b, plan):
@@ -317,11 +360,14 @@ def fast_div(n, d):
     return ((n * mul) >> 32) >> (lg - 1)
 
 
-def gather_offsets(B, H, W, Cin, k, stride):
-    """ConvPositions transcribed: x's flat offset of A[p, k], at(row(p)) +
-    col(k), every divide a FastDiv."""
-    (M, _, K), (oh, ow) = _conv_dims(B, H, W, Cin, 1, k, stride)
+def gather_offsets(B, H, W, Cin, k, stride, kh=None):
+    """ConvPositions transcribed for a kh x k filter (kh = k by default):
+    x's flat offset of A[p, k], at(row(p)) + col(k), every divide a
+    FastDiv."""
+    kh = k if kh is None else kh
     sh, sw = stride
+    oh, ow = (H - kh) // sh + 1, (W - k) // sw + 1
+    M, K = B * oh * ow, kh * k * Cin
     offs = np.empty((M, K), dtype=np.int64)
     cols = []
     for kk in range(K):
@@ -602,17 +648,249 @@ def test_split_order_matches_conv2d_im2col_fused_plain(B, H, W, Cin, Cout,
                                    atol=1e-5)
 
 
-def test_row7_source_is_on_the_product_loop():
-    """Row 7 calls gm::gemm with its tap gather; Cols2d and row 7's
-    gemm_tile.cuh path are gone; gemm_tile.cuh serves row 6 alone."""
-    text = (build.CSRC / "im2col_gemm.cu").read_text()
-    entry = text[text.index('extern "C" int im2col_conv2d'):]
-    entry = entry[:entry.index('extern "C"', 10)]
-    assert "gm::gemm" in entry and "TapColumns" in entry
-    assert "Cols2d" not in text and "launch(" not in entry
-    assert "Cols1d" in text
-    assert "row 6" in (build.CSRC / "gemm_tile.cuh").read_text()
+def _c_entry(source, name):
+    """The text of C entry ``name`` in ``csrc/<source>``, from its
+    signature to the next entry."""
+    text = (build.CSRC / source).read_text()
+    entry = text[text.index(f'extern "C" int {name}('):]
+    return entry[:entry.index('extern "C"', 10)]
+
+
+def _check_argtypes(entry, argtypes):
+    """A C entry's parameters against its wrapper's ctypes list: as many,
+    and a pointer (``c_void_p``) exactly where the C parameter is one."""
     params = entry[entry.index("(") + 1 : entry.index(")")].split(",")
-    assert len(params) == len(ig._2D_ARGTYPES)
-    for prm, t in zip(params, ig._2D_ARGTYPES):
+    assert len(params) == len(argtypes)
+    for prm, t in zip(params, argtypes):
         assert ("*" in prm) == (t is ig.ctypes.c_void_p), prm
+
+
+def test_row7_source_is_on_the_product_loop():
+    """Rows 5, 6 and 7 call gm::gemm (through store_gemm, a Store
+    epilogue), the convs with their tap gather; Cols1d, Cols2d, the old
+    launch template and gemm_tile.cuh are gone, and nothing includes
+    gemm_tile.cuh."""
+    text = (build.CSRC / "im2col_gemm.cu").read_text()
+    helper = text[text.index("int store_gemm("):text.index('extern "C"')]
+    assert "gm::gemm(" in helper and "gm::Store<" in helper
+    for name, argtypes in (("im2col_matmul", ig._MM_ARGTYPES),
+                           ("im2col_conv1d", ig._1D_ARGTYPES),
+                           ("im2col_conv2d", ig._2D_ARGTYPES)):
+        entry = _c_entry("im2col_gemm.cu", name)
+        assert "store_gemm(" in entry and "launch(" not in entry, name
+        assert ("TapColumns" in entry) == (name != "im2col_matmul"), name
+        _check_argtypes(entry, argtypes)
+    for gone in ("Cols1d", "Cols2d", "gemm_kernel", "GTHREADS"):
+        assert gone not in text, gone
+    assert not (build.CSRC / "gemm_tile.cuh").exists()
+    for path in build.CSRC.iterdir():
+        assert "gemm_tile" not in path.read_text(), path.name
+
+
+def test_row1_source_is_on_the_product_loop():
+    """Row 1 is one product on gm::gemm (through bias_act_gemm, row 4's
+    BiasAct epilogue) with ConvPositions at H = oh = kh = 1; the 64 x 64
+    tile and its halo limit are gone; its ctypes list matches the C
+    signature; BiasAct lives in gemm_mma.cuh alone."""
+    entry = _c_entry("sliding_conv1d.cu", "sliding_conv1d")
+    assert "gm::bias_act_gemm(" in entry
+    assert "gm::conv_positions(1, L, Cin, K, 1, stride, 1, Lout)" in entry
+    assert "gm::conv_shape_ok(B, 1, L, Cin, Cout, 1, K, 1, stride, 1, Lout)" \
+        in entry
+    text = (build.CSRC / "sliding_conv1d.cu").read_text()
+    assert '#include "gemm_mma.cuh"' in text
+    for gone in ("halo_floats", "sliding_conv1d_kernel", "TL =", "227"):
+        assert gone not in text, gone
+    _check_argtypes(entry, s1._ARGTYPES)
+    header = (build.CSRC / "gemm_mma.cuh").read_text()
+    helper = header[header.index("int bias_act_gemm("):]
+    assert "gemm(" in helper and "BiasAct<" in helper
+    assert "struct BiasAct" in header
+    assert "struct BiasAct" not in (build.CSRC / "sliding_conv2d.cu"
+                                    ).read_text()
+    assert "gm::bias_act_gemm(" in _c_entry("sliding_conv2d.cu",
+                                            "sliding_conv2d")
+
+
+# ---------------------------------------------------------------------------
+# rows 1 and 6: the 1-D convs on the same loop, H = oh = kh = 1
+# ---------------------------------------------------------------------------
+
+# (what, B, L, Cin, Cout, K, stride, dtype, splits on 132 SMs, tile, va):
+# whisper's frontend (the main path; f32 and bf16) and phase 35's 1-D
+# table, with the plan on an H100 and x's copy width, the same for rows 1
+# and 6 at these shapes
+CONV1D_TABLE = [
+    ("whisper conv1", 4, 514, 80, 1024, 3, 1, F32, 1, "wide", 16),
+    ("whisper conv1", 4, 514, 80, 1024, 3, 1, BF16, 1, "mma", 16),
+    ("whisper conv2", 4, 514, 1024, 1024, 3, 2, F32, 4, "wide", 16),
+    ("whisper conv2", 4, 514, 1024, 1024, 3, 2, BF16, 4, "mma", 16),
+    ("table K65", 1, 16384, 32, 32, 65, 1, F32, 6, "narrow", 16),
+    ("table K17", 1, 16384, 32, 32, 17, 1, F32, 4, "narrow", 16),
+    ("table K3", 1, 16384, 32, 32, 3, 1, F32, 1, "narrow", 16),
+]
+
+
+def _conv1d_dims(B, L, Cin, Cout, K, stride):
+    """(M, N, K) of the 1-D conv's product, and Lout."""
+    lout = (L - K) // stride + 1
+    return (B * lout, Cout, K * Cin), lout
+
+
+@pytest.mark.parametrize("sms", (build.DEFAULT_SMS, 8))
+@pytest.mark.parametrize(
+    "what,B,L,Cin,Cout,K,stride,dtype,splits,tile,va", CONV1D_TABLE,
+    ids=[f"{t[0]} {t[7]}" for t in CONV1D_TABLE])
+def test_conv1d_plans_and_copy_widths(what, B, L, Cin, Cout, K, stride,
+                                      dtype, splits, tile, va, sms):
+    """Rows 1 and 6 take gemm_plan's plan for their product (positions by
+    K·Cin taps by Cout): on an H100 whisper's conv1 fills the card with
+    its 128 tiles, conv2 splits its 64 tiles 4 ways, the 1-D table's K=65
+    splits 128 tiles 6 ways; on 8 SMs nothing splits. x's copies are 16
+    bytes for both gathers: row 1's along a position's whole K·Cin run,
+    row 6's within one tap's Cin channels."""
+    (M, N, Kr), _ = _conv1d_dims(B, L, Cin, Cout, K, stride)
+    p = gp.gemm_plan(M, N, Kr, dtype, sms)
+    _check_plan(p, M, N, Kr, dtype, sms)
+    assert p.tile is gp.TILES[tile]
+    if sms == build.DEFAULT_SMS:
+        assert p.splits == splits
+    else:
+        assert p.splits == 1
+    el = dtype.itemsize
+    run = gp.copy_bytes(el, [0], gp.conv2d_copy_strides(1, L, Cin, K,
+                                                        (1, stride)))
+    tap = gp.copy_bytes(el, [0], gp.im2col_copy_strides(1, L, Cin,
+                                                        (1, stride)))
+    assert run == tap == va
+
+
+def test_conv1d_plans_at_the_h100():
+    """The chunk counts a split walks at whisper's conv2 and the table's
+    K=65 on 132 SMs."""
+    def plan(B, L, Cin, Cout, K, stride, dtype):
+        return gp.gemm_plan(*_conv1d_dims(B, L, Cin, Cout, K, stride)[0],
+                            dtype, 132)
+
+    p = plan(4, 514, 1024, 1024, 3, 2, F32)
+    assert (p.tiles, p.splits, p.per) == (64, 4, 48)
+    p = plan(4, 514, 1024, 1024, 3, 2, BF16)
+    assert (p.tiles, p.splits, p.per) == (64, 4, 24)
+    p = plan(1, 16384, 32, 32, 65, 1, F32)
+    assert (p.tiles, p.splits) == (128, 6)
+
+
+@pytest.mark.parametrize("elem,ptr,L,Cin,K,stride,run,tap", [
+    (4, 0, 301, 37, 3, 1, 4, 4),     # Cin 37: 4-byte copies in f32
+    (2, 0, 301, 37, 3, 1, 2, 2),     # ... plain 2-byte loads in bf16
+    (2, 0, 300, 37, 4, 2, 4, 2),     # even strides: 4-byte runs, 2-byte taps
+    (4, 0, 301, 3, 7, 2, 4, 4),      # Cin 3
+    (2, 0, 300, 3, 8, 2, 4, 2),      # Cin 3, 24-value runs, even L
+    (2, 0, 514, 80, 3, 1, 16, 16),   # whisper conv1 in bf16
+    (4, 4, 514, 80, 3, 1, 4, 4),     # x one element off 16 bytes
+    (2, 2, 514, 1024, 3, 2, 2, 2),   # ... in bf16
+    (4, 0, 16384, 32, 65, 1, 16, 16),
+    (4, 0, 300, 6, 5, 3, 8, 8),      # Cin 6: 8-byte copies in f32
+])
+def test_conv1d_copy_bytes(elem, ptr, L, Cin, K, stride, run, tap):
+    """Row 1's copy width follows its K·Cin runs, row 6's one tap's Cin
+    channels; both the pointer's alignment."""
+    assert gp.copy_bytes(elem, [ptr], gp.conv2d_copy_strides(
+        1, L, Cin, K, (1, stride))) == run
+    assert gp.copy_bytes(elem, [ptr], gp.im2col_copy_strides(
+        1, L, Cin, (1, stride))) == tap
+
+
+@pytest.mark.parametrize("B,L,Cin,K,stride", [
+    (2, 40, 3, 5, 1), (3, 37, 37, 3, 2), (2, 50, 4, 7, 3), (1, 9, 5, 1, 1),
+    (2, 30, 6, 30, 1), (1, 70, 2, 65, 2)])
+def test_conv1d_gathers_are_the_column_matrix(B, L, Cin, K, stride):
+    """Row 1's gather (ConvPositions at H = oh = kh = 1) and row 6's
+    (TapColumns at kh = 1) read the 1-D im2col matrix, ``columns_1d``;
+    each copy of row 6 stays within one tap, each of row 1 within its
+    position's run."""
+    x = torch.arange(B * L * Cin, dtype=torch.int64).reshape(B, L, Cin)
+    want = ig.columns_1d(x, K, stride)
+    x2 = x.reshape(-1)
+    run = gather_offsets(B, 1, L, Cin, K, (1, stride), kh=1)
+    tap = tap_offsets(B, 1, L, Cin, 1, K, (1, stride))
+    assert torch.equal(x2[torch.from_numpy(run)], want)
+    assert torch.equal(x2[torch.from_numpy(tap)], want)
+    for el in (2, 4):
+        for offs, strides in (
+                (run, gp.conv2d_copy_strides(1, L, Cin, K, (1, stride))),
+                (tap, gp.im2col_copy_strides(1, L, Cin, (1, stride)))):
+            n = gp.copy_bytes(el, [0], strides) // el
+            assert (K * Cin) % n == 0
+            for d in range(1, n):
+                assert np.array_equal(offs[:, d::n], offs[:, ::n] + d)
+
+
+# (B, L, Cin, Cout, K, stride, sms): whisper's conv2 cut in batch and
+# length (4 splits on 132 SMs), the table's K=65 cut (narrow tile,
+# splits), ragged channels and strides on 8 SMs, K = 1 with Cout 1
+CONV1D_SPLITS = [(2, 130, 1024, 1024, 3, 2, 132),
+                 (1, 2000, 32, 32, 65, 1, 132),
+                 (3, 301, 37, 70, 7, 3, 8),
+                 (2, 50, 5, 1, 1, 1, 132)]
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "silu"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride,sms", CONV1D_SPLITS)
+def test_split_order_matches_conv1d_sliding_plain(B, L, Cin, Cout, K, stride,
+                                                  sms, dtype, act):
+    """Row 1: the columns (the gather) times the (K·Cin, Cout) weights in
+    the kernel's split order, then bias, activation and one cast, z the
+    post-bias sum: y and z against the plain version."""
+    rng = np.random.default_rng(Cin + Cout + K)
+    x = torch.from_numpy(rng.normal(size=(B, L, Cin)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=(K, Cin, Cout))
+                          / np.sqrt(K * Cin)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.normal(size=(Cout,)).astype(np.float32))
+    (M, N, Kr), lout = _conv1d_dims(B, L, Cin, Cout, K, stride)
+    plan = gp.gemm_plan(M, N, Kr, dtype, sms)
+    if (Cin, sms) == (1024, 132):
+        assert plan.splits > 1
+    cols = x.reshape(-1)[torch.from_numpy(gather_offsets(
+        B, 1, L, Cin, K, (1, stride), kh=1))]
+    pre = split_k(cols, w.reshape(Kr, N), plan) + b
+    got_y = apply_activation(pre, act).to(dtype).reshape(B, lout, N)
+    got_z = pre.to(dtype).reshape(B, lout, N)
+    want_y, want_z = s1.conv1d_sliding_plain(x, w, b, stride=stride,
+                                             activation=act, save_preact=True)
+    tol = TOL if dtype == F32 else dict(rtol=2 ** -7, atol=1e-5)
+    for got, want in ((got_y, want_y), (got_z, want_z)):
+        assert got.dtype == dtype
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride,sms", CONV1D_SPLITS)
+def test_split_order_matches_conv1d_im2col_fused_plain(B, L, Cin, Cout, K,
+                                                       stride, sms, dtype):
+    """Row 6: the columns (the tap gather) times the weights in the
+    kernel's split order, one cast: against the plain version, float32
+    within 1e-5 of max |y|, bf16 one rounding from the same float32
+    value."""
+    rng = np.random.default_rng(Cin + Cout + K + 1)
+    x = torch.from_numpy(rng.normal(size=(B, L, Cin)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=(K, Cin, Cout))
+                          / np.sqrt(K * Cin)).astype(np.float32)).to(dtype)
+    (M, N, Kr), lout = _conv1d_dims(B, L, Cin, Cout, K, stride)
+    plan = gp.gemm_plan(M, N, Kr, dtype, sms)
+    cols = x.reshape(-1)[torch.from_numpy(tap_offsets(B, 1, L, Cin, 1, K,
+                                                       (1, stride)))]
+    got = split_k(cols, w.reshape(Kr, N), plan).to(dtype).reshape(B, lout, N)
+    want = ig.conv1d_im2col_fused_plain(x, w, stride=stride)
+    assert got.dtype == want.dtype == dtype
+    if dtype == F32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5)

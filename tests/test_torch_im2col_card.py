@@ -1,8 +1,8 @@
 """The GEMM-convolution baseline kernels against their plain versions, on
 the card: the tiled GEMM (``im2col_gemm.matmul``), the fused 1-D and 2-D
-im2col convolutions (the 2-D one at each copy width of its tap-by-tap
-gather, split and not), the column-tensor (hbm) baselines on the GEMM kernel,
-and ``ops``'s im2col backends.
+im2col convolutions (each at each copy width of its tap-by-tap gather,
+split and not), the column-tensor (hbm) baselines on the GEMM kernel, and
+``ops``'s im2col backends.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
 jax nor the JAX package, so it runs where the port runs (``--noconftest``:
@@ -201,6 +201,66 @@ def test_conv2d_kernel_copy_widths_and_splits(card, forced_splits, splits,
     assert torch.equal(got, tig.conv2d_im2col_fused(x, w, stride=stride))
     _close(got, tig.conv2d_im2col_fused_plain(x.float(), w.float(),
                                               stride=stride), dt)
+
+
+# (dtype, B, L, Cin, Cout, K, stride, va): row 6's copy width of x, one
+# tap's Cin channels at most; the 1-D table's Cout 32 (the narrow f32
+# tile) and whisper's conv2 cut in length among them
+ROW6_WIDTHS = [
+    ("float32", 2, 300, 32, 32, 17, 1, 16),
+    ("float32", 2, 300, 6, 70, 5, 2, 8),
+    ("float32", 3, 301, 37, 70, 7, 3, 4),
+    ("float32", 2, 301, 3, 33, 65, 1, 4),
+    ("float32", 2, 130, 1024, 1024, 3, 2, 16),
+    ("bfloat16", 2, 300, 32, 32, 17, 1, 16),
+    ("bfloat16", 2, 300, 4, 70, 9, 2, 8),
+    ("bfloat16", 2, 300, 6, 33, 7, 3, 4),
+    ("bfloat16", 2, 301, 3, 70, 65, 1, 2),
+    ("bfloat16", 3, 301, 37, 70, 3, 2, 2),
+    ("bfloat16", 2, 130, 1024, 1024, 3, 2, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("dtype,B,L,cin,cout,K,stride,va", ROW6_WIDTHS)
+def test_conv1d_kernel_copy_widths_and_splits(card, forced_splits, splits,
+                                              dtype, B, L, cin, cout, K,
+                                              stride, va):
+    """Row 6 on gemm_mma.cuh's loop at each copy width of x (16, 8, 4 and,
+    in bf16, 2 bytes), with the plan's split and forced to 3: one launch,
+    as the 1-D test above to the plain version, two calls bitwise
+    equal."""
+    if splits:
+        forced_splits(splits)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(ROW6_WIDTHS.index(
+        (dtype, B, L, cin, cout, K, stride, va)))
+    x = _randn(rng, (B, L, cin), 1.0, card, dt)
+    w = _randn(rng, (K, cin, cout), (K * cin) ** -0.5, card, dt)
+    lout = (L - K) // stride + 1
+    plan, got_va, _, _ = tig.conv1d_launch(x, w, stride, lout)
+    assert got_va == va and (plan.splits > 1 or not splits)
+    before = tig.conv1d_im2col_fused.launches
+    got = tig.conv1d_im2col_fused(x, w, stride=stride)
+    assert tig.conv1d_im2col_fused.launches == before + 1
+    assert torch.equal(got, tig.conv1d_im2col_fused(x, w, stride=stride))
+    _close(got, tig.conv1d_im2col_fused_plain(x.float(), w.float(),
+                                              stride=stride), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,va", [("float32", 4), ("bfloat16", 2)])
+def test_conv1d_kernel_unaligned_base(card, dtype, va):
+    """Row 6 on x one element past its storage's 16-byte alignment: the
+    copies narrow to the pointer, the result does not move."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    x = _randn(rng, (2 * 300 * 32 + 1,), 1.0, card, dt)[1:].view(2, 300, 32)
+    w = _randn(rng, (17, 32, 32), (17 * 32) ** -0.5, card, dt)
+    assert tig.conv1d_launch(x, w, 1, 284)[1] == va
+    got = tig.conv1d_im2col_fused(x, w)
+    _close(got, tig.conv1d_im2col_fused_plain(x.float(), w.float()), dt)
 
 
 @pytest.mark.cuda
