@@ -236,13 +236,14 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version, the port's associative scan and the bound.
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
-     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8, 1, 6) at each
-     timed shape beside its time before the redesign (``EARLIER_MS``):
-     row 5 at the five hbm columns phase 35 times it on, row 12 at phase
-     32's five shapes, row 4 at phase 27's six, row 14 at phase 32's
-     seven, row 7 at phase 35's eight 2-D shapes, row 8's forms and the
-     sum gradient at phase 39's shapes timed before, row 1 at phase 6's
-     four (f32 and bf16), row 6 at phase 35's five 1-D shapes.
+     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8, 1, 6, 13, 10) at
+     each timed shape beside its time before the redesign
+     (``EARLIER_MS``): row 5 at the five hbm columns phase 35 times it on,
+     row 12 at phase 32's five shapes, row 4 at phase 27's six, row 14 at
+     phase 32's seven, row 7 at phase 35's eight 2-D shapes, row 8's forms
+     and the sum gradient at phase 39's shapes timed before, row 1 at
+     phase 6's four (f32 and bf16), row 6 at phase 35's five 1-D shapes,
+     row 13 at phase 15's two, row 10 at phase 10's two.
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
@@ -1185,6 +1186,7 @@ def phase_train_times(sb, launches, err) -> dict:
                                              for r in both) else "bytes")
     return dict(name="conv1d_bwd_dw", route="cuda",
                 source="src/repro_torch/kernels/csrc/sliding_conv_bwd.cu",
+                header="src/repro_torch/kernels/csrc/gemm_mma.cuh",
                 replaces="src/repro/kernels/sliding_conv_bwd.py:229",
                 launches=launches["conv1d_bwd_dw"], max_abs_err=err,
                 per="train step: conv1 80->1024 s1 + conv2 1024->1024 s2, "
@@ -1595,6 +1597,7 @@ def phase_quant_times(sq, ad, launches, errs) -> list[dict]:
     return [
         dict(name="sliding_conv_quant", route="cuda",
              source="src/repro_torch/kernels/csrc/sliding_conv_quant.cu",
+             header="src/repro_torch/kernels/csrc/gemm_mma.cuh",
              replaces="src/repro/kernels/sliding_conv_quant.py:220",
              launches=launches["sliding_conv_quant"],
              max_abs_err=errs["sliding_conv_quant"],
@@ -4623,6 +4626,11 @@ EARLIER_MS = {
     # row 1 on its 64 x 64 CUDA-core tile at phase 6's shapes (bias + gelu)
     "sliding_conv1d": {"conv1": 0.0638, "conv2": 0.4253,
                        "conv1_bf16": 0.0637, "conv2_bf16": 0.5375},
+    # row 13 (the 1-D int8 conv, w8a8) on its __dp4a CUDA-core tiles and
+    # row 10 on its KT x 4 x 4 CUDA-core tiles, at phase 15's and phase
+    # 10's shapes
+    "sliding_conv_quant": {"conv1": 0.0310, "conv2": 0.1642},
+    "conv1d_bwd_dw": {"conv1": 0.0697, "conv2": 0.2617},
     # row 6 on gemm_tile.cuh at phase 35's 1-D shapes
     "im2col_conv1d": {"conv1d_K3": 0.0135, "conv1d_K17": 0.0531,
                       "conv1d_K65": 0.1880, "whisper_conv1": 0.0468,
@@ -4740,6 +4748,8 @@ def report_redesigned(kernels) -> None:
                       if k != main_shape[row["name"]]}}
         elif "shapes" in row:  # row 1: the row sums its shapes
             now = {k: row["shapes"][k] for k in before}
+        elif "by_shape" in row:  # rows 13 and 10, the same
+            now = {k: row["by_shape"][k] for k in before}
         else:
             now = {"whisper": row, "jamba": row["jamba_shape"],
                    "llava": row["llava_shape"]}

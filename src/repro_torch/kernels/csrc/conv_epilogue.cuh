@@ -1,8 +1,7 @@
-// Shared by the conv kernels (sliding_conv_quant.cu, conv1d_depthwise.cu,
+// Shared by the conv kernels (conv1d_depthwise.cu,
 // conv1d_depthwise_quant.cu, and through gemm_mma.cuh the products on its
 // loop): the epilogue's activation, the float/bf16 conversions and the
-// int8 kernels' dequant,
-// bias, activation and requant store. Every kernel library compiles it
+// int8 kernels' dequant, bias, activation and requant store. Every kernel library compiles it
 // into its own translation unit; build.py keys each library on this
 // header's text too.
 #pragma once

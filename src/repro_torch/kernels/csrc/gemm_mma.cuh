@@ -1,21 +1,22 @@
 // Shared by the tiled GEMM and the fused 1-D and 2-D im2col convs
-// (im2col_gemm.cu, rows 5, 6 and 7), the 2-D weight gradient
-// (sliding_conv2d_bwd.cu, row 12) and the sliding convs: 1-D (sliding_conv1d.cu,
-// row 1) and 2-D, fp and int8 (sliding_conv2d.cu, row 4;
-// sliding_conv2d_quant.cu, row 14): a block-tiled product
+// (im2col_gemm.cu, rows 5, 6 and 7), the weight gradients, 1-D and 2-D
+// (sliding_conv_bwd.cu, row 10; sliding_conv2d_bwd.cu, row 12) and the
+// sliding convs: 1-D, fp and int8 (sliding_conv1d.cu, row 1;
+// sliding_conv_quant.cu, row 13) and 2-D, fp and int8 (sliding_conv2d.cu,
+// row 4; sliding_conv2d_quant.cu, row 14): a block-tiled product
 //
 //   C[M, N] = epilogue(sum_k A[m, k] * B[k, n])
 //
 // whose A comes through a gather functor and whose B is a row-major (K, N)
 // matrix. build.py keys every kernel library on this header's text.
 //
-// Why it exists: rows 1, 4, 5, 6, 7, 12 and 14 are each one product whose
-// reduction is the length of one operand (row 5's K, row 12's B*oh*ow
-// output positions, the convs' K*Cin or kh*kw*Cin filter taps), and their
-// first versions summed on the CUDA cores from 64 x 64 tiles staged one
-// chunk at a time, with no overlap of loads and math, no tensor cores for
-// bfloat16 or int8, and no split of the reduction where the blocks alone
-// leave the card idle.
+// Why it exists: rows 1, 4, 5, 6, 7, 10, 12, 13 and 14 are each one
+// product whose reduction is the length of one operand (row 5's K, the
+// weight gradients' B*oh*ow output positions, the convs' K*Cin or
+// kh*kw*Cin filter taps), and their first versions summed on the CUDA
+// cores from 64 x 64 tiles staged one chunk at a time, with no overlap of
+// loads and math, no tensor cores for bfloat16 or int8, and no split of
+// the reduction where the blocks alone leave the card idle.
 //
 // The design:
 //   * Tiles. bfloat16 runs on the tensor cores: 128 x 128 blocks of 8
@@ -47,15 +48,15 @@
 //     16-bit elements only. Rows, columns and reduction elements past M,
 //     N and K stage as zeros and store nothing.
 //   * A's two layouts. Where A runs along k in memory (Gather::kMajor:
-//     row 5's row-major matrix; rows 1, 4 and 14, where an output
+//     row 5's row-major matrix; rows 1, 4, 13 and 14, where an output
 //     position's filter row is one run of kw*Cin values of x in NLC or
 //     NHWC, the paper's vector slide; rows 6 and 7, the same runs copied
 //     a tap at a time) a stage holds A as [m][k]; where it runs along m
-//     (row 12: a filter row's (tap, channel) run) as [k][m]. A thread
-//     keeps the row keys of the values of m it stages in registers for
-//     the whole block: always for [k][m] stages, for [m][k] ones where a
-//     key costs divisions (Gather::kCacheRows: the convs); row 5's key, m
-//     itself, is formed at each copy.
+//     (rows 10 and 12: a filter row's (tap, channel) run) as [k][m]. A
+//     thread keeps the row keys of the values of m it stages in registers
+//     for the whole block: always for [k][m] stages, for [m][k] ones where
+//     a key costs divisions (Gather::kCacheRows: the convs); row 5's key,
+//     m itself, is formed at each copy.
 //   * Split-K. Blocks are (M tiles, N tiles, splits); split z walks chunks
 //     [z * per, min((z + 1) * per, chunks)) of BK reduction elements.
 //     The split count and the tile are the wrapper's choice
@@ -63,14 +64,14 @@
 //   * The epilogue, a functor, runs once an output: in the block's store
 //     with one split; with more, each split writes its partials (float32,
 //     int32 on the int8 tile) to the caller's workspace and
-//     reduce_splits adds them in split order (as split_reduce.cuh's
-//     reduce_splits does) before it: no atomics, so a result is the same
-//     from run to run. Store (a cast to C's type) is rows 5, 6, 7 and
-//     12's; BiasAct (bias, activation, the post-bias z) rows 1 and 4's;
-//     row 14 brings dequant and requant.
-//   * An optional column sum of B (row 12's bias gradient, db[n] = sum_k
-//     B[k, n]) is taken by the blocks of the first M tile from the stages
-//     they hold anyway.
+//     reduce_splits adds them in split order before it: no atomics, so a
+//     result is the same from run to run. Store (a cast to C's type) is
+//     rows 5, 6, 7, 10 and 12's; BiasAct (bias, activation, the post-bias
+//     z) rows 1 and 4's; Dequant (dequant, bias, activation, requant or
+//     cast) rows 13 and 14's.
+//   * An optional column sum of B (the weight gradients' bias gradient,
+//     db[n] = sum_k B[k, n]) is taken by the blocks of the first M tile
+//     from the stages they hold anyway.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -153,6 +154,30 @@ struct BiasAct {
     }
     if (z != nullptr) store_pair(z, i, n, N, v0, v1);
     store_pair(y, i, n, N, activate(v0, act), activate(v1, act));
+  }
+};
+
+// The int8 convs' epilogue (rows 13 and 14): store_out on each output,
+// dequant by s[n], bias, activation, then int8 on the out_scale grid, or
+// float32 / bfloat16. The sum is int32 on the int8 tile (w8a8, exact) and
+// float32 on the others (w8a16).
+__device__ __forceinline__ float sum_f32(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float sum_f32(float v) { return v; }
+
+struct Dequant {
+  void* y;
+  const float* s;
+  const float* bias;
+  const float* out_scale;
+  int N, act, y_kind;
+  template <typename V>
+  __device__ void one(size_t i, int n, V v) const {
+    store_out(y, i, sum_f32(v), s[n], bias, n, act, out_scale, y_kind);
+  }
+  template <typename V>
+  __device__ void pair(size_t i, int n, V v0, V v1) const {
+    if (n < N) one(i, n, v0);
+    if (n + 1 < N) one(i + 1, n + 1, v1);
   }
 };
 
@@ -241,9 +266,9 @@ struct FastDiv {
 // In NHWC a position's kw*Cin values of filter row i are one contiguous
 // run of x, so the stage along k is a series of runs. row(p) is the
 // position's first input pixel, (b*H + oy*sh)*W + ox*sw (< B*H*W, which
-// the entry bounds by INT_MAX). The 1-D conv (row 1) is the case H = oh =
-// kh = 1, x (B, L, Cin) NLC read as (B, 1, L, Cin): a position's whole
-// K*Cin column is one run.
+// the entry bounds by INT_MAX). The 1-D convs (rows 1 and 13) are the case
+// H = oh = kh = 1, x (B, L, Cin) NLC read as (B, 1, L, Cin): a position's
+// whole K*Cin column is one run.
 struct ConvPositions {
   static constexpr bool kMajor = true, kCacheRows = true;
   int H, W, Cin, sh, sw;
@@ -260,9 +285,9 @@ struct ConvPositions {
   }
 };
 
-// the shape checks of the convs' C entries (rows 1, 4, 6, 7 and 14; the
-// 1-D ones at H = oh = kh = 1): a filter within the input, and every index
-// the kernel forms within an int
+// the shape checks of the convs' C entries (rows 1, 4, 6, 7, 13 and 14;
+// the 1-D ones at H = oh = kh = 1): a filter within the input, and every
+// index the kernel forms within an int
 inline bool conv_shape_ok(int B, int H, int W, int Cin, int Cout, int kh,
                           int kw, int sh, int sw, int oh, int ow) {
   return B >= 1 && Cin >= 1 && Cout >= 1 && kh >= 1 && kw >= 1 && sh >= 1 &&
@@ -278,6 +303,50 @@ inline ConvPositions conv_positions(int H, int W, int Cin, int kw, int sh,
                                     int sw, int oh, int ow) {
   return ConvPositions{H, W, Cin, sh, sw, FastDiv(oh * ow), FastDiv(ow),
                        FastDiv(kw * Cin)};
+}
+
+// A[m, p] of the weight gradients' product (rows 10 and 12), dw[m, n] =
+// sum_p A[m, p] * dz[p, n]: m = i * kw*Cin + r the flat HWIO filter index
+// (i the filter row, r = j * Cin + c), p = (b, oy, ox) an output position,
+//   A[m, p] = x[row(m) + col(p)].
+// In NHWC filter row i's kw*Cin values at a position are one contiguous
+// run of x, so a stage along m is a series of runs. The 1-D gradient (row
+// 10) is the case H = oh = kh = 1, x (B, L, Cin) NLC read as (B, 1, L,
+// Cin): row(m) = m, col(p) = (b*L + t*stride)*Cin.
+struct FilterRuns {
+  static constexpr bool kMajor = false;
+  int H, W, Cin, sh, sw;
+  int kwc;             // kw * Cin: one filter row's run
+  FastDiv img, ow;     // oh * ow positions an image, ow a row
+  __device__ int row(int m) const {  // < kh * W * Cin <= INT_MAX
+    const int i = m / kwc;
+    return i * W * Cin + (m - i * kwc);
+  }
+  __device__ long long col(int p) const {
+    const int b = img.div(p), rem = p - b * img.d;
+    const int oy = ow.div(rem), ox = rem - oy * ow.d;
+    return (((long long)b * H + (long long)oy * sh) * W + (long long)ox * sw) *
+           Cin;
+  }
+};
+
+// the shape checks of the weight gradients' C entries (rows 10 and 12;
+// the 1-D one at H = oh = kh = 1): a filter within the input, and every
+// index the kernel forms within an int
+inline bool dw_shape_ok(int B, int H, int W, int Cin, int Cout, int kh,
+                        int kw, int sh, int sw, int oh, int ow) {
+  return B >= 1 && Cin >= 1 && Cout >= 1 && kh >= 1 && kw >= 1 && sh >= 1 &&
+         sw >= 1 && oh >= 1 && ow >= 1 &&
+         (long long)(oh - 1) * sh + kh <= H &&
+         (long long)(ow - 1) * sw + kw <= W &&
+         (long long)kh * W * Cin <= INT_MAX &&
+         (long long)B * oh * ow <= INT_MAX - 128;
+}
+
+inline FilterRuns filter_runs(int H, int W, int Cin, int kw, int sh, int sw,
+                              int oh, int ow) {
+  return FilterRuns{H, W, Cin, sh, sw, kw * Cin, FastDiv(oh * ow),
+                    FastDiv(ow)};
 }
 
 // ---------------------------------------------------------------------------
@@ -1026,6 +1095,50 @@ int bias_act_gemm(const void* x, const void* w, const void* bias, void* y,
               BiasAct<float>{static_cast<float*>(y), static_cast<float*>(z), b,
                              N, act},
               ws, nullptr, M, N, K, g, tile, splits, per, va, vb, stream);
+}
+
+
+// The weight gradients' product (rows 10 and 12): dw (M, N) float32 = A @
+// dz, A gathered from x by g, and db (may be null) the column sums of dz,
+// x and dz float32, or bfloat16 where is_bf16.
+template <class Gather>
+int dw_gemm(const void* x, const void* dz, float* dw, float* db, float* ws,
+            int M, int N, int K, int is_bf16, const Gather& g, int tile,
+            int splits, int per, int va, int vb, void* stream) {
+  const Store<float> out{dw, N};
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return gemm(static_cast<const T*>(x), static_cast<const T*>(dz), out, ws,
+                db, M, N, K, g, tile, splits, per, va, vb, stream);
+  }
+  return gemm(static_cast<const float*>(x), static_cast<const float*>(dz),
+              out, ws, db, M, N, K, g, tile, splits, per, va, vb, stream);
+}
+
+// The int8 convs' product (rows 13 and 14): y = Dequant(A @ w_q), A
+// gathered by g from x, w_q (K, epi.N) int8 codes. mode 0 (w8a8): x int8
+// (x_kind 2) on the int8 tile; mode 1 (w8a16): x float32 (x_kind 0) or
+// bfloat16 (1) on its type's tile, the codes widened as they are staged.
+// y_kind 2 (int8) needs out_scale. Anything else is refused with
+// cudaErrorInvalidValue.
+template <class Gather>
+int dequant_gemm(const void* x, const void* w, const Dequant& epi, void* ws,
+                 int M, int K, int mode, int x_kind, const Gather& g,
+                 int tile, int splits, int per, int va, int vb,
+                 void* stream) {
+  if (epi.act < 0 || epi.act > 3 || epi.y_kind < 0 || epi.y_kind > 2 ||
+      (epi.y_kind == OUT_INT8 && epi.out_scale == nullptr) ||
+      (mode == 0 ? x_kind != 2 : (mode != 1 || x_kind < 0 || x_kind > 1)))
+    return (int)cudaErrorInvalidValue;
+  const int8_t* b = static_cast<const int8_t*>(w);
+  if (x_kind == 2)
+    return gemm(static_cast<const int8_t*>(x), b, epi, ws, nullptr, M, epi.N,
+                K, g, tile, splits, per, va, vb, stream);
+  if (x_kind == 1)
+    return gemm(static_cast<const __nv_bfloat16*>(x), b, epi, ws, nullptr, M,
+                epi.N, K, g, tile, splits, per, va, vb, stream);
+  return gemm(static_cast<const float*>(x), b, epi, ws, nullptr, M, epi.N, K,
+              g, tile, splits, per, va, vb, stream);
 }
 
 }  // namespace gm

@@ -27,10 +27,10 @@
 // filter row) and A[m, p] = x[base(p) + i*W*Cin + r], r = j*Cin + c. In
 // NHWC a position's kw*Cin values of filter row i are one contiguous run
 // of x (the paper's vector slide), so the product's A operand is staged
-// along m, run by run, straight from x: no im2col buffer reaches device
-// memory. bfloat16 runs on mma.sync tiles, float32 on 8 x 8 register
-// tiles (a 32-wide Cout tile where Cout <= 32), both behind a ring of
-// cp.async stages. The reduction, which the Pallas kernel walks as
+// along m, run by run, straight from x (gm::FilterRuns, shared with the
+// 1-D gradient, row 10): no im2col buffer reaches device memory. bfloat16
+// runs on mma.sync tiles, float32 on 8 x 8 register tiles (a 32-wide Cout
+// tile where Cout <= 32), both behind a ring of cp.async stages. The reduction, which the Pallas kernel walks as
 // revisited grid dimensions with a scratch flushed on the last visit, is
 // split over blocks where the tiles alone would leave the card idle (the
 // wrapper sizes the split from the card's SM count), each split's float32
@@ -40,62 +40,25 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <limits.h>
-#include <stddef.h>
-
 #include "gemm_mma.cuh"
-
-namespace {
-
-// A[m, p] of the dw product: m = i * kw*Cin + r runs along filter row i's
-// contiguous run; p = (b, oy, ox) is an output position.
-struct FilterRuns {
-  static constexpr bool kMajor = false;
-  int H, W, Cin, sh, sw;
-  int kwc;                 // kw * Cin: one filter row's run
-  gm::FastDiv img, ow;     // oh * ow positions an image, ow a row
-  __device__ int row(int m) const {  // < kh * W * Cin <= INT_MAX
-    const int i = m / kwc;
-    return i * W * Cin + (m - i * kwc);
-  }
-  __device__ long long col(int p) const {
-    const int b = img.div(p), rem = p - b * img.d;
-    const int oy = ow.div(rem), ox = rem - oy * ow.d;
-    return (((long long)b * H + (long long)oy * sh) * W + (long long)ox * sw) *
-           Cin;
-  }
-};
-
-}  // namespace
 
 // Returns a cudaError_t code: 0 when the launches were accepted. db may be
 // null (no bias). The product runs on tile `tile` in `splits` splits of
 // `per` chunks of output positions (gemm_plan.py's choice), with copies of
-// va bytes of x and vb of dz; ws holds splits * (kh*kw*Cin*Cout + Cout)
-// floats when splits > 1 (else null). A shape or a grid the card cannot
+// va bytes of x and vb of dz; ws holds splits * kh*kw*Cin*Cout floats,
+// and splits * Cout more where db is not null, when splits > 1 (else
+// null). A shape or a grid the card cannot
 // take is refused with cudaErrorInvalidValue.
 extern "C" int conv2d_bwd_dw(const void* x, const void* dz, float* dw,
                              float* db, float* ws, int B, int H, int W,
                              int Cin, int Cout, int kh, int kw, int sh, int sw,
                              int oh, int ow, int is_bf16, int tile, int splits,
                              int per, int va, int vb, void* stream) {
-  if (B < 1 || Cin < 1 || Cout < 1 || kh < 1 || kw < 1 || sh < 1 || sw < 1 ||
-      oh < 1 || ow < 1 || (long long)(oh - 1) * sh + kh > H ||
-      (long long)(ow - 1) * sw + kw > W ||
-      (long long)kh * W * Cin > INT_MAX ||
-      (long long)B * oh * ow > INT_MAX - 128)
+  if (!gm::dw_shape_ok(B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow))
     return (int)cudaErrorInvalidValue;
-  const int M = kh * kw * Cin, K = B * oh * ow;
-  const FilterRuns g{H, W, Cin, sh, sw, kw * Cin, gm::FastDiv(oh * ow),
-                     gm::FastDiv(ow)};
-  const gm::Store<float> out{dw, Cout};
-  if (is_bf16)
-    return gm::gemm(static_cast<const __nv_bfloat16*>(x),
-                    static_cast<const __nv_bfloat16*>(dz), out, ws, db, M,
-                    Cout, K, g, tile, splits, per, va, vb, stream);
-  return gm::gemm(static_cast<const float*>(x), static_cast<const float*>(dz),
-                  out, ws, db, M, Cout, K, g, tile, splits, per, va, vb,
-                  stream);
+  const gm::FilterRuns g = gm::filter_runs(H, W, Cin, kw, sh, sw, oh, ow);
+  return gm::dw_gemm(x, dz, dw, db, ws, kh * kw * Cin, Cout, B * oh * ow,
+                     is_bf16, g, tile, splits, per, va, vb, stream);
 }
 
 extern "C" const char* error_string(int code) {

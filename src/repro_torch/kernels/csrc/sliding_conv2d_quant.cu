@@ -41,9 +41,10 @@
 // products of the chunk ahead, which hide their latency. w8a16 runs on row
 // 4's tiles for x's type (bf16: mma.sync; float32: CUDA cores), the codes
 // widened as they are staged. The epilogue (dequant, bias, activation,
-// requant or cast) runs once an output: in the block's store, or after
-// the splits' partials (int32 for w8a8, exact; float32 for w8a16) are
-// added in split order. The regime argument (a TPU tiling choice) does
+// requant or cast; gm::Dequant, shared with the 1-D int8 conv, row 13)
+// runs once an output: in the block's store, or after the splits'
+// partials (int32 for w8a8, exact; float32 for w8a16) are added in split
+// order. The regime argument (a TPU tiling choice) does
 // not reach this kernel: one kernel covers every kh, kw >= 1 and every
 // stride >= 1.
 #include <cuda_bf16.h>
@@ -53,41 +54,6 @@
 #include <stdint.h>
 
 #include "gemm_mma.cuh"
-
-namespace {
-
-__device__ __forceinline__ float sum_f32(int v) { return __int2float_rn(v); }
-__device__ __forceinline__ float sum_f32(float v) { return v; }
-
-// store_out on each output: dequant by s[n], bias, activation, then int8
-// on the out_scale grid, or float32 / bfloat16
-struct Dequant {
-  void* y;
-  const float* s;
-  const float* bias;
-  const float* out_scale;
-  int N, act, y_kind;
-  template <typename V>
-  __device__ void one(size_t i, int n, V v) const {
-    store_out(y, i, sum_f32(v), s[n], bias, n, act, out_scale, y_kind);
-  }
-  template <typename V>
-  __device__ void pair(size_t i, int n, V v0, V v1) const {
-    if (n < N) one(i, n, v0);
-    if (n + 1 < N) one(i + 1, n + 1, v1);
-  }
-};
-
-template <typename T>
-int run(const void* x, const void* w, const Dequant& epi, void* ws, int M,
-        int K, const gm::ConvPositions& g, int tile, int splits, int per,
-        int va, int vb, void* stream) {
-  return gm::gemm(static_cast<const T*>(x), static_cast<const int8_t*>(w),
-                  epi, ws, nullptr, M, epi.N, K, g, tile, splits, per, va, vb,
-                  stream);
-}
-
-}  // namespace
 
 // Returns a cudaError_t code: 0 when the launches were accepted. mode: 0
 // w8a8 (x int8), 1 w8a16. x_kind: 0 float32, 1 bfloat16, 2 int8. y_kind:
@@ -106,26 +72,16 @@ extern "C" int sliding_conv2d_quant(const void* x, const void* w,
                                     int ow, int act, int mode, int x_kind,
                                     int y_kind, int tile, int splits, int per,
                                     int va, int vb, void* stream) {
-  if (!gm::conv_shape_ok(B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow) ||
-      act < 0 || act > 3 || y_kind < 0 || y_kind > 2 ||
-      (y_kind == OUT_INT8 && out_scale == nullptr))
+  if (!gm::conv_shape_ok(B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow))
     return (int)cudaErrorInvalidValue;
-  if (mode == 0 ? x_kind != 2 : (mode != 1 || x_kind > 1))
-    return (int)cudaErrorInvalidValue;
+  const gm::Dequant epi{y, static_cast<const float*>(scale),
+                        static_cast<const float*>(bias),
+                        static_cast<const float*>(out_scale), Cout, act,
+                        y_kind};
   const gm::ConvPositions g = gm::conv_positions(H, W, Cin, kw, sh, sw, oh,
                                                  ow);
-  const int M = B * oh * ow, K = kh * kw * Cin;
-  const Dequant epi{y, static_cast<const float*>(scale),
-                    static_cast<const float*>(bias),
-                    static_cast<const float*>(out_scale), Cout, act, y_kind};
-  if (x_kind == 2)
-    return run<int8_t>(x, w, epi, ws, M, K, g, tile, splits, per, va, vb,
-                       stream);
-  if (x_kind == 1)
-    return run<__nv_bfloat16>(x, w, epi, ws, M, K, g, tile, splits, per, va,
-                              vb, stream);
-  return run<float>(x, w, epi, ws, M, K, g, tile, splits, per, va, vb,
-                    stream);
+  return gm::dequant_gemm(x, w, epi, ws, B * oh * ow, kh * kw * Cin, mode,
+                          x_kind, g, tile, splits, per, va, vb, stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -1,8 +1,8 @@
-// Shared by the weight-gradient kernels (sliding_conv_bwd.cu and
-// conv1d_depthwise_bwd.cu): where the (batch x row) reduction is split over
-// S blocks that each write a float32 partial to a workspace, this second
-// pass adds the partials in a fixed order, so the result does not change
-// from run to run (no atomics).
+// Used by the depthwise weight-gradient kernel (conv1d_depthwise_bwd.cu):
+// where the (batch x row) reduction is split over S blocks that each write
+// a float32 partial to a workspace, this second pass adds the partials in
+// a fixed order, so the result does not change from run to run (no
+// atomics).
 #pragma once
 
 #include <stddef.h>

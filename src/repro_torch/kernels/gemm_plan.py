@@ -1,9 +1,11 @@
 """Launch geometry of the products on ``csrc/gemm_mma.cuh``: the tiled GEMM
 (``im2col_gemm.matmul``, row 5), the fused 1-D and 2-D im2col convs
 (``im2col_gemm.conv1d_im2col_fused``, row 6; ``conv2d_im2col_fused``,
-row 7), the 2-D weight gradient (``sliding_conv_bwd.conv2d_bwd_dw``, row
-12), the 1-D sliding conv (``sliding_conv1d.conv1d_sliding``, row 1) and
-the 2-D one, fp and int8 (``sliding_conv2d.conv2d_sliding``, row 4;
+row 7), the weight gradients (``sliding_conv_bwd.conv1d_bwd_dw``, row 10;
+``conv2d_bwd_dw``, row 12), the 1-D sliding conv, fp and int8
+(``sliding_conv1d.conv1d_sliding``, row 1;
+``sliding_conv_quant.conv1d_quant``, row 13) and the 2-D one, fp and int8
+(``sliding_conv2d.conv2d_sliding``, row 4;
 ``sliding_conv_quant.conv2d_quant``, row 14).
 
 The kernels take their tile, their split of the reduction and the width of
@@ -18,7 +20,13 @@ tests can hold it:
     (rounded down: a second, part-filled round of blocks would take as
     long as the first), each at least ``MIN_SPLIT_CHUNKS`` chunks of the
     reduction long, the splits covering the chunks exactly and each
-    holding at least one.
+    holding at least one. Where that leaves one split of more float32
+    tiles than the card has SMs, some SMs hold more blocks than others
+    and set the time: there the split is the one that spreads the chunks
+    most evenly over the SMs (``_balanced_splits``). On the tensor-core
+    tiles a chunk takes a fraction of a float32 chunk's time, and the
+    pass that adds the splits' partials costs more than the chunks it
+    spreads, so they keep one split there.
   * ``launch``: a wrapper's whole launch geometry, the plan and copy
     widths for its operands and the splits' workspace.
   * ``copy_bytes``: the widest copy (16, 8, 4 or, for bfloat16 and int8,
@@ -26,8 +34,9 @@ tests can hold it:
     vectors allows: a pointer and the strides between the vectors' starts
     must be multiples of it. ``conv2d_copy_strides`` lists those strides
     for the sliding convs' gather of x, ``im2col_copy_strides`` for rows 6
-    and 7's tap-by-tap gather; a 1-D conv over x (B, L, Cin) is the case H
-    = 1, W = L, kw = K, stride (1, stride).
+    and 7's tap-by-tap gather, ``dw_copy_strides`` for the weight
+    gradients'; a 1-D conv over x (B, L, Cin) is the case H = 1, W = L, kw
+    = K, stride (1, stride).
 """
 from __future__ import annotations
 
@@ -99,8 +108,26 @@ def gemm_plan(M: int, N: int, K: int, dtype: torch.dtype,
     splits = 1
     if tiles < fill:
         splits = max(1, min(fill // tiles, chunks // MIN_SPLIT_CHUNKS))
+        if splits == 1 and tiles > sms and dtype == torch.float32:
+            splits = _balanced_splits(tiles, chunks, sms, fill)
     per = -(-chunks // splits)
     return GemmPlan(tile, -(-chunks // per), per, chunks, tiles)
+
+
+def _balanced_splits(tiles: int, chunks: int, sms: int, fill: int) -> int:
+    """The split of one round of ``tiles`` blocks, more than the card's
+    ``sms`` SMs (``fill`` blocks a round), that gives the SM with the most
+    work the fewest chunks to walk: s splits put ceil(s·tiles / sms)
+    blocks of ceil(chunks / s) chunks on it. Unsplit, the SMs holding two
+    blocks take twice as long as those holding one. The fewest splits
+    among the best, each at least ``MIN_SPLIT_CHUNKS`` chunks long, in at
+    most two rounds of blocks: more splits add more partials than they
+    spread chunks."""
+    def most(s):
+        return -(-s * tiles // sms) * -(-chunks // s)
+
+    top = max(1, min(chunks // MIN_SPLIT_CHUNKS, 2 * fill // tiles))
+    return min(range(1, top + 1), key=lambda s: (most(s), s))
 
 
 def copy_bytes(elem: int, ptrs, strides) -> int:
@@ -117,21 +144,24 @@ def copy_bytes(elem: int, ptrs, strides) -> int:
     raise ValueError(f"no copy width for {elem}-byte elements")
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, M: int, K: int,
-           x_strides) -> tuple[GemmPlan, int, int, torch.Tensor | None]:
+def launch(x: torch.Tensor, w: torch.Tensor, M: int, K: int, x_strides,
+           col_sums: bool = False
+           ) -> tuple[GemmPlan, int, int, torch.Tensor | None]:
     """The launch of a product whose A is gathered from contiguous x and
     whose B is the contiguous (K, N) matrix w (N its last dimension): the
     plan on x's card, the copy widths of x (``x_strides``: the strides, in
     elements, between the starts of its copies) and of w, and the splits'
     workspace (int32 partials for int8 x, float32 otherwise; None for one
-    split)."""
+    split), with room for the splits' column sums of w too where
+    ``col_sums`` (the weight gradients' db)."""
     N = w.shape[-1]
     plan = gemm_plan(M, N, K, x.dtype, build.sm_count(x.device))
     va = copy_bytes(x.element_size(), [x.data_ptr()], x_strides)
     vb = copy_bytes(w.element_size(), [w.data_ptr()], [N])
     ws = None
     if plan.splits > 1:
-        ws = torch.empty((plan.splits * M * N,), device=x.device,
+        ws = torch.empty((plan.splits * (M * N + (N if col_sums else 0)),),
+                         device=x.device,
                          dtype=torch.int32 if x.dtype == torch.int8
                          else torch.float32)
     return plan, va, vb, ws
@@ -158,3 +188,13 @@ def im2col_copy_strides(H: int, W: int, Cin: int,
     the next."""
     sh, sw = stride
     return [sw * Cin, Cin, W * Cin, sh * W * Cin, H * W * Cin]
+
+
+def dw_copy_strides(W: int, Cin: int, kw: int, sw: int) -> list[int]:
+    """The strides, in elements, between the starts of the weight
+    gradients' copies of x (B, H, W, Cin), which run along a filter row's
+    kw·Cin values: a filter row's run, an input row, neighbouring output
+    positions along a row (images and output rows are input rows apart).
+    A copy of a width that divides them all starts aligned and never
+    crosses from one filter row's run into the next."""
+    return [kw * Cin, W * Cin, sw * Cin]

@@ -8,9 +8,13 @@
     the flipped, Cin↔Cout-transposed weights (``conv1d_dx_operands``). It
     runs through the forward conv kernel, so it needs no kernel of its own.
   * dw/db: ``conv1d_bwd_dw`` is the wrapper. On a CUDA tensor it launches
-    the Hopper kernel ``csrc/sliding_conv_bwd.cu``; on a CPU tensor it runs
-    ``conv1d_bwd_dw_plain``, the same sums in plain torch. Any other device
-    raises. Nothing falls back from the kernel to the plain version.
+    the Hopper kernel ``csrc/sliding_conv_bwd.cu``, dw as one product over
+    the output positions on ``csrc/gemm_mma.cuh``'s main loop, with the
+    tile, the split of the positions and the copy widths from
+    ``gemm_plan`` and the card's SM count (``dw_launch``); on a CPU tensor
+    it runs ``conv1d_bwd_dw_plain``, the same sums in plain torch. Any
+    other device raises. Nothing falls back from the kernel to the plain
+    version.
   * depthwise: dx (``conv1d_depthwise_dx``) runs the forward depthwise
     kernel on the dilated, padded gradient with the taps flipped; dw/db
     through ``conv1d_depthwise_bwd_dw``, the wrapper of
@@ -33,9 +37,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import (build, gemm_plan, sliding_conv1d,
                                   sliding_conv2d)
 
-# x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16; stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, Cin, Cout, K, Lout
+# x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16, tile,
+# splits, per, va, vb; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 # x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16; stream
 _DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DW_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, C, K, Lout, is_bf16
@@ -154,29 +158,49 @@ def conv1d_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor, K: int, *,
     return dw, (g.sum(dim=0) if has_bias else None)
 
 
-def _launch(x, dz, K, stride, has_bias):
+def _check_kernel_operands(x, dz) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16) or dz.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and dz of the "
                         f"same type, got {x.dtype} and {dz.dtype}")
     if dz.device != x.device:
         raise ValueError("x and dz must lie on one device")
+
+
+def dw_launch(x, dz, filter_len, W, Cin, kw, sw, has_bias):
+    """The launch geometry of a weight gradient's product on
+    ``csrc/gemm_mma.cuh`` (rows 10 and 12), for contiguous x and dz: dw
+    (``filter_len`` = kh·kw·Cin rows, Cout) over the output positions of
+    dz, the plan, the copy widths of x (along a filter row's run, W the
+    input row's width) and of dz, and the splits' float32 workspace (with
+    room for db's partials where ``has_bias``; None for one split)."""
+    Cout = dz.shape[-1]
+    return gemm_plan.launch(x, dz, filter_len, dz.numel() // Cout,
+                            gemm_plan.dw_copy_strides(W, Cin, kw, sw),
+                            col_sums=has_bias)
+
+
+def _dw_outputs(x, dw_shape, Cout, has_bias):
+    dw = torch.empty(dw_shape, dtype=torch.float32, device=x.device)
+    db = (torch.empty((Cout,), dtype=torch.float32, device=x.device)
+          if has_bias else None)
+    return dw, db
+
+
+def _launch(x, dz, K, stride, has_bias):
+    _check_kernel_operands(x, dz)
     fn = build.entry("sliding_conv_bwd", "conv1d_bwd_dw", _ARGTYPES)
-    splits = build.entry("sliding_conv_bwd", "conv1d_bwd_dw_splits",
-                         _SPLIT_ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
     B, L, Cin = x.shape
     Lout, Cout = dz.shape[1], dz.shape[2]
-    dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=x.device)
-    db = (torch.empty((Cout,), dtype=torch.float32, device=x.device)
-          if has_bias else None)
-    S = splits(B, Cin, Cout, K, Lout)
-    ws = (torch.empty((S * (K * Cin * Cout + Cout),), dtype=torch.float32,
-                      device=x.device) if S > 1 else None)
+    # dw (K*Cin, Cout) = the product over the B*Lout positions
+    plan, va, vb, ws = dw_launch(x, dz, K * Cin, L, Cin, K, stride, has_bias)
+    dw, db = _dw_outputs(x, (K, Cin, Cout), Cout, has_bias)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
         None if db is None else db.data_ptr(),
         None if ws is None else ws.data_ptr(),
         B, L, Cin, Cout, K, stride, Lout, int(x.dtype == torch.bfloat16),
+        plan.tile.id, plan.splits, plan.per, va, vb,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("sliding_conv_bwd", code)
@@ -241,11 +265,7 @@ def conv1d_depthwise_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor, K: int,
 
 
 def _launch_depthwise(x, dz, K, stride, has_bias):
-    if x.dtype not in (torch.float32, torch.bfloat16) or dz.dtype != x.dtype:
-        raise TypeError(f"kernel takes float32 or bfloat16 x and dz of the "
-                        f"same type, got {x.dtype} and {dz.dtype}")
-    if dz.device != x.device:
-        raise ValueError("x and dz must lie on one device")
+    _check_kernel_operands(x, dz)
     fn = build.entry("conv1d_depthwise_bwd", "conv1d_depthwise_bwd_dw",
                      _DW_ARGTYPES)
     splits = build.entry("conv1d_depthwise_bwd",
@@ -347,30 +367,15 @@ def conv2d_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor,
 
 
 def _launch_2d(x, dz, kh, kw, stride, has_bias):
-    if x.dtype not in (torch.float32, torch.bfloat16) or dz.dtype != x.dtype:
-        raise TypeError(f"kernel takes float32 or bfloat16 x and dz of the "
-                        f"same type, got {x.dtype} and {dz.dtype}")
-    if dz.device != x.device:
-        raise ValueError("x and dz must lie on one device")
+    _check_kernel_operands(x, dz)
     fn = build.entry("sliding_conv2d_bwd", "conv2d_bwd_dw", _2D_ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
     B, H, W, Cin = x.shape
     oh, ow, Cout = dz.shape[1:]
     # dw (kh*kw*Cin, Cout) = the product over the B*oh*ow positions
-    plan = gemm_plan.gemm_plan(kh * kw * Cin, Cout, B * oh * ow, x.dtype,
-                               build.sm_count(x.device))
-    el = x.element_size()
-    # x's vectors start at a filter row's run, one input row or one
-    # position's stride apart
-    va = gemm_plan.copy_bytes(el, [x.data_ptr()],
-                              [kw * Cin, W * Cin, stride[1] * Cin])
-    vb = gemm_plan.copy_bytes(el, [dz.data_ptr()], [Cout])
-    dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=x.device)
-    db = (torch.empty((Cout,), dtype=torch.float32, device=x.device)
-          if has_bias else None)
-    ws = (torch.empty((plan.splits * (dw.numel() + Cout),),
-                      dtype=torch.float32, device=x.device)
-          if plan.splits > 1 else None)
+    plan, va, vb, ws = dw_launch(x, dz, kh * kw * Cin, W, Cin, kw, stride[1],
+                                 has_bias)
+    dw, db = _dw_outputs(x, (kh, kw, Cin, Cout), Cout, has_bias)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
         None if db is None else db.data_ptr(),

@@ -2,7 +2,12 @@
 dequant, bias, activation and optional requant epilogue.
 
 ``conv1d_quant`` is the wrapper: on a CUDA tensor it launches the Hopper
-kernel ``csrc/sliding_conv_quant.cu``; on a CPU tensor it runs
+kernel ``csrc/sliding_conv_quant.cu``, the conv as one product on
+``csrc/gemm_mma.cuh``'s main loop as for the fp conv1d (w8a8 on its int8
+tensor-core tile, w8a16 on the fp conv's tiles with the codes widened),
+with the tile, the split of the taps and the copy widths from
+``gemm_plan`` and the card's SM count
+(``sliding_conv1d.conv1d_launch``); on a CPU tensor it runs
 ``conv1d_quant_plain``, the exact ``quant.qconv.conv1d_q`` (int32 sums on
 the CPU, float64 on the card). Any other device raises. Nothing falls back
 from the kernel to the plain version.
@@ -44,17 +49,16 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels import build, sliding_conv2d
+from repro_torch.kernels import build, sliding_conv1d, sliding_conv2d
 from repro_torch.kernels.sliding_conv1d import ACTIVATIONS
 from repro_torch.quant import qconv
 
 MODES = {"w8a8": 0, "w8a16": 1}
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# x, w, scale, bias, out_scale, y; B, L, Cin, Cout, K, stride, Lout, act,
-# mode, x_kind, y_kind; stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# x, w, scale, bias, out_scale, y, ws; B, L, Cin, Cout, K, stride, Lout,
+# act, mode, x_kind, y_kind, tile, splits, per, va, vb; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
 # x, w, scale, bias, out_scale, y, ws; B, H, W, Cin, Cout, kh, kw, sh, sw,
 # oh, ow, act, mode, x_kind, y_kind, tile, splits, per, va, vb; stream
 _2D_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
@@ -139,34 +143,42 @@ def _epilogue_operands(dev, w_q, w_scale, bias, x_scale, out_scale, mode):
     return s.contiguous(), b32, os32
 
 
-def _launch(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
-            activation, out_dtype, out_len):
+def _run_product(entry, argtypes, x, w_q, w_scale, bias, x_scale, out_scale,
+                 mode, activation, out_dtype, y_shape, dims, geometry):
+    """One launch of an int8 conv's product on ``csrc/gemm_mma.cuh`` (rows
+    13 and 14): C entry ``entry`` of the library of that name, ``dims`` its
+    shape arguments, ``geometry(x, w_q)`` the plan, the copy widths and
+    the splits' workspace for contiguous x and w_q. Returns y."""
     dev = x.device
     s, b32, os32 = _epilogue_operands(dev, w_q, w_scale, bias, x_scale,
                                       out_scale, mode)
-    fn = build.entry("sliding_conv_quant", "sliding_conv_quant", _ARGTYPES)
+    fn = build.entry(entry, entry, argtypes)
     x, w_q = x.contiguous(), w_q.contiguous()
-    cin = x.shape[2]
-    if mode == "w8a8" and cin % 4:
-        # dp4a sums four channels at a time: pad with zero codes
-        pad = 4 - cin % 4
-        x = F.pad(x, (0, pad))
-        w_q = F.pad(w_q, (0, 0, 0, pad))
-    elif mode == "w8a8" and x.data_ptr() % 4:
-        x = x.clone()  # word loads need a 4-byte aligned base
-    B, L, Cin = x.shape
-    K, _, Cout = w_q.shape
+    plan, va, vb, ws = geometry(x, w_q)
     odt = torch.int8 if out_scale is not None else out_dtype
-    y = torch.empty((B, out_len, Cout), dtype=odt, device=dev)
+    y = torch.empty(y_shape, dtype=odt, device=dev)
     code = fn(
         x.data_ptr(), w_q.data_ptr(), s.data_ptr(),
         None if b32 is None else b32.data_ptr(),
         None if os32 is None else os32.data_ptr(), y.data_ptr(),
-        B, L, Cin, Cout, K, stride, out_len, ACTIVATIONS[activation],
-        MODES[mode], _KINDS[x.dtype], _KINDS[odt],
+        None if ws is None else ws.data_ptr(), *dims,
+        ACTIVATIONS[activation], MODES[mode], _KINDS[x.dtype], _KINDS[odt],
+        plan.tile.id, plan.splits, plan.per, va, vb,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check("sliding_conv_quant", code)
+    build.check(entry, code)
+    return y
+
+
+def _launch(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
+            activation, out_dtype, out_len):
+    B, L, Cin = x.shape
+    K, _, Cout = w_q.shape
+    y = _run_product(
+        "sliding_conv_quant", _ARGTYPES, x, w_q, w_scale, bias, x_scale,
+        out_scale, mode, activation, out_dtype, (B, out_len, Cout),
+        (B, L, Cin, Cout, K, stride, out_len),
+        lambda x, w_q: sliding_conv1d.conv1d_launch(x, w_q, stride, out_len))
     conv1d_quant.launches += 1
     return y
 
@@ -238,28 +250,13 @@ def conv2d_quant_plain(
 
 def _launch_2d(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
                activation, out_dtype, oh, ow):
-    dev = x.device
-    s, b32, os32 = _epilogue_operands(dev, w_q, w_scale, bias, x_scale,
-                                      out_scale, mode)
-    fn = build.entry("sliding_conv2d_quant", "sliding_conv2d_quant",
-                     _2D_ARGTYPES)
-    x, w_q = x.contiguous(), w_q.contiguous()
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w_q.shape
-    plan, va, vb, ws = sliding_conv2d.product_launch(x, w_q, stride, oh, ow)
-    odt = torch.int8 if out_scale is not None else out_dtype
-    y = torch.empty((B, oh, ow, Cout), dtype=odt, device=dev)
-    code = fn(
-        x.data_ptr(), w_q.data_ptr(), s.data_ptr(),
-        None if b32 is None else b32.data_ptr(),
-        None if os32 is None else os32.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow,
-        ACTIVATIONS[activation], MODES[mode], _KINDS[x.dtype], _KINDS[odt],
-        plan.tile.id, plan.splits, plan.per, va, vb,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check("sliding_conv2d_quant", code)
+    y = _run_product(
+        "sliding_conv2d_quant", _2D_ARGTYPES, x, w_q, w_scale, bias, x_scale,
+        out_scale, mode, activation, out_dtype, (B, oh, ow, Cout),
+        (B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow),
+        lambda x, w_q: sliding_conv2d.product_launch(x, w_q, stride, oh, ow))
     conv2d_quant.launches += 1
     return y
 

@@ -1,7 +1,8 @@
 """The launch geometry of the products on ``csrc/gemm_mma.cuh`` (the tiled
-GEMM, row 5, the fused 1-D and 2-D im2col convs, rows 6 and 7, the 2-D
-weight gradient, row 12, and the sliding convs: 1-D, row 1, and 2-D, fp
-and int8, rows 4 and 14), on the CPU, where no kernel runs:
+GEMM, row 5, the fused 1-D and 2-D im2col convs, rows 6 and 7, the weight
+gradients, 1-D and 2-D, rows 10 and 12, and the sliding convs: 1-D, fp
+and int8, rows 1 and 13, and 2-D, fp and int8, rows 4 and 14), on the
+CPU, where no kernel runs:
 ``kernels/gemm_plan.py``'s tile, split-K and copy widths, the conv's
 gather of x transcribed, and a plain-torch transcription of the kernels'
 summation order held to the plain versions.
@@ -65,9 +66,18 @@ def _check_plan(p, M, N, K, dtype, sms):
     fill = p.tile.blocks_per_sm * sms
     if p.tiles >= fill:
         assert p.splits == 1  # the blocks alone fill the card
-    else:  # no second, part-filled round of blocks
-        assert p.splits == 1 or p.splits * p.tiles <= fill
+    else:
         assert p.splits == 1 or p.per >= gp.MIN_SPLIT_CHUNKS
+        if p.splits * p.tiles > fill:
+            # a second round of blocks only where one split's round puts
+            # more tiles than SMs on the card, and the split gives the
+            # busiest SM fewer chunks than that round does
+            def most(s, per):
+                return math.ceil(s * p.tiles / sms) * per
+
+            assert sms < p.tiles < fill and fill // p.tiles == 1
+            assert dtype == F32 and p.splits * p.tiles <= 2 * fill
+            assert most(p.splits, p.per) < most(1, p.chunks)
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -99,6 +109,64 @@ def test_plan_at_the_h100():
     assert plan(9604, 32, 30752, F32).splits == 10
 
 
+# the splits of every timed shape of rows 1, 4, 5, 6, 7, 12 and 14 on an
+# H100, as before the balance rule for one-split rounds of more tiles than
+# SMs (row 10's conv2): (M, N, K, dtype) -> splits
+TIMED_SPLITS = {
+    (11520, 1152, 588, BF16): 1, (11520, 1152, 588, F32): 1,  # row 5
+    (9604, 32, 30752, F32): 10, (16320, 32, 2080, F32): 6,
+    (15876, 32, 288, F32): 2,
+    (588, 1152, 11520, BF16): 5, (588, 1152, 11520, F32): 5,  # row 12
+    (30752, 32, 9604, F32): 3, (9248, 32, 6400, F32): 10,
+    (288, 32, 15876, F32): 111,
+    (15376, 32, 800, F32): 6, (12544, 32, 9248, F32): 8,  # row 4
+    (8836, 32, 288, F32): 2, (6400, 32, 9248, F32): 15,
+    (11520, 1152, 588, I8): 1, (15876, 32, 288, I8): 1,  # row 14
+    (9604, 32, 30752, I8): 3, (8836, 32, 288, I8): 1,
+    (6400, 32, 9248, I8): 5,
+    (3772, 70, 27, F32): 1, (3772, 70, 27, BF16): 1,  # row 7, phase 33
+    (3772, 70, 333, F32): 2, (3772, 70, 333, BF16): 1,
+    (966, 70, 75, F32): 1, (966, 70, 75, BF16): 1,
+    (966, 70, 925, F32): 7, (966, 70, 925, BF16): 3,
+    (672, 70, 105, F32): 1, (672, 70, 105, BF16): 1,
+    (672, 70, 1295, F32): 9, (672, 70, 1295, BF16): 5,
+    (644, 70, 27, F32): 1, (644, 70, 27, BF16): 1,
+    (644, 70, 333, F32): 2, (644, 70, 333, BF16): 1,
+    (2048, 1024, 240, F32): 1, (2048, 1024, 240, BF16): 1,  # rows 1, 6
+    (1024, 1024, 3072, F32): 4, (1024, 1024, 3072, BF16): 4,
+    (16368, 32, 544, F32): 4, (16382, 32, 96, F32): 1,
+}
+
+
+@pytest.mark.parametrize("M,N,K,dtype", list(TIMED_SPLITS),
+                         ids=[f"{m}x{n}x{k} {d}" for m, n, k, d in
+                              TIMED_SPLITS])
+def test_timed_plans_keep_their_splits(M, N, K, dtype):
+    """The balance rule moves none of rows 1, 4, 5, 6, 7, 12 and 14's
+    plans at their timed shapes: their tiles fill the card, or fall under
+    its SM count, or split already."""
+    assert gp.gemm_plan(M, N, K, dtype, 132).splits == \
+        TIMED_SPLITS[(M, N, K, dtype)]
+
+
+def test_balanced_splits_at_row10_conv2():
+    """Row 10's conv2 in float32 (dw 3072 x 1024 over 1024 positions): 192
+    tiles on 132 SMs leave 60 SMs two 64-chunk blocks and 72 one, so the
+    busiest SM walks 128 chunks unsplit; split 2 ways it holds 3 blocks of
+    32 (96), the fewest splits that do best. bfloat16 keeps one split (its
+    partials' pass costs more than the chunks spread), and on 8 SMs the
+    tiles fill the card and nothing splits."""
+    p = gp.gemm_plan(3072, 1024, 1024, F32, 132)
+    assert (p.tiles, p.chunks, p.splits, p.per) == (192, 64, 2, 32)
+    assert gp.gemm_plan(3072, 1024, 1024, BF16, 132).splits == 1
+    assert gp.gemm_plan(3072, 1024, 1024, F32, 8).splits == 1
+    assert gp._balanced_splits(192, 64, 132, 264) == 2
+    assert gp._balanced_splits(133, 9, 132, 264) == 1  # per >= 8 chunks
+    # at most two rounds: 136 tiles (row 1's dx at whisper's conv2 in
+    # float32) take 3 splits, not the 24 that would even the SMs best
+    assert gp._balanced_splits(136, 192, 132, 264) == 3
+
+
 def test_plan_follows_the_sm_count():
     """The split count comes from the SM count passed in; the default is
     ``build.DEFAULT_SMS``, the count the wrappers use for a tensor on no
@@ -113,17 +181,21 @@ def test_plan_follows_the_sm_count():
 
 def test_sources_hold_no_sm_count():
     """No new kernel source or the plan holds the H100's 132; the old
-    split rule of row 12 is gone."""
+    split rules of rows 10 and 12 are gone."""
     kdir = build.CSRC.parent
     for path in (kdir / "gemm_plan.py", build.CSRC / "gemm_mma.cuh",
                  build.CSRC / "sliding_conv2d_bwd.cu",
                  build.CSRC / "im2col_gemm.cu",
                  build.CSRC / "sliding_conv2d.cu",
-                 build.CSRC / "sliding_conv2d_quant.cu"):
+                 build.CSRC / "sliding_conv2d_quant.cu",
+                 build.CSRC / "sliding_conv_quant.cu",
+                 build.CSRC / "sliding_conv_bwd.cu"):
         text = path.read_text()
         assert not re.search(r"\b132\b", text), path.name
-    text = (build.CSRC / "sliding_conv2d_bwd.cu").read_text()
-    assert "MIN_BLOCKS" not in text and "conv2d_bwd_dw_splits" not in text
+    for name, gone in (("sliding_conv2d_bwd.cu", "conv2d_bwd_dw_splits"),
+                       ("sliding_conv_bwd.cu", "conv1d_bwd_dw_splits")):
+        text = (build.CSRC / name).read_text()
+        assert "MIN_BLOCKS" not in text and gone not in text, name
 
 
 @pytest.mark.parametrize("elem,ptrs,strides,want", [
@@ -894,3 +966,342 @@ def test_split_order_matches_conv1d_im2col_fused_plain(B, L, Cin, Cout, K,
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# rows 13 and 10: the int8 1-D conv (ConvPositions at H = oh = kh = 1) and
+# the 1-D weight gradient (FilterRuns at kh = 1) on the same loop
+# ---------------------------------------------------------------------------
+
+# (what, B, L, Cin, Cout, K, stride, dtype, splits and per on 132 SMs, tile,
+# va): whisper's int8 frontend, w8a8 (int8 x) and w8a16 (float32 and
+# bfloat16 x, each on its type's tile), with x's copy width
+ROW13_TABLE = [
+    ("conv1 w8a8", 4, 514, 80, 1024, 3, 1, I8, 1, 4, "int8", 16),
+    ("conv1 w8a16", 4, 514, 80, 1024, 3, 1, F32, 1, 15, "wide", 16),
+    ("conv1 w8a16", 4, 514, 80, 1024, 3, 1, BF16, 1, 8, "mma", 16),
+    ("conv2 w8a8", 4, 514, 1024, 1024, 3, 2, I8, 4, 12, "int8", 16),
+    ("conv2 w8a16", 4, 514, 1024, 1024, 3, 2, F32, 4, 48, "wide", 16),
+    ("conv2 w8a16", 4, 514, 1024, 1024, 3, 2, BF16, 4, 24, "mma", 16),
+]
+
+
+@pytest.mark.parametrize("sms", (build.DEFAULT_SMS, 8))
+@pytest.mark.parametrize(
+    "what,B,L,Cin,Cout,K,stride,dtype,splits,per,tile,va", ROW13_TABLE,
+    ids=[f"{t[0]} {t[7]}" for t in ROW13_TABLE])
+def test_row13_plans_and_copy_widths(what, B, L, Cin, Cout, K, stride, dtype,
+                                     splits, per, tile, va, sms):
+    """Row 13 takes gemm_plan's plan for x's type (positions by K·Cin taps
+    by Cout): on an H100 conv1's 128 tiles of 4 int8 chunks run unsplit,
+    conv2's 64 tiles split 4 ways (12 int8 chunks each); on 8 SMs nothing
+    splits. x's copies are 16 bytes along a position's whole run, the
+    int8 codes too: no channel padding."""
+    (M, N, Kr), _ = _conv1d_dims(B, L, Cin, Cout, K, stride)
+    p = gp.gemm_plan(M, N, Kr, dtype, sms)
+    _check_plan(p, M, N, Kr, dtype, sms)
+    assert p.tile is gp.TILES[tile]
+    if sms == build.DEFAULT_SMS:
+        assert (p.splits, p.per) == (splits, per)
+    else:
+        assert p.splits == 1
+    assert gp.copy_bytes(dtype.itemsize, [0], gp.conv2d_copy_strides(
+        1, L, Cin, K, (1, stride))) == va
+
+
+# (what, B, L, Cin, Cout, K, stride, dtype, splits and per on 132 SMs, tile,
+# va): row 10 at whisper's frontend, dw (K·Cin, Cout) over the B·Lout
+# positions
+ROW10_TABLE = [
+    ("conv1", 4, 514, 80, 1024, 3, 1, F32, 16, 8, "wide", 16),
+    ("conv1", 4, 514, 80, 1024, 3, 1, BF16, 8, 8, "mma", 16),
+    ("conv2", 4, 514, 1024, 1024, 3, 2, F32, 2, 32, "wide", 16),
+    ("conv2", 4, 514, 1024, 1024, 3, 2, BF16, 1, 32, "mma", 16),
+]
+
+
+def _dw1d_dims(B, L, Cin, Cout, K, stride):
+    """(M, N, K) of the 1-D weight gradient's product, and Lout."""
+    lout = (L - K) // stride + 1
+    return (K * Cin, Cout, B * lout), lout
+
+
+@pytest.mark.parametrize("sms", (build.DEFAULT_SMS, 8))
+@pytest.mark.parametrize(
+    "what,B,L,Cin,Cout,K,stride,dtype,splits,per,tile,va", ROW10_TABLE,
+    ids=[f"{t[0]} {t[7]}" for t in ROW10_TABLE])
+def test_row10_plans_and_copy_widths(what, B, L, Cin, Cout, K, stride, dtype,
+                                     splits, per, tile, va, sms):
+    """Row 10 takes gemm_plan's plan for dw (K·Cin, Cout) over the B·Lout
+    positions: on an H100 conv1's 16 tiles split 16 ways in float32 (8 in
+    bfloat16); conv2's 192 tiles split 2 ways in float32 (the balance
+    rule) and run unsplit in bfloat16; on 8 SMs nothing splits.
+    x's copies are 16 bytes along a position's K·Cin run, dz's too."""
+    (M, N, Kr), _ = _dw1d_dims(B, L, Cin, Cout, K, stride)
+    p = gp.gemm_plan(M, N, Kr, dtype, sms)
+    _check_plan(p, M, N, Kr, dtype, sms)
+    assert p.tile is gp.TILES[tile]
+    if sms == build.DEFAULT_SMS:
+        assert (p.tiles, p.splits, p.per) == (-(-M // 128) * 8, splits, per)
+    else:
+        assert p.splits == 1
+    el = dtype.itemsize
+    assert gp.copy_bytes(el, [0], gp.dw_copy_strides(L, Cin, K, stride)) == va
+    assert gp.copy_bytes(el, [0], [Cout]) == 16
+
+
+@pytest.mark.parametrize("row,elem,ptr,L,Cin,K,stride,want", [
+    (13, 1, 0, 203, 37, 3, 1, 1),    # Cin 37 int8: byte loads, no pad
+    (13, 1, 0, 203, 80, 5, 2, 16),   # Cin 80 int8
+    (13, 1, 0, 204, 37, 20, 2, 2),   # Cin 37, even stride, K, L: 2 bytes
+    (13, 1, 1, 514, 80, 3, 1, 1),    # x one code off its alignment
+    (13, 1, 2, 514, 80, 3, 1, 2),
+    (13, 4, 4, 203, 37, 3, 2, 4),    # w8a16 f32, x one element off
+    (13, 2, 0, 203, 37, 7, 2, 2),    # w8a16 bf16, Cin 37
+    (10, 4, 0, 203, 37, 3, 1, 4),    # phase 7's edges: Cin 37
+    (10, 2, 0, 203, 37, 20, 2, 2),
+    (10, 4, 4, 514, 80, 3, 1, 4),    # x one element off
+    (10, 2, 2, 514, 1024, 3, 2, 2),
+    (10, 2, 0, 514, 1024, 3, 2, 16),
+])
+def test_row13_and_row10_copy_bytes(row, elem, ptr, L, Cin, K, stride, want):
+    """Rows 13 and 10 copy x as wide as its K·Cin runs and its pointer
+    allow, down to single int8 codes: the 1-D w8a8 path pads no channel
+    and clones no misaligned x."""
+    strides = (gp.conv2d_copy_strides(1, L, Cin, K, (1, stride)) if row == 13
+               else gp.dw_copy_strides(L, Cin, K, stride))
+    assert gp.copy_bytes(elem, [ptr], strides) == want
+
+
+def filter_run_offsets(B, H, W, Cin, kh, kw, stride):
+    """FilterRuns transcribed: x's flat offset of A[m, p] = row(m) +
+    col(p), m the flat (i, j, c) filter index, p an output position, the
+    position's divides FastDivs."""
+    sh, sw = stride
+    oh, ow = (H - kh) // sh + 1, (W - kw) // sw + 1
+    kwc = kw * Cin
+    rows = np.array([(m // kwc) * W * Cin + m % kwc
+                     for m in range(kh * kwc)], dtype=np.int64)
+    cols = np.empty(B * oh * ow, dtype=np.int64)
+    for p in range(B * oh * ow):
+        b = fast_div(p, oh * ow)
+        rem = p - b * oh * ow
+        oy = fast_div(rem, ow)
+        ox = rem - oy * ow
+        cols[p] = ((b * H + oy * sh) * W + ox * sw) * Cin
+    return rows[:, None] + cols[None, :]
+
+
+@pytest.mark.parametrize("B,H,W,Cin,kh,kw,stride", [
+    (2, 1, 40, 3, 1, 5, (1, 1)), (3, 1, 37, 37, 1, 3, (1, 2)),
+    (2, 1, 50, 4, 1, 7, (1, 3)), (1, 1, 9, 5, 1, 1, (1, 1)),
+    (2, 1, 70, 2, 1, 65, (1, 2)), (2, 13, 17, 37, 3, 5, (2, 3)),
+    (2, 56, 56, 3, 14, 14, (14, 14))])
+def test_filter_runs_are_the_column_matrix(B, H, W, Cin, kh, kw, stride):
+    """A[m, p] read through FilterRuns is the transposed im2col matrix,
+    1-D (row 10, H = kh = 1: row(m) = m) and 2-D (row 12), and each copy
+    along m (va / element bytes values, va from dw_copy_strides) is
+    contiguous in x."""
+    x = torch.arange(B * H * W * Cin, dtype=torch.int64).reshape(B, H, W, Cin)
+    offs = filter_run_offsets(B, H, W, Cin, kh, kw, stride)
+    got = x.reshape(-1)[torch.from_numpy(offs)]
+    if H == 1:
+        assert np.array_equal(offs[:, :1], np.arange(kw * Cin)[:, None])
+        want = ig.columns_1d(x.reshape(B, W, Cin), kw, stride[1]).T
+    else:
+        want = ig.columns_2d(x, kh, kw, stride).T
+    assert torch.equal(got, want)
+    for el in (2, 4):
+        n = gp.copy_bytes(el, [0], gp.dw_copy_strides(W, Cin, kw,
+                                                      stride[1])) // el
+        assert (kw * Cin) % n == 0
+        for d in range(1, n):
+            assert np.array_equal(offs[d::n], offs[::n] + d)
+
+
+@pytest.mark.parametrize("has_bias", [True, False])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dw_launch_geometry(offset, dtype, has_bias):
+    """Rows 10 and 12's launch geometry (``sliding_conv_bwd.dw_launch`` on
+    CPU tensors, an H100's SM count): the plan for dw over the output
+    positions, x's copy width from its filter-row runs and pointer, dz's
+    from Cout, and a float32 workspace of splits·(M·N + N) partials with a
+    bias, splits·M·N without, exactly when the plan splits."""
+    def tensor(*shape, off=0):
+        n = math.prod(shape)
+        return torch.zeros(n + off, dtype=dtype)[off:].view(*shape)
+
+    x1, dz1 = tensor(2, 514, 80, off=offset), tensor(2, 512, 1024)
+    x2, dz2 = tensor(2, 40, 44, 6, off=offset), tensor(2, 18, 20, 70)
+    cases = [
+        (sb.dw_launch(x1, dz1, 3 * 80, 514, 80, 3, 1, has_bias), x1, dz1,
+         3 * 80, gp.dw_copy_strides(514, 80, 3, 1)),
+        (sb.dw_launch(x2, dz2, 5 * 5 * 6, 44, 6, 5, 2, has_bias), x2, dz2,
+         150, gp.dw_copy_strides(44, 6, 5, 2)),
+    ]
+    for (plan, va, vb, ws), x, dz, M, strides in cases:
+        N = dz.shape[-1]
+        K = dz.numel() // N
+        assert plan == gp.gemm_plan(M, N, K, dtype, build.DEFAULT_SMS)
+        assert va == gp.copy_bytes(dtype.itemsize, [x.data_ptr()], strides)
+        assert vb == gp.copy_bytes(dtype.itemsize, [dz.data_ptr()], [N])
+        if plan.splits == 1:
+            assert ws is None
+        else:
+            assert ws.dtype == F32
+            assert ws.shape == (plan.splits * (M * N + N * has_bias),)
+    assert cases[0][0][0].splits > 1  # 16 tiles on 132 SMs
+    if offset:
+        assert cases[0][0][1] == dtype.itemsize
+
+
+# (B, L, Cin, Cout, K, stride, sms): row 13 at whisper's conv2 cut in
+# length (8 int8 tiles, split on 132 SMs) and conv1 cut (4 chunks, no
+# split), phase 11's Cin 37 and 80 with K 7 and 20, K = 1 with Cout 1
+ROW13_SPLITS = [(2, 130, 1024, 1024, 3, 2, 132),
+                (2, 258, 80, 1024, 3, 1, 132),
+                (3, 203, 37, 70, 7, 2, 8),
+                (3, 203, 80, 70, 20, 1, 132),
+                (2, 50, 5, 1, 1, 1, 132)]
+
+
+@pytest.mark.parametrize("mode,x_dtype,out", [
+    ("w8a8", I8, "f32"), ("w8a8", I8, "bf16"), ("w8a8", I8, "int8"),
+    ("w8a16", F32, "f32"), ("w8a16", BF16, "bf16"), ("w8a16", BF16, "int8")])
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride,sms", ROW13_SPLITS)
+def test_split_order_matches_conv1d_quant_plain(B, L, Cin, Cout, K, stride,
+                                                sms, mode, x_dtype, out):
+    """Row 13: w8a8's int8 columns (ConvPositions at H = 1, no channel
+    padding) times the codes summed exactly, int32 partials added in split
+    order, then the float32 dequant epilogue: equal to the plain version,
+    codes and all; w8a16's codes widened to x's type and summed in float32:
+    float outputs within 1e-5 of max |y|, bf16 ones within a bf16 step,
+    requantized codes one apart at most and only at ties."""
+    rng = np.random.default_rng(Cin + Cout + K + 2)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(K, Cin, Cout),
+                                       dtype=np.int8))
+    wsc = torch.from_numpy((rng.uniform(0.5, 1.5, size=Cout)
+                            / (73 * np.sqrt(K * Cin))).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(Cout,)).astype(np.float32))
+    if mode == "w8a8":
+        x = torch.from_numpy(rng.integers(-127, 128, size=(B, L, Cin),
+                                          dtype=np.int8))
+        xs = torch.tensor(1 / 73)
+        dq = wsc * xs
+    else:
+        x = torch.from_numpy(rng.normal(size=(B, L, Cin)).astype(
+            np.float32)).to(x_dtype)
+        xs, dq = None, wsc
+    (M, N, Kr), lout = _conv1d_dims(B, L, Cin, Cout, K, stride)
+    plan = gp.gemm_plan(M, N, Kr, x_dtype, sms)
+    if (Cin, sms) == (1024, 132):
+        assert plan.splits > 1
+    wk = wq.reshape(Kr, N) if mode == "w8a8" else wq.to(x_dtype).reshape(Kr, N)
+    cols = x.reshape(-1)[torch.from_numpy(gather_offsets(
+        B, 1, L, Cin, K, (1, stride), kh=1))]
+    acc = split_k(cols, wk, plan)
+    args = dict(x_scale=xs, mode=mode, stride=stride, activation="gelu")
+    y32 = sq.conv1d_quant_plain(x, wq, wsc, b, **args)
+    os = (y32.abs().max() * 0.8 / 127).reshape(()) if out == "int8" else None
+    odt = BF16 if out == "bf16" else F32
+    got = qconv._epilogue(acc.float() * dq, b, "gelu", os, odt).reshape(
+        B, lout, N)
+    want = sq.conv1d_quant_plain(x, wq, wsc, b, out_scale=os, out_dtype=odt,
+                                 **args)
+    assert got.dtype == want.dtype
+    if mode == "w8a8":
+        assert torch.equal(got, want)
+    elif out == "int8":
+        diff = (got.int() - want.int()).abs()
+        pre = (y32 / os).reshape(-1)[diff.reshape(-1) > 0]
+        assert diff.max().item() <= 1
+        assert ((pre - pre.round()).abs() - 0.5).abs().max().item() < 1e-3 \
+            if pre.numel() else True
+    else:
+        scale = max(1.0, want.float().abs().max().item())
+        tol = 1e-5 if out == "f32" else 2 ** -7
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=1e-5 * scale)
+
+
+# (B, L, Cin, Cout, K, stride, sms): row 10 at whisper's conv1 cut in
+# length (16 tiles, 2 splits on 132 SMs), a long reduction on 2 tiles (16
+# splits), phase 7's Cin 37 edge on 8 SMs, conv2 cut (192 tiles, one
+# split), K = 1 with Cout 1
+ROW10_SPLITS = [(2, 130, 80, 1024, 3, 1, 132),
+                (4, 514, 80, 64, 3, 1, 132),
+                (3, 203, 37, 70, 7, 3, 8),
+                (2, 130, 1024, 1024, 3, 2, 132),
+                (2, 50, 5, 1, 1, 1, 132)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride,sms", ROW10_SPLITS)
+def test_split_order_matches_conv1d_bwd_dw_plain(B, L, Cin, Cout, K, stride,
+                                                 sms, dtype):
+    """Row 10: dw as the product over the B·Lout positions, A read through
+    FilterRuns at kh = 1, float32 partials added in split order, and db as
+    the column sums of dz in the same splits: against the plain version
+    within TOL of the largest value."""
+    rng = np.random.default_rng(Cin + Cout + K + 3)
+    x = torch.from_numpy(rng.normal(size=(B, L, Cin)).astype(
+        np.float32)).to(dtype)
+    (M, N, Kr), lout = _dw1d_dims(B, L, Cin, Cout, K, stride)
+    dz = torch.from_numpy(rng.normal(size=(B, lout, Cout)).astype(
+        np.float32)).to(dtype)
+    plan = gp.gemm_plan(M, N, Kr, dtype, sms)
+    if Cout == 64:
+        assert plan.splits == (16 if dtype == F32 else 8)
+    a = x.reshape(-1)[torch.from_numpy(filter_run_offsets(
+        B, 1, L, Cin, 1, K, (1, stride)))]
+    g = dz.reshape(-1, Cout)
+    dw = split_k(a, g, plan).reshape(K, Cin, Cout)
+    db = split_k(torch.ones((1, Kr), dtype=dtype), g, plan)[0]
+    want_dw, want_db = sb.conv1d_bwd_dw_plain(x, dz, K, stride=stride,
+                                              has_bias=True)
+    for got, want in ((dw, want_dw), (db, want_db)):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * scale)
+
+
+def test_row13_and_row10_sources_are_on_the_product_loop():
+    """Rows 13 and 10 include gemm_mma.cuh and run their product through
+    gm::gemm (dequant_gemm with row 14's Dequant epilogue; dw_gemm with row
+    12's Store), with ConvPositions and FilterRuns at H = oh = kh = 1;
+    their ctypes lists match the C signatures; the __dp4a kernel, the row
+    split rule, its C export and the 1-D w8a8 pad and clone are gone;
+    Dequant and FilterRuns are defined in the header alone."""
+    header = (build.CSRC / "gemm_mma.cuh").read_text()
+    for helper, epi in (("int dequant_gemm(", "Dequant"),
+                        ("int dw_gemm(", "Store<float>")):
+        body = header[header.index(helper):]
+        body = body[:body.index("\n}\n")]
+        assert "gemm(" in body and epi in body, helper
+    entry = _c_entry("sliding_conv_quant.cu", "sliding_conv_quant")
+    assert "gm::dequant_gemm(" in entry and "gm::Dequant" in entry
+    assert "gm::conv_positions(1, L, Cin, K, 1, stride, 1, Lout)" in entry
+    _check_argtypes(entry, sq._ARGTYPES)
+    entry = _c_entry("sliding_conv_bwd.cu", "conv1d_bwd_dw")
+    assert "gm::dw_gemm(" in entry
+    assert "gm::filter_runs(1, L, Cin, K, 1, stride, 1, Lout)" in entry
+    _check_argtypes(entry, sb._ARGTYPES)
+    assert "gm::dequant_gemm(" in _c_entry("sliding_conv2d_quant.cu",
+                                           "sliding_conv2d_quant")
+    assert "gm::dw_gemm(" in _c_entry("sliding_conv2d_bwd.cu",
+                                      "conv2d_bwd_dw")
+    for name in ("sliding_conv_quant.cu", "sliding_conv_bwd.cu"):
+        text = (build.CSRC / name).read_text()
+        assert '#include "gemm_mma.cuh"' in text, name
+        for gone in ("__dp4a", "MIN_BLOCKS", "conv1d_bwd_dw_splits",
+                     "split_reduce.cuh", "227", "KT =", "CC8"):
+            assert gone not in text, (name, gone)
+    assert not hasattr(sb, "_SPLIT_ARGTYPES")
+    wrapper = (build.CSRC.parent / "sliding_conv_quant.py").read_text()
+    assert "F.pad" not in wrapper and ".clone()" not in wrapper
+    for struct in ("struct Dequant", "struct FilterRuns"):
+        assert header.count(struct) == 1, struct
+        for path in build.CSRC.iterdir():
+            if path.name != "gemm_mma.cuh":
+                assert struct not in path.read_text(), (path.name, struct)
