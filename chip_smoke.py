@@ -84,9 +84,10 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      600 and 1032, L shorter than a tile, bias or none, none or silu, an
      unaligned base, float32 and bfloat16): float32 within 1e-6 of max |y|,
      bfloat16 within one bf16 step; the int8 depthwise kernel, w8a8 and
-     w8a16, float and requantized outputs, at the same shapes; the
-     attention kernel, fp and int8, at jamba's (B 4, S 288, KV 8, G 8,
-     D 128) with a length-0 slot;
+     w8a16, float and requantized outputs, at the same shapes; both at the
+     prefill shape planned for a card of 2 SMs (16 persistent blocks each
+     walking 256 items); the attention kernel, fp and int8, at jamba's
+     (B 4, S 288, KV 8, G 8, D 128) with a length-0 slot;
  17. jamba smoke serve, card vs CPU: jamba's smoke config (float32), one
      set of weights, fp and ``--quant int8 --kv-quant int8``, each held to
      what one float32 step of weight jitter does on the CPU (see
@@ -99,8 +100,9 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      weights: launches checked, TTFT, decode step, tokens/s, busy share,
      peak memory, cache bytes and max |x| after each layer (the random
      model collapses after its first layer: see PERF.md);
- 19. jamba times: the depthwise kernels at mamba's prefill shape beside
-     their plain versions, a library call (``F.conv1d(groups=C)`` + silu;
+ 19. jamba times: the depthwise kernels' plans on this card, then the
+     kernels at mamba's prefill shape beside their plain versions, a
+     library call (``F.conv1d(groups=C)`` + silu;
      for int8, which no PyTorch call computes, the codes widened to bf16
      ahead, then ``F.conv1d(groups=C)`` and the epilogue in torch) and the
      bound; the attention kernels at G=8, D=128 beside their plain versions
@@ -123,9 +125,11 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      a nonzero conv_w gradient in each of the 7 Mamba blocks, conv_w
      moved, launches per step checked (21 forward depthwise, 7 dw); step
      ms, tokens/s, peak memory, busy share and top kernels;
- 23. jamba training times: the dw kernel at the training shape beside its
-     plain version, ``torch.nn.grad.conv1d_weight(groups=C)`` and the
-     bound; the forward depthwise kernel there with z written and without.
+ 23. jamba training times: the depthwise plans and the dw kernel's
+     splits at the training shape on this card; the dw kernel there beside
+     its plain version, ``torch.nn.grad.conv1d_weight(groups=C)`` and the
+     bound; the forward depthwise kernel there with z written and without,
+     each beside its bound.
  24. conv2d kernel vs plain: the 2-D sliding conv kernel against its plain
      version at llava's patch embedding (x (20, 336, 336, 3), w (14, 14,
      3, 1152), stride 14, bias or none), at the fig1 shapes ((1, 128, 128,
@@ -236,14 +240,16 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      version, the port's associative scan and the bound.
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
-     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8, 1, 6, 13, 10) at
-     each timed shape beside its time before the redesign
+     each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8, 1, 6, 13, 10, 3,
+     15) at each timed shape beside its time before the redesign
      (``EARLIER_MS``): row 5 at the five hbm columns phase 35 times it on,
      row 12 at phase 32's five shapes, row 4 at phase 27's six, row 14 at
      phase 32's seven, row 7 at phase 35's eight 2-D shapes, row 8's forms
      and the sum gradient at phase 39's shapes timed before, row 1 at
      phase 6's four (f32 and bf16), row 6 at phase 35's five 1-D shapes,
-     row 13 at phase 15's two, row 10 at phase 10's two.
+     row 13 at phase 15's two, row 10 at phase 10's two, row 3 at phase
+     19's prefill shape and phase 23's training shape (z and not), row 15
+     at phase 19's.
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
@@ -1776,6 +1782,31 @@ def phase_depthwise_kernels(sc, sq, ad) -> dict:
         "checked")
     errs["conv1d_depthwise_quant"] = err_q
 
+    # rows 3 and 15 planned for a card of 2 SMs: 16 persistent blocks each
+    # walk 256 items of the prefill shape, across slabs, chunks and rows
+    from repro_torch.kernels import build
+    sm_count = build.sm_count
+    build.sm_count = lambda device: 2
+    try:
+        x, w, b = depthwise_inputs(44, s["B"], s["L"], s["C"], s["K"],
+                                   torch.bfloat16)
+        y, z = sc.conv1d_depthwise(x, w, b, activation="silu",
+                                   save_preact=True)
+        py, pz = sc.conv1d_depthwise_plain(x, w, b, activation="silu",
+                                           save_preact=True)
+        err = max(dw_check(y, py, "depthwise main, 2 SMs' plan"),
+                  dw_check(z, pz, "depthwise main z, 2 SMs' plan"))
+        x, w, ws, b, xs = dw_quant_inputs(45, s["B"], s["L"], s["C"], s["K"],
+                                          "w8a8")
+        err_q = check_dw_quant(sq, x, w, ws, b, xs, mode="w8a8", stride=1,
+                               act="silu", out_dtype=torch.bfloat16,
+                               requant=True,
+                               what="int8 depthwise main, 2 SMs' plan")
+    finally:
+        build.sm_count = sm_count
+    log(f"depthwise {s} planned for 2 SMs: bf16 y and z max|err| {err:.3e}; "
+        f"w8a8 bf16 max|err| {err_q:.3e}, requant codes checked")
+
     lens = [0, 1, 127, 288]
     q, k, v, ln = attn_inputs(42, **ATTN_JAMBA, dtype=torch.bfloat16,
                               lengths=lens)
@@ -2021,6 +2052,18 @@ def phase_full_serve_jamba(serve, models, configs) -> dict:
     return dict(fp=fp, int8=int8, n_params=n_params)
 
 
+def log_depthwise_plans(s) -> None:
+    """Log the launch plans of rows 3 and 15 (bf16 x; int8 codes) at shape
+    ``s`` on this card (``gemm_plan.depthwise_plan``)."""
+    from repro_torch.kernels import build, gemm_plan
+    lout = (s["L"] - s["K"]) // s["stride"] + 1
+    for what, elem in (("bf16", 2), ("int8", 1)):
+        plan = gemm_plan.depthwise_plan(s["B"], lout, s["C"], elem, s["K"],
+                                        s["stride"], build.sm_count(
+                                            torch.device(DEV)))
+        log(f"depthwise plan {s} {what}: {plan}")
+
+
 def phase_jamba_times(sc, sq, ad, launches, errs) -> tuple[list, dict]:
     """The depthwise kernels at mamba's prefill shape beside their plain
     versions, one library call and the bound; the attention kernels at
@@ -2031,6 +2074,7 @@ def phase_jamba_times(sc, sq, ad, launches, errs) -> tuple[list, dict]:
     lout = L - K + 1
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
             "plain_call_ms", "library_call_ms")
+    log_depthwise_plans(s)
     # fp: the library is F.conv1d(groups=C) (cuDNN; TF32 off, bf16 anyway)
     # on x in its (B, C, L) layout, made ahead, + bias + silu
     sets = []
@@ -2464,6 +2508,13 @@ def phase_depthwise_train_times(sc, sb, launches, err) -> tuple[dict, dict]:
     lout = L - K + 1
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "call_ms",
             "plain_call_ms", "library_call_ms")
+    from repro_torch.kernels import build, gemm_plan
+    sms = build.sm_count(torch.device(DEV))
+    log_depthwise_plans(s)
+    log(f"depthwise dw splits {s} on {sms} SMs: bf16 "
+        f"{gemm_plan.depthwise_dw_splits(B, C, K, lout, torch.bfloat16, sms)}"
+        f", f32 "
+        f"{gemm_plan.depthwise_dw_splits(B, C, K, lout, torch.float32, sms)}")
     sets = []
     for i in range(2):  # 2 inputs of 67 MB: > 50 MB
         x, dz = dw_inputs(83 + i, B, L, C, C, K, 1, torch.bfloat16)
@@ -2500,6 +2551,11 @@ def phase_depthwise_train_times(sc, sb, launches, err) -> tuple[dict, dict]:
             lambda x, w, b, z=z: sc.conv1d_depthwise(
                 x, w, b, activation="silu", save_preact=z), sets))
     fwd["per"] = f"launch: B={B} L={L} C={C} K={K} bf16 silu, training shape"
+    # the bounds: x, w, bias read once, y (and z) written once
+    for key, n_out in (("bound_ms", 1), ("z_bound_ms", 2)):
+        fwd[key], fwd[key.replace("ms", "by")] = bound_ms(
+            2 * (B * L * C + K * C + n_out * B * lout * C) + 4 * C,
+            2 * K * B * lout * C, torch.bfloat16)
     log(f"time depthwise forward at the training shape, z written or not "
         f"(in turns): {json.dumps(fwd)}")
     row = dict(name="conv1d_depthwise_bwd_dw", route="cuda",
@@ -4623,6 +4679,11 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
 # runs; rows 7 and 8 from the runs that first timed them; row 1 in bf16 by
 # scripts/conv1d_times.py on the tree before its redesign)
 EARLIER_MS = {
+    # rows 3 and 15 a thread a 16-row walk of 16 bytes of channels, at
+    # phase 19's prefill shape and (row 3) phase 23's training shape
+    "conv1d_depthwise": {"prefill": 0.0574, "train_no_z": 0.0575,
+                         "train_z": 0.0641},
+    "conv1d_depthwise_quant": {"prefill": 0.1073},
     # row 1 on its 64 x 64 CUDA-core tile at phase 6's shapes (bias + gelu)
     "sliding_conv1d": {"conv1": 0.0638, "conv2": 0.4253,
                        "conv1_bf16": 0.0637, "conv2_bf16": 0.5375},
@@ -4750,6 +4811,13 @@ def report_redesigned(kernels) -> None:
             now = {k: row["shapes"][k] for k in before}
         elif "by_shape" in row:  # rows 13 and 10, the same
             now = {k: row["by_shape"][k] for k in before}
+        elif row["name"].startswith("conv1d_depthwise"):  # rows 3 and 15
+            now = {"prefill": row}
+            if "train_shape" in row:
+                t = row["train_shape"]
+                now["train_no_z"] = dict(ms=t["no_z_ms"],
+                                         bound_ms=t["bound_ms"])
+                now["train_z"] = dict(ms=t["z_ms"], bound_ms=t["z_bound_ms"])
         else:
             now = {"whisper": row, "jamba": row["jamba_shape"],
                    "llava": row["llava_shape"]}
@@ -4757,9 +4825,10 @@ def report_redesigned(kernels) -> None:
             # row 5's other shapes keep the comparison's key names
             ms, lib, bound = (t.get(k, t.get("matmul_" + k)) for k in
                               ("ms", "library_ms", "bound_ms"))
+            lib = "not timed" if lib is None else f"{lib:.4f}"
             log(f"redesigned {row['name']} {shape}: {ms:.4f} ms (earlier "
                 f"{before[shape]:.4f}, {before[shape] / ms:.2f}x), "
-                f"library {lib:.4f}, bound {bound:.5f}")
+                f"library {lib}, bound {bound:.5f}")
 
 
 def main() -> int:

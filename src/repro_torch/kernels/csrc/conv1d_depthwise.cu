@@ -24,20 +24,17 @@
 // is 0.13 GFLOP against 67 MB of traffic: it is bound by bytes (about
 // 0.020 ms at 3.35 TB/s).
 //
-// What the design does about it: channels are contiguous, so each thread
-// owns VEC neighbouring channels (16 bytes of x: 4 float32 or 8 bfloat16)
-// and a warp reads 512 contiguous bytes of a row with one load each. The
-// thread walks TL output rows of one batch row keeping the K input rows of
-// the current window in registers; moving to the next output row loads
-// only the `stride` new rows, so every input row is read once per tile,
-// plus a (K-1)-row halo per tile that the L2 serves. Its weights (K x VEC)
-// stay in registers for the whole tile, and the epilogue stores each
-// output row as one 16-byte vector. The window is unrolled at compile time
-// for K in {2, 3, 4} (mamba's K is 4); other K read each tap's row per
-// output row, through the L1. Channel counts that are not a multiple of
-// VEC, or bases that are not 16-byte aligned, take the same code with
-// scalar loads and stores masked at C. The Pallas kernel's c_block tiling
-// is a VMEM choice with no counterpart here: channels are independent.
+// What the design does about it: depthwise_rows.cuh's staged body, shared
+// with the int8 kernel (conv1d_depthwise_quant.cu): a persistent grid
+// planned by the wrapper from the card's SM count, each block streaming
+// work items of R output rows x 128 channels through a cp.async ring of
+// shared-memory stages, so that several MB are in flight across the card.
+// This file holds the epilogue: bias, activation and the cast of a lane's
+// 4 channels, stored as one 8-byte (bf16) or 16-byte (f32) vector, and
+// with SAVE_Z the post-bias sum to z the same way; bias is read once an
+// item.
+// The Pallas kernel's c_block tiling is a VMEM choice with no counterpart
+// here: channels are independent.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,170 +46,83 @@
 
 namespace {
 
-constexpr int TL = 16;        // output rows per thread
-constexpr int THREADS = 128;  // channel vectors per block
+template <typename T, bool SAVE_Z>
+struct EpiFp {
+  T* y;
+  T* z;
+  const float* bias;  // may be null
+  int C, act;
+  bool vec;  // y and z take vector stores
+  float bv[DW_LANE];
 
-// bias, activation and the cast of one output row's N channels, stored as
-// one 16-byte vector when ALIGNED; with SAVE_Z the post-bias sum is stored
-// to z's row too, cast to T (the backward pass's pre-activation)
-template <typename T, bool ALIGNED, bool SAVE_Z, int N = VecOf<T>::N>
-__device__ __forceinline__ void store_row(T* __restrict__ row,
-                                          T* __restrict__ zrow, int c0, int C,
-                                          const float (&acc)[N],
-                                          const float* __restrict__ bias,
-                                          int act) {
-  alignas(16) T out[N];
-  alignas(16) T pre[N];
+  __device__ __forceinline__ void begin(int c0) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float v = acc[j];
-    if (bias != nullptr && c0 + j < C) v = __fadd_rn(v, bias[c0 + j]);
-    if (SAVE_Z) pre[j] = from_f32<T>(v);
-    out[j] = from_f32<T>(activate(v, act));
+    for (int j = 0; j < DW_LANE; ++j)
+      bv[j] = bias != nullptr && c0 + j < C ? bias[c0 + j] : 0.f;
   }
-  store_vals<T, ALIGNED>(row, c0, C, out);
-  if (SAVE_Z) store_vals<T, ALIGNED>(zrow, c0, C, pre);
-}
 
-// KW > 0: the window of KW rows in registers (K == KW); KW == 0: any K,
-// each tap's row loaded per output row. SAVE_Z: z (y's shape) receives the
-// post-bias pre-activation.
-template <typename T, int KW, bool ALIGNED, bool SAVE_Z>
-__global__ void __launch_bounds__(THREADS)
-depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ bias, T* __restrict__ y,
-                 T* __restrict__ z, int L, int C, int K, int stride, int Lout,
-                 int act) {
-  constexpr int N = VecOf<T>::N;
-  const int c0 = (blockIdx.x * THREADS + threadIdx.x) * N;
-  if (c0 >= C) return;
-  const int b = blockIdx.z;
-  const int r0 = blockIdx.y * TL;
-  const int r1 = min(r0 + TL, Lout);
-  const T* xb = x + (size_t)b * L * C;
-  T* yb = y + (size_t)b * Lout * C;
-  T* zb = SAVE_Z ? z + (size_t)b * Lout * C : nullptr;
-
-  if constexpr (KW > 0) {
-    float wr[KW][N];
+  __device__ __forceinline__ void store(size_t row, int c0,
+                                        const float (&acc)[DW_LANE]) {
+    float v[DW_LANE];
+    alignas(16) T out[DW_LANE];
+    alignas(16) T pre[DW_LANE];
 #pragma unroll
-    for (int k = 0; k < KW; ++k)
-      load_row<T, ALIGNED>(w + (size_t)k * C, c0, C, wr[k]);
-    float win[KW][N];  // input rows r*stride .. r*stride + KW-1
-#pragma unroll
-    for (int k = 0; k < KW; ++k)
-      load_row<T, ALIGNED>(xb + (size_t)(r0 * stride + k) * C, c0, C, win[k]);
-    for (int r = r0; r < r1; ++r) {
-      if (r > r0) {
-        const int first = r * stride;
-        if (stride >= KW) {  // no row of the last window is reused
-#pragma unroll
-          for (int k = 0; k < KW; ++k)
-            load_row<T, ALIGNED>(xb + (size_t)(first + k) * C, c0, C, win[k]);
-        } else {
-          for (int s = 0; s < stride; ++s) {
-#pragma unroll
-            for (int k = 0; k + 1 < KW; ++k)
-#pragma unroll
-              for (int j = 0; j < N; ++j) win[k][j] = win[k + 1][j];
-            load_row<T, ALIGNED>(
-                xb + (size_t)(first + KW - stride + s) * C, c0, C,
-                win[KW - 1]);
-          }
-        }
-      }
-      float acc[N];
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[j] = __fmul_rn(win[0][j], wr[0][j]);
-#pragma unroll
-      for (int k = 1; k < KW; ++k)
-#pragma unroll
-        for (int j = 0; j < N; ++j)
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(win[k][j], wr[k][j]));
-      store_row<T, ALIGNED, SAVE_Z>(yb + (size_t)r * C,
-                                     zb + (size_t)r * C, c0, C, acc, bias,
-                                     act);
+    for (int j = 0; j < DW_LANE; ++j) {
+      v[j] = bias != nullptr ? __fadd_rn(acc[j], bv[j]) : acc[j];
+      if (SAVE_Z) pre[j] = from_f32<T>(v[j]);
     }
-  } else {
-    for (int r = r0; r < r1; ++r) {
-      float acc[N], xv[N], wv[N];
-      for (int k = 0; k < K; ++k) {
-        load_row<T, ALIGNED>(xb + (size_t)(r * stride + k) * C, c0, C, xv);
-        load_row<T, ALIGNED>(w + (size_t)k * C, c0, C, wv);
+    activate_all(v, act);
 #pragma unroll
-        for (int j = 0; j < N; ++j)
-          acc[j] = k == 0 ? __fmul_rn(xv[j], wv[j])
-                          : __fadd_rn(acc[j], __fmul_rn(xv[j], wv[j]));
-      }
-      store_row<T, ALIGNED, SAVE_Z>(yb + (size_t)r * C,
-                                     zb + (size_t)r * C, c0, C, acc, bias,
-                                     act);
-    }
+    for (int j = 0; j < DW_LANE; ++j) out[j] = from_f32<T>(v[j]);
+    store_lane<T>(y + row, c0, C, out, vec);
+    if (SAVE_Z) store_lane<T>(z + row, c0, C, pre, vec);
   }
-}
+};
 
-template <typename T, int KW>
-cudaError_t launch_k(bool aligned, const void* x, const void* w,
-                     const void* bias, void* y, void* z, int B, int L, int C,
-                     int K, int stride, int Lout, int act,
+template <typename T, bool SAVE_Z>
+cudaError_t launch_z(const void* x, const void* w, const void* bias, void* y,
+                     void* z, const DwShape& s, int act, int blocks,
                      cudaStream_t stream) {
-  constexpr int N = VecOf<T>::N;
-  const int vecs = (C + N - 1) / N;
-  const dim3 grid((vecs + THREADS - 1) / THREADS, (Lout + TL - 1) / TL, B);
-  auto kernel = z != nullptr ? (aligned ? depthwise_kernel<T, KW, true, true>
-                                        : depthwise_kernel<T, KW, false, true>)
-                             : (aligned ? depthwise_kernel<T, KW, true, false>
-                                        : depthwise_kernel<T, KW, false, false>);
-  kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<T*>(z),
-      L, C, K, stride, Lout, act);
-  return cudaGetLastError();
+  EpiFp<T, SAVE_Z> epi{static_cast<T*>(y), static_cast<T*>(z),
+                       static_cast<const float*>(bias), s.C, act,
+                       store_aligned<T>(y, s.C) && store_aligned<T>(z, s.C),
+                       {}};
+  return launch_depthwise_k<T, T, float>(x, w, epi, s, blocks, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* y,
-                   void* z, int B, int L, int C, int K, int stride, int Lout,
-                   int act, cudaStream_t stream) {
-  constexpr int N = VecOf<T>::N;
-  const bool aligned = C % N == 0 && (uintptr_t)x % 16 == 0 &&
-                       (uintptr_t)w % 16 == 0 && (uintptr_t)y % 16 == 0 &&
-                       (uintptr_t)z % 16 == 0;
-  switch (K) {
-    case 2:
-      return launch_k<T, 2>(aligned, x, w, bias, y, z, B, L, C, K, stride,
-                            Lout, act, stream);
-    case 3:
-      return launch_k<T, 3>(aligned, x, w, bias, y, z, B, L, C, K, stride,
-                            Lout, act, stream);
-    case 4:
-      return launch_k<T, 4>(aligned, x, w, bias, y, z, B, L, C, K, stride,
-                            Lout, act, stream);
-    default:
-      return launch_k<T, 0>(aligned, x, w, bias, y, z, B, L, C, K, stride,
-                            Lout, act, stream);
-  }
+                   void* z, const DwShape& s, int act, int blocks,
+                   cudaStream_t stream) {
+  return z != nullptr
+             ? launch_z<T, true>(x, w, bias, y, z, s, act, blocks, stream)
+             : launch_z<T, false>(x, w, bias, y, z, s, act, blocks, stream);
 }
 
 }  // namespace
 
 // Returns a cudaError_t code: 0 when the launch was accepted. bias may be
-// null; z may be null (serving: no pre-activation is written). A shape the
-// grid cannot hold is refused with cudaErrorInvalidValue.
+// null; z may be null (serving: no pre-activation is written). rows,
+// stages and blocks are the wrapper's plan (gemm_plan.depthwise_plan),
+// copy_bytes the width x's alignment allows its staged pieces (16, 8, 4, 2
+// bytes). A shape or plan the kernel does not take is refused with
+// cudaErrorInvalidValue.
 extern "C" int conv1d_depthwise(const void* x, const void* w,
                                 const void* bias, void* y, void* z, int B,
                                 int L, int C, int K, int stride, int Lout,
-                                int act, int is_bf16, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || K < 1 || stride < 1 || Lout < 1 ||
-      (Lout + TL - 1) / TL > 65535 || (Lout - 1) * stride + K > L ||
-      act < 0 || act > 3)
+                                int act, int is_bf16, int rows, int stages,
+                                int blocks, int copy_bytes, void* stream) {
+  DwShape s{L, C, K, stride, Lout, rows, stages, copy_bytes, 0, 0, 0, 0};
+  const int elem = is_bf16 ? 2 : 4;
+  if (B < 1 || C < 1 || K < 1 || stride < 1 || Lout < 1 ||
+      (long long)(Lout - 1) * stride + K > L || act < 0 || act > 3 ||
+      !dw_geometry(s, B, elem, blocks) || copy_bytes < 2 ||
+      (uintptr_t)x % copy_bytes != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, z, B, L, C, K, stride,
-                                      Lout, act, s)
-              : launch<float>(x, w, bias, y, z, B, L, C, K, stride, Lout, act,
-                              s);
+      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, y, z, s, act, blocks, st)
+              : launch<float>(x, w, bias, y, z, s, act, blocks, st);
   return (int)err;
 }
 

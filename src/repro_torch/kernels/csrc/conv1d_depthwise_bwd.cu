@@ -31,14 +31,16 @@
 // row of x and dz is read once per tile, plus a (K-1)-row halo of x per
 // tile. The Pallas revisit grid over (batch, tile) becomes this loop. The
 // channels alone give too few blocks (2,048 vectors of bf16 channels at
-// C = 16384 are 16 blocks of 128 threads for 132 SMs), so the tiles are
-// split over S blocks per channel block, each writing its partial sums to
-// a float32 workspace, and a second pass (split_reduce.cuh) adds the S
-// partials in a fixed order: no atomics, so the result does not change
-// from run to run. The window is unrolled at compile time for K in
-// {1, 2, 3, 4} (mamba's K is 4); a larger K is cut into groups of KT taps,
-// one block per group, each tap's row read per dz row through the L1. db
-// is summed by the first tap group only, from the dz rows it loads anyway.
+// C = 16384 are 16 blocks of 128 threads, a few of the card's SMs), so the
+// tiles are split over S blocks per channel block, S chosen by the wrapper
+// from the card's SM count (gemm_plan.depthwise_dw_splits), each writing
+// its partial sums to a float32 workspace, and a second pass
+// (split_reduce.cuh) adds the S partials in a fixed order: no atomics, so
+// the result does not change from run to run. The window is unrolled at
+// compile time for K in {1, 2, 3, 4} (mamba's K is 4); a larger K is cut
+// into groups of KT taps, one block per group, each tap's row read per dz
+// row through the L1. db is summed by the first tap group only, from the
+// dz rows it loads anyway.
 // Channel counts that are not a multiple of N, or unaligned bases, take
 // scalar loads and stores masked at C.
 #include <cuda_bf16.h>
@@ -56,7 +58,6 @@ namespace {
 constexpr int TL = 32;               // dz rows per tile
 constexpr int THREADS = 128;         // channel vectors per block
 constexpr int KT = 4;                // taps per block when K > 4
-constexpr int MIN_BLOCKS = 2 * 132;  // split the tiles below this many blocks
 
 // N float32 sums stored from channel c0 on: 16-byte stores when ALIGNED
 template <bool ALIGNED, int N>
@@ -183,6 +184,12 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ dz,
 
 int vec_of(int is_bf16) { return is_bf16 ? 8 : 4; }
 
+// reduce_splits' grid: 256-thread blocks over n sums, at most two a SM
+int reduce_blocks(size_t n, int sms) {
+  const size_t want = (n + 255) / 256;
+  return (int)(want < (size_t)(2 * sms) ? want : (size_t)(2 * sms));
+}
+
 template <typename T, int KW>
 cudaError_t launch_k(bool aligned, dim3 grid, const void* x, const void* dz,
                      float* dw, float* db, int L, int C, int K, int stride,
@@ -221,31 +228,19 @@ cudaError_t launch(bool aligned, dim3 grid, const void* x, const void* dz,
 
 }  // namespace
 
-// How many splits of the row tiles the kernel uses for this shape (1: no
-// workspace). The caller allocates S * (K * C + C) floats of workspace
-// when S > 1.
-extern "C" int conv1d_depthwise_bwd_dw_splits(int B, int C, int K, int Lout,
-                                              int is_bf16) {
-  const int vecs = (C + vec_of(is_bf16) - 1) / vec_of(is_bf16);
-  const int groups = K <= 4 ? 1 : (K + KT - 1) / KT;
-  const int blocks = ((vecs + THREADS - 1) / THREADS) * groups;
-  const int n_tiles = B * ((Lout + TL - 1) / TL);
-  if (blocks >= MIN_BLOCKS / 2) return 1;
-  const int want = (MIN_BLOCKS + blocks - 1) / blocks;
-  return want < n_tiles ? want : n_tiles;
-}
-
 // Returns a cudaError_t code: 0 when the launches were accepted. db may be
-// null (no bias). ws is the float32 workspace of
-// conv1d_depthwise_bwd_dw_splits() splits (null when that is 1).
+// null (no bias). splits is the wrapper's split of the row tiles
+// (gemm_plan.depthwise_dw_splits, from the card's SM count sms); ws is a
+// float32 workspace of splits * (K * C + C) floats, null when splits is 1.
 extern "C" int conv1d_depthwise_bwd_dw(const void* x, const void* dz,
                                        float* dw, float* db, float* ws,
                                        int B, int L, int C, int K, int stride,
-                                       int Lout, int is_bf16, void* stream) {
-  if (B < 1 || C < 1 || K < 1 || stride < 1 || Lout < 1 ||
-      (Lout - 1) * stride + K > L)
+                                       int Lout, int is_bf16, int splits,
+                                       int sms, void* stream) {
+  if (B < 1 || C < 1 || K < 1 || stride < 1 || Lout < 1 || splits < 1 ||
+      sms < 1 || (Lout - 1) * stride + K > L)
     return (int)cudaErrorInvalidValue;
-  const int S = conv1d_depthwise_bwd_dw_splits(B, C, K, Lout, is_bf16);
+  const int S = splits;
   if (S > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const int n_groups = K <= 4 ? 1 : (K + KT - 1) / KT;
   const int n_tiles = B * ((Lout + TL - 1) / TL);
@@ -269,9 +264,10 @@ extern "C" int conv1d_depthwise_bwd_dw(const void* x, const void* dz,
               : launch<float>(aligned, grid, x, dz, dw_out, db_out, L, C, K,
                               stride, Lout, n_groups, per, n_tiles, s);
   if (err != cudaSuccess || used == 1) return (int)err;
-  reduce_splits<<<264, 256, 0, s>>>(ws, dw, n_dw, used);
+  reduce_splits<<<reduce_blocks(n_dw, sms), 256, 0, s>>>(ws, dw, n_dw, used);
   if (db != nullptr)
-    reduce_splits<<<64, 256, 0, s>>>(ws + used * n_dw, db, C, used);
+    reduce_splits<<<reduce_blocks(C, sms), 256, 0, s>>>(ws + used * n_dw, db,
+                                                        C, used);
   return (int)cudaGetLastError();
 }
 

@@ -37,6 +37,15 @@ tests can hold it:
     and 7's tap-by-tap gather, ``dw_copy_strides`` for the weight
     gradients'; a 1-D conv over x (B, L, Cin) is the case H = 1, W = L, kw
     = K, stride (1, stride).
+
+The depthwise convs follow the same terms on their own kernels:
+
+  * ``depthwise_plan``: the persistent grid, the item length and the ring
+    of ``csrc/depthwise_rows.cuh`` (rows 3 and 15,
+    ``sliding_conv1d.conv1d_depthwise`` and
+    ``sliding_conv_quant.conv1d_depthwise_quant``).
+  * ``depthwise_dw_splits``: row 11's split of its row tiles
+    (``sliding_conv_bwd.conv1d_depthwise_bwd_dw``).
 """
 from __future__ import annotations
 
@@ -198,3 +207,109 @@ def dw_copy_strides(W: int, Cin: int, kw: int, sw: int) -> list[int]:
     A copy of a width that divides them all starts aligned and never
     crosses from one filter row's run into the next."""
     return [kw * Cin, W * Cin, sw * Cin]
+
+
+# ---------------------------------------------------------------------------
+# the depthwise convs: rows 3 and 15 on csrc/depthwise_rows.cuh, row 11's
+# split
+
+DW_SLAB = 128        # channels of a work item (the kernel's DW_SLAB)
+DW_WARPS = 4         # warps of a block, each a quarter of an item's rows
+DW_RESIDENT = 8      # blocks an SM holds at once (the kernel's launch bounds)
+DW_ROWS = (32, 16, 8, 4)  # output rows an item may cover, longest first
+DW_STAGES = 2        # the ring's depth: one item in flight while one computes
+SMEM_BLOCK = 232_448  # shared memory one block may take (Hopper)
+SMEM_SM = 233_472     # an SM's; each resident block reserves 1 KB more
+
+
+@dataclass(frozen=True)
+class DepthwisePlan:
+    """The launch of ``csrc/depthwise_rows.cuh``: work items of ``rows``
+    output rows of one batch row over ``slab`` channels, numbered slab
+    fastest, then chunk, then batch row; ``blocks`` persistent blocks,
+    block j walking items j, j + blocks, ...; a ring of ``stages`` stages
+    of ``stage_rows`` input rows each, ``smem`` bytes a block, ``per_sm``
+    blocks resident on an SM."""
+    slab: int
+    rows: int
+    stages: int
+    blocks: int
+    stage_rows: int
+    slabs: int
+    chunks: int
+    items: int
+    smem: int
+    per_sm: int
+
+
+def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
+                   stride: int, sms: int = build.DEFAULT_SMS,
+                   rows: int | None = None,
+                   stages: int | None = None) -> DepthwisePlan:
+    """The plan of a depthwise conv of (B, Lout, C) outputs over
+    ``elem_bytes``-byte inputs with K taps at ``stride`` on a card of
+    ``sms`` SMs: the longest chunk of rows (``DW_ROWS``) whose items still
+    fill a round of resident blocks (else the shortest that fits), a ring
+    of ``DW_STAGES`` stages, and as many blocks as the card holds at once,
+    fewer where fewer share the items as evenly (ceil(items / rounds) for
+    the rounds the items take). On the H100 at jamba's prefill shape, 32
+    rows beat 16 and 64, and 2 stages beat 3 and 4 (PERF.md §6): a
+    deeper ring holds more bytes per block for no more overlap, since a
+    block walks only a few items. ``rows`` and ``stages`` force the choice
+    (a multiple of ``DW_WARPS`` up to 64; 2 to 4). Raises where not even
+    the shortest chunk's 2 stages fit."""
+    if min(B, Lout, C, elem_bytes, K, stride, sms) < 1:
+        raise ValueError(f"empty depthwise conv or card: B={B} Lout={Lout} "
+                         f"C={C} elem={elem_bytes} K={K} stride={stride} "
+                         f"sms={sms}")
+    if rows is not None and (rows % DW_WARPS or not 0 < rows <= 64):
+        raise ValueError(f"rows={rows}: a multiple of {DW_WARPS} up to 64")
+    if stages is not None and not 2 <= stages <= 4:
+        raise ValueError(f"stages={stages}: 2 to 4")
+    slabs = -(-C // DW_SLAB)
+    plan = None
+    for R in (DW_ROWS if rows is None else (rows,)):
+        stage_rows = stride * (R - 1) + K
+        stage = stage_rows * DW_SLAB * elem_bytes
+        depth = DW_STAGES if stages is None else stages
+        if depth * stage > SMEM_BLOCK:
+            continue
+        per_sm = min(DW_RESIDENT, SMEM_SM // (depth * stage + 1024))
+        chunks = -(-Lout // R)
+        items = B * chunks * slabs
+        fill = sms * per_sm
+        blocks = -(-items // -(-items // fill))
+        plan = DepthwisePlan(DW_SLAB, R, depth, blocks, stage_rows, slabs,
+                             chunks, items, depth * stage, per_sm)
+        if items >= fill:
+            break
+    if plan is None:
+        raise ValueError(f"depthwise K={K} at stride {stride}: no ring of "
+                         f"{DW_SLAB * elem_bytes}-byte rows fits a block's "
+                         f"{SMEM_BLOCK} bytes of shared memory")
+    return plan
+
+
+# row 11 (csrc/conv1d_depthwise_bwd.cu): 128-thread blocks of 16 bytes of
+# channels a thread, tiles of 32 dz rows, groups of 4 taps past K = 4
+DW_BWD_THREADS = 128
+DW_BWD_TILE = 32
+DW_BWD_TAPS = 4
+
+
+def depthwise_dw_splits(B: int, C: int, K: int, Lout: int,
+                        dtype: torch.dtype,
+                        sms: int = build.DEFAULT_SMS) -> int:
+    """Row 11's split of its B·ceil(Lout / 32) row tiles: 1 where its
+    channel blocks (times its tap groups) fill the card's ``sms`` SMs, else
+    enough splits for two blocks an SM, at most one a tile. The caller
+    gives the kernel a workspace of S·(K·C + C) floats when S > 1."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"row 11 takes float32 or bfloat16, not {dtype}")
+    vecs = -(-C // (8 if dtype == torch.bfloat16 else 4))  # 16 bytes each
+    groups = 1 if K <= DW_BWD_TAPS else -(-K // DW_BWD_TAPS)
+    blocks = -(-vecs // DW_BWD_THREADS) * groups
+    tiles = B * -(-Lout // DW_BWD_TILE)
+    if blocks >= sms:
+        return 1
+    return min(-(-2 * sms // blocks), tiles)

@@ -10,7 +10,9 @@ the card's SM count (``conv1d_launch``); on a CPU tensor it runs
 ``conv1d_sliding_plain``, the same arithmetic in plain torch. Any other
 device raises. Nothing falls back from the kernel to the plain
 version. ``conv1d_depthwise`` is the same for the depthwise conv (kernel
-``csrc/conv1d_depthwise.cu``, plain version ``conv1d_depthwise_plain``).
+``csrc/conv1d_depthwise.cu`` on ``csrc/depthwise_rows.cuh``'s staged
+body, planned by ``gemm_plan.depthwise_plan`` from the card's SM count,
+``depthwise_launch``; plain version ``conv1d_depthwise_plain``).
 
 Contract (the TPU kernel's, ``repro.kernels.sliding_conv1d``): VALID conv1d
 on an input the caller already padded. x (B, L, Cin), w (K, Cin, Cout) of
@@ -42,8 +44,9 @@ ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
 # x, w, bias, y, z, ws; B, L, Cin, Cout, K, stride, Lout, act, is_bf16,
 # tile, splits, per, va, vb; stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-# x, w, bias, y, z; B, L, C, K, stride, Lout, act, is_bf16; stream
-_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# x, w, bias, y, z; B, L, C, K, stride, Lout, act, is_bf16, rows, stages,
+# blocks, copy_bytes; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
 def apply_activation(x: torch.Tensor, activation: str | None) -> torch.Tensor:
@@ -197,6 +200,18 @@ def conv1d_depthwise_plain(
     return (y, acc.to(x.dtype)) if save_preact else y
 
 
+def depthwise_launch(x, K, stride, out_len):
+    """The launch of ``csrc/depthwise_rows.cuh`` over contiguous x (B, L,
+    C), shared by the float and int8 depthwise wrappers: the plan on x's
+    card (``gemm_plan.depthwise_plan``) and the width of x's staged pieces
+    (each row starts C elements after the last)."""
+    B, _, C = x.shape
+    el = x.element_size()
+    plan = gemm_plan.depthwise_plan(B, out_len, C, el, K, stride,
+                                    build.sm_count(x.device))
+    return plan, gemm_plan.copy_bytes(el, [x.data_ptr()], [C])
+
+
 def _launch_depthwise(x, w, bias, stride, activation, out_len,
                       save_preact=False):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
@@ -208,6 +223,7 @@ def _launch_depthwise(x, w, bias, stride, activation, out_len,
     x, w = x.contiguous(), w.contiguous()
     b32 = None if bias is None else bias.float().contiguous()
     B, L, C = x.shape
+    plan, cb = depthwise_launch(x, w.shape[0], stride, out_len)
     y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     code = fn(
@@ -215,6 +231,7 @@ def _launch_depthwise(x, w, bias, stride, activation, out_len,
         y.data_ptr(), None if z is None else z.data_ptr(),
         B, L, C, w.shape[0], stride, out_len,
         ACTIVATIONS[activation], int(x.dtype == torch.bfloat16),
+        plan.rows, plan.stages, plan.blocks, cb,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv1d_depthwise", code)

@@ -19,7 +19,9 @@
     kernel on the dilated, padded gradient with the taps flipped; dw/db
     through ``conv1d_depthwise_bwd_dw``, the wrapper of
     ``csrc/conv1d_depthwise_bwd.cu`` (plain version
-    ``conv1d_depthwise_bwd_dw_plain``), on the same terms.
+    ``conv1d_depthwise_bwd_dw_plain``), on the same terms, its split of the
+    row tiles from ``gemm_plan.depthwise_dw_splits`` and the card's SM
+    count.
   * conv2d: dx (``conv2d_dx``) runs the forward 2-D conv kernel on the
     dilated, padded gradient with the flipped, Cin↔Cout-transposed
     weights (``conv2d_dx_operands``); dw/db through ``conv2d_bwd_dw``, the
@@ -40,9 +42,8 @@ from repro_torch.kernels import (build, gemm_plan, sliding_conv1d,
 # x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16, tile,
 # splits, per, va, vb; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-# x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16; stream
-_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_DW_SPLIT_ARGTYPES = [ctypes.c_int] * 5  # B, C, K, Lout, is_bf16
+# x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16, splits, sms; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # x, dz, dw, db, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16,
 # tile, splits, per, va, vb; stream
 _2D_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
@@ -268,23 +269,21 @@ def _launch_depthwise(x, dz, K, stride, has_bias):
     _check_kernel_operands(x, dz)
     fn = build.entry("conv1d_depthwise_bwd", "conv1d_depthwise_bwd_dw",
                      _DW_ARGTYPES)
-    splits = build.entry("conv1d_depthwise_bwd",
-                         "conv1d_depthwise_bwd_dw_splits", _DW_SPLIT_ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
     B, L, C = x.shape
     Lout = dz.shape[1]
-    is_bf16 = int(x.dtype == torch.bfloat16)
     dw = torch.empty((K, C), dtype=torch.float32, device=x.device)
     db = (torch.empty((C,), dtype=torch.float32, device=x.device)
           if has_bias else None)
-    S = splits(B, C, K, Lout, is_bf16)
+    sms = build.sm_count(x.device)
+    S = gemm_plan.depthwise_dw_splits(B, C, K, Lout, x.dtype, sms)
     ws = (torch.empty((S * (K * C + C),), dtype=torch.float32,
                       device=x.device) if S > 1 else None)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
         None if db is None else db.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        B, L, C, K, stride, Lout, is_bf16,
+        B, L, C, K, stride, Lout, int(x.dtype == torch.bfloat16), S, sms,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv1d_depthwise_bwd", code)

@@ -38,7 +38,8 @@ reference's tiling arguments are checked by its rule and do not change
 the result, as for the fp conv2d.
 
 ``conv1d_depthwise_quant`` is the depthwise counterpart (the TPU kernel
-``conv1d_depthwise_quant_pallas``; CUDA ``csrc/conv1d_depthwise_quant.cu``;
+``conv1d_depthwise_quant_pallas``; CUDA ``csrc/conv1d_depthwise_quant.cu``
+on the float conv's staged body and plan, ``sliding_conv1d.depthwise_launch``;
 plain version ``conv1d_depthwise_quant_plain``, the exact
 ``quant.qconv.conv1d_depthwise_q``): w_q int8 (K, C), w_scale float32 per
 channel, (C,) or (1, C), bias (C,) or None, the same two modes and the same
@@ -63,8 +64,8 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
 # oh, ow, act, mode, x_kind, y_kind, tile, splits, per, va, vb; stream
 _2D_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 # x, w, scale, bias, out_scale, y; B, L, C, K, stride, Lout, act, mode,
-# x_kind, y_kind; stream
-_DW_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# x_kind, y_kind, rows, stages, blocks, copy_bytes; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 
 
 def _check(x, w_q, w_scale, bias, x_scale, mode, stride, activation,
@@ -333,6 +334,8 @@ def _launch_depthwise(x, w_q, w_scale, bias, x_scale, out_scale, mode,
                      _DW_ARGTYPES)
     x, w_q = x.contiguous(), w_q.contiguous()
     B, L, C = x.shape
+    plan, cb = sliding_conv1d.depthwise_launch(x, w_q.shape[0], stride,
+                                               out_len)
     odt = torch.int8 if out_scale is not None else out_dtype
     y = torch.empty((B, out_len, C), dtype=odt, device=dev)
     code = fn(
@@ -341,6 +344,7 @@ def _launch_depthwise(x, w_q, w_scale, bias, x_scale, out_scale, mode,
         None if os32 is None else os32.data_ptr(), y.data_ptr(),
         B, L, C, w_q.shape[0], stride, out_len, ACTIVATIONS[activation],
         MODES[mode], _KINDS[x.dtype], _KINDS[odt],
+        plan.rows, plan.stages, plan.blocks, cb,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check("conv1d_depthwise_quant", code)

@@ -181,7 +181,7 @@ def test_plan_follows_the_sm_count():
 
 def test_sources_hold_no_sm_count():
     """No new kernel source or the plan holds the H100's 132; the old
-    split rules of rows 10 and 12 are gone."""
+    split rules of rows 10, 11 and 12 are gone."""
     kdir = build.CSRC.parent
     for path in (kdir / "gemm_plan.py", build.CSRC / "gemm_mma.cuh",
                  build.CSRC / "sliding_conv2d_bwd.cu",
@@ -189,11 +189,16 @@ def test_sources_hold_no_sm_count():
                  build.CSRC / "sliding_conv2d.cu",
                  build.CSRC / "sliding_conv2d_quant.cu",
                  build.CSRC / "sliding_conv_quant.cu",
-                 build.CSRC / "sliding_conv_bwd.cu"):
+                 build.CSRC / "sliding_conv_bwd.cu",
+                 build.CSRC / "conv1d_depthwise.cu",
+                 build.CSRC / "conv1d_depthwise_quant.cu",
+                 build.CSRC / "conv1d_depthwise_bwd.cu"):
         text = path.read_text()
         assert not re.search(r"\b132\b", text), path.name
     for name, gone in (("sliding_conv2d_bwd.cu", "conv2d_bwd_dw_splits"),
-                       ("sliding_conv_bwd.cu", "conv1d_bwd_dw_splits")):
+                       ("sliding_conv_bwd.cu", "conv1d_bwd_dw_splits"),
+                       ("conv1d_depthwise_bwd.cu",
+                        "conv1d_depthwise_bwd_dw_splits")):
         text = (build.CSRC / name).read_text()
         assert "MIN_BLOCKS" not in text and gone not in text, name
 

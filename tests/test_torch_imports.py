@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no timing script under ``scripts/`` imports jax or
+anything of the JAX package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -10,9 +11,9 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"
-    ]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
