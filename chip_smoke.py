@@ -110,8 +110,8 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
  20. depthwise training kernels vs plain: the depthwise dw kernel at a
      full-width jamba training step's shape (x (2, 515, 16384), dz (2, 512,
      16384), K 4, with db, float32 and bfloat16) and at edge shapes (K in
-     {1, 2, 3, 4, 5}, stride 1 and 2, C 37, 600 and 16384, ragged Lout
-     and Lout shorter than a tile, bias or none, an unaligned base,
+     {1, 2, 3, 4, 5, 9}, stride 1 and 2, C 37, 600 and 16384, ragged Lout
+     and Lout shorter than an item, bias or none, an unaligned base,
      float32 and bfloat16); the forward kernel's saved pre-activation z;
      the whole ``Conv1dDepthwise`` on the card against the same Function
      on the plain versions, grads of x, w and bias under one cotangent;
@@ -125,11 +125,12 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      a nonzero conv_w gradient in each of the 7 Mamba blocks, conv_w
      moved, launches per step checked (21 forward depthwise, 7 dw); step
      ms, tokens/s, peak memory, busy share and top kernels;
- 23. jamba training times: the depthwise plans and the dw kernel's
-     splits at the training shape on this card; the dw kernel there beside
-     its plain version, ``torch.nn.grad.conv1d_weight(groups=C)`` and the
-     bound; the forward depthwise kernel there with z written and without,
-     each beside its bound.
+ 23. jamba training times: the depthwise plans and the dw kernel's plan
+     (``gemm_plan.depthwise_dw_plan``, bf16 and f32) at the training shape
+     on this card; the dw kernel there beside its plain version,
+     ``torch.nn.grad.conv1d_weight(groups=C)`` and the bound; the forward
+     depthwise kernel there with z written and without, each beside its
+     bound, and cuDNN's ``F.conv1d(groups=C)`` + bias + silu.
  24. conv2d kernel vs plain: the 2-D sliding conv kernel against its plain
      version at llava's patch embedding (x (20, 336, 336, 3), w (14, 14,
      3, 1152), stride 14, bias or none), at the fig1 shapes ((1, 128, 128,
@@ -241,7 +242,7 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
  40. row 2 over a float32 cache at whisper's, jamba's and llava's decode
      shapes beside its plain version, SDPA (float32) and the bound; then
      each redesigned row (2, 2b, 9, 5, 12, 4, 14, 7, 8, 1, 6, 13, 10, 3,
-     15) at each timed shape beside its time before the redesign
+     15, 11) at each timed shape beside its time before the redesign
      (``EARLIER_MS``): row 5 at the five hbm columns phase 35 times it on,
      row 12 at phase 32's five shapes, row 4 at phase 27's six, row 14 at
      phase 32's seven, row 7 at phase 35's eight 2-D shapes, row 8's forms
@@ -249,7 +250,7 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      phase 6's four (f32 and bf16), row 6 at phase 35's five 1-D shapes,
      row 13 at phase 15's two, row 10 at phase 10's two, row 3 at phase
      19's prefill shape and phase 23's training shape (z and not), row 15
-     at phase 19's.
+     at phase 19's, row 11 at phase 23's.
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
@@ -2258,7 +2259,8 @@ def phase_depthwise_train_kernels(sc, sb, ops) -> float:
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for i, (K, stride, (C, L)) in enumerate(itertools.product(
-                (1, 2, 3, 4, 5), (1, 2), ((37, 203), (600, 9), (16384, 45)))):
+                (1, 2, 3, 4, 5, 9), (1, 2),
+                ((37, 203), (600, 9), (16384, 45)))):
             with_bias = i % 2 == 0
             x, dz = dw_inputs(i, 3, L, C, C, K, stride, dtype, offset=i % 3)
             what = (f"depthwise dw edge K={K} s={stride} C={C} L={L} "
@@ -2511,10 +2513,9 @@ def phase_depthwise_train_times(sc, sb, launches, err) -> tuple[dict, dict]:
     from repro_torch.kernels import build, gemm_plan
     sms = build.sm_count(torch.device(DEV))
     log_depthwise_plans(s)
-    log(f"depthwise dw splits {s} on {sms} SMs: bf16 "
-        f"{gemm_plan.depthwise_dw_splits(B, C, K, lout, torch.bfloat16, sms)}"
-        f", f32 "
-        f"{gemm_plan.depthwise_dw_splits(B, C, K, lout, torch.float32, sms)}")
+    for what, elem in (("bf16", 2), ("f32", 4)):
+        log(f"depthwise dw plan {s} {what} on {sms} SMs: "
+            f"{gemm_plan.depthwise_dw_plan(B, lout, C, elem, K, 1, sms)}")
     sets = []
     for i in range(2):  # 2 inputs of 67 MB: > 50 MB
         x, dz = dw_inputs(83 + i, B, L, C, C, K, 1, torch.bfloat16)
@@ -2542,14 +2543,27 @@ def phase_depthwise_train_times(sc, sb, launches, err) -> tuple[dict, dict]:
     log(f"time depthwise dw {s} bf16 with db: {json.dumps(t)}")
     del sets
 
-    sets = [depthwise_inputs(86 + i, B, L, C, K, torch.bfloat16)
-            for i in range(3)]  # 3 inputs of 34 MB: > 50 MB
+    sets = []
+    for i in range(3):  # 3 inputs of 34 MB: > 50 MB
+        x, w, b = depthwise_inputs(86 + i, B, L, C, K, torch.bfloat16)
+        # the library's layouts, (B, C, L) and (C, 1, K), made ahead
+        sets.append((x, w, b, x.transpose(1, 2).contiguous(),
+                     w.t().contiguous()[:, None, :]))
     fwd = {}
     for name, z in (("no_z_ms", False), ("z_ms", True), ("no_z_ms_again", False),
                     ("z_ms_again", True)):
         fwd[name] = card_ms(cycling(
-            lambda x, w, b, z=z: sc.conv1d_depthwise(
+            lambda x, w, b, *_, z=z: sc.conv1d_depthwise(
                 x, w, b, activation="silu", save_preact=z), sets))
+    # cuDNN's F.conv1d(groups=C) + bias + silu, as at the prefill shape
+    x, w, b, x_lib, w_lib = sets[0]
+    close(F.silu(F.conv1d(x_lib, w_lib, b.to(x_lib.dtype),
+                          groups=C)).transpose(1, 2),
+          sc.conv1d_depthwise_plain(x, w, b, activation="silu"), LIBTOL,
+          "library depthwise, training shape")
+    fwd["library_ms"] = card_ms(cycling(
+        lambda x, w, b, x_lib, w_lib: F.silu(F.conv1d(
+            x_lib, w_lib, b.to(x_lib.dtype), groups=C)), sets))
     fwd["per"] = f"launch: B={B} L={L} C={C} K={K} bf16 silu, training shape"
     # the bounds: x, w, bias read once, y (and z) written once
     for key, n_out in (("bound_ms", 1), ("z_bound_ms", 2)):
@@ -4684,6 +4698,9 @@ EARLIER_MS = {
     "conv1d_depthwise": {"prefill": 0.0574, "train_no_z": 0.0575,
                          "train_z": 0.0641},
     "conv1d_depthwise_quant": {"prefill": 0.1073},
+    # row 11 a thread a 32-row walk of 16 bytes of channels, its split of
+    # the row tiles from the card, at phase 23's training shape (bf16, db)
+    "conv1d_depthwise_bwd_dw": {"train": 0.0800},
     # row 1 on its 64 x 64 CUDA-core tile at phase 6's shapes (bias + gelu)
     "sliding_conv1d": {"conv1": 0.0638, "conv2": 0.4253,
                        "conv1_bf16": 0.0637, "conv2_bf16": 0.5375},
@@ -4811,11 +4828,14 @@ def report_redesigned(kernels) -> None:
             now = {k: row["shapes"][k] for k in before}
         elif "by_shape" in row:  # rows 13 and 10, the same
             now = {k: row["by_shape"][k] for k in before}
+        elif row["name"] == "conv1d_depthwise_bwd_dw":  # row 11
+            now = {"train": row}
         elif row["name"].startswith("conv1d_depthwise"):  # rows 3 and 15
             now = {"prefill": row}
             if "train_shape" in row:
                 t = row["train_shape"]
                 now["train_no_z"] = dict(ms=t["no_z_ms"],
+                                         library_ms=t.get("library_ms"),
                                          bound_ms=t["bound_ms"])
                 now["train_z"] = dict(ms=t["z_ms"], bound_ms=t["z_bound_ms"])
         else:

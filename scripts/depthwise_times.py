@@ -4,9 +4,9 @@ jamba-1.5-large ((4, 259, 16384) bf16, bias + silu) and at its training
 shape ((2, 515, 16384), silu, z written and not), the int8 conv (row 15)
 at the prefill shape in w8a8 with a bf16 output, w8a8 requantized to int8
 and w8a16 on bf16 x with a bf16 output, and the weight gradient (row 11)
-at the training shape in bf16 with db:
+at the training shape in bf16 and f32 with db:
 
-    python3 scripts/depthwise_times.py [tree] [3] [15] [11] [3_plans]
+    python3 scripts/depthwise_times.py [tree] [3] [15] [11] [3_plans] [11_plans]
 
 (tree: a directory holding a checkout of this repository, by default this
 one; the rows to time, by default 3, 15 and 11), so that two trees time
@@ -19,10 +19,14 @@ in turns in one call on one card:
 stages and with each forced to its neighbours (rows 8, 16, 32, 64;
 stages 2, 3, 4), then with the plan's and each other activation (none,
 relu, gelu: what the epilogue's silu costs), on a tree whose rows 3 and
-15 take their plan from ``gemm_plan.depthwise_plan``.
+15 take their plan from ``gemm_plan.depthwise_plan``. ``11_plans`` times
+row 11 in bf16 at the training shape with its plan and with the rows (16,
+32), stages (2, 3) and split (half and twice the plan's) forced, on a
+tree whose row 11 takes its plan from ``gemm_plan.depthwise_dw_plan``.
 
 Imports the kernels, their wrappers and ``chip_smoke``'s input makers,
-shapes and timer from the tree (built there, into its ``build/kernels``).
+shapes and timer from the tree (its depthwise kernels built there, into its
+``build/kernels``).
 Each kernel is first held to its plain version at phase 16's and 20's
 tolerances (``chip_smoke.dw_check``, ``check_dw_quant``; row 11 within
 TOL of its largest value). Row 11 also prints a SHA-256 of its dw and db
@@ -39,7 +43,7 @@ import json
 import subprocess
 import sys
 
-ROWS = ("3", "15", "11", "3_plans")
+ROWS = ("3", "15", "11", "3_plans", "11_plans")
 ARGS = sys.argv[1:]
 ROOT = ARGS.pop(0) if ARGS and ARGS[0] not in ROWS else "."
 for p in (ROOT, ROOT + "/src"):
@@ -160,39 +164,85 @@ def row15(s, mode, requant) -> dict:
                 plan=plan_of(s, x.element_size()))
 
 
-def row11(s) -> dict:
-    """Row 11 at the training shape, bf16 with db, beside its plain
+def row11_sets(s, dtype):
+    """Seeded (x, dz) sets at shape ``s`` (> 50 MB in all), each with the
+    library's layouts, (B, C, L), made ahead."""
+    B, L, C, K = s["B"], s["L"], s["C"], s["K"]
+    sets = []
+    for i in range(2):  # 2 inputs of 67 MB (bf16) or 135 MB (f32)
+        x, dz = cs.dw_inputs(83 + i, B, L, C, C, K, 1, dtype)
+        sets.append((x, dz, x.transpose(1, 2).contiguous(),
+                     dz.transpose(1, 2).contiguous()))
+    return sets
+
+
+def row11(s, dtype) -> dict:
+    """Row 11 at the training shape in ``dtype`` with db, beside its plain
     version, ``torch.nn.grad.conv1d_weight(groups=C)`` and the bound; the
     SHA-256 of dw and db from seed 80's inputs."""
     B, L, C, K = s["B"], s["L"], s["C"], s["K"]
     lout = L - K + 1
-    sets = []
-    for i in range(2):  # 2 inputs of 67 MB: > 50 MB
-        x, dz = cs.dw_inputs(83 + i, B, L, C, C, K, 1, torch.bfloat16)
-        sets.append((x, dz, x.transpose(1, 2).contiguous(),
-                     dz.transpose(1, 2).contiguous()))
-    x, dz = cs.dw_inputs(80, B, L, C, C, K, 1, torch.bfloat16)
+    sets = row11_sets(s, dtype)
+    x, dz = cs.dw_inputs(80, B, L, C, C, K, 1, dtype)
     dw, db = sb.conv1d_depthwise_bwd_dw(x, dz, K, has_bias=True)
     want = sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, has_bias=True)
     err = max(cs.close(dw, want[0], cs.TOL, "depthwise dw", scaled=True),
               cs.close(db, want[1], cs.TOL, "depthwise db", scaled=True))
     digest = hashlib.sha256(dw.cpu().numpy().tobytes()
                             + db.cpu().numpy().tobytes()).hexdigest()
+    del x, dz, dw, db, want
 
     def library(x, dz, x_lib, dz_lib):
         return torch.nn.grad.conv1d_weight(x_lib, (C, 1, K), dz_lib, groups=C)
 
-    nbytes = 2 * (B * L * C + B * lout * C) + 4 * (K * C + C)
-    bms, by = cs.bound_ms(nbytes, 2 * K * B * lout * C + B * lout * C,
-                          torch.bfloat16)
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes = el * (B * L * C + B * lout * C) + 4 * (K * C + C)
+    bms, by = cs.bound_ms(nbytes, 2 * K * B * lout * C + B * lout * C, dtype)
     t = {key: cs.card_ms(cs.cycling(fn, sets)) for key, fn in (
         ("ms", lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw(
             x, dz, K, has_bias=True)),
         ("plain_ms", lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw_plain(
             x, dz, K, has_bias=True)),
         ("library_ms", library))}
+    plan = None
+    if hasattr(gemm_plan, "depthwise_dw_plan"):
+        plan = repr(gemm_plan.depthwise_dw_plan(
+            B, lout, C, el, K, 1, build.sm_count(torch.device(cs.DEV))))
     return dict(t, bound_ms=bms, bound_by=by, max_abs_err=err,
-                sha256=digest)
+                sha256=digest, plan=plan)
+
+
+def row11_plans(s) -> dict:
+    """Row 11 at shape ``s`` (bf16, db) with its plan, then with the rows
+    (16, 32), stages (2, 3) and split (half and twice the plan's) forced;
+    each held to the plain version first; ms by variant."""
+    B, L, C, K = s["B"], s["L"], s["C"], s["K"]
+    lout = L - K + 1
+    real = gemm_plan.depthwise_dw_plan
+    plan = real(B, lout, C, 2, K, 1, build.sm_count(torch.device(cs.DEV)))
+    sets = row11_sets(s, torch.bfloat16)
+    out = {"plan": repr(plan)}
+    try:
+        for force in ({}, dict(rows=16), dict(rows=32), dict(stages=2),
+                      dict(stages=3), dict(splits=max(1, plan.splits // 2)),
+                      dict(splits=2 * plan.splits)):
+            key = "_".join(f"{k}_{v}" for k, v in force.items()) or "plan"
+
+            def forced(*a, force=force, **k):
+                return real(*a, **{**k, **force})
+
+            gemm_plan.depthwise_dw_plan = forced
+            x, dz = sets[0][:2]
+            got = sb.conv1d_depthwise_bwd_dw(x, dz, K, has_bias=True)
+            want = sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, has_bias=True)
+            cs.close(got[0], want[0], cs.TOL, f"dw {key}", scaled=True)
+            cs.close(got[1], want[1], cs.TOL, f"db {key}", scaled=True)
+            out[key] = cs.card_ms(cs.cycling(
+                lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw(
+                    x, dz, K, has_bias=True), sets))
+    finally:
+        gemm_plan.depthwise_dw_plan = real
+    return out
 
 
 def row3_plans(s) -> dict:
@@ -237,10 +287,14 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
+    libs = ("conv1d_depthwise", "conv1d_depthwise_quant",
+            "conv1d_depthwise_bwd")
+    every = build.sources
+    build.sources = lambda: {n: src for n, src in every().items()
+                             if n in libs}  # build the depthwise ones only
     build.build_all()
     rows = ARGS or ["3", "15", "11"]
-    for lib in ("conv1d_depthwise", "conv1d_depthwise_quant",
-                "conv1d_depthwise_bwd"):
+    for lib in libs:
         for line in build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {lib}: {line.strip()}", flush=True)
@@ -264,7 +318,17 @@ def main() -> int:
         record("conv1d_depthwise_quant", "w8a16_bf16",
                row15(serve, "w8a16", False))
     if "11" in rows:
-        record("conv1d_depthwise_bwd_dw", "train", row11(train))
+        record("conv1d_depthwise_bwd_dw", "train", row11(train,
+                                                         torch.bfloat16))
+        record("conv1d_depthwise_bwd_dw", "train_f32",
+               row11(train, torch.float32))
+    if "11_plans" in rows:
+        if hasattr(gemm_plan, "depthwise_dw_plan"):
+            record("conv1d_depthwise_bwd_dw_plans", "train",
+                   row11_plans(train))
+        else:
+            print("row 11 takes no plan from gemm_plan in this tree: no "
+                  "plan probe", flush=True)
     if "3_plans" in rows:
         if hasattr(gemm_plan, "depthwise_plan"):
             record("conv1d_depthwise_plans", "serve", row3_plans(serve))

@@ -14,35 +14,42 @@
 // dw (K, C) and db (C,) in float32. float32 or bfloat16 operands; each
 // product is rounded to float32 and then added (IEEE round-to-nearest, no
 // FMA contraction), as the plain version multiplies and then sums; the
-// order of the sum over (b, t) is the kernel's own.
+// order of the sum over (b, t) is the kernel's own, fixed: two calls give
+// the same bits.
 //
 // What bounds it on this card: K multiply-adds per element of dz for one
 // element of dz and about one of x read. At jamba-1.5-large's training
 // shape (B=2, x 515 x 16384 and dz 512 x 16384 in bfloat16, K=4) that is
 // 0.13 GFLOP against 67.3 MB: it is bound by bytes (about 0.020 ms at
-// 3.35 TB/s), as the forward kernel is.
+// 3.35 TB/s), and needs tens of KB in flight on every SM to stream.
 //
-// What the design does about it: the forward kernel's layout
-// (conv1d_depthwise.cu). Channels are contiguous; each thread owns N
-// neighbouring channels (16 bytes of a row: 4 float32 or 8 bfloat16), so
-// a warp reads 512 contiguous bytes of a row with one load each. It walks
-// the rows of a tile of TL dz rows of one batch row, keeping the K input
-// rows of the current window and K x N float32 sums in registers: every
-// row of x and dz is read once per tile, plus a (K-1)-row halo of x per
-// tile. The Pallas revisit grid over (batch, tile) becomes this loop. The
-// channels alone give too few blocks (2,048 vectors of bf16 channels at
-// C = 16384 are 16 blocks of 128 threads, a few of the card's SMs), so the
-// tiles are split over S blocks per channel block, S chosen by the wrapper
-// from the card's SM count (gemm_plan.depthwise_dw_splits), each writing
-// its partial sums to a float32 workspace, and a second pass
-// (split_reduce.cuh) adds the S partials in a fixed order: no atomics, so
-// the result does not change from run to run. The window is unrolled at
-// compile time for K in {1, 2, 3, 4} (mamba's K is 4); a larger K is cut
-// into groups of KT taps, one block per group, each tap's row read per dz
-// row through the L1. db is summed by the first tap group only, from the
-// dz rows it loads anyway.
-// Channel counts that are not a multiple of N, or unaligned bases, take
-// scalar loads and stores masked at C.
+// What the design does about it: depthwise_rows.cuh's ring, the forward
+// kernels' (rows 3 and 15).
+//   * Work items. An item is R dz rows of one batch row over a slab of 128
+//     channels; a block stages its stride*(R-1)+K rows of x and its R rows
+//     of dz into one stage of a cp.async ring, the next item's copies in
+//     flight while one computes. The Pallas revisit grid over (batch, row
+//     tile) becomes this walk.
+//   * A persistent grid of whole slab rounds: slabs x S blocks, S, R and
+//     the ring's depth planned by the wrapper from the card's SM count
+//     (gemm_plan.depthwise_dw_plan). Block j keeps slab j % slabs for its
+//     whole walk (items j, j + grid, ...: the grid is a multiple of the
+//     slabs), so its sums never leave registers between items.
+//   * Compute. Each of the 4 warps takes a quarter of an item's dz rows; a
+//     lane owns 4 neighbouring channels (one conflict-free read of the
+//     stage a row) and keeps K x 4 dw sums and 4 db sums in float32
+//     registers. For K <= DW_TAPS (4) the taps are unrolled, and at stride
+//     1 the window of K x rows stays in fixed registers, each dz row
+//     reading one new x row. A larger K takes its taps in groups of
+//     DW_TAPS over the same staged rows, each group's sums kept in shared
+//     memory between items.
+//   * A fixed-order reduction. At the end a block adds its 4 warps' sums in
+//     warp order through shared memory and writes its (K+1) x 128 partial:
+//     straight into dw and db where S = 1, else into its split's rows of a
+//     float32 workspace of S x (K+1) x C, dw's rows then db's, which one
+//     reduce_splits pass (split_reduce.cuh) adds in split order. No atomics.
+// Channel counts that are not a multiple of 4, or unaligned bases, take
+// narrower staged pieces and element stores masked at C.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,134 +62,229 @@
 
 namespace {
 
-constexpr int TL = 32;               // dz rows per tile
-constexpr int THREADS = 128;         // channel vectors per block
-constexpr int KT = 4;                // taps per block when K > 4
+// taps whose sums a lane keeps in registers: K up to this unrolled, a
+// larger K in groups of it
+constexpr int DW_TAPS = 4;
 
-// N float32 sums stored from channel c0 on: 16-byte stores when ALIGNED
-template <bool ALIGNED, int N>
-__device__ __forceinline__ void store_f32(float* __restrict__ row, int c0,
-                                          int C, const float (&v)[N]) {
-  if (ALIGNED) {
-#pragma unroll
-    for (int j = 0; j < N; j += 4)
-      *reinterpret_cast<float4*>(row + c0 + j) =
-          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      if (c0 + j < C) row[c0 + j] = v[j];
-  }
+// shared memory a block takes: the ring, and the warps' (K+1) x DW_SLAB
+// float32 sums, in the ring's bytes once it is drained (K unrolled) or
+// after it (larger K: the tap groups' sums live there throughout)
+long long dw_smem(const DwShape& s) {
+  const long long ring = (long long)s.stages * s.stage_bytes;
+  const long long red = (long long)DW_WARPS * (s.K + 1) * DW_SLAB * 4;
+  return s.K <= DW_TAPS ? (ring > red ? ring : red) : ring + red;
 }
 
-// grid: (channel blocks, tap groups x splits). Split s reduces tiles
-// [s * per, (s + 1) * per) of the n_tiles = B * ceil(Lout / TL) tiles and
-// writes dw and db (one split) or its slice of the workspace. KW > 0: the
-// window of KW = K rows in registers, one tap group; KW == 0: groups of KT
-// taps.
-template <typename T, int KW, bool ALIGNED>
-__global__ void __launch_bounds__(THREADS)
-dw_kernel(const T* __restrict__ x, const T* __restrict__ dz,
-          float* __restrict__ dw, float* __restrict__ db, int L, int C, int K,
-          int stride, int Lout, int n_groups, int per, int n_tiles) {
-  constexpr int N = VecOf<T>::N;
-  constexpr int KA = KW > 0 ? KW : KT;  // sums kept per thread, per channel
-  const int c0 = (blockIdx.x * THREADS + threadIdx.x) * N;
-  if (c0 >= C) return;
-  const int group = blockIdx.y % n_groups;
-  const int split = blockIdx.y / n_groups;
-  const int k0 = group * KA;
-  const int kt = KW > 0 ? KW : min(KT, K - k0);
-  const int tiles_per_b = (Lout + TL - 1) / TL;
-  const int first = split * per;
-  const int last = min(first + per, n_tiles);
-  const bool does_db = db != nullptr && group == 0;
+// grid: slabs x S blocks; block j sums slab j % slabs over the items of
+// split j / slabs and writes its partial to dw and db (S = 1) or to its
+// split's rows of the workspace (dw = ws, db = ws + K*C, split_stride =
+// (K+1)*C). db may be null (S = 1 without a bias). KW > 0: K = KW,
+// unrolled; KW == 0: any K, in tap groups.
+template <typename T, int KW>
+__global__ void __launch_bounds__(DW_THREADS, DW_RESIDENT)
+dw_rows(const T* __restrict__ x, const T* __restrict__ dz,
+        float* __restrict__ dw, float* __restrict__ db, size_t split_stride,
+        bool vec, DwShape s) {
+  constexpr int N = DW_LANE;
+  constexpr int SLAB_BYTES = DW_SLAB * sizeof(T);
+  using Raw = typename RawOf<N * sizeof(T)>::type;
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = s.rows / DW_WARPS;  // dz rows a warp computes an item
+  const int KR = s.K + 1;            // rows of a partial: dw's K, then db
+  // the warps' sums, [warp][KR][DW_SLAB]: after the ring for tap groups,
+  // else on the ring's bytes once it is drained
+  float* red = reinterpret_cast<float*>(
+      KW > 0 ? ring : ring + s.stages * s.stage_bytes);
+  float* mine = red + warp * KR * DW_SLAB + lane * N;  // the lane's column
 
-  float acc[KA][N];
-  float dbs[N];
+  float acc[KW > 0 ? KW : 1][N], dbs[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     dbs[j] = 0.f;
 #pragma unroll
-    for (int k = 0; k < KA; ++k) acc[k][j] = 0.f;
+    for (int k = 0; k < (KW > 0 ? KW : 1); ++k) acc[k][j] = 0.f;
+  }
+  if constexpr (KW == 0) {
+    for (int k = 0; k < s.K; ++k)
+      *reinterpret_cast<float4*>(mine + k * DW_SLAB) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int tile = first; tile < last; ++tile) {
-    const int b = tile / tiles_per_b;
-    const int r0 = (tile % tiles_per_b) * TL;
-    const int r1 = min(r0 + TL, Lout);
-    const T* xb = x + (size_t)b * L * C;
-    const T* dzb = dz + (size_t)b * Lout * C;
+  // an item's x rows, then its dz rows, into a stage
+  auto issue = [&](int item, unsigned char* dst) {
+    const DwItem it = dw_item(s, item);
+    const int c0 = it.slab * DW_SLAB;
+    stage_slab(dst, x + (size_t)it.b * s.L * s.C,
+               it.chunk * s.rows * s.stride, s.stage_rows, s.L, s.C, c0,
+               s.cb);
+    stage_slab(dst + s.stage_rows * SLAB_BYTES,
+               dz + (size_t)it.b * s.Lout * s.C, it.chunk * s.rows, s.rows,
+               s.Lout, s.C, c0, s.cb);
+  };
+
+  auto compute = [&](int item, const unsigned char* st) {
+    const DwItem it = dw_item(s, item);
+    const int r0 = warp * rw;  // the warp's first dz row in the item
+    const int n = min(rw, s.Lout - it.chunk * s.rows - r0);  // its rows
+    const unsigned char* xs =
+        st + r0 * s.stride * SLAB_BYTES + lane * N * (int)sizeof(T);
+    const unsigned char* gs =
+        st + (s.stage_rows + r0) * SLAB_BYTES + lane * N * (int)sizeof(T);
+    // the lane's values of staged row r of base (from the warp's first)
+    auto read = [&](const unsigned char* base, int r, float (&out)[N]) {
+      const Raw raw = *reinterpret_cast<const Raw*>(base + r * SLAB_BYTES);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = widen<float>(v[j]);
+    };
+    auto add_db = [&](const float (&g)[N]) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) dbs[j] = dw_add(dbs[j], g[j]);
+    };
     if constexpr (KW > 0) {
-      float win[KW][N];  // input rows r*stride .. r*stride + KW-1
+      if (s.stride == 1) {
+        // the window of KW x rows in registers, slot (row mod KW): each
+        // dz row reads one new x row; unrolled KW rows a step so that the
+        // slots are fixed registers
+        float win[KW][N];
 #pragma unroll
-      for (int k = 0; k < KW; ++k)
-        load_row<T, ALIGNED>(xb + (size_t)(r0 * stride + k) * C, c0, C,
-                             win[k]);
-      for (int r = r0; r < r1; ++r) {
-        if (r > r0) {
-          const int row0 = r * stride;
-          if (stride >= KW) {  // no row of the last window is reused
+        for (int k = 0; k + 1 < KW; ++k) read(xs, k, win[k]);
+        for (int r = 0; r < n; r += KW) {
 #pragma unroll
-            for (int k = 0; k < KW; ++k)
-              load_row<T, ALIGNED>(xb + (size_t)(row0 + k) * C, c0, C,
-                                   win[k]);
-          } else {
-            for (int s = 0; s < stride; ++s) {
+          for (int p = 0; p < KW; ++p) {
+            if (r + p < n) {
+              float g[N];
+              read(xs, r + p + KW - 1, win[(p + KW - 1) % KW]);
+              read(gs, r + p, g);
 #pragma unroll
-              for (int k = 0; k + 1 < KW; ++k)
+              for (int k = 0; k < KW; ++k)
 #pragma unroll
-                for (int j = 0; j < N; ++j) win[k][j] = win[k + 1][j];
-              load_row<T, ALIGNED>(
-                  xb + (size_t)(row0 + KW - stride + s) * C, c0, C,
-                  win[KW - 1]);
+                for (int j = 0; j < N; ++j)
+                  acc[k][j] =
+                      dw_add(acc[k][j], dw_mul(win[(p + k) % KW][j], g[j]));
+              add_db(g);
             }
           }
         }
-        float g[N];
-        load_row<T, ALIGNED>(dzb + (size_t)r * C, c0, C, g);
+      } else {
+        for (int r = 0; r < n; ++r) {
+          float g[N], xv[N];
+          read(gs, r, g);
 #pragma unroll
-        for (int k = 0; k < KW; ++k)
+          for (int k = 0; k < KW; ++k) {
+            read(xs, r * s.stride + k, xv);
 #pragma unroll
-          for (int j = 0; j < N; ++j)
-            acc[k][j] = __fadd_rn(acc[k][j], __fmul_rn(win[k][j], g[j]));
-        if (does_db) {
-#pragma unroll
-          for (int j = 0; j < N; ++j) dbs[j] = __fadd_rn(dbs[j], g[j]);
+            for (int j = 0; j < N; ++j)
+              acc[k][j] = dw_add(acc[k][j], dw_mul(xv[j], g[j]));
+          }
+          add_db(g);
         }
       }
     } else {
-      for (int r = r0; r < r1; ++r) {
-        float g[N], xv[N];
-        load_row<T, ALIGNED>(dzb + (size_t)r * C, c0, C, g);
+      // taps k0 .. k0+DW_TAPS-1: their sums from shared memory into
+      // registers, over the warp's rows, and back
+      for (int k0 = 0; k0 < s.K; k0 += DW_TAPS) {
+        const int kt = min(DW_TAPS, s.K - k0);
+        float a[DW_TAPS][N];
 #pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          if (kk >= kt) break;
-          load_row<T, ALIGNED>(xb + (size_t)(r * stride + k0 + kk) * C, c0,
-                               C, xv);
+        for (int kk = 0; kk < DW_TAPS; ++kk)
+          if (kk < kt) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(mine + (k0 + kk) * DW_SLAB);
+            a[kk][0] = v.x, a[kk][1] = v.y, a[kk][2] = v.z, a[kk][3] = v.w;
+          }
+        for (int r = 0; r < n; ++r) {
+          float g[N], xv[N];
+          read(gs, r, g);
 #pragma unroll
-          for (int j = 0; j < N; ++j)
-            acc[kk][j] = __fadd_rn(acc[kk][j], __fmul_rn(xv[j], g[j]));
+          for (int kk = 0; kk < DW_TAPS; ++kk)
+            if (kk < kt) {
+              read(xs, r * s.stride + k0 + kk, xv);
+#pragma unroll
+              for (int j = 0; j < N; ++j)
+                a[kk][j] = dw_add(a[kk][j], dw_mul(xv[j], g[j]));
+            }
+          if (k0 == 0) add_db(g);
         }
-        if (does_db) {
 #pragma unroll
-          for (int j = 0; j < N; ++j) dbs[j] = __fadd_rn(dbs[j], g[j]);
-        }
+        for (int kk = 0; kk < DW_TAPS; ++kk)
+          if (kk < kt)
+            *reinterpret_cast<float4*>(mine + (k0 + kk) * DW_SLAB) =
+                make_float4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
       }
     }
-  }
+  };
 
-  // dw (or this split's slice of the workspace): (K, C) row-major
-  float* out = dw + (size_t)split * K * C;
+  ring_walk(s, ring, issue, compute);
+  __syncthreads();  // every warp is done with the ring
+  if constexpr (KW > 0) {
 #pragma unroll
-  for (int kk = 0; kk < KA; ++kk) {
-    if (kk >= kt) break;
-    store_f32<ALIGNED>(out + (size_t)(k0 + kk) * C, c0, C, acc[kk]);
+    for (int k = 0; k < KW; ++k)
+      *reinterpret_cast<float4*>(mine + k * DW_SLAB) =
+          make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
   }
-  if (does_db) store_f32<ALIGNED>(db + (size_t)split * C, c0, C, dbs);
+  *reinterpret_cast<float4*>(mine + s.K * DW_SLAB) =
+      make_float4(dbs[0], dbs[1], dbs[2], dbs[3]);
+  __syncthreads();
+
+  // the block's partial: row k of the 4 warps' sums added in warp order
+  const int slab = blockIdx.x % s.slabs, split = blockIdx.x / s.slabs;
+  float* dw_out = dw + split * split_stride;
+  float* db_out = db == nullptr ? nullptr : db + split * split_stride;
+  for (int u = threadIdx.x; u < KR * (DW_SLAB / N); u += DW_THREADS) {
+    const int k = u / (DW_SLAB / N), q = (u % (DW_SLAB / N)) * N;
+    float* row = k < s.K ? dw_out + (size_t)k * s.C : db_out;
+    if (row == nullptr) continue;
+    float v[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = red[k * DW_SLAB + q + j];
+#pragma unroll
+    for (int w = 1; w < DW_WARPS; ++w)
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        v[j] = dw_add(v[j], red[(w * KR + k) * DW_SLAB + q + j]);
+    store_lane<float>(row, slab * DW_SLAB + q, s.C, v, vec);
+  }
 }
 
-int vec_of(int is_bf16) { return is_bf16 ? 8 : 4; }
+template <typename T, int KW>
+cudaError_t launch_kw(const void* x, const void* dz, float* dw, float* db,
+                      size_t split_stride, bool vec, const DwShape& s,
+                      int blocks, int smem, cudaStream_t stream) {
+  auto kernel = dw_rows<T, KW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, DW_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dz), dw, db,
+      split_stride, vec, s);
+  return cudaGetLastError();
+}
+
+// the K dispatch: K in {1, 2, 3, 4} unrolled, any other K in tap groups
+template <typename T>
+cudaError_t launch(const void* x, const void* dz, float* dw, float* db,
+                   size_t split_stride, bool vec, const DwShape& s, int blocks,
+                   int smem, cudaStream_t stream) {
+  switch (s.K) {
+    case 1:
+      return launch_kw<T, 1>(x, dz, dw, db, split_stride, vec, s, blocks,
+                             smem, stream);
+    case 2:
+      return launch_kw<T, 2>(x, dz, dw, db, split_stride, vec, s, blocks,
+                             smem, stream);
+    case 3:
+      return launch_kw<T, 3>(x, dz, dw, db, split_stride, vec, s, blocks,
+                             smem, stream);
+    case 4:
+      return launch_kw<T, 4>(x, dz, dw, db, split_stride, vec, s, blocks,
+                             smem, stream);
+    default:
+      return launch_kw<T, 0>(x, dz, dw, db, split_stride, vec, s, blocks,
+                             smem, stream);
+  }
+}
 
 // reduce_splits' grid: 256-thread blocks over n sums, at most two a SM
 int reduce_blocks(size_t n, int sms) {
@@ -190,84 +292,48 @@ int reduce_blocks(size_t n, int sms) {
   return (int)(want < (size_t)(2 * sms) ? want : (size_t)(2 * sms));
 }
 
-template <typename T, int KW>
-cudaError_t launch_k(bool aligned, dim3 grid, const void* x, const void* dz,
-                     float* dw, float* db, int L, int C, int K, int stride,
-                     int Lout, int n_groups, int per, int n_tiles,
-                     cudaStream_t s) {
-  auto kernel = aligned ? dw_kernel<T, KW, true> : dw_kernel<T, KW, false>;
-  kernel<<<grid, THREADS, 0, s>>>(static_cast<const T*>(x),
-                                  static_cast<const T*>(dz), dw, db, L, C, K,
-                                  stride, Lout, n_groups, per, n_tiles);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(bool aligned, dim3 grid, const void* x, const void* dz,
-                   float* dw, float* db, int L, int C, int K, int stride,
-                   int Lout, int n_groups, int per, int n_tiles,
-                   cudaStream_t s) {
-  switch (K) {
-    case 1:
-      return launch_k<T, 1>(aligned, grid, x, dz, dw, db, L, C, K, stride,
-                            Lout, n_groups, per, n_tiles, s);
-    case 2:
-      return launch_k<T, 2>(aligned, grid, x, dz, dw, db, L, C, K, stride,
-                            Lout, n_groups, per, n_tiles, s);
-    case 3:
-      return launch_k<T, 3>(aligned, grid, x, dz, dw, db, L, C, K, stride,
-                            Lout, n_groups, per, n_tiles, s);
-    case 4:
-      return launch_k<T, 4>(aligned, grid, x, dz, dw, db, L, C, K, stride,
-                            Lout, n_groups, per, n_tiles, s);
-    default:
-      return launch_k<T, 0>(aligned, grid, x, dz, dw, db, L, C, K, stride,
-                            Lout, n_groups, per, n_tiles, s);
-  }
-}
-
 }  // namespace
 
 // Returns a cudaError_t code: 0 when the launches were accepted. db may be
-// null (no bias). splits is the wrapper's split of the row tiles
-// (gemm_plan.depthwise_dw_splits, from the card's SM count sms); ws is a
-// float32 workspace of splits * (K * C + C) floats, null when splits is 1.
+// null (no bias). rows, stages and splits are the wrapper's plan
+// (gemm_plan.depthwise_dw_plan, from the card's SM count sms), copy_bytes
+// the width x's and dz's alignment allows their staged pieces (16, 8, 4, 2
+// bytes); ws is a float32 workspace of splits * (K + 1) * C floats, null
+// when splits is 1. A shape or plan the kernel does not take is refused
+// with cudaErrorInvalidValue.
 extern "C" int conv1d_depthwise_bwd_dw(const void* x, const void* dz,
                                        float* dw, float* db, float* ws,
                                        int B, int L, int C, int K, int stride,
-                                       int Lout, int is_bf16, int splits,
+                                       int Lout, int is_bf16, int rows,
+                                       int stages, int splits, int copy_bytes,
                                        int sms, void* stream) {
+  DwShape s{L, C, K, stride, Lout, rows, stages, copy_bytes, rows};
+  const int elem = is_bf16 ? 2 : 4;
   if (B < 1 || C < 1 || K < 1 || stride < 1 || Lout < 1 || splits < 1 ||
-      sms < 1 || (Lout - 1) * stride + K > L)
+      sms < 1 || (long long)(Lout - 1) * stride + K > L ||
+      !dw_geometry(s, B, elem, splits) || copy_bytes < 2 ||
+      (uintptr_t)x % copy_bytes != 0 || (uintptr_t)dz % copy_bytes != 0 ||
+      (long long)splits > (long long)B * s.chunks ||
+      (long long)s.slabs * splits > INT32_MAX ||
+      (splits > 1 && ws == nullptr) || dw_smem(s) > DW_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const int S = splits;
-  if (S > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const int n_groups = K <= 4 ? 1 : (K + KT - 1) / KT;
-  const int n_tiles = B * ((Lout + TL - 1) / TL);
-  const int per = (n_tiles + S - 1) / S;
-  const int used = (n_tiles + per - 1) / per;  // splits that get a tile
-  if ((size_t)n_groups * used > 65535) return (int)cudaErrorInvalidValue;
-  const size_t n_dw = (size_t)K * C;
-  float* dw_out = used > 1 ? ws : dw;
-  float* db_out = db == nullptr ? nullptr : (used > 1 ? ws + used * n_dw : db);
-  const int N = vec_of(is_bf16);
-  const bool aligned = C % N == 0 && (uintptr_t)x % 16 == 0 &&
-                       (uintptr_t)dz % 16 == 0 && (uintptr_t)dw_out % 16 == 0 &&
-                       (uintptr_t)db_out % 16 == 0;
-  const int vecs = (C + N - 1) / N;
-  const dim3 grid((vecs + THREADS - 1) / THREADS, n_groups * used);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n_dw = (size_t)K * C, n = n_dw + C;
+  float* dw_out = splits > 1 ? ws : dw;
+  float* db_out = splits > 1 ? ws + n_dw : db;
+  const bool vec = store_aligned<float>(dw_out, C) &&
+                   store_aligned<float>(db_out, C);
+  const int blocks = s.slabs * splits;
+  const int smem = (int)dw_smem(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(aligned, grid, x, dz, dw_out, db_out, L,
-                                      C, K, stride, Lout, n_groups, per,
-                                      n_tiles, s)
-              : launch<float>(aligned, grid, x, dz, dw_out, db_out, L, C, K,
-                              stride, Lout, n_groups, per, n_tiles, s);
-  if (err != cudaSuccess || used == 1) return (int)err;
-  reduce_splits<<<reduce_blocks(n_dw, sms), 256, 0, s>>>(ws, dw, n_dw, used);
-  if (db != nullptr)
-    reduce_splits<<<reduce_blocks(C, sms), 256, 0, s>>>(ws + used * n_dw, db,
-                                                        C, used);
+      is_bf16 ? launch<__nv_bfloat16>(x, dz, dw_out, db_out,
+                                      splits > 1 ? n : 0, vec, s, blocks,
+                                      smem, st)
+              : launch<float>(x, dz, dw_out, db_out, splits > 1 ? n : 0, vec,
+                              s, blocks, smem, st);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  reduce_splits<<<reduce_blocks(n, sms), 256, 0, st>>>(ws, dw, db, n_dw, n,
+                                                        splits);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-// Shared by the depthwise kernels: the staged body of the forward convs,
+// Shared by the depthwise kernels: the cp.async ring that streams work
+// items of rows x 128 channels through shared memory (dw_geometry,
+// stage_slab, ring_walk), and on it the staged body of the forward convs,
 // float (conv1d_depthwise.cu, row 3) and int8 (conv1d_depthwise_quant.cu,
-// row 15), and the per-thread row loads of the weight gradient
-// (conv1d_depthwise_bwd.cu, row 11).
+// row 15). The weight gradient (conv1d_depthwise_bwd.cu, row 11) walks the
+// same ring with its own compute.
 //
 // The forward body computes a VALID depthwise sliding sum over taps on an
 // input the caller has already padded,
@@ -62,34 +64,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// row 11: each thread owns N neighbouring channels, 16 bytes of a row (4
-// float32 or 8 bfloat16 values), loaded as one 16-byte access when the
-// channel count and the bases allow it (ALIGNED), else as scalar accesses
-// masked at C.
-
-template <typename T> struct VecOf;  // values of T in 16 bytes
-template <> struct VecOf<float> { static constexpr int N = 4; };
-template <> struct VecOf<__nv_bfloat16> { static constexpr int N = 8; };
-
-// N values of a row from channel c0 on, as floats: one 16-byte load when
-// ALIGNED (then c0 + N <= C), else scalar loads, zero past C
-template <typename T, bool ALIGNED, int N = VecOf<T>::N>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int c0,
-                                         int C, float (&out)[N]) {
-  if (ALIGNED) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + c0));
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f32(v[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      out[j] = c0 + j < C ? to_f32(row[c0 + j]) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// rows 3 and 15: the staged body
+// the ring (rows 3, 15 and 11)
 
 constexpr int DW_LANE = 4;        // neighbouring channels a lane owns
 constexpr int DW_SLAB = 32 * DW_LANE;  // channels of a work item: a warp's
@@ -196,7 +171,9 @@ struct DwShape {
   int rows;        // R, output rows of an item (a multiple of DW_WARPS)
   int stages;      // the ring's depth, 2 .. 4
   int cb;          // staged piece width in bytes: 16, 8, 4, 2 or 1
-  int stage_rows;  // stride*(R-1)+K
+  int extra_rows;  // rows staged after the input's: row 11's R rows of dz
+  int stage_rows;  // stride*(R-1)+K input rows an item stages
+  int stage_bytes; // (stage_rows + extra_rows) rows of DW_SLAB elements
   int slabs, chunks, items;
 };
 
@@ -204,7 +181,7 @@ struct DwShape {
 // fit the kernel (the caller refuses the launch)
 inline bool dw_geometry(DwShape& s, int B, int elem, int blocks) {
   if (s.rows < DW_WARPS || s.rows % DW_WARPS != 0 || s.rows > 64 ||
-      s.stages < 2 || s.stages > 4 || blocks < 1 ||
+      s.stages < 2 || s.stages > 4 || blocks < 1 || s.extra_rows < 0 ||
       !(s.cb == 16 || s.cb == 8 || s.cb == 4 || s.cb == 2 || s.cb == 1) ||
       s.cb < elem || s.cb > DW_SLAB * elem || (s.C * elem) % s.cb != 0)
     return false;
@@ -212,11 +189,74 @@ inline bool dw_geometry(DwShape& s, int B, int elem, int blocks) {
   s.slabs = (s.C + DW_SLAB - 1) / DW_SLAB;
   s.chunks = (s.Lout + s.rows - 1) / s.rows;
   const long long items = (long long)B * s.chunks * s.slabs;
-  const long long smem = (long long)s.stages * s.stage_rows * DW_SLAB * elem;
-  if (items > INT32_MAX || smem > DW_SMEM_MAX) return false;
+  const long long stage =
+      ((long long)s.stage_rows + s.extra_rows) * DW_SLAB * elem;
+  if (items > INT32_MAX || s.stages * stage > DW_SMEM_MAX) return false;
   s.items = (int)items;
+  s.stage_bytes = (int)stage;
   return true;
 }
+
+// an item's place: numbered slab fastest, then chunk, then batch row
+struct DwItem {
+  int slab, chunk, b;
+};
+__device__ __forceinline__ DwItem dw_item(const DwShape& s, int item) {
+  const int rest = item / s.slabs;
+  return {item % s.slabs, rest % s.chunks, rest / s.chunks};
+}
+
+// rows row0 .. row0+n-1 of the (len, C) matrix m, channels c0 ..
+// c0+DW_SLAB-1, into dst (DW_SLAB elements a row) by the block's threads,
+// in pieces of cb bytes; rows past len and channels past C stage as zeros
+template <typename T>
+__device__ __forceinline__ void stage_slab(unsigned char* dst,
+                                           const T* __restrict__ m, int row0,
+                                           int n, int len, int C, int c0,
+                                           int cb) {
+  constexpr int SLAB_BYTES = DW_SLAB * sizeof(T);
+  const int per_row = SLAB_BYTES / cb;    // pieces a staged row takes
+  const int shift = __ffs(per_row) - 1;   // a power of two
+  const int piece = cb / (int)sizeof(T);  // channels a piece holds
+  for (int u = threadIdx.x; u < n * per_row; u += DW_THREADS) {
+    const int r = u >> shift, col = u & (per_row - 1);
+    const int row = row0 + r, c = c0 + col * piece;
+    const bool valid = row < len && c < C;
+    stage_copy(dst + r * SLAB_BYTES + col * cb,
+               valid ? m + (size_t)row * C + c : m, cb, valid);
+  }
+}
+
+// The persistent walk: block j computes items j, j + grid, j + 2 grid, ...
+// issue(item, stage) copies an item's rows into a stage; compute(item,
+// stage) reads them once they have landed. The copies of the next
+// stages-1 items are in flight while one computes, one __syncthreads an
+// item. On return every copy has landed; the caller syncs before it
+// reuses the ring.
+template <class Issue, class Compute>
+__device__ __forceinline__ void ring_walk(const DwShape& s,
+                                          unsigned char* ring, Issue issue,
+                                          Compute compute) {
+  const int first = blockIdx.x, step = gridDim.x;
+  const int mine = first < s.items ? (s.items - first + step - 1) / step : 0;
+  for (int i = 0; i + 1 < s.stages; ++i) {
+    if (i < mine) issue(first + i * step, ring + i * s.stage_bytes);
+    cp_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    cp_wait_pending(s.stages - 2);  // item i has landed (this thread's part)
+    __syncthreads();  // ... everyone's; and item i-1's stage is free again
+    const int ahead = i + s.stages - 1;
+    if (ahead < mine)
+      issue(first + ahead * step, ring + (ahead % s.stages) * s.stage_bytes);
+    cp_commit();
+    compute(first + i * step, ring + (i % s.stages) * s.stage_bytes);
+  }
+  cp_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// rows 3 and 15: the staged body
 
 // TX the input's type, TW the weights' (TX, or int8 codes), A the
 // accumulator (float or int), KW > 0: K = KW, unrolled; KW == 0: any K.
@@ -231,29 +271,15 @@ depthwise_rows(const TX* __restrict__ x, const TW* __restrict__ w,
   extern __shared__ __align__(16) unsigned char ring[];
   constexpr int SLAB_BYTES = DW_SLAB * sizeof(TX);
   Epi epi = epi_arg;  // begin() fills its per-item registers
-  const int stage_bytes = s.stage_rows * SLAB_BYTES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rw = s.rows / DW_WARPS;  // output rows a warp computes an item
-  const int per_row = SLAB_BYTES / s.cb;  // pieces a staged row takes
-  const int shift = __ffs(per_row) - 1;   // a power of two
-  const int piece = s.cb / (int)sizeof(TX);  // channels a piece holds
 
-  // the input rows of item `item` into stage `stage`
-  auto issue = [&](int item, int stage) {
-    if (item >= s.items) return;
-    const int slab = item % s.slabs, rest = item / s.slabs;
-    const int chunk = rest % s.chunks, b = rest / s.chunks;
-    const int r0 = chunk * s.rows * s.stride, c0 = slab * DW_SLAB;
-    const TX* xb = x + (size_t)b * s.L * s.C;
-    unsigned char* dst = ring + stage * stage_bytes;
-    const int n = s.stage_rows * per_row;
-    for (int u = threadIdx.x; u < n; u += DW_THREADS) {
-      const int r = u >> shift, col = u & (per_row - 1);
-      const int row = r0 + r, c = c0 + col * piece;
-      const bool valid = row < s.L && c < s.C;
-      stage_copy(dst + r * SLAB_BYTES + col * s.cb,
-                 valid ? xb + (size_t)row * s.C + c : x, s.cb, valid);
-    }
+  // the input rows of an item into a stage
+  auto issue = [&](int item, unsigned char* dst) {
+    const DwItem it = dw_item(s, item);
+    stage_slab(dst, x + (size_t)it.b * s.L * s.C,
+               it.chunk * s.rows * s.stride, s.stage_rows, s.L, s.C,
+               it.slab * DW_SLAB, s.cb);
   };
 
   // the weights and the epilogue's constants of the slab last computed:
@@ -262,8 +288,8 @@ depthwise_rows(const TX* __restrict__ x, const TW* __restrict__ w,
   int cur_slab = -1;
   A wr[KW > 0 ? KW : 1][N];
   auto compute = [&](int item, const unsigned char* st) {
-    const int slab = item % s.slabs, rest = item / s.slabs;
-    const int chunk = rest % s.chunks, b = rest / s.chunks;
+    const DwItem it = dw_item(s, item);
+    const int slab = it.slab, chunk = it.chunk, b = it.b;
     const int c0 = slab * DW_SLAB + lane * N;  // the lane's channels
     const int o0 = chunk * s.rows + warp * rw;  // the warp's output rows
     const int o1 = min(o0 + rw, s.Lout);
@@ -352,21 +378,7 @@ depthwise_rows(const TX* __restrict__ x, const TW* __restrict__ w,
     }
   };
 
-  const int first = blockIdx.x, step = gridDim.x;
-  const int mine = first < s.items ? (s.items - first + step - 1) / step : 0;
-  for (int i = 0; i + 1 < s.stages; ++i) {
-    issue(first + i * step, i);
-    cp_commit();
-  }
-  for (int i = 0; i < mine; ++i) {
-    cp_wait_pending(s.stages - 2);  // item i has landed (this thread's part)
-    __syncthreads();  // ... everyone's; and item i-1's stage is free again
-    const int ahead = i + s.stages - 1;
-    issue(first + ahead * step, ahead % s.stages);
-    cp_commit();
-    compute(first + i * step, ring + (i % s.stages) * stage_bytes);
-  }
-  cp_wait<0>();
+  ring_walk(s, ring, issue, compute);
 }
 
 // launches depthwise_rows with the dynamic shared memory its ring takes
@@ -375,7 +387,7 @@ cudaError_t launch_depthwise_rows(const void* x, const void* w, const Epi& epi,
                                   const DwShape& s, int blocks,
                                   cudaStream_t stream) {
   auto kernel = depthwise_rows<TX, TW, A, KW, Epi>;
-  const int smem = s.stages * s.stage_rows * DW_SLAB * (int)sizeof(TX);
+  const int smem = s.stages * s.stage_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -44,7 +44,8 @@ The depthwise convs follow the same terms on their own kernels:
     of ``csrc/depthwise_rows.cuh`` (rows 3 and 15,
     ``sliding_conv1d.conv1d_depthwise`` and
     ``sliding_conv_quant.conv1d_depthwise_quant``).
-  * ``depthwise_dw_splits``: row 11's split of its row tiles
+  * ``depthwise_dw_plan``: row 11's persistent grid of whole slab rounds,
+    its item length and ring on the same header
     (``sliding_conv_bwd.conv1d_depthwise_bwd_dw``).
 """
 from __future__ import annotations
@@ -210,14 +211,14 @@ def dw_copy_strides(W: int, Cin: int, kw: int, sw: int) -> list[int]:
 
 
 # ---------------------------------------------------------------------------
-# the depthwise convs: rows 3 and 15 on csrc/depthwise_rows.cuh, row 11's
-# split
+# the depthwise convs on csrc/depthwise_rows.cuh: rows 3 and 15, and row 11
 
 DW_SLAB = 128        # channels of a work item (the kernel's DW_SLAB)
 DW_WARPS = 4         # warps of a block, each a quarter of an item's rows
 DW_RESIDENT = 8      # blocks an SM holds at once (the kernel's launch bounds)
 DW_ROWS = (32, 16, 8, 4)  # output rows an item may cover, longest first
 DW_STAGES = 2        # the ring's depth: one item in flight while one computes
+DW_TAPS = 4          # row 11: taps a lane's sums hold (K up to it unrolled)
 SMEM_BLOCK = 232_448  # shared memory one block may take (Hopper)
 SMEM_SM = 233_472     # an SM's; each resident block reserves 1 KB more
 
@@ -242,6 +243,17 @@ class DepthwisePlan:
     per_sm: int
 
 
+def _check_depthwise(B, Lout, C, elem_bytes, K, stride, sms, rows, stages):
+    if min(B, Lout, C, elem_bytes, K, stride, sms) < 1:
+        raise ValueError(f"empty depthwise conv or card: B={B} Lout={Lout} "
+                         f"C={C} elem={elem_bytes} K={K} stride={stride} "
+                         f"sms={sms}")
+    if rows is not None and (rows % DW_WARPS or not 0 < rows <= 64):
+        raise ValueError(f"rows={rows}: a multiple of {DW_WARPS} up to 64")
+    if stages is not None and not 2 <= stages <= 4:
+        raise ValueError(f"stages={stages}: 2 to 4")
+
+
 def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
                    stride: int, sms: int = build.DEFAULT_SMS,
                    rows: int | None = None,
@@ -258,14 +270,7 @@ def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
     block walks only a few items. ``rows`` and ``stages`` force the choice
     (a multiple of ``DW_WARPS`` up to 64; 2 to 4). Raises where not even
     the shortest chunk's 2 stages fit."""
-    if min(B, Lout, C, elem_bytes, K, stride, sms) < 1:
-        raise ValueError(f"empty depthwise conv or card: B={B} Lout={Lout} "
-                         f"C={C} elem={elem_bytes} K={K} stride={stride} "
-                         f"sms={sms}")
-    if rows is not None and (rows % DW_WARPS or not 0 < rows <= 64):
-        raise ValueError(f"rows={rows}: a multiple of {DW_WARPS} up to 64")
-    if stages is not None and not 2 <= stages <= 4:
-        raise ValueError(f"stages={stages}: 2 to 4")
+    _check_depthwise(B, Lout, C, elem_bytes, K, stride, sms, rows, stages)
     slabs = -(-C // DW_SLAB)
     plan = None
     for R in (DW_ROWS if rows is None else (rows,)):
@@ -290,26 +295,82 @@ def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
     return plan
 
 
-# row 11 (csrc/conv1d_depthwise_bwd.cu): 128-thread blocks of 16 bytes of
-# channels a thread, tiles of 32 dz rows, groups of 4 taps past K = 4
-DW_BWD_THREADS = 128
-DW_BWD_TILE = 32
-DW_BWD_TAPS = 4
+@dataclass(frozen=True)
+class DepthwiseDwPlan:
+    """Row 11's launch on ``csrc/depthwise_rows.cuh``'s ring: work items of
+    ``rows`` dz rows of one batch row over ``slab`` channels, numbered as
+    the forward's; ``splits`` (S) blocks a slab, ``blocks`` = slabs·S,
+    block j keeping slab j % slabs and walking items j, j + blocks, ...;
+    each stage holds an item's ``stage_rows`` x rows and its ``rows`` dz
+    rows; ``smem`` bytes a block (the ring and the warps' sums),
+    ``per_sm`` blocks resident on an SM; ``workspace`` float32 partials,
+    S·(K+1)·C, where S > 1 (else 0: the blocks write dw and db)."""
+    slab: int
+    rows: int
+    stages: int
+    splits: int
+    blocks: int
+    stage_rows: int
+    slabs: int
+    chunks: int
+    items: int
+    smem: int
+    per_sm: int
+    workspace: int
 
 
-def depthwise_dw_splits(B: int, C: int, K: int, Lout: int,
-                        dtype: torch.dtype,
-                        sms: int = build.DEFAULT_SMS) -> int:
-    """Row 11's split of its B·ceil(Lout / 32) row tiles: 1 where its
-    channel blocks (times its tap groups) fill the card's ``sms`` SMs, else
-    enough splits for two blocks an SM, at most one a tile. The caller
-    gives the kernel a workspace of S·(K·C + C) floats when S > 1."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"row 11 takes float32 or bfloat16, not {dtype}")
-    vecs = -(-C // (8 if dtype == torch.bfloat16 else 4))  # 16 bytes each
-    groups = 1 if K <= DW_BWD_TAPS else -(-K // DW_BWD_TAPS)
-    blocks = -(-vecs // DW_BWD_THREADS) * groups
-    tiles = B * -(-Lout // DW_BWD_TILE)
-    if blocks >= sms:
-        return 1
-    return min(-(-2 * sms // blocks), tiles)
+def depthwise_dw_smem(rows: int, stages: int, elem_bytes: int, K: int,
+                      stride: int) -> int:
+    """Shared memory a block of row 11 takes (the kernel's ``dw_smem``):
+    the ring of ``stages`` stages of stride·(R−1)+K x rows and R dz rows,
+    and the 4 warps' (K+1)·128 float32 sums, on the ring's bytes once it
+    is drained where K <= ``DW_TAPS``, else after it (the tap groups
+    keep their sums there between items)."""
+    stage = (stride * (rows - 1) + K + rows) * DW_SLAB * elem_bytes
+    red = DW_WARPS * (K + 1) * DW_SLAB * 4
+    ring = stages * stage
+    return max(ring, red) if K <= DW_TAPS else ring + red
+
+
+def depthwise_dw_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
+                      stride: int, sms: int = build.DEFAULT_SMS,
+                      rows: int | None = None,
+                      stages: int | None = None,
+                      splits: int | None = None) -> DepthwiseDwPlan:
+    """Row 11's plan for dz (B, Lout, C) and x of ``elem_bytes``-byte
+    elements, K taps at ``stride``, on a card of ``sms`` SMs: the rows and
+    ring as ``depthwise_plan`` reckons them (the longest chunk whose items
+    fill a round of resident blocks, 2 stages), and S, the blocks a slab:
+    as many as one round of resident blocks gives each slab, at most the
+    B·chunks items of a slab, fewer where fewer share them as evenly
+    (ceil(n / ceil(n / S))). ``rows``, ``stages`` and ``splits`` force the
+    choice (rows and stages as ``depthwise_plan`` takes them; splits 1 to
+    the items of a slab). Raises where not even the shortest chunk fits a
+    block's shared memory."""
+    _check_depthwise(B, Lout, C, elem_bytes, K, stride, sms, rows, stages)
+    slabs = -(-C // DW_SLAB)
+    plan = None
+    for R in (DW_ROWS if rows is None else (rows,)):
+        depth = DW_STAGES if stages is None else stages
+        smem = depthwise_dw_smem(R, depth, elem_bytes, K, stride)
+        if smem > SMEM_BLOCK:
+            continue
+        per_sm = min(DW_RESIDENT, SMEM_SM // (smem + 1024))
+        chunks = -(-Lout // R)
+        n = B * chunks  # items of a slab
+        most = max(1, min(n, sms * per_sm // slabs))
+        plan = (R, depth, -(-n // -(-n // most)), chunks, n, smem, per_sm)
+        if n * slabs >= sms * per_sm:
+            break
+    if plan is None:
+        raise ValueError(f"depthwise dw K={K} at stride {stride}: no ring of "
+                         f"{DW_SLAB * elem_bytes}-byte rows fits a block's "
+                         f"{SMEM_BLOCK} bytes of shared memory")
+    R, depth, S, chunks, n, smem, per_sm = plan
+    if splits is not None:
+        if not 1 <= splits <= n:
+            raise ValueError(f"splits={splits}: 1 to the {n} items of a slab")
+        S = splits
+    return DepthwiseDwPlan(DW_SLAB, R, depth, S, slabs * S,
+                           stride * (R - 1) + K, slabs, chunks, n * slabs,
+                           smem, per_sm, S * (K + 1) * C if S > 1 else 0)

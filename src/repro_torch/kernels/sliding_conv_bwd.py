@@ -18,10 +18,10 @@
   * depthwise: dx (``conv1d_depthwise_dx``) runs the forward depthwise
     kernel on the dilated, padded gradient with the taps flipped; dw/db
     through ``conv1d_depthwise_bwd_dw``, the wrapper of
-    ``csrc/conv1d_depthwise_bwd.cu`` (plain version
-    ``conv1d_depthwise_bwd_dw_plain``), on the same terms, its split of the
-    row tiles from ``gemm_plan.depthwise_dw_splits`` and the card's SM
-    count.
+    ``csrc/conv1d_depthwise_bwd.cu`` on ``csrc/depthwise_rows.cuh``'s ring
+    (plain version ``conv1d_depthwise_bwd_dw_plain``), on the same terms,
+    its grid, item length, ring and split from ``gemm_plan.depthwise_dw_plan``
+    and the card's SM count (``depthwise_dw_launch``).
   * conv2d: dx (``conv2d_dx``) runs the forward 2-D conv kernel on the
     dilated, padded gradient with the flipped, Cin↔Cout-transposed
     weights (``conv2d_dx_operands``); dw/db through ``conv2d_bwd_dw``, the
@@ -42,8 +42,9 @@ from repro_torch.kernels import (build, gemm_plan, sliding_conv1d,
 # x, dz, dw, db, ws; B, L, Cin, Cout, K, stride, Lout, is_bf16, tile,
 # splits, per, va, vb; stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-# x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16, splits, sms; stream
-_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# x, dz, dw, db, ws; B, L, C, K, stride, Lout, is_bf16, rows, stages,
+# splits, copy_bytes, sms; stream
+_DW_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 # x, dz, dw, db, ws; B, H, W, Cin, Cout, kh, kw, sh, sw, oh, ow, is_bf16,
 # tile, splits, per, va, vb; stream
 _2D_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
@@ -265,6 +266,18 @@ def conv1d_depthwise_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor, K: int,
     return dw, (g.sum(dim=(0, 1)) if has_bias else None)
 
 
+def depthwise_dw_launch(x, dz, K, stride):
+    """Row 11's launch over contiguous x (B, L, C) and dz (B, Lout, C): the
+    plan on x's card (``gemm_plan.depthwise_dw_plan``) and the width of
+    the staged pieces of x and dz (each row starts C elements after the
+    last)."""
+    B, _, C = x.shape
+    el = x.element_size()
+    plan = gemm_plan.depthwise_dw_plan(B, dz.shape[1], C, el, K, stride,
+                                       build.sm_count(x.device))
+    return plan, gemm_plan.copy_bytes(el, [x.data_ptr(), dz.data_ptr()], [C])
+
+
 def _launch_depthwise(x, dz, K, stride, has_bias):
     _check_kernel_operands(x, dz)
     fn = build.entry("conv1d_depthwise_bwd", "conv1d_depthwise_bwd_dw",
@@ -272,18 +285,16 @@ def _launch_depthwise(x, dz, K, stride, has_bias):
     x, dz = x.contiguous(), dz.contiguous()
     B, L, C = x.shape
     Lout = dz.shape[1]
-    dw = torch.empty((K, C), dtype=torch.float32, device=x.device)
-    db = (torch.empty((C,), dtype=torch.float32, device=x.device)
-          if has_bias else None)
-    sms = build.sm_count(x.device)
-    S = gemm_plan.depthwise_dw_splits(B, C, K, Lout, x.dtype, sms)
-    ws = (torch.empty((S * (K * C + C),), dtype=torch.float32,
-                      device=x.device) if S > 1 else None)
+    plan, cb = depthwise_dw_launch(x, dz, K, stride)
+    dw, db = _dw_outputs(x, (K, C), C, has_bias)
+    ws = (torch.empty((plan.workspace,), dtype=torch.float32,
+                      device=x.device) if plan.splits > 1 else None)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
         None if db is None else db.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        B, L, C, K, stride, Lout, int(x.dtype == torch.bfloat16), S, sms,
+        B, L, C, K, stride, Lout, int(x.dtype == torch.bfloat16), plan.rows,
+        plan.stages, plan.splits, cb, build.sm_count(x.device),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("conv1d_depthwise_bwd", code)

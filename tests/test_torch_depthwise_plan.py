@@ -1,8 +1,9 @@
 """The launch geometry of the depthwise convs, on the CPU, where no kernel
 runs: ``gemm_plan.depthwise_plan`` (rows 3 and 15 on
 ``csrc/depthwise_rows.cuh``: work items, the ring, the persistent grid)
-and ``gemm_plan.depthwise_dw_splits`` (row 11's split of its row tiles),
-the wrappers' copy widths, and the C entries against their ctypes lists.
+and ``gemm_plan.depthwise_dw_plan`` (row 11 on the same ring: its slab
+rounds, split and workspace), the wrappers' copy widths, and the C
+entries against their ctypes lists.
 """
 import math
 import re
@@ -156,50 +157,142 @@ def test_plans_refused():
     assert gp.depthwise_plan(1, 500, 64, 2, 400, 1).rows == 4
 
 
-def _old_dw_splits(B, C, K, Lout, is_bf16):
-    """The split rule the row-11 source held before it took its split from
-    the wrapper (conv1d_depthwise_bwd_dw_splits, MIN_BLOCKS = 2 * 132),
-    transcribed."""
-    vec = 8 if is_bf16 else 4
-    vecs = (C + vec - 1) // vec
-    groups = 1 if K <= 4 else (K + 3) // 4
-    blocks = ((vecs + 127) // 128) * groups
-    n_tiles = B * ((Lout + 31) // 32)
-    if blocks >= 264 // 2:
-        return 1
-    want = (264 + blocks - 1) // blocks
-    return want if want < n_tiles else n_tiles
+# (what, B, Lout, C, elem bytes, K, stride): row 11 at jamba's training
+# shape (bf16, f32), then the card tests' edges (K 9: the tap groups)
+DW_SHAPES = [
+    ("train bf16", 2, 512, 16384, 2, 4, 1),
+    ("train f32", 2, 512, 16384, 4, 4, 1),
+    ("edge C 37 K 9", 3, 98, 37, 4, 9, 2),
+    ("edge C 600 Lout 1", 3, 1, 600, 2, 5, 2),
+    ("edge C 16384 K 1", 3, 45, 16384, 4, 1, 1),
+    ("edge C 1032 K 3", 2, 201, 1032, 2, 3, 1),
+]
+DW_SMS = (build.DEFAULT_SMS, 66, 32, 16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K", [1, 2, 4, 5, 9, 20])
-def test_dw_splits_match_the_old_rule(K, dtype):
-    """At 132 SMs the rule returns what the C rule returned, so row 11's
-    sums keep their order: over batch rows, channels and lengths."""
-    for B, C, Lout in ((1, 37, 1), (2, 16384, 512), (3, 600, 45),
-                       (2, 16384, 45), (8, 65536, 300), (1, 135168, 64),
-                       (4, 4096, 2000), (1, 1, 10_000)):
-        assert gp.depthwise_dw_splits(B, C, K, Lout, dtype) == \
-            _old_dw_splits(B, C, K, Lout, dtype == torch.bfloat16)
+@pytest.mark.parametrize("sms", DW_SMS)
+@pytest.mark.parametrize("what,B,Lout,C,elem,K,stride", DW_SHAPES)
+def test_dw_plan_covers_every_dz_row_once(what, B, Lout, C, elem, K, stride,
+                                          sms):
+    """Row 11's blocks, each keeping one slab, and their items, each split
+    over the warps' row ranges, cover every (batch row, dz row, channel)
+    exactly once; every block has an item."""
+    p = gp.depthwise_dw_plan(B, Lout, C, elem, K, stride, sms)
+    count = np.zeros((B, Lout, C), dtype=np.uint8)
+    rw = p.rows // gp.DW_WARPS
+    for block in range(p.blocks):
+        walk = _items_of(p, block)
+        assert len(walk) >= 1
+        for i in walk:
+            assert i % p.slabs == block % p.slabs  # the block's slab
+            b, r0, r1, c0, c1 = _item(p, i, Lout, C)
+            for warp in range(gp.DW_WARPS):
+                o0 = r0 + warp * rw
+                count[b, o0:min(o0 + rw, r1), c0:c1] += 1
+    assert (count == 1).all(), what
 
 
-def test_dw_splits_at_the_training_shape():
-    """Jamba's training shape (B 2, C 16384, K 4, Lout 512): 17 splits in
-    bf16 (16 used: 32 tiles of 2), 9 in f32 (8 used: 32 tiles of 4)."""
-    assert gp.depthwise_dw_splits(2, 16384, 4, 512, torch.bfloat16) == 17
-    assert gp.depthwise_dw_splits(2, 16384, 4, 512, torch.float32) == 9
-    for S, used in ((17, 16), (9, 8)):
-        per = math.ceil(32 / S)
-        assert math.ceil(32 / per) == used
+@pytest.mark.parametrize("sms", DW_SMS)
+@pytest.mark.parametrize("what,B,Lout,C,elem,K,stride", DW_SHAPES)
+def test_dw_plan_grid_and_workspace(what, B, Lout, C, elem, K, stride, sms):
+    """The grid is slabs × S with S at most a slab's items, no more than
+    one round of resident blocks (or one block a slab); the workspace is
+    S·(K+1)·C floats where S > 1; the ring and the sums fit a block and
+    ``per_sm`` of them an SM."""
+    p = gp.depthwise_dw_plan(B, Lout, C, elem, K, stride, sms)
+    n = B * math.ceil(Lout / p.rows)
+    assert p.items == n * p.slabs and p.slabs == math.ceil(C / 128)
+    assert p.blocks == p.slabs * p.splits and 1 <= p.splits <= n
+    assert p.splits == 1 or p.blocks <= sms * p.per_sm
+    assert p.workspace == (p.splits * (K + 1) * C if p.splits > 1 else 0)
+    assert p.stage_rows == stride * (p.rows - 1) + K
+    ring = p.stages * (p.stage_rows + p.rows) * 128 * elem
+    red = 4 * (K + 1) * 128 * 4
+    assert p.smem == (max(ring, red) if K <= 4 else ring + red)
+    assert p.smem == gp.depthwise_dw_smem(p.rows, p.stages, elem, K, stride)
+    assert p.smem <= 232_448 and 1 <= p.per_sm <= gp.DW_RESIDENT
+    assert p.per_sm * (p.smem + 1024) <= 233_472
+    walks = {len(_items_of(p, j)) for j in range(p.blocks)}
+    assert max(walks) - min(walks) <= 1
 
 
-def test_dw_splits_follow_the_sm_count():
-    """Fewer SMs, fewer splits; channel blocks that fill the card, one."""
-    splits = [gp.depthwise_dw_splits(2, 16384, 4, 512, torch.bfloat16, s)
+def test_dw_plan_at_the_training_shape():
+    """Jamba's training shape on 132 SMs: items of 32 dz rows (35 x rows
+    staged with them) through a 2-stage ring; bf16 6 blocks an SM, S 6
+    (768 blocks of 5-6 items, 1.97 MB of partials); f32 3 an SM, S 3."""
+    for elem, per_sm, S in ((2, 6, 6), (4, 3, 3)):
+        p = gp.depthwise_dw_plan(2, 512, 16384, elem, 4, 1)
+        assert (p.rows, p.stages, p.stage_rows, p.items) == (32, 2, 35, 4096)
+        assert (p.per_sm, p.splits, p.blocks) == (per_sm, S, 128 * S)
+        assert p.smem == 2 * 67 * 128 * elem
+        assert p.workspace == S * 5 * 16384
+    assert gp.depthwise_dw_plan(2, 512, 16384, 2, 4, 1).workspace * 4 \
+        == 1_966_080
+
+
+def test_dw_plan_follows_the_sm_count():
+    """Fewer SMs, fewer splits, down to one block a slab; the default is
+    the H100's count."""
+    splits = [gp.depthwise_dw_plan(2, 512, 16384, 2, 4, 1, s).splits
               for s in (132, 66, 32, 16)]
-    assert splits == [17, 9, 4, 1]  # 16 channel blocks
-    with pytest.raises(TypeError):
-        gp.depthwise_dw_splits(2, 64, 4, 32, torch.float16)
+    assert splits == [6, 3, 1, 1]
+    assert gp.depthwise_dw_plan(2, 512, 16384, 2, 4, 1) == \
+        gp.depthwise_dw_plan(2, 512, 16384, 2, 4, 1, build.DEFAULT_SMS)
+    # few items: shorter chunks, more splits
+    assert gp.depthwise_dw_plan(1, 200, 37, 2, 4, 1).rows == 4
+
+
+@pytest.mark.parametrize("rows", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_dw_forced_plans(rows, stages):
+    """Forced rows and stages are taken as ``depthwise_plan`` takes them:
+    bf16 at stride 1 (K 4) and at stride 2 (K 9) fit every pair and cover
+    every dz row once; f32 at stride 1 is refused exactly where its ring
+    and sums pass a block's shared memory."""
+    real = gp.depthwise_dw_plan
+    for elem, K, stride in ((2, 4, 1), (2, 9, 2)):
+        p = real(2, 297, 600, elem, K, stride, rows=rows, stages=stages)
+        assert (p.rows, p.stages) == (rows, stages)
+        gp.depthwise_dw_plan = lambda *a: real(*a, rows=rows, stages=stages)
+        try:
+            test_dw_plan_covers_every_dz_row_once("forced", 2, 297, 600,
+                                                  elem, K, stride, 132)
+        finally:
+            gp.depthwise_dw_plan = real
+    fits = gp.depthwise_dw_smem(rows, stages, 4, 4, 1) <= gp.SMEM_BLOCK
+    if fits:
+        assert real(2, 297, 600, 4, 4, 1, rows=rows, stages=stages).rows \
+            == rows
+    else:
+        with pytest.raises(ValueError):
+            real(2, 297, 600, 4, 4, 1, rows=rows, stages=stages)
+
+
+def test_dw_plans_refused():
+    """Forced rows, stages or splits out of range, an empty shape, or a
+    filter whose ring and sums fit no block raise."""
+    for kw in (dict(rows=6), dict(rows=128), dict(rows=0), dict(stages=1),
+               dict(stages=5), dict(splits=0), dict(splits=9)):
+        with pytest.raises(ValueError):
+            gp.depthwise_dw_plan(2, 100, 64, 2, 4, 1, rows=kw.get("rows", 32),
+                                 **{k: v for k, v in kw.items()
+                                    if k != "rows"})
+    assert gp.depthwise_dw_plan(2, 100, 64, 2, 4, 1, rows=32,
+                                splits=8).splits == 8  # 2 x 4 items
+    with pytest.raises(ValueError):
+        gp.depthwise_dw_plan(0, 100, 64, 2, 4, 1)
+    with pytest.raises(ValueError):
+        gp.depthwise_dw_plan(1, 150, 64, 4, 250, 1)  # 4 x 251 x 512 B sums
+
+
+def test_dw_plan_matches_the_kernel():
+    """The plan's constants and shared-memory rule are the kernel's: the
+    taps it unrolls, and the ring beside or under the warps' sums."""
+    text = (build.CSRC / "conv1d_depthwise_bwd.cu").read_text()
+    m = re.search(r"constexpr int DW_TAPS = (\d+);", text)
+    assert m and int(m.group(1)) == gp.DW_TAPS
+    assert "DW_WARPS * (s.K + 1) * DW_SLAB * 4" in text
+    assert "s.K <= DW_TAPS ? (ring > red ? ring : red) : ring + red" in text
 
 
 @pytest.mark.parametrize("dtype,C,offset,want", [
@@ -216,6 +309,21 @@ def test_wrappers_copy_width(dtype, C, offset, want):
     plan, cb = s1.depthwise_launch(x, 4, 1, 37)
     assert cb == want
     assert plan == gp.depthwise_plan(2, 37, C, x.element_size(), 4, 1)
+
+
+@pytest.mark.parametrize("dtype,C,x_off,dz_off,want", [
+    (torch.bfloat16, 16384, 0, 0, 16), (torch.bfloat16, 16384, 0, 1, 2),
+    (torch.bfloat16, 600, 4, 0, 8), (torch.float32, 37, 0, 0, 4),
+    (torch.float32, 600, 2, 1, 4), (torch.float32, 16384, 0, 2, 8)])
+def test_dw_wrapper_copy_width(dtype, C, x_off, dz_off, want):
+    """Row 11 stages x and dz in pieces as wide as both bases and the row
+    length allow; its plan is the one on the card's SM count."""
+    x = torch.zeros(2 * 40 * C + x_off, dtype=dtype)[x_off:].view(2, 40, C)
+    dz = torch.zeros(2 * 37 * C + dz_off, dtype=dtype)[dz_off:].view(2, 37,
+                                                                    C)
+    plan, cb = sb.depthwise_dw_launch(x, dz, 4, 1)
+    assert cb == want
+    assert plan == gp.depthwise_dw_plan(2, 37, C, x.element_size(), 4, 1)
 
 
 def _c_entry(source, name):
@@ -235,12 +343,18 @@ def _check_argtypes(entry, argtypes):
 
 def test_sources_are_on_the_staged_body():
     """Rows 3 and 15 launch depthwise_rows.cuh's body through
-    launch_depthwise_k, with their ctypes lists matching the C signatures;
-    the per-thread row walks, row 15's own loads and row 11's split rule
-    and SM count are gone."""
+    launch_depthwise_k, and row 11 walks the header's one ring
+    (ring_walk, stage_slab) with its own compute, with their ctypes lists
+    matching the C signatures; the per-thread row walks (row 11's too,
+    with load_row and its tile constants), row 15's own loads, row 11's
+    split rule, its second reduce launch and any SM count are gone."""
     header = (build.CSRC / "depthwise_rows.cuh").read_text()
     assert '#include "cp_async.cuh"' in header
     assert "depthwise_rows(" in header and "cp_wait_pending(" in header
+    assert header.count("void ring_walk(") == 1
+    assert header.count("cp_wait_pending(s.stages - 2)") == 1  # one ring
+    for gone in ("load_row", "VecOf", "store_vals"):
+        assert gone not in header, gone
     for src, name, argtypes in (
             ("conv1d_depthwise.cu", "conv1d_depthwise", s1._DW_ARGTYPES),
             ("conv1d_depthwise_quant.cu", "conv1d_depthwise_quant",
@@ -252,15 +366,22 @@ def test_sources_are_on_the_staged_body():
         text = (build.CSRC / src).read_text()
         assert '#include "depthwise_rows.cuh"' in text
         for gone in ("MIN_BLOCKS", "conv1d_depthwise_bwd_dw_splits",
-                     "constexpr int TL = 16", "load_vals", "struct Lanes",
-                     "struct Raw", "store_out(", "store_vals"):
+                     "constexpr int TL", "constexpr int KT", "load_vals",
+                     "load_row", "VecOf", "store_f32", "struct Lanes",
+                     "struct Raw", "store_out(", "store_vals",
+                     "cp_wait_pending("):
             assert gone not in text, (src, gone)
         assert not re.search(r"\b132\b", text), src
         if src != "conv1d_depthwise_bwd.cu":
             assert "launch_depthwise_k<" in text, src
+    bwd = (build.CSRC / "conv1d_depthwise_bwd.cu").read_text()
+    assert "ring_walk(s, ring, issue, compute)" in bwd
+    assert bwd.count("stage_slab(") == 2  # x's rows, then dz's
+    assert bwd.count("reduce_splits<<<") == 1
     assert not re.search(r"\b132\b", header)
-    assert "store_vals" not in header
     assert not hasattr(sb, "_DW_SPLIT_ARGTYPES")
+    assert not hasattr(gp, "depthwise_dw_splits")
+    assert not [n for n in dir(gp) if n.startswith("DW_BWD")]
     gemm = (build.CSRC / "gemm_mma.cuh").read_text()
     assert '#include "cp_async.cuh"' in gemm
     assert "void copy_in(" not in gemm and "void cp_wait(" not in gemm

@@ -181,7 +181,9 @@ def test_plan_follows_the_sm_count():
 
 def test_sources_hold_no_sm_count():
     """No new kernel source or the plan holds the H100's 132; the old
-    split rules of rows 10, 11 and 12 are gone."""
+    split rules of rows 10, 11 and 12 are gone, and row 11 walks
+    depthwise_rows.cuh's ring with its plan from the wrapper (no per-thread
+    walk, no load_row), its ctypes list matching its C entry."""
     kdir = build.CSRC.parent
     for path in (kdir / "gemm_plan.py", build.CSRC / "gemm_mma.cuh",
                  build.CSRC / "sliding_conv2d_bwd.cu",
@@ -201,6 +203,13 @@ def test_sources_hold_no_sm_count():
                         "conv1d_depthwise_bwd_dw_splits")):
         text = (build.CSRC / name).read_text()
         assert "MIN_BLOCKS" not in text and gone not in text, name
+    bwd = (build.CSRC / "conv1d_depthwise_bwd.cu").read_text()
+    assert "ring_walk(" in bwd and "load_row" not in bwd
+    assert not hasattr(gp, "depthwise_dw_splits")
+    entry = _c_entry("conv1d_depthwise_bwd.cu", "conv1d_depthwise_bwd_dw")
+    _check_argtypes(entry, sb._DW_ARGTYPES)
+    for arg in ("int rows", "int stages", "int splits", "int sms"):
+        assert arg in entry, arg
 
 
 @pytest.mark.parametrize("elem,ptrs,strides,want", [
