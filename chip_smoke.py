@@ -254,11 +254,29 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
  41. the port's train CLI for llava (``--arch llava-next-34b --smoke
      --steps 2 --batch 2 --grad-accum 1 --seq 32``) on the card: finite
      losses.
+ 42. the traced serve CLI at full width: ``--arch whisper-medium --batch 4
+     --prompt-len 256 --gen 32 --kv-quant int8 --conv-backend
+     sliding_pallas --requests 2 --run-dir build/chip_smoke_obs --trace``
+     through ``serve.main``, its launches counted from zero: CI's checks
+     of ``metrics.json`` and ``trace.json``, the report's needles
+     (``python -m repro_torch.obs report``), every journaled begin closed
+     by its end, equal samples of the two requests, rows 1 and 2b
+     launched as counted by their wrappers and by ``dispatch.calls`` under
+     rung ``cuda``; then the same command without ``--trace`` before and
+     after it, and the decode step's p50 armed and disarmed (record only,
+     nothing gates on it);
+ 43. the traced train CLI: ``--arch whisper-medium --smoke --steps 3
+     --batch 2 --seq 64 --audio-frontend mels --conv-backend
+     sliding_pallas --trace``, its launches counted from zero: rows 1 and
+     10 launched, three ``train.step`` spans, ``train.step_s`` count 3, a
+     finite ``train.loss``, the report's train lines.
 
-Phases run in the order 1-25, 28, 29, 26, 31, 41, 30, 33, 34 with the
+Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 33, 34 with the
 main path of the baselines, 36-38, then the timings (6, 10, 15, 19, 23,
 27, 32, 35, 39, 40): every kernel is held to its plain version before a
-path runs it.
+path runs it. Phases 42 and 43 reset the process-global obs registry,
+trace ring, health record and attention log before they run, and disarm
+tracing and reset them again after, so no later phase runs armed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Times are those of the card this runs on,
@@ -271,6 +289,8 @@ import gc
 import io
 import itertools
 import json
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -3593,6 +3613,199 @@ def phase_llava_train_cli(train) -> dict:
     return dict(losses=losses)
 
 
+def reset_obs(obs, health, ops) -> None:
+    """Tracing off, and an empty obs registry, trace ring, health record and
+    attention log: the process-global state a CLI phase records into."""
+    obs.enable(False)
+    ops.ATTN_DECODE_DISPATCH.clear()
+    obs.REGISTRY.reset()
+    obs.trace.clear()
+    health.HEALTH.reset()
+
+
+def obs_report(run_dir) -> str:
+    """``python -m repro_torch.obs report run_dir``'s output (a process of
+    its own, off the card)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "report", str(run_dir)],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode:
+        raise AssertionError(f"obs report failed:\n{proc.stderr}")
+    return proc.stdout
+
+
+def ci_obs_checks(run_dir) -> None:
+    """CI's checks of a traced serve run's artifacts (the traced serve
+    smoke of .github/workflows/ci.yml)."""
+    snap = json.load(open(run_dir / "metrics.json"))
+    assert snap["schema"] == 1, snap["schema"]
+    hists = snap["histograms"]
+    assert hists.get("serve.ttft_s"), "no TTFT histogram"
+    steps = hists.get("serve.decode_step_s")
+    assert steps and steps[0]["count"] > 0, "no decode-step histogram"
+    kv = snap["gauges"].get("serve.kv_cache_bytes", [])
+    kinds = {g["labels"].get("kind") for g in kv}
+    assert {"served", "fp"} <= kinds, f"kv gauge kinds: {kinds}"
+    disp = snap["counters"].get("dispatch.seconds_total", [])
+    keys = {c["labels"].get("key", "") for c in disp}
+    assert any(k.startswith("attn_dec|") for k in keys), (
+        "no per-autotune-key dispatch wall time: %s" % sorted(keys))
+    evs = json.load(open(run_dir / "trace.json"))["traceEvents"]
+    assert evs, "empty trace"
+    assert all("ph" in e and "ts" in e and "name" in e for e in evs)
+    assert any(e["name"] == "serve.decode_step" for e in evs)
+
+
+def phase_serve_cli_obs(serve, configs, obs, health, ops, smi) -> dict:
+    """42: the traced serve CLI at full width (whisper-medium, every
+    published width, random weights from seed 0), two requests under
+    ``--run-dir`` and ``--trace``, launches counted from zero; then the
+    same command disarmed before and after it, for the decode step's p50
+    armed and disarmed in one process at one shape."""
+    argv = ["--arch", "whisper-medium", "--batch", str(SERVE["B"]),
+            "--prompt-len", str(SERVE["P"]), "--gen", str(SERVE["gen"]),
+            "--kv-quant", "int8", "--conv-backend", "sliding_pallas",
+            "--requests", "2"]
+    real_generate = serve.generate
+
+    def run(run_dir, *extra):
+        """One CLI run on a fresh registry; its printed lines and the
+        ``stats`` decode steps of its requests."""
+        shutil.rmtree(run_dir, ignore_errors=True)
+        reset_obs(obs, health, ops)
+        steps = []
+
+        def generate(*a, **kw):  # the CLI's requests, their stats kept
+            stats = {}
+            out = real_generate(*a, stats=stats, **kw)
+            steps.extend(stats["step_s"])
+            return out
+
+        serve.generate = generate
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                serve.main([*argv, "--run-dir", str(run_dir), *extra])
+        finally:
+            serve.generate = real_generate
+        gc.collect()
+        torch.cuda.empty_cache()
+        hist = obs.REGISTRY.histogram("serve.decode_step_s")
+        return out.getvalue(), dict(
+            p50_ms=statistics.median(steps) * 1e3,
+            hist_p50_ms=hist.quantile(0.5, arch="whisper-medium") * 1e3,
+            steps=len(steps))
+
+    base = ROOT / "build" / "chip_smoke_obs"
+    t0 = time.perf_counter()
+    _, before = run(base.with_name("chip_smoke_obs_off"))
+    zero_launches()
+    text, armed = run(base, "--trace")
+    launches = read_launches()
+    try:
+        ci_obs_checks(base)
+        report = obs_report(base)
+        for needle in ("generated", "attn-decode:", "kv-cache bytes:",
+                       "decode-step"):
+            assert needle in report, f"report missing {needle!r}:\n{report}"
+        recs = serve.RequestJournal(base).records()
+        begun = [r["id"] for r in recs if r["event"] == "begin"]
+        ends = [r for r in recs if r["event"] == "end"]
+        assert begun == [r["id"] for r in ends] == ["req0", "req1"], recs
+        assert ends[0]["tokens"] == ends[1]["tokens"]  # greedy: bit-identical
+        samples = dict(re.findall(r"^\[serve\] sample\[(\w+)\]: (.*)$", text,
+                                  re.MULTILINE))
+        assert samples.keys() == {"req0", "req1"}, text
+        assert samples["req0"] == samples["req1"], samples
+        # two requests: two frontend convs each, and self- and
+        # cross-attention in every decoder layer at every decode step
+        layers = configs.get_config("whisper-medium").num_layers
+        want = only(sliding_conv1d=2 * 2, attention_decode_int8=2 * 2 * layers
+                    * (SERVE["gen"] - 1))
+        assert launches == want, f"launch counts {launches}, expected {want}"
+        calls = {(lb["site"], lb["rung"]): 0 for lb, _ in
+                 obs.REGISTRY.counter("dispatch.calls").series()}
+        for lb, v in obs.REGISTRY.counter("dispatch.calls").series():
+            calls[lb["site"], lb["rung"]] += int(v)
+        assert calls == {("conv1d", "cuda"): want["sliding_conv1d"],
+                         ("attention_decode", "cuda"):
+                         want["attention_decode_int8"]}, calls
+        snap = json.load(open(base / "metrics.json"))
+        dispatch_s = sum(c["value"] for c in
+                         snap["counters"]["dispatch.seconds_total"])
+        spans = sum(1 for e in json.load(open(base / "trace.json"))[
+            "traceEvents"] if e["name"] == "kernel.dispatch")
+    finally:
+        reset_obs(obs, health, ops)
+    _, after = run(base.with_name("chip_smoke_obs_off"))
+    reset_obs(obs, health, ops)
+    shutil.rmtree(base.with_name("chip_smoke_obs_off"), ignore_errors=True)
+    for line in report.splitlines():
+        log(f"obs report: {line}")
+    log(f"serve CLI traced (whisper-medium full width, B {SERVE['B']}, P "
+        f"{SERVE['P']}, {SERVE['gen']} tokens, 2 requests, int8 cache): "
+        f"decode step p50 {armed['p50_ms']:.3f} ms armed vs "
+        f"{before['p50_ms']:.3f} / {after['p50_ms']:.3f} ms disarmed before "
+        f"/ after (histogram p50 {armed['hist_p50_ms']:.3f} vs "
+        f"{before['hist_p50_ms']:.3f} / {after['hist_p50_ms']:.3f}), "
+        f"{armed['steps']} steps each; {spans} kernel.dispatch spans, "
+        f"dispatch host time {dispatch_s * 1e3:.1f} ms; launches row 1 "
+        f"{launches['sliding_conv1d']}, row 2b "
+        f"{launches['attention_decode_int8']}; {smi}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return dict(launches=launches, armed=armed, disarmed_before=before,
+                disarmed_after=after, kernel_dispatch_spans=spans,
+                dispatch_seconds_total=dispatch_s, device=smi)
+
+
+def phase_train_cli_obs(train, obs, health, ops, smi) -> dict:
+    """43: the traced train CLI on whisper's smoke config, 3 steps through
+    the conv kernels (rows 1 and 10), launches counted from zero: three
+    ``train.step`` spans, ``train.step_s`` count 3, a finite loss, the
+    report's train lines."""
+    run_dir = ROOT / "build" / "chip_smoke_train_obs"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_obs(obs, health, ops)
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = train.main(["--arch", "whisper-medium", "--smoke",
+                              "--steps", "3", "--batch", "2", "--seq", "64",
+                              "--audio-frontend", "mels", "--conv-backend",
+                              "sliding_pallas", "--trace", "--log-every",
+                              "1", "--run-dir", str(run_dir)])
+        launches = read_launches()
+        assert launches["sliding_conv1d"] > 0 and launches["conv1d_bwd_dw"] > 0, (
+            launches)
+        evs = json.load(open(run_dir / "trace.json"))["traceEvents"]
+        step_ms = [e["dur"] / 1e3 for e in evs if e["name"] == "train.step"]
+        assert len(step_ms) == 3, out.getvalue()
+        snap = json.load(open(run_dir / "metrics.json"))
+        assert snap["histograms"]["train.step_s"][0]["count"] == 3
+        loss = snap["gauges"]["train.loss"][0]["value"]
+        assert np.isfinite(loss) and loss == res["losses"][-1], (loss, res)
+        conv = {lb["rung"]: int(v) for lb, v in obs.REGISTRY.counter(
+            "dispatch.calls").series() if lb["site"] == "conv1d"}
+        assert conv.keys() == {"cuda"}, conv
+        report = obs_report(run_dir)
+        for needle in ("[train] steps=3 tokens=384", "[train] step: p50="):
+            assert needle in report, f"report missing {needle!r}:\n{report}"
+    finally:
+        reset_obs(obs, health, ops)
+        shutil.rmtree(run_dir, ignore_errors=True)
+    for line in report.splitlines():
+        log(f"obs report: {line}")
+    log(f"train CLI traced (whisper-medium --smoke, 3 steps, B 2, seq 64): "
+        f"steps {[round(t, 3) for t in step_ms]} ms, "
+        f"losses {[round(v, 4) for v in res['losses']]}; conv1d dispatches "
+        f"{conv['cuda']}; launches row 1 {launches['sliding_conv1d']}, row 10 "
+        f"{launches['conv1d_bwd_dw']}; {smi}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return dict(launches=launches, step_ms=step_ms, losses=res["losses"],
+                device=smi)
+
+
 def unfolded(x, k, stride, kpad):
     """x (B, H, W, Cin) -> (B*oh*ow, kpad): each position's k*k*Cin
     values in (i, j, c) order, zero-padded to kpad."""
@@ -4865,7 +5078,7 @@ def main() -> int:
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
-    from repro_torch import configs, models, optim, quant
+    from repro_torch import configs, health, models, obs, optim, quant
     from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import build, ops
@@ -4937,6 +5150,11 @@ def main() -> int:
     phase_smoke_serve_llava_int8(serve, models, configs, map_tree, llava,
                                  quant, transformer)
     llava_train_cli = phase_llava_train_cli(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 42-43: the serve and train CLIs traced, on their run substrate ----------
+    serve_cli_obs = phase_serve_cli_obs(serve, configs, obs, health, ops, smi)
+    train_cli_obs = phase_train_cli_obs(train, obs, health, ops, smi)
     patch_train = phase_patch_embed_train(llava, transformer)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4965,7 +5183,9 @@ def main() -> int:
                "train_conv2d": patch_train["launches"],
                "baselines": baselines["launches"],
                "pool": pool_path["launches"],
-               "ssm_scan": scan_path["launches"]}
+               "ssm_scan": scan_path["launches"],
+               "serve_cli_obs": serve_cli_obs["launches"],
+               "train_cli_obs": train_cli_obs["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -5012,6 +5232,8 @@ def main() -> int:
                       "train_jamba": jamba_train, "serve_llava": llava_serve,
                       "train_conv2d": patch_train,
                       "train_llava_cli": llava_train_cli,
+                      "serve_cli_obs": serve_cli_obs,
+                      "train_cli_obs": train_cli_obs,
                       "baselines": baselines,
                       "pool": pool_path, "ssm_scan": scan_path}),
           flush=True)

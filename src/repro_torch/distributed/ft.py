@@ -6,7 +6,8 @@ fault-injection hook).
     ``threshold × EMA`` after warm-up is flagged and reported to a callback.
   * ``RestartPolicy``: a bounded exponential-backoff restart budget with
     deterministic seeded jitter.
-  * ``beat``: an atomically written liveness timestamp per host.
+  * ``beat``: an atomically written liveness timestamp per host, and
+    ``stale_hosts``: the hosts whose last beat is older than a timeout.
 """
 from __future__ import annotations
 
@@ -90,3 +91,29 @@ def beat(run_dir: str | Path, host_id: int):
     tmp = p.with_name(f".{p.name}.{os.getpid()}.tmp")
     tmp.write_text(str(time.time()))
     tmp.replace(p)
+
+
+def stale_hosts(run_dir: str | Path, *, timeout_s: float) -> list[int]:
+    """Host ids whose heartbeat is older than ``timeout_s``. An unparseable
+    or empty heartbeat file counts as stale (a torn write or a dying host
+    is what the monitor must flag, not crash on); files not named
+    ``host_<int>`` (tmp files) are ignored."""
+    hb_dir = Path(run_dir) / "heartbeats"
+    if not hb_dir.exists():
+        return []
+    now = time.time()
+    out = []
+    for p in hb_dir.iterdir():
+        if not p.name.startswith("host_"):
+            continue
+        try:
+            host = int(p.name.split("_", 1)[1])
+        except ValueError:
+            continue
+        try:
+            stale = now - float(p.read_text()) > timeout_s
+        except (OSError, ValueError):
+            stale = True  # a torn or unreadable beat is not provably alive
+        if stale:
+            out.append(host)
+    return sorted(out)

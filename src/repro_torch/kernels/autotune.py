@@ -3,6 +3,13 @@ logs of the two packages line up. No tuning cache is ported yet."""
 from __future__ import annotations
 
 
+def conv1d_key(B, L, Cin, Cout, K, stride, dtype, grad: bool = False) -> str:
+    """conv1d shape key (``dtype`` is the precision name for the quantized
+    kernel, e.g. "w8a8"); ``grad=True`` keys the backward entry."""
+    base = f"conv1d|B{B}|L{L}|Cin{Cin}|Cout{Cout}|K{K}|s{stride}|{dtype}"
+    return base + "|grad" if grad else base
+
+
 def conv2d_key(B, H, W, Cin, Cout, kh, kw, sh, sw, dtype,
                grad: bool = False) -> str:
     """conv2d shape key; ``grad=True`` keys the backward entry."""

@@ -62,10 +62,21 @@ reason the reference's measured quant-regression guard
 (``_quant_fallback_reason``, which acts only on tuned timings in an
 autotune cache) has no counterpart: with no cache, as in the reference
 with an empty one, a quantized call goes to the quant kernel.
+
+Each entry records its dispatch where it picks its kernel (``_dispatch``),
+as the reference's ``_ladder`` does: when tracing or
+``obs.enable_dispatch`` is armed, the kernel call runs in a
+``kernel.dispatch`` span and adds to ``dispatch.calls``,
+``dispatch.seconds_total`` and ``dispatch.est_hbm_bytes_total`` under its
+autotune shape key, with rung ``cuda`` for the kernel and ``plain`` for a
+CPU tensor's plain version. The reference dispatches at trace time, so its
+seconds are trace cost and its calls count traces; here every eager call
+passes through, and on the card the seconds are host launch time (nothing
+synchronises inside the span). Disarmed, the path is one flag check.
 """
 from __future__ import annotations
 
-import threading
+import time
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +89,9 @@ from repro_torch.kernels import (
     sliding_conv_quant, sliding_pool,
 )
 from repro_torch.kernels.sliding_conv1d import apply_activation
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import DispatchLog
 from repro_torch.quant import qconv
 from repro_torch.quant.apply import quantize_depthwise_weight, scale_reason
 
@@ -87,37 +101,47 @@ CONV2D_BACKENDS = CONV_BACKENDS  # conv2d takes the same five
 PRECISIONS = ("fp", "w8a8", "w8a16")
 
 
-class DispatchLog:
-    """Dedup-counted dispatch log: ``key → (last value, hit count)``, so a
-    long serving run grows state only per distinct shape key."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._entries: dict[str, list] = {}
-
-    def __setitem__(self, key: str, value) -> None:
-        with self._lock:
-            ent = self._entries.setdefault(key, [value, 0])
-            ent[0] = value
-            ent[1] += 1
-
-    def count(self, key: str) -> int:
-        ent = self._entries.get(key)
-        return 0 if ent is None else ent[1]
-
-    def items(self):
-        return [(k, v[0]) for k, v in self._entries.items()]
-
-    def clear(self) -> None:
-        with self._lock:
-            self._entries.clear()
-
-
-ATTN_DECODE_DISPATCH = DispatchLog()
+# named, as the reference's: its hits mirror into the obs registry, so the
+# report CLI rebuilds the serve CLI's ``attn-decode: ... calls=N`` lines
+ATTN_DECODE_DISPATCH = DispatchLog("attn_decode")
 CONV1D_DW_DISPATCH = DispatchLog()
 CONV2D_DISPATCH = DispatchLog()
 CONV2D_QUANT_DISPATCH = DispatchLog()
 POOL1D_DISPATCH = DispatchLog()
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    """The dtype field of a shape key: "float32", "bfloat16", ..."""
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _nbytes(*ts) -> int:
+    """Bytes of the tensors among ``ts``, each counted once (the
+    reference's ``est_hbm_bytes`` over operands and result)."""
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def _dispatch(site: str, key, operands: tuple, run):
+    """One entry point's kernel call, ``run()``. Disarmed (neither tracing
+    nor the dispatch metrics on) that is all it does. Armed, the call runs
+    in a ``kernel.dispatch`` span (site, key, rung) and is counted in
+    ``dispatch.calls``, ``dispatch.seconds_total`` and
+    ``dispatch.est_hbm_bytes_total`` (``operands`` and the result) under
+    its autotune shape ``key``: a string, or a callable that gives it,
+    evaluated only when armed. No synchronise: on the card the seconds are
+    the host's launch time."""
+    if not (obs_trace.TRACING or obs_metrics.DISPATCH_ON):
+        return run()
+    key = key() if callable(key) else key
+    rung = "cuda" if operands[0].device.type == "cuda" else "plain"
+    t0 = time.perf_counter()
+    with obs_trace.span("kernel.dispatch", site=site, key=key, rung=rung):
+        out = run()
+    dt = time.perf_counter() - t0
+    obs_metrics.count_dispatch(dt, float(_nbytes(*operands, out)),
+                               site=site, key=key, rung=rung)
+    return out
 
 
 def _pad1d(x, padding, k, dilation=1):
@@ -193,10 +217,14 @@ def _conv1d_quant(x, w, *, stride, padding, dilation, backend, bias,
                       activation=activation)
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision)
-    return sliding_conv_quant.conv1d_quant(
-        x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
-        mode=precision, stride=stride, activation=activation,
-        out_dtype=out_dtype)
+    return _dispatch(
+        site, lambda: autotune.conv1d_key(*x.shape, w.shape[2], w.shape[0],
+                                          stride, precision),
+        (x, w, bias, w_scale, x_scale, out_scale),
+        lambda: sliding_conv_quant.conv1d_quant(
+            x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+            mode=precision, stride=stride, activation=activation,
+            out_dtype=out_dtype))
 
 
 def epilogue_unfused(y, bias, activation):
@@ -339,6 +367,21 @@ def _needs_grad(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
+def _conv1d_sliding(x, w, bias, stride, activation, backend):
+    """The sliding backends of ``conv1d`` on padded ``x``: the kernel (its
+    plain version on a CPU tensor) for ``sliding_pallas``, and for
+    ``sliding`` on a CUDA tensor; ``core.conv``'s tap loop with an unfused
+    epilogue for ``sliding`` on a CPU tensor."""
+    if backend == "sliding" and x.device.type != "cuda":
+        y = core_conv.conv1d_sliding(x, w, stride=stride, padding="VALID")
+        return epilogue_unfused(y, bias, activation)
+    if _needs_grad(x, w, bias):
+        return Conv1dSliding.apply(x, w, bias, stride, activation)
+    # nothing to differentiate (serving): the kernel saves no residual
+    return sliding_conv1d.conv1d_sliding(x, w, bias, stride=stride,
+                                         activation=activation)
+
+
 def conv1d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -384,17 +427,13 @@ def conv1d(
             else "im2col_gemm")
         return epilogue_unfused(y, bias, activation)
     x = _pad1d(x, padding, w.shape[0])
-    if backend == "sliding_pallas" or (backend == "sliding"
-                                       and x.device.type == "cuda"):
-        if _needs_grad(x, w, bias):
-            return Conv1dSliding.apply(x, w, bias, stride, activation)
-        # nothing to differentiate (serving): the kernel saves no residual
-        return sliding_conv1d.conv1d_sliding(
-            x, w, bias, stride=stride, activation=activation
-        )
-    if backend == "sliding":
-        y = core_conv.conv1d_sliding(x, w, stride=stride, padding="VALID")
-    elif backend == "im2col_gemm":
+    if backend.startswith("sliding"):
+        return _dispatch(
+            "conv1d", lambda: autotune.conv1d_key(
+                *x.shape, w.shape[2], w.shape[0], stride, _dtype_name(x)),
+            (x, w, bias),
+            lambda: _conv1d_sliding(x, w, bias, stride, activation, backend))
+    if backend == "im2col_gemm":
         y = im2col_gemm.conv1d_im2col_fused(x, w, stride=stride)
     else:
         y = im2col_gemm.conv1d_im2col_hbm(x, w, stride=stride)
@@ -427,14 +466,18 @@ def conv1d_depthwise(
     x = _pad1d(x, padding, w.shape[0])
     impl = "cuda" if x.device.type == "cuda" else "plain"
     if precision == "fp":
-        kind = str(x.dtype).removeprefix("torch.")
-        CONV1D_DW_DISPATCH[autotune.conv1d_dw_key(
-            *x.shape, w.shape[0], stride, kind)] = impl
-        if _needs_grad(x, w, bias):
-            return Conv1dDepthwise.apply(x, w, bias, stride, activation)
-        # nothing to differentiate (serving): the kernel saves no residual
-        return sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride,
-                                               activation=activation)
+        key = autotune.conv1d_dw_key(*x.shape, w.shape[0], stride,
+                                     _dtype_name(x))
+        CONV1D_DW_DISPATCH[key] = impl
+
+        def run():
+            if _needs_grad(x, w, bias):
+                return Conv1dDepthwise.apply(x, w, bias, stride, activation)
+            # nothing to differentiate (serving): the kernel saves no residual
+            return sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride,
+                                                   activation=activation)
+
+        return _dispatch("conv1d_depthwise", key, (x, w, bias), run)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
     if _needs_grad(x, w, bias):
@@ -447,12 +490,14 @@ def conv1d_depthwise(
                                 bias=bias, activation=activation)
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision, quantize_depthwise_weight)
-    CONV1D_DW_DISPATCH[autotune.conv1d_dw_key(
-        *x.shape, w.shape[0], stride, precision)] = impl
-    return sliding_conv_quant.conv1d_depthwise_quant(
-        x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
-        mode=precision, stride=stride, activation=activation,
-        out_dtype=out_dtype)
+    key = autotune.conv1d_dw_key(*x.shape, w.shape[0], stride, precision)
+    CONV1D_DW_DISPATCH[key] = impl
+    return _dispatch(
+        site, key, (x, w, bias, w_scale, x_scale, out_scale),
+        lambda: sliding_conv_quant.conv1d_depthwise_quant(
+            x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+            mode=precision, stride=stride, activation=activation,
+            out_dtype=out_dtype))
 
 
 def _bwd_tile2d(x, w, stride, explicit_h, explicit_w):
@@ -462,7 +507,7 @@ def _bwd_tile2d(x, w, stride, explicit_h, explicit_w):
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
     key = autotune.conv2d_key(B, H, W, Cin, Cout, kh, kw, *stride,
-                              str(x.dtype).removeprefix("torch."), grad=True)
+                              _dtype_name(x), grad=True)
     CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
     return (sliding_conv2d.DEFAULT_TILE_H if explicit_h is None else explicit_h,
             sliding_conv2d.DEFAULT_TILE_W if explicit_w is None else explicit_w)
@@ -495,10 +540,12 @@ def _conv2d_quant(x, w, *, stride, padding, dilation, backend, bias,
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision)
     CONV2D_QUANT_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
-    return sliding_conv_quant.conv2d_quant(
-        x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
-        mode=precision, stride=stride, activation=activation,
-        out_dtype=out_dtype, **tiles)
+    return _dispatch(
+        site, key, (x, w, bias, w_scale, x_scale, out_scale),
+        lambda: sliding_conv_quant.conv2d_quant(
+            x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
+            mode=precision, stride=stride, activation=activation,
+            out_dtype=out_dtype, **tiles))
 
 
 def conv2d(
@@ -571,17 +618,21 @@ def conv2d(
         return epilogue_unfused(y, bias, activation)
     B, H, W, Cin = x.shape
     key = autotune.conv2d_key(B, H, W, Cin, w.shape[3], kh, kw, *stride,
-                              str(x.dtype).removeprefix("torch."))
+                              _dtype_name(x))
     CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
-    if _needs_grad(x, w, bias):
-        bth, btw = _bwd_tile2d(x, w, stride, bwd_tile_h, bwd_tile_w)
-        bwd_tiles = dict(tile_h=bth, tile_w=btw, cin_block=cin_block,
-                         cout_block=cout_block)
-        return Conv2dSliding.apply(x, w, bias, stride, activation, tiles,
-                                   bwd_tiles)
-    # nothing to differentiate (serving): the kernel saves no residual
-    return sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
-                                         activation=activation, **tiles)
+
+    def run():
+        if _needs_grad(x, w, bias):
+            bth, btw = _bwd_tile2d(x, w, stride, bwd_tile_h, bwd_tile_w)
+            bwd_tiles = dict(tile_h=bth, tile_w=btw, cin_block=cin_block,
+                             cout_block=cout_block)
+            return Conv2dSliding.apply(x, w, bias, stride, activation, tiles,
+                                       bwd_tiles)
+        # nothing to differentiate (serving): the kernel saves no residual
+        return sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
+                                             activation=activation, **tiles)
+
+    return _dispatch("conv2d", key, (x, w, bias), run)
 
 
 def attention_decode(
@@ -604,11 +655,13 @@ def attention_decode(
     quantized = k.dtype == torch.int8
     if quantized and (k_scale is None or v_scale is None):
         raise ValueError("int8 KV cache needs its k_scale/v_scale rows")
-    kind = "int8" if quantized else str(k.dtype).removeprefix("torch.")
+    kind = "int8" if quantized else _dtype_name(k)
     key = autotune.attn_dec_key(B, S, KV, G, D, kind)
     ATTN_DECODE_DISPATCH[key] = "cuda" if q.device.type == "cuda" else "plain"
-    out = attn_dec.decode_attention(q.reshape(B, KV, G, D), k, v, lengths,
-                                    k_scale, v_scale)
+    out = _dispatch(
+        "attention_decode", key, (q, k, v, k_scale, v_scale),
+        lambda: attn_dec.decode_attention(q.reshape(B, KV, G, D), k, v,
+                                          lengths, k_scale, v_scale))
     return out.reshape(B, H, D)
 
 
@@ -677,9 +730,13 @@ def pool1d(x: torch.Tensor, *, window: int, op: str = "sum",
     through ``Pool1d``. ``method`` picks the max-pool forward evaluation
     ("scan" | "shift"); None resolves it by ``_pool_method``."""
     resolved = _pool_method(x, window, op, method)
-    POOL1D_DISPATCH[autotune.pool1d_key(
-        *x.shape, window, op, str(x.dtype).removeprefix("torch."))] = (
-        "cuda" if x.device.type == "cuda" else "plain")
-    if _needs_grad(x):
-        return Pool1d.apply(x, window, op, resolved)
-    return sliding_pool.sliding_pool(x, window=window, op=op, method=resolved)
+    key = autotune.pool1d_key(*x.shape, window, op, _dtype_name(x))
+    POOL1D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
+
+    def run():
+        if _needs_grad(x):
+            return Pool1d.apply(x, window, op, resolved)
+        return sliding_pool.sliding_pool(x, window=window, op=op,
+                                         method=resolved)
+
+    return _dispatch("pool1d", key, (x,), run)

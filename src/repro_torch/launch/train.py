@@ -34,10 +34,16 @@ both and says so on a ``[train]`` line. The vlm family (llava) trains on
 tokens and the patch embeddings of ``build_batch_extras``, drawn per step
 as the reference draws them.
 
-Not ported yet: span tracing (``--trace``, which the CLI rejects), the
-runtime demotion and probation machinery of the reference's step loop (a
-failing kernel raises here), and the obs metrics registry and its
-artifacts.
+The loop records the reference's spans (``train.step``, ``train.resume``,
+``train.ckpt_save``) while tracing is armed (``--trace`` or
+``REPRO_TRACE=1``), and its metrics always (``train.steps``,
+``train.tokens``, ``train.step_s``, ``train.tokens_per_s``, ``train.loss``,
+``train.ckpt_save_s``, ``train.resumes``); the run ends by writing
+``metrics.json``, ``metrics.prom`` and, under ``--trace``, ``trace.json``
+in ``--run-dir`` (``python -m repro_torch.obs report`` reads them back).
+
+Not ported yet: the runtime demotion and probation machinery of the
+reference's step loop (a failing kernel raises here).
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import SyntheticLMData, make_batch_iterator
@@ -68,7 +74,7 @@ _TAG_PATCHES = 1_000_033
 
 
 def log(msg: str) -> None:
-    print(f"[train] {msg}", flush=True)
+    obs.info("train", msg)
 
 
 def step_stream(seed: int, step: int, tag: int) -> np.random.Generator:
@@ -126,16 +132,19 @@ def train_loop(args) -> dict:
     state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
     # resume from the newest checkpoint that validates: a torn one is
     # quarantined and the previous intact one is taken
+    reg = obs.REGISTRY
     start = ckpt.latest_valid_step()
     if start is not None and not args.no_resume:
-        state = ckpt.restore(start, state)
+        with obs.span("train.resume", step=start):
+            state = ckpt.restore(start, state)
         start_step = start + 1
+        reg.counter("train.resumes").inc(1.0, arch=cfg.name)
         log(f"resumed from step {start}")
     else:
         start_step = 0
 
-    wd = StepWatchdog(on_straggler=lambda s, t, ema: print(
-        f"[ft] straggler at step {s}: {t:.2f}s vs EMA {ema:.2f}s", flush=True))
+    wd = StepWatchdog(on_straggler=lambda s, t, ema: obs.warn(
+        "ft", f"straggler at step {s}: {t:.2f}s vs EMA {ema:.2f}s"))
     losses = []
     try:
         for step, host_batch in make_batch_iterator(data, start_step=start_step):
@@ -153,24 +162,44 @@ def train_loop(args) -> dict:
             batch.update({k: torch.from_numpy(v).to(device)
                           for k, v in extras.items()})
             t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])  # waits for the step
+            with obs.span("train.step", step=step):
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])  # waits for the step
             dt = time.perf_counter() - t0
             wd.observe(step, dt)
             beat(args.run_dir, host_id=0)
             losses.append(loss)
+            toks = args.batch * args.seq
+            reg.counter("train.steps").inc(1.0, arch=cfg.name)
+            reg.counter("train.tokens").inc(float(toks), arch=cfg.name)
+            reg.histogram("train.step_s").observe(dt, arch=cfg.name)
+            reg.gauge("train.tokens_per_s").set(toks / dt if dt > 0 else 0.0,
+                                                arch=cfg.name)
+            reg.gauge("train.loss").set(loss, arch=cfg.name)
             if step % args.log_every == 0:
                 log(f"step {step} loss {loss:.4f} "
                     f"gnorm {float(metrics['grad_norm']):.3f} "
                     f"lr {float(metrics['lr']):.2e} ({dt:.2f}s)")
             if args.ckpt_every and step > 0 and step % args.ckpt_every == 0:
-                ckpt.save(step, state, blocking=False)
+                _save(ckpt, step, state, cfg.name, blocking=False)
             if args.fail_at is not None and step == args.fail_at:
                 raise RuntimeError(f"injected failure at step {step}")
-        ckpt.save(args.steps - 1, state, blocking=True)
+        _save(ckpt, args.steps - 1, state, cfg.name, blocking=True)
     finally:
         ckpt.wait()  # an async save in flight lands before the run ends
+    if args.run_dir:
+        obs.write_artifacts(args.run_dir)
     return {"losses": losses, "final_loss": losses[-1] if losses else None}
+
+
+def _save(ckpt, step: int, state: dict, arch: str, *, blocking: bool) -> None:
+    """One checkpoint save in a ``train.ckpt_save`` span, its host time
+    into ``train.ckpt_save_s`` (an async save: the time to hand it off)."""
+    t0 = time.perf_counter()
+    with obs.span("train.ckpt_save", step=step, blocking=blocking):
+        ckpt.save(step, state, blocking=blocking)
+    obs.REGISTRY.histogram("train.ckpt_save_s").observe(
+        time.perf_counter() - t0, arch=arch)
 
 
 def main(argv=None):
@@ -202,10 +231,12 @@ def main(argv=None):
     ap.add_argument("--max-restarts", type=int, default=0,
                     help="auto-restart budget after crashes")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--trace", action="store_true", help="not ported yet")
+    ap.add_argument("--trace", action="store_true",
+                    help="arm span tracing (as REPRO_TRACE=1); trace.json "
+                         "is written under --run-dir")
     args = ap.parse_args(argv)
     if args.trace:
-        ap.error("--trace is not ported yet")
+        obs.enable()
 
     policy = RestartPolicy(max_restarts=args.max_restarts)
     while True:
@@ -217,8 +248,8 @@ def main(argv=None):
             delay = policy.next_backoff()
             if delay is None:
                 raise
-            print(f"[ft] {e}; restarting in {delay:.1f}s "
-                  f"({policy.restarts}/{policy.max_restarts})", flush=True)
+            obs.warn("ft", f"{e}; restarting in {delay:.1f}s "
+                           f"({policy.restarts}/{policy.max_restarts})")
             time.sleep(min(delay, 2.0))  # capped, as the reference does
             args.fail_at = None  # the injected fault is transient
 

@@ -83,3 +83,14 @@ def test_pool_and_scan_slice_modules_are_checked():
                 "kernels/ssm_scan.py", "kernels/ops.py",
                 "kernels/autotune.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_obs_slice_modules_are_checked():
+    """The observability slice's modules are among the files checked
+    above."""
+    checked = set(_port_files())
+    for rel in ("obs/__init__.py", "obs/__main__.py", "obs/logs.py",
+                "obs/metrics.py", "obs/names.py", "obs/report.py",
+                "obs/trace.py", "health.py", "launch/serve.py",
+                "launch/train.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
