@@ -270,11 +270,35 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      sliding_pallas --trace``, its launches counted from zero: rows 1 and
      10 launched, three ``train.step`` spans, ``train.step_s`` count 3, a
      finite ``train.loss``, the report's train lines.
+ 44. rows 2 and 2b against their plain versions at qwen3-moe's serving
+     shape (KV 4, G 8, D 128; bf16 and int8 caches) and row 2 at that of
+     llama3-8b, granite-8b and phi3.5-moe (KV 8, G 4, D 128; bf16), at
+     the serving lengths; then smoke serve of the remaining decoders, card
+     vs CPU: gemma-2b, llama3-8b, granite-8b, qwen3-moe-30b-a3b and
+     phi3.5-moe-42b-a6.6b at their smoke configs (float32), one set of weights each: equal greedy
+     tokens, prefill logits within tolerance, row 2 launched once a layer
+     a decode step on the card;
+ 45. qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts
+     top-8, bf16, drawn on the card in float32 draws of at most
+     ``sharding.MAX_DRAW`` elements, rescaled to std 1/sqrt(input
+     width)): its exact parameter count, then one request (B=4, P=256, 32
+     tokens, greedy) fp and the same request with an int8 cache on the same weights, rows 2
+     and 2b at 48 x 31 launches; init peak, the request's peak memory
+     (under the card's), TTFT, decode step, tokens/s, busy shares, cache
+     bytes, and how many of the T*K expert copies the capacity dropped in
+     a prefill and in a decode step;
+ 46. gemma-2b, llama3-8b, granite-8b whole and phi3.5-moe-42b-a6.6b cut to
+     24 of its 32 layers, at their published widths, one after another
+     (each freed before the next): the exact parameter count and one fp
+     request each as in phase 45, row 2 at layers x 31 launches; and,
+     among the timings after phase 40, row 2 at gemma's serving shape (B=4,
+     S=288, one KV head, G=8, D=256, bf16 cache) beside its plain
+     version, SDPA (``enable_gqa``) and the bound.
 
-Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 33, 34 with the
-main path of the baselines, 36-38, then the timings (6, 10, 15, 19, 23,
-27, 32, 35, 39, 40): every kernel is held to its plain version before a
-path runs it. Phases 42 and 43 reset the process-global obs registry,
+Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 44-46, 33, 34
+with the main path of the baselines, 36-38, then the timings (6, 10, 15,
+19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every kernel is held
+to its plain version before a path runs it. Phases 42 and 43 reset the process-global obs registry,
 trace ring, health record and attention log before they run, and disarm
 tracing and reset them again after, so no later phase runs armed.
 
@@ -5064,6 +5088,281 @@ def report_redesigned(kernels) -> None:
                 f"library {lib}, bound {bound:.5f}")
 
 
+# ---------------------------------------------------------------------------
+# the remaining decoders: gemma-2b, llama3-8b, granite-8b, qwen3-moe, phi3.5-moe
+# ---------------------------------------------------------------------------
+
+MOE = "qwen3-moe-30b-a3b"
+DECODERS = ("gemma-2b", "llama3-8b", "granite-8b", MOE, "phi3.5-moe-42b-a6.6b")
+# phi3.5-moe whole is 83.7 GB in bf16: 24 of its 32 layers fit the card
+DECODER_CUT = {"phi3.5-moe-42b-a6.6b": dict(num_layers=24)}
+# exact parameter counts at the served depths (param_defs)
+DECODER_PARAMS = {MOE: 30_532_122_624,
+                  "phi3.5-moe-42b-a6.6b": 31_470_063_616,
+                  "llama3-8b": 8_030_261_248,
+                  "granite-8b": 8_053_362_688,
+                  "gemma-2b": 2_506_172_416}
+# row 2 at gemma-2b's serving shape: one KV head of D 256 for 8 queries
+ATTN_GEMMA = dict(B=4, S=288, KV=1, G=8, D=256)
+# rows 2 and 2b at qwen3-moe's serving shape, and row 2 at the shape of
+# llama3-8b, granite-8b and phi3.5-moe (8 KV heads of 4 queries)
+ATTN_QWEN_MOE = dict(B=4, S=288, KV=4, G=8, D=128)
+ATTN_GQA4 = dict(B=4, S=288, KV=8, G=4, D=128)
+# cache lengths a request of P 256 and 32 tokens gives its decode steps
+DECODER_LENS = [257, 266, 279, 287]
+
+
+def phase_attention_decoder_kernels(ad) -> dict:
+    """44: rows 2 (bf16 q and cache) and 2b (int8 cache, bf16 q) against
+    their plain versions at the decoders' serving shapes, as jamba's shape
+    is held; row 2 at gemma's shape is held where it is timed."""
+    errs = {}
+    for key, shape, seed in (("qwen3_moe", ATTN_QWEN_MOE, 520),
+                             ("gqa4", ATTN_GQA4, 530)):
+        q, k, v, ln = attn_inputs(seed, **shape, dtype=torch.bfloat16,
+                                  lengths=DECODER_LENS)
+        errs[f"attention_decode_{key}"] = close(
+            ad.decode_attention(q, k, v, ln),
+            ad.attention_decode_plain(q, k, v, ln), BTOL,
+            f"attention bf16 {key} shape")
+    args = attn_int8_inputs(540, **ATTN_QWEN_MOE, q_dtype=torch.bfloat16,
+                            lengths=DECODER_LENS)
+    errs["attention_decode_int8_qwen3_moe"] = close(
+        ad.decode_attention(*args), ad.attention_decode_plain(*args), TOL,
+        "attention int8 qwen3_moe shape")
+    log(f"attention at the decoders' shapes, lengths {DECODER_LENS}: "
+        f"qwen3-moe {ATTN_QWEN_MOE} bf16 max|err| "
+        f"{errs['attention_decode_qwen3_moe']:.3e}, int8 max|err| "
+        f"{errs['attention_decode_int8_qwen3_moe']:.3e}; {ATTN_GQA4} bf16 "
+        f"max|err| {errs['attention_decode_gqa4']:.3e}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_smoke_serve_decoders(serve, models, configs, map_tree) -> None:
+    """44: each decoder's smoke config (float32), one set of weights on the
+    CPU and on the card: equal greedy tokens, prefill logits within TOL,
+    row 2 once a layer a decode step on the card."""
+    for arch in DECODERS:
+        cfg = configs.smoke_config(configs.get_config(arch))
+        model = models.build_model(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(
+            rng.integers(2, cfg.vocab_size, size=(SMOKE["B"], SMOKE["P"])
+                         ).astype(np.int32))
+        cache_len = SMOKE["P"] + SMOKE["gen"]
+        out = {}
+        for dev, params in (("cpu", cpu_params),
+                            (DEV, map_tree(lambda t: t.to(DEV), cpu_params))):
+            with torch.no_grad():
+                logits, _ = serve.prefill_cache(model, params, prompts.to(dev),
+                                                cache_len=cache_len)
+            zero_launches()
+            toks, _ = serve.generate(model, params, prompts.to(dev),
+                                     gen_len=SMOKE["gen"], cache_len=cache_len)
+            out[dev] = (logits.cpu(), toks.cpu(), read_launches())
+        want = only(attention_decode=cfg.num_layers * (SMOKE["gen"] - 1))
+        if out[DEV][2] != want:
+            raise AssertionError(f"{arch} smoke card launches {out[DEV][2]}, "
+                                 f"expected {want}")
+        err = close(out[DEV][0], out["cpu"][0], TOL,
+                    f"{arch} smoke prefill logits")
+        if not torch.equal(out[DEV][1], out["cpu"][1]):
+            raise AssertionError(f"{arch} smoke greedy tokens differ: card "
+                                 f"{out[DEV][1].tolist()} vs CPU "
+                                 f"{out['cpu'][1].tolist()}")
+        log(f"{arch} smoke serve {SMOKE}: greedy tokens equal on card and "
+            f"CPU {out[DEV][1].tolist()}; prefill logits max|err| {err:.3e}")
+
+
+@contextlib.contextmanager
+def counting_drops(moe_lib, cfg):
+    """Yield a list that receives (copies, dropped) for each MoE layer run
+    in the block: of the T*K expert copies the router makes, those past an
+    expert's capacity (the first ``cap`` of each expert in token order keep
+    their slot, as ``moe._ep_group`` places them)."""
+    seen: list = []
+    route = moe_lib._route
+
+    def spy(xt, router, k):
+        gates, ids, aux = route(xt, router, k)
+        T, E = xt.shape[0], router.shape[1]
+        cap = int(max(1, (T * k / E) * cfg.capacity_factor))
+        per = torch.bincount(ids.reshape(-1), minlength=E)
+        seen.append((T * k, int((per - cap).clamp(min=0).sum())))
+        return gates, ids, aux
+
+    moe_lib._route = spy
+    try:
+        yield seen
+    finally:
+        moe_lib._route = route
+
+
+def _decoder_init(models, configs, arch, iter_leaves):
+    """A decoder at its published widths (cut per ``DECODER_CUT``), bf16,
+    drawn on the card in bounded draws (``sharding.MAX_DRAW``) and
+    rescaled to std 1/sqrt(input width); its exact parameter count
+    checked."""
+    from repro_torch.distributed.sharding import MAX_DRAW
+
+    cfg = configs.get_config(arch).replace(**DECODER_CUT.get(arch, {}),
+                                           attn_decode="fused")
+    model = models.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    if n_params != DECODER_PARAMS[arch]:
+        raise AssertionError(f"{arch}: {n_params} params, expected "
+                             f"{DECODER_PARAMS[arch]}")
+    cut = f" cut to {DECODER_CUT[arch]}" if arch in DECODER_CUT else ""
+    experts = (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
+               if cfg.num_experts else "")
+    log(f"full width {arch}{cut}: {n_params} params ({cfg.param_dtype}), "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads "
+        f"over {cfg.num_kv_heads} of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}{experts}, vocab {cfg.vocab_size}; init in draws of <= "
+        f"{MAX_DRAW} float32 "
+        f"elements, rescaled to std 1/sqrt(input width): {init_s:.2f}s, peak "
+        f"{init_peak:.2f} GB")
+    return model, params, dict(n_params=n_params, init_s=init_s,
+                               init_peak_mem_gb=init_peak)
+
+
+def _decoder_prompts(cfg):
+    rng = np.random.default_rng(0)
+    return torch.as_tensor(
+        rng.integers(2, cfg.vocab_size, size=(SERVE["B"], SERVE["P"])),
+        dtype=torch.int32, device=DEV)
+
+
+def phase_full_serve_moe(serve, models, configs, iter_leaves, moe_lib) -> dict:
+    """45: qwen3-moe-30b-a3b at full width and depth, one request fp, the
+    kernels against their plain versions on one decode step, the experts'
+    capacity drops in a prefill and a decode step, then the same request
+    with an int8 cache on the same weights."""
+    model, params, res = _decoder_init(models, configs, MOE, iter_leaves)
+    cfg = model.cfg
+    prompts = _decoder_prompts(cfg)
+    gen, steps = SERVE["gen"], cfg.num_layers * (SERVE["gen"] - 1)
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    fp = _serve_request(serve, model, params, prompts, gen,
+                        only(attention_decode=steps), f"{MOE} full-width fp")
+    cache_len = fp["cache_len"]
+    with torch.no_grad():
+        with counting_drops(moe_lib, cfg) as pre:
+            _, cache = serve.prefill_cache(model, params, prompts,
+                                           cache_len=cache_len)
+        tok = torch.full((SERVE["B"], 1), 2, dtype=torch.int32, device=DEV)
+        with counting_drops(moe_lib, cfg) as dec:
+            step, _ = model.decode_step(params, cache, tok, SERVE["P"])
+        with plain_kernels():
+            plain, _ = model.decode_step(params, cache, tok, SERVE["P"])
+    del cache
+    rel = ((step - plain).abs().max() / plain.abs().max()).item()
+    agree = (step.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"{MOE} full width, kernels vs plain versions on the card: decode-"
+        f"step logits max |diff| {rel:.3e} of max, argmax agreement "
+        f"{agree:.2f}")
+    drops = {name: dict(copies=sum(c for c, _ in seen),
+                        dropped=sum(d for _, d in seen), layers=len(seen))
+             for name, seen in (("prefill", pre), ("decode_step", dec))}
+    for name, d in drops.items():
+        if d["layers"] != cfg.num_layers:
+            raise AssertionError(f"{MOE} {name}: {d['layers']} MoE layers")
+        log(f"{MOE} {name}: the capacity dropped {d['dropped']} of "
+            f"{d['copies']} expert copies over {d['layers']} layers "
+            f"({100 * d['dropped'] / d['copies']:.2f}%)")
+    model8 = models.build_model(cfg.replace(kv_quant="int8"))
+    int8 = _serve_request(serve, model8, params, prompts, gen,
+                          only(attention_decode_int8=steps),
+                          f"{MOE} full-width int8 cache")
+    int8["kv_cache_bytes_fp"] = fp["kv_cache_bytes"]
+    for what, r in (("fp", fp), ("int8", int8)):
+        if r["peak_mem_gb"] >= total:
+            raise AssertionError(f"{MOE} {what} peak {r['peak_mem_gb']:.2f} "
+                                 f"GB of the card's {total:.2f} GB")
+    log(f"{MOE} int8 kv-cache bytes {int8['kv_cache_bytes']} (fp "
+        f"{fp['kv_cache_bytes']}, ratio "
+        f"{fp['kv_cache_bytes'] / int8['kv_cache_bytes']:.2f}x); card memory "
+        f"{total:.2f} GB")
+    res.update(fp=fp, int8=int8, drops=drops, plain_rel_diff=rel,
+               plain_argmax_agreement=agree)
+    return res
+
+
+def phase_full_serve_decoders(serve, models, configs, iter_leaves) -> dict:
+    """46: the other four decoders at full width, one after another, one fp
+    request each; each model freed before the next is drawn."""
+    out = {}
+    for arch in DECODERS:
+        if arch == MOE:
+            continue
+        model, params, res = _decoder_init(models, configs, arch, iter_leaves)
+        cfg = model.cfg
+        res.update(_serve_request(
+            serve, model, params, _decoder_prompts(cfg), SERVE["gen"],
+            only(attention_decode=cfg.num_layers * (SERVE["gen"] - 1)),
+            f"{arch} full-width fp"))
+        out[arch] = res
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_attention_gemma_times(ad) -> dict:
+    """46: row 2 at gemma-2b's serving shape (``ATTN_GEMMA``, bf16 q and
+    cache, the lengths of the request's middle decode step) beside its
+    plain version, SDPA (``enable_gqa``) and the bound; caches cycled past
+    the L2, timed as in phase 6."""
+    B, S, KV, G, D = (ATTN_GEMMA[n] for n in ("B", "S", "KV", "G", "D"))
+    lens = [272] * B
+    n_sets = max(2, -(-64 * 2 ** 20 // (4 * B * S * KV * D)))
+    sets = []
+    for i in range(n_sets):
+        q, k, v, ln = attn_inputs(500 + i, **ATTN_GEMMA, dtype=torch.bfloat16,
+                                  lengths=lens)
+        mask = (torch.arange(S, device=DEV)[None, :]
+                < ln[:, None])[:, None, None, :]
+        sets.append((q, k, v, ln, mask))
+
+    def library(q, k, v, ln, mask):
+        return F.scaled_dot_product_attention(
+            q.reshape(B, KV * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    want = ad.attention_decode_plain(*sets[0][:-1])
+    close(library(*sets[0]).float().reshape(B, KV, G, D), want, BTOL,
+          "library attention gemma shape")
+    err = close(ad.decode_attention(*sets[0][:-1]), want, BTOL,
+                "attention gemma shape")
+    nbytes = (2 * B * KV * G * D + 2 * 2 * sum(lens) * KV * D + 4 * B
+              + 4 * B * KV * G * D)
+    a_ops = 4 * G * D * KV * sum(lens)
+    bms, by = bound_ms(nbytes, a_ops, torch.bfloat16)
+    out = dict(timings(
+        cycling(lambda *a: ad.decode_attention(*a[:-1]), sets),
+        cycling(lambda *a: ad.attention_decode_plain(*a[:-1]), sets),
+        cycling(library, sets)),
+        bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops, max_abs_err=err,
+        per=f"launch: B={B} S={S} KV={KV} G={G} D={D}, bf16 q, bf16 cache, "
+            f"lengths {lens[0]}; library: SDPA bf16, enable_gqa")
+    log(f"time attention_decode gemma {ATTN_GEMMA} lengths {lens[0]}: "
+        f"{json.dumps(out)}")
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -5091,7 +5390,7 @@ def main() -> int:
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.launch import serve, train
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models import layers, llava, mamba, transformer
+    from repro_torch.models import layers, llava, mamba, moe, transformer
 
     repro_torch.resolve_device("cuda")  # full float32: TF32 off
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5158,6 +5457,13 @@ def main() -> int:
     patch_train = phase_patch_embed_train(llava, transformer)
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 44-46: the remaining decoders, the MoE at full width ------------------
+    errs.update(phase_attention_decoder_kernels(ad))
+    phase_smoke_serve_decoders(serve, models, configs, map_tree)
+    moe_serve = phase_full_serve_moe(serve, models, configs, iter_leaves, moe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    decoders = phase_full_serve_decoders(serve, models, configs, iter_leaves)
     # -- 33-34: the GEMM-convolution baselines, and their main path -------------
     errs.update(phase_im2col_kernels(ig, ops, quant))
     phase_smoke_serve_im2col(serve, models, configs, map_tree)
@@ -5185,7 +5491,11 @@ def main() -> int:
                "pool": pool_path["launches"],
                "ssm_scan": scan_path["launches"],
                "serve_cli_obs": serve_cli_obs["launches"],
-               "train_cli_obs": train_cli_obs["launches"]}
+               "train_cli_obs": train_cli_obs["launches"],
+               "serve_qwen3_moe": moe_serve["fp"]["launches"],
+               "serve_qwen3_moe_int8": moe_serve["int8"]["launches"],
+               **{f"serve_{arch}": r["launches"]
+                  for arch, r in decoders.items()}}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = phase_times(sc, ad, launches, errs)
     kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
@@ -5211,6 +5521,7 @@ def main() -> int:
     kernels += phase_pool_times(sp, ss, mamba, launches, errs)
     # -- 40: row 2 over a float32 cache ------------------------------------------------
     attn_f32 = phase_attention_f32_times(ad)
+    attn_gemma = phase_attention_gemma_times(ad)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -5225,6 +5536,12 @@ def main() -> int:
             row["llava_shape"] = attn_int8_llava
         if row["name"] == "attention_decode":
             row["f32_cache"] = attn_f32
+            row["gemma_shape"] = attn_gemma
+            row["decoder_shapes_max_abs_err"] = {
+                k: errs[f"attention_decode_{k}"] for k in ("qwen3_moe", "gqa4")}
+        if row["name"] == "attention_decode_int8":
+            row["decoder_shapes_max_abs_err"] = {
+                "qwen3_moe": errs["attention_decode_int8_qwen3_moe"]}
     report_redesigned(kernels)
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels, "serve": full, "train": trained,
@@ -5234,6 +5551,8 @@ def main() -> int:
                       "train_llava_cli": llava_train_cli,
                       "serve_cli_obs": serve_cli_obs,
                       "train_cli_obs": train_cli_obs,
+                      "serve_qwen3_moe": moe_serve,
+                      "serve_decoders": decoders,
                       "baselines": baselines,
                       "pool": pool_path, "ssm_scan": scan_path}),
           flush=True)

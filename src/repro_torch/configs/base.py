@@ -1,8 +1,10 @@
 """Model configuration: ``ModelConfig``, ``smoke_config`` and ``get_config``.
 
 A copy of ``repro.configs.base`` with the same field names and defaults, so
-one configuration describes the same model in both packages. Only the
-architectures this package has ported resolve in ``get_config``.
+one configuration describes the same model in both packages, and one field
+of the port's own: ``embed_scale``, which the reference derives from the
+config's name. Only the architectures this package has ported resolve in
+``get_config``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ class ModelConfig:
     activation: str = "silu"  # "silu" (SwiGLU) | "gelu" (GeGLU)
     qk_norm: bool = False
     tie_embeddings: bool = False
+    embed_scale: bool = False  # token embeddings times sqrt(d_model) (gemma)
     rope_theta: float = 1_000_000.0
     norm_eps: float = 1e-6
     # MoE
@@ -89,6 +92,11 @@ PORTED_ARCHS = {
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "llava-next-34b": "llava_next_34b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "llama3-8b": "llama3_8b",
+    "gemma-2b": "gemma_2b",
+    "granite-8b": "granite_8b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
 }
 
 

@@ -487,7 +487,13 @@ def embed_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens.long()].to(cdtype(cfg))
+    """Token embeddings in the compute dtype; with ``cfg.embed_scale``
+    (gemma) scaled by sqrt(d_model), the scale itself rounded to that
+    dtype as the reference rounds it."""
+    e = p["tok"][tokens.long()].to(cdtype(cfg))
+    if cfg.embed_scale:
+        e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype, device=e.device)
+    return e
 
 
 def unembed_matrix(p, cfg: ModelConfig) -> torch.Tensor:

@@ -153,10 +153,11 @@ class DenseLM:
     def cache_defs(self, batch: int, seq: int):
         return kv_cache_defs(self.cfg, self.cfg.num_layers, batch, seq)
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, *, record: list | None = None):
         """Full-sequence forward: last-position logits (B, 1, V) float32 and
         the KV cache {k, v: (layers, B, prefix + P, KV, hd)} in the param
-        dtype."""
+        dtype. ``record``, when given, receives max |x| of the residual
+        stream after each layer (one host read per layer)."""
         cfg = self.cfg
         x = self.embeds_for(params, batch)
         pd = torch_dtype(cfg.param_dtype)
@@ -168,6 +169,8 @@ class DenseLM:
             vs.append(v.to(pd))
             x = x + y
             x = x + self._ffn(lp, L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps))[0]
+            if record is not None:
+                record.append(x.abs().max().item())
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = L.lm_logits(params["embed"], x[:, -1:], cfg)
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}

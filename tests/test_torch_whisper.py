@@ -170,7 +170,7 @@ def test_serve_cli_rejects_unported_flags(flag, capsys):
 
 def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("llama3-8b")
+        get_config("rwkv6-1.6b")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(smoke_config(get_config("whisper-medium")).replace(family="ssm"))
 
