@@ -294,11 +294,36 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      among the timings after phase 40, row 2 at gemma's serving shape (B=4,
      S=288, one KV head, G=8, D=256, bf16 cache) beside its plain
      version, SDPA (``enable_gqa``) and the bound.
+ 47. tuning: ``REPRO_TORCH_AUTOTUNE_CACHE`` pointed at a fresh temporary
+     file (restored after, so every other phase runs the rule), then the
+     seven searches of ``kernels/autotune.py`` at the reference
+     benchmark's ``autotune/*`` shapes (conv2d at fig1 k 3, 9, 31 and
+     fig2 k 3, 17 f32; conv1d (1, 16384, 32) K 3, 33 fp and w8a8; max
+     pooling there at w 4, 256; the int8 decode read at (B 2, S 2048, KV
+     2, G 2, D 32)) and at the model paths' (row 1 bf16 at whisper's conv1
+     and conv2, row 10 at conv2 bf16 and f32; rows 3 and 15 at jamba's
+     prefill, row 11 with row 3 at its training shape; rows 2 and 2b at
+     qwen3-moe's and llava's serving shapes; rows 4, 14 and 12 at llava's
+     patch embedding): each key's ``default_us``, ``us``, winner and
+     candidates timed on a line, the entry called through ``ops`` with the
+     cache armed, its launch running the recorded plan (the wrappers'
+     ``last_plan``, row 8's form counters), its output (a gradient: the
+     weight-gradient kernel's own, on its spied inputs) held to the plain
+     version at its row's tolerance, the tuned and untuned dispatch timed;
+     then the quant guard: a float-input ``ops.conv1d(precision="w8a8")``
+     at each conv1d shape launches row 1 with one ``quant_slower`` event
+     where fp won (the w8a8 entry's ``dispatch_us``, its winner timed
+     through that call, above fp's ``us``; held to row 1's plain
+     version), row 13 and none where w8a8 won; the float-input w8a8 call
+     (pinned by its plan where fp won) held to row 13's plain version on
+     the operands quantized as ``ops`` quantizes them. The JSON record
+     gains ``tuned`` (key -> default_us, us, dispatch_us, winner, timed,
+     the dispatch times).
 
 Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 44-46, 33, 34
-with the main path of the baselines, 36-38, then the timings (6, 10, 15,
-19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every kernel is held
-to its plain version before a path runs it. Phases 42 and 43 reset the process-global obs registry,
+with the main path of the baselines, 36-38, 47, then the timings (6, 10,
+15, 19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every kernel is
+held to its plain version before a path runs it. Phases 42 and 43 reset the process-global obs registry,
 trace ring, health record and attention log before they run, and disarm
 tracing and reset them again after, so no later phase runs armed.
 
@@ -319,6 +344,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -327,6 +353,12 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# the port's card timer (``card_ms``: CUDA events, the queue filled first;
+# ``call_ms``: the host's time per call in it), which the tuning layer
+# times its candidates with too
+from repro_torch.kernels.timing import call_ms, card_ms  # noqa: E402
 
 # float32: the kernels sum in another order than the plain versions
 # (tests/test_kernels.py TOL); bfloat16 outputs are compared in float32
@@ -375,63 +407,6 @@ def close(got: torch.Tensor, want: torch.Tensor, tol: dict, what: str, *,
         raise AssertionError(f"{what}: {int(bad.sum())} elements off, max "
                              f"|err| {err.max().item():.3e}")
     return err.max().item()
-
-
-def call_ms(fn, batches: int = 20, inner: int = 10, warmup: int = 3) -> float:
-    """Per-call time from CUDA events around ``inner`` back-to-back calls,
-    median over ``batches``. Where the host queues calls more slowly than
-    the card runs them, this is the host's time per call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
-def _sleep_cycles_per_ms() -> float:
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    torch.cuda._sleep(10_000_000)
-    b.record()
-    b.synchronize()
-    return 10_000_000 / a.elapsed_time(b)
-
-
-def card_ms(fn, batches: int = 20, inner: int = 10, warmup: int = 3) -> float:
-    """Card time per call from CUDA events: before each batch of ``inner``
-    calls the card is kept busy (``torch.cuda._sleep``) for three times as
-    long as the host takes to queue the batch, so the calls then run back
-    to back with no wait for the host. Median over ``batches``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(inner):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    cycles = int(3 * host_ms * _sleep_cycles_per_ms()) + 1
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
 
 
 def _profiled(fn, reps: int):
@@ -728,39 +703,46 @@ def plain_kernels():
              sc._launch_depthwise, sq._launch_depthwise, sb._launch_depthwise,
              s2._launch, sq._launch_2d, sb._launch_2d, ig._launch_matmul,
              ig._launch_conv1d, ig._launch_conv2d)
+    # (the launch plan, ``plan=``, means nothing to a plain version)
     ig._launch_matmul = ig.matmul_plain
     ig._launch_conv1d = lambda x, w, stride, _lout: (
         ig.conv1d_im2col_fused_plain(x, w, stride=stride))
     ig._launch_conv2d = lambda x, w, stride, _oh, _ow: (
         ig.conv2d_im2col_fused_plain(x, w, stride=stride))
-    s2._launch = lambda x, w, b, stride, act, _oh, _ow, save_preact=False: (
+    s2._launch = lambda x, w, b, stride, act, _oh, _ow, save_preact=False, \
+        plan=None: (
         s2.conv2d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
-    sq._launch_2d = lambda x, w, ws, b, xs, os, mode, stride, act, odt, *_: (
+    sq._launch_2d = lambda x, w, ws, b, xs, os, mode, stride, act, odt, *_, \
+        plan=None: (
         sq.conv2d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
                               mode=mode, stride=stride, activation=act,
                               out_dtype=odt))
-    sb._launch_2d = lambda x, dz, kh, kw, stride, has_bias: (
+    sb._launch_2d = lambda x, dz, kh, kw, stride, has_bias, plan=None: (
         sb.conv2d_bwd_dw_plain(x, dz, (kh, kw), stride=stride,
                                has_bias=has_bias))
-    sc._launch = lambda x, w, b, stride, act, _n, save_preact=False: (
+    sc._launch = lambda x, w, b, stride, act, _n, save_preact=False, \
+        plan=None: (
         sc.conv1d_sliding_plain(x, w, b, stride=stride, activation=act,
                                 save_preact=save_preact))
-    ad._launch = ad.attention_decode_plain
-    sb._launch = lambda x, dz, K, stride, has_bias: sb.conv1d_bwd_dw_plain(
-        x, dz, K, stride=stride, has_bias=has_bias)
-    sq._launch = lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n: (
+    ad._launch = lambda q, k, v, ln, ks=None, vs=None, plan=None: (
+        ad.attention_decode_plain(q, k, v, ln, ks, vs))
+    sb._launch = lambda x, dz, K, stride, has_bias, plan=None: (
+        sb.conv1d_bwd_dw_plain(x, dz, K, stride=stride, has_bias=has_bias))
+    sq._launch = lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n, \
+        plan=None: (
         sq.conv1d_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
                               mode=mode, stride=stride, activation=act,
                               out_dtype=odt))
-    sc._launch_depthwise = lambda x, w, b, stride, act, _n, save_preact=False: (
+    sc._launch_depthwise = lambda x, w, b, stride, act, _n, \
+        save_preact=False, plan=None: (
         sc.conv1d_depthwise_plain(x, w, b, stride=stride, activation=act,
                                   save_preact=save_preact))
-    sb._launch_depthwise = lambda x, dz, K, stride, has_bias: (
+    sb._launch_depthwise = lambda x, dz, K, stride, has_bias, plan=None: (
         sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, stride=stride,
                                          has_bias=has_bias))
     sq._launch_depthwise = (
-        lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n:
+        lambda x, w, ws, b, xs, os, mode, stride, act, odt, _n, plan=None:
         sq.conv1d_depthwise_quant_plain(x, w, ws, b, x_scale=xs, out_scale=os,
                                         mode=mode, stride=stride,
                                         activation=act, out_dtype=odt))
@@ -1941,8 +1923,8 @@ def phase_smoke_serve_jamba(serve, models, configs, map_tree, sq):
             zero_launches()
             launch = sq._launch_depthwise
             if card:  # keep the int8 convs' inputs and outputs
-                sq._launch_depthwise = lambda *a: calls.append(
-                    (a, launch(*a))) or calls[-1][1]
+                sq._launch_depthwise = lambda *a, **k: calls.append(
+                    (a, launch(*a, **k))) or calls[-1][1]
             try:
                 with torch.no_grad():
                     logits, _ = serve.prefill_cache(m, params, prompts.to(dev),
@@ -5363,6 +5345,383 @@ def phase_attention_gemma_times(ad) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 47: the tuning layer
+# ---------------------------------------------------------------------------
+
+# the reference benchmark's autotune rows (``benchmarks/run.py``
+# ``autotune_rows``, its quick lists) at the tables' full sizes: conv2d at
+# fig1 k 3, 9, 31 and fig2 k 3, 17; conv1d (1, 16384, 32) K 3, 33, fp and
+# w8a8; max pooling there at w 4, 256; the int8 decode read at qwen3's
+# smoke cache
+TUNE_FIGS = (("fig1", 128, (3, 9, 31)), ("fig2", 96, (3, 17)))
+TUNE_CONV1D = dict(B=1, L=16384, C=32, Ks=(3, 33))
+TUNE_POOL_WINDOWS = (4, 256)
+TUNE_ATTN_INT8 = dict(B=2, S=2048, KV=2, G=2, D=32)
+
+
+def _plan_fields(p) -> dict:
+    """A launched plan's tunable fields, named as a tuning-cache entry
+    names them."""
+    from repro_torch.kernels import gemm_plan
+
+    if isinstance(p, gemm_plan.GemmPlan):
+        return {"tile": p.tile.name, "splits": p.splits}
+    if isinstance(p, gemm_plan.DepthwisePlan):
+        return {"rows": p.rows, "stages": p.stages}
+    if isinstance(p, gemm_plan.DepthwiseDwPlan):
+        return {"bwd_rows": p.rows, "bwd_stages": p.stages,
+                "bwd_splits": p.splits}
+    return {"split_rows": p[1]}  # decode attention's (splits, rows)
+
+
+@contextlib.contextmanager
+def keeping(mod, name, calls):
+    """Route ``mod.name`` through a wrapper that appends (args, kwargs,
+    result) of each call to ``calls``. The launch code counts on the
+    module's name, so the wrapper carries the launch counter and
+    ``last_plan`` while it stands, and hands them back after."""
+    real = getattr(mod, name)
+    attrs = ("launches", "last_plan")
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    for attr in attrs:
+        setattr(keep, attr, getattr(real, attr))
+    setattr(mod, name, keep)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+        for attr in attrs:
+            setattr(real, attr, getattr(keep, attr))
+
+
+def phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp) -> tuple[dict, dict]:
+    """47. Tune each shape into a fresh cache (``REPRO_TORCH_AUTOTUNE_CACHE``
+    pointed at a temporary file, restored after), then drive the entry
+    through ``ops`` with the cache armed: the launch must run the
+    recorded plan (the wrapper's ``last_plan``; row 8's form counter),
+    the output must match its plain version at the row's tolerance, and
+    the tuned and untuned dispatch are timed (``card_ms``). Then the quant
+    guard at each conv1d shape. Returns ({key: times and winner}, the
+    launches of the checking calls)."""
+    from repro_torch.quant.apply import quantize_depthwise_weight
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    saved_env = os.environ.get(autotune.ENV_CACHE)
+    armed = str(tmp / "autotune_cuda.json")
+    tuned, launches = {}, only()
+
+    @contextlib.contextmanager
+    def cache_off():
+        os.environ[autotune.ENV_CACHE] = str(tmp / "absent.json")
+        autotune.invalidate()
+        try:
+            yield
+        finally:
+            os.environ[autotune.ENV_CACHE] = armed
+            autotune.invalidate()
+
+    def case(res, run, check, launched, spied=None):
+        """One tuned key: its line, the armed call's plan and hold, and
+        the tuned and untuned dispatch's card times."""
+        best = {k: v for k, v in res.best.items()
+                if k not in ("us", "default_us", "dispatch_us")}
+        log(f"tuned {res.key}: default_us {res.best['default_us']} us "
+            f"{res.best['us']} winner {best} timed {res.timed}")
+        if res.best["us"] > res.best["default_us"]:
+            raise AssertionError(f"{res.key}: us above default_us")
+        if autotune.lookup(res.key) != res.best:
+            raise AssertionError(f"{res.key}: the cache does not hold the "
+                                 "winner")
+        calls = []
+        zero_launches()
+        for fn in (sc.conv1d_sliding, sc.conv1d_depthwise, s2.conv2d_sliding,
+                   sq.conv1d_quant, sq.conv2d_quant,
+                   sq.conv1d_depthwise_quant, sb.conv1d_bwd_dw,
+                   sb.conv1d_depthwise_bwd_dw, sb.conv2d_bwd_dw,
+                   ad.decode_attention):
+            fn.last_plan = None
+        with (keeping(*spied, calls) if spied else contextlib.nullcontext()):
+            out = run()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for k, n in counts.items():
+            launches[k] += n
+        ran = launched()
+        for k, v in ran.items():
+            if best.get(k) != v:
+                raise AssertionError(f"{res.key}: launched {ran}, the cache "
+                                     f"holds {best}")
+        err = check(out, calls)
+        t_tuned = card_ms(run, batches=10)
+        with cache_off():
+            t_untuned = card_ms(run, batches=10)
+        log(f"tuned {res.key}: launched {ran}, max|err| {err:.3e}; dispatch "
+            f"tuned {t_tuned:.4f} ms, untuned {t_untuned:.4f} ms")
+        tuned[res.key] = dict(default_us=res.best["default_us"],
+                              us=res.best["us"],
+                              dispatch_us=res.best.get("dispatch_us"),
+                              winner=best,
+                              timed=res.timed, tuned_ms=t_tuned,
+                              untuned_ms=t_untuned, max_abs_err=err)
+
+    def grad_check(plain, K, what):
+        """Hold the weight-gradient kernel's own f32 output on its own
+        inputs (the call's spied arguments) against its plain version."""
+        def check(_, calls):
+            (x, dz, _k), kw, (dw, db) = calls[-1]
+            want = plain(x, dz, K, stride=kw["stride"],
+                         has_bias=kw["has_bias"])
+            err = close(dw, want[0], TOL, what, scaled=True)
+            if db is not None:
+                err = max(err, close(db, want[1], TOL, what + " db",
+                                     scaled=True))
+            return err
+        return check
+
+    os.environ[autotune.ENV_CACHE] = armed
+    autotune.invalidate()
+    t0 = time.perf_counter()
+    try:
+        # (a) the reference benchmark's autotune rows
+        for name, H, ks in TUNE_FIGS:
+            for k in ks:
+                x, w, _ = conv2d_inputs(600 + k, 1, H, H, 32, 32, k,
+                                        torch.float32, with_bias=False)
+                case(autotune.autotune_conv2d(x, w),
+                     lambda x=x, w=w: ops.conv2d(x, w, backend="sliding"),
+                     lambda y, _, x=x, w=w, n=f"{name} k{k}": close(
+                         y, s2.conv2d_sliding_plain(x, w), TOL,
+                         f"tuned conv2d {n}"),
+                     lambda: _plan_fields(s2.conv2d_sliding.last_plan))
+        B, L, C = (TUNE_CONV1D[n] for n in ("B", "L", "C"))
+        guard = {}
+        for K in TUNE_CONV1D["Ks"]:
+            x, w, _ = conv_inputs(620 + K, B, L, C, C, K, torch.float32,
+                                  with_bias=False)
+            rf = autotune.autotune_conv1d(x, w)
+            case(rf, lambda x=x, w=w: ops.conv1d(x, w),
+                 lambda y, _, x=x, w=w: close(
+                     y, sc.conv1d_sliding_plain(x, w), TOL,
+                     f"tuned conv1d K{K}"),
+                 lambda: _plan_fields(sc.conv1d_sliding.last_plan))
+            rq = autotune.autotune_conv1d(x, w, precision="w8a8")
+            xq, wq, ws, xs, _ = ops._quant_operands(x, w, None, None, "w8a8")
+            case(rq,  # int8 input: pinned to the quant kernel
+                 lambda xq=xq, wq=wq, ws=ws, xs=xs: ops.conv1d(
+                     xq, wq, precision="w8a8", w_scale=ws, x_scale=xs),
+                 lambda y, _, xq=xq, wq=wq, ws=ws, xs=xs: close(
+                     y, sq.conv1d_quant_plain(xq, wq, ws, x_scale=xs,
+                                              mode="w8a8"),
+                     TIGHT, f"tuned conv1d w8a8 K{K}"),
+                 lambda: _plan_fields(sq.conv1d_quant.last_plan))
+            # the quant guard: a float-input w8a8 call serves the winner,
+            # its dispatch (x quantized, scales read back) against fp's
+            fp_won = rq.best["dispatch_us"] > rf.best["us"]
+            ev = ("conv1d.w8a8", "quant_slower", "fallback:fp")
+            before = sum(e.count for e in ops.HEALTH.events
+                         if (e.site, e.reason, e.action) == ev)
+            zero_launches()
+            y = ops.conv1d(x, w, precision="w8a8")
+            torch.cuda.synchronize()
+            counts = read_launches()
+            after = sum(e.count for e in ops.HEALTH.events
+                        if (e.site, e.reason, e.action) == ev)
+            want = (only(sliding_conv1d=1) if fp_won
+                    else only(sliding_conv_quant=1))
+            if counts != want or after - before != int(fp_won):
+                raise AssertionError(
+                    f"quant guard K{K}: {'fp' if fp_won else 'w8a8'} won "
+                    f"(us {rf.best['us']} fp, dispatch_us "
+                    f"{rq.best['dispatch_us']} w8a8) but the "
+                    f"call launched {counts}, {after - before} quant_slower "
+                    "event(s)")
+            for k, n in counts.items():
+                launches[k] += n
+            if fp_won:
+                close(y, sc.conv1d_sliding_plain(x, w), TOL,
+                      f"quant guard K{K} (fp)")
+                # the quant path the guard passed over, pinned by its plan
+                zero_launches()
+                y = ops.conv1d(x, w, precision="w8a8",
+                               plan={f: rq.best[f] for f in ("tile",
+                                                             "splits")})
+                torch.cuda.synchronize()
+                pinned = read_launches()
+                if pinned != only(sliding_conv_quant=1):
+                    raise AssertionError(f"quant guard K{K}: the pinned "
+                                         f"w8a8 call launched {pinned}")
+                for k, n in pinned.items():
+                    launches[k] += n
+            # the float-input w8a8 call: x quantized on its dynamic absmax
+            # scale, then row 13
+            close(y, sq.conv1d_quant_plain(xq, wq, ws, x_scale=xs,
+                                           mode="w8a8"),
+                  TIGHT, f"quant guard K{K} (w8a8, float input)")
+            guard[rq.key] = "fp" if fp_won else "w8a8"
+            log(f"quant guard {rq.key}: {guard[rq.key]} won (fp "
+                f"{rf.best['us']} us, w8a8 kernel {rq.best['us']} us, "
+                f"dispatch {rq.best['dispatch_us']} us); the "
+                f"float-input w8a8 call launched "
+                f"{ {k: n for k, n in counts.items() if n} }")
+        for win in TUNE_POOL_WINDOWS:
+            x = pool_input(640 + win, B, L, C, torch.float32)
+            case(autotune.autotune_pool1d(x, window=win, op="max"),
+                 lambda x=x, win=win: ops.pool1d(x, window=win, op="max"),
+                 lambda y, _, x=x, win=win: close(
+                     y, sp.sliding_pool_plain(x, window=win, op="max"),
+                     dict(rtol=0.0, atol=0.0), f"tuned pool max w{win}"),
+                 lambda: {"method": "scan" if sp.sliding_pool.launches_max_scan
+                          else "shift"})
+
+        def attn_case(seed, s, lens, dtype, int8):
+            Ba, S, KV, G, D = (s[n] for n in ("B", "S", "KV", "G", "D"))
+            if int8:
+                q, k, v, ln, ks, vs = attn_int8_inputs(seed, **s,
+                                                       q_dtype=dtype,
+                                                       lengths=lens)
+            else:
+                (q, k, v, ln), ks, vs = attn_inputs(
+                    seed, **s, dtype=dtype, lengths=lens), None, None
+            q3 = q.reshape(Ba, KV * G, D)
+            case(autotune.autotune_attention_decode(
+                     q3, k, v, lengths=ln, k_scale=ks, v_scale=vs),
+                 lambda: ops.attention_decode(q3, k, v, lengths=ln,
+                                              k_scale=ks, v_scale=vs),
+                 lambda y, _: close(
+                     y, ad.attention_decode_plain(q, k, v, ln, ks, vs)
+                     .reshape(Ba, KV * G, D), TOL if int8 else BTOL,
+                     f"tuned attention {s} {'int8' if int8 else dtype}"),
+                 lambda: _plan_fields(ad.decode_attention.last_plan))
+
+        S = TUNE_ATTN_INT8["S"]
+        attn_case(650, TUNE_ATTN_INT8, [S, 3 * S // 4 + 1], torch.float32,
+                  True)
+        # (b) the model paths' shapes (PERF.md section 6)
+        for name in ("conv1", "conv2"):
+            s = CONV_MAIN[name]
+            x, w, b = conv_inputs(660, s["B"], s["L"], s["Cin"], s["Cout"],
+                                  s["K"], torch.bfloat16)
+            args = dict(stride=s["stride"], bias=b, activation="gelu")
+            case(autotune.autotune_conv1d(x, w, **args),
+                 lambda x=x, w=w, args=args: ops.conv1d(x, w, **args),
+                 lambda y, _, x=x, w=w, args=args, name=name: close(
+                     y, sc.conv1d_sliding_plain(
+                         x, w, args["bias"], stride=args["stride"],
+                         activation="gelu"), BTOL, f"tuned row 1 {name}"),
+                 lambda: _plan_fields(sc.conv1d_sliding.last_plan))
+        s = CONV_MAIN["conv2"]
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, _ = conv_inputs(670, s["B"], s["L"], s["Cin"], s["Cout"],
+                                  s["K"], dtype, with_bias=False)
+            xg, wg = x.requires_grad_(), w.detach().requires_grad_()
+            dy = torch.randn((s["B"], (s["L"] - s["K"]) // s["stride"] + 1,
+                              s["Cout"]), device=DEV).to(dtype)
+
+            def run10(xg=xg, wg=wg, dy=dy):
+                y = ops.conv1d(xg, wg, stride=s["stride"])
+                return torch.autograd.grad(y, (xg, wg), dy)
+
+            case(autotune.autotune_conv1d_grad(xg, wg, stride=s["stride"]),
+                 run10, grad_check(sb.conv1d_bwd_dw_plain, s["K"],
+                                   f"tuned row 10 conv2 {dtype}"),
+                 lambda: _plan_fields(sb.conv1d_bwd_dw.last_plan),
+                 spied=(sb, "conv1d_bwd_dw"))
+        s = DEPTHWISE_MAIN
+        x, w, b = depthwise_inputs(680, s["B"], s["L"], s["C"], s["K"],
+                                   torch.bfloat16)
+        args = dict(padding="VALID", bias=b, activation="silu")
+        case(autotune.autotune_conv1d_depthwise(
+                 x, w, precision="fp", bias=b, activation="silu"),
+             lambda: ops.conv1d_depthwise(x, w, **args),
+             lambda y, _: dw_check(y, sc.conv1d_depthwise_plain(
+                 x, w, b, activation="silu"), "tuned row 3 prefill"),
+             lambda: _plan_fields(sc.conv1d_depthwise.last_plan))
+        xq, wq, ws, xs, _ = ops._quant_operands(
+            x, w, None, None, "w8a8", quantize_depthwise_weight)
+        case(autotune.autotune_conv1d_depthwise(
+                 x, w, precision="w8a8", bias=b, activation="silu"),
+             lambda: ops.conv1d_depthwise(x, w, precision="w8a8", **args),
+             lambda y, _: dw_check(y, sq.conv1d_depthwise_quant_plain(
+                 xq, wq, ws, b, x_scale=xs, mode="w8a8", activation="silu",
+                 out_dtype=torch.bfloat16), "tuned row 15 prefill"),
+             lambda: _plan_fields(sq.conv1d_depthwise_quant.last_plan))
+        s = DEPTHWISE_TRAIN
+        x, w, b = depthwise_inputs(690, s["B"], s["L"], s["C"], s["K"],
+                                   torch.bfloat16)
+        xg, wg, bg = (t.detach().requires_grad_() for t in (x, w, b))
+        dy = torch.randn((s["B"], s["L"] - s["K"] + 1, s["C"]),
+                         device=DEV).to(torch.bfloat16)
+
+        def run11():
+            y = ops.conv1d_depthwise(xg, wg, padding="VALID", bias=bg,
+                                     activation="silu")
+            return torch.autograd.grad(y, (xg, wg, bg), dy)
+
+        case(autotune.autotune_conv1d_depthwise(
+                 xg, wg, precision="fp", bias=bg, activation="silu"),
+             run11, grad_check(sb.conv1d_depthwise_bwd_dw_plain, s["K"],
+                               "tuned row 11 training"),
+             lambda: {**_plan_fields(sc.conv1d_depthwise.last_plan),
+                      **_plan_fields(sb.conv1d_depthwise_bwd_dw.last_plan)},
+             spied=(sb, "conv1d_depthwise_bwd_dw"))
+        for s, lens, seed in ((ATTN_QWEN_MOE, DECODER_LENS, 700),
+                              (ATTN_LLAVA, [ATTN_LLAVA["S"] - 16] * 4, 710)):
+            attn_case(seed, s, lens, torch.bfloat16, False)
+            attn_case(seed + 1, s, lens, torch.bfloat16, True)
+        p = PATCH_MAIN
+        st = (p["stride"], p["stride"])
+        x, w, b = conv2d_inputs(720, p["B"], p["H"], p["W"], p["Cin"],
+                                p["Cout"], p["k"], torch.bfloat16)
+        case(autotune.autotune_conv2d(x, w, stride=st, bias=b),
+             lambda: ops.conv2d(x, w, stride=st, backend="sliding", bias=b),
+             lambda y, _: bf16_step_close(y, s2.conv2d_sliding_plain(
+                 x.float(), w.float(), b, stride=st), "tuned row 4 patch"),
+             lambda: _plan_fields(s2.conv2d_sliding.last_plan))
+        xq, wq, ws, xs, _ = ops._quant_operands(x, w, None, None, "w8a8")
+        case(autotune.autotune_conv2d(x, w, stride=st, bias=b,
+                                      precision="w8a8"),
+             lambda: ops.conv2d(x, w, stride=st, backend="sliding", bias=b,
+                                precision="w8a8"),
+             lambda y, _: bf16_step_close(y, sq.conv2d_quant_plain(
+                 xq, wq, ws, b, x_scale=xs, mode="w8a8", stride=st),
+                 "tuned row 14 patch"),
+             lambda: _plan_fields(sq.conv2d_quant.last_plan))
+        wg = w.detach().requires_grad_()  # an image needs no gradient
+        dy = torch.randn((p["B"], p["H"] // p["k"], p["W"] // p["k"],
+                          p["Cout"]), device=DEV).to(torch.bfloat16)
+
+        def run12():
+            y = ops.conv2d(x, wg, stride=st, backend="sliding")
+            return torch.autograd.grad(y, (wg,), dy)
+
+        def check12(_, calls):
+            (xa, dz, hw), kw, (dw, _db) = calls[-1]
+            return close(dw, sb.conv2d_bwd_dw_plain(
+                xa, dz, hw, stride=kw["stride"])[0], TOL,
+                "tuned row 12 patch", scaled=True)
+
+        case(autotune.autotune_conv2d_grad(x, wg, stride=st), run12, check12,
+             lambda: _plan_fields(sb.conv2d_bwd_dw.last_plan),
+             spied=(sb, "conv2d_bwd_dw"))
+    finally:
+        if saved_env is None:
+            os.environ.pop(autotune.ENV_CACHE, None)
+        else:
+            os.environ[autotune.ENV_CACHE] = saved_env
+        autotune.invalidate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"tuning: {len(tuned)} keys in {time.perf_counter() - t0:.1f}s; "
+        f"quant guard {guard}; the checking calls launched "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return tuned, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -5375,12 +5734,11 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
-    sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
     from repro_torch import configs, health, models, obs, optim, quant
     from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import autotune, build, ops
     from repro_torch.kernels import im2col_gemm as ig
     from repro_torch.kernels import sliding_conv1d as sc
     from repro_torch.kernels import sliding_conv2d as s2
@@ -5474,6 +5832,8 @@ def main() -> int:
     errs.update(phase_pool_kernels(sp))
     errs["ssm_scan"], scan_path = phase_scan_kernels(ss)
     pool_path = phase_pool_path(sp, ops)
+    # -- 47: the tuning layer: tuned plans launched through ops ------------------
+    tuned, tuning_launches = phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp)
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -5490,6 +5850,7 @@ def main() -> int:
                "baselines": baselines["launches"],
                "pool": pool_path["launches"],
                "ssm_scan": scan_path["launches"],
+               "tuning": tuning_launches,
                "serve_cli_obs": serve_cli_obs["launches"],
                "train_cli_obs": train_cli_obs["launches"],
                "serve_qwen3_moe": moe_serve["fp"]["launches"],
@@ -5554,7 +5915,8 @@ def main() -> int:
                       "serve_qwen3_moe": moe_serve,
                       "serve_decoders": decoders,
                       "baselines": baselines,
-                      "pool": pool_path, "ssm_scan": scan_path}),
+                      "pool": pool_path, "ssm_scan": scan_path,
+                      "tuned": tuned}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import attention_decode as ad  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.timing import card_ms  # noqa: E402
 
 MMA_RULE = ("static constexpr bool value = std::is_same<TQ, __nv_bfloat16>"
             "::value &&\n                                !std::is_same<TKV, "
@@ -94,7 +95,7 @@ def main() -> int:
                          f"{which} {shape} {cache}")
             for which in ("tensor", "cuda", "cuda", "tensor") * 2:
                 use(which)
-                ms = cs.card_ms(cs.cycling(ad.decode_attention, sets))
+                ms = card_ms(cs.cycling(ad.decode_attention, sets))
                 readings.append(dict(shape=shape, cache=cache,
                                      score_pass=which, ms=ms))
                 print(f"{shape} {cache} cache, scores on {which} cores: "

@@ -52,7 +52,6 @@ for p in (ROOT, ROOT + "/src"):
     sys.path.insert(0, p)
 
 import contextlib  # noqa: E402
-import dataclasses  # noqa: E402
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -64,6 +63,7 @@ from repro_torch.kernels import im2col_gemm as ig  # noqa: E402
 from repro_torch.kernels import sliding_conv1d as sc  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as sb  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as sq  # noqa: E402
+from repro_torch.kernels.timing import card_ms  # noqa: E402
 
 
 def row1(name, s, dtype) -> dict:
@@ -94,7 +94,7 @@ def row1(name, s, dtype) -> dict:
               + 4 * b.numel())
     ops = 2 * s["B"] * lout * s["Cout"] * s["Cin"] * s["K"]
     bms, by = cs.bound_ms(nbytes, ops, dtype)
-    t = {key: cs.card_ms(cs.cycling(fn, sets))
+    t = {key: card_ms(cs.cycling(fn, sets))
          for key, fn in (
              ("ms", lambda x, w, b, *_: sc.conv1d_sliding(x, w, b, **args)),
              ("plain_ms", lambda x, w, b, *_: sc.conv1d_sliding_plain(
@@ -121,7 +121,7 @@ def row6(c) -> dict:
     ops = 2 * M * cout * w.shape[0] * w.shape[1]
     bms, by = cs.bound_ms(el * (x.numel() + w.numel() + M * cout), ops,
                           x.dtype)
-    t = {key: cs.card_ms(cs.cycling(fn, sets), batches=10, inner=5)
+    t = {key: card_ms(cs.cycling(fn, sets), batches=10, inner=5)
          for key, fn in (
              ("ms", lambda x, w, *_: ig.conv1d_im2col_fused(x, w, stride=st)),
              ("sliding_ms", lambda x, w, *_: sc.conv1d_sliding(x, w, None,
@@ -199,7 +199,7 @@ def row13(name, s) -> dict:
               + out_bytes * s["B"] * lout * Cout)
     ops = 2 * s["B"] * lout * Cout * Cin * K
     bms, by = cs.bound_ms(nbytes, ops, torch.int8)
-    t = {key: cs.card_ms(cs.cycling(fn, sets))
+    t = {key: card_ms(cs.cycling(fn, sets))
          for key, fn in (("ms", kernel), ("plain_ms", plain),
                          ("library_ms", library))}
     return dict(t, bound_ms=bms, bound_by=by, max_abs_err=err)
@@ -255,7 +255,7 @@ def row10(name, s, dtype) -> dict:
               + 4 * (K * s["Cin"] * s["Cout"] + s["Cout"]))
     ops = 2 * s["B"] * lout * K * s["Cin"] * s["Cout"]
     bms, by = cs.bound_ms(nbytes, ops, dtype)
-    t = {key: cs.card_ms(cs.cycling(fn, sets))
+    t = {key: card_ms(cs.cycling(fn, sets))
          for key, fn in (
              ("ms", row10_kernel(s)),
              ("plain_ms", lambda x, dz, *_: sb.conv1d_bwd_dw_plain(
@@ -270,10 +270,9 @@ def forced_splits(n):
     as its chunks allow); n None leaves the plans as they are."""
     real = gemm_plan.gemm_plan
 
-    def forced(M, N, K, dtype, sms=build.DEFAULT_SMS):
-        p = real(M, N, K, dtype, sms)
-        per = -(-p.chunks // n)
-        return dataclasses.replace(p, splits=-(-p.chunks // per), per=per)
+    def forced(M, N, K, dtype, sms=build.DEFAULT_SMS, tile=None,
+               splits=None):
+        return real(M, N, K, dtype, sms, tile=tile, splits=n)
 
     if n is not None:
         gemm_plan.gemm_plan = forced
@@ -294,7 +293,7 @@ def row10_splits(name, s, dtype) -> dict:
     for n in (None, 1, 2, 3, 4):
         with forced_splits(n):
             row10_check(s, sets, f"dw {name} {dtype} splits {n}")
-            out["plan" if n is None else f"splits_{n}"] = cs.card_ms(
+            out["plan" if n is None else f"splits_{n}"] = card_ms(
                 cs.cycling(row10_kernel(s), sets))
     return out
 
@@ -318,7 +317,7 @@ def row13_probe(name, s) -> dict:
         with forced_splits(n):
             row13_check(kernel(*sets[0]), plain(*sets[0]),
                         f"conv w8a8 {name} {key}")
-            out[key] = cs.card_ms(cs.cycling(kernel, sets))
+            out[key] = card_ms(cs.cycling(kernel, sets))
         del sets
     return out
 

@@ -47,6 +47,7 @@ import chip_smoke as cs  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.kernels import build, gemm_plan  # noqa: E402
 from repro_torch.kernels import sliding_conv1d as sc  # noqa: E402
+from repro_torch.kernels.timing import card_ms  # noqa: E402
 
 STORE = "              epi.store((out0 + o + p) * s.C, c0, acc);"
 COPY = ("      stage_copy(dst + r * SLAB_BYTES + col * s.cb,\n"
@@ -145,16 +146,16 @@ def main() -> int:
                         f"depthwise {name}")
         if name == "timeline":
             continue
-        out[name] = {act: cs.card_ms(cs.cycling(
+        out[name] = {act: card_ms(cs.cycling(
             lambda x, w, b, act=act: sc.conv1d_depthwise(
                 x, w, b, activation=act), sets)) for act in ("silu", "none")}
         print(f"{name}: {json.dumps(out[name])}", flush=True)
     ys = [torch.empty_like(x) for x, _, _ in sets]
     out["yardsticks"] = {
-        "copy": cs.card_ms(cs.cycling(lambda x, y: y.copy_(x),
+        "copy": card_ms(cs.cycling(lambda x, y: y.copy_(x),
                                       [(x, y) for (x, _, _), y in
                                        zip(sets, ys)])),
-        "silu": cs.card_ms(cs.cycling(lambda x, w, b: F.silu(x), sets))}
+        "silu": card_ms(cs.cycling(lambda x, w, b: F.silu(x), sets))}
     print(f"yardsticks: {json.dumps(out['yardsticks'])}", flush=True)
 
     lib = libs["timeline"]

@@ -58,6 +58,7 @@ from repro_torch.kernels import build, gemm_plan  # noqa: E402
 from repro_torch.kernels import sliding_conv1d as sc  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as sb  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as sq  # noqa: E402
+from repro_torch.kernels.timing import card_ms  # noqa: E402
 
 
 def row3_sets(s, n):
@@ -93,7 +94,7 @@ def row3(s, z: bool) -> dict:
         err = cs.dw_check(got, want, f"depthwise {s}")
     nbytes = 2 * (B * L * C + K * C + (2 if z else 1) * B * lout * C) + 4 * C
     bms, by = cs.bound_ms(nbytes, 2 * K * B * lout * C, torch.bfloat16)
-    t = {key: cs.card_ms(cs.cycling(fn, sets)) for key, fn in (
+    t = {key: card_ms(cs.cycling(fn, sets)) for key, fn in (
         ("ms", lambda x, w, b, *_: sc.conv1d_depthwise(x, w, b, **args)),
         ("plain_ms", lambda x, w, b, *_: sc.conv1d_depthwise_plain(
             x, w, b, **args)),
@@ -158,7 +159,7 @@ def row15(s, mode, requant) -> dict:
     ops = 2 * K * B * lout * C
     bms, by = cs.bound_ms(nbytes, ops, torch.int8 if mode == "w8a8"
                           else torch.bfloat16)
-    t = {key: cs.card_ms(cs.cycling(fn, sets)) for key, fn in (
+    t = {key: card_ms(cs.cycling(fn, sets)) for key, fn in (
         ("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
     return dict(t, bound_ms=bms, bound_by=by, max_abs_err=err,
                 plan=plan_of(s, x.element_size()))
@@ -198,7 +199,7 @@ def row11(s, dtype) -> dict:
     el = torch.tensor([], dtype=dtype).element_size()
     nbytes = el * (B * L * C + B * lout * C) + 4 * (K * C + C)
     bms, by = cs.bound_ms(nbytes, 2 * K * B * lout * C + B * lout * C, dtype)
-    t = {key: cs.card_ms(cs.cycling(fn, sets)) for key, fn in (
+    t = {key: card_ms(cs.cycling(fn, sets)) for key, fn in (
         ("ms", lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw(
             x, dz, K, has_bias=True)),
         ("plain_ms", lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw_plain(
@@ -237,7 +238,7 @@ def row11_plans(s) -> dict:
             want = sb.conv1d_depthwise_bwd_dw_plain(x, dz, K, has_bias=True)
             cs.close(got[0], want[0], cs.TOL, f"dw {key}", scaled=True)
             cs.close(got[1], want[1], cs.TOL, f"db {key}", scaled=True)
-            out[key] = cs.card_ms(cs.cycling(
+            out[key] = card_ms(cs.cycling(
                 lambda x, dz, *_: sb.conv1d_depthwise_bwd_dw(
                     x, dz, K, has_bias=True), sets))
     finally:
@@ -269,7 +270,7 @@ def row3_plans(s) -> dict:
             cs.dw_check(sc.conv1d_depthwise(x, w, b, activation=act),
                         sc.conv1d_depthwise_plain(x, w, b, activation=act),
                         f"depthwise {s} {key}")
-            out[key] = cs.card_ms(cs.cycling(
+            out[key] = card_ms(cs.cycling(
                 lambda x, w, b, *_, act=act: sc.conv1d_depthwise(
                     x, w, b, activation=act), sets))
     finally:

@@ -31,6 +31,7 @@ from repro_torch.kernels import build, im2col_gemm as ig  # noqa: E402
 from repro_torch.kernels import sliding_conv2d as s2  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as sb  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as sq  # noqa: E402
+from repro_torch.kernels.timing import card_ms  # noqa: E402
 
 F32, BF16 = torch.float32, torch.bfloat16
 # row 5: (name, M, K, N, dtype, input sets)
@@ -61,7 +62,7 @@ QUANT = [("patch_embed", PATCH, "w8a8", BF16, "none", False, 4),
 
 
 def time_sets(fn, sets) -> float:
-    t = cs.card_ms(cs.cycling(fn, sets))
+    t = card_ms(cs.cycling(fn, sets))
     del sets
     torch.cuda.empty_cache()
     return t

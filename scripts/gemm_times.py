@@ -48,6 +48,7 @@ from repro_torch.kernels import im2col_gemm as ig  # noqa: E402
 from repro_torch.kernels import sliding_conv2d as s2  # noqa: E402
 from repro_torch.kernels import sliding_conv_bwd as sb  # noqa: E402
 from repro_torch.kernels import sliding_conv_quant as sq  # noqa: E402
+from repro_torch.kernels.timing import card_ms  # noqa: E402
 
 F32, BF16 = torch.float32, torch.bfloat16
 # row 5: (name, M, K, N, dtype, input sets)
@@ -92,7 +93,7 @@ def matmul_row(name, M, K, N, dtype, n_sets) -> dict:
     el = dtype.itemsize
     bms, by = cs.bound_ms(el * (M * K + K * N + M * N), 2 * M * N * K, dtype)
     plan = gemm_plan.gemm_plan(M, N, K, dtype, build.sm_count(a.device))
-    t = {key: cs.card_ms(cs.cycling(fn, sets), batches=10, inner=5)
+    t = {key: card_ms(cs.cycling(fn, sets), batches=10, inner=5)
          for key, fn in (("ms", ig.matmul), ("plain_ms", ig.matmul_plain),
                          ("library_ms", torch.matmul))}
     return dict(t, bound_ms=bms, bound_by=by, max_abs_err=err,
@@ -128,7 +129,7 @@ def dw_row(name, s, dtype, n_sets) -> dict:
     plan = gemm_plan.gemm_plan(k * k * s["Cin"], s["Cout"],
                                dz.numel() // s["Cout"], dtype,
                                build.sm_count(x.device))
-    t = {key: cs.card_ms(cs.cycling(fn, sets))
+    t = {key: card_ms(cs.cycling(fn, sets))
          for key, fn in (
              ("ms", lambda x, dz, *_: sb.conv2d_bwd_dw(x, dz, (k, k), **args)),
              ("plain_ms", lambda x, dz, *_: sb.conv2d_bwd_dw_plain(
@@ -204,7 +205,7 @@ def im2col_row(c) -> dict:
     ops_n = 2 * M * cout * w.shape[0] * w.shape[1] * w.shape[2]
     bms, by = cs.bound_ms(el * (x.numel() + w.numel() + got.numel()), ops_n,
                           x.dtype)
-    t = {key: cs.card_ms(cs.cycling(fn, sets), batches=10, inner=5)
+    t = {key: card_ms(cs.cycling(fn, sets), batches=10, inner=5)
          for key, fn in (
              ("ms", lambda x, w, *_: ig.conv2d_im2col_fused(x, w, stride=st)),
              ("sliding_ms", lambda x, w, *_: s2.conv2d_sliding(x, w, None,

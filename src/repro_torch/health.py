@@ -26,6 +26,10 @@ from repro_torch.obs import trace as _obs_trace
 # the reference's reason codes that the port's code paths can produce
 REASONS = frozenset({
     "quant_scale_zero", "quant_scale_nan",
+    # quant dispatch: a tuned quant path slower than the float one
+    "quant_slower",
+    # tuning cache quarantine
+    "cache_corrupt", "cache_schema_mismatch",
     # serving
     "deadline_exceeded", "straggler", "nan_logits", "load_shed",
     # exceptions with no mapped kind (the class name goes in ``detail``)

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm_plan import PlanError
 
 DEFAULT_BLOCK_S = 128
 MAX_G = 8
@@ -45,8 +46,8 @@ MIN_SPLIT_ROWS = 64
 MAX_SPLIT_ROWS = 512
 
 
-def decode_splits(bkv: int, n: int,
-                  sms: int = build.DEFAULT_SMS) -> tuple[int, int]:
+def decode_splits(bkv: int, n: int, sms: int = build.DEFAULT_SMS,
+                  rows: int | None = None) -> tuple[int, int]:
     """(splits, rows a split) for ``bkv`` (slot, head) pairs over ``n``
     cache rows on a card of ``sms`` SMs: about ``BLOCKS_PER_SM * sms``
     blocks in all, from
@@ -54,7 +55,13 @@ def decode_splits(bkv: int, n: int,
     ``MAX_SPLIT_ROWS`` rows a split. The splits [i * rows, min(n, (i + 1)
     * rows)) cover the n rows and each holds at least one. The wrapper
     passes n = S, the rows a slot may hold: the lengths live on the card,
-    and a slot's splits past its length do nothing."""
+    and a slot's splits past its length do nothing. ``rows`` forces the
+    split length (1 to min(n, ``MAX_SPLIT_ROWS``); ``PlanError`` else)."""
+    if rows is not None:
+        if int(rows) != rows or not 1 <= rows <= min(n, MAX_SPLIT_ROWS):
+            raise PlanError(f"split rows={rows}: 1 to "
+                            f"{min(n, MAX_SPLIT_ROWS)}")
+        return -(-n // int(rows)), int(rows)
     want = max(1, BLOCKS_PER_SM * sms // max(1, bkv))
     rows = max(MIN_SPLIT_ROWS, -(-n // want))
     rows = max(1, min(n, rows, MAX_SPLIT_ROWS))
@@ -179,7 +186,8 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-def _launch(q, k, v, lengths, k_scale=None, v_scale=None) -> torch.Tensor:
+def _launch(q, k, v, lengths, k_scale=None, v_scale=None,
+            plan=None) -> torch.Tensor:
     B, KV, G, D = q.shape
     S = k.shape[1]
     if G > MAX_G or D > MAX_D:
@@ -201,7 +209,8 @@ def _launch(q, k, v, lengths, k_scale=None, v_scale=None) -> torch.Tensor:
     if lengths.dtype != torch.int32:
         lengths = lengths.to(torch.int32)
     lengths = lengths.contiguous()
-    nsplit, rows = decode_splits(B * KV, S, build.sm_count(q.device))
+    nsplit, rows = decode_splits(B * KV, S, build.sm_count(q.device),
+                                 rows=(plan or {}).get("split_rows"))
     # one allocation: the output, then the splits' softmax state that the
     # last block of each (slot, head) merges
     n_out = B * KV * G * D
@@ -222,19 +231,24 @@ def _launch(q, k, v, lengths, k_scale=None, v_scale=None) -> torch.Tensor:
         decode_attention.launches += 1
     else:
         decode_attention.launches_int8 += 1
+    decode_attention.last_plan = (nsplit, rows)
     return buf[:n_out].view(B, KV, G, D)
 
 
-def decode_attention(q, k, v, lengths, k_scale=None, v_scale=None):
+def decode_attention(q, k, v, lengths, k_scale=None, v_scale=None, *,
+                     plan: dict | None = None):
     """Fused decode attention: the CUDA kernel for CUDA tensors, the plain
     blocked version (one block spanning the cache, as the reference's CPU
     path runs it) for CPU tensors. An int8 cache comes with its float32
-    scales (B, S, KV, 1). Lengths above S count as S.
+    scales (B, S, KV, 1). Lengths above S count as S. ``plan``'s
+    ``split_rows`` forces the kernel's split length (``decode_splits``);
+    the plain version takes no plan.
     ``decode_attention.launches`` counts kernel launches over a float
-    cache, ``decode_attention.launches_int8`` over an int8 cache."""
+    cache, ``decode_attention.launches_int8`` over an int8 cache;
+    ``decode_attention.last_plan`` is the last launch's (splits, rows)."""
     _check(q, k, v, lengths, k_scale, v_scale)
     if q.device.type == "cuda":
-        return _launch(q, k, v, lengths, k_scale, v_scale)
+        return _launch(q, k, v, lengths, k_scale, v_scale, plan=plan)
     if q.device.type == "cpu":
         return attention_decode_plain(q, k, v, lengths, k_scale, v_scale,
                                       block_s=k.shape[1])
@@ -243,3 +257,4 @@ def decode_attention(q, k, v, lengths, k_scale=None, v_scale=None):
 
 decode_attention.launches = 0
 decode_attention.launches_int8 = 0
+decode_attention.last_plan = None

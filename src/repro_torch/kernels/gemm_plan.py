@@ -29,6 +29,13 @@ tests can hold it:
     spreads, so they keep one split there.
   * ``launch``: a wrapper's whole launch geometry, the plan and copy
     widths for its operands and the splits' workspace.
+
+Every plan function takes its choices forced as well (``tile=`` and
+``splits=`` here, ``rows=``, ``stages=`` and ``splits=`` below): the
+tuning layer (``kernels/autotune.py``) times forced plans on the card and
+``ops`` hands a tuned one to the wrapper. None leaves a choice to the
+rule. A forced choice the launch cannot take raises ``PlanError`` before
+anything is launched.
   * ``copy_bytes``: the widest copy (16, 8, 4 or, for bfloat16 and int8,
     2 bytes, or for int8 1) that every start address of an operand's
     vectors allows: a pointer and the strides between the vectors' starts
@@ -57,11 +64,19 @@ import torch
 from repro_torch.kernels import build
 
 
+class PlanError(ValueError):
+    """A forced plan the launch cannot take (a tile of another operand
+    type, a split count below 1, a ring that does not fit a block's shared
+    memory, ...), raised before any launch."""
+
+
 @dataclass(frozen=True)
 class Tile:
-    """One of the header's tiles: its id in the C entries (``TileId``),
-    BM x BN outputs a block, BK reduction elements a chunk, and the blocks
-    of it an SM holds at once (the kernel's ``__launch_bounds__``)."""
+    """One of the header's tiles: its name in ``TILES``, its id in the C
+    entries (``TileId``), BM x BN outputs a block, BK reduction elements a
+    chunk, and the blocks of it an SM holds at once (the kernel's
+    ``__launch_bounds__``)."""
+    name: str
     id: int
     bm: int
     bn: int
@@ -70,11 +85,15 @@ class Tile:
 
 
 TILES = {
-    "mma": Tile(0, 128, 128, 32, 2),      # bfloat16, mma.sync
-    "wide": Tile(1, 128, 128, 16, 2),     # float32, N > 32
-    "narrow": Tile(2, 128, 32, 16, 6),    # float32, N <= 32
-    "int8": Tile(3, 128, 128, 64, 2),     # int8, mma.sync
+    "mma": Tile("mma", 0, 128, 128, 32, 2),        # bfloat16, mma.sync
+    "wide": Tile("wide", 1, 128, 128, 16, 2),      # float32, N > 32
+    "narrow": Tile("narrow", 2, 128, 32, 16, 6),   # float32, N <= 32
+    "int8": Tile("int8", 3, 128, 128, 64, 2),      # int8, mma.sync
 }
+# the tiles the header runs for each type of A (the kernels refuse any
+# other): float32 on the CUDA cores, bfloat16 and int8 on the tensor cores
+DTYPE_TILES = {torch.float32: ("wide", "narrow"), torch.bfloat16: ("mma",),
+               torch.int8: ("int8",)}
 # a split shorter than this many chunks moves more partial sums than it
 # saves time
 MIN_SPLIT_CHUNKS = 8
@@ -105,23 +124,36 @@ def pick_tile(N: int, dtype: torch.dtype) -> Tile:
 
 
 def gemm_plan(M: int, N: int, K: int, dtype: torch.dtype,
-              sms: int = build.DEFAULT_SMS) -> GemmPlan:
+              sms: int = build.DEFAULT_SMS, tile: str | None = None,
+              splits: int | None = None) -> GemmPlan:
     """The tile and the split-K of C (M, N) = A (M, K) @ B (K, N) on a card
-    of ``sms`` SMs."""
+    of ``sms`` SMs. ``tile`` (a ``TILES`` name the type of A takes,
+    ``DTYPE_TILES``) and ``splits`` force the choice; a forced split count
+    is rounded as the rule's is, to ceil(chunks / ceil(chunks / splits)),
+    so every split holds at least one chunk and the last ends at K."""
     if min(M, N, K, sms) < 1:
         raise ValueError(f"empty product or card: M={M} N={N} K={K} "
                          f"sms={sms}")
-    tile = pick_tile(N, dtype)
-    tiles = -(-M // tile.bm) * -(-N // tile.bn)
-    chunks = -(-K // tile.bk)
-    fill = tile.blocks_per_sm * sms
-    splits = 1
-    if tiles < fill:
-        splits = max(1, min(fill // tiles, chunks // MIN_SPLIT_CHUNKS))
-        if splits == 1 and tiles > sms and dtype == torch.float32:
-            splits = _balanced_splits(tiles, chunks, sms, fill)
-    per = -(-chunks // splits)
-    return GemmPlan(tile, -(-chunks // per), per, chunks, tiles)
+    if tile is None:
+        t = pick_tile(N, dtype)
+    elif tile in DTYPE_TILES.get(dtype, ()):
+        t = TILES[tile]
+    else:
+        raise PlanError(f"tile {tile!r} does not take {dtype}; one of "
+                        f"{DTYPE_TILES.get(dtype, ())}")
+    if splits is not None and (int(splits) != splits or splits < 1):
+        raise PlanError(f"splits={splits}: a whole number >= 1")
+    tiles = -(-M // t.bm) * -(-N // t.bn)
+    chunks = -(-K // t.bk)
+    if splits is None:
+        fill = t.blocks_per_sm * sms
+        splits = 1
+        if tiles < fill:
+            splits = max(1, min(fill // tiles, chunks // MIN_SPLIT_CHUNKS))
+            if splits == 1 and tiles > sms and dtype == torch.float32:
+                splits = _balanced_splits(tiles, chunks, sms, fill)
+    per = -(-chunks // int(splits))
+    return GemmPlan(t, -(-chunks // per), per, chunks, tiles)
 
 
 def _balanced_splits(tiles: int, chunks: int, sms: int, fill: int) -> int:
@@ -140,6 +172,13 @@ def _balanced_splits(tiles: int, chunks: int, sms: int, fill: int) -> int:
     return min(range(1, top + 1), key=lambda s: (most(s), s))
 
 
+def forced(plan: dict | None) -> dict:
+    """``launch``'s forced ``tile`` and ``splits`` from a plan (a
+    tuning-cache entry's fields; None forces nothing)."""
+    plan = plan or {}
+    return dict(tile=plan.get("tile"), splits=plan.get("splits"))
+
+
 def copy_bytes(elem: int, ptrs, strides) -> int:
     """The widest copy, of 16, 8, 4, 2 (for elements of 2 bytes or 1) and 1
     (for 1-byte elements) bytes, that starts aligned at every vector: each
@@ -155,17 +194,20 @@ def copy_bytes(elem: int, ptrs, strides) -> int:
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, M: int, K: int, x_strides,
-           col_sums: bool = False
+           col_sums: bool = False, tile: str | None = None,
+           splits: int | None = None
            ) -> tuple[GemmPlan, int, int, torch.Tensor | None]:
     """The launch of a product whose A is gathered from contiguous x and
     whose B is the contiguous (K, N) matrix w (N its last dimension): the
-    plan on x's card, the copy widths of x (``x_strides``: the strides, in
-    elements, between the starts of its copies) and of w, and the splits'
-    workspace (int32 partials for int8 x, float32 otherwise; None for one
-    split), with room for the splits' column sums of w too where
-    ``col_sums`` (the weight gradients' db)."""
+    plan on x's card (``tile`` and ``splits`` forced where given), the
+    copy widths of x (``x_strides``: the strides, in elements, between the
+    starts of its copies) and of w, and the splits' workspace (int32
+    partials for int8 x, float32 otherwise; None for one split), with room
+    for the splits' column sums of w too where ``col_sums`` (the weight
+    gradients' db)."""
     N = w.shape[-1]
-    plan = gemm_plan(M, N, K, x.dtype, build.sm_count(x.device))
+    plan = gemm_plan(M, N, K, x.dtype, build.sm_count(x.device), tile=tile,
+                     splits=splits)
     va = copy_bytes(x.element_size(), [x.data_ptr()], x_strides)
     vb = copy_bytes(w.element_size(), [w.data_ptr()], [N])
     ws = None
@@ -249,9 +291,9 @@ def _check_depthwise(B, Lout, C, elem_bytes, K, stride, sms, rows, stages):
                          f"C={C} elem={elem_bytes} K={K} stride={stride} "
                          f"sms={sms}")
     if rows is not None and (rows % DW_WARPS or not 0 < rows <= 64):
-        raise ValueError(f"rows={rows}: a multiple of {DW_WARPS} up to 64")
+        raise PlanError(f"rows={rows}: a multiple of {DW_WARPS} up to 64")
     if stages is not None and not 2 <= stages <= 4:
-        raise ValueError(f"stages={stages}: 2 to 4")
+        raise PlanError(f"stages={stages}: 2 to 4")
 
 
 def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
@@ -289,9 +331,9 @@ def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
         if items >= fill:
             break
     if plan is None:
-        raise ValueError(f"depthwise K={K} at stride {stride}: no ring of "
-                         f"{DW_SLAB * elem_bytes}-byte rows fits a block's "
-                         f"{SMEM_BLOCK} bytes of shared memory")
+        raise PlanError(f"depthwise K={K} at stride {stride}: no ring of "
+                        f"{DW_SLAB * elem_bytes}-byte rows fits a block's "
+                        f"{SMEM_BLOCK} bytes of shared memory")
     return plan
 
 
@@ -363,13 +405,13 @@ def depthwise_dw_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
         if n * slabs >= sms * per_sm:
             break
     if plan is None:
-        raise ValueError(f"depthwise dw K={K} at stride {stride}: no ring of "
-                         f"{DW_SLAB * elem_bytes}-byte rows fits a block's "
-                         f"{SMEM_BLOCK} bytes of shared memory")
+        raise PlanError(f"depthwise dw K={K} at stride {stride}: no ring of "
+                        f"{DW_SLAB * elem_bytes}-byte rows fits a block's "
+                        f"{SMEM_BLOCK} bytes of shared memory")
     R, depth, S, chunks, n, smem, per_sm = plan
     if splits is not None:
         if not 1 <= splits <= n:
-            raise ValueError(f"splits={splits}: 1 to the {n} items of a slab")
+            raise PlanError(f"splits={splits}: 1 to the {n} items of a slab")
         S = splits
     return DepthwiseDwPlan(DW_SLAB, R, depth, S, slabs * S,
                            stride * (R - 1) + K, slabs, chunks, n * slabs,

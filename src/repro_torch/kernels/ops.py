@@ -57,11 +57,20 @@ training paths and llava's serving path reach:
 
 The reference demotes a failing Pallas kernel down a ladder of compiled
 twins. There is no ladder here: a CUDA tensor goes to the kernel or the
-call raises, and the plain versions serve only CPU tensors. For the same
-reason the reference's measured quant-regression guard
-(``_quant_fallback_reason``, which acts only on tuned timings in an
-autotune cache) has no counterpart: with no cache, as in the reference
-with an empty one, a quantized call goes to the quant kernel.
+call raises, and the plain versions serve only CPU tensors.
+
+Each kernel entry resolves its launch plan as the reference resolves its
+tiles: an explicit ``plan`` (``bwd_plan`` for a weight gradient) → the
+tuned entry under its shape key in the port's tuning cache
+(``autotune.lookup``; the ``grad=True`` key for the weight gradients, the
+dx conv's own key for dx) → None, the plan functions' rule. With no cache
+every launch runs the rule. A tuned entry the plan function refuses
+raises, naming its key. The plain versions take no plan. A float-input
+``conv1d(precision=...)`` serves the float path instead where both its
+quant key and its float key hold timings and the quant one is slower
+(``_quant_fallback_reason``, logged in ``_QUANT_FALLBACKS`` with one
+``quant_slower`` health event a key), unless pinned to the quant kernel
+by int8 input, a fused requant or an explicit plan, as in the reference.
 
 Each entry records its dispatch where it picks its kernel (``_dispatch``),
 as the reference's ``_ladder`` does: when tracing or
@@ -76,6 +85,7 @@ synchronises inside the span). Disarmed, the path is one flag check.
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
@@ -85,8 +95,8 @@ from repro_torch.core import conv as core_conv
 from repro_torch.health import HEALTH
 from repro_torch.kernels import attention_decode as attn_dec
 from repro_torch.kernels import (
-    autotune, im2col_gemm, sliding_conv1d, sliding_conv2d, sliding_conv_bwd,
-    sliding_conv_quant, sliding_pool,
+    autotune, gemm_plan, im2col_gemm, sliding_conv1d, sliding_conv2d,
+    sliding_conv_bwd, sliding_conv_quant, sliding_pool,
 )
 from repro_torch.kernels.sliding_conv1d import apply_activation
 from repro_torch.obs import metrics as obs_metrics
@@ -108,6 +118,10 @@ CONV1D_DW_DISPATCH = DispatchLog()
 CONV2D_DISPATCH = DispatchLog()
 CONV2D_QUANT_DISPATCH = DispatchLog()
 POOL1D_DISPATCH = DispatchLog()
+# shape key → reason for shapes where the quant path measurably loses to
+# the float path and dispatch served the float one; named, as the
+# reference's, so the fallback record lands in metrics.json
+_QUANT_FALLBACKS = DispatchLog("quant_fallback")
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -142,6 +156,23 @@ def _dispatch(site: str, key, operands: tuple, run):
     obs_metrics.count_dispatch(dt, float(_nbytes(*operands, out)),
                                site=site, key=key, rung=rung)
     return out
+
+
+def _resolve(key: str, explicit: dict | None) -> dict | None:
+    """The plan a launch runs: the explicit one, else the tuned entry
+    under ``key``, else None (the plan function's rule)."""
+    return explicit if explicit is not None else autotune.lookup(key)
+
+
+def _planned(key: str, plan: dict | None, fn, *args, **kwargs):
+    """``fn(*args, plan=plan, **kwargs)``; a plan the launch refuses raises
+    ``PlanError`` naming the shape key it came under."""
+    try:
+        return fn(*args, plan=plan, **kwargs)
+    except gemm_plan.PlanError as e:
+        if plan is None:
+            raise
+        raise gemm_plan.PlanError(f"plan {plan} under {key}: {e}") from e
 
 
 def _pad1d(x, padding, k, dilation=1):
@@ -202,10 +233,46 @@ def _check_quant_dispatch(precision, backend, backends=("sliding_pallas",)):
             f"only (got backend={backend!r})")
 
 
+def _quant_fallback_reason(x, w, stride, precision) -> str | None:
+    """Measured-regression guard of the quant 1-D dispatch (the
+    reference's): where the tuning cache holds timings for both this
+    shape's quant path and its float path and the float one is faster,
+    the reason to serve the float path (logged once a key in
+    ``_QUANT_FALLBACKS``, with a ``quant_slower`` health event); else
+    None. The caller applies it only to float input with no fused
+    requant and no explicit plan. The quant side's time is its entry's
+    ``dispatch_us`` where the search recorded one (the winner through a
+    float-input call here, which also quantizes x and reads its scales
+    back to the host), else its kernel ``us``: the reference compares
+    the kernel's alone, which can serve a quant path several times slower
+    end to end."""
+    B, L, Cin = x.shape
+    K, _, Cout = w.shape
+    kq = autotune.conv1d_key(B, L, Cin, Cout, K, stride, precision)
+    kf = autotune.conv1d_key(B, L, Cin, Cout, K, stride, _dtype_name(x))
+    tq, tf = autotune.lookup(kq), autotune.lookup(kf)
+    if not (tq and tf):
+        return None
+    us_q, us_f = tq.get("dispatch_us", tq.get("us")), tf.get("us")
+    if us_q is None or us_f is None or us_q <= us_f:
+        return None
+    reason = (f"tuned {precision} path {us_q:.0f}us > {_dtype_name(x)} "
+              f"{us_f:.0f}us for {kq}; serving the float path")
+    first = kq not in _QUANT_FALLBACKS
+    _QUANT_FALLBACKS[kq] = reason  # repeat hits bump the per-key count
+    if first:
+        print(f"[quant] fallback: {reason}", file=sys.stderr)
+        HEALTH.record(f"conv1d.{precision}", "quant_slower", "fallback:fp",
+                      detail=kq)
+    return reason
+
+
 def _conv1d_quant(x, w, *, stride, padding, dilation, backend, bias,
-                  activation, precision, w_scale, x_scale, out_scale):
+                  activation, precision, w_scale, x_scale, out_scale, plan):
     """The quantized branch of ``conv1d``: pad (an int8 input with code 0),
-    screen the scales, quantize the float operands, then the int8 kernel."""
+    screen the scales, serve the float path where the tuned timings say
+    it is faster (``_quant_fallback_reason``), quantize the float
+    operands, then the int8 kernel on its plan."""
     _check_quant_dispatch(precision, backend)
     if dilation != 1:
         raise ValueError("quantized convs cover dilation == 1 only")
@@ -215,13 +282,28 @@ def _conv1d_quant(x, w, *, stride, padding, dilation, backend, bias,
     if to_float:  # unusable calibrated scale, float operands: the fp path
         return conv1d(x, w, stride=stride, backend=backend, bias=bias,
                       activation=activation)
+    if (x.dtype != torch.int8 and out_scale is None and plan is None
+            and _quant_fallback_reason(x, w, stride, precision) is not None):
+        # measured regression: the float sliding path. Pinned to the quant
+        # kernel regardless: int8 inputs and a fused requant (a chained
+        # site keeps its int8 contract), and an explicit plan (the tuner
+        # times the plan it asked for)
+        wf = w
+        if w.dtype == torch.int8:
+            if w_scale is None:
+                raise ValueError("int8 weights need their w_scale")
+            wf = (w.float() * w_scale.float()).to(x.dtype)
+        return conv1d(x, wf, stride=stride, backend=backend, bias=bias,
+                      activation=activation)
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision)
+    key = autotune.conv1d_key(*x.shape, w.shape[2], w.shape[0], stride,
+                              precision)
+    qplan = _resolve(key, plan)
     return _dispatch(
-        site, lambda: autotune.conv1d_key(*x.shape, w.shape[2], w.shape[0],
-                                          stride, precision),
-        (x, w, bias, w_scale, x_scale, out_scale),
-        lambda: sliding_conv_quant.conv1d_quant(
+        site, key, (x, w, bias, w_scale, x_scale, out_scale),
+        lambda: _planned(
+            key, qplan, sliding_conv_quant.conv1d_quant,
             x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
             mode=precision, stride=stride, activation=activation,
             out_dtype=out_dtype))
@@ -243,21 +325,26 @@ class Conv1dSliding(torch.autograd.Function):
     kernels. Forward saves (x, w, bias, z), z the kernel's post-bias
     pre-activation (none with activation "none": y is z then). Backward:
     ``dz = act'(z) · dy`` in x's type; dx through the forward conv kernel
-    on the dilated gradient and the flipped weights; dw and db through the
-    dw kernel, cast to w's and bias's types. Grads nobody asked for are not
-    computed. CPU tensors run the kernels' plain versions."""
+    on the dilated gradient and the flipped weights (its plan from the
+    cache under the dx conv's own key); dw and db through the dw kernel
+    on the weight gradient's plan, cast to w's and bias's types. Grads
+    nobody asked for are not computed. CPU tensors run the kernels' plain
+    versions. ``plans``: (key, plan, grad key, weight-gradient plan)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, stride, activation):
+    def forward(ctx, x, w, bias, stride, activation, plans):
+        key, plan, bwd_key, bwd_plan = plans
         if activation in (None, "none"):
-            y = sliding_conv1d.conv1d_sliding(x, w, bias, stride=stride)
+            y = _planned(key, plan, sliding_conv1d.conv1d_sliding, x, w,
+                         bias, stride=stride)
             z = None
         else:
-            y, z = sliding_conv1d.conv1d_sliding(
-                x, w, bias, stride=stride, activation=activation,
-                save_preact=True)
+            y, z = _planned(key, plan, sliding_conv1d.conv1d_sliding, x, w,
+                            bias, stride=stride, activation=activation,
+                            save_preact=True)
         ctx.save_for_backward(x, w, bias, z)
         ctx.stride, ctx.activation = stride, activation
+        ctx.bwd = (bwd_key, bwd_plan)
         return y
 
     @staticmethod
@@ -267,15 +354,20 @@ class Conv1dSliding(torch.autograd.Function):
         dz = sliding_conv_bwd.act_bwd(dy, z, ctx.activation).to(x.dtype)
         dx = dw = db = None
         if need_x:
-            dx = sliding_conv_bwd.conv1d_dx(dz, w, stride=ctx.stride,
-                                            L=x.shape[1])
+            B, Lout, Cout = dz.shape
+            K, Cin = w.shape[:2]
+            dkey = autotune.conv1d_key(B, (Lout - 1) * ctx.stride + 2 * K - 1,
+                                       Cout, Cin, K, 1, _dtype_name(dz))
+            dx = _planned(dkey, autotune.lookup(dkey),
+                          sliding_conv_bwd.conv1d_dx, dz, w,
+                          stride=ctx.stride, L=x.shape[1])
         if need_w or need_b:
-            dw, db = sliding_conv_bwd.conv1d_bwd_dw(
-                x, dz, w.shape[0], stride=ctx.stride,
-                has_bias=bias is not None)
+            dw, db = _planned(*ctx.bwd, sliding_conv_bwd.conv1d_bwd_dw,
+                              x, dz, w.shape[0], stride=ctx.stride,
+                              has_bias=bias is not None)
             dw = dw.to(w.dtype)
             db = None if db is None else db.to(bias.dtype)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 class Conv1dDepthwise(torch.autograd.Function):
@@ -286,19 +378,24 @@ class Conv1dDepthwise(torch.autograd.Function):
     forward depthwise kernel on the dilated gradient and the flipped taps;
     dw and db through the depthwise dw kernel, cast to w's and bias's
     types. Grads nobody asked for are not computed. CPU tensors run the
-    kernels' plain versions."""
+    kernels' plain versions. One plan (``key``'s entry) serves all three:
+    its ``rows`` and ``stages`` the forward and the dx conv (as the
+    reference's entry gives its depthwise backward the forward's tile),
+    its ``bwd_rows``, ``bwd_stages`` and ``bwd_splits`` the dw kernel."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, stride, activation):
+    def forward(ctx, x, w, bias, stride, activation, key, plan):
         if activation in (None, "none"):
-            y = sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride)
+            y = _planned(key, plan, sliding_conv1d.conv1d_depthwise, x, w,
+                         bias, stride=stride)
             z = None
         else:
-            y, z = sliding_conv1d.conv1d_depthwise(
-                x, w, bias, stride=stride, activation=activation,
-                save_preact=True)
+            y, z = _planned(key, plan, sliding_conv1d.conv1d_depthwise, x, w,
+                            bias, stride=stride, activation=activation,
+                            save_preact=True)
         ctx.save_for_backward(x, w, bias, z)
         ctx.stride, ctx.activation = stride, activation
+        ctx.key, ctx.plan = key, plan
         return y
 
     @staticmethod
@@ -308,15 +405,20 @@ class Conv1dDepthwise(torch.autograd.Function):
         dz = sliding_conv_bwd.act_bwd(dy, z, ctx.activation).to(x.dtype)
         dx = dw = db = None
         if need_x:
-            dx = sliding_conv_bwd.conv1d_depthwise_dx(
-                dz, w, stride=ctx.stride, L=x.shape[1])
+            dx = _planned(ctx.key, ctx.plan,
+                          sliding_conv_bwd.conv1d_depthwise_dx, dz, w,
+                          stride=ctx.stride, L=x.shape[1])
         if need_w or need_b:
-            dw, db = sliding_conv_bwd.conv1d_depthwise_bwd_dw(
-                x, dz, w.shape[0], stride=ctx.stride,
-                has_bias=bias is not None)
+            bwd = None if ctx.plan is None else {
+                f: ctx.plan.get("bwd_" + f)
+                for f in ("rows", "stages", "splits")}
+            dw, db = _planned(ctx.key, bwd,
+                              sliding_conv_bwd.conv1d_depthwise_bwd_dw,
+                              x, dz, w.shape[0], stride=ctx.stride,
+                              has_bias=bias is not None)
             dw = dw.to(w.dtype)
             db = None if db is None else db.to(bias.dtype)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None, None
 
 
 class Conv2dSliding(torch.autograd.Function):
@@ -327,21 +429,25 @@ class Conv2dSliding(torch.autograd.Function):
     kernel on the dilated gradient and the flipped, transposed weights; dw
     and db through the 2-D dw kernel, cast to w's and bias's types. Grads
     nobody asked for are not computed: an input that needs none (an image)
-    costs no dx conv. CPU tensors run the kernels' plain versions."""
+    costs no dx conv. CPU tensors run the kernels' plain versions. The
+    plans as ``Conv1dSliding``'s: ``plans`` is (key, plan, grad key,
+    weight-gradient plan), the dx conv's from its own key."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, stride, activation, tiles, bwd_tiles):
+    def forward(ctx, x, w, bias, stride, activation, tiles, bwd_tiles,
+                plans):
+        key, plan, bwd_key, bwd_plan = plans
         if activation in (None, "none"):
-            y = sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
-                                              **tiles)
+            y = _planned(key, plan, sliding_conv2d.conv2d_sliding, x, w,
+                         bias, stride=stride, **tiles)
             z = None
         else:
-            y, z = sliding_conv2d.conv2d_sliding(
-                x, w, bias, stride=stride, activation=activation,
-                save_preact=True, **tiles)
+            y, z = _planned(key, plan, sliding_conv2d.conv2d_sliding, x, w,
+                            bias, stride=stride, activation=activation,
+                            save_preact=True, **tiles)
         ctx.save_for_backward(x, w, bias, z)
         ctx.stride, ctx.activation = stride, activation
-        ctx.bwd_tiles = bwd_tiles
+        ctx.bwd_tiles, ctx.bwd = bwd_tiles, (bwd_key, bwd_plan)
         return y
 
     @staticmethod
@@ -351,15 +457,22 @@ class Conv2dSliding(torch.autograd.Function):
         dz = sliding_conv_bwd.act_bwd(dy, z, ctx.activation).to(x.dtype)
         dx = dw = db = None
         if need_x:
-            dx = sliding_conv_bwd.conv2d_dx(dz, w, stride=ctx.stride,
-                                            H=x.shape[1], W=x.shape[2])
+            B, oh, ow, Cout = dz.shape
+            kh, kw, Cin = w.shape[:3]
+            sh, sw = ctx.stride
+            dkey = autotune.conv2d_key(
+                B, (oh - 1) * sh + 2 * kh - 1, (ow - 1) * sw + 2 * kw - 1,
+                Cout, Cin, kh, kw, 1, 1, _dtype_name(dz))
+            dx = _planned(dkey, autotune.lookup(dkey),
+                          sliding_conv_bwd.conv2d_dx, dz, w,
+                          stride=ctx.stride, H=x.shape[1], W=x.shape[2])
         if need_w or need_b:
-            dw, db = sliding_conv_bwd.conv2d_bwd_dw(
-                x, dz, w.shape[:2], stride=ctx.stride,
-                has_bias=bias is not None, **ctx.bwd_tiles)
+            dw, db = _planned(*ctx.bwd, sliding_conv_bwd.conv2d_bwd_dw,
+                              x, dz, w.shape[:2], stride=ctx.stride,
+                              has_bias=bias is not None, **ctx.bwd_tiles)
             dw = dw.to(w.dtype)
             db = None if db is None else db.to(bias.dtype)
-        return dx, dw, db, None, None, None, None
+        return dx, dw, db, None, None, None, None, None
 
 
 def _needs_grad(*ts) -> bool:
@@ -367,19 +480,25 @@ def _needs_grad(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
-def _conv1d_sliding(x, w, bias, stride, activation, backend):
+def _conv1d_sliding(x, w, bias, stride, activation, backend, key, plan,
+                    bwd_plan):
     """The sliding backends of ``conv1d`` on padded ``x``: the kernel (its
     plain version on a CPU tensor) for ``sliding_pallas``, and for
     ``sliding`` on a CUDA tensor; ``core.conv``'s tap loop with an unfused
-    epilogue for ``sliding`` on a CPU tensor."""
+    epilogue for ``sliding`` on a CPU tensor. ``plan`` under ``key`` as
+    ``_resolve`` gave it; the weight gradient's from ``bwd_plan`` or the
+    ``grad=True`` key (the reference's ``_bwd_tile1d``)."""
     if backend == "sliding" and x.device.type != "cuda":
         y = core_conv.conv1d_sliding(x, w, stride=stride, padding="VALID")
         return epilogue_unfused(y, bias, activation)
     if _needs_grad(x, w, bias):
-        return Conv1dSliding.apply(x, w, bias, stride, activation)
+        bwd_key = key + "|grad"
+        return Conv1dSliding.apply(
+            x, w, bias, stride, activation,
+            (key, plan, bwd_key, _resolve(bwd_key, bwd_plan)))
     # nothing to differentiate (serving): the kernel saves no residual
-    return sliding_conv1d.conv1d_sliding(x, w, bias, stride=stride,
-                                         activation=activation)
+    return _planned(key, plan, sliding_conv1d.conv1d_sliding, x, w, bias,
+                    stride=stride, activation=activation)
 
 
 def conv1d(
@@ -396,6 +515,8 @@ def conv1d(
     w_scale: torch.Tensor | None = None,
     x_scale: torch.Tensor | None = None,
     out_scale: torch.Tensor | None = None,
+    plan: dict | None = None,
+    bwd_plan: dict | None = None,
 ) -> torch.Tensor:
     """Multi-channel 1-D convolution + bias + activation. x: (B, L, Cin),
     w: (K, Cin, Cout); padding VALID / SAME / CAUSAL / (lo, hi). The
@@ -406,13 +527,18 @@ def conv1d(
     with its per-Cout ``w_scale``, or float and quantized here; in w8a8 a
     float ``x`` is quantized onto ``x_scale`` (dynamic absmax when None),
     an int8 ``x`` comes with its ``x_scale``, and ``out_scale`` requantizes
-    the output to int8 after the activation."""
+    the output to int8 after the activation.
+
+    ``plan`` (``tile``, ``splits``) forces the sliding kernel's launch
+    plan and ``bwd_plan`` its weight gradient's; None takes the tuned
+    entry under the shape key (the ``grad=True`` key for the gradient),
+    else the rule."""
     if precision != "fp":
         return _conv1d_quant(
             x, w, stride=stride, padding=padding, dilation=dilation,
             backend=backend, bias=bias, activation=activation,
             precision=precision, w_scale=w_scale, x_scale=x_scale,
-            out_scale=out_scale)
+            out_scale=out_scale, plan=plan)
     if backend not in CONV_BACKENDS:
         raise ValueError(
             f"unknown conv backend {backend!r}; one of {CONV_BACKENDS}")
@@ -428,11 +554,13 @@ def conv1d(
         return epilogue_unfused(y, bias, activation)
     x = _pad1d(x, padding, w.shape[0])
     if backend.startswith("sliding"):
+        key = autotune.conv1d_key(*x.shape, w.shape[2], w.shape[0], stride,
+                                  _dtype_name(x))
+        fplan = _resolve(key, plan)
         return _dispatch(
-            "conv1d", lambda: autotune.conv1d_key(
-                *x.shape, w.shape[2], w.shape[0], stride, _dtype_name(x)),
-            (x, w, bias),
-            lambda: _conv1d_sliding(x, w, bias, stride, activation, backend))
+            "conv1d", key, (x, w, bias),
+            lambda: _conv1d_sliding(x, w, bias, stride, activation, backend,
+                                    key, fplan, bwd_plan))
     if backend == "im2col_gemm":
         y = im2col_gemm.conv1d_im2col_fused(x, w, stride=stride)
     else:
@@ -452,10 +580,14 @@ def conv1d_depthwise(
     w_scale: torch.Tensor | None = None,
     x_scale: torch.Tensor | None = None,
     out_scale: torch.Tensor | None = None,
+    plan: dict | None = None,
 ) -> torch.Tensor:
     """Depthwise 1-D sliding conv + bias + activation in one launch (the
     mamba conv path). x: (B, L, C), w: (K, C); padding VALID / SAME /
-    CAUSAL / (lo, hi).
+    CAUSAL / (lo, hi). ``plan`` (``rows``, ``stages``; in floating point
+    also row 11's ``bwd_rows``, ``bwd_stages``, ``bwd_splits``) forces
+    the kernels' plans; None takes the tuned entry under the
+    ``conv1d_dw_key``, else the rule.
 
     ``precision`` "w8a8" / "w8a16" runs the int8 depthwise kernel: ``w``
     is int8 with its per-channel ``w_scale`` ((C,) or (1, C)), or float and
@@ -469,13 +601,15 @@ def conv1d_depthwise(
         key = autotune.conv1d_dw_key(*x.shape, w.shape[0], stride,
                                      _dtype_name(x))
         CONV1D_DW_DISPATCH[key] = impl
+        dplan = _resolve(key, plan)
 
         def run():
             if _needs_grad(x, w, bias):
-                return Conv1dDepthwise.apply(x, w, bias, stride, activation)
+                return Conv1dDepthwise.apply(x, w, bias, stride, activation,
+                                             key, dplan)
             # nothing to differentiate (serving): the kernel saves no residual
-            return sliding_conv1d.conv1d_depthwise(x, w, bias, stride=stride,
-                                                   activation=activation)
+            return _planned(key, dplan, sliding_conv1d.conv1d_depthwise, x,
+                            w, bias, stride=stride, activation=activation)
 
         return _dispatch("conv1d_depthwise", key, (x, w, bias), run)
     if precision not in PRECISIONS:
@@ -492,29 +626,35 @@ def conv1d_depthwise(
         x, w, w_scale, x_scale, precision, quantize_depthwise_weight)
     key = autotune.conv1d_dw_key(*x.shape, w.shape[0], stride, precision)
     CONV1D_DW_DISPATCH[key] = impl
+    qplan = _resolve(key, plan)
     return _dispatch(
         site, key, (x, w, bias, w_scale, x_scale, out_scale),
-        lambda: sliding_conv_quant.conv1d_depthwise_quant(
+        lambda: _planned(
+            key, qplan, sliding_conv_quant.conv1d_depthwise_quant,
             x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
             mode=precision, stride=stride, activation=activation,
             out_dtype=out_dtype))
 
 
-def _bwd_tile2d(x, w, stride, explicit_h, explicit_w):
-    """The dw kernel's tiles: the explicit ones, else the defaults (the
-    reference consults its tuning cache under the ``grad=True`` key here;
-    the port has none). The key is logged in ``CONV2D_DISPATCH``."""
+def _bwd_tile2d(x, w, stride, explicit_h, explicit_w, explicit_plan):
+    """The dw kernel's tiles (the explicit ones, else the defaults; the
+    reference's tuned entry also carries tiles, the port's does not) and
+    its plan under the ``grad=True`` key, resolved as ``_resolve`` does.
+    Returns (tile_h, tile_w, key, plan); the key is logged in
+    ``CONV2D_DISPATCH``."""
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
     key = autotune.conv2d_key(B, H, W, Cin, Cout, kh, kw, *stride,
                               _dtype_name(x), grad=True)
     CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
     return (sliding_conv2d.DEFAULT_TILE_H if explicit_h is None else explicit_h,
-            sliding_conv2d.DEFAULT_TILE_W if explicit_w is None else explicit_w)
+            sliding_conv2d.DEFAULT_TILE_W if explicit_w is None else explicit_w,
+            key, _resolve(key, explicit_plan))
 
 
 def _conv2d_quant(x, w, *, stride, padding, dilation, backend, bias,
-                  activation, tiles, precision, w_scale, x_scale, out_scale):
+                  activation, tiles, precision, w_scale, x_scale, out_scale,
+                  plan):
     """The quantized branch of ``conv2d`` (the reference's ``ops.py``
     int8 conv2d): pad (an int8 input with code 0), screen the scales,
     quantize the float operands, then the int8 conv2d kernel. An unusable
@@ -540,9 +680,11 @@ def _conv2d_quant(x, w, *, stride, padding, dilation, backend, bias,
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision)
     CONV2D_QUANT_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
+    qplan = _resolve(key, plan)
     return _dispatch(
         site, key, (x, w, bias, w_scale, x_scale, out_scale),
-        lambda: sliding_conv_quant.conv2d_quant(
+        lambda: _planned(
+            key, qplan, sliding_conv_quant.conv2d_quant,
             x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
             mode=precision, stride=stride, activation=activation,
             out_dtype=out_dtype, **tiles))
@@ -569,12 +711,17 @@ def conv2d(
     w_scale: torch.Tensor | None = None,
     x_scale: torch.Tensor | None = None,
     out_scale: torch.Tensor | None = None,
+    plan: dict | None = None,
+    bwd_plan: dict | None = None,
 ) -> torch.Tensor:
     """Multi-channel 2-D convolution + bias + activation. x: (B, H, W, Cin),
     w: (kh, kw, Cin, Cout); padding VALID / SAME / ((lo, hi), (lo, hi)).
 
     The tiling arguments are the reference's; they are checked and do not
-    change the result. On the sliding backends a call whose inputs need a
+    change the result. ``plan`` (``tile``, ``splits``) forces the sliding
+    kernel's launch plan and ``bwd_plan`` its weight gradient's; None
+    takes the tuned entry under the shape key (the ``grad=True`` key for
+    the gradient), else the rule. On the sliding backends a call whose inputs need a
     gradient goes through ``Conv2dSliding``; the ``im2col_gemm`` and
     ``im2col_hbm`` baselines are forward only (a CUDA call whose inputs
     need a gradient raises). ``precision`` "w8a8" /
@@ -593,7 +740,7 @@ def conv2d(
             x, w, stride=stride, padding=padding, dilation=dilation,
             backend=backend, bias=bias, activation=activation, tiles=tiles,
             precision=precision, w_scale=w_scale, x_scale=x_scale,
-            out_scale=out_scale)
+            out_scale=out_scale, plan=plan)
     if backend not in CONV2D_BACKENDS:
         raise ValueError(
             f"unknown conv backend {backend!r}; one of {CONV2D_BACKENDS}")
@@ -620,17 +767,19 @@ def conv2d(
     key = autotune.conv2d_key(B, H, W, Cin, w.shape[3], kh, kw, *stride,
                               _dtype_name(x))
     CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
+    fplan = _resolve(key, plan)
 
     def run():
         if _needs_grad(x, w, bias):
-            bth, btw = _bwd_tile2d(x, w, stride, bwd_tile_h, bwd_tile_w)
+            bth, btw, bwd_key, bplan = _bwd_tile2d(x, w, stride, bwd_tile_h,
+                                                   bwd_tile_w, bwd_plan)
             bwd_tiles = dict(tile_h=bth, tile_w=btw, cin_block=cin_block,
                              cout_block=cout_block)
             return Conv2dSliding.apply(x, w, bias, stride, activation, tiles,
-                                       bwd_tiles)
+                                       bwd_tiles, (key, fplan, bwd_key, bplan))
         # nothing to differentiate (serving): the kernel saves no residual
-        return sliding_conv2d.conv2d_sliding(x, w, bias, stride=stride,
-                                             activation=activation, **tiles)
+        return _planned(key, fplan, sliding_conv2d.conv2d_sliding, x, w,
+                        bias, stride=stride, activation=activation, **tiles)
 
     return _dispatch("conv2d", key, (x, w, bias), run)
 
@@ -640,13 +789,16 @@ def attention_decode(
     lengths: torch.Tensor,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    plan: dict | None = None,
 ) -> torch.Tensor:
     """Fused decode attention against the KV cache. q: (B, H, D) the new
     token's query heads; k/v: (B, S, KV, D), float rows, or int8 codes with
     their float32 ``k_scale``/``v_scale`` (B, S, KV, 1); lengths: (B,)
     int32 valid prefix per slot (decode: pos + 1; cross-attention: encoder
     lengths; 0 gives a zero row). GQA: H = KV * G. Returns (B, H, D)
-    float32."""
+    float32. ``plan`` (``split_rows``) forces the kernel's split length;
+    None takes the tuned entry under the ``attn_dec|…`` key, else the
+    rule (``attention_decode.decode_splits``)."""
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     if H % KV:
@@ -658,10 +810,12 @@ def attention_decode(
     kind = "int8" if quantized else _dtype_name(k)
     key = autotune.attn_dec_key(B, S, KV, G, D, kind)
     ATTN_DECODE_DISPATCH[key] = "cuda" if q.device.type == "cuda" else "plain"
+    aplan = _resolve(key, plan)
     out = _dispatch(
         "attention_decode", key, (q, k, v, k_scale, v_scale),
-        lambda: attn_dec.decode_attention(q.reshape(B, KV, G, D), k, v,
-                                          lengths, k_scale, v_scale))
+        lambda: _planned(key, aplan, attn_dec.decode_attention,
+                         q.reshape(B, KV, G, D), k, v, lengths, k_scale,
+                         v_scale))
     return out.reshape(B, H, D)
 
 
@@ -711,15 +865,19 @@ POOL_SHIFT_MAX_WINDOW = 32
 
 
 def _pool_method(x, window: int, op: str, explicit: str | None) -> str:
-    """explicit argument → heuristic. The reference consults its tuned
-    cache (``autotune_pool1d``'s entry under ``pool1d_key``) between the
-    two; the port has no tuning cache yet, and with an empty cache the
-    reference resolves as this does: sum/avg always "scan", max "shift"
-    below ``POOL_SHIFT_MAX_WINDOW`` and "scan" from it up."""
+    """explicit argument → tuned cache entry (``autotune_pool1d``'s
+    ``method`` under ``pool1d_key``) → heuristic, as the reference's:
+    sum/avg always "scan", max "shift" below ``POOL_SHIFT_MAX_WINDOW``
+    and "scan" from it up."""
     if explicit is not None:
         return explicit
     if op != "max":
         return "scan"
+    B, L, C = x.shape
+    tuned = autotune.lookup(autotune.pool1d_key(B, L, C, window, op,
+                                                _dtype_name(x)))
+    if tuned and tuned.get("method") in ("scan", "shift"):
+        return tuned["method"]
     return "shift" if window < POOL_SHIFT_MAX_WINDOW else "scan"
 
 

@@ -99,19 +99,22 @@ def conv1d_sliding_plain(
     return (y, acc.to(x.dtype)) if save_preact else y
 
 
-def conv1d_launch(x, w, stride, lout):
+def conv1d_launch(x, w, stride, lout, plan=None):
     """The launch geometry of the conv's product on ``csrc/gemm_mma.cuh``
     (row 1), for contiguous x and w: the plan (tile and split of the K·Cin
-    taps), the copy widths of x (along each position's whole column) and
-    of w, and the splits' float32 workspace (None for one split)."""
+    taps; ``plan``'s ``tile`` and ``splits`` force them), the copy widths
+    of x (along each position's whole column) and of w, and the splits'
+    float32 workspace (None for one split)."""
     B, L, Cin = x.shape
     K = w.shape[0]
     return gemm_plan.launch(x, w, B * lout, K * Cin,
                             gemm_plan.conv2d_copy_strides(1, L, Cin, K,
-                                                          (1, stride)))
+                                                          (1, stride)),
+                            **gemm_plan.forced(plan))
 
 
-def _launch(x, w, bias, stride, activation, out_len, save_preact=False):
+def _launch(x, w, bias, stride, activation, out_len, save_preact=False,
+            plan=None):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
                         f"same type, got {x.dtype} and {w.dtype}")
@@ -122,7 +125,7 @@ def _launch(x, w, bias, stride, activation, out_len, save_preact=False):
     b32 = None if bias is None else bias.float().contiguous()
     B, L, Cin = x.shape
     K, _, Cout = w.shape
-    plan, va, vb, ws = conv1d_launch(x, w, stride, out_len)
+    plan, va, vb, ws = conv1d_launch(x, w, stride, out_len, plan)
     y = torch.empty((B, out_len, Cout), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     code = fn(
@@ -136,19 +139,25 @@ def _launch(x, w, bias, stride, activation, out_len, save_preact=False):
     )
     build.check("sliding_conv1d", code)
     conv1d_sliding.launches += 1
+    conv1d_sliding.last_plan = plan
     return (y, z) if save_preact else y
 
 
 def conv1d_sliding(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     stride: int = 1, activation: str = "none", save_preact: bool = False,
+    plan: dict | None = None,
 ):
     """VALID sliding conv1d + bias + activation: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor. ``conv1d_sliding.launches``
-    counts kernel launches."""
+    tensor, the plain version for a CPU tensor. ``plan`` (a tuning-cache
+    entry's fields ``tile`` and ``splits``) forces the kernel's launch
+    plan; the plain version takes none. ``conv1d_sliding.launches`` counts
+    kernel launches, ``conv1d_sliding.last_plan`` is the last launch's
+    ``GemmPlan``."""
     out_len = _check(x, w, bias, stride, activation)
     if x.device.type == "cuda":
-        return _launch(x, w, bias, stride, activation, out_len, save_preact)
+        return _launch(x, w, bias, stride, activation, out_len, save_preact,
+                       plan=plan)
     if x.device.type == "cpu":
         return conv1d_sliding_plain(x, w, bias, stride=stride,
                                     activation=activation,
@@ -157,6 +166,7 @@ def conv1d_sliding(
 
 
 conv1d_sliding.launches = 0
+conv1d_sliding.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -200,20 +210,24 @@ def conv1d_depthwise_plain(
     return (y, acc.to(x.dtype)) if save_preact else y
 
 
-def depthwise_launch(x, K, stride, out_len):
+def depthwise_launch(x, K, stride, out_len, plan=None):
     """The launch of ``csrc/depthwise_rows.cuh`` over contiguous x (B, L,
     C), shared by the float and int8 depthwise wrappers: the plan on x's
-    card (``gemm_plan.depthwise_plan``) and the width of x's staged pieces
-    (each row starts C elements after the last)."""
+    card (``gemm_plan.depthwise_plan``; ``plan``'s ``rows`` and ``stages``
+    force it) and the width of x's staged pieces (each row starts C
+    elements after the last)."""
     B, _, C = x.shape
     el = x.element_size()
+    plan = plan or {}
     plan = gemm_plan.depthwise_plan(B, out_len, C, el, K, stride,
-                                    build.sm_count(x.device))
+                                    build.sm_count(x.device),
+                                    rows=plan.get("rows"),
+                                    stages=plan.get("stages"))
     return plan, gemm_plan.copy_bytes(el, [x.data_ptr()], [C])
 
 
 def _launch_depthwise(x, w, bias, stride, activation, out_len,
-                      save_preact=False):
+                      save_preact=False, plan=None):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
                         f"same type, got {x.dtype} and {w.dtype}")
@@ -223,7 +237,7 @@ def _launch_depthwise(x, w, bias, stride, activation, out_len,
     x, w = x.contiguous(), w.contiguous()
     b32 = None if bias is None else bias.float().contiguous()
     B, L, C = x.shape
-    plan, cb = depthwise_launch(x, w.shape[0], stride, out_len)
+    plan, cb = depthwise_launch(x, w.shape[0], stride, out_len, plan)
     y = torch.empty((B, out_len, C), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     code = fn(
@@ -236,20 +250,25 @@ def _launch_depthwise(x, w, bias, stride, activation, out_len,
     )
     build.check("conv1d_depthwise", code)
     conv1d_depthwise.launches += 1
+    conv1d_depthwise.last_plan = plan
     return (y, z) if save_preact else y
 
 
 def conv1d_depthwise(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     stride: int = 1, activation: str = "none", save_preact: bool = False,
+    plan: dict | None = None,
 ):
     """VALID depthwise sliding conv1d + bias + activation: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor.
-    ``conv1d_depthwise.launches`` counts kernel launches."""
+    for a CUDA tensor, the plain version for a CPU tensor. ``plan``'s
+    ``rows`` and ``stages`` force the kernel's plan; the plain version
+    takes none. ``conv1d_depthwise.launches`` counts kernel launches,
+    ``conv1d_depthwise.last_plan`` is the last launch's
+    ``DepthwisePlan``."""
     out_len = _check_depthwise(x, w, bias, stride, activation)
     if x.device.type == "cuda":
         return _launch_depthwise(x, w, bias, stride, activation, out_len,
-                                 save_preact)
+                                 save_preact, plan=plan)
     if x.device.type == "cpu":
         return conv1d_depthwise_plain(x, w, bias, stride=stride,
                                       activation=activation,
@@ -258,3 +277,4 @@ def conv1d_depthwise(
 
 
 conv1d_depthwise.launches = 0
+conv1d_depthwise.last_plan = None

@@ -114,19 +114,22 @@ def conv2d_sliding_plain(
     return (y, acc.to(x.dtype)) if save_preact else y
 
 
-def product_launch(x, w, stride, oh, ow):
+def product_launch(x, w, stride, oh, ow, plan=None):
     """The launch geometry of the conv's product on ``csrc/gemm_mma.cuh``
     (rows 4 and 14), for contiguous x and w: the plan (tile and split of
-    the kh·kw·Cin taps), the copy widths of x and w, and the splits'
-    workspace (None for one split; int32 partials for int8 x)."""
+    the kh·kw·Cin taps; ``plan``'s ``tile`` and ``splits`` force them),
+    the copy widths of x and w, and the splits' workspace (None for one
+    split; int32 partials for int8 x)."""
     B, H, W, Cin = x.shape
     kh, kw = w.shape[:2]
     return gemm_plan.launch(x, w, B * oh * ow, kh * kw * Cin,
                             gemm_plan.conv2d_copy_strides(H, W, Cin, kw,
-                                                          stride))
+                                                          stride),
+                            **gemm_plan.forced(plan))
 
 
-def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):
+def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False,
+            plan=None):
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 x and w of the "
                         f"same type, got {x.dtype} and {w.dtype}")
@@ -137,7 +140,7 @@ def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):
     b32 = None if bias is None else bias.float().contiguous()
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
-    plan, va, vb, ws = product_launch(x, w, stride, oh, ow)
+    plan, va, vb, ws = product_launch(x, w, stride, oh, ow, plan)
     y = torch.empty((B, oh, ow, Cout), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if save_preact else None
     code = fn(
@@ -151,6 +154,7 @@ def _launch(x, w, bias, stride, activation, oh, ow, save_preact=False):
     )
     build.check("sliding_conv2d", code)
     conv2d_sliding.launches += 1
+    conv2d_sliding.last_plan = plan
     return (y, z) if save_preact else y
 
 
@@ -160,15 +164,19 @@ def conv2d_sliding(
     tile_h: int = DEFAULT_TILE_H, tile_w: int = DEFAULT_TILE_W,
     cin_block: int | None = None, cout_block: int | None = None,
     regime: str | None = None, save_preact: bool = False,
+    plan: dict | None = None,
 ):
     """VALID sliding conv2d + bias + activation: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor.
-    ``conv2d_sliding.launches`` counts kernel launches."""
+    tensor, the plain version for a CPU tensor. ``plan``'s ``tile`` and
+    ``splits`` force the kernel's launch plan; the plain version takes
+    none. ``conv2d_sliding.launches`` counts kernel launches,
+    ``conv2d_sliding.last_plan`` is the last launch's ``GemmPlan``."""
     stride = tuple(stride)
     oh, ow = _check(x, w, bias, stride, activation, tile_h, tile_w, cin_block,
                     cout_block, regime)
     if x.device.type == "cuda":
-        return _launch(x, w, bias, stride, activation, oh, ow, save_preact)
+        return _launch(x, w, bias, stride, activation, oh, ow, save_preact,
+                       plan=plan)
     if x.device.type == "cpu":
         return conv2d_sliding_plain(x, w, bias, stride=stride,
                                     activation=activation,
@@ -177,3 +185,4 @@ def conv2d_sliding(
 
 
 conv2d_sliding.launches = 0
+conv2d_sliding.last_plan = None

@@ -126,11 +126,13 @@ def _fit_len(dx: torch.Tensor, L: int, axis: int = 1) -> torch.Tensor:
 
 
 def conv1d_dx(dz: torch.Tensor, w: torch.Tensor, *, stride: int,
-              L: int) -> torch.Tensor:
-    """dx through the forward sliding conv (its kernel on a CUDA tensor) on
-    the dilated gradient: stride 1, no bias, no activation."""
+              L: int, plan: dict | None = None) -> torch.Tensor:
+    """dx through the forward sliding conv (its kernel on a CUDA tensor,
+    ``plan`` forcing its launch plan) on the dilated gradient: stride 1,
+    no bias, no activation."""
     dzp, wt = conv1d_dx_operands(dz, w, stride=stride)
-    return _fit_len(sliding_conv1d.conv1d_sliding(dzp, wt, None, stride=1), L)
+    return _fit_len(sliding_conv1d.conv1d_sliding(dzp, wt, None, stride=1,
+                                                  plan=plan), L)
 
 
 def _check(x, dz, K, stride) -> None:
@@ -168,17 +170,18 @@ def _check_kernel_operands(x, dz) -> None:
         raise ValueError("x and dz must lie on one device")
 
 
-def dw_launch(x, dz, filter_len, W, Cin, kw, sw, has_bias):
+def dw_launch(x, dz, filter_len, W, Cin, kw, sw, has_bias, plan=None):
     """The launch geometry of a weight gradient's product on
     ``csrc/gemm_mma.cuh`` (rows 10 and 12), for contiguous x and dz: dw
     (``filter_len`` = kh·kw·Cin rows, Cout) over the output positions of
-    dz, the plan, the copy widths of x (along a filter row's run, W the
-    input row's width) and of dz, and the splits' float32 workspace (with
-    room for db's partials where ``has_bias``; None for one split)."""
+    dz, the plan (``plan``'s ``tile`` and ``splits`` force it), the copy
+    widths of x (along a filter row's run, W the input row's width) and of
+    dz, and the splits' float32 workspace (with room for db's partials
+    where ``has_bias``; None for one split)."""
     Cout = dz.shape[-1]
     return gemm_plan.launch(x, dz, filter_len, dz.numel() // Cout,
                             gemm_plan.dw_copy_strides(W, Cin, kw, sw),
-                            col_sums=has_bias)
+                            col_sums=has_bias, **gemm_plan.forced(plan))
 
 
 def _dw_outputs(x, dw_shape, Cout, has_bias):
@@ -188,14 +191,15 @@ def _dw_outputs(x, dw_shape, Cout, has_bias):
     return dw, db
 
 
-def _launch(x, dz, K, stride, has_bias):
+def _launch(x, dz, K, stride, has_bias, plan=None):
     _check_kernel_operands(x, dz)
     fn = build.entry("sliding_conv_bwd", "conv1d_bwd_dw", _ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
     B, L, Cin = x.shape
     Lout, Cout = dz.shape[1], dz.shape[2]
     # dw (K*Cin, Cout) = the product over the B*Lout positions
-    plan, va, vb, ws = dw_launch(x, dz, K * Cin, L, Cin, K, stride, has_bias)
+    plan, va, vb, ws = dw_launch(x, dz, K * Cin, L, Cin, K, stride, has_bias,
+                                 plan)
     dw, db = _dw_outputs(x, (K, Cin, Cout), Cout, has_bias)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
@@ -207,25 +211,31 @@ def _launch(x, dz, K, stride, has_bias):
     )
     build.check("sliding_conv_bwd", code)
     conv1d_bwd_dw.launches += 1
+    conv1d_bwd_dw.last_plan = plan
     return dw, db
 
 
 def conv1d_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
-                  stride: int = 1, has_bias: bool = False):
+                  stride: int = 1, has_bias: bool = False,
+                  plan: dict | None = None):
     """Weight and bias gradient of the VALID sliding conv1d: x (B, L, Cin)
     the padded forward input, dz (B, Lout, Cout) the gradient after the
     activation. Returns (dw (K, Cin, Cout) float32, db (Cout,) float32 or
     None): the CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor. ``conv1d_bwd_dw.launches`` counts kernel launches."""
+    tensor. ``plan``'s ``tile`` and ``splits`` force the kernel's launch
+    plan; the plain version takes none. ``conv1d_bwd_dw.launches`` counts
+    kernel launches, ``conv1d_bwd_dw.last_plan`` is the last launch's
+    ``GemmPlan``."""
     _check(x, dz, K, stride)
     if x.device.type == "cuda":
-        return _launch(x, dz, K, stride, has_bias)
+        return _launch(x, dz, K, stride, has_bias, plan=plan)
     if x.device.type == "cpu":
         return conv1d_bwd_dw_plain(x, dz, K, stride=stride, has_bias=has_bias)
     raise ValueError(f"no conv1d_bwd_dw for device {x.device}")
 
 
 conv1d_bwd_dw.launches = 0
+conv1d_bwd_dw.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -233,15 +243,16 @@ conv1d_bwd_dw.launches = 0
 # ---------------------------------------------------------------------------
 
 def conv1d_depthwise_dx(dz: torch.Tensor, w: torch.Tensor, *, stride: int,
-                        L: int) -> torch.Tensor:
+                        L: int, plan: dict | None = None) -> torch.Tensor:
     """dx of the VALID depthwise conv through the forward depthwise conv
-    (its kernel on a CUDA tensor): dz dilated by the stride and padded
-    K-1 rows on each side, the taps flipped, stride 1, no bias, no
-    activation; then zero rows up to the input length ``L``."""
+    (its kernel on a CUDA tensor, ``plan`` forcing its plan): dz dilated
+    by the stride and padded K-1 rows on each side, the taps flipped,
+    stride 1, no bias, no activation; then zero rows up to the input
+    length ``L``."""
     K = w.shape[0]
     dzp = F.pad(dilate1d(dz, stride), (0, 0, K - 1, K - 1))
     dx = sliding_conv1d.conv1d_depthwise(dzp, torch.flip(w, (0,)), None,
-                                         stride=1)
+                                         stride=1, plan=plan)
     return _fit_len(dx, L)
 
 
@@ -266,26 +277,31 @@ def conv1d_depthwise_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor, K: int,
     return dw, (g.sum(dim=(0, 1)) if has_bias else None)
 
 
-def depthwise_dw_launch(x, dz, K, stride):
+def depthwise_dw_launch(x, dz, K, stride, plan=None):
     """Row 11's launch over contiguous x (B, L, C) and dz (B, Lout, C): the
-    plan on x's card (``gemm_plan.depthwise_dw_plan``) and the width of
-    the staged pieces of x and dz (each row starts C elements after the
+    plan on x's card (``gemm_plan.depthwise_dw_plan``; ``plan``'s
+    ``rows``, ``stages`` and ``splits`` force it) and the width of the
+    staged pieces of x and dz (each row starts C elements after the
     last)."""
     B, _, C = x.shape
     el = x.element_size()
+    plan = plan or {}
     plan = gemm_plan.depthwise_dw_plan(B, dz.shape[1], C, el, K, stride,
-                                       build.sm_count(x.device))
+                                       build.sm_count(x.device),
+                                       rows=plan.get("rows"),
+                                       stages=plan.get("stages"),
+                                       splits=plan.get("splits"))
     return plan, gemm_plan.copy_bytes(el, [x.data_ptr(), dz.data_ptr()], [C])
 
 
-def _launch_depthwise(x, dz, K, stride, has_bias):
+def _launch_depthwise(x, dz, K, stride, has_bias, plan=None):
     _check_kernel_operands(x, dz)
     fn = build.entry("conv1d_depthwise_bwd", "conv1d_depthwise_bwd_dw",
                      _DW_ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
     B, L, C = x.shape
     Lout = dz.shape[1]
-    plan, cb = depthwise_dw_launch(x, dz, K, stride)
+    plan, cb = depthwise_dw_launch(x, dz, K, stride, plan)
     dw, db = _dw_outputs(x, (K, C), C, has_bias)
     ws = (torch.empty((plan.workspace,), dtype=torch.float32,
                       device=x.device) if plan.splits > 1 else None)
@@ -299,19 +315,24 @@ def _launch_depthwise(x, dz, K, stride, has_bias):
     )
     build.check("conv1d_depthwise_bwd", code)
     conv1d_depthwise_bwd_dw.launches += 1
+    conv1d_depthwise_bwd_dw.last_plan = plan
     return dw, db
 
 
 def conv1d_depthwise_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
-                            stride: int = 1, has_bias: bool = False):
+                            stride: int = 1, has_bias: bool = False,
+                            plan: dict | None = None):
     """Weight and bias gradient of the VALID depthwise conv1d: x (B, L, C)
     the padded forward input, dz (B, Lout, C) the gradient after the
     activation. Returns (dw (K, C) float32, db (C,) float32 or None): the
     CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    ``conv1d_depthwise_bwd_dw.launches`` counts kernel launches."""
+    ``plan``'s ``rows``, ``stages`` and ``splits`` force the kernel's plan;
+    the plain version takes none. ``conv1d_depthwise_bwd_dw.launches``
+    counts kernel launches, ``conv1d_depthwise_bwd_dw.last_plan`` is the
+    last launch's ``DepthwiseDwPlan``."""
     _check_depthwise(x, dz, K, stride)
     if x.device.type == "cuda":
-        return _launch_depthwise(x, dz, K, stride, has_bias)
+        return _launch_depthwise(x, dz, K, stride, has_bias, plan=plan)
     if x.device.type == "cpu":
         return conv1d_depthwise_bwd_dw_plain(x, dz, K, stride=stride,
                                              has_bias=has_bias)
@@ -319,6 +340,7 @@ def conv1d_depthwise_bwd_dw(x: torch.Tensor, dz: torch.Tensor, K: int, *,
 
 
 conv1d_depthwise_bwd_dw.launches = 0
+conv1d_depthwise_bwd_dw.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +348,14 @@ conv1d_depthwise_bwd_dw.launches = 0
 # ---------------------------------------------------------------------------
 
 def conv2d_dx(dz: torch.Tensor, w: torch.Tensor, *, stride: tuple[int, int],
-              H: int, W: int) -> torch.Tensor:
-    """dx through the forward sliding conv2d (its kernel on a CUDA tensor)
-    on the dilated gradient: stride 1, no bias, no activation; then zero
-    rows and columns up to the input's (H, W)."""
+              H: int, W: int, plan: dict | None = None) -> torch.Tensor:
+    """dx through the forward sliding conv2d (its kernel on a CUDA tensor,
+    ``plan`` forcing its launch plan) on the dilated gradient: stride 1,
+    no bias, no activation; then zero rows and columns up to the input's
+    (H, W)."""
     dzp, wt = conv2d_dx_operands(dz, w, stride=stride)
-    dx = sliding_conv2d.conv2d_sliding(dzp, wt, None, stride=(1, 1))
+    dx = sliding_conv2d.conv2d_sliding(dzp, wt, None, stride=(1, 1),
+                                       plan=plan)
     return _fit_len(_fit_len(dx, H, 1), W, 2)
 
 
@@ -376,7 +400,7 @@ def conv2d_bwd_dw_plain(x: torch.Tensor, dz: torch.Tensor,
     return torch.stack(rows), (g.sum(dim=0) if has_bias else None)
 
 
-def _launch_2d(x, dz, kh, kw, stride, has_bias):
+def _launch_2d(x, dz, kh, kw, stride, has_bias, plan=None):
     _check_kernel_operands(x, dz)
     fn = build.entry("sliding_conv2d_bwd", "conv2d_bwd_dw", _2D_ARGTYPES)
     x, dz = x.contiguous(), dz.contiguous()
@@ -384,7 +408,7 @@ def _launch_2d(x, dz, kh, kw, stride, has_bias):
     oh, ow, Cout = dz.shape[1:]
     # dw (kh*kw*Cin, Cout) = the product over the B*oh*ow positions
     plan, va, vb, ws = dw_launch(x, dz, kh * kw * Cin, W, Cin, kw, stride[1],
-                                 has_bias)
+                                 has_bias, plan)
     dw, db = _dw_outputs(x, (kh, kw, Cin, Cout), Cout, has_bias)
     code = fn(
         x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
@@ -396,6 +420,7 @@ def _launch_2d(x, dz, kh, kw, stride, has_bias):
     )
     build.check("sliding_conv2d_bwd", code)
     conv2d_bwd_dw.launches += 1
+    conv2d_bwd_dw.last_plan = plan
     return dw, db
 
 
@@ -405,19 +430,21 @@ def conv2d_bwd_dw(x: torch.Tensor, dz: torch.Tensor,
                   tile_h: int = sliding_conv2d.DEFAULT_TILE_H,
                   tile_w: int = sliding_conv2d.DEFAULT_TILE_W,
                   cin_block: int | None = None, cout_block: int | None = None,
-                  has_bias: bool = False):
+                  has_bias: bool = False, plan: dict | None = None):
     """Weight and bias gradient of the VALID sliding conv2d: x (B, H, W,
     Cin) the padded forward input, dz (B, oh, ow, Cout) the gradient after
     the activation. Returns (dw (kh, kw, Cin, Cout) float32, db (Cout,)
     float32 or None): the CUDA kernel for a CUDA tensor, the plain version
     for a CPU tensor. The reference's tiling arguments are checked and do
-    not change the result. ``conv2d_bwd_dw.launches`` counts kernel
-    launches."""
+    not change the result; ``plan``'s ``tile`` and ``splits`` force the
+    kernel's launch plan (the plain version takes none).
+    ``conv2d_bwd_dw.launches`` counts kernel launches,
+    ``conv2d_bwd_dw.last_plan`` is the last launch's ``GemmPlan``."""
     kh, kw = w_shape_hw
     stride = tuple(stride)
     _check_2d(x, dz, kh, kw, stride, tile_h, tile_w, cin_block, cout_block)
     if x.device.type == "cuda":
-        return _launch_2d(x, dz, kh, kw, stride, has_bias)
+        return _launch_2d(x, dz, kh, kw, stride, has_bias, plan=plan)
     if x.device.type == "cpu":
         return conv2d_bwd_dw_plain(x, dz, (kh, kw), stride=stride,
                                    has_bias=has_bias)
@@ -425,3 +452,4 @@ def conv2d_bwd_dw(x: torch.Tensor, dz: torch.Tensor,
 
 
 conv2d_bwd_dw.launches = 0
+conv2d_bwd_dw.last_plan = None

@@ -149,7 +149,8 @@ def _run_product(entry, argtypes, x, w_q, w_scale, bias, x_scale, out_scale,
     """One launch of an int8 conv's product on ``csrc/gemm_mma.cuh`` (rows
     13 and 14): C entry ``entry`` of the library of that name, ``dims`` its
     shape arguments, ``geometry(x, w_q)`` the plan, the copy widths and
-    the splits' workspace for contiguous x and w_q. Returns y."""
+    the splits' workspace for contiguous x and w_q. Returns y and the
+    plan."""
     dev = x.device
     s, b32, os32 = _epilogue_operands(dev, w_q, w_scale, bias, x_scale,
                                       out_scale, mode)
@@ -168,18 +169,19 @@ def _run_product(entry, argtypes, x, w_q, w_scale, bias, x_scale, out_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(entry, code)
-    return y
+    return y, plan
 
 
 def _launch(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
-            activation, out_dtype, out_len):
+            activation, out_dtype, out_len, plan=None):
     B, L, Cin = x.shape
     K, _, Cout = w_q.shape
-    y = _run_product(
+    y, conv1d_quant.last_plan = _run_product(
         "sliding_conv_quant", _ARGTYPES, x, w_q, w_scale, bias, x_scale,
         out_scale, mode, activation, out_dtype, (B, out_len, Cout),
         (B, L, Cin, Cout, K, stride, out_len),
-        lambda x, w_q: sliding_conv1d.conv1d_launch(x, w_q, stride, out_len))
+        lambda x, w_q: sliding_conv1d.conv1d_launch(x, w_q, stride, out_len,
+                                                    plan))
     conv1d_quant.launches += 1
     return y
 
@@ -187,16 +189,19 @@ def _launch(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
 def conv1d_quant(
     x, w_q, w_scale, bias=None, *, x_scale=None, out_scale=None,
     mode: str = "w8a8", stride: int = 1, activation: str = "none",
-    out_dtype=torch.float32,
+    out_dtype=torch.float32, plan: dict | None = None,
 ):
     """VALID int8 sliding conv1d + dequant + bias + activation (+ requant):
     the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    ``conv1d_quant.launches`` counts kernel launches."""
+    ``plan``'s ``tile`` and ``splits`` force the kernel's launch plan; the
+    plain version takes none. ``conv1d_quant.launches`` counts kernel
+    launches, ``conv1d_quant.last_plan`` is the last launch's
+    ``GemmPlan``."""
     out_len = _check(x, w_q, w_scale, bias, x_scale, mode, stride,
                      activation, out_dtype)
     if x.device.type == "cuda":
         return _launch(x, w_q, w_scale, bias, x_scale, out_scale, mode,
-                       stride, activation, out_dtype, out_len)
+                       stride, activation, out_dtype, out_len, plan=plan)
     if x.device.type == "cpu":
         return conv1d_quant_plain(
             x, w_q, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
@@ -206,6 +211,7 @@ def conv1d_quant(
 
 
 conv1d_quant.launches = 0
+conv1d_quant.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -250,14 +256,15 @@ def conv2d_quant_plain(
 
 
 def _launch_2d(x, w_q, w_scale, bias, x_scale, out_scale, mode, stride,
-               activation, out_dtype, oh, ow):
+               activation, out_dtype, oh, ow, plan=None):
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w_q.shape
-    y = _run_product(
+    y, conv2d_quant.last_plan = _run_product(
         "sliding_conv2d_quant", _2D_ARGTYPES, x, w_q, w_scale, bias, x_scale,
         out_scale, mode, activation, out_dtype, (B, oh, ow, Cout),
         (B, H, W, Cin, Cout, kh, kw, stride[0], stride[1], oh, ow),
-        lambda x, w_q: sliding_conv2d.product_launch(x, w_q, stride, oh, ow))
+        lambda x, w_q: sliding_conv2d.product_launch(x, w_q, stride, oh, ow,
+                                                     plan))
     conv2d_quant.launches += 1
     return y
 
@@ -269,18 +276,21 @@ def conv2d_quant(
     tile_h: int = sliding_conv2d.DEFAULT_TILE_H,
     tile_w: int = sliding_conv2d.DEFAULT_TILE_W,
     cin_block: int | None = None, cout_block: int | None = None,
-    regime: str | None = None,
+    regime: str | None = None, plan: dict | None = None,
 ):
     """VALID int8 sliding conv2d + dequant + bias + activation (+ requant):
     the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    ``conv2d_quant.launches`` counts kernel launches."""
+    ``plan``'s ``tile`` and ``splits`` force the kernel's launch plan; the
+    plain version takes none. ``conv2d_quant.launches`` counts kernel
+    launches, ``conv2d_quant.last_plan`` is the last launch's
+    ``GemmPlan``."""
     stride = tuple(stride)
     oh, ow = _check_2d(x, w_q, w_scale, bias, x_scale, mode, stride,
                        activation, out_dtype, tile_h, tile_w, cin_block,
                        cout_block, regime)
     if x.device.type == "cuda":
         return _launch_2d(x, w_q, w_scale, bias, x_scale, out_scale, mode,
-                          stride, activation, out_dtype, oh, ow)
+                          stride, activation, out_dtype, oh, ow, plan=plan)
     if x.device.type == "cpu":
         return conv2d_quant_plain(
             x, w_q, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
@@ -290,6 +300,7 @@ def conv2d_quant(
 
 
 conv2d_quant.launches = 0
+conv2d_quant.last_plan = None
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +337,7 @@ def conv1d_depthwise_quant_plain(
 
 
 def _launch_depthwise(x, w_q, w_scale, bias, x_scale, out_scale, mode,
-                      stride, activation, out_dtype, out_len):
+                      stride, activation, out_dtype, out_len, plan=None):
     dev = x.device
     s, b32, os32 = _epilogue_operands(dev, w_q, w_scale, bias, x_scale,
                                       out_scale, mode)
@@ -335,7 +346,7 @@ def _launch_depthwise(x, w_q, w_scale, bias, x_scale, out_scale, mode,
     x, w_q = x.contiguous(), w_q.contiguous()
     B, L, C = x.shape
     plan, cb = sliding_conv1d.depthwise_launch(x, w_q.shape[0], stride,
-                                               out_len)
+                                               out_len, plan)
     odt = torch.int8 if out_scale is not None else out_dtype
     y = torch.empty((B, out_len, C), dtype=odt, device=dev)
     code = fn(
@@ -349,23 +360,28 @@ def _launch_depthwise(x, w_q, w_scale, bias, x_scale, out_scale, mode,
     )
     build.check("conv1d_depthwise_quant", code)
     conv1d_depthwise_quant.launches += 1
+    conv1d_depthwise_quant.last_plan = plan
     return y
 
 
 def conv1d_depthwise_quant(
     x, w_q, w_scale, bias=None, *, x_scale=None, out_scale=None,
     mode: str = "w8a8", stride: int = 1, activation: str = "none",
-    out_dtype=torch.float32,
+    out_dtype=torch.float32, plan: dict | None = None,
 ):
     """VALID int8 depthwise conv1d + dequant + bias + activation (+
     requant): the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor. ``conv1d_depthwise_quant.launches`` counts kernel
-    launches."""
+    CPU tensor. ``plan``'s ``rows`` and ``stages`` force the kernel's
+    plan; the plain version takes none.
+    ``conv1d_depthwise_quant.launches`` counts kernel launches,
+    ``conv1d_depthwise_quant.last_plan`` is the last launch's
+    ``DepthwisePlan``."""
     out_len = _check_depthwise(x, w_q, w_scale, bias, x_scale, mode, stride,
                                activation, out_dtype)
     if x.device.type == "cuda":
         return _launch_depthwise(x, w_q, w_scale, bias, x_scale, out_scale,
-                                 mode, stride, activation, out_dtype, out_len)
+                                 mode, stride, activation, out_dtype, out_len,
+                                 plan=plan)
     if x.device.type == "cpu":
         return conv1d_depthwise_quant_plain(
             x, w_q, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
@@ -375,3 +391,4 @@ def conv1d_depthwise_quant(
 
 
 conv1d_depthwise_quant.launches = 0
+conv1d_depthwise_quant.last_plan = None

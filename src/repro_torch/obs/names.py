@@ -5,8 +5,11 @@ The observability namespace is closed: the registry rejects unregistered
 metric names and an armed span rejects an unregistered span name. A
 typo'd metric silently forks the series CI and the report CLI read, so a
 new instrument means a new member HERE first, and in the reference's.
-Some names are the reference's alone (``autotune.*``, ``runtime.*``,
-``health.repromote``): the port records none of them yet.
+Some names are the reference's alone (``runtime.*``,
+``health.repromote``, ``autotune.pruned``, ``autotune.cost_skipped``):
+the port records none of them yet. The tuning layer records
+``autotune.searches`` and ``autotune.candidates`` and the
+``autotune.search`` / ``autotune.candidate`` spans.
 
 Naming scheme: ``<layer>.<what>[_<unit>]`` — layers are ``dispatch``
 (the ops entry points), ``autotune``, ``health``, ``serve``, ``train``;

@@ -5,9 +5,10 @@ Row 1, the sliding conv (``csrc/sliding_conv1d.cu``): filters of 1 to 2049
 taps (a halo no block's shared memory holds), strides 1-3, Cin 3, 37, 80
 and 1024 (copies of x 4 to 16 bytes wide, and 2-byte plain loads in bf16),
 every activation with and without bias, y and the saved pre-activation z,
-the plan's split of the reduction and forced splits of 1 and 3, x one
-element off its storage's alignment, whisper's frontend at full width; one
-launch a call, two calls bitwise equal.
+the plan's split of the reduction and forced splits of 1 and 3, float32's
+two tiles forced at either side of N = 32, x one element off its
+storage's alignment, whisper's frontend at full width; one launch a call,
+two calls bitwise equal.
 
 Row 13, the int8 conv (``csrc/sliding_conv_quant.cu``): w8a8 and w8a16
 (float32, bfloat16 x), float and requantized int8 outputs, at whisper's
@@ -16,7 +17,7 @@ no channel padding, K 1-20, strides 1-2), the plan's split and forced
 splits of 1 and 3, x one code or element off its alignment. Row 10, the
 weight gradient (``csrc/sliding_conv_bwd.cu``): float32 and bfloat16 at
 whisper's frontend and phase 7's edges, with and without db, the same
-splits and offsets.
+splits, forced tiles and offsets.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
 jax nor the JAX package, so it runs where the port runs (``--noconftest``:
@@ -24,7 +25,6 @@ the suite's conftest imports the JAX package):
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_conv1d_card.py -m cuda
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -61,15 +61,16 @@ def card():
 
 @pytest.fixture
 def forced_splits(monkeypatch):
-    """force(n): every plan the wrappers make from here on splits its
-    reduction n ways (as far as its chunks allow)."""
+    """force(n, tile=None): every plan the wrappers make from here on
+    splits its reduction n ways (as far as its chunks allow; None leaves
+    the split to the rule) on ``tile`` (a ``gemm_plan.TILES`` name; None
+    leaves the tile to the rule)."""
     real = gemm_plan.gemm_plan
 
-    def force(n):
-        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS):
-            p = real(M, N, K, dtype, sms)
-            per = -(-p.chunks // n)
-            return dataclasses.replace(p, splits=-(-p.chunks // per), per=per)
+    def force(n, tile=None):
+        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS, **rule):
+            return real(M, N, K, dtype, sms, tile=tile or rule.get("tile"),
+                        splits=n or rule.get("splits"))
 
         monkeypatch.setattr(gemm_plan, "gemm_plan", plan)
     return force
@@ -126,6 +127,28 @@ def test_kernel_matches_plain(card, forced_splits, B, L, Cin, Cout, K,
     plan, _ = _case(x, w, b, stride, ACTS[i % 4])
     if splits:
         assert (plan.splits > 1) == (splits > 1 and plan.chunks > 1)
+
+
+# float32's two tiles, each forced at a product of N <= 32 (where the rule
+# takes ``narrow``) and of N > 32 (where it takes ``wide``): the tuning
+# search times both at either width
+TILE_SHAPES = [(1, 1000, 80, 32, 65, 2), (2, 300, 37, 33, 65, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("tile", ["wide", "narrow"])
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride", TILE_SHAPES)
+def test_forced_tile_matches_plain(card, forced_splits, B, L, Cin, Cout, K,
+                                   stride, tile, splits):
+    """Row 1 in float32 on each tile, with the rule's split and forced to
+    3, against the plain version (TOL)."""
+    forced_splits(splits, tile)
+    i = TILE_SHAPES.index((B, L, Cin, Cout, K, stride))
+    x, w, b = _inputs(card, 40 + i, B, L, Cin, Cout, K, torch.float32,
+                      with_bias=True)
+    plan, _ = _case(x, w, b, stride, ACTS[i + 2])
+    assert plan.tile.name == tsc.conv1d_sliding.last_plan.tile.name == tile
 
 
 @pytest.mark.cuda
@@ -361,6 +384,27 @@ def test_dw_kernel_matches_plain(card, forced_splits, B, L, Cin, Cout, K,
         assert (plan.splits > 1) == (splits > 1 and plan.chunks > 1)
     elif Cin == 80:  # whisper's conv1: 16 tiles, split
         assert plan.splits > 1 and va == 16
+
+
+# row 10's product is (K·Cin) x Cout: Cout 32 and 70 put it on either side
+# of the float32 tiles' N = 32
+DW_TILE_SHAPES = [(3, 203, 37, 32, 5, 3), (3, 203, 37, 70, 7, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("tile", ["wide", "narrow"])
+@pytest.mark.parametrize("B,L,Cin,Cout,K,stride", DW_TILE_SHAPES)
+def test_dw_forced_tile_matches_plain(card, forced_splits, B, L, Cin, Cout,
+                                      K, stride, tile, splits):
+    """Row 10 in float32 on each tile, with the rule's split and forced
+    to 3, dw and db against the plain version."""
+    forced_splits(splits, tile)
+    i = DW_TILE_SHAPES.index((B, L, Cin, Cout, K, stride))
+    x, dz = _dw_inputs(card, 90 + i, B, L, Cin, Cout, K, stride,
+                       torch.float32)
+    plan, _ = _dw_case(x, dz, K, stride, has_bias=True)
+    assert plan.tile.name == tsb.conv1d_bwd_dw.last_plan.tile.name == tile
 
 
 @pytest.mark.cuda

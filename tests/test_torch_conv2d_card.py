@@ -1,8 +1,8 @@
 """The 2-D sliding conv CUDA kernels against their plain versions, on the
 card: the fp conv (with its saved pre-activation), the int8 conv and the
 weight-gradient kernel, all on ``csrc/gemm_mma.cuh``'s loop: at each copy
-width of x, with the plan's split of the reduction and a forced one, at
-every activation, output type and int8 mode, at the edge shapes of
+width of x, with the plan's split of the reduction and a forced one, on
+float32's two tiles forced at either side of N = 32, at every activation, output type and int8 mode, at the edge shapes of
 ``chip_smoke.py``'s phases 24 and 28; two calls bitwise equal.
 
 Needs an NVIDIA card and ``nvcc``; skips without a card. It imports neither
@@ -11,7 +11,6 @@ the suite's conftest imports the JAX package):
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_conv2d_card.py -m cuda
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -197,15 +196,16 @@ ACTS = ("none", "relu", "gelu", "silu")
 
 @pytest.fixture
 def forced_splits(monkeypatch):
-    """force(n): every plan the wrappers make from here on splits its
-    reduction n ways (as far as its chunks allow)."""
+    """force(n, tile=None): every plan the wrappers make from here on
+    splits its reduction n ways (as far as its chunks allow; None leaves
+    the split to the rule) on ``tile`` (a ``gemm_plan.TILES`` name; None
+    leaves the tile to the rule)."""
     real = gemm_plan.gemm_plan
 
-    def force(n):
-        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS):
-            p = real(M, N, K, dtype, sms)
-            per = -(-p.chunks // n)
-            return dataclasses.replace(p, splits=-(-p.chunks // per), per=per)
+    def force(n, tile=None):
+        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS, **rule):
+            return real(M, N, K, dtype, sms, tile=tile or rule.get("tile"),
+                        splits=n or rule.get("splits"))
 
         monkeypatch.setattr(gemm_plan, "gemm_plan", plan)
     return force
@@ -295,6 +295,29 @@ def test_kernel_copy_widths_and_splits(card, forced_splits, splits, dtype, B,
                               stride, ACTS[i % 4])
     assert got_va == va
     assert plan.splits > 1 or not splits
+
+
+# (B, H, W, Cin, Cout, k, stride): products of N = Cout 32 (the rule's
+# ``narrow`` tile) and 70 (its ``wide`` one), rows 4 and 12 alike
+TILE_SHAPES = [(2, 40, 44, 16, 32, 9, (2, 2)), (2, 40, 45, 8, 70, 5, (1, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("tile", ["wide", "narrow"])
+@pytest.mark.parametrize("B,H,W,cin,cout,k,stride", TILE_SHAPES)
+def test_forced_tile_matches_plain(card, forced_splits, B, H, W, cin, cout,
+                                   k, stride, tile, splits):
+    """Rows 4 and 12 in float32 on each tile, with the rule's split and
+    forced to 3, against their plain versions (TOL of the largest
+    value)."""
+    forced_splits(splits, tile)
+    i = TILE_SHAPES.index((B, H, W, cin, cout, k, stride))
+    plan, _ = _row4_case(card, "float32", 540 + i, B, H, W, cin, cout, k,
+                         stride, ACTS[i + 2])
+    assert plan.tile.name == ts2.conv2d_sliding.last_plan.tile.name == tile
+    plan = _dw_case(card, "float32", 550 + i, B, H, W, cin, cout, k, stride)
+    assert plan.tile.name == tbwd.conv2d_bwd_dw.last_plan.tile.name == tile
 
 
 # the edge shapes of chip_smoke's phase 24 (row 4: x (3, 61, 77, 37), Cout

@@ -10,7 +10,6 @@ the suite's conftest imports the JAX package):
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_im2col_card.py -m cuda
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -146,15 +145,16 @@ def test_conv2d_kernel_matches_plain(card, kh, kw, stride, cin, dtype):
 
 @pytest.fixture
 def forced_splits(monkeypatch):
-    """force(n): every plan the wrappers make from here on splits its
-    reduction n ways (as far as its chunks allow)."""
+    """force(n, tile=None): every plan the wrappers make from here on
+    splits its reduction n ways (as far as its chunks allow; None leaves
+    the split to the rule) on ``tile`` (a ``gemm_plan.TILES`` name; None
+    leaves the tile to the rule)."""
     real = gemm_plan.gemm_plan
 
-    def force(n):
-        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS):
-            p = real(M, N, K, dtype, sms)
-            per = -(-p.chunks // n)
-            return dataclasses.replace(p, splits=-(-p.chunks // per), per=per)
+    def force(n, tile=None):
+        def plan(M, N, K, dtype, sms=build.DEFAULT_SMS, **rule):
+            return real(M, N, K, dtype, sms, tile=tile or rule.get("tile"),
+                        splits=n or rule.get("splits"))
 
         monkeypatch.setattr(gemm_plan, "gemm_plan", plan)
     return force

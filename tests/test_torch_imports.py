@@ -94,3 +94,14 @@ def test_obs_slice_modules_are_checked():
                 "obs/trace.py", "health.py", "launch/serve.py",
                 "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_tuning_slice_modules_are_checked():
+    """The tuning slice's modules are among the files checked above: the
+    cache and searches, the card timer, the plan functions and the
+    dispatch that consults the cache."""
+    checked = set(_port_files())
+    for rel in ("kernels/autotune.py", "kernels/timing.py",
+                "kernels/gemm_plan.py", "kernels/attention_decode.py",
+                "kernels/ops.py", "health.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
