@@ -319,11 +319,40 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      the operands quantized as ``ops`` quantizes them. The JSON record
      gains ``tuned`` (key -> default_us, us, dispatch_us, winner, timed,
      the dispatch times).
+ 48. rwkv6-1.6b at its published widths and depth (24 layers, d 2048,
+     d_ff 7168, vocab 65,536, bf16, 1,599,719,424 parameters drawn from a
+     seed and rescaled to std 1/sqrt(input width)): one request of B 4,
+     P 256 (two whole 128-position WKV chunks), 32 tokens, greedy, with
+     TTFT, decode step, tokens/s, cache bytes, peak memory and busy share
+     (no kernel: the model is plain PyTorch, every counter stays 0); two
+     more requests give the same tokens; each bf16 layer and the head held
+     to the same code on a float32 copy of the weights, on the bf16 run's
+     own input (the whole prefill's drift recorded); then 3 train steps at
+     B 2 x 512 through the train core: finite losses, step ms, peak memory;
+ 49. the edge CNN (``examples/edge_cnn_torch.py``): step 0's loss and
+     every gradient on ``sliding_pallas`` (rows 4 and 12) against the
+     plain versions and against ``sliding``; 200 SGD steps of B 64 each on
+     ``sliding``, ``im2col_gemm`` and ``sliding_pallas``, test accuracy
+     above 0.9, the median step from CUDA events and one profiled step;
+     on ``sliding_pallas`` the int8 chain (calibration, ``quantize_net``,
+     w8a8 evaluation): dequant sites ['edge/c3'], accuracy within 2% of
+     float32, row 14 held to its plain version at the chain's shapes; the
+     counters over that run: 5 row-4 and 3 row-12 launches a step, 6 row-4
+     for the evaluation and calibration, 3 row-14;
+ 50. the other example ports through their ``main``: the quickstart on
+     the card (row 1 against ``core.conv1d``, the Fig. 1 point at k 17 on
+     rows 4 and 7 by ``card_ms``), serve_decode on qwen3-1.7b and
+     rwkv6-1.6b (smoke configs, two requests with equal tokens), train_lm
+     at 10m for 30 steps (its loss must fall); the counters must show rows
+     1, 4, 7 and 2.
 
-Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 44-46, 33, 34
-with the main path of the baselines, 36-38, 47, then the timings (6, 10,
-15, 19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every kernel is
-held to its plain version before a path runs it. Phases 42 and 43 reset the process-global obs registry,
+Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 44-46, 48-50,
+33, 34 with the main path of the baselines, 36-38, 47, then the timings
+(6, 10, 15, 19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every
+kernel is held to its plain version before a path runs it. Each phase
+prints its seconds as it ends, on a ``[chip_smoke] phase <n> <name> <s>``
+line (the JSON record's ``phase_s``). Phases 42 and 43 reset the
+process-global obs registry,
 trace ring, health record and attention log before they run, and disarm
 tracing and reset them again after, so no later phase runs armed.
 
@@ -2248,18 +2277,20 @@ MAMBA_POS = (0, 1, 2, 3, 5, 6, 7)  # the Mamba positions of a period
 
 def rescale_fan_in(params, defs, iter_leaves) -> None:
     """Rescale every period- or layer-stacked fan-in weight to std 1/sqrt
-    of its input width (experts and the attention output projection
-    contract more), in place: a well-conditioned model from the reference's
-    init, whose fan-in quirk draws these with std 1/sqrt(stacked count),
-    1 when a jamba model has one period (ROADMAP Queue 3). No package's
-    init changes."""
+    of its input width (experts and the attention output projection, (L,
+    H, hd, D), contract more; rwkv6's (L, d, d) ``wo`` does not), in
+    place: a well-conditioned model from the reference's init, whose
+    fan-in quirk draws these with std 1/sqrt(stacked count), 1 when a
+    jamba model has one period (ROADMAP Queue 3). No package's init
+    changes."""
     want = dict(iter_leaves(defs))
     for path, t in iter_leaves(params):
         d, parts = want[path], path.split("/")
         if parts[0] not in ("periods", "blocks") or d.init != "fan_in":
             continue
+        heads_in = parts[-1] == "wo" and len(d.shape) == 4
         fan = (d.shape[2] if "moe" in parts else
-               d.shape[1] * d.shape[2] if parts[-1] == "wo" else d.shape[1])
+               d.shape[1] * d.shape[2] if heads_in else d.shape[1])
         if d.shape[0] > 1:  # drawn with std 1/sqrt(stacked layers)
             t.mul_(d.shape[0] ** 0.5)
         t.div_(fan ** 0.5)
@@ -5722,6 +5753,402 @@ def phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp) -> tuple[dict, dict]:
     return tuned, launches
 
 
+# ---------------------------------------------------------------------------
+# 48-50: rwkv6-1.6b, the edge CNN, the example ports
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-1.6b"
+RWKV_PARAMS = 1_599_719_424
+RWKV_TRAIN = dict(B=2, seq=512, steps=3)
+# each bfloat16 block's time mix and channel mix (and the head) against
+# the same function on a float32 copy of the weights, on the bfloat16 run's
+# own input to it: relative error of the mix's output (the block's
+# increment to the residual stream, not the stream) in the 2-norm
+RWKV_BF16_REL = 0.03
+# the first train step's loss (bfloat16) against the float32 copy's loss on
+# the same batch: the mean CE over its labelled tokens (up to 1,024),
+# relative
+RWKV_LOSS_REL = 0.02
+EDGE_BACKENDS = ("sliding", "im2col_gemm", "sliding_pallas")
+EDGE = dict(steps=200, batch=64, test=256)
+TRAIN_LM_STEPS = 30
+# phase 50's launches: row 1 once (the quickstart's section 3); rows 4 and 7
+# 213 times each (``card_ms``' 3 warm-up calls, 10 host-timed, 20 batches of
+# 10); row 2 by serve_decode on qwen3-1.7b's smoke config: 2 requests x 23
+# decode steps x 2 layers
+EXAMPLE_LAUNCHES = dict(sliding_conv1d=1, conv2d=213, im2col_conv2d=213,
+                        attention_decode=92)
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not
+    a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_rwkv6(serve, models, configs, optim, steps_mod, train, iter_leaves,
+                map_tree) -> dict:
+    """48. rwkv6-1.6b at its published widths and depth (24 layers, d 2048,
+    bf16, the reference's init rescaled to std 1/sqrt(input width)): one
+    request of B 4, P 256 (two whole 128-position chunks), 32 tokens,
+    greedy, with no kernel launched; two more requests give the same
+    tokens; each block's two mixes and the head held to a float32 copy of
+    the weights; then 3 train steps at B 2 x 512 through the train core
+    (AdamW, float32 moments, remat per block and per WKV chunk), the first
+    step's loss held to the float32 copy's on the same batch."""
+    cfg = configs.get_config(RWKV)
+    model = models.build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for _, t in iter_leaves(params))
+    if n_params != RWKV_PARAMS:
+        raise AssertionError(f"{RWKV}: {n_params} params, expected "
+                             f"{RWKV_PARAMS}")
+    log(f"full width {RWKV}: {n_params} params ({n_bytes / 1e9:.3f} GB "
+        f"{cfg.param_dtype}), {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, WKV {cfg.rwkv_wkv_mode} "
+        f"chunk {cfg.rwkv_wkv_chunk}; init rescaled to std 1/sqrt(input "
+        f"width) in {init_s:.2f}s")
+    prompts = _decoder_prompts(cfg)
+    gen = SERVE["gen"]
+    res = _serve_request(serve, model, params, prompts, gen, only(),
+                         f"{RWKV} full-width fp")
+    cache_len = res["cache_len"]
+    toks = [serve.generate(model, params, prompts, gen_len=gen,
+                           cache_len=cache_len)[0] for _ in range(2)]
+    if not torch.equal(toks[0], toks[1]):
+        raise AssertionError(f"{RWKV}: two requests gave different tokens")
+    B, seq, n = (RWKV_TRAIN[k] for k in ("B", "seq", "steps"))
+    batches = train_batches(cfg, B, seq, n, 0, DEV, train)
+    model32 = models.build_model(cfg.replace(param_dtype="float32",
+                                             compute_dtype="float32"))
+    params32 = map_tree(lambda t: t.float(), params)
+    held = _rwkv_mixes_vs_f32(model, model32, params, params32, prompts)
+    with torch.no_grad():
+        loss32 = model32.loss(params32, batches[0]).item()
+    del params32
+    log(f"{RWKV}: two more requests gave the same tokens "
+        f"{toks[0][0, :8].tolist()}; against a float32 copy on the same "
+        f"input, relative error of each block's time mix "
+        f"{held['time_mix_max']:.3e} at most (layer {held['time_mix_worst']})"
+        f", channel mix {held['channel_mix_max']:.3e} at most (layer "
+        f"{held['channel_mix_worst']}), the head {held['head_rel']:.3e} "
+        f"(limit {RWKV_BF16_REL})")
+    res.update(n_params=n_params, param_bytes=n_bytes, init_s=init_s,
+               bf16_time_mix_rel=held["time_mix"],
+               bf16_channel_mix_rel=held["channel_mix"],
+               bf16_head_rel=held["head_rel"])
+    torch.cuda.empty_cache()
+
+    opt_cfg = optim.OptConfig(total_steps=n, warmup_steps=max(n // 20, 5),
+                              state_dtype=cfg.opt_state_dtype)
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+    step_fn = steps_mod.make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_rel = abs(losses[0] - loss32) / loss32
+    if (not np.isfinite(losses).all() or launches != only()
+            or not loss_rel <= RWKV_LOSS_REL):
+        raise AssertionError(f"{RWKV} train: losses {losses} (float32 step "
+                             f"0: {loss32}, limit {RWKV_LOSS_REL}), launches "
+                             f"{launches}")
+    tr = dict(losses=losses, loss_f32_step0=loss32, loss_rel_step0=loss_rel,
+              step_ms_all=[t * 1e3 for t in times], step_ms=times[-1] * 1e3,
+              tok_per_s=B * seq / times[-1], peak_mem_gb=peak,
+              launches=launches)
+    log(f"full-width {RWKV} train B={B} seq={seq}, {n} steps ({cfg.remat} "
+        f"remat, {cfg.opt_state_dtype} moments): losses "
+        f"{[round(x, 4) for x in losses]} (step 0 on the float32 copy "
+        f"{loss32:.4f}, {loss_rel:.2e} apart), step ms "
+        f"{[round(t * 1e3, 1) for t in times]}, {tr['tok_per_s']:.0f} "
+        f"tokens/s at the last step, peak mem {peak:.2f} GB")
+    del state, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(serve=res, train=tr)
+
+
+def _rwkv_mixes_vs_f32(model, model32, params, params32, prompts) -> dict:
+    """rwkv6's prefill in bfloat16, each block's time mix and channel mix
+    (and the final norm and head) held to the same function on a float32
+    copy of its weights, given the bfloat16 run's own input: relative error
+    of the mix's output in the 2-norm within ``RWKV_BF16_REL``. The mixes'
+    outputs are what a block adds to the residual stream, so the stream's
+    own norm does not dilute their error. The blocks compose as
+    ``RWKV6._layer`` does."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv6
+    from repro_torch.models.common import unstack
+
+    def tm(m, lp, x):
+        h = L.rms_norm(x, lp["ln1"], m.cfg.norm_eps)
+        return rwkv6.time_mix(lp, h, m.cfg, m._state0(x),
+                              wkv_mode=m.wkv_mode)[0]
+
+    def cm(m, lp, x):
+        h = L.rms_norm(x, lp["ln2"], m.cfg.norm_eps)
+        return rwkv6.channel_mix(lp, h, m.cfg)
+
+    def head(m, p, x):
+        h = L.rms_norm(x, p["final_norm"], m.cfg.norm_eps)[:, -1:]
+        return L.lm_logits(p["embed"], h, m.cfg)
+
+    def rel_norm(got, want) -> float:
+        return ((got.float() - want).norm() / want.norm()).item()
+
+    rel = {"time_mix": [], "channel_mix": []}
+    with torch.no_grad():
+        x = L.embed_tokens(params["embed"], prompts, model.cfg)
+        for lp, lp32 in zip(unstack(params["blocks"]),
+                            unstack(params32["blocks"])):
+            for name, mix in (("time_mix", tm), ("channel_mix", cm)):
+                y = mix(model, lp, x)
+                rel[name].append(rel_norm(y, mix(model32, lp32, x.float())))
+                x = x + y
+        head_rel = rel_norm(head(model, params, x),
+                            head(model32, params32, x.float()))
+    out = dict(rel, head_rel=head_rel)
+    for name, r in rel.items():
+        out[name + "_worst"] = int(np.argmax(r))
+        out[name + "_max"] = max(r)
+    if not max(rel["time_mix"] + rel["channel_mix"]
+               + [head_rel]) <= RWKV_BF16_REL:
+        raise AssertionError(f"{RWKV}: bf16 mixes against float32 {rel}, "
+                             f"head {head_rel} (limit {RWKV_BF16_REL})")
+    return out
+
+
+def _edge_grads(edge, p, x, y, backend):
+    leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    loss = edge.loss_fn(leaves, x, y, backend)
+    return loss.detach(), dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()))))
+
+
+def _edge_int8_kernels(edge, layers, sliding, qp, x) -> float:
+    """The w8a8 chain's convs on ``sliding_pallas`` (row 14) against their
+    plain versions, layer by layer on the plain path's inputs: c1 and c2
+    int8 codes equal but at ties, c3 float32 within 1e-5 of max |y|."""
+    h, err = x, 0.0
+    for i, (key, site) in enumerate(edge.SITES):
+        kw = dict(activation="relu", padding="SAME", backend="sliding_pallas",
+                  precision="w8a8", site=site)
+        got = layers.conv2d_bias_act(h, qp[key], None, **kw)
+        with plain_kernels():
+            want = layers.conv2d_bias_act(h, qp[key], None, **kw)
+            q = qp[key]
+            yf = layers.conv2d_bias_act(h, type(q)(q.q, q.scale, q.x_scale,
+                                                   None), None, **kw)
+        if i == 2:
+            err = close(got, want, dict(rtol=0.0, atol=1e-5 * max(
+                1.0, want.abs().max().item())), f"edge {key} w8a8")
+            break
+        codes_close(got, want, yf / q.out_scale, f"edge {key} w8a8 codes",
+                    tie=1e-4, max_frac=1e-4)
+        h = sliding.max_pool2d(want, (2, 2))
+    return err
+
+
+def phase_edge_cnn(layers, sliding) -> dict:
+    """49. The edge CNN (``examples/edge_cnn_torch.py``): step 0's loss and
+    every gradient on ``sliding_pallas`` (rows 4 and 12) against the plain
+    versions and against ``sliding`` on the same weights and batch; then
+    200 SGD steps each on ``sliding``, ``im2col_gemm`` and
+    ``sliding_pallas`` from one seed, test accuracy above 0.9 on each,
+    each step timed by CUDA events (host gaps included); on
+    ``sliding_pallas`` the int8 chain (calibration, ``quantize_net``, the
+    w8a8 evaluation): dequant sites ['edge/c3'], accuracy within 2% of
+    float32, row 14 held to its plain version at the chain's shapes. The
+    counters over the ``sliding_pallas`` run (training, evaluation,
+    calibration and the w8a8 evaluation) must show rows 4, 12 and 14."""
+    from repro_torch import quant
+
+    edge = load_example("edge_cnn_torch")
+    p0 = edge.init_params(torch.Generator(device=DEV).manual_seed(0))
+    x0, y0 = edge.synthetic_task(np.random.default_rng(0), EDGE["batch"],
+                                 device=DEV)
+    loss_k, g_k = _edge_grads(edge, p0, x0, y0, "sliding_pallas")
+    with plain_kernels():
+        loss_p, g_p = _edge_grads(edge, p0, x0, y0, "sliding_pallas")
+    loss_s, _ = _edge_grads(edge, p0, x0, y0, "sliding")
+    errs = {k: close(g_k[k], g_p[k], TOL, f"edge grad {k}", scaled=True)
+            for k in g_k}
+    close(loss_k, loss_p, TOL, "edge step-0 loss, kernels vs plain")
+    close(loss_k, loss_s, TOL, "edge step-0 loss, sliding_pallas vs sliding")
+    log(f"edge CNN step 0 (B {EDGE['batch']}, 28x28x1): loss "
+        f"sliding_pallas {loss_k.item():.6f}, plain {loss_p.item():.6f}, "
+        f"sliding {loss_s.item():.6f}; grads kernels vs plain max |err| "
+        f"{ {k: f'{e:.2e}' for k, e in errs.items()} }")
+    out = {"step0": dict(loss_sliding_pallas=loss_k.item(),
+                         loss_sliding=loss_s.item(), grad_max_abs_err=errs)}
+    for backend in EDGE_BACKENDS:
+        rng = np.random.default_rng(0)
+        params = edge.init_params(torch.Generator(device=DEV).manual_seed(0))
+        torch.cuda.synchronize()
+        zero_launches()
+        ev, losses = [], []
+        t0 = time.perf_counter()
+        for _ in range(EDGE["steps"]):
+            x, y = edge.synthetic_task(rng, EDGE["batch"], device=DEV)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, loss = edge.sgd_step(params, x, y, backend)
+            b.record()
+            ev.append((a, b))
+            losses.append(loss)
+        xt, yt = edge.synthetic_task(rng, EDGE["test"], device=DEV)
+        acc = edge.accuracy(params, xt, yt, backend)
+        wall = time.perf_counter() - t0
+        step_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
+        losses = torch.stack(losses).tolist()
+        if not acc > 0.9:
+            raise AssertionError(f"edge CNN on {backend}: test accuracy {acc}")
+        r = dict(acc=acc, step_ms=step_ms, wall_s=wall,
+                 loss_first=losses[0], loss_last=losses[-1])
+        if backend == "sliding_pallas":
+            calib_x, _ = edge.synthetic_task(rng, EDGE["batch"], device=DEV)
+            qp = edge.quantize_net(params, calib_x, backend)
+            with quant.counting_dequants() as deq:
+                acc_q = edge.accuracy(qp, xt, yt, backend, precision="w8a8")
+            launches = read_launches()
+            want = only(conv2d=5 * EDGE["steps"] + 6,
+                        conv2d_bwd_dw=3 * EDGE["steps"], conv2d_quant=3)
+            if launches != want:
+                raise AssertionError(f"edge CNN launches {launches}, "
+                                     f"expected {want}")
+            if deq != ["edge/c3"] or abs(acc - acc_q) > 0.02:
+                raise AssertionError(f"edge CNN int8: dequant sites {deq}, "
+                                     f"accuracy {acc_q} against {acc}")
+            err_q = _edge_int8_kernels(edge, layers, sliding, qp, xt)
+            r.update(acc_q=acc_q, dequant_sites=list(deq), launches=launches,
+                     w8a8_max_abs_err=err_q)
+            log(f"edge CNN int8 (w8a8) on sliding_pallas: test acc "
+                f"{acc_q:.4f} (f32 {acc:.4f}), dequant sites {deq}; row 14 "
+                f"vs plain at the chain's shapes: c3 max |err| {err_q:.2e}; "
+                f"launches {launches}")
+
+        def one_step():  # profile_busy runs under no_grad
+            with torch.enable_grad():
+                edge.sgd_step(params, x, y, backend)
+
+        prof = profile_busy(one_step)  # after the counters were read
+        r.update(busy_ms=prof["busy_ms"], profiled_wall_ms=prof["wall_ms"],
+                 kernels_per_step=prof["kernels"], top=prof["top"])
+        log(f"edge CNN on {backend}: {EDGE['steps']} steps of B "
+            f"{EDGE['batch']}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"test acc {acc:.4f}; step {step_ms:.3f} ms (median, CUDA "
+            f"events around the step, host gaps included); {wall:.2f}s; "
+            f"profiled step: wall {prof['wall_ms']:.3f} ms, card busy "
+            f"{prof['busy_ms']:.3f} ms, {prof['kernels']} kernels; top: "
+            f"{prof['top']}")
+        out[backend] = r
+    return out
+
+
+def phase_examples() -> dict:
+    """50. The three other example ports through their ``main``: the
+    quickstart on the card (its Fig. 1 point from ``card_ms``), serve_decode
+    on qwen3-1.7b and rwkv6-1.6b (smoke configs, the determinism check),
+    train_lm at 10m for ``TRAIN_LM_STEPS`` steps (the loss must fall). The
+    counters over the three must read exactly ``EXAMPLE_LAUNCHES``. Then
+    each kernel is held to its plain version at the shapes it ran: rows 4
+    and 7 on the quickstart's Fig. 1 operands, row 2 by serve_decode's
+    qwen3 tokens from a second run on the plain versions."""
+    from repro_torch.kernels import ops
+
+    serve_decode = load_example("serve_decode_torch")
+    zero_launches()
+    t0 = time.perf_counter()
+    qs = load_example("quickstart_torch").main(["--device", "cuda"])
+    sd = {arch: serve_decode.main(["--device", "cuda", "--arch", arch])
+          for arch in ("qwen3-1.7b", RWKV)}
+    with tempfile.TemporaryDirectory() as run_dir:
+        lm = load_example("train_lm_torch").main(
+            ["--device", "cuda", "--steps", str(TRAIN_LM_STEPS),
+             "--run-dir", run_dir])
+    launches = read_launches()
+    seconds = time.perf_counter() - t0
+    if launches != only(**EXAMPLE_LAUNCHES):
+        raise AssertionError(f"examples launches {launches}, expected "
+                             f"{EXAMPLE_LAUNCHES}")
+    if not qs["kernel_vs_plain"] <= 1e-3:
+        raise AssertionError(f"quickstart: row 1 against core.conv1d "
+                             f"{qs['kernel_vs_plain']}")
+    # k=17 sums of 4,624 products of unit normals (|y| up to ~300): atol
+    # scaled by max |y|, as for gradients
+    x, w = qs.pop("fig1_k17_operands")
+    fig1_err = {}
+    for backend in ("sliding", "im2col_gemm"):
+        got = ops.conv2d(x, w, backend=backend)
+        with plain_kernels():
+            want = ops.conv2d(x, w, backend=backend)
+        fig1_err[backend] = close(got, want, TOL, f"quickstart Fig. 1 k=17 "
+                                  f"{backend}", scaled=True)
+    with plain_kernels():
+        plain_toks = serve_decode.main(["--device", "cuda", "--arch",
+                                        "qwen3-1.7b"])["tokens"]
+    if not torch.equal(sd["qwen3-1.7b"]["tokens"], plain_toks):
+        raise AssertionError(
+            f"serve_decode qwen3-1.7b: tokens {sd['qwen3-1.7b']['tokens']} "
+            f"on the kernels, {plain_toks} on the plain versions")
+    res = dict(quickstart=dict(qs, regimes={str(k): v for k, v in
+                                            qs["regimes"].items()},
+                               fig1_k17_max_abs_err=fig1_err),
+               serve_decode_s={a: r["seconds"] for a, r in sd.items()},
+               train_lm=dict(first10=lm["first10"],
+                             final_loss=lm["final_loss"],
+                             n_params=lm["n_params"]),
+               launches=launches, seconds=seconds)
+    log(f"examples: quickstart k=17 sliding {qs['fig1_k17_ms']['sliding']:.4f}"
+        f" ms vs im2col+GEMM {qs['fig1_k17_ms']['im2col_gemm']:.4f} ms "
+        f"({qs['clock']}), rows 4 and 7 vs plain on its operands max |err| "
+        f"{ {b: f'{e:.2e}' for b, e in fig1_err.items()} }; serve_decode "
+        f"first requests {res['serve_decode_s']}, qwen3's tokens equal on "
+        f"the plain versions; train_lm 10m {TRAIN_LM_STEPS} steps loss "
+        f"{lm['first10']:.3f} -> {lm['final_loss']:.3f}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return res
+
+
+class Phases:
+    """Each phase's seconds, printed as it ends and kept for the JSON."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    def run(self, n, name: str, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        s = time.perf_counter() - t0
+        self.seconds[f"{n} {name}"] = s
+        log(f"phase {n} {name} {s:.1f}")
+        return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. device --------------------------------------------------------------
@@ -5736,6 +6163,7 @@ def main() -> int:
     print(smi, flush=True)
     import repro_torch
     from repro_torch import configs, health, models, obs, optim, quant
+    from repro_torch.core import sliding
     from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
     from repro_torch.kernels import autotune, build, ops
@@ -5754,9 +6182,10 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    ph = Phases()
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs = ph.run(2, "build", build.build_all)
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f}s")
     for name in sorted(libs):
         for line in build.build_log(name).splitlines():
@@ -5764,76 +6193,113 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     # -- 3-6: serving -----------------------------------------------------------
-    errs = phase_kernels(sc, ad)
-    phase_smoke_serve(serve, models, configs, map_tree)
-    full = phase_full_serve(serve, models, configs, map_tree)
+    errs = ph.run(3, "kernels", phase_kernels, sc, ad)
+    ph.run(4, "smoke_serve", phase_smoke_serve, serve, models, configs,
+           map_tree)
+    full = ph.run(5, "full_serve", phase_full_serve, serve, models, configs,
+                  map_tree)
     # -- 7-10: training -----------------------------------------------------------
-    errs["conv1d_bwd_dw"] = phase_train_kernels(sc, sb, ops)
-    phase_smoke_train(models, configs, optim, steps_mod, train, map_tree)
-    trained = phase_full_train(models, configs, optim, steps_mod, train,
-                               iter_leaves)
+    errs["conv1d_bwd_dw"] = ph.run(7, "train_kernels", phase_train_kernels,
+                                   sc, sb, ops)
+    ph.run(8, "smoke_train", phase_smoke_train, models, configs, optim,
+           steps_mod, train, map_tree)
+    trained = ph.run(9, "full_train", phase_full_train, models, configs,
+                     optim, steps_mod, train, iter_leaves)
     # -- 11-14: int8 serving ------------------------------------------------------
-    errs["sliding_conv_quant"] = phase_quant_kernels(sq)
-    errs["attention_decode_int8"] = phase_attention_int8(ad)
-    phase_smoke_serve_int8(serve, models, configs, map_tree, quant, sq, layers)
-    full_int8 = phase_full_serve_int8(serve, models, configs, quant)
+    errs["sliding_conv_quant"] = ph.run(11, "quant_kernels",
+                                        phase_quant_kernels, sq)
+    errs["attention_decode_int8"] = ph.run(12, "attention_int8",
+                                           phase_attention_int8, ad)
+    ph.run(13, "smoke_serve_int8", phase_smoke_serve_int8, serve, models,
+           configs, map_tree, quant, sq, layers)
+    full_int8 = ph.run(14, "full_serve_int8", phase_full_serve_int8, serve,
+                       models, configs, quant)
     # -- 16-18: jamba serving -----------------------------------------------------
-    errs.update(phase_depthwise_kernels(sc, sq, ad))
-    phase_smoke_serve_jamba(serve, models, configs, map_tree, sq)
+    errs.update(ph.run(16, "depthwise_kernels", phase_depthwise_kernels, sc,
+                       sq, ad))
+    ph.run(17, "smoke_serve_jamba", phase_smoke_serve_jamba, serve, models,
+           configs, map_tree, sq)
     gc.collect()
     torch.cuda.empty_cache()  # whisper's full-width runs are done
-    jamba = phase_full_serve_jamba(serve, models, configs)
+    jamba = ph.run(18, "full_serve_jamba", phase_full_serve_jamba, serve,
+                   models, configs)
     gc.collect()
     torch.cuda.empty_cache()
     # -- 20-22: jamba training ------------------------------------------------------
-    errs["conv1d_depthwise_bwd_dw"] = phase_depthwise_train_kernels(sc, sb, ops)
-    phase_smoke_train_jamba(models, configs, optim, steps_mod, train,
-                            map_tree, iter_leaves)
-    jamba_train = phase_full_train_jamba(models, configs, optim, steps_mod,
-                                         train, iter_leaves)
+    errs["conv1d_depthwise_bwd_dw"] = ph.run(
+        20, "depthwise_train_kernels", phase_depthwise_train_kernels, sc, sb,
+        ops)
+    ph.run(21, "smoke_train_jamba", phase_smoke_train_jamba, models, configs,
+           optim, steps_mod, train, map_tree, iter_leaves)
+    jamba_train = ph.run(22, "full_train_jamba", phase_full_train_jamba,
+                         models, configs, optim, steps_mod, train,
+                         iter_leaves)
     gc.collect()
     torch.cuda.empty_cache()
     # -- 24-26, 28-31: llava serving, fp and int8; the trained 2-D conv ----------------
-    errs.update(phase_conv2d_kernels(s2, ad))
-    phase_smoke_serve_llava(serve, models, configs, map_tree, llava)
-    errs.update(phase_conv2d_quant_kernels(sq, ad))
-    errs["conv2d_bwd_dw"] = phase_conv2d_train_kernels(s2, sb, ops)
+    errs.update(ph.run(24, "conv2d_kernels", phase_conv2d_kernels, s2, ad))
+    ph.run(25, "smoke_serve_llava", phase_smoke_serve_llava, serve, models,
+           configs, map_tree, llava)
+    errs.update(ph.run(28, "conv2d_quant_kernels", phase_conv2d_quant_kernels,
+                       sq, ad))
+    errs["conv2d_bwd_dw"] = ph.run(29, "conv2d_train_kernels",
+                                   phase_conv2d_train_kernels, s2, sb, ops)
     gc.collect()
     torch.cuda.empty_cache()
-    llava_serve = phase_full_serve_llava(serve, models, configs, llava,
-                                         iter_leaves, quant, transformer)
+    llava_serve = ph.run(26, "full_serve_llava", phase_full_serve_llava,
+                         serve, models, configs, llava, iter_leaves, quant,
+                         transformer)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_smoke_serve_llava_int8(serve, models, configs, map_tree, llava,
-                                 quant, transformer)
-    llava_train_cli = phase_llava_train_cli(train)
+    ph.run(31, "smoke_serve_llava_int8", phase_smoke_serve_llava_int8, serve,
+           models, configs, map_tree, llava, quant, transformer)
+    llava_train_cli = ph.run(41, "llava_train_cli", phase_llava_train_cli,
+                             train)
     gc.collect()
     torch.cuda.empty_cache()
     # -- 42-43: the serve and train CLIs traced, on their run substrate ----------
-    serve_cli_obs = phase_serve_cli_obs(serve, configs, obs, health, ops, smi)
-    train_cli_obs = phase_train_cli_obs(train, obs, health, ops, smi)
-    patch_train = phase_patch_embed_train(llava, transformer)
+    serve_cli_obs = ph.run(42, "serve_cli_obs", phase_serve_cli_obs, serve,
+                           configs, obs, health, ops, smi)
+    train_cli_obs = ph.run(43, "train_cli_obs", phase_train_cli_obs, train,
+                           obs, health, ops, smi)
+    patch_train = ph.run(30, "patch_embed_train", phase_patch_embed_train,
+                         llava, transformer)
     gc.collect()
     torch.cuda.empty_cache()
     # -- 44-46: the remaining decoders, the MoE at full width ------------------
-    errs.update(phase_attention_decoder_kernels(ad))
-    phase_smoke_serve_decoders(serve, models, configs, map_tree)
-    moe_serve = phase_full_serve_moe(serve, models, configs, iter_leaves, moe)
+    errs.update(ph.run(44, "attention_decoder_kernels",
+                       phase_attention_decoder_kernels, ad))
+    ph.run(44, "smoke_serve_decoders", phase_smoke_serve_decoders, serve,
+           models, configs, map_tree)
+    moe_serve = ph.run(45, "full_serve_moe", phase_full_serve_moe, serve,
+                       models, configs, iter_leaves, moe)
     gc.collect()
     torch.cuda.empty_cache()
-    decoders = phase_full_serve_decoders(serve, models, configs, iter_leaves)
+    decoders = ph.run(46, "full_serve_decoders", phase_full_serve_decoders,
+                      serve, models, configs, iter_leaves)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 48-50: rwkv6-1.6b, the edge CNN and the other example ports ---------
+    rwkv = ph.run(48, "rwkv6", phase_rwkv6, serve, models, configs, optim,
+                  steps_mod, train, iter_leaves, map_tree)
+    edge_cnn = ph.run(49, "edge_cnn", phase_edge_cnn, layers, sliding)
+    examples = ph.run(50, "examples", phase_examples)
     # -- 33-34: the GEMM-convolution baselines, and their main path -------------
-    errs.update(phase_im2col_kernels(ig, ops, quant))
-    phase_smoke_serve_im2col(serve, models, configs, map_tree)
-    baselines = phase_baselines(ops)
+    errs.update(ph.run(33, "im2col_kernels", phase_im2col_kernels, ig, ops,
+                       quant))
+    ph.run(34, "smoke_serve_im2col", phase_smoke_serve_im2col, serve, models,
+           configs, map_tree)
+    baselines = ph.run(34, "baselines", phase_baselines, ops)
     gc.collect()
     torch.cuda.empty_cache()
     # -- 36-38: pooling (rows 8, 9), the selective scan (row 16), their paths --
-    errs.update(phase_pool_kernels(sp))
-    errs["ssm_scan"], scan_path = phase_scan_kernels(ss)
-    pool_path = phase_pool_path(sp, ops)
+    errs.update(ph.run(36, "pool_kernels", phase_pool_kernels, sp))
+    errs["ssm_scan"], scan_path = ph.run(37, "scan_kernels",
+                                         phase_scan_kernels, ss)
+    pool_path = ph.run(38, "pool_path", phase_pool_path, sp, ops)
     # -- 47: the tuning layer: tuned plans launched through ops ------------------
-    tuned, tuning_launches = phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp)
+    tuned, tuning_launches = ph.run(47, "tuning", phase_tuning, autotune, ops,
+                                    sc, s2, sq, sb, ad, sp)
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -5856,33 +6322,46 @@ def main() -> int:
                "serve_qwen3_moe": moe_serve["fp"]["launches"],
                "serve_qwen3_moe_int8": moe_serve["int8"]["launches"],
                **{f"serve_{arch}": r["launches"]
-                  for arch, r in decoders.items()}}
+                  for arch, r in decoders.items()},
+               "serve_rwkv6": rwkv["serve"]["launches"],
+               "train_rwkv6": rwkv["train"]["launches"],
+               "edge_cnn": edge_cnn["sliding_pallas"]["launches"],
+               "examples": examples["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
-    kernels = phase_times(sc, ad, launches, errs)
-    kernels.append(phase_train_times(sb, launches, errs["conv1d_bwd_dw"]))
+    kernels = ph.run(6, "times", phase_times, sc, ad, launches, errs)
+    kernels.append(ph.run(10, "train_times", phase_train_times, sb, launches,
+                          errs["conv1d_bwd_dw"]))
     # -- 15: int8 times -----------------------------------------------------------
-    kernels += phase_quant_times(sq, ad, launches, errs)
+    kernels += ph.run(15, "quant_times", phase_quant_times, sq, ad, launches,
+                      errs)
     # -- 19: jamba times ----------------------------------------------------------
-    dw_rows, attn_jamba = phase_jamba_times(sc, sq, ad, launches, errs)
+    dw_rows, attn_jamba = ph.run(19, "jamba_times", phase_jamba_times, sc, sq,
+                                 ad, launches, errs)
     kernels += dw_rows
     # -- 23: jamba training times ----------------------------------------------------
-    dw_train, fwd_z = phase_depthwise_train_times(
-        sc, sb, launches, errs["conv1d_depthwise_bwd_dw"])
+    dw_train, fwd_z = ph.run(23, "depthwise_train_times",
+                             phase_depthwise_train_times, sc, sb, launches,
+                             errs["conv1d_depthwise_bwd_dw"])
     kernels.append(dw_train)
     # -- 27: llava times ----------------------------------------------------------------
-    conv2d_row, attn_llava = phase_conv2d_times(s2, ad, launches, errs)
+    conv2d_row, attn_llava = ph.run(27, "conv2d_times", phase_conv2d_times, s2,
+                                    ad, launches, errs)
     kernels.append(conv2d_row)
     # -- 32: int8 conv2d and 2-D dw times -------------------------------------------------
-    conv2d_rows, attn_int8_llava = phase_conv2d_quant_train_times(
-        sq, sb, ad, launches, errs)
+    conv2d_rows, attn_int8_llava = ph.run(
+        32, "conv2d_quant_train_times", phase_conv2d_quant_train_times, sq,
+        sb, ad, launches, errs)
     kernels += conv2d_rows
     # -- 35: the paper's comparison -----------------------------------------------
-    kernels += phase_im2col_times(ig, sc, s2, launches, errs)
+    kernels += ph.run(35, "im2col_times", phase_im2col_times, ig, sc, s2,
+                      launches, errs)
     # -- 39: pooling and scan times -------------------------------------------------
-    kernels += phase_pool_times(sp, ss, mamba, launches, errs)
+    kernels += ph.run(39, "pool_times", phase_pool_times, sp, ss, mamba,
+                      launches, errs)
     # -- 40: row 2 over a float32 cache ------------------------------------------------
-    attn_f32 = phase_attention_f32_times(ad)
-    attn_gemma = phase_attention_gemma_times(ad)
+    attn_f32 = ph.run(40, "attention_f32_times", phase_attention_f32_times, ad)
+    attn_gemma = ph.run(40, "attention_gemma_times",
+                        phase_attention_gemma_times, ad)
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
         if row["name"] in attn_jamba:
@@ -5916,7 +6395,9 @@ def main() -> int:
                       "serve_decoders": decoders,
                       "baselines": baselines,
                       "pool": pool_path, "ssm_scan": scan_path,
-                      "tuned": tuned}),
+                      "tuned": tuned, "serve_rwkv6": rwkv["serve"],
+                      "train_rwkv6": rwkv["train"], "edge_cnn": edge_cnn,
+                      "examples": examples, "phase_s": ph.seconds}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

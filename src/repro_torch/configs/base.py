@@ -3,8 +3,8 @@
 A copy of ``repro.configs.base`` with the same field names and defaults, so
 one configuration describes the same model in both packages, and one field
 of the port's own: ``embed_scale``, which the reference derives from the
-config's name. Only the architectures this package has ported resolve in
-``get_config``.
+config's name. ``get_config`` resolves every architecture of the
+reference's registry.
 """
 from __future__ import annotations
 
@@ -85,8 +85,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# architectures this package serves; the rest of the reference's registry
-# raises "not ported yet" until its slice lands
+# architectures this package serves: the reference's whole registry
 PORTED_ARCHS = {
     "whisper-medium": "whisper_medium",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
@@ -97,14 +96,13 @@ PORTED_ARCHS = {
     "granite-8b": "granite_8b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; ported: {sorted(PORTED_ARCHS)}"
-        )
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(PORTED_ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{PORTED_ARCHS[name]}")
     return mod.CONFIG
 

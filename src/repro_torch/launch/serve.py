@@ -11,6 +11,9 @@ against a static KV cache.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llava-next-34b --smoke --batch 2 --prompt-len 8 --gen 4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-1.6b --smoke --device cpu
+
     REPRO_TRACE=1 PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-medium --smoke --batch 2 --prompt-len 16 --gen 8 \
         --kv-quant int8 --requests 2 --run-dir obs_run --device cpu
@@ -125,8 +128,8 @@ def pad_cache_to_defs(cache: dict, defs: dict, param_dtype) -> dict:
     its sequence axis, the one named ``kv_seq`` in the leaf's
     ``ParamDef.axes``, and cast it to the def's dtype (the param dtype
     where the def names none). Leaves without a ``kv_seq`` axis (jamba's
-    recurrent conv and ssm states, walked in their nested dicts) are cast
-    only."""
+    recurrent conv and ssm states, walked in their nested dicts; rwkv6's
+    WKV state and token-shift carries) are cast only."""
     out = {}
     for name, d in defs.items():
         c = cache[name]

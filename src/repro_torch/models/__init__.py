@@ -17,8 +17,12 @@ def build_model(cfg: ModelConfig):
         from repro_torch.models.whisper import Whisper
 
         return Whisper(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv6 import RWKV6
+
+        return RWKV6(cfg, wkv_mode=cfg.rwkv_wkv_mode)
     if cfg.family == "hybrid":
         from repro_torch.models.jamba import Jamba
 
         return Jamba(cfg)
-    raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown family {cfg.family!r}")

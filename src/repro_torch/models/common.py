@@ -49,15 +49,30 @@ def unstack(tree: dict) -> list[dict]:
 
 
 def scan_blocks(x: Any, stacked: dict, body: Callable[[Any, dict], Any], *,
-                remat: bool = True) -> Any:
+                remat: bool = True, collect: bool = False) -> Any:
     """Run ``body(carry, layer_params)`` over the layers of ``stacked``
     (the reference's ``scan_blocks``, as a loop). With ``remat`` and grad
     enabled, each block runs under ``torch.utils.checkpoint``: its
-    activations are recomputed in backward instead of kept."""
+    activations are recomputed in backward instead of kept.
+
+    ``collect=True``: ``body`` returns ``(carry, aux)``, aux a dict tree of
+    tensors, and the result is ``(carry, aux stacked along a new leading
+    layers axis)`` (a prefill's per-layer states)."""
     ckpt = remat and torch.is_grad_enabled()
+    auxes = []
     for lp in unstack(stacked):
         x = checkpoint(body, x, lp, use_reentrant=False) if ckpt else body(x, lp)
-    return x
+        if collect:
+            x, aux = x
+            auxes.append(aux)
+    return (x, _stack(auxes)) if collect else x
+
+
+def _stack(trees: list) -> Any:
+    """One tree of the leaves of ``trees`` stacked along a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def kv_cache_defs(cfg: ModelConfig, layers: int, batch: int, seq: int):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and no timing script under ``scripts/`` imports jax or
-anything of the JAX package ``repro``."""
+``chip_smoke.py``, no timing script under ``scripts/`` and no example port
+``examples/*_torch.py`` imports jax or anything of the JAX package
+``repro``."""
 import ast
 from pathlib import Path
 
@@ -13,7 +14,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
             + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*.py")))
+            + sorted((ROOT / "scripts").glob("*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -104,4 +106,15 @@ def test_tuning_slice_modules_are_checked():
     for rel in ("kernels/autotune.py", "kernels/timing.py",
                 "kernels/gemm_plan.py", "kernels/attention_decode.py",
                 "kernels/ops.py", "health.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_examples_and_rwkv6_slice_files_are_checked():
+    """The four example ports and the rwkv6 slice's modules are among the
+    files checked above."""
+    checked = set(_port_files())
+    for name in ("edge_cnn", "quickstart", "serve_decode", "train_lm"):
+        assert ROOT / "examples" / f"{name}_torch.py" in checked, name
+    for rel in ("configs/rwkv6_1_6b.py", "models/rwkv6.py",
+                "models/common.py", "models/__init__.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel

@@ -169,10 +169,13 @@ def test_serve_cli_rejects_unported_flags(flag, capsys):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("rwkv6-1.6b")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(smoke_config(get_config("whisper-medium")).replace(family="ssm"))
+    """Every arch of the reference resolves (rwkv6-1.6b was the last); an
+    unknown arch raises KeyError and an unknown family ValueError, as in
+    the reference."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("rwkv7-0.1b")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(smoke_config(get_config("whisper-medium")).replace(family="rnn"))
 
 
 def test_default_device_needs_a_card():
