@@ -344,14 +344,28 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      rows 4 and 7 by ``card_ms``), serve_decode on qwen3-1.7b and
      rwkv6-1.6b (smoke configs, two requests with equal tokens), train_lm
      at 10m for 30 steps (its loss must fall); the counters must show rows
-     1, 4, 7 and 2.
+     1, 4, 7 and 2;
+ 51. chaos: CI's two chaos steps on the serve CLI at whisper-medium's full
+     width (B 2, P 16, 8 tokens, ``--conv-backend sliding_pallas``): a
+     clean run (no ``health:`` line), ``REPRO_FAULTS=pallas_compile:conv1d``
+     (``demote:cuda->plain``, row 1 never launched, every conv1d on
+     ``plain``), and ``pallas_runtime:conv1d*1,nan_activations:
+     serve/slot.1*1`` with a 4-call cooldown and two journaled requests
+     (the runtime demotion, probe and repromotion, slot 1 quarantined, CI's
+     metrics and journal checks, row 1 launched exactly 4 times, each
+     unquarantined slot's tokens bit for bit those of the run on the same
+     rung); ``train.main`` at full width, 3 steps, clean and with a runtime
+     trip at step 0 (retried, three optimizer steps, step 0's loss within
+     ``CHAOS_LOSS_REL``, then a repromotion); a row-1 wrapper raising a
+     ``RuntimeError`` that ``ops.conv1d`` must pass on with no health
+     event. The faults, breakers and obs registry are reset around it.
 
-Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 30, 44-46, 48-50,
+Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 51, 30, 44-46, 48-50,
 33, 34 with the main path of the baselines, 36-38, 47, then the timings
 (6, 10, 15, 19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every
 kernel is held to its plain version before a path runs it. Each phase
 prints its seconds as it ends, on a ``[chip_smoke] phase <n> <name> <s>``
-line (the JSON record's ``phase_s``). Phases 42 and 43 reset the
+line (the JSON record's ``phase_s``). Phases 42, 43 and 51 reset the
 process-global obs registry,
 trace ring, health record and attention log before they run, and disarm
 tracing and reset them again after, so no later phase runs armed.
@@ -3843,6 +3857,426 @@ def phase_train_cli_obs(train, obs, health, ops, smi) -> dict:
                 device=smi)
 
 
+CHAOS = dict(B=2, P=16, gen=8)  # CI's chaos request, at full width
+CHAOS_TRAIN = dict(B=2, seq=64, steps=3)
+# each step's loss of the drilled run against the clean run's: step 0 was
+# retried on the plain rung (bf16 activations through another conv
+# evaluation), and steps 1 and 2 start from its update
+CHAOS_LOSS_REL = 1e-2
+
+
+class _NoCheckpoints:
+    """A checkpoint manager that keeps nothing: phase 51's train drill
+    saves no 7.7-GB full-width step (the drill is the step loop's)."""
+
+    def __init__(self, *a, **k):
+        pass
+
+    def latest_valid_step(self):
+        return None
+
+    def save(self, *a, **k):
+        pass
+
+    def wait(self):
+        pass
+
+
+def _chaos_env(faults, spec: str | None, cooldown: str | None) -> None:
+    """Arm ``REPRO_FAULTS`` (None: disarm) and the breakers' call cooldown
+    (None: the default) for an in-process CLI run."""
+    for name, value in (("REPRO_FAULTS", spec),
+                        ("REPRO_HEALTH_COOLDOWN_CALLS", cooldown)):
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+    faults.reload_env()
+
+
+@contextlib.contextmanager
+def recorded_calls(ops, names):
+    """The ``ops`` entry points ``names`` pass each call through and keep
+    its operands (tensors detached and cloned) in the yielded dict: the
+    last call of each signature (name, shapes, dtypes, options)."""
+    real = {n: getattr(ops, n) for n in names}
+    got = {}
+
+    def sig(v):
+        return ((tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+                else repr(v))
+
+    def keep(v):
+        return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+    def wrapped(name):
+        def call(*a, **kw):
+            k = (name, tuple(map(sig, a)),
+                 tuple((n, sig(v)) for n, v in sorted(kw.items())))
+            got[k] = (name, [keep(v) for v in a],
+                      {n: keep(v) for n, v in kw.items()})
+            return real[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, wrapped(n))
+    try:
+        yield got
+    finally:
+        for n, fn in real.items():
+            setattr(ops, n, fn)
+
+
+# the launch counter of each entry point the drills record
+_DRILL_ROW = {"conv1d": "sliding_conv1d", "attention_decode": "attention_decode"}
+
+
+def _drill_tol(t: torch.Tensor) -> dict:
+    """A float32 output at TOL (the kernels sum in another order than the
+    plain versions: a conv2 of 3,072 products a sum, row 2 over the path's
+    own activations); a bfloat16 one, which may round the other way, at
+    QBTOL."""
+    return TOL if t.dtype == torch.float32 else QBTOL
+
+
+def drill_calls_vs_plain(ops, calls, *, grads: bool) -> dict:
+    """Each call recorded on a drill's path, again on the card through the
+    kernels and through their plain versions (``plain_kernels()``), on the
+    same operands; returns max |err| by call. ``grads``: each conv1d also
+    takes a seeded cotangent, and its dx, dw and db (rows 1 and 10) are
+    held too, scaled as gradients. Raises unless each kernel launched."""
+    errs = {}
+    for i, (name, a, kw) in enumerate(calls.values()):
+        fn = getattr(ops, name)
+        what = (f"chaos drill {name} "
+                f"{[tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]}"
+                f" {a[0].dtype}")
+
+        def run():
+            if not grads:
+                with torch.no_grad():
+                    return (fn(*a, **kw),)
+            x, w = (t.detach().requires_grad_(True) for t in a[:2])
+            b = kw.get("bias")
+            b = None if b is None else b.detach().requires_grad_(True)
+            y = fn(x, w, *a[2:], **dict(kw, bias=b))
+            g = torch.Generator(device=DEV).manual_seed(51 + i)
+            ct = torch.randn(y.shape, generator=g, device=DEV).to(y.dtype)
+            leaves = (x, w) if b is None else (x, w, b)
+            return (y.detach(),
+                    *torch.autograd.grad((y.float() * ct.float()).sum(),
+                                         leaves))
+
+        zero_launches()
+        got = run()
+        launched = read_launches()
+        with plain_kernels():
+            want = run()
+        # with grads, row 1 runs the forward and dx, row 10 dw and db
+        expect = (only(sliding_conv1d=2, conv1d_bwd_dw=1) if grads
+                  else only(**{_DRILL_ROW[name]: 1}))
+        if launched != expect:
+            raise AssertionError(f"{what}: launches {launched}")
+        err = 0.0
+        for j, (gt, wt) in enumerate(zip(got, want)):
+            err = max(err, close(gt, wt, _drill_tol(wt), f"{what} out {j}",
+                                 scaled=j > 0))
+        errs[what] = err
+    return errs
+
+
+def phase_chaos(serve, train, steps_mod, configs, faults, obs, health, ops,
+                smi) -> dict:
+    """51: CI's two chaos steps on the serve CLI at whisper-medium's full
+    width (B 2, P 16, 8 tokens, ``--conv-backend sliding_pallas``), the
+    train CLI's runtime drill, and a real kernel error; in process, with
+    the obs registry, health record, faults and dispatch metrics reset
+    around each run. (a) clean, two requests: no ``health:`` line, row 1
+    only. (b) ``pallas_compile:conv1d``: a ``demote:cuda->plain`` line, no
+    row-1 launch, every conv1d on ``plain``. (c)
+    ``pallas_runtime:conv1d*1,nan_activations:serve/slot.1*1`` with a
+    4-call cooldown, two requests under ``--run-dir``: the runtime
+    demotion, the probe and the repromotion, slot 1 quarantined, CI's
+    metrics and journal checks, row 1's exact count, request 1's slot 0
+    bit for bit as (b) and request 2 as (a). (d) ``train.main`` at full
+    width, 3 steps, clean and under ``pallas_runtime:conv1d*1`` (checkpoints
+    not written): step 0 demoted and retried, each step's loss within
+    ``CHAOS_LOSS_REL`` of the clean one, three optimizer steps, a
+    repromotion. The conv1d and attention_decode calls of (a) and the
+    conv1d calls of (d)'s clean run are recorded and replayed on the
+    kernels and on their plain versions (``drill_calls_vs_plain``; (d)'s
+    with dx, dw and db). (e) a row-1 wrapper that raises ``RuntimeError``:
+    ``ops.conv1d`` on the card raises it, disarmed and armed, with no
+    health event. (f) under ``REPRO_RUNTIME_SENTINEL=1`` a row-1 wrapper
+    whose first output is NaN: the serve CLI's request fails with the
+    sentinel's ``FaultError`` after one prefill, one
+    ``error:cuda(sentinel)`` event, no breaker."""
+    t0 = time.perf_counter()
+    argv = ["--arch", "whisper-medium", "--batch", str(CHAOS["B"]),
+            "--prompt-len", str(CHAOS["P"]), "--gen", str(CHAOS["gen"]),
+            "--conv-backend", "sliding_pallas"]
+    real_generate = serve.generate
+    run_dir = ROOT / "build" / "chip_smoke_chaos"
+
+    def reset():
+        reset_obs(obs, health, ops)
+        faults.reset()
+
+    def run(*extra, spec=None, cooldown=None, record=None):
+        """One serve CLI run: its stdout, each request's tokens, the
+        dispatch calls by (site, rung) and the launch counts. ``record``:
+        a dict that receives the run's conv1d and attention_decode calls
+        (``recorded_calls``)."""
+        reset()
+        _chaos_env(faults, spec, cooldown)
+        obs.metrics.enable_dispatch()
+        toks = {}
+
+        def generate(*a, **kw):
+            out = real_generate(*a, **kw)
+            toks[kw["request_id"]] = out[0].cpu()
+            return out
+
+        serve.generate = generate
+        rec = (recorded_calls(ops, ("conv1d", "attention_decode"))
+               if record is not None else contextlib.nullcontext({}))
+        zero_launches()
+        try:
+            with rec as calls, \
+                    contextlib.redirect_stdout(io.StringIO()) as out:
+                serve.main([*argv, *extra])
+            launches = read_launches()
+            if record is not None:
+                record.update(calls)
+        finally:
+            serve.generate = real_generate
+            obs.metrics.enable_dispatch(False)
+            _chaos_env(faults, None, None)
+        calls = {}
+        for lb, v in obs.REGISTRY.counter("dispatch.calls").series():
+            k = (lb["site"], lb["rung"])
+            calls[k] = calls.get(k, 0) + int(v)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out.getvalue(), toks, calls, launches
+
+    cfg = configs.get_config("whisper-medium")
+    # a request's row-2 launches: self- and cross-attention in every decoder
+    # layer at every decode step
+    attn = 2 * cfg.num_layers * (CHAOS["gen"] - 1)
+    serve_calls = {}
+    try:
+        # (a) clean
+        clean, a_toks, a_calls, a_launch = run("--requests", "2",
+                                               record=serve_calls)
+        assert "generated" in clean, clean
+        assert not any("health:" in ln for ln in clean.splitlines()), clean
+        assert a_launch == only(sliding_conv1d=4, attention_decode=2 * attn), (
+            a_launch)
+        assert a_calls == {("conv1d", "cuda"): 4,
+                           ("attention_decode", "cuda"): 2 * attn}, a_calls
+        assert torch.equal(a_toks["req0"], a_toks["req1"])
+        # (b) compile drill
+        comp, b_toks, b_calls, b_launch = run(spec="pallas_compile:conv1d")
+        lines = comp.splitlines()
+        assert "generated" in comp, comp
+        assert any("health:" in ln and "pallas_compile" in ln
+                   and "demote:cuda->plain" in ln for ln in lines), comp
+        assert b_launch == only(attention_decode=attn), b_launch
+        assert b_calls == {("conv1d", "plain"): 2,
+                           ("attention_decode", "cuda"): attn}, b_calls
+        # (c) runtime drill
+        shutil.rmtree(run_dir, ignore_errors=True)
+        rt, c_toks, c_calls, c_launch = run(
+            "--requests", "2", "--run-dir", str(run_dir),
+            spec="pallas_runtime:conv1d*1,nan_activations:serve/slot.1*1",
+            cooldown="4")
+        cl = rt.splitlines()
+        assert "generated" in rt, rt
+        for needle in ("demote:cuda(runtime)", "probe:cuda",
+                       "repromote:cuda"):
+            assert any("health:" in ln and needle in ln for ln in cl), (
+                needle, rt)
+        assert any("health:" in ln and "pallas_runtime" in ln
+                   and "demote:cuda(runtime)" in ln for ln in cl), rt
+        assert any("action=quarantine" in ln and "serve/slot" in ln
+                   for ln in cl), rt
+        assert "load_shed" not in rt
+        names = json.dumps(json.load(open(run_dir / "metrics.json")))
+        for key in ("runtime.demote", "runtime.retrace_ms",
+                    "health.repromote", "serve.quarantined"):
+            assert key in names, f"{key} missing from metrics.json"
+        assert "serve.shed" not in names
+        recs = serve.RequestJournal(run_dir).records()
+        begun = {r["id"] for r in recs if r["event"] == "begin"}
+        ended = {r["id"] for r in recs if r["event"] == "end"}
+        assert begun == ended == {"req0", "req1"}, recs
+        # request 1: its first prefill launched both convs and tripped at
+        # the first; the re-run served both on plain; request 2 probed and
+        # repromoted the kernel: 2 + 0 + 2 launches
+        assert c_launch == only(sliding_conv1d=4, attention_decode=2 * attn), (
+            c_launch)
+        assert c_calls == {("conv1d", "cuda"): 4, ("conv1d", "plain"): 2,
+                           ("attention_decode", "cuda"): 2 * attn}, c_calls
+        eos = torch.full_like(c_toks["req0"][1], cfg.eos_id)
+        assert torch.equal(c_toks["req0"][0], b_toks["req0"][0])
+        assert torch.equal(c_toks["req0"][1], eos)  # slot 1 quarantined
+        assert torch.equal(c_toks["req1"], a_toks["req0"])
+        serve_launches = {k: a_launch[k] + b_launch[k] + c_launch[k]
+                          for k in a_launch}
+    finally:
+        reset()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    # the kernels at (a)'s shapes against their plain versions
+    assert sorted(c[0] for c in serve_calls.values()).count("conv1d") == 2
+    drill_errs = drill_calls_vs_plain(ops, serve_calls, grads=False)
+
+    # (d) the train drill
+    tdir = ROOT / "build" / "chip_smoke_chaos_train"
+    targv = ["--arch", "whisper-medium", "--steps", str(CHAOS_TRAIN["steps"]),
+             "--batch", str(CHAOS_TRAIN["B"]), "--seq", str(CHAOS_TRAIN["seq"]),
+             "--audio-frontend", "mels", "--conv-backend", "sliding_pallas",
+             "--no-resume", "--ckpt-every", "0", "--log-every", "1",
+             "--run-dir", str(tdir)]
+    real_apply, real_mgr = steps_mod.apply_updates, train.CheckpointManager
+    counts = []
+
+    def counting(params, grads, opt, cfg):
+        out = real_apply(params, grads, opt, cfg)
+        counts.append(int(out[1]["count"]))
+        return out
+
+    steps_mod.apply_updates, train.CheckpointManager = counting, _NoCheckpoints
+    try:
+        reset()
+        zero_launches()
+        with recorded_calls(ops, ("conv1d",)) as train_calls, \
+                contextlib.redirect_stdout(io.StringIO()):
+            tclean = train.main(targv)
+        d_launch = read_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        clean_counts, counts[:] = list(counts), []
+        reset()
+        _chaos_env(faults, "pallas_runtime:conv1d*1", "2")
+        zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            tchaos = train.main(targv)
+        d_launch = {k: d_launch[k] + n for k, n in read_launches().items()}
+        tlog = out.getvalue()
+        acts = [e.action for e in health.HEALTH.events_for("conv1d")]
+        retrace = obs.REGISTRY.counter("runtime.retrace_ms").value(
+            arch="whisper-medium")
+        repromoted = obs.REGISTRY.counter("health.repromote").value(
+            site="conv1d", rung="cuda")
+    finally:
+        steps_mod.apply_updates, train.CheckpointManager = real_apply, real_mgr
+        _chaos_env(faults, None, None)
+        reset()
+        shutil.rmtree(tdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert acts == ["demote:cuda(runtime)", "probe:cuda", "repromote:cuda"], (
+        acts, tlog)
+    assert counts == clean_counts == [1, 2, 3], (counts, clean_counts)
+    assert retrace > 0 and repromoted == 1.0, (retrace, repromoted)
+    assert np.isfinite(tchaos["losses"]).all(), tchaos
+    loss_rel = [abs(c - k) / abs(k)
+                for c, k in zip(tchaos["losses"], tclean["losses"])]
+    assert len(loss_rel) == CHAOS_TRAIN["steps"], (tchaos, tclean)
+    assert max(loss_rel) <= CHAOS_LOSS_REL, (tchaos["losses"],
+                                             tclean["losses"])
+    assert d_launch["sliding_conv1d"] > 0 and d_launch["conv1d_bwd_dw"] > 0
+    # rows 1 and 10 at (d)'s shapes against their plain versions
+    assert len(train_calls) == 2, list(train_calls)
+    drill_errs.update(drill_calls_vs_plain(ops, train_calls, grads=True))
+
+    # (e) a real kernel error is not hidden
+    conv = ops.sliding_conv1d
+    real_kernel = conv.conv1d_sliding
+    exc = RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    def broken(*a, **k):
+        raise exc
+
+    g = torch.Generator(device="cpu").manual_seed(51)
+    x = torch.randn(1, 64, 80, generator=g).to(DEV)
+    w = torch.randn(3, 80, 64, generator=g).to(DEV)
+    raised = []
+    reset()
+    conv.conv1d_sliding = broken
+    try:
+        for armed in (False, True):
+            ctx = (faults.inject("slow_step", site="elsewhere") if armed
+                   else contextlib.nullcontext())
+            with ctx:
+                try:
+                    ops.conv1d(x, w)
+                except RuntimeError as e:
+                    raised.append(e is exc)
+    finally:
+        conv.conv1d_sliding = real_kernel
+        events = list(health.HEALTH.events)
+        reset()
+    assert raised == [True, True], raised
+    assert events == [], events
+
+    # (f) a kernel's own non-finite output under the sentinel fails the
+    # request: no demotion, no re-run
+    nan_calls = []
+
+    def nan_once(*a, **k):
+        out = real_kernel(*a, **k)
+        nan_calls.append(1)
+        if len(nan_calls) > 1:
+            return out
+        if isinstance(out, tuple):
+            return tuple(torch.full_like(t, float("nan")) for t in out)
+        return torch.full_like(out, float("nan"))
+
+    sentinel_err = None
+    conv.conv1d_sliding = nan_once
+    os.environ[faults.SENTINEL_ENV] = "1"
+    try:
+        run()
+    except faults.FaultError as e:
+        sentinel_err = e
+    finally:
+        conv.conv1d_sliding = real_kernel
+        os.environ.pop(faults.SENTINEL_ENV)
+        sentinel_events = [(e.site, e.reason, e.action)
+                           for e in health.HEALTH.events]
+        sentinel_breakers = health.HEALTH.has_breakers
+        reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert sentinel_err is not None and "(sentinel)" in str(sentinel_err), (
+        sentinel_err)
+    assert sentinel_events == [("conv1d", "nan_activations",
+                                "error:cuda(sentinel)")], sentinel_events
+    assert not sentinel_breakers
+    assert len(nan_calls) == 2, nan_calls  # one prefill's convs
+
+    launches = {k: serve_launches[k] + d_launch[k] for k in serve_launches}
+    s = time.perf_counter() - t0
+    log(f"chaos (whisper-medium full width, B {CHAOS['B']}, P {CHAOS['P']}, "
+        f"{CHAOS['gen']} tokens): clean, compile drill (conv1d on plain, "
+        f"row 1 launched {b_launch['sliding_conv1d']} times), runtime drill "
+        f"(row 1 launched {c_launch['sliding_conv1d']} times, demote, probe, "
+        f"repromote, slot 1 quarantined, request 1 slot 0 = compile drill, "
+        f"request 2 = clean); train drill losses "
+        f"{[round(v, 4) for v in tchaos['losses']]} vs clean "
+        f"{[round(v, 4) for v in tclean['losses']]} (rel "
+        f"{[f'{r:.2e}' for r in loss_rel]}), optimizer counts {counts}; "
+        f"the drills' kernels vs plain max |err| "
+        f"{ {k: f'{e:.3e}' for k, e in drill_errs.items()} }; a raised "
+        f"RuntimeError propagated with no event; a sentinel trip failed "
+        f"the request with no demotion; {smi}; {s:.1f}s")
+    return dict(launches=launches, seconds=s, train_losses=tchaos["losses"],
+                clean_train_losses=tclean["losses"], loss_rel=loss_rel,
+                drill_max_abs_err=drill_errs, retrace_ms=retrace, device=smi)
+
+
 def unfolded(x, k, stride, kpad):
     """x (B, H, W, Cin) -> (B*oh*ow, kpad): each position's k*k*Cin
     values in (i, j, c) order, zero-padded to kpad."""
@@ -6162,7 +6596,7 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
     import repro_torch
-    from repro_torch import configs, health, models, obs, optim, quant
+    from repro_torch import configs, faults, health, models, obs, optim, quant
     from repro_torch.core import sliding
     from repro_torch.distributed.sharding import iter_leaves, map_tree
     from repro_torch.kernels import attention_decode as ad
@@ -6262,6 +6696,9 @@ def main() -> int:
                            configs, obs, health, ops, smi)
     train_cli_obs = ph.run(43, "train_cli_obs", phase_train_cli_obs, train,
                            obs, health, ops, smi)
+    # -- 51: the robustness layer's drills, on the same CLIs ---------------------
+    chaos = ph.run(51, "chaos", phase_chaos, serve, train, steps_mod, configs,
+                   faults, obs, health, ops, smi)
     patch_train = ph.run(30, "patch_embed_train", phase_patch_embed_train,
                          llava, transformer)
     gc.collect()
@@ -6319,6 +6756,7 @@ def main() -> int:
                "tuning": tuning_launches,
                "serve_cli_obs": serve_cli_obs["launches"],
                "train_cli_obs": train_cli_obs["launches"],
+               "chaos": chaos["launches"],
                "serve_qwen3_moe": moe_serve["fp"]["launches"],
                "serve_qwen3_moe_int8": moe_serve["int8"]["launches"],
                **{f"serve_{arch}": r["launches"]
@@ -6390,7 +6828,7 @@ def main() -> int:
                       "train_conv2d": patch_train,
                       "train_llava_cli": llava_train_cli,
                       "serve_cli_obs": serve_cli_obs,
-                      "train_cli_obs": train_cli_obs,
+                      "train_cli_obs": train_cli_obs, "chaos": chaos,
                       "serve_qwen3_moe": moe_serve,
                       "serve_decoders": decoders,
                       "baselines": baselines,

@@ -17,8 +17,14 @@ An entry's numbers are the median and the least, over ``REPS`` loops of
 synchronised at the end of each loop. Where the tree's ``ops`` has the
 tuned plan rung (``ops._resolve``), ``rung_us`` is that rung alone with
 no cache: a conv1d shape key made and resolved, ``RUNG_CALLS`` times in
-one loop. Prints one line, ``HOST <tree> {json}``. Needs one card and
-``nvcc``.
+one loop. ``ladder_us`` isolates the degradation ladder's disarmed cost in
+one process, where the tree has one (``ops._ladder``): ``dispatch_us`` is
+``ops._dispatch`` on a trivial thunk over a card tensor, as an entry
+called it before the ladder (its thunk made each call), ``ladder_us`` the
+same thunk through ``ops._ladder`` (the thunk and the lower rungs' lambda
+made each call, as an entry makes them), interleaved, ``RUNG_CALLS``
+calls a loop, the least of ``REPS`` loops each. Prints one line,
+``HOST <tree> {json}``. Needs one card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -103,6 +109,34 @@ def rung_us() -> float | None:
     return round((time.perf_counter() - t0) / RUNG_CALLS * 1e6, 3)
 
 
+def ladder_us(dev) -> dict:
+    x = torch.zeros(1, device=dev)
+    ops_ = (x,)
+
+    def via_dispatch():
+        t0 = time.perf_counter()
+        for _ in range(RUNG_CALLS):
+            ops._dispatch("conv1d", "k", ops_, lambda: x)
+        return (time.perf_counter() - t0) / RUNG_CALLS * 1e6
+
+    def via_ladder():
+        t0 = time.perf_counter()
+        for _ in range(RUNG_CALLS):
+            ops._ladder("conv1d", lambda: x,
+                        lambda: [("plain", lambda: x), ("ref", lambda: x)],
+                        key="k", operands=ops_)
+        return (time.perf_counter() - t0) / RUNG_CALLS * 1e6
+
+    has_ladder = hasattr(ops, "_ladder")
+    d, lad = [], []
+    for _ in range(REPS):
+        d.append(via_dispatch())
+        if has_ladder:
+            lad.append(via_ladder())
+    return {"dispatch_us": round(min(d), 3),
+            "ladder_us": round(min(lad), 3) if has_ladder else None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -116,6 +150,7 @@ def main() -> int:
         torch.cuda.synchronize()
         out = {name: host_us(fn) for name, fn in cases.items()}
     out["rung_us"] = rung_us()
+    out.update(ladder_us(dev))
     print(f"HOST {ROOT} {json.dumps(out)}", flush=True)
     return 0
 

@@ -24,9 +24,10 @@ writes them as 2-byte void (``V2``) arrays with ``"dtype": "bfloat16"`` in
 the manifest; this module writes the same bits the same way and reads such
 a leaf as int16, viewed as ``torch.bfloat16``.
 
-Not ported: the reference's fault-injection hooks and its health record of
-a quarantine (a line on stderr here) and the elastic re-shard of
-``restore`` (one device).
+The reference's chaos hooks are in ``_write`` (``ckpt_write_stall``
+sleeps between leaves, ``ckpt_corrupt`` truncates a committed leaf), and a
+quarantine records a ``ckpt_invalid`` health event. Not ported: the
+elastic re-shard of ``restore`` (one device).
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch import faults
+from repro_torch.health import HEALTH
 
 _BF16 = "bfloat16"
 
@@ -144,6 +148,11 @@ class CheckpointManager:
                 "file": fn, "shape": list(arr.shape), "dtype": dtype,
                 "nbytes": (tmp / fn).stat().st_size,
             }
+            # chaos hooks: stall between leaves (the window a kill lands
+            # in), truncate one committed leaf (a torn write)
+            faults.sleep_point("ckpt_write_stall", f"step_{step}")
+            if faults.take("ckpt_corrupt", f"step_{step}"):
+                faults.truncate_file(tmp / fn)
         (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
         if final.exists():
             shutil.rmtree(final)
@@ -193,8 +202,9 @@ class CheckpointManager:
 
     def quarantine(self, step: int, reason: str = "") -> None:
         """Move a torn checkpoint to ``step_N.corrupt`` (kept for autopsy,
-        invisible to ``latest_step`` and ``_gc``); an earlier quarantine of
-        the same step is kept and this one takes ``step_N.corrupt.1``, ..."""
+        invisible to ``latest_step`` and ``_gc``) and record the event; an
+        earlier quarantine of the same step is kept and this one takes
+        ``step_N.corrupt.1``, ..."""
         d = self.dir / f"step_{step}"
         target = self.dir / f"step_{step}.corrupt"
         n = 0
@@ -205,6 +215,8 @@ class CheckpointManager:
             d.rename(target)
         print(f"[ckpt] quarantined step {step} to {target.name}: {reason}"[:240],
               file=sys.stderr)
+        HEALTH.record("ckpt", "ckpt_invalid", "quarantine",
+                      detail=f"step {step}: {reason}"[:200])
 
     def latest_valid_step(self) -> int | None:
         """Newest step that passes ``validate``; invalid ones found on the

@@ -1,6 +1,6 @@
 """Fault-tolerance utilities: straggler watchdog, restart policy and the
-per-host heartbeat (a copy of ``repro.distributed.ft`` without its
-fault-injection hook).
+per-host heartbeat (a copy of ``repro.distributed.ft``, its
+``heartbeat_stale`` fault hook included).
 
   * ``StepWatchdog``: an EMA of step wall time; a step over
     ``threshold × EMA`` after warm-up is flagged and reported to a callback.
@@ -17,6 +17,8 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
+
+from repro_torch import faults
 
 
 @dataclass
@@ -86,7 +88,10 @@ def heartbeat_file(run_dir: str | Path, host_id: int) -> Path:
 
 def beat(run_dir: str | Path, host_id: int):
     """Write the liveness timestamp atomically (tmp + rename): a monitor
-    reading mid-write sees the previous beat, never a torn file."""
+    reading mid-write sees the previous beat, never a torn file. The
+    ``heartbeat_stale`` fault skips the write (a silently dead host)."""
+    if faults.take("heartbeat_stale", f"host_{host_id}"):
+        return
     p = heartbeat_file(run_dir, host_id)
     tmp = p.with_name(f".{p.name}.{os.getpid()}.tmp")
     tmp.write_text(str(time.time()))

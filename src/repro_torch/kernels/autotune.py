@@ -36,8 +36,9 @@ reference reads it at every lookup): a launch pays a dict lookup. ``__card__``
 records the card and its SM count at each write (the rules plan from the
 SM count); nothing reads it back. A file that fails to parse or carries
 another ``__schema__`` is quarantined to ``<name>.corrupt`` with a
-reason-coded health event, as the reference's is; a file with no
-``__schema__`` is accepted. Writes go through a per-process temporary
+reason-coded health event, as the reference's is (the ``autotune_corrupt``
+fault forces that on a sound file); a file with no ``__schema__`` is
+accepted. Writes go through a per-process temporary
 file and a rename.
 
 The search times every candidate (no cost model or contract checker is
@@ -56,6 +57,7 @@ from typing import Any, Callable, Iterable
 
 import torch
 
+from repro_torch import faults
 from repro_torch.health import HEALTH
 from repro_torch.kernels import build, gemm_plan, timing
 from repro_torch.obs import metrics as obs_metrics
@@ -113,6 +115,8 @@ def _load() -> dict[str, dict[str, Any]]:
         except OSError:
             return _cache  # no cache yet — nothing to validate
         try:
+            if faults.take("autotune_corrupt"):
+                raise ValueError("injected fault 'autotune_corrupt'")
             loaded = json.loads(text)
             if not isinstance(loaded, dict):
                 raise ValueError(f"cache root is {type(loaded).__name__}")

@@ -55,9 +55,35 @@ training paths and llava's serving path reach:
     kernel. Each call is logged in ``POOL1D_DISPATCH`` under the
     reference's ``pool1d_key``.
 
-The reference demotes a failing Pallas kernel down a ladder of compiled
-twins. There is no ladder here: a CUDA tensor goes to the kernel or the
-call raises, and the plain versions serve only CPU tensors.
+Every kernel entry runs through a graceful-degradation ladder
+(``_ladder``), the reference's, at the reference's eight sites
+(``conv1d``, ``conv1d.<precision>``, ``conv1d_depthwise``,
+``conv1d_depthwise.<precision>``, ``conv2d``, ``conv2d.<precision>``,
+``attention_decode``, ``pool1d``). On a CUDA tensor its rungs are
+``cuda`` (the kernel), ``plain`` (the reference's compiled-JAX rung in
+plain torch: the ``core.conv`` sliding twins with an unfused epilogue, the
+fast-accumulating ``qconv`` int8 products, ``attention_decode_plain``,
+``core.sliding.pool_ref``) and ``ref`` (the library oracles:
+``torch.nn.functional`` convs, the exact int8 products,
+``attention_decode_ref``; ``pool1d`` has two rungs). On a CPU tensor the
+kernel wrapper runs its plain version as the top rung, named ``plain``,
+and ``ref`` follows. A rung is demoted only by an injected fault
+(``faults.maybe_fail_rung``: ``pallas_compile`` at ``cuda``,
+``jax_runtime`` at ``plain``), with a reason-coded ``HEALTH`` event
+(``demote:cuda->plain``) and a circuit breaker that re-admits the rung
+through one probation call after its cooldown. Every other exception of a
+rung (a build, launch or CUDA error, ``PlanError``, a shape error)
+propagates unchanged, with no event and no next rung: a CUDA fault is
+sticky for its process context, so serving a real one from another rung
+would hide it. A kernel that fails at run time surfaces at the caller's
+next synchronise: ``faults.guest_trap`` records the trip (armed by a
+runtime injection or ``REPRO_RUNTIME_SENTINEL``) and
+``faults.raise_pending`` raises it. Serve's and train's catch layers
+demote the rung and re-run on an injected trip; a trip of the sentinel (a
+rung's own non-finite output) is recorded and fails the request or step,
+with no demotion. Nothing armed and no breaker open, a CUDA tensor goes
+to its kernel and a CPU tensor to the plain version, as before: the
+ladder then costs two flag checks.
 
 Each kernel entry resolves its launch plan as the reference resolves its
 tiles: an explicit ``plan`` (``bwd_plan`` for a weight gradient) → the
@@ -72,16 +98,17 @@ quant key and its float key hold timings and the quant one is slower
 ``quant_slower`` health event a key), unless pinned to the quant kernel
 by int8 input, a fused requant or an explicit plan, as in the reference.
 
-Each entry records its dispatch where it picks its kernel (``_dispatch``),
+Each entry records its dispatch at the rung that serves it (``_dispatch``),
 as the reference's ``_ladder`` does: when tracing or
-``obs.enable_dispatch`` is armed, the kernel call runs in a
+``obs.enable_dispatch`` is armed, the rung's call runs in a
 ``kernel.dispatch`` span and adds to ``dispatch.calls``,
 ``dispatch.seconds_total`` and ``dispatch.est_hbm_bytes_total`` under its
-autotune shape key, with rung ``cuda`` for the kernel and ``plain`` for a
-CPU tensor's plain version. The reference dispatches at trace time, so its
-seconds are trace cost and its calls count traces; here every eager call
-passes through, and on the card the seconds are host launch time (nothing
-synchronises inside the span). Disarmed, the path is one flag check.
+autotune shape key and its rung, and the entry's dispatch log
+(``ATTN_DECODE_DISPATCH``, ``CONV2D_DISPATCH``, ...) names that rung.
+The reference dispatches at trace time, so its seconds are trace cost and
+its calls count traces; here every eager call passes through, and on the
+card the seconds are host launch time (nothing synchronises inside the
+span). Disarmed, the path is one flag check.
 """
 from __future__ import annotations
 
@@ -91,8 +118,10 @@ import time
 import torch
 import torch.nn.functional as F
 
+from repro_torch import faults
 from repro_torch.core import conv as core_conv
-from repro_torch.health import HEALTH
+from repro_torch.core.sliding import pool_ref
+from repro_torch.health import HEALTH, canon_reason
 from repro_torch.kernels import attention_decode as attn_dec
 from repro_torch.kernels import (
     autotune, gemm_plan, im2col_gemm, sliding_conv1d, sliding_conv2d,
@@ -136,19 +165,19 @@ def _nbytes(*ts) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _dispatch(site: str, key, operands: tuple, run):
-    """One entry point's kernel call, ``run()``. Disarmed (neither tracing
-    nor the dispatch metrics on) that is all it does. Armed, the call runs
-    in a ``kernel.dispatch`` span (site, key, rung) and is counted in
+def _dispatch(site: str, key: str, operands: tuple, run, rung=None):
+    """One rung's call, ``run()``. Disarmed (neither tracing nor the
+    dispatch metrics on) that is all it does. Armed, the call runs in a
+    ``kernel.dispatch`` span (site, key, rung) and is counted in
     ``dispatch.calls``, ``dispatch.seconds_total`` and
     ``dispatch.est_hbm_bytes_total`` (``operands`` and the result) under
-    its autotune shape ``key``: a string, or a callable that gives it,
-    evaluated only when armed. No synchronise: on the card the seconds are
-    the host's launch time."""
+    its autotune shape ``key``; ``rung`` defaults to ``cuda`` for a CUDA
+    tensor and ``plain`` for a CPU one. No synchronise: on the card the
+    seconds are the host's launch time."""
     if not (obs_trace.TRACING or obs_metrics.DISPATCH_ON):
         return run()
-    key = key() if callable(key) else key
-    rung = "cuda" if operands[0].device.type == "cuda" else "plain"
+    if rung is None:
+        rung = "cuda" if operands[0].device.type == "cuda" else "plain"
     t0 = time.perf_counter()
     with obs_trace.span("kernel.dispatch", site=site, key=key, rung=rung):
         out = run()
@@ -156,6 +185,59 @@ def _dispatch(site: str, key, operands: tuple, run):
     obs_metrics.count_dispatch(dt, float(_nbytes(*operands, out)),
                                site=site, key=key, rung=rung)
     return out
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Does the ladder start at the kernel? For a CUDA tensor."""
+    return t.is_cuda
+
+
+def _ladder(site: str, kernel, lower, *, key: str, operands: tuple,
+            log: DispatchLog | None = None):
+    """The graceful-degradation dispatch of one call (the reference's
+    ``_ladder``). ``kernel`` is the top rung's thunk: the kernel on a CUDA
+    tensor (rung ``cuda``), the wrapper's plain version on a CPU one (rung
+    ``plain``). ``lower()`` gives the rungs below the kernel as (name,
+    thunk) pairs, ``plain`` then ``ref``; it is called only when a fault is
+    armed or a breaker is open, and on a CPU tensor its ``plain`` pair is
+    dropped (the top rung is the plain version there).
+
+    Rungs whose breaker is open are skipped (a fully demoted site keeps its
+    last rung). ``faults.maybe_fail_rung`` fires before each rung: its
+    ``FaultError`` demotes the rung with a ``demote:<rung>-><next>``
+    event, and the next rung serves; at the last rung it propagates. Any
+    other exception of a rung propagates unchanged, with no event and no
+    next rung. The serving rung's output passes ``faults.guest_trap`` (a
+    runtime trip or the sentinel's flag, surfaced later by
+    ``faults.raise_pending``), credits ``HEALTH.note_success`` (which also
+    repromotes a probing rung) and is logged in ``log`` under ``key``."""
+    top = "cuda" if _on_card(operands[0]) else "plain"
+    if not (faults.ARMED or HEALTH.has_breakers):
+        if log is not None:
+            log[key] = top
+        return _dispatch(site, key, operands, kernel, top)
+    rungs = [(top, kernel)] + [r for r in lower()
+                               if top == "cuda" or r[0] != "plain"]
+    live = [r for r in rungs if not HEALTH.is_demoted(site, r[0])]
+    live = live or rungs[-1:]
+    for i, (name, thunk) in enumerate(live):
+        try:
+            faults.maybe_fail_rung(name, site)
+        except faults.FaultError as e:
+            if i + 1 == len(live):
+                raise
+            reason = canon_reason(e)
+            HEALTH.record(site, reason, f"demote:{name}->{live[i + 1][0]}",
+                          detail=repr(e)[:200])
+            HEALTH.demote(site, name, reason=reason)
+            continue
+        if log is not None:
+            log[key] = name
+        out = _dispatch(site, key, operands, thunk, name)
+        faults.guest_trap(site, name, key, out)
+        HEALTH.note_success(site, name)
+        return out
+    raise AssertionError("unreachable")
 
 
 def _resolve(key: str, explicit: dict | None) -> dict | None:
@@ -300,13 +382,24 @@ def _conv1d_quant(x, w, *, stride, padding, dilation, backend, bias,
     key = autotune.conv1d_key(*x.shape, w.shape[2], w.shape[0], stride,
                               precision)
     qplan = _resolve(key, plan)
-    return _dispatch(
-        site, key, (x, w, bias, w_scale, x_scale, out_scale),
+
+    def q_plain(accumulate):
+        return qconv.conv1d_q(
+            x, qconv.QuantizedWeight(w, w_scale), bias, mode=precision,
+            x_scale=x_scale, out_scale=out_scale, stride=stride,
+            activation=activation, accumulate=accumulate,
+            out_dtype=out_dtype)
+
+    return _ladder(
+        site,
         lambda: _planned(
             key, qplan, sliding_conv_quant.conv1d_quant,
             x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
             mode=precision, stride=stride, activation=activation,
-            out_dtype=out_dtype))
+            out_dtype=out_dtype),
+        lambda: [("plain", lambda: q_plain("fast")),
+                 ("ref", lambda: q_plain("int32"))],
+        key=key, operands=(x, w, bias, w_scale, x_scale, out_scale))
 
 
 def epilogue_unfused(y, bias, activation):
@@ -557,10 +650,16 @@ def conv1d(
         key = autotune.conv1d_key(*x.shape, w.shape[2], w.shape[0], stride,
                                   _dtype_name(x))
         fplan = _resolve(key, plan)
-        return _dispatch(
-            "conv1d", key, (x, w, bias),
+        return _ladder(
+            "conv1d",
             lambda: _conv1d_sliding(x, w, bias, stride, activation, backend,
-                                    key, fplan, bwd_plan))
+                                    key, fplan, bwd_plan),
+            lambda: [
+                ("plain", lambda: epilogue_unfused(core_conv.conv1d_sliding(
+                    x, w, stride=stride), bias, activation)),
+                ("ref", lambda: epilogue_unfused(core_conv.conv1d_xla(
+                    x, w, stride=stride), bias, activation))],
+            key=key, operands=(x, w, bias))
     if backend == "im2col_gemm":
         y = im2col_gemm.conv1d_im2col_fused(x, w, stride=stride)
     else:
@@ -596,11 +695,9 @@ def conv1d_depthwise(
     In floating point a call whose inputs need a gradient goes through
     ``Conv1dDepthwise``; the int8 path is inference only."""
     x = _pad1d(x, padding, w.shape[0])
-    impl = "cuda" if x.device.type == "cuda" else "plain"
     if precision == "fp":
         key = autotune.conv1d_dw_key(*x.shape, w.shape[0], stride,
                                      _dtype_name(x))
-        CONV1D_DW_DISPATCH[key] = impl
         dplan = _resolve(key, plan)
 
         def run():
@@ -611,7 +708,17 @@ def conv1d_depthwise(
             return _planned(key, dplan, sliding_conv1d.conv1d_depthwise, x,
                             w, bias, stride=stride, activation=activation)
 
-        return _dispatch("conv1d_depthwise", key, (x, w, bias), run)
+        return _ladder(
+            "conv1d_depthwise", run,
+            lambda: [
+                ("plain", lambda: epilogue_unfused(
+                    core_conv.conv1d_depthwise_sliding(
+                        x, w, stride=stride, padding="VALID"),
+                    bias, activation)),
+                ("ref", lambda: epilogue_unfused(core_conv.conv1d_xla(
+                    x, w[:, None, :], stride=stride, groups=x.shape[-1]),
+                    bias, activation))],
+            key=key, operands=(x, w, bias), log=CONV1D_DW_DISPATCH)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; one of {PRECISIONS}")
     if _needs_grad(x, w, bias):
@@ -625,15 +732,26 @@ def conv1d_depthwise(
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision, quantize_depthwise_weight)
     key = autotune.conv1d_dw_key(*x.shape, w.shape[0], stride, precision)
-    CONV1D_DW_DISPATCH[key] = impl
     qplan = _resolve(key, plan)
-    return _dispatch(
-        site, key, (x, w, bias, w_scale, x_scale, out_scale),
+
+    def q_plain(accumulate):
+        return qconv.conv1d_depthwise_q(
+            x, qconv.QuantizedWeight(w, w_scale), bias, mode=precision,
+            x_scale=x_scale, out_scale=out_scale, stride=stride,
+            padding="VALID", activation=activation, accumulate=accumulate,
+            out_dtype=out_dtype)
+
+    return _ladder(
+        site,
         lambda: _planned(
             key, qplan, sliding_conv_quant.conv1d_depthwise_quant,
             x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
             mode=precision, stride=stride, activation=activation,
-            out_dtype=out_dtype))
+            out_dtype=out_dtype),
+        lambda: [("plain", lambda: q_plain("fast")),
+                 ("ref", lambda: q_plain("int32"))],
+        key=key, operands=(x, w, bias, w_scale, x_scale, out_scale),
+        log=CONV1D_DW_DISPATCH)
 
 
 def _bwd_tile2d(x, w, stride, explicit_h, explicit_w, explicit_plan):
@@ -679,15 +797,26 @@ def _conv2d_quant(x, w, *, stride, padding, dilation, backend, bias,
                       activation=activation, **tiles)
     x, w, w_scale, x_scale, out_dtype = _quant_operands(
         x, w, w_scale, x_scale, precision)
-    CONV2D_QUANT_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
     qplan = _resolve(key, plan)
-    return _dispatch(
-        site, key, (x, w, bias, w_scale, x_scale, out_scale),
+
+    def q_plain(accumulate):
+        return qconv.conv2d_q(
+            x, qconv.QuantizedWeight(w, w_scale), bias, mode=precision,
+            x_scale=x_scale, out_scale=out_scale, stride=stride,
+            activation=activation, accumulate=accumulate,
+            out_dtype=out_dtype)
+
+    return _ladder(
+        site,
         lambda: _planned(
             key, qplan, sliding_conv_quant.conv2d_quant,
             x, w, w_scale, bias, x_scale=x_scale, out_scale=out_scale,
             mode=precision, stride=stride, activation=activation,
-            out_dtype=out_dtype, **tiles))
+            out_dtype=out_dtype, **tiles),
+        lambda: [("plain", lambda: q_plain("fast")),
+                 ("ref", lambda: q_plain("int32"))],
+        key=key, operands=(x, w, bias, w_scale, x_scale, out_scale),
+        log=CONV2D_QUANT_DISPATCH)
 
 
 def conv2d(
@@ -766,7 +895,6 @@ def conv2d(
     B, H, W, Cin = x.shape
     key = autotune.conv2d_key(B, H, W, Cin, w.shape[3], kh, kw, *stride,
                               _dtype_name(x))
-    CONV2D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
     fplan = _resolve(key, plan)
 
     def run():
@@ -781,7 +909,14 @@ def conv2d(
         return _planned(key, fplan, sliding_conv2d.conv2d_sliding, x, w,
                         bias, stride=stride, activation=activation, **tiles)
 
-    return _dispatch("conv2d", key, (x, w, bias), run)
+    return _ladder(
+        "conv2d", run,
+        lambda: [
+            ("plain", lambda: epilogue_unfused(core_conv.conv2d_sliding(
+                x, w, stride=stride), bias, activation)),
+            ("ref", lambda: epilogue_unfused(core_conv.conv2d_xla(
+                x, w, stride=stride), bias, activation))],
+        key=key, operands=(x, w, bias), log=CONV2D_DISPATCH)
 
 
 def attention_decode(
@@ -809,13 +944,19 @@ def attention_decode(
         raise ValueError("int8 KV cache needs its k_scale/v_scale rows")
     kind = "int8" if quantized else _dtype_name(k)
     key = autotune.attn_dec_key(B, S, KV, G, D, kind)
-    ATTN_DECODE_DISPATCH[key] = "cuda" if q.device.type == "cuda" else "plain"
     aplan = _resolve(key, plan)
-    out = _dispatch(
-        "attention_decode", key, (q, k, v, k_scale, v_scale),
-        lambda: _planned(key, aplan, attn_dec.decode_attention,
-                         q.reshape(B, KV, G, D), k, v, lengths, k_scale,
-                         v_scale))
+    q4 = q.reshape(B, KV, G, D)
+    out = _ladder(
+        "attention_decode",
+        lambda: _planned(key, aplan, attn_dec.decode_attention, q4, k, v,
+                         lengths, k_scale, v_scale),
+        lambda: [
+            ("plain", lambda: attn_dec.attention_decode_plain(
+                q4, k, v, lengths, k_scale, v_scale, block_s=S)),
+            ("ref", lambda: attn_dec.attention_decode_ref(
+                q4, k, v, lengths, k_scale, v_scale))],
+        key=key, operands=(q, k, v, k_scale, v_scale),
+        log=ATTN_DECODE_DISPATCH)
     return out.reshape(B, H, D)
 
 
@@ -889,7 +1030,6 @@ def pool1d(x: torch.Tensor, *, window: int, op: str = "sum",
     ("scan" | "shift"); None resolves it by ``_pool_method``."""
     resolved = _pool_method(x, window, op, method)
     key = autotune.pool1d_key(*x.shape, window, op, _dtype_name(x))
-    POOL1D_DISPATCH[key] = "cuda" if x.device.type == "cuda" else "plain"
 
     def run():
         if _needs_grad(x):
@@ -897,4 +1037,7 @@ def pool1d(x: torch.Tensor, *, window: int, op: str = "sum",
         return sliding_pool.sliding_pool(x, window=window, op=op,
                                          method=resolved)
 
-    return _dispatch("pool1d", key, (x,), run)
+    return _ladder(
+        "pool1d", run,
+        lambda: [("plain", lambda: pool_ref(x, window=window, op=op))],
+        key=key, operands=(x,), log=POOL1D_DISPATCH)

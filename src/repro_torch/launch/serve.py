@@ -39,7 +39,29 @@ ones, and writes ``metrics.json``, ``metrics.prom`` and, under
 reads them back). The reference retries any exception; the port retries
 only non-finite logits (``FloatingPointError``): a CUDA fault is sticky
 for its process context, so a retry in the same process fixes nothing.
-Every other error propagates at once.
+
+The runtime fault domain is the reference's, on the ``ops`` ladder: a
+kernel site can only be demoted by an injected fault
+(``repro_torch.faults``, ``REPRO_FAULTS=...``). A runtime trip surfaces
+from ``faults.raise_pending`` after the prefill and after each decode
+step, before the logits are read. For an injected trip ``generate``
+records ``demote:<rung>(runtime)`` at the trip's site, opens its breaker,
+counts ``runtime.demote`` and re-runs the request on the next rung without
+spending its retry budget (at most ``_MAX_RUNTIME_DEMOTIONS`` times). The
+re-run's first prefill is counted in ``runtime.retrace_ms`` (the
+reference's re-jit cost; nothing re-traces here). A trip of the
+non-finite sentinel (``REPRO_RUNTIME_SENTINEL=1``: a kernel's own output,
+nothing injected) is recorded as ``error:<rung>(sentinel)`` and fails the
+request, with no demotion and no re-run. Every decode step ticks the
+breakers' cooldowns, and a demoted rung re-enters through one probation
+call of the ladder. Every other error propagates at once. The chaos
+drills of the reference's CI run the same way::
+
+    REPRO_FAULTS='nan_activations:conv1d*1,nan_activations:serve/slot.1*1' \
+        REPRO_HEALTH_COOLDOWN_CALLS=4 PYTHONPATH=src \
+        python -m repro_torch.launch.serve --arch whisper-medium --smoke \
+        --device cpu --batch 2 --prompt-len 16 --gen 8 \
+        --conv-backend sliding_pallas --requests 2 --run-dir chaos_run
 
 A vision-stub model (llava) prefills its patch embeddings ahead of the
 prompt: zeros of (B, num_patches, 1152), as the reference serves them, or
@@ -75,11 +97,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch import obs, quant, resolve_device
+from repro_torch import faults, obs, quant, resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed.ft import RestartPolicy, StepWatchdog, beat
 from repro_torch.distributed.sharding import iter_leaves, torch_dtype
-from repro_torch.health import HEALTH, canon_reason
+from repro_torch.health import HEALTH, canon_reason, demote_tripped
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.common import quantize_kv_leaf
@@ -217,6 +239,8 @@ class LoadShedError(RuntimeError):
 
 #: decode-step samples required before admission trusts the p95
 _SHED_MIN_SAMPLES = 8
+#: runtime demotions one request may take before its error propagates
+_MAX_RUNTIME_DEMOTIONS = 8
 
 
 class RequestJournal:
@@ -274,14 +298,19 @@ class RequestJournal:
 
 def _screen_logits(logits: torch.Tensor, step: int):
     """Per-step numeric guard: every slot non-finite fails the request (the
-    retry in ``generate`` re-runs it); some slots non-finite returns their
-    (B,) mask, and the decode loop quarantines just those slots."""
+    retry in ``generate`` re-runs it); some slots non-finite give their
+    (B,) mask, and the decode loop quarantines just those slots. Returns
+    (logits, mask or None). The chaos hooks poison the logits here first:
+    ``nan_activations`` at ``serve/logits`` (every slot) or at
+    ``serve/slot.<i>`` (slot i)."""
+    logits = faults.corrupt_array("nan_activations", "serve/logits", logits)
+    logits = faults.corrupt_rows("nan_activations", "serve/slot", logits)
     bad = ~torch.isfinite(logits).flatten(1).all(dim=1)
     if not bool(bad.any()):
-        return None
+        return logits, None
     if bool(bad.all()):
         raise FloatingPointError(f"non-finite logits at decode step {step}")
-    return bad
+    return logits, bad
 
 
 def _quarantine(bad: torch.Tensor, done: torch.Tensor, step: int,
@@ -301,7 +330,9 @@ def _quarantine(bad: torch.Tensor, done: torch.Tensor, step: int,
 
 def _generate_once(model, params, prompts, *, gen_len, cache_len,
                    temperature, seed, deadline_s, nan_guard, stats, patches,
-                   run_dir, host_id, watchdog):
+                   run_dir, host_id, watchdog, retrace=False):
+    """One attempt of ``generate``. ``retrace``: the attempt follows a
+    runtime demotion, and its prefill is counted in ``runtime.retrace_ms``."""
     cfg = model.cfg
     dev = prompts.device
     eos = cfg.eos_id
@@ -315,11 +346,20 @@ def _generate_once(model, params, prompts, *, gen_len, cache_len,
         logits, cache = prefill_cache(model, params, prompts,
                                       cache_len=cache_len, gen_len=gen_len,
                                       patches=patches)
-        bad = _screen_logits(logits, -1) if nan_guard else None
+        faults.raise_pending(dev)  # a runtime trip of the prefill's kernels
+        bad = None
+        if nan_guard:
+            logits, bad = _screen_logits(logits, -1)
         gen = torch.Generator(device=dev).manual_seed(seed)
         tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
         _sync(dev)
     stats["ttft_s"] = time.perf_counter() - t_start  # prefill + first token
+    if retrace:
+        # the first prefill after a runtime demotion: the reference's re-jit
+        # cost; here the prefill on the demoted ladder
+        dt_ms = stats["ttft_s"] * 1000.0
+        reg.counter("runtime.retrace_ms").inc(dt_ms, arch=cfg.name)
+        log(f"retrace after runtime demotion: {dt_ms:.0f}ms")
     reg.histogram("serve.prefill_s").observe(stats["ttft_s"], arch=cfg.name)
     reg.histogram("serve.ttft_s").observe(stats["ttft_s"], arch=cfg.name)
     done = tok[:, 0] == eos
@@ -330,9 +370,13 @@ def _generate_once(model, params, prompts, *, gen_len, cache_len,
     step_hist = reg.histogram("serve.decode_step_s")
     for i in range(gen_len - 1):
         t_step = time.perf_counter()
+        faults.sleep_point("slow_step", "serve")
         with obs.span("serve.decode_step", arch=cfg.name, step=start + i):
             logits, cache = model.decode_step(params, cache, tok, start + i)
-            bad = _screen_logits(logits, i) if nan_guard else None
+            faults.raise_pending(dev)
+            bad = None
+            if nan_guard:
+                logits, bad = _screen_logits(logits, i)
             if bad is not None:
                 done = _quarantine(bad, done, i, cfg.name)
             last = logits[:, -1]
@@ -348,6 +392,7 @@ def _generate_once(model, params, prompts, *, gen_len, cache_len,
         dt_step = time.perf_counter() - t_step
         stats.setdefault("step_s", []).append(dt_step)
         step_hist.observe(dt_step, arch=cfg.name)
+        HEALTH.tick()  # a clean step toward the demoted rungs' cooldowns
         if watchdog is not None:
             watchdog.observe(start + i, dt_step)
         if run_dir is not None:
@@ -416,7 +461,11 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
     slot done. A request whose logits are non-finite in every slot is
     re-run, up to ``max_retries`` times with short backoff, before the
     error propagates; a slot whose logits alone are non-finite is
-    quarantined; any other failure propagates at once. With ``run_dir``
+    quarantined. An injected runtime trip (``faults.raise_pending``)
+    demotes the rung it names and re-runs the request without spending
+    ``max_retries``, at most ``_MAX_RUNTIME_DEMOTIONS`` times; a trip of
+    the sentinel is recorded and propagates. Any other failure propagates
+    at once. With ``run_dir``
     each decode step writes this host's heartbeat and a ``watchdog`` (or a
     default one) flags straggler steps. With ``journal`` the request is
     journaled begin and end under ``request_id`` (its ``patches`` cannot
@@ -445,6 +494,8 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
     policy = RestartPolicy(max_restarts=max_retries, base_backoff_s=0.05,
                            max_backoff_s=2.0)
     reg.counter("serve.requests").inc(1.0, arch=arch)
+    runtime_demotions = 0
+    retrace = False  # this attempt follows a runtime demotion
     while True:
         stats.clear()
         try:
@@ -455,14 +506,25 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
                     cache_len=cache_len, temperature=temperature, seed=seed,
                     deadline_s=deadline_s, nan_guard=nan_guard, stats=stats,
                     patches=patches, run_dir=run_dir, host_id=host_id,
-                    watchdog=watchdog,
+                    watchdog=watchdog, retrace=retrace,
                 )
             reg.histogram("serve.request_s").observe(
                 time.perf_counter() - t_req, arch=arch)
             if journal is not None:
                 journal.end(request_id, toks, done)
             return toks, done
-        except FloatingPointError as e:
+        except (FloatingPointError, faults.FaultError) as e:
+            trip = faults.consume_trip()
+            # an injected trip at a kernel site: demote the rung it names
+            # and re-run on the next one, outside the retry budget (a
+            # sentinel trip is recorded and propagates)
+            retrace = trip is not None and demote_tripped(trip, e)
+            if retrace:
+                runtime_demotions += 1
+                if runtime_demotions <= _MAX_RUNTIME_DEMOTIONS:
+                    continue
+            if not isinstance(e, FloatingPointError):
+                raise
             reason = canon_reason(e)
             delay = policy.next_backoff()
             if delay is None:

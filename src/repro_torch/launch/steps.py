@@ -5,6 +5,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import faults
 from repro_torch.distributed.sharding import iter_leaves, map_tree, torch_dtype
 from repro_torch.optim import OptConfig, apply_updates
 
@@ -29,7 +30,12 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
 
     ``accum_steps > 1`` splits the batch along dim 0 into microbatches run
     one after another; their grads add into a ``accum_dtype`` accumulator
-    and the mean goes to the optimizer, as does the mean loss."""
+    and the mean goes to the optimizer, as does the mean loss.
+
+    A runtime trip of the step's kernels (``faults.raise_pending``) raises
+    before the optimizer writes anything: the params, the moments and the
+    step count are as they were, and the grads (the accumulator too) are
+    the step's own, so a retry of the same step starts from zero."""
 
     def train_step(state, batch):
         params = state["params"]
@@ -56,6 +62,7 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
             loss = loss / accum_steps
             for _, acc in iter_leaves(grads):
                 acc.div_(accum_steps)
+        faults.raise_pending(loss.device)
         new_p, new_opt, info = apply_updates(params, grads, state["opt"],
                                              opt_cfg)
         return {"params": new_p, "opt": new_opt}, {"loss": loss, **info}

@@ -42,8 +42,21 @@ The loop records the reference's spans (``train.step``, ``train.resume``,
 ``metrics.json``, ``metrics.prom`` and, under ``--trace``, ``trace.json``
 in ``--run-dir`` (``python -m repro_torch.obs report`` reads them back).
 
-Not ported yet: the runtime demotion and probation machinery of the
-reference's step loop (a failing kernel raises here).
+The runtime fault domain is the reference's: a runtime trip of a kernel
+site (an injected ``pallas_runtime`` or ``nan_activations`` at the site, or
+the ``REPRO_RUNTIME_SENTINEL`` sentinel) raises at the step's loss,
+before the optimizer writes anything (``steps.make_train_step``). For an
+injected trip the loop records ``demote:<rung>(runtime)``, opens the
+rung's breaker, counts ``runtime.demote`` and retries the same step on
+the untouched state, on the next rung of the ``ops`` ladder (at most
+``_MAX_RUNTIME_DEMOTIONS_PER_STEP`` times a step); the first step after a
+demotion is counted in ``runtime.retrace_ms``. A trip of the sentinel (a
+kernel's own non-finite output, nothing injected) is recorded as
+``error:<rung>(sentinel)`` and the step fails, with no demotion. Each
+step ticks the breakers' cooldowns, and a demoted rung re-enters through
+one probation call. ``faults.sleep_point("slow_step", "train")`` makes a
+straggler step. Any other error propagates, to the restart loop of
+``main``.
 """
 from __future__ import annotations
 
@@ -57,11 +70,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch import obs, resolve_device
+from repro_torch import faults, obs, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import SyntheticLMData, make_batch_iterator
 from repro_torch.distributed.ft import RestartPolicy, StepWatchdog, beat
+from repro_torch.health import HEALTH, demote_tripped
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import OptConfig, init_opt_state
@@ -71,6 +85,8 @@ from repro_torch.optim import OptConfig, init_opt_state
 # values, so both draw the same)
 _TAG_FRAMES = 1_000_003
 _TAG_PATCHES = 1_000_033
+#: runtime demotions one step may take before its error propagates
+_MAX_RUNTIME_DEMOTIONS_PER_STEP = 4
 
 
 def log(msg: str) -> None:
@@ -146,6 +162,7 @@ def train_loop(args) -> dict:
     wd = StepWatchdog(on_straggler=lambda s, t, ema: obs.warn(
         "ft", f"straggler at step {s}: {t:.2f}s vs EMA {ema:.2f}s"))
     losses = []
+    retrace_t0 = None
     try:
         for step, host_batch in make_batch_iterator(data, start_step=start_step):
             if step >= args.steps:
@@ -163,10 +180,32 @@ def train_loop(args) -> dict:
                           for k, v in extras.items()})
             t0 = time.perf_counter()
             with obs.span("train.step", step=step):
-                state, metrics = step_fn(state, batch)
+                faults.sleep_point("slow_step", "train")  # a straggler
+                for attempt in range(_MAX_RUNTIME_DEMOTIONS_PER_STEP + 1):
+                    try:
+                        state, metrics = step_fn(state, batch)
+                        break
+                    except faults.FaultError as e:
+                        trip = faults.consume_trip()
+                        # the step raised before its update: an injected
+                        # trip demotes the rung it names and this step is
+                        # retried on the same state (a sentinel trip is
+                        # recorded and propagates)
+                        if (trip is None
+                                or attempt == _MAX_RUNTIME_DEMOTIONS_PER_STEP
+                                or not demote_tripped(trip, e,
+                                                      where=f" step {step}")):
+                            raise
+                        retrace_t0 = time.perf_counter()
                 loss = float(metrics["loss"])  # waits for the step
+            if retrace_t0 is not None:
+                dt_ms = (time.perf_counter() - retrace_t0) * 1000.0
+                reg.counter("runtime.retrace_ms").inc(dt_ms, arch=cfg.name)
+                log(f"retrace after runtime demotion: {dt_ms:.0f}ms")
+                retrace_t0 = None
             dt = time.perf_counter() - t0
             wd.observe(step, dt)
+            HEALTH.tick()  # a clean step toward the demoted rungs' cooldowns
             beat(args.run_dir, host_id=0)
             losses.append(loss)
             toks = args.batch * args.seq

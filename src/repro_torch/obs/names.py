@@ -5,9 +5,10 @@ The observability namespace is closed: the registry rejects unregistered
 metric names and an armed span rejects an unregistered span name. A
 typo'd metric silently forks the series CI and the report CLI read, so a
 new instrument means a new member HERE first, and in the reference's.
-Some names are the reference's alone (``runtime.*``,
-``health.repromote``, ``autotune.pruned``, ``autotune.cost_skipped``):
-the port records none of them yet. The tuning layer records
+Some names are the reference's alone (``autotune.pruned``,
+``autotune.cost_skipped``): the port records neither yet. The robustness
+layer records ``runtime.demote``, ``runtime.retrace_ms`` and
+``health.repromote``. The tuning layer records
 ``autotune.searches`` and ``autotune.candidates`` and the
 ``autotune.search`` / ``autotune.candidate`` spans.
 
@@ -16,8 +17,8 @@ Naming scheme: ``<layer>.<what>[_<unit>]`` — layers are ``dispatch``
 durations carry an ``_s`` suffix, monotonically increasing totals a
 ``_total`` suffix. Label keys are reused from the existing
 vocabularies: ``site`` (dispatch site), ``key`` (autotune shape
-key), ``rung`` (``cuda`` or ``plain`` in the port), ``reason``/``action``
-(health.Reason), ``arch`` (model config name).
+key), ``rung`` (``cuda``, ``plain`` or ``ref`` in the port),
+``reason``/``action`` (health.Reason), ``arch`` (model config name).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ METRICS = frozenset({
     "health.events",
     "health.repromote",            # circuit-breaker probation passed
     # the reference's runtime fault domain: in-compiled-call failures
-    "runtime.demote",              # guest trap / sentinel → rung demoted
+    "runtime.demote",              # injected runtime trip → rung demoted
     "runtime.retrace_ms",          # cumulative re-jit cost after demotion
     # serving
     "serve.requests",

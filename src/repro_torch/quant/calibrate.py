@@ -25,7 +25,8 @@ then requantizes in its epilogue (requant chaining).
 :func:`counting_dequants` collects the sites whose quantized conv emitted
 float output; a requant-chained pair of convs shows one such site.
 
-Not ported: the reference's fault hook on the emitted scale.
+``site_scale`` carries the reference's fault hook on the emitted scale
+(``quant_scale_zero``, ``quant_scale_nan``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from repro_torch import faults
 
 # site name -> {"x_scale": float32 scalar tensor, "out_scale"?: the same}
 QuantSpec = dict[str, dict[str, torch.Tensor]]
@@ -98,13 +101,16 @@ class Calibration:
 
     def site_scale(self, site: str) -> torch.Tensor:
         """Per-tensor input scale of a site: the percentile (or the absmax)
-        of |x| over every calibration batch, onto the int8 grid."""
+        of |x| over every calibration batch, onto the int8 grid. The
+        ``quant_scale_zero`` / ``quant_scale_nan`` faults corrupt it here,
+        where a broken calibration run would."""
         st = self.stats[site]
         if self.percentile is None:
             hi = float(st.absmax.max())
         else:
             hi = max(float(np.percentile(st.vals, self.percentile)), 1e-8)
-        return torch.tensor(hi / 127.0 + 1e-12, dtype=torch.float32)
+        return faults.corrupt_scale(
+            site, torch.tensor(hi / 127.0 + 1e-12, dtype=torch.float32))
 
     def spec(self, chains: dict[str, str] | None = None) -> QuantSpec:
         """``chains`` maps producer site to consumer site: where both were

@@ -118,3 +118,15 @@ def test_examples_and_rwkv6_slice_files_are_checked():
     for rel in ("configs/rwkv6_1_6b.py", "models/rwkv6.py",
                 "models/common.py", "models/__init__.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_robustness_slice_modules_are_checked():
+    """The robustness slice's modules are among the files checked above:
+    the fault switchboard, the breakers, the ladder, its hook sites and the
+    catch layers."""
+    checked = set(_port_files())
+    for rel in ("faults.py", "health.py", "kernels/ops.py",
+                "kernels/autotune.py", "checkpoint/manager.py",
+                "distributed/ft.py", "quant/calibrate.py", "launch/serve.py",
+                "launch/train.py", "launch/steps.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
