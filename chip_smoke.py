@@ -316,9 +316,11 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      through that call, above fp's ``us``; held to row 1's plain
      version), row 13 and none where w8a8 won; the float-input w8a8 call
      (pinned by its plan where fp won) held to row 13's plain version on
-     the operands quantized as ``ops`` quantizes them. The JSON record
-     gains ``tuned`` (key -> default_us, us, dispatch_us, winner, timed,
-     the dispatch times).
+     the operands quantized as ``ops`` quantizes them. The searches rank
+     their plans on the H100 roofline and prune on the launch contracts
+     (``repro_torch.analysis``); the cache file is kept for phase 52. The
+     JSON record gains ``tuned`` (key -> default_us, us, dispatch_us,
+     winner, timed, the dispatch times).
  48. rwkv6-1.6b at its published widths and depth (24 layers, d 2048,
      d_ff 7168, vocab 65,536, bf16, 1,599,719,424 parameters drawn from a
      seed and rescaled to std 1/sqrt(input width)): one request of B 4,
@@ -359,9 +361,28 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      ``CHAOS_LOSS_REL``, then a repromotion); a row-1 wrapper raising a
      ``RuntimeError`` that ``ops.conv1d`` must pass on with no health
      event. The faults, breakers and obs registry are reset around it.
+ 52. the analysis gate (``repro_torch.analysis``), after 47 and on its
+     cache: (a) the card's peaks (bf16 and f32 ``torch.matmul`` at 8192³,
+     a 1 GiB copy) beside the data sheet's; (b) the device's shared-memory
+     opt-in equal to ``gemm_plan.SMEM_BLOCK`` (232,448 B), no contract
+     violation over the full-width key space, every launcher's query entry
+     giving each instance's bytes and threads exactly, the over-budget
+     row-11 plan flagged by its contract and refused by its plan function;
+     (c) five keys (conv1d K 33 f32, whisper's conv2 bf16, fig1 conv2d k
+     31 f32, row 11 at jamba's training shape bf16, row 2 at llava's)
+     searched exhaustively and ranked: the timed counts, both winners
+     re-timed in turns (the ranked one within 5% of the exhaustive one),
+     the within-key Spearman rho, the ranked arm timing fewer plans at 3
+     of 5 keys at least; (d) each plain rung's largest allocated block
+     over its natural size held to the bloat lint's static verdict, rung
+     by rung (im2col over alpha, the others under it), its peak memory
+     beyond its output reported beside it; (e) ``python -m
+     repro_torch.analysis --all`` on (a)'s peaks and 47's cache: exit 0,
+     schema 2, a gated family at least, each gated rho >= 0.7, every
+     shipped chain safe. The JSON record gains ``analysis``.
 
 Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 51, 30, 44-46, 48-50,
-33, 34 with the main path of the baselines, 36-38, 47, then the timings
+33, 34 with the main path of the baselines, 36-38, 47, 52, then the timings
 (6, 10, 15, 19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every
 kernel is held to its plain version before a path runs it. Each phase
 prints its seconds as it ends, on a ``[chip_smoke] phase <n> <name> <s>``
@@ -381,6 +402,7 @@ import gc
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -402,6 +424,30 @@ sys.path.insert(0, str(ROOT / "src"))
 # ``call_ms``: the host's time per call in it), which the tuning layer
 # times its candidates with too
 from repro_torch.kernels.timing import call_ms, card_ms  # noqa: E402
+# the H100's data-sheet rates and the full-width shapes of the model paths,
+# from the analysis layer, whose contract key space and cost model read the
+# same ones
+from repro_torch.analysis.contracts import (  # noqa: E402
+    ATTN_GEMMA,
+    ATTN_GQA4,
+    ATTN_JAMBA,
+    ATTN_LLAVA,
+    ATTN_MAIN,
+    ATTN_QWEN_MOE,
+    CONV_MAIN,
+    DEPTHWISE_MAIN,
+    DEPTHWISE_TRAIN,
+    PATCH_MAIN,
+    SCAN_MAIN,
+    TUNE_ATTN_INT8,
+    TUNE_CONV1D,
+    TUNE_FIGS,
+    TUNE_POOL_WINDOWS,
+)
+from repro_torch.analysis.costmodel import (  # noqa: E402
+    H100_HBM_BYTES_S,
+    H100_PEAK_OPS,
+)
 
 # float32: the kernels sum in another order than the plain versions
 # (tests/test_kernels.py TOL); bfloat16 outputs are compared in float32
@@ -416,12 +462,6 @@ QBTOL = dict(rtol=1e-2, atol=1e-2)
 # a library call that also rounds to bfloat16 before its activation
 # (cuDNN's depthwise conv, then silu): two bf16 steps
 LIBTOL = dict(rtol=2 ** -6, atol=2 ** -6)
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): device memory rate
-# and arithmetic rate by operand type. f32 runs on the CUDA cores: the port
-# keeps TF32 off.
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
 
 DEV = "cuda"
 SERVE = dict(B=4, P=256, gen=32)  # full-width request
@@ -488,8 +528,10 @@ def timings(kernel, plain, library) -> dict:
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     """The least time the card could take: bytes over the memory rate or
-    operations over the peak rate for the operand type, the larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
+    operations over the peak rate for the operand type, the larger
+    (the H100 SXM data sheet's, ``analysis.costmodel``)."""
+    t_bytes = nbytes / H100_HBM_BYTES_S
+    t_ops = ops / H100_PEAK_OPS[str(dtype).removeprefix("torch.")]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -514,13 +556,8 @@ def attn_inputs(seed, B, S, KV, G, D, dtype, lengths):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=DEV)
 
 
-# the serving shapes: whisper-medium frontend at P=256 (2P mel frames, SAME
-# padding adds 2 rows), and the decode reads at S=288
-CONV_MAIN = {
-    "conv1": dict(B=4, L=514, Cin=80, Cout=1024, K=3, stride=1),
-    "conv2": dict(B=4, L=514, Cin=1024, Cout=1024, K=3, stride=2),
-}
-ATTN_MAIN = dict(B=4, S=288, KV=16, G=1, D=64)
+# the serving shapes (CONV_MAIN, ATTN_MAIN): whisper-medium frontend at
+# P=256 and the decode reads at S=288, from analysis.contracts
 
 
 def phase_kernels(sc, ad) -> dict:
@@ -1701,12 +1738,10 @@ JAMBA = "jamba-1.5-large-398b"
 # every width the published one: 8,999,034,880 parameters
 JAMBA_CUT = dict(num_layers=8, num_experts=0)
 JAMBA_PARAMS = 8_999_034_880
-# mamba's prefill conv at the full-width request: B=4, P=256 prompt rows
-# and K-1=3 rows of CAUSAL padding, d_inner 16384, K 4, bf16
-DEPTHWISE_MAIN = dict(B=4, L=259, C=16384, K=4, stride=1)
-# jamba's decode read: 64 query heads over 8 KV heads, head dim 128, the
-# request's cache of 288 rows
-ATTN_JAMBA = dict(B=4, S=288, KV=8, G=8, D=128)
+# mamba's prefill conv at the full-width request (DEPTHWISE_MAIN: B=4, P=256
+# prompt rows and K-1=3 rows of CAUSAL padding, d_inner 16384, K 4, bf16)
+# and jamba's decode read (ATTN_JAMBA: 64 query heads over 8 KV heads, head
+# dim 128, 288 cache rows) come from analysis.contracts
 
 
 def bf16_close(got, want, what) -> float:
@@ -2280,9 +2315,9 @@ def phase_jamba_times(sc, sq, ad, launches, errs) -> tuple[list, dict]:
 # jamba training
 # ---------------------------------------------------------------------------
 
-# mamba's conv in a full-width training step: B=2, 512 tokens and K-1=3 rows
-# of CAUSAL padding, d_inner 16384, K 4, bf16
-DEPTHWISE_TRAIN = dict(B=2, L=515, C=16384, K=4, stride=1)
+# mamba's conv in a full-width training step (DEPTHWISE_TRAIN: B=2, 512
+# tokens and K-1=3 rows of CAUSAL padding, d_inner 16384, K 4, bf16) comes
+# from analysis.contracts
 # the full-width run: phase 18's cut, B=2, 512 tokens (two SSM chunks of
 # 256, so the carried state is exercised), 6 steps, 2 of them warm-up
 JAMBA_TRAIN = dict(B=2, seq=512, steps=6, warmup=2)
@@ -2666,14 +2701,13 @@ LLAVA_CUT = dict(num_layers=40)
 LLAVA_PARAMS = 23_291_426_816
 LLAVA_TILES = 5  # anyres: 5 tiles of 336 x 336 (576 patches each) a slot
 LLAVA_TILE = 336
-# the patch embedding of the full-width request: B=4 slots x 5 tiles
-PATCH_MAIN = dict(B=20, H=336, W=336, Cin=3, Cout=1152, k=14, stride=14)
+# the patch embedding of the full-width request (PATCH_MAIN: B=4 slots x 5
+# tiles) and llava's decode read (ATTN_LLAVA: 56 query heads over 8 KV
+# heads, head dim 128, 2880 + 256 + 32 cache rows) come from
+# analysis.contracts
 # the paper's fig1 shapes: (1, 128, 128, 32) x (k, k, 32, 32), stride 1
 FIG1 = [dict(B=1, H=128, W=128, Cin=32, Cout=32, k=k, stride=1)
         for k in (3, 5, 17, 31)]
-# llava's decode read: 56 query heads over 8 KV heads (G=7), head dim 128,
-# the request's cache of 2880 + 256 + 32 rows
-ATTN_LLAVA = dict(B=4, S=3168, KV=8, G=7, D=128)
 
 
 def conv2d_inputs(seed, B, H, W, Cin, Cout, k, dtype, with_bias=True,
@@ -4965,11 +4999,11 @@ def phase_im2col_times(ig, sc, s2, launches, errs) -> list[dict]:
 # the companion paper's pooling shape and windows (the reference
 # benchmark's autotune/pool1d rows, benchmarks/run.py:106-113); one
 # bandwidth-sized shape; the scan at one chunk of jamba-1.5-large's prefill
-# (d_inner 16384, d_state 16, SSM_CHUNK 256)
+# (SCAN_MAIN, from analysis.contracts: d_inner 16384, d_state 16,
+# SSM_CHUNK 256)
 POOL_PAPER = dict(B=1, L=16384, C=32)
 POOL_WINDOWS = (4, 16, 64, 256)
 POOL_WIDE = dict(B=8, L=16384, C=1024, w=16)
-SCAN_MAIN = dict(B=4, L=256, D=16384, N=16)
 # row 8's forms: (counter and JSON name, op, method)
 POOL_FORMS = (("sliding_pool_sum", "sum", "scan"),
               ("sliding_pool_avg", "avg", "scan"),
@@ -5549,12 +5583,10 @@ DECODER_PARAMS = {MOE: 30_532_122_624,
                   "llama3-8b": 8_030_261_248,
                   "granite-8b": 8_053_362_688,
                   "gemma-2b": 2_506_172_416}
-# row 2 at gemma-2b's serving shape: one KV head of D 256 for 8 queries
-ATTN_GEMMA = dict(B=4, S=288, KV=1, G=8, D=256)
-# rows 2 and 2b at qwen3-moe's serving shape, and row 2 at the shape of
-# llama3-8b, granite-8b and phi3.5-moe (8 KV heads of 4 queries)
-ATTN_QWEN_MOE = dict(B=4, S=288, KV=4, G=8, D=128)
-ATTN_GQA4 = dict(B=4, S=288, KV=8, G=4, D=128)
+# row 2 at gemma-2b's serving shape (ATTN_GEMMA: one KV head of D 256 for 8
+# queries), rows 2 and 2b at qwen3-moe's (ATTN_QWEN_MOE) and row 2 at the
+# shape of llama3-8b, granite-8b and phi3.5-moe (ATTN_GQA4: 8 KV heads of 4
+# queries) come from analysis.contracts
 # cache lengths a request of P 256 and 32 tokens gives its decode steps
 DECODER_LENS = [257, 266, 279, 287]
 
@@ -5814,15 +5846,12 @@ def phase_attention_gemma_times(ad) -> dict:
 # 47: the tuning layer
 # ---------------------------------------------------------------------------
 
-# the reference benchmark's autotune rows (``benchmarks/run.py``
-# ``autotune_rows``, its quick lists) at the tables' full sizes: conv2d at
-# fig1 k 3, 9, 31 and fig2 k 3, 17; conv1d (1, 16384, 32) K 3, 33, fp and
-# w8a8; max pooling there at w 4, 256; the int8 decode read at qwen3's
-# smoke cache
-TUNE_FIGS = (("fig1", 128, (3, 9, 31)), ("fig2", 96, (3, 17)))
-TUNE_CONV1D = dict(B=1, L=16384, C=32, Ks=(3, 33))
-TUNE_POOL_WINDOWS = (4, 256)
-TUNE_ATTN_INT8 = dict(B=2, S=2048, KV=2, G=2, D=32)
+# the tuning shapes (TUNE_FIGS, TUNE_CONV1D, TUNE_POOL_WINDOWS,
+# TUNE_ATTN_INT8, from analysis.contracts): the reference benchmark's
+# autotune rows (``benchmarks/run.py`` ``autotune_rows``, its quick lists)
+# at the tables' full sizes: conv2d at fig1 k 3, 9, 31 and fig2 k 3, 17;
+# conv1d (1, 16384, 32) K 3, 33, fp and w8a8; max pooling there at w 4,
+# 256; the int8 decode read at qwen3's smoke cache
 
 
 def _plan_fields(p) -> dict:
@@ -5865,15 +5894,18 @@ def keeping(mod, name, calls):
             setattr(real, attr, getattr(keep, attr))
 
 
-def phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp) -> tuple[dict, dict]:
+def phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp
+                 ) -> tuple[dict, dict, Path]:
     """47. Tune each shape into a fresh cache (``REPRO_TORCH_AUTOTUNE_CACHE``
     pointed at a temporary file, restored after), then drive the entry
     through ``ops`` with the cache armed: the launch must run the
     recorded plan (the wrapper's ``last_plan``; row 8's form counter),
     the output must match its plain version at the row's tolerance, and
     the tuned and untuned dispatch are timed (``card_ms``). Then the quant
-    guard at each conv1d shape. Returns ({key: times and winner}, the
-    launches of the checking calls)."""
+    guard at each conv1d shape. The searches rank and prune as
+    ``kernels/autotune.py`` does by default. Returns ({key: times and
+    winner}, the launches of the checking calls, the cache file, kept for
+    phase 52, which removes it)."""
     from repro_torch.quant.apply import quantize_depthwise_weight
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
@@ -6174,17 +6206,334 @@ def phase_tuning(autotune, ops, sc, s2, sq, sb, ad, sp) -> tuple[dict, dict]:
         case(autotune.autotune_conv2d_grad(x, wg, stride=st), run12, check12,
              lambda: _plan_fields(sb.conv2d_bwd_dw.last_plan),
              spied=(sb, "conv2d_bwd_dw"))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         if saved_env is None:
             os.environ.pop(autotune.ENV_CACHE, None)
         else:
             os.environ[autotune.ENV_CACHE] = saved_env
         autotune.invalidate()
-        shutil.rmtree(tmp, ignore_errors=True)
     log(f"tuning: {len(tuned)} keys in {time.perf_counter() - t0:.1f}s; "
         f"quant guard {guard}; the checking calls launched "
         f"{ {k: n for k, n in launches.items() if n} }")
-    return tuned, launches
+    return tuned, launches, Path(armed)
+
+
+# ---------------------------------------------------------------------------
+# 52: the analysis gate
+# ---------------------------------------------------------------------------
+
+# (c)'s keys: conv1d (1, 16384, 32) K 33 f32 (row 1), whisper's conv2 bf16
+# (row 1), fig1 conv2d k 31 f32 (row 4), row 11 at jamba's training shape
+# bf16, row 2 at llava's decode shape bf16
+ANALYSIS_SLACK = 1.05  # the ranked winner's card time over the exhaustive's
+ANALYSIS_FEWER = 3  # keys at which the ranked arm must time fewer plans
+# (d)'s rungs on the card: the 2-D ones at fig1 k 31, the 1-D ones at the
+# conv1d table's (1, 16384, 32) with K 31
+BLOAT_CARD = {"conv2d": ((1, 128, 128, 32), (31, 31, 32, 32)),
+              "conv1d": ((1, 16384, 32), (31, 32, 32))}
+PLAN_META = ("us", "default_us", "dispatch_us")
+
+
+def analysis_keys(autotune) -> list:
+    """(name, search thunk) of (c)'s five keys, inputs made once."""
+    x1, w1, _ = conv_inputs(800, 1, 16384, 32, 32, 33, torch.float32,
+                            with_bias=False)
+    s = CONV_MAIN["conv2"]
+    x2, w2, b2 = conv_inputs(810, s["B"], s["L"], s["Cin"], s["Cout"],
+                             s["K"], torch.bfloat16)
+    x4, w4, _ = conv2d_inputs(820, 1, 128, 128, 32, 32, 31, torch.float32,
+                              with_bias=False)
+    t = DEPTHWISE_TRAIN
+    x11, w11, b11 = (v.detach().requires_grad_() for v in depthwise_inputs(
+        830, t["B"], t["L"], t["C"], t["K"], torch.bfloat16))
+    a = ATTN_LLAVA
+    q, k, v, ln = attn_inputs(840, **a, dtype=torch.bfloat16,
+                              lengths=[a["S"] - 16] * a["B"])
+    q3 = q.reshape(a["B"], a["KV"] * a["G"], a["D"])
+    return [
+        ("conv1d K33 f32", lambda: autotune.autotune_conv1d(x1, w1)),
+        ("whisper conv2 bf16", lambda: autotune.autotune_conv1d(
+            x2, w2, stride=s["stride"], bias=b2, activation="gelu")),
+        ("fig1 conv2d k31 f32", lambda: autotune.autotune_conv2d(x4, w4)),
+        ("row 11 jamba train bf16", lambda: autotune.autotune_conv1d_depthwise(
+            x11, w11, precision="fp", bias=b11, activation="silu")),
+        ("attention llava bf16", lambda: autotune.autotune_attention_decode(
+            q3, k, v, lengths=ln)),
+    ]
+
+
+def analysis_search(autotune, costmodel, tmp: Path, peaks_file: Path
+                    ) -> list[dict]:
+    """(c): each key searched exhaustively (``cost=None``) and ranked into
+    scratch caches, ``_time_fn`` wrapped to keep every candidate's time;
+    the within-key Spearman ρ of the prediction against the exhaustive
+    arm's times; both winners re-timed in turns (ex, ranked, ranked, ex)."""
+    real_search, real_time = autotune._search, autotune._time_fn
+    state, rec = {}, {}
+
+    def search(key, run, candidates, default, contract=None, cost=None):
+        r = {"run": run, "cost": cost, "times": []}
+        rec.setdefault((state["arm"], key), []).append(r)
+        state["rec"] = r
+
+        def run_kept(cfg):
+            state["cfg"] = cfg
+            return run(cfg)
+        return real_search(key, run_kept, candidates, default, contract,
+                           cost if state["arm"] == "ranked" else None)
+
+    def time_fn(fn, **kw):
+        t = real_time(fn, **kw)
+        state["rec"]["times"].append((dict(state["cfg"]), t))
+        return t
+
+    saved = {n: os.environ.get(n) for n in (autotune.ENV_CACHE,
+                                             costmodel.ENV_PEAKS)}
+    os.environ[costmodel.ENV_PEAKS] = str(peaks_file)
+    autotune._search, autotune._time_fn = search, time_fn
+    rows = []
+    try:
+        for name, tune in analysis_keys(autotune):
+            res = {}
+            for arm in ("exhaustive", "ranked"):
+                state["arm"] = arm
+                os.environ[autotune.ENV_CACHE] = str(tmp / f"{arm}.json")
+                autotune.invalidate()
+                res[arm] = tune()
+            ex, rk = res["exhaustive"], res["ranked"]
+            last = rec[("exhaustive", ex.key)][-1]
+            cands = [c for c, _ in last["times"]]
+            preds = [last["cost"](c) for c in cands]
+            rho = costmodel.spearman(preds, [t for _, t in last["times"]])
+            win = {a: {f: v for f, v in r.best.items() if f not in PLAN_META}
+                   for a, r in res.items()}
+            run = last["run"]
+            times = {"exhaustive": [], "ranked": []}
+            for arm in ("exhaustive", "ranked", "ranked", "exhaustive"):
+                times[arm].append(card_ms(lambda: run(win[arm]), batches=10))
+            ms = {a: statistics.mean(t) for a, t in times.items()}
+            n_searches = len(rec[("exhaustive", ex.key)])
+            row = dict(key=ex.key, name=name, plans=[
+                           dict(plan=c, us=t * 1e6, pred_us=pr)
+                           for (c, t), pr in zip(last["times"], preds)],
+                       timed={"exhaustive": ex.timed, "ranked": rk.timed},
+                       pruned={"exhaustive": ex.pruned, "ranked": rk.pruned},
+                       cost_skipped=rk.cost_skipped, ranked=rk.ranked,
+                       winners=win, same_winner=win["exhaustive"] ==
+                       win["ranked"], retimed_ms=ms, spearman=rho,
+                       searches=n_searches)
+            log(f"analysis search {name} ({ex.key}): timed exhaustive "
+                f"{ex.timed}, ranked {rk.timed} (cost_skipped "
+                f"{rk.cost_skipped}, pruned {rk.pruned}); winners "
+                f"{win['exhaustive']} / {win['ranked']}; re-timed "
+                f"{ms['exhaustive']:.4f} / {ms['ranked']:.4f} ms; within-key "
+                f"rho {rho:.3f} over {len(cands)} plans")
+            if not rk.ranked:
+                raise AssertionError(f"{name}: the ranked arm did not rank")
+            if (not row["same_winner"]
+                    and ms["ranked"] > ANALYSIS_SLACK * ms["exhaustive"]):
+                raise AssertionError(
+                    f"{name}: the ranked winner {win['ranked']} takes "
+                    f"{ms['ranked']:.4f} ms, over {ANALYSIS_SLACK} x the "
+                    f"exhaustive winner's {ms['exhaustive']:.4f} ms")
+            rows.append(row)
+    finally:
+        autotune._search, autotune._time_fn = real_search, real_time
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+        autotune.invalidate()
+    fewer = sum(r["timed"]["ranked"] < r["timed"]["exhaustive"] for r in rows)
+    if fewer < ANALYSIS_FEWER:
+        raise AssertionError(f"the ranked arm timed fewer plans at {fewer} of "
+                             f"{len(rows)} keys (need {ANALYSIS_FEWER})")
+    return rows
+
+
+def analysis_bloat(bloat) -> list[dict]:
+    """(d): each registered plain rung on the card, after a warm-up call:
+    the largest block the allocator hands it during one call, over its
+    natural size max(largest input, output), held to the bloat lint's
+    static verdict (the rung traced at its own shape) for every rung:
+    both measure the largest tensor one step makes. The call's peak
+    allocation beyond its inputs and its output
+    (``torch.cuda.max_memory_allocated``) is reported beside it: it sums
+    the temporaries alive at once, which the lint does not."""
+    from torch.cuda import memory as cmem
+
+    alpha = bloat.BLOAT_ALPHA
+    g = torch.Generator(device=DEV).manual_seed(850)
+    rows = []
+    for name, make in {**bloat.GATE_RUNGS, **bloat.KNOWN_BLOATED}.items():
+        fn, shapes = make()
+        static = bloat.check_fn(fn, shapes, family="bloat", key=name,
+                                alpha=alpha) is not None
+        xs, ws = BLOAT_CARD["conv2d" if name.startswith("conv2d")
+                            else "conv1d"]
+        x = torch.randn(xs, generator=g, device=DEV)
+        w = torch.randn(ws, generator=g, device=DEV) / math.prod(ws[:-1]) ** 0.5
+        with torch.no_grad():
+            fn(x, w)  # warm-up: library handles and their workspaces
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cmem._record_memory_history(enabled="all", context=None,
+                                    max_entries=100_000)
+        try:
+            with torch.no_grad():
+                y = fn(x, w)
+            torch.cuda.synchronize()
+            dev = torch.cuda.current_device()
+            trace = cmem._snapshot()["device_traces"][dev]
+        finally:
+            cmem._record_memory_history(enabled=None)
+        peak = torch.cuda.max_memory_allocated() - before
+        largest = max(e["size"] for e in trace if e["action"] == "alloc")
+        natural = max(x.nbytes, w.nbytes, y.nbytes)
+        ratio, live = largest / natural, (peak - y.nbytes) / natural
+        log(f"analysis bloat {name} at x {xs} w {ws}: largest block "
+            f"{largest} B, {ratio:.2f}x the natural {natural} B (alpha "
+            f"{alpha:g}), static verdict "
+            f"{'bloated' if static else 'clean'}; peak {peak} B, "
+            f"{live:.2f}x beyond its output")
+        rows.append(dict(rung=name, x=list(xs), w=list(ws),
+                         largest_bytes=largest, peak_bytes=peak,
+                         natural_bytes=natural, ratio=ratio, live_ratio=live,
+                         static_bloated=static))
+        if (ratio > alpha) != static:
+            raise AssertionError(
+                f"bloat {name}: the card's largest block is {ratio:.2f}x "
+                f"the natural size (alpha {alpha:g}), the static verdict "
+                f"{'bloated' if static else 'clean'}")
+        if static != (name in bloat.KNOWN_BLOATED):
+            raise AssertionError(f"bloat {name}: static verdict "
+                                 f"{'bloated' if static else 'clean'}")
+        del x, w, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_analysis(autotune, tune_cache: Path) -> dict:
+    """52. The analysis gate on the card, after phase 47 (whose cache it
+    reads, then removes): (a) the card's peaks (``costmodel.probe_peaks``)
+    beside the data sheet's; (b) the device's shared-memory opt-in equals
+    ``gemm_plan.SMEM_BLOCK``, the contracts find no violation over the
+    full-width key space at it, every launcher's query entry gives each
+    instance's bytes and threads exactly, and the over-budget row-11 plan
+    (rows 64, stages 4, f32, K 4) is flagged by the contract and refused
+    by its plan function; (c) the ranked and exhaustive searches at five
+    keys (``analysis_search``); (d) every plain rung's largest block on
+    the card against the bloat lint's static verdict; (e) ``python -m
+    repro_torch.analysis --all`` on (a)'s peaks and 47's cache must exit
+    0 with a schema-2 report, at least one gated family, each gated ρ at
+    least 0.7 and every shipped chain safe."""
+    from repro_torch.analysis import bloat, contracts, costmodel
+    from repro_torch.kernels import build, gemm_plan
+
+    t0 = time.perf_counter()
+    tmp = tune_cache.parent
+    try:
+        # (a)
+        peaks_file = tmp / "peaks.json"
+        pk = costmodel.probe_peaks(path=peaks_file)
+        shares = {
+            "float32": pk["float32_tflops"] * 1e12 / H100_PEAK_OPS["float32"],
+            "bfloat16": (pk["bfloat16_tflops"] * 1e12
+                         / H100_PEAK_OPS["bfloat16"]),
+            "hbm": pk["hbm_gbps"] * 1e9 / H100_HBM_BYTES_S}
+        log(f"analysis peaks ({pk['nvidia_smi']}): f32 matmul "
+            f"{pk['float32_tflops']:.2f} TFLOP/s ({shares['float32']:.3f} of "
+            f"the data sheet's), bf16 {pk['bfloat16_tflops']:.1f} TFLOP/s "
+            f"({shares['bfloat16']:.3f}), copy {pk['hbm_gbps']:.1f} GB/s "
+            f"({shares['hbm']:.3f})")
+        # (b)
+        budget = contracts.device_smem_budget()
+        if budget != gemm_plan.SMEM_BLOCK:
+            raise AssertionError(f"the card's opt-in is {budget} B, "
+                                 f"gemm_plan.SMEM_BLOCK {gemm_plan.SMEM_BLOCK}")
+        sms = build.sm_count(torch.device(DEV, 0))
+        vio, cstats = contracts.check_all(budget=budget, sms=sms)
+        if vio:
+            raise AssertionError(f"{len(vio)} contract violation(s): "
+                                 f"{vio[0].line()}")
+        launchers: dict = {}
+        for _, _, cand, inst in contracts.instances(sms=sms):
+            got = contracts.launcher_query(inst)
+            if got != (inst.smem, inst.threads):
+                raise AssertionError(
+                    f"{inst.key} {cand}: the launcher's query gives {got}, "
+                    f"the contract ({inst.smem}, {inst.threads})")
+            d = launchers.setdefault(inst.query[1], {
+                "instances": 0, "smem_min": got[0], "smem_max": got[0],
+                "threads": []})
+            d["instances"] += 1
+            d["smem_min"] = min(d["smem_min"], got[0])
+            d["smem_max"] = max(d["smem_max"], got[0])
+            if got[1] not in d["threads"]:
+                d["threads"].append(got[1])
+        over = contracts.check_autotune_candidate(
+            "conv1d_depthwise_bwd_dw", dict(DEPTHWISE_TRAIN, dtype="float32",
+                                            sms=sms),
+            dict(bwd_rows=64, bwd_stages=4))
+        if over is None or over.kind != "smem_budget":
+            raise AssertionError(f"the over-budget row-11 plan: {over}")
+        try:
+            gemm_plan.depthwise_dw_plan(2, 512, 16384, 4, 4, 1, sms, rows=64,
+                                        stages=4)
+        except gemm_plan.PlanError:
+            pass
+        else:
+            raise AssertionError("depthwise_dw_plan took the over-budget plan")
+        log(f"analysis contracts: opt-in {budget} B; {cstats['instances']} "
+            f"instances over {len(cstats['families'])} families, 0 "
+            f"violations, every query equal; over-budget row 11: "
+            f"{over.detail}")
+        for sym, d in sorted(launchers.items()):
+            log(f"analysis query {sym}: {d['instances']} plans, "
+                f"{d['smem_min']}-{d['smem_max']} B, threads {d['threads']}")
+        # (c)
+        search = analysis_search(autotune, costmodel, tmp, peaks_file)
+        # (d)
+        bloat_rows = analysis_bloat(bloat)
+        # (e)
+        report = tmp / "analysis.json"
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--all", "--peaks",
+             str(peaks_file), "--autotune-cache", str(tune_cache), "--json",
+             str(report)],
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        for line in cli.stdout.splitlines():
+            log(line)
+        if cli.returncode != 0:
+            raise AssertionError(f"the analysis CLI exited {cli.returncode}: "
+                                 f"{cli.stderr[-2000:]}")
+        rep = json.loads(report.read_text())
+        fams = rep["stats"]["costmodel"]["validate"]["families"]
+        gated = {f: d["spearman"] for f, d in fams.items() if d["gated"]}
+        chains = {c: d["status"] for c, d in
+                  rep["stats"]["ranges"]["chains"].items()}
+        if (rep["schema"] != 2 or not gated
+                or min(gated.values()) < costmodel.SPEARMAN_GATE
+                or set(chains.values()) != {"safe"}):
+            raise AssertionError(f"the analysis report: schema "
+                                 f"{rep['schema']}, gated {gated}, chains "
+                                 f"{chains}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(peaks=dict(pk, shares=shares), smem_optin=budget,
+                contracts=dict(cstats, launchers=launchers,
+                               over_budget=over.detail),
+                search=search, bloat=bloat_rows,
+                cli=dict(families=fams, chains=chains,
+                         elapsed_s=rep["elapsed_s"]),
+                seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -6735,8 +7084,10 @@ def main() -> int:
                                          phase_scan_kernels, ss)
     pool_path = ph.run(38, "pool_path", phase_pool_path, sp, ops)
     # -- 47: the tuning layer: tuned plans launched through ops ------------------
-    tuned, tuning_launches = ph.run(47, "tuning", phase_tuning, autotune, ops,
-                                    sc, s2, sq, sb, ad, sp)
+    tuned, tuning_launches, tune_cache = ph.run(
+        47, "tuning", phase_tuning, autotune, ops, sc, s2, sq, sb, ad, sp)
+    # -- 52: the analysis gate, on the cache 47 wrote ---------------------------
+    analysis = ph.run(52, "analysis", phase_analysis, autotune, tune_cache)
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -6833,7 +7184,8 @@ def main() -> int:
                       "serve_decoders": decoders,
                       "baselines": baselines,
                       "pool": pool_path, "ssm_scan": scan_path,
-                      "tuned": tuned, "serve_rwkv6": rwkv["serve"],
+                      "tuned": tuned, "analysis": analysis,
+                      "serve_rwkv6": rwkv["serve"],
                       "train_rwkv6": rwkv["train"], "edge_cnn": edge_cnn,
                       "examples": examples, "phase_s": ph.seconds}),
           flush=True)

@@ -78,7 +78,8 @@ def conv1d_sliding(
     y[b, i, co] = sum_k sum_ci w[k, ci, co] * x[b, i*stride + k*dilation, ci]
 
     (ci over the input channels of co's group.) Accumulates in float32 (or
-    wider) and casts back to ``x.dtype``.
+    wider), in place (no tap's sum outlives the next), and casts back to
+    ``x.dtype``.
     """
     B, L, Cin = x.shape
     K, Cin_g, Cout = w.shape
@@ -94,12 +95,12 @@ def conv1d_sliding(
     for k in range(K):  # unrolled tap loop: one shifted matmul per tap
         xs = xa[:, k * dilation : k * dilation + span : stride]
         if groups == 1:
-            acc = acc + xs @ wa[k]
+            acc += xs @ wa[k]
         else:
             # the reference's grouping of w[k]'s (Cin//groups, Cout)
             # storage (see ``conv1d``)
             wk = wa[k].reshape(groups, Cin_g, Cout // groups)
-            acc = acc + torch.einsum(
+            acc += torch.einsum(
                 "blgc,gcd->blgd", xs.reshape(B, out_len, groups, Cin_g),
                 wk).reshape(B, out_len, Cout)
     return acc.to(x.dtype)
@@ -281,7 +282,7 @@ def conv2d_sliding(
                       device=x.device)
     for t, xs in enumerate(_shifted_views(xa, kh, kw, oh, ow, stride,
                                           dilation)):
-        acc = acc + xs @ wa[t // kw, t % kw]
+        acc += xs @ wa[t // kw, t % kw]
     return acc.to(x.dtype)
 
 

@@ -41,17 +41,26 @@ fault forces that on a sound file); a file with no ``__schema__`` is
 accepted. Writes go through a per-process temporary
 file and a rename.
 
-The search times every candidate (no cost model or contract checker is
-ported, so nothing is ranked or pruned), the default first: ``us`` never
-exceeds ``default_us``. A candidate whose plan function refuses it
-(``gemm_plan.PlanError``, raised before any launch) is skipped; any other
-error propagates, since a fault on the card is sticky for the process.
+The search times the default first, so ``us`` never exceeds
+``default_us``. Each search hands ``_search`` two hooks from
+``repro_torch.analysis``, as the reference's do: the launch contract
+(``contracts.check_autotune_candidate``), on whose verdict a candidate
+that provably breaks a limit of the card is pruned untimed, and the H100
+roofline (``costmodel.candidate_cost``), by which the candidates are timed
+best-predicted-first until ``COST_PATIENCE`` in a row fail to improve on
+the best time. The default is never pruned. ``REPRO_TORCH_AUTOTUNE_COST=0``
+turns the ranking off (every candidate is timed). A
+candidate whose plan function refuses it (``gemm_plan.PlanError``, raised
+before any launch) is skipped; any other error propagates, since a fault on
+the card is sticky for the process.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import sys
 from pathlib import Path
 from typing import Any, Callable, Iterable
 
@@ -232,31 +241,99 @@ class Result:
         return self.default_us / self.best_us if self.best_us else 1.0
 
 
+#: a ranked search stops after this many candidates in a row fail to
+#: improve on the best time (the rest are predicted slower still)
+COST_PATIENCE = 3
+
+
+def _contract_checker(family: str, shape: dict[str, Any]):
+    """The launch contract's verdict for a candidate
+    (``repro_torch.analysis.contracts``): a plan that provably breaks a
+    limit of the card (shared memory, occupancy, the grid) is pruned
+    before it is timed. The default is never asked."""
+    from repro_torch.analysis import contracts
+
+    def check(cand: dict[str, Any]):
+        return contracts.check_autotune_candidate(family, shape, cand)
+
+    return check
+
+
+def _cost_model(family: str, shape: dict[str, Any]):
+    """The H100 roofline's prediction for a candidate
+    (``repro_torch.analysis.costmodel``): candidates are timed
+    best-predicted-first so that the search can stop once times stop
+    improving. None where ``REPRO_TORCH_AUTOTUNE_COST=0`` (the kill
+    switch: every candidate is timed); a candidate the model cannot
+    predict gets None, and then nothing is ranked."""
+    if os.environ.get("REPRO_TORCH_AUTOTUNE_COST", "1") == "0":
+        return None
+    from repro_torch.analysis import costmodel
+
+    return costmodel.candidate_cost(family, shape)
+
+
+def _ranked(
+    cands: list[dict[str, Any]],
+    cost: Callable[[dict[str, Any]], float | None] | None,
+) -> tuple[list[dict[str, Any]], bool]:
+    """Candidates ordered by predicted time (stable); ranked only where
+    every candidate has a finite prediction, since an early stop compares
+    the times against the predicted order."""
+    if cost is None or not cands:
+        return cands, False
+    preds = [cost(c) for c in cands]
+    if any(p is None or not math.isfinite(p) for p in preds):
+        return cands, False
+    order = sorted(range(len(cands)), key=lambda i: preds[i])
+    return [cands[i] for i in order], True
+
+
 def _search(
     key: str,
     run: Callable[[dict[str, Any]], Any],
     candidates: Iterable[dict[str, Any]],
     default: dict[str, Any],
+    contract: Callable[[dict[str, Any]], Any] | None = None,
+    cost: Callable[[dict[str, Any]], float | None] | None = None,
 ) -> Result:
-    """Time the default, then every other candidate; persist the winner
-    with its ``us`` and the default's ``default_us``; return the result.
-    A candidate whose plan is refused (``gemm_plan.PlanError``) is skipped
-    untimed.
+    """Time the default, then the other candidates (best-predicted-first
+    where ``cost`` ranks them all); persist the winner with its ``us`` and
+    the default's ``default_us``; return the result.
+
+    A candidate the ``contract`` gives a verdict on is pruned untimed
+    (counted in ``pruned``, one stderr line each); the default is never
+    asked. Ranked, the search stops after ``COST_PATIENCE`` timed
+    candidates in a row fail to improve on the best time (the rest are
+    ``cost_skipped``). A candidate whose plan is refused
+    (``gemm_plan.PlanError``) is skipped untimed.
 
     Observability, as the reference's: the search runs under an
     ``autotune.search`` span with one ``autotune.candidate`` span per
-    timed plan, and the ``autotune.searches`` / ``candidates`` counters
-    land in the metrics registry per key."""
+    timed plan, and the ``autotune.searches`` / ``candidates`` /
+    ``pruned`` / ``cost_skipped`` counters land in the metrics registry
+    per key."""
     reg = obs_metrics.REGISTRY
     reg.counter("autotune.searches").inc(1.0, key=key)
     cands = [c for c in candidates if c != default]
+    cands, ranked = _ranked(cands, cost)
+    patience = COST_PATIENCE if ranked else 0
     with obs_trace.span("autotune.search", key=key):
         with obs_trace.span("autotune.candidate", key=key, cand="default"):
             default_t = _time_fn(lambda: run(default))
         reg.counter("autotune.candidates").inc(1.0, key=key)
         best_cfg, best_t = dict(default), default_t
-        timed = 0
-        for cand in cands:
+        pruned = timed = cost_skipped = since_improve = 0
+        for i, cand in enumerate(cands):
+            if contract is not None:
+                verdict = contract(cand)
+                if verdict is not None:
+                    pruned += 1
+                    reg.counter("autotune.pruned").inc(1.0, key=key)
+                    print(f"[autotune] pruned {key} cand={cand}: "
+                          f"{verdict.kind} ({verdict.detail})",
+                          file=sys.stderr)
+                    continue
             try:
                 with obs_trace.span("autotune.candidate", key=key,
                                     cand=str(cand)):
@@ -267,11 +344,26 @@ def _search(
             reg.counter("autotune.candidates").inc(1.0, key=key)
             if t < best_t:
                 best_cfg, best_t = dict(cand), t
+                since_improve = 0
+            else:
+                since_improve += 1
+            if patience and since_improve >= patience:
+                cost_skipped = len(cands) - i - 1
+                if cost_skipped:
+                    reg.counter("autotune.cost_skipped").inc(
+                        float(cost_skipped), key=key)
+                break
     best_cfg["us"] = round(best_t * 1e6, 2)
     best_cfg["default_us"] = round(default_t * 1e6, 2)
     record(key, best_cfg)
-    return Result(key, best_cfg, default_t * 1e6, best_t * 1e6,
-                  timed=timed + 1)
+    return Result(key, best_cfg, default_t * 1e6, best_t * 1e6, pruned,
+                  timed=timed + 1, cost_skipped=cost_skipped, ranked=ranked)
+
+
+def _hooks(family: str, shape: dict[str, Any]) -> dict[str, Any]:
+    """``_search``'s contract and cost hooks for a family at a shape."""
+    return dict(contract=_contract_checker(family, shape),
+                cost=_cost_model(family, shape))
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +464,11 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+def _float_name(x: torch.Tensor) -> str:
+    """The float type a conv computes in: x's, or float32 for int8 x."""
+    return "float32" if x.dtype == torch.int8 else _dtype_name(x)
+
+
 def _quantized(x, w, precision, depthwise=False):
     """Operands quantized once ahead of the timed calls (the reference's
     autotune_conv1d does the same): (x, w_q, w_scale, x_scale, out_dtype).
@@ -438,7 +535,9 @@ def autotune_conv1d(
                 activation=activation, out_dtype=odt, plan=cfg)
 
     default, cands = gemm_candidates(B * lout, Cout, K * Cin, adt, sms)
-    res = _search(key, run, cands, default)
+    res = _search(key, run, cands, default, **_hooks("conv1d", dict(
+        B=B, L=L, Cin=Cin, Cout=Cout, K=K, stride=stride,
+        precision=precision, dtype=_float_name(x), sms=sms)))
     if precision != "fp" and x.dtype != torch.int8:
         # the quant guard's figure: the winner through a float-input ops
         # call, which also quantizes x and screens its scales on the host
@@ -493,7 +592,9 @@ def autotune_conv2d(
 
     default, cands = gemm_candidates(B * oh * ow, Cout, kh * kw * Cin, adt,
                                      sms)
-    return _search(key, run, cands, default)
+    return _search(key, run, cands, default, **_hooks("conv2d", dict(
+        B=B, H=H, W=W, Cin=Cin, Cout=Cout, kh=kh, kw=kw, stride=stride,
+        precision=precision, dtype=_float_name(x), sms=sms)))
 
 
 def autotune_conv1d_depthwise(
@@ -538,7 +639,10 @@ def autotune_conv1d_depthwise(
                 activation=activation, out_dtype=odt, plan=cfg)
 
     default, cands = depthwise_candidates(B, lout, C, elem, K, stride, sms)
-    res = _search(key, run, cands, default)
+    shape = dict(B=B, L=L, C=C, K=K, stride=stride, dtype=_float_name(x),
+                 sms=sms)
+    res = _search(key, run, cands, default, **_hooks(
+        "conv1d_depthwise", dict(shape, precision=precision)))
     if precision != "fp" or not x.requires_grad:
         return res
     fwd = {k: res.best[k] for k in ("rows", "stages")}
@@ -554,7 +658,8 @@ def autotune_conv1d_depthwise(
         return torch.autograd.grad(y.sum(), leaves)
 
     return _search(key, run_grad, [{**fwd, **b} for b in bcands],
-                   {**default, **bdefault})
+                   {**default, **bdefault},
+                   **_hooks("conv1d_depthwise_bwd_dw", shape))
 
 
 def autotune_attention_decode(
@@ -587,7 +692,9 @@ def autotune_attention_decode(
                                     plan=cfg)
 
     default, cands = attention_candidates(B * KV, S, sms)
-    return _search(key, run, cands, default)
+    return _search(key, run, cands, default, **_hooks(
+        "attention_decode", dict(B=B, S=S, KV=KV, G=H // KV, D=D, kind=kind,
+                                 sms=sms)))
 
 
 def autotune_pool1d(x: torch.Tensor, *, window: int,
@@ -598,7 +705,7 @@ def autotune_pool1d(x: torch.Tensor, *, window: int,
     ``scan``, as the reference's."""
     from repro_torch.kernels import ops
 
-    _require_card(x)
+    sms = _require_card(x)
     B, L, C = x.shape
     key = pool1d_key(B, L, C, window, op, _dtype_name(x))
 
@@ -608,7 +715,9 @@ def autotune_pool1d(x: torch.Tensor, *, window: int,
 
     methods = ["scan", "shift"] if op == "max" else ["scan"]
     return _search(key, run, [{"method": m} for m in methods],
-                   {"method": methods[0]})
+                   {"method": methods[0]}, **_hooks("pool1d", dict(
+                       B=B, L=L, C=C, window=window, op=op,
+                       dtype=_dtype_name(x), sms=sms)))
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +750,9 @@ def autotune_conv1d_grad(
         return torch.autograd.grad(y.sum(), leaves)
 
     default, cands = gemm_candidates(K * Cin, Cout, B * lout, x.dtype, sms)
-    return _search(key, run, cands, default)
+    return _search(key, run, cands, default, **_hooks("conv1d_bwd_dw", dict(
+        B=B, L=L, Cin=Cin, Cout=Cout, K=K, stride=stride,
+        dtype=_dtype_name(x), has_bias=False, sms=sms)))
 
 
 def autotune_conv2d_grad(
@@ -673,4 +784,6 @@ def autotune_conv2d_grad(
 
     default, cands = gemm_candidates(kh * kw * Cin, Cout, B * oh * ow,
                                      x.dtype, sms)
-    return _search(key, run, cands, default)
+    return _search(key, run, cands, default, **_hooks("conv2d_bwd_dw", dict(
+        B=B, H=H, W=W, Cin=Cin, Cout=Cout, kh=kh, kw=kw, stride=stride,
+        dtype=_dtype_name(x), has_bias=False, sms=sms)))

@@ -719,6 +719,21 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
+// The launch's dynamic shared memory and threads for G queries of D
+// values a kv head over a cache of kv_kind (0 float32, 1 bfloat16, 2
+// int8), `rows` rows a split in nsplit splits, as decode_attention makes
+// it; launches nothing.
+extern "C" int decode_attention_query(int G, int D, int kv_kind, int rows,
+                                      int nsplit, int* smem, int* threads) {
+  if (G < 1 || G > MAXG || D < 1 || D > MAXD || rows < 1 || nsplit < 1 ||
+      kv_kind < 0 || kv_kind > 2)
+    return (int)cudaErrorInvalidValue;
+  const int el = kv_kind == 2 ? 1 : kv_kind == 1 ? 2 : 4;
+  *smem = (int)geometry(G, D, el, rows, nsplit).bytes;
+  *threads = THREADS;
+  return 0;
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

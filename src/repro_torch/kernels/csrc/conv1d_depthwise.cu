@@ -126,6 +126,21 @@ extern "C" int conv1d_depthwise(const void* x, const void* w,
   return (int)err;
 }
 
+// The launch's dynamic shared memory and threads for the same shape and
+// plan as conv1d_depthwise (x_kind 0 float32, 1 bfloat16); launches
+// nothing, and refuses what conv1d_depthwise refuses of the plan.
+extern "C" int conv1d_depthwise_query(int B, int L, int C, int K, int stride,
+                                      int Lout, int x_kind, int rows,
+                                      int stages, int blocks, int copy_bytes,
+                                      int* smem, int* threads) {
+  DwShape s{L, C, K, stride, Lout, rows, stages, copy_bytes, 0, 0, 0, 0};
+  if (x_kind < 0 || x_kind > 1 || !dw_geometry(s, B, x_kind ? 2 : 4, blocks))
+    return (int)cudaErrorInvalidValue;
+  *smem = s.stages * s.stage_bytes;
+  *threads = DW_THREADS;
+  return 0;
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -337,6 +337,23 @@ extern "C" int conv1d_depthwise_bwd_dw(const void* x, const void* dz,
   return (int)cudaGetLastError();
 }
 
+// The launch's dynamic shared memory and threads for the same shape and
+// plan as conv1d_depthwise_bwd_dw (x_kind 0 float32, 1 bfloat16); launches
+// nothing, and refuses a ring over DW_SMEM_MAX as the launch does.
+extern "C" int conv1d_depthwise_bwd_dw_query(int B, int L, int C, int K,
+                                             int stride, int Lout, int x_kind,
+                                             int rows, int stages, int splits,
+                                             int copy_bytes, int* smem,
+                                             int* threads) {
+  DwShape s{L, C, K, stride, Lout, rows, stages, copy_bytes, rows};
+  if (x_kind < 0 || x_kind > 1 || splits < 1 ||
+      !dw_geometry(s, B, x_kind ? 2 : 4, splits) || dw_smem(s) > DW_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  *smem = (int)dw_smem(s);
+  *threads = DW_THREADS;
+  return 0;
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -164,6 +164,23 @@ extern "C" int conv1d_depthwise_quant(const void* x, const void* w,
   return (int)err;
 }
 
+// The launch's dynamic shared memory and threads for the same shape and
+// plan as conv1d_depthwise_quant (x_kind 0 float32, 1 bfloat16, 2 int8);
+// launches nothing.
+extern "C" int conv1d_depthwise_quant_query(int B, int L, int C, int K,
+                                            int stride, int Lout, int x_kind,
+                                            int rows, int stages, int blocks,
+                                            int copy_bytes, int* smem,
+                                            int* threads) {
+  DwShape s{L, C, K, stride, Lout, rows, stages, copy_bytes, 0, 0, 0, 0};
+  const int elem = x_kind == X_INT8 ? 1 : x_kind == X_BF16 ? 2 : 4;
+  if (x_kind < 0 || x_kind > 2 || !dw_geometry(s, B, elem, blocks))
+    return (int)cudaErrorInvalidValue;
+  *smem = s.stages * s.stage_bytes;
+  *threads = DW_THREADS;
+  return 0;
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

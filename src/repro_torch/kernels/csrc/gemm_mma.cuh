@@ -1032,6 +1032,35 @@ int gemm(const T* a, const TB* b, const Epi& epi, void* ws, float* db, int M,
   }
 }
 
+// The launch launch_tile makes on tile `tile` for A of `x_kind` (0
+// float32, 1 bfloat16, 2 int8) gathered by Gather: the block's dynamic
+// shared memory and threads, which the launcher passes to
+// cudaFuncSetAttribute and <<<>>>. Launches nothing; a tile that does not
+// take the type is refused with cudaErrorInvalidValue.
+template <class Gather>
+int query(int x_kind, int tile, int* smem, int* threads) {
+  size_t s = 0;
+  int t = 0;
+  if (x_kind == 1 && tile == TILE_MMA) {
+    s = smem_bytes<MmaTile, __nv_bfloat16, Gather>();
+    t = MmaTile::THREADS;
+  } else if (x_kind == 2 && tile == TILE_INT8) {
+    s = smem_bytes<Int8Tile, int8_t, Gather>();
+    t = Int8Tile::THREADS;
+  } else if (x_kind == 0 && tile == TILE_WIDE) {
+    s = smem_bytes<Wide, float, Gather>();
+    t = Wide::THREADS;
+  } else if (x_kind == 0 && tile == TILE_NARROW) {
+    s = smem_bytes<Narrow, float, Gather>();
+    t = Narrow::THREADS;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  *smem = (int)s;
+  *threads = t;
+  return 0;
+}
+
 // The fp sliding convs' product (rows 1 and 4): y (and z) = BiasAct(A @
 // w), x and w float32, or bfloat16 where is_bf16, A gathered from x by g.
 template <class Gather>

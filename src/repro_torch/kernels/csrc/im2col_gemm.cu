@@ -153,6 +153,24 @@ extern "C" int im2col_conv2d(const void* x, const void* w, void* y, float* ws,
                     is_bf16, tile, splits, per, va, vb, stream);
 }
 
+// Each launch's dynamic shared memory and threads for A of x_kind (0
+// float32, 1 bfloat16) on tile `tile`, as the entry above of that name
+// makes it; they launch nothing.
+extern "C" int im2col_matmul_query(int x_kind, int tile, int* smem,
+                                   int* threads) {
+  return gm::query<MatrixRows>(x_kind, tile, smem, threads);
+}
+
+extern "C" int im2col_conv1d_query(int x_kind, int tile, int* smem,
+                                   int* threads) {
+  return gm::query<TapColumns>(x_kind, tile, smem, threads);
+}
+
+extern "C" int im2col_conv2d_query(int x_kind, int tile, int* smem,
+                                   int* threads) {
+  return gm::query<TapColumns>(x_kind, tile, smem, threads);
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

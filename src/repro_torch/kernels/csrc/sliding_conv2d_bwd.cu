@@ -61,6 +61,14 @@ extern "C" int conv2d_bwd_dw(const void* x, const void* dz, float* dw,
                      is_bf16, g, tile, splits, per, va, vb, stream);
 }
 
+// The launch's dynamic shared memory and threads for x of x_kind (0
+// float32, 1 bfloat16) on tile `tile`, as conv2d_bwd_dw makes it; launches
+// nothing.
+extern "C" int conv2d_bwd_dw_query(int x_kind, int tile, int* smem,
+                                   int* threads) {
+  return gm::query<gm::FilterRuns>(x_kind, tile, smem, threads);
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -84,6 +84,14 @@ extern "C" int sliding_conv2d_quant(const void* x, const void* w,
                           x_kind, g, tile, splits, per, va, vb, stream);
 }
 
+// The launch's dynamic shared memory and threads for x of x_kind (0
+// float32, 1 bfloat16, 2 int8) on tile `tile`, as sliding_conv2d_quant
+// makes it; launches nothing.
+extern "C" int sliding_conv2d_quant_query(int x_kind, int tile, int* smem,
+                                          int* threads) {
+  return gm::query<gm::ConvPositions>(x_kind, tile, smem, threads);
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

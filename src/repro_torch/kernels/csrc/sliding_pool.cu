@@ -988,6 +988,37 @@ extern "C" int max_pool_bwd(const void* x, const void* dy, void* dx,
   return (int)cudaGetLastError();
 }
 
+// The forward's dynamic shared memory and threads for op and layout (rows,
+// chans, piece) at `window`, as sliding_pool makes it; launches nothing.
+extern "C" int sliding_pool_query(int op, int is_bf16, int rows, int chans,
+                                  int piece, int window, int* smem,
+                                  int* threads) {
+  if (op < OP_SUM || op > OP_MAX_SHIFT || rows < 1 || chans < 1 ||
+      chans > 32 || piece < 1 || window < 1)
+    return (int)cudaErrorInvalidValue;
+  *smem = (int)pool_smem(op, is_bf16 ? 2 : 4, rows, chans, piece, window);
+  *threads = THREADS;
+  return 0;
+}
+
+// The gradient's dynamic shared memory and threads, as max_pool_bwd makes
+// them for the same arguments (0 bytes: the slots in global scratch);
+// launches nothing.
+extern "C" int max_pool_bwd_query(int B, int L, int C, int window, int tile,
+                                  int lanes, int sms, int* smem,
+                                  int* threads) {
+  if (B < 1 || C < 1 || L < 1 || window < 1 || tile < 1 || lanes < 1 ||
+      sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = ((L + window - 1) / window + tile - 1) / tile;
+  const long long total = (long long)B * n_tiles * C * lanes;
+  const int sb = (window + lanes - 1) / lanes;
+  const int t = bwd_block_threads(sb, lanes, total, sms);
+  *threads = t == 0 ? THREADS : t;
+  *smem = t == 0 ? 0 : t * sb * slot_bytes(lanes);
+  return 0;
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -236,6 +236,15 @@ extern "C" int ssm_scan(const void* abar, const void* bx, const void* c,
                                          D, N, s));
 }
 
+// The kernel's shared memory (static: c staged CH steps of the compiled
+// width at a time) and threads for state width N; launches nothing.
+extern "C" int ssm_scan_query(int N, int* smem, int* threads) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  *smem = CH * compiled_width(N) * (int)sizeof(float);
+  *threads = THREADS;
+  return 0;
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

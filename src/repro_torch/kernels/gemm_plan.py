@@ -296,6 +296,14 @@ def _check_depthwise(B, Lout, C, elem_bytes, K, stride, sms, rows, stages):
         raise PlanError(f"stages={stages}: 2 to 4")
 
 
+def depthwise_smem(rows: int, stages: int, elem_bytes: int, K: int,
+                   stride: int) -> int:
+    """Shared memory a block of rows 3 and 15 takes (the launcher's
+    ``stages * stage_bytes``): the ring of ``stages`` stages of
+    stride·(R−1)+K input rows of ``DW_SLAB`` channels."""
+    return stages * (stride * (rows - 1) + K) * DW_SLAB * elem_bytes
+
+
 def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
                    stride: int, sms: int = build.DEFAULT_SMS,
                    rows: int | None = None,
@@ -316,18 +324,17 @@ def depthwise_plan(B: int, Lout: int, C: int, elem_bytes: int, K: int,
     slabs = -(-C // DW_SLAB)
     plan = None
     for R in (DW_ROWS if rows is None else (rows,)):
-        stage_rows = stride * (R - 1) + K
-        stage = stage_rows * DW_SLAB * elem_bytes
         depth = DW_STAGES if stages is None else stages
-        if depth * stage > SMEM_BLOCK:
+        smem = depthwise_smem(R, depth, elem_bytes, K, stride)
+        if smem > SMEM_BLOCK:
             continue
-        per_sm = min(DW_RESIDENT, SMEM_SM // (depth * stage + 1024))
+        per_sm = min(DW_RESIDENT, SMEM_SM // (smem + 1024))
         chunks = -(-Lout // R)
         items = B * chunks * slabs
         fill = sms * per_sm
         blocks = -(-items // -(-items // fill))
-        plan = DepthwisePlan(DW_SLAB, R, depth, blocks, stage_rows, slabs,
-                             chunks, items, depth * stage, per_sm)
+        plan = DepthwisePlan(DW_SLAB, R, depth, blocks, stride * (R - 1) + K,
+                             slabs, chunks, items, smem, per_sm)
         if items >= fill:
             break
     if plan is None:

@@ -57,7 +57,7 @@ from repro_torch.kernels import build, gemm_plan
 
 OPS = ("sum", "avg", "max")
 METHODS = ("scan", "shift")
-_OP_CODE = {"sum": 0, "avg": 1, ("max", "scan"): 2, ("max", "shift"): 3}
+OP_CODES = {"sum": 0, "avg": 1, ("max", "scan"): 2, ("max", "shift"): 3}
 # threads that keep an SM busy (half of what it can hold): the max
 # gradient's sizing
 THREADS_PER_SM = 1024
@@ -393,7 +393,7 @@ def _pool_kernel(x, window, code, form, lead, L, out_len):
 
 
 def _launch(x, window, op, method, out_len):
-    code = _OP_CODE[op] if op != "max" else _OP_CODE[(op, method)]
+    code = OP_CODES[op] if op != "max" else OP_CODES[(op, method)]
     y = _pool_kernel(x, window, code, "sum" if op != "max" else
                      f"max_{method}", 0, x.shape[1], out_len)
     sliding_pool.launches += 1
@@ -405,7 +405,7 @@ def _launch(x, window, op, method, out_len):
 
 def _launch_sum_bwd(dy, window):
     L = dy.shape[1] + window - 1
-    dx = _pool_kernel(dy, window, _OP_CODE["sum"], "sum", window - 1,
+    dx = _pool_kernel(dy, window, OP_CODES["sum"], "sum", window - 1,
                       L + window - 1, L)
     sum_pool_bwd.launches += 1
     return dx

@@ -5,12 +5,12 @@ The observability namespace is closed: the registry rejects unregistered
 metric names and an armed span rejects an unregistered span name. A
 typo'd metric silently forks the series CI and the report CLI read, so a
 new instrument means a new member HERE first, and in the reference's.
-Some names are the reference's alone (``autotune.pruned``,
-``autotune.cost_skipped``): the port records neither yet. The robustness
+The robustness
 layer records ``runtime.demote``, ``runtime.retrace_ms`` and
 ``health.repromote``. The tuning layer records
-``autotune.searches`` and ``autotune.candidates`` and the
-``autotune.search`` / ``autotune.candidate`` spans.
+``autotune.searches``, ``autotune.candidates``, ``autotune.pruned`` and
+``autotune.cost_skipped`` and the ``autotune.search`` /
+``autotune.candidate`` spans.
 
 Naming scheme: ``<layer>.<what>[_<unit>]`` — layers are ``dispatch``
 (the ops entry points), ``autotune``, ``health``, ``serve``, ``train``;

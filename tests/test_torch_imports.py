@@ -130,3 +130,12 @@ def test_robustness_slice_modules_are_checked():
                 "distributed/ft.py", "quant/calibrate.py", "launch/serve.py",
                 "launch/train.py", "launch/steps.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_analysis_slice_modules_are_checked():
+    """The analysis gate's modules are among the files checked above."""
+    checked = set(_port_files())
+    for rel in ("analysis/__init__.py", "analysis/__main__.py",
+                "analysis/contracts.py", "analysis/costmodel.py",
+                "analysis/ranges.py", "analysis/lint.py", "analysis/bloat.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
