@@ -379,10 +379,33 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository's
      beyond its output reported beside it; (e) ``python -m
      repro_torch.analysis --all`` on (a)'s peaks and 47's cache: exit 0,
      schema 2, a gated family at least, each gated rho >= 0.7, every
-     shipped chain safe. The JSON record gains ``analysis``.
+     shipped chain safe. The JSON record gains ``analysis``;
+ 53. the mesh runtime (``launch.mesh.run_ranks``: one spawned process a
+     rank, all sharing cuda:0 over gloo, which stages the ranks' CUDA
+     tensors through host memory; the parent frees its cache first and
+     logs what it still reserves): (a) qwen3-moe-30b-a3b at full width, 4
+     of its 48 layers, float32, on (data 2, model 2), each rank 64 of the
+     128 experts drawn as its block of the one-rank draw, serving the
+     phase-45 prompts two rows a data rank (one prefill, 8 greedy decode
+     steps) against the one-rank model on the same rows: logits within
+     1e-5 of max at every step (a pick that differs must be a near tie),
+     row 2 launched layers x steps on every rank, each rank's peak memory,
+     TTFT and decode step beside the one-rank ones; (b) whisper-medium at
+     full width and depth, float32, its fan-in weights at std 1/sqrt(input
+     width) (``rescale_whisper``), one synced AdamW step of phase 9's
+     batch split two rows a rank on (data 2), the global loss and the
+     synced gradient within 1e-4 of the one-rank step on the whole batch,
+     rows 1 and 10 launched 3 and 2 on each rank, parameter checksums
+     equal across ranks after the step; then the error-feedback
+     all-reduce of the same local gradients within 0.05 of the exact mean
+     with a non-zero carried error, each sync's seconds and bytes; (c) the
+     GPipe schedule on those two ranks, two stages of a 1024-wide tanh
+     layer, 4 microbatches, within 1e-5 of the sequential composition. A
+     rank that fails fails the phase with its traceback. The JSON record
+     gains ``mesh``.
 
 Phases run in the order 1-25, 28, 29, 26, 31, 41-43, 51, 30, 44-46, 48-50,
-33, 34 with the main path of the baselines, 36-38, 47, 52, then the timings
+33, 34 with the main path of the baselines, 36-38, 47, 52, 53, then the timings
 (6, 10, 15, 19, 23, 27, 32, 35, 39, 40, row 2 at gemma's shape): every
 kernel is held to its plain version before a path runs it. Each phase
 prints its seconds as it ends, on a ``[chip_smoke] phase <n> <name> <s>``
@@ -515,14 +538,21 @@ def _kernel_us(e) -> float:
     return t if t is not None else e.self_cuda_time_total
 
 
-def timings(kernel, plain, library) -> dict:
+# the timing-only phases 32 and 39 at half their repeats (card_ms's 20
+# batches, and phase 39's 10), so that chip_smoke.py with the mesh phase
+# stays inside its time limit on a slow host (PERF.md §6)
+HALF_BATCHES = dict(p32=10, p39=5)
+
+
+def timings(kernel, plain, library, batches: int = 20) -> dict:
     """The kernel's, the plain version's and the library call's times per
     call: card time from CUDA events (``ms``) and the event time per call
-    with the host's time in it (``call_ms``)."""
+    with the host's time in it (``call_ms``), each a median of
+    ``batches``."""
     out = {}
     for pre, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[pre + "ms"] = card_ms(fn)
-        out[pre + "call_ms"] = call_ms(fn)
+        out[pre + "ms"] = card_ms(fn, batches=batches)
+        out[pre + "call_ms"] = call_ms(fn, batches=batches)
     return out
 
 
@@ -2324,18 +2354,19 @@ JAMBA_TRAIN = dict(B=2, seq=512, steps=6, warmup=2)
 MAMBA_POS = (0, 1, 2, 3, 5, 6, 7)  # the Mamba positions of a period
 
 
-def rescale_fan_in(params, defs, iter_leaves) -> None:
-    """Rescale every period- or layer-stacked fan-in weight to std 1/sqrt
-    of its input width (experts and the attention output projection, (L,
-    H, hd, D), contract more; rwkv6's (L, d, d) ``wo`` does not), in
-    place: a well-conditioned model from the reference's init, whose
-    fan-in quirk draws these with std 1/sqrt(stacked count), 1 when a
-    jamba model has one period (ROADMAP Queue 3). No package's init
-    changes."""
+def rescale_fan_in(params, defs, iter_leaves,
+                   stacks=("periods", "blocks")) -> None:
+    """Rescale every period- or layer-stacked fan-in weight (under one of
+    ``stacks``) to std 1/sqrt of its input width (experts and the attention
+    output projection, (L, H, hd, D), contract more; rwkv6's (L, d, d)
+    ``wo`` does not), in place: a well-conditioned model from the
+    reference's init, whose fan-in quirk draws these with std 1/sqrt(stacked
+    count), 1 when a jamba model has one period (ROADMAP Queue 3). No
+    package's init changes."""
     want = dict(iter_leaves(defs))
     for path, t in iter_leaves(params):
         d, parts = want[path], path.split("/")
-        if parts[0] not in ("periods", "blocks") or d.init != "fan_in":
+        if parts[0] not in stacks or d.init != "fan_in":
             continue
         heads_in = parts[-1] == "wo" and len(d.shape) == 4
         fan = (d.shape[2] if "moe" in parts else
@@ -4392,7 +4423,7 @@ def conv2d_quant_times(sq, name, s, mode, out, act, with_bias, seed,
     bms, by = bound_ms(nbytes, ops,
                        torch.int8 if mode == "w8a8" else torch.bfloat16)
     t = dict(timings(cycling(kernel, sets), cycling(plain, sets),
-                     cycling(library, lib_sets)),
+                     cycling(library, lib_sets), HALF_BATCHES["p32"]),
              bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
     log(f"time conv2d_quant {name} {s} {mode} -> {out} {act} "
         f"bias={with_bias}: {json.dumps(t)}")
@@ -4461,7 +4492,7 @@ def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
                     sets),
             cycling(lambda x, dz, *_: sb.conv2d_bwd_dw_plain(x, dz, (k, k),
                                                              **args), sets),
-            cycling(library, sets)),
+            cycling(library, sets), HALF_BATCHES["p32"]),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
         log(f"time conv2d dw {name} {s} {dtype}: {json.dumps(t)}")
         return t
@@ -4501,7 +4532,7 @@ def phase_conv2d_quant_train_times(sq, sb, ad, launches, errs) -> list[dict]:
     attn = dict(timings(
         cycling(lambda *a: ad.decode_attention(*a[:6]), sets),
         cycling(lambda *a: ad.attention_decode_plain(*a[:6]), sets),
-        cycling(alibrary, sets)),
+        cycling(alibrary, sets), HALF_BATCHES["p32"]),
         bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops,
         max_abs_err=errs["attention_decode_int8_llava"],
         per="launch: B=4 S=3168 KV=8 G=7 D=128, bf16 q, int8 cache, lengths "
@@ -5326,13 +5357,14 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
     scan, so ``library_ms`` is null and the port's mamba
     ``_assoc_scan`` with its read-out (what jamba's prefill runs today)
     stands beside it. Card ms per call from CUDA events, queue filled,
-    median of 10 batches of 5."""
+    median of 5 batches of 5."""
     P, W = POOL_PAPER, POOL_WIDE
     cases = {f"paper_w{w}": _pool_case_times(sp, P["B"], P["L"], P["C"], w,
-                                             26, 10, 5)
+                                             26, HALF_BATCHES["p39"], 5)
              for w in POOL_WINDOWS}
     cases[f"wide_w{W['w']}"] = _pool_case_times(sp, W["B"], W["L"], W["C"],
-                                                W["w"], 2, 10, 5)
+                                                W["w"], 2, HALF_BATCHES["p39"],
+                                                5)
     for case, rows in cases.items():
         log(f"time pool {case}: " + "; ".join(
             f"{n} {r['ms']:.4f} (plain {r['plain_ms']:.4f}, library "
@@ -5348,9 +5380,10 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
         nbytes = (el * (2 * B * L * D * N + B * L * N + B * L * D)
                   + 4 * 2 * B * D * N)
         bms, by = bound_ms(nbytes, 4 * B * L * D * N, torch.float32)
-        t = dict(ms=card_ms(lambda: ss.ssm_scan(*args), batches=10, inner=5),
+        t = dict(ms=card_ms(lambda: ss.ssm_scan(*args),
+                            batches=HALF_BATCHES["p39"], inner=5),
                  plain_ms=card_ms(lambda: ss.ssm_scan_plain(*args),
-                                  batches=10, inner=5),
+                                  batches=HALF_BATCHES["p39"], inner=5),
                  library_ms=None, bound_ms=bms, bound_by=by, bytes=nbytes,
                  ops=4 * B * L * D * N)
         if dtype == torch.float32:
@@ -5365,8 +5398,8 @@ def phase_pool_times(sp, ss, mamba, launches, errs) -> list[dict]:
             close(ya, yw, TOL, "assoc scan y")
             close(ha, hw, TOL, "assoc scan h_last")
             del yw, hw, ya, ha
-            t["assoc_scan_ms"] = card_ms(lambda: assoc(*args), batches=10,
-                                         inner=5)
+            t["assoc_scan_ms"] = card_ms(lambda: assoc(*args),
+                                         batches=HALF_BATCHES["p39"], inner=5)
         scan[str(dtype).removeprefix("torch.")] = t
         del args
         torch.cuda.empty_cache()
@@ -6917,6 +6950,365 @@ def phase_examples() -> dict:
     return res
 
 
+# -- 53: the mesh runtime ------------------------------------------------------------
+
+# qwen3-moe-30b-a3b at full width, 4 of its 48 layers, float32 params and
+# compute, on (data 2, model 2): each rank 64 of the 128 experts; the
+# phase-45 prompts, two rows a data rank, one prefill and 8 greedy steps
+MESH_MOE_CUT = dict(num_layers=4, param_dtype="float32",
+                    compute_dtype="float32", attn_decode="fused")
+MESH_MOE_GEN = 9
+# whisper-medium at full width and depth, float32 (the step is held to the
+# one-rank step at 1e-4, which bf16's rounding of a different batch split
+# would exceed), phase 9's batch split two rows a rank on (data 2)
+MESH_TRAIN = dict(B=4, seq=512)
+# the pipeline on those two ranks: two stages of one d x d tanh layer each
+MESH_PIPE = dict(d=1024, M=4, mb=64)
+MESH_LOGIT_REL = 1e-5  # the psum reorders the K-term sum of the experts
+MESH_TIE_REL = 2e-5  # a greedy pick that differs must be a near tie
+MESH_GRAD_REL = 1e-4
+MESH_EF_REL = 0.05  # the reference test's bound
+MESH_PIPE_TOL = 1e-5
+MESH_TIMEOUT_S = 300.0
+
+
+def _recording(fn, out: list):
+    """``fn`` whose returned logits (first of its outputs) are kept, the
+    last position's, in float32 on the host."""
+    def rec(*args, **kwargs):
+        res = fn(*args, **kwargs)
+        out.append(res[0][:, -1].float().cpu())
+        return res
+    return rec
+
+
+def _mesh_serve(serve, model, params, prompts, gen):
+    """One greedy request through ``serve.generate`` (after a 2-token
+    warm-up) with the prefill's and every decode step's logits recorded:
+    (tokens, logits list, stats, launches, peak GB)."""
+    cfg = model.cfg
+    B, P = prompts.shape
+    cache_len = serve.resolve_cache_len(cfg, P + gen, P, gen)
+    serve.generate(model, params, prompts, gen_len=2, cache_len=cache_len)
+    logits: list = []
+    model.prefill = _recording(model.prefill, logits)
+    model.decode_step = _recording(model.decode_step, logits)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stats: dict = {}
+    toks, _ = serve.generate(model, params, prompts, gen_len=gen,
+                             cache_len=cache_len, stats=stats)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    del model.prefill, model.decode_step
+    return (toks.cpu().numpy(), [t.numpy() for t in logits], stats, launches,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _mesh_moe_rank(mesh, prompts, over, gen):
+    """A rank of (a): its block of the one-rank draw (``init_params`` with
+    ``rt``), rescaled as phase 45 rescales, its data rank's two rows."""
+    import repro_torch
+    from repro_torch import configs, models
+    from repro_torch.distributed.sharding import Runtime, iter_leaves
+    from repro_torch.launch import serve
+
+    dev = repro_torch.resolve_device(DEV)
+    rt = Runtime(mesh)
+    model = models.build_model(configs.get_config(MOE).replace(**over), rt)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    i = mesh.coords["data"]
+    rows = torch.as_tensor(prompts[2 * i:2 * i + 2], device=dev)
+    toks, logits, stats, launches, peak = _mesh_serve(serve, model, params,
+                                                      rows, gen)
+    wg = tuple(params["blocks"]["moe"]["wg"].shape)
+    return dict(rank=mesh.rank, coords=dict(mesh.coords), tokens=toks,
+                logits=logits, ttft_ms=stats["ttft_s"] * 1e3,
+                decode_step_ms=statistics.median(stats["step_s"]) * 1e3,
+                launches=launches, peak_mem_gb=peak, expert_block=wg)
+
+
+def rescale_whisper(params, defs, iter_leaves) -> None:
+    """whisper's fan-in weights at std 1/sqrt(input width), in place: the
+    encoder and decoder stacks as ``rescale_fan_in`` rescales a decoder's,
+    and the frontend convs (K, Cin, Cout), which the reference's rule
+    draws with std 1/sqrt(K), at 1/sqrt(K * Cin). From that init the
+    frontend's outputs reach 900, and on an H100 the encoder turns the
+    last bits of a batch-shaped matrix product into 1e-3 of its output, so
+    a step on four rows and two steps on two rows each part by 1e-3 in
+    loss (PERF.md §6)."""
+    rescale_fan_in(params, defs, iter_leaves, stacks=("encoder", "decoder"))
+    for name in ("conv1_w", "conv2_w"):
+        w = params["frontend"][name]
+        w.div_(w.shape[1] ** 0.5)
+
+
+def _mesh_train_rank(mesh, over, batch_kw, pipe):
+    """A rank of (b) and (c) on (data 2)."""
+    import repro_torch
+    from repro_torch import configs, models, optim
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import Runtime, iter_leaves, map_tree
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compress import ef_allreduce_grads, init_error_feedback
+
+    dev = repro_torch.resolve_device(DEV)
+    rt = Runtime(mesh)
+    cfg = configs.get_config("whisper-medium").replace(**over)
+    model, one = models.build_model(cfg, rt), models.build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        rescale_whisper(params, model.param_defs(), iter_leaves)
+    full = train_batches(cfg, batch_kw["B"], batch_kw["seq"], 1, 0, dev,
+                         train)[0]
+    i, half = mesh.coords["data"], batch_kw["B"] // 2
+    batch = {k: v[i * half:(i + 1) * half] for k, v in full.items()}
+    out = dict(rank=mesh.rank)
+    oracle = None
+    if mesh.rank == 0:  # the one-rank step on the whole batch
+        loss1, oracle = steps_mod.loss_and_grads(one, params, full)
+        out["oracle_loss"] = float(loss1)
+    # (b) the synced step; a spy keeps its local and synced gradients
+    kept = {}
+    real_sync = steps_mod.sync_grads
+
+    def spy(grads, rt_):
+        kept["local"] = map_tree(torch.clone, grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synced = real_sync(grads, rt_)
+        torch.cuda.synchronize()
+        kept["sync_s"] = time.perf_counter() - t0
+        kept["synced"] = map_tree(torch.clone, synced)
+        return synced
+
+    opt_cfg = optim.OptConfig(total_steps=2, warmup_steps=1)
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+    step = steps_mod.make_train_step(model, opt_cfg, rt=rt)
+    steps_mod.sync_grads = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        out["loss"] = float(metrics["loss"])
+        out["step_s"] = time.perf_counter() - t0
+    finally:
+        steps_mod.sync_grads = real_sync
+    out["launches"] = read_launches()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["sync_s"] = kept["sync_s"]
+    if oracle is not None:
+        want = dict(iter_leaves(oracle))
+        out["grad_rel"] = max(
+            ((g - want[k]).abs().max() / want[k].abs().max()).item()
+            for k, g in iter_leaves(kept["synced"]))
+        del oracle, want
+    sums = torch.stack([p.double().sum() for _, p in iter_leaves(state["params"])])
+    hi, lo = C.pmax(sums, "data", mesh), -C.pmax(-sums, "data", mesh)
+    out["param_checksum_diff"] = (hi - lo).abs().max().item()
+    del state
+    # the same local gradients through the error-feedback all-reduce
+    err = init_error_feedback(kept["local"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, err = ef_allreduce_grads(kept["local"], err, mesh, rt.dp_axes())
+    torch.cuda.synchronize()
+    out["ef_sync_s"] = time.perf_counter() - t0
+    exact = dict(iter_leaves(kept["synced"]))
+    out["ef_rel"] = max(((m - exact[k]).abs().max() / exact[k].abs().max()).item()
+                        for k, m in iter_leaves(mean))
+    out["ef_err_max"] = max(e.abs().max().item() for _, e in iter_leaves(err))
+    leaves = [g for _, g in iter_leaves(kept["local"])]
+    out["sync_bytes"] = sum(4 * g.numel() for g in leaves)
+    out["ef_sync_bytes"] = sum(4 * g.numel() + 4 * (g.numel() // max(g.shape[-1], 1)
+                                                    if g.dim() else 1)
+                               for g in leaves)
+    out["n_params"] = sum(g.numel() for g in leaves)
+    del kept, mean, err, exact, leaves
+    # (c) the pipeline: two stages of one tanh layer each
+    stage_mesh = make_mesh((mesh.size,), ("stage",))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d = pipe["d"]
+    ws = torch.randn(mesh.size, d, d, generator=gen, device=dev) / d ** 0.5
+    bs = torch.randn(mesh.size, d, generator=gen, device=dev) * 0.1
+    x = torch.randn(pipe["M"], pipe["mb"], d, generator=gen, device=dev)
+    s = C.axis_index("stage", stage_mesh)
+    copies0 = dict(C.HOST_COPIES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipeline_apply(lambda p, h: torch.tanh(h @ p[0] + p[1]), (ws[s], bs[s]),
+                       x, stage_mesh)
+    torch.cuda.synchronize()
+    out["pipe_s"] = time.perf_counter() - t0
+    seq = x
+    for k in range(mesh.size):
+        seq = torch.tanh(seq @ ws[k] + bs[k])
+    out["pipe_err"] = (y - seq).abs().max().item()
+    out["pipe_host_copies"] = {k: v - copies0.get(k, 0)
+                               for k, v in C.HOST_COPIES.items()}
+    return out
+
+
+def phase_mesh(serve, models, configs, iter_leaves) -> dict:
+    """53: the mesh runtime, ranks sharing cuda:0 over gloo: (a) qwen3-moe
+    served expert-parallel on (data 2, model 2) against the one-rank model
+    on each data rank's rows; (b) whisper-medium's synced train step on
+    (data 2) against the one-rank step on the whole batch, then the
+    error-feedback all-reduce of the same gradients; (c) the GPipe
+    schedule on the same two ranks against the sequential composition."""
+    from repro_torch.launch.mesh import run_ranks
+
+    res: dict = {}
+    # (a) the one-rank oracle for each data rank's rows, then freed
+    over = dict(MESH_MOE_CUT)
+    cfg = configs.get_config(MOE).replace(**over)
+    model = models.build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    prompts = _decoder_prompts(cfg)
+    oracle = [_mesh_serve(serve, model, params, prompts[2 * i:2 * i + 2],
+                          MESH_MOE_GEN) for i in range(2)]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh: {MOE} cut to {over} ({n_params} params) one-rank oracle "
+        f"done; parent reserves {torch.cuda.memory_reserved() / 1e9:.3f} GB "
+        f"before the ranks spawn")
+    with tempfile.TemporaryDirectory() as rdv:
+        ranks = run_ranks(_mesh_moe_rank, 2, 2, device=DEV, backend="gloo",
+                          rdv_dir=rdv, args=(prompts.cpu().numpy(), over,
+                                             MESH_MOE_GEN),
+                          timeout_s=MESH_TIMEOUT_S)
+    steps = cfg.num_layers * (MESH_MOE_GEN - 1)
+    worst, agree, picks, gaps = 0.0, 0, 0, []
+    for r in ranks:
+        if r["launches"] != only(attention_decode=steps):
+            raise AssertionError(f"mesh rank {r['rank']} launches "
+                                 f"{r['launches']}, expected row 2 {steps}")
+        if r["expert_block"][1] != cfg.num_experts // 2:
+            raise AssertionError(f"rank {r['rank']} holds {r['expert_block']}")
+        want = oracle[r["coords"]["data"]]
+        for t, (got, ref) in enumerate(zip(r["logits"], want[1])):
+            scale = float(np.abs(ref).max())
+            worst = max(worst, float(np.abs(got - ref).max()) / scale)
+            # a pick that differs feeds the next steps other tokens: the
+            # logits are compared up to it, and it must be a near tie
+            if not np.array_equal(r["tokens"][:, t], want[0][:, t]):
+                top2 = np.sort(ref, axis=-1)[:, -2:]
+                gap = float(((top2[:, 1] - top2[:, 0]) / scale).min())
+                gaps.append(gap)
+                if gap > MESH_TIE_REL:
+                    raise AssertionError(
+                        f"mesh rank {r['rank']} step {t}: greedy tokens "
+                        f"{r['tokens'][:, t]} vs one-rank {want[0][:, t]}, "
+                        f"top-2 gap {gap:.3e} of max")
+                break
+        agree += int((r["tokens"] == want[0]).sum())
+        picks += r["tokens"].size
+    if worst > MESH_LOGIT_REL:
+        raise AssertionError(f"mesh logits max |diff| {worst:.3e} of max")
+    res["moe"] = dict(
+        n_params=n_params, cut=over, logits_rel=worst,
+        greedy_agreement=agree / picks, differing_pick_gaps=gaps,
+        launches_per_rank=[r["launches"]["attention_decode"] for r in ranks],
+        launches=read_total(r["launches"] for r in ranks),
+        peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
+        ttft_ms=[r["ttft_ms"] for r in ranks],
+        decode_step_ms=[r["decode_step_ms"] for r in ranks],
+        one_rank_ttft_ms=[o[2]["ttft_s"] * 1e3 for o in oracle],
+        one_rank_decode_step_ms=[statistics.median(o[2]["step_s"]) * 1e3
+                                 for o in oracle],
+        one_rank_peak_mem_gb=[o[4] for o in oracle])
+    m = res["moe"]
+    log(f"mesh (a) {MOE} {over['num_layers']} layers f32 on (data 2, model "
+        f"2), {cfg.num_experts // 2} experts a rank, B 2 a data rank, P "
+        f"{prompts.shape[1]}, {MESH_MOE_GEN - 1} decode steps: logits max "
+        f"|diff| {worst:.3e} of max, greedy agreement "
+        f"{m['greedy_agreement']:.3f} (gaps of differing picks {gaps}); row "
+        f"2 launches a rank {m['launches_per_rank']}; peak GB "
+        f"{[round(x, 2) for x in m['peak_mem_gb']]}; TTFT ms "
+        f"{[round(x, 2) for x in m['ttft_ms']]} (one rank "
+        f"{[round(x, 2) for x in m['one_rank_ttft_ms']]}), decode step ms "
+        f"{[round(x, 2) for x in m['decode_step_ms']]} (one rank "
+        f"{[round(x, 2) for x in m['one_rank_decode_step_ms']]})")
+    # (b), (c) on (data 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    over = dict(conv_backend="sliding_pallas", param_dtype="float32",
+                compute_dtype="float32")
+    with tempfile.TemporaryDirectory() as rdv:
+        tr = run_ranks(_mesh_train_rank, 2, 1, device=DEV, backend="gloo",
+                       rdv_dir=rdv, args=(over, MESH_TRAIN, MESH_PIPE),
+                       timeout_s=MESH_TIMEOUT_S)
+    r0 = tr[0]
+    for r in tr:
+        if r["launches"] != only(sliding_conv1d=3, conv1d_bwd_dw=2):
+            raise AssertionError(f"mesh train rank {r['rank']} launches "
+                                 f"{r['launches']}, expected rows 1, 10 at 3, 2")
+        if r["param_checksum_diff"] != 0:
+            raise AssertionError(f"params differ across ranks after the step: "
+                                 f"{r['param_checksum_diff']}")
+        if not (r["ef_rel"] <= MESH_EF_REL and r["ef_err_max"] > 0):
+            raise AssertionError(f"EF rel {r['ef_rel']}, carried error "
+                                 f"{r['ef_err_max']}")
+        if r["pipe_err"] > MESH_PIPE_TOL:
+            raise AssertionError(f"pipeline max |diff| {r['pipe_err']}")
+    loss_rel = abs(r0["loss"] - r0["oracle_loss"]) / abs(r0["oracle_loss"])
+    if not (loss_rel <= MESH_GRAD_REL and r0["grad_rel"] <= MESH_GRAD_REL):
+        raise AssertionError(f"mesh train loss rel {loss_rel:.3e}, worst leaf "
+                             f"gradient rel {r0['grad_rel']:.3e}")
+    res["train"] = dict(
+        loss=r0["loss"], oracle_loss=r0["oracle_loss"], loss_rel=loss_rel,
+        grad_rel=r0["grad_rel"], n_params=r0["n_params"],
+        launches=read_total(r["launches"] for r in tr),
+        param_checksum_diff=max(r["param_checksum_diff"] for r in tr),
+        step_s=[r["step_s"] for r in tr], sync_s=[r["sync_s"] for r in tr],
+        ef_sync_s=[r["ef_sync_s"] for r in tr],
+        sync_bytes=r0["sync_bytes"], ef_sync_bytes=r0["ef_sync_bytes"],
+        ef_rel=max(r["ef_rel"] for r in tr),
+        ef_err_max=max(r["ef_err_max"] for r in tr),
+        peak_mem_gb=[r["peak_mem_gb"] for r in tr])
+    res["pipeline"] = dict(err=max(r["pipe_err"] for r in tr),
+                           s=[r["pipe_s"] for r in tr],
+                           host_copies=[r["pipe_host_copies"] for r in tr],
+                           **MESH_PIPE)
+    t, p = res["train"], res["pipeline"]
+    log(f"mesh (b) whisper-medium f32 ({t['n_params']} params) on (data 2), "
+        f"B {MESH_TRAIN['B']} x {MESH_TRAIN['seq']} split 2 a rank: loss "
+        f"{t['loss']:.6f} vs one rank {t['oracle_loss']:.6f} (rel "
+        f"{loss_rel:.3e}), worst leaf gradient rel {t['grad_rel']:.3e}; "
+        f"rows 1, 10 a rank 3, 2; param checksums equal ({t['param_checksum_diff']}); "
+        f"step s {[round(x, 3) for x in t['step_s']]}, plain sync s "
+        f"{[round(x, 3) for x in t['sync_s']]} ({t['sync_bytes']} B a rank), "
+        f"EF sync s {[round(x, 3) for x in t['ef_sync_s']]} "
+        f"({t['ef_sync_bytes']} B a rank: int32 codes + f32 scales), EF rel "
+        f"{t['ef_rel']:.3e}, carried error max {t['ef_err_max']:.3e}; peak GB "
+        f"{[round(x, 2) for x in t['peak_mem_gb']]}")
+    log(f"mesh (c) pipeline 2 stages d {p['d']}, M {p['M']} x {p['mb']}: max "
+        f"|diff| {p['err']:.3e} vs sequential, s {[round(x, 4) for x in p['s']]}, "
+        f"host copies {p['host_copies']}")
+    return res
+
+
+def read_total(counts) -> dict:
+    """The launch counts of several ranks, summed per kernel."""
+    out = only()
+    for c in counts:
+        for k, v in c.items():
+            out[k] += v
+    return out
+
+
 class Phases:
     """Each phase's seconds, printed as it ends and kept for the JSON."""
 
@@ -7088,6 +7480,10 @@ def main() -> int:
         47, "tuning", phase_tuning, autotune, ops, sc, s2, sq, sb, ad, sp)
     # -- 52: the analysis gate, on the cache 47 wrote ---------------------------
     analysis = ph.run(52, "analysis", phase_analysis, autotune, tune_cache)
+    # -- 53: the mesh runtime, ranks sharing the card over gloo -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = ph.run(53, "mesh", phase_mesh, serve, models, configs, iter_leaves)
 
     def with_calibration(run):  # a quantized path: calibration + request
         return {k: run["calibration_launches"][k] + n
@@ -7115,7 +7511,9 @@ def main() -> int:
                "serve_rwkv6": rwkv["serve"]["launches"],
                "train_rwkv6": rwkv["train"]["launches"],
                "edge_cnn": edge_cnn["sliding_pallas"]["launches"],
-               "examples": examples["launches"]}
+               "examples": examples["launches"],
+               "mesh_qwen3_moe": mesh["moe"]["launches"],
+               "mesh_train_whisper": mesh["train"]["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = ph.run(6, "times", phase_times, sc, ad, launches, errs)
     kernels.append(ph.run(10, "train_times", phase_train_times, sb, launches,
@@ -7187,7 +7585,8 @@ def main() -> int:
                       "tuned": tuned, "analysis": analysis,
                       "serve_rwkv6": rwkv["serve"],
                       "train_rwkv6": rwkv["train"], "edge_cnn": edge_cnn,
-                      "examples": examples, "phase_s": ph.seconds}),
+                      "examples": examples, "mesh": mesh,
+                      "phase_s": ph.seconds}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

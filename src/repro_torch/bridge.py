@@ -14,6 +14,10 @@ jamba's period-stacked depthwise ``conv_w`` leaves.
 ``state_from_step_dir`` loads a ``CheckpointManager`` step directory,
 written by either package, onto the port's parameter and optimizer trees,
 int8 moments included.
+
+``params_block_from_numpy`` is the carry for one rank of a mesh: this
+rank's block of each leaf by ``rt.placement``, so the reference's weights
+run on the port's mesh.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import from_numpy
-from repro_torch.distributed.sharding import ParamDef, iter_leaves
+from repro_torch.distributed.sharding import ParamDef, Runtime, iter_leaves
 from repro_torch.quant.qconv import QuantizedWeight
 
 
@@ -118,6 +122,21 @@ def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None,
         return _to_tensor(t, device, dtype)
 
     return walk(tree)
+
+
+def params_block_from_numpy(tree: Any, defs: Any, rt: Runtime, device,
+                            dtype: torch.dtype | None = None) -> Any:
+    """``params_from_numpy(tree, device, dtype, defs)`` cut to this rank's
+    block of each leaf (``rt.local``): each leaf is cut on the host before
+    it moves to ``device``."""
+    host = params_from_numpy(tree, "cpu", dtype, defs=defs)
+
+    def walk(t, d):
+        if isinstance(t, dict):
+            return {k: walk(v, d[k]) for k, v in t.items()}
+        return rt.local(t, d).to(device)
+
+    return walk(host, defs)
 
 
 def _moments(tree: Any, device) -> Any:

@@ -26,8 +26,15 @@ a leaf as int16, viewed as ``torch.bfloat16``.
 
 The reference's chaos hooks are in ``_write`` (``ckpt_write_stall``
 sleeps between leaves, ``ckpt_corrupt`` truncates a committed leaf), and a
-quarantine records a ``ckpt_invalid`` health event. Not ported: the
-elastic re-shard of ``restore`` (one device).
+quarantine records a ``ckpt_invalid`` health event.
+
+Elastic (``rt`` on a mesh, ``defs`` a tree congruent to the state whose
+leaves are ParamDefs, or None for a leaf held whole; one ParamDef stands
+for an int8 moment's pair): ``save`` writes whole leaves, each split leaf
+all-gathered over its mesh axes and rank 0 writing, so the step dir is the
+one-rank format and any mesh restores it; ``restore`` reads only this
+rank's block of each leaf (``rt.block``), whatever mesh wrote it, the
+reference's included.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults
+from repro_torch.distributed import collectives as C
 from repro_torch.health import HEALTH
 
 _BF16 = "bfloat16"
@@ -69,6 +77,34 @@ def _unflatten_into(skeleton: Any, flat: dict[str, Any], prefix: str = ""):
         return type(skeleton)(_unflatten_into(v, flat, f"{prefix}{i}.")
                               for i, v in enumerate(skeleton))
     return flat[prefix[:-1]]
+
+
+def _flatten_defs(state: Any, defs: Any, prefix: str = "",
+                  out: dict | None = None) -> dict[str, Any]:
+    """The ParamDef (or None) of each key of ``_flatten(state)``: ``defs``
+    walks beside ``state``; a ParamDef over a tuple (an int8 moment) is
+    every member's."""
+    out = {} if out is None else out
+    if isinstance(state, dict):
+        for k in sorted(state):
+            sub = defs.get(k) if isinstance(defs, dict) else defs
+            _flatten_defs(state[k], sub, f"{prefix}{k}.", out)
+    elif isinstance(state, (tuple, list)):
+        for i, v in enumerate(state):
+            sub = defs[i] if isinstance(defs, (tuple, list)) else defs
+            _flatten_defs(v, sub, f"{prefix}{i}.", out)
+    else:
+        out[prefix[:-1]] = defs if not isinstance(defs, dict) else None
+    return out
+
+
+def _gather_whole(t: torch.Tensor, d, rt) -> torch.Tensor:
+    """The whole leaf from every rank's block: an all-gather over each
+    split dim's mesh axes."""
+    for dim, entry in enumerate(rt.placement(d)):
+        if entry is not None:
+            t = C.all_gather(t, entry, rt.mesh, dim=dim)
+    return t
 
 
 def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -122,11 +158,27 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, state: Any, *, blocking: bool = True,
-             extra: dict | None = None):
+             extra: dict | None = None, rt=None, defs: Any = None):
+        """Write ``state`` as ``step_N/``. On a mesh (``rt``, with ``defs``)
+        every rank calls this: the split leaves are all-gathered whole and
+        rank 0 writes; with ``blocking`` the ranks leave together once the
+        step is committed."""
         self.wait()
-        host_flat = {k: to_numpy(v) for k, v in _flatten(state).items()}
+        flat = _flatten(state)
+        mesh = rt.mesh if rt is not None and rt.mesh is not None else None
+        if mesh is not None:
+            leaf_defs = _flatten_defs(state, defs)
+            flat = {k: _gather_whole(v, leaf_defs[k], rt)
+                    if leaf_defs[k] is not None else v for k, v in flat.items()}
+            if mesh.rank != 0:
+                if blocking:
+                    C.barrier(mesh)
+                return
+        host_flat = {k: to_numpy(v) for k, v in flat.items()}
         if blocking:
             self._write(step, host_flat, extra or {})
+            if mesh is not None:
+                C.barrier(mesh)
         else:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_flat, extra or {}),
@@ -231,16 +283,26 @@ class CheckpointManager:
             self.quarantine(step, reason)
 
     # -- restore ----------------------------------------------------------------
-    def restore(self, step: int, skeleton: Any, device=None) -> Any:
+    def restore(self, step: int, skeleton: Any, device=None, rt=None,
+                defs: Any = None) -> Any:
         """Load ``step`` into the structure of ``skeleton`` (a tree of
         tensors), each leaf on ``device`` (the skeleton leaf's device when
-        None). Raises if a leaf's shape differs from the skeleton's."""
+        None). With ``rt`` on a mesh and ``defs``, each leaf is this rank's
+        block by ``rt.placement``, read alone from the file, and the
+        skeleton holds blocks. Raises if a leaf's shape differs from the
+        skeleton's."""
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
+        leaf_defs = (_flatten_defs(skeleton, defs)
+                     if rt is not None and rt.mesh is not None else {})
         flat = {}
         for key, sk in _flatten(skeleton).items():
             meta = manifest["leaves"][key]
-            t = from_numpy(np.load(d / meta["file"]), meta["dtype"])
+            arr = np.load(d / meta["file"], mmap_mode="r")
+            blk = rt.block(leaf_defs[key]) if leaf_defs.get(key) else None
+            if blk is not None:
+                arr = arr[tuple(slice(a, a + n) for a, n in blk)]
+            t = from_numpy(arr, meta["dtype"])
             if tuple(t.shape) != tuple(sk.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape "
                                  f"{tuple(t.shape)}, expected {tuple(sk.shape)}")

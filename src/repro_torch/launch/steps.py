@@ -6,7 +6,10 @@ from typing import Callable
 import torch
 
 from repro_torch import faults
-from repro_torch.distributed.sharding import iter_leaves, map_tree, torch_dtype
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (
+    Runtime, iter_leaves, map_tree, torch_dtype,
+)
 from repro_torch.optim import OptConfig, apply_updates
 
 
@@ -21,8 +24,23 @@ def loss_and_grads(model, params, batch):
     return loss.detach(), map_tree(lambda _: next(grads), leaves)
 
 
+def sync_grads(grads, rt: Runtime | None):
+    """The data ranks' mean of each gradient leaf: a plain all-reduce over
+    ``rt.dp_axes()`` in sorted-path order, in place, then over the group's
+    size. What GSPMD gives the reference's sharded step; the parameters
+    then stay equal on every data rank. ``grads`` itself without data
+    ranks."""
+    n = rt.dp_size if rt is not None else 1
+    if n == 1:
+        return grads
+    for _, g in iter_leaves(grads):
+        C.all_reduce_(g, rt.dp_axes(), rt.mesh).div_(n)
+    return grads
+
+
 def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
-                    accum_dtype: str = "float32") -> Callable:
+                    accum_dtype: str = "float32",
+                    rt: Runtime | None = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)`` with state
     ``{"params", "opt"}`` and metrics ``{"loss", "grad_norm", "lr"}``. The
     parameters and moments are updated in place (``optim.apply_updates``);
@@ -31,6 +49,10 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
     ``accum_steps > 1`` splits the batch along dim 0 into microbatches run
     one after another; their grads add into a ``accum_dtype`` accumulator
     and the mean goes to the optimizer, as does the mean loss.
+
+    On a mesh (``rt`` with data ranks, the model built on the same ``rt``)
+    each rank's batch is its own rows; its gradient is averaged over the
+    data ranks (``sync_grads``) before AdamW.
 
     A runtime trip of the step's kernels (``faults.raise_pending``) raises
     before the optimizer writes anything: the params, the moments and the
@@ -63,6 +85,7 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
             for _, acc in iter_leaves(grads):
                 acc.div_(accum_steps)
         faults.raise_pending(loss.device)
+        grads = sync_grads(grads, rt)
         new_p, new_opt, info = apply_updates(params, grads, state["opt"],
                                              opt_cfg)
         return {"params": new_p, "opt": new_opt}, {"loss": loss, **info}

@@ -10,9 +10,37 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, iter_leaves, map_tree
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import ParamDef, Runtime, iter_leaves, map_tree
 from repro_torch.optim.compress import quantize_int8
 from repro_torch.quant.qconv import QuantizedWeight
+
+
+def global_mean(tot: torch.Tensor, cnt: torch.Tensor,
+                rt: Runtime | None) -> torch.Tensor:
+    """``tot / cnt`` over the whole batch. With data ranks (``rt.dp_size >
+    1``) the sum and the count are all-reduced over ``rt.dp_axes()``: the
+    mean of the shards' means would weigh a shard of fewer labels as much
+    as one of more. The value is the global mean on every rank; its
+    gradient is this rank's share times the data group's size, so the
+    ranks' gradients averaged (``launch.steps``) are the global mean's."""
+    n = rt.dp_size if rt is not None else 1
+    if n == 1:
+        return tot / torch.clamp(cnt, min=1.0)
+    axes, mesh = rt.dp_axes(), rt.mesh
+    tot_all = C.psum(tot.detach(), axes, mesh)
+    cnt_all = C.psum(cnt.detach(), axes, mesh)
+    return (tot_all + n * (tot - tot.detach())) / torch.clamp(cnt_all, min=1.0)
+
+
+def data_mean(x: torch.Tensor, rt: Runtime | None) -> torch.Tensor:
+    """``x`` averaged over the data ranks (the MoE aux under data
+    parallelism), its gradient this rank's own: averaged with the others'
+    (``launch.steps``), the mean's."""
+    n = rt.dp_size if rt is not None else 1
+    if n == 1:
+        return x
+    return x + (C.pmean(x.detach(), rt.dp_axes(), rt.mesh) - x.detach())
 
 
 def stack_defs(defs: Any, n: int) -> Any:

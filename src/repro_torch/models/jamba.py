@@ -34,11 +34,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, init_params, torch_dtype
+from repro_torch.distributed.sharding import (
+    ParamDef, Runtime, init_params, torch_dtype,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
-    kv_scale_defs, layer, stack_defs, strip_kv_prefix, unstack,
+    data_mean, global_mean, kv_scale_defs, layer, stack_defs, strip_kv_prefix,
+    unstack,
 )
 from repro_torch.models.mamba import mamba_apply, mamba_defs, mamba_state_defs
 
@@ -56,11 +59,12 @@ def _stack(items: list) -> Any:
 
 
 class Jamba:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rt: Runtime | None = None):
         if not (cfg.attn_every > 0 and cfg.num_layers % cfg.attn_every == 0):
             raise ValueError(f"num_layers {cfg.num_layers} is not a multiple "
                              f"of attn_every {cfg.attn_every}")
         self.cfg = cfg
+        self.rt = rt or Runtime()
         self.period = cfg.attn_every
         self.n_periods = cfg.num_layers // cfg.attn_every
 
@@ -91,8 +95,10 @@ class Jamba:
         }
 
     def init(self, gen: torch.Generator):
-        """Random parameters from ``gen``, on ``gen``'s device."""
-        return init_params(self.param_defs(), gen, self.cfg.param_dtype)
+        """Random parameters from ``gen``, on ``gen``'s device (this rank's
+        blocks on a mesh)."""
+        return init_params(self.param_defs(), gen, self.cfg.param_dtype,
+                           self.rt)
 
     # -- training -----------------------------------------------------------------
     def _pos_block(self, x, aux, lp, pos: int):
@@ -107,7 +113,7 @@ class Jamba:
             x = x + mamba_apply(lp["mamba"], h, cfg)[0]
         h = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         if "moe" in lp:
-            y, a = moe_lib.moe_apply(lp["moe"], h, cfg)
+            y, a = moe_lib.moe_apply(lp["moe"], h, cfg, self.rt)
             aux = aux + a
         else:
             y = L.mlp_apply(lp["mlp"], h, cfg)
@@ -135,8 +141,9 @@ class Jamba:
         cfg = self.cfg
         x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
         h, aux = self.hidden(params, x)
-        ce = L.chunked_ce_loss(params["embed"], h, batch["labels"], cfg)
-        return ce + 0.01 * aux / max(cfg.num_layers, 1)
+        ce = global_mean(*L.chunked_ce_sums(params["embed"], h,
+                                            batch["labels"], cfg), self.rt)
+        return ce + 0.01 * data_mean(aux, self.rt) / max(cfg.num_layers, 1)
 
     # -- serving ------------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):
@@ -157,7 +164,7 @@ class Jamba:
 
     def _ffn(self, lp, h):
         if "moe" in lp:
-            return moe_lib.moe_apply(lp["moe"], h, self.cfg)[0]
+            return moe_lib.moe_apply(lp["moe"], h, self.cfg, self.rt)[0]
         return L.mlp_apply(lp["mlp"], h, self.cfg)
 
     def prefill(self, params, batch, *, record: list | None = None):

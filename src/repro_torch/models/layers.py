@@ -519,13 +519,14 @@ def _ce_chunk(p_embed, hb: torch.Tensor, yb: torch.Tensor, cfg: ModelConfig):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
-def chunked_ce_loss(p_embed, h: torch.Tensor, labels: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token CE over sequence chunks of ``cfg.loss_chunk``. Each
-    chunk runs under ``torch.utils.checkpoint``, so its (B, c, V) logits
-    are recomputed in backward and the logits of all chunks never exist at
-    once. h: (B, L, D); labels: (B, L), -1 masked. As in the reference,
-    rows past the last whole chunk are dropped."""
+def chunked_ce_sums(p_embed, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(summed next-token CE, count of labels that are not -1) over sequence
+    chunks of ``cfg.loss_chunk``. Each chunk runs under
+    ``torch.utils.checkpoint``, so its (B, c, V) logits are recomputed in
+    backward and the logits of all chunks never exist at once. h: (B, L,
+    D); labels: (B, L), -1 masked. As in the reference, rows past the last
+    whole chunk are dropped."""
     L = h.shape[1]
     c = min(cfg.loss_chunk, L)
     tot = torch.zeros((), device=h.device)
@@ -538,4 +539,11 @@ def chunked_ce_loss(p_embed, h: torch.Tensor, labels: torch.Tensor,
         else:
             t, n = _ce_chunk(p_embed, hb, yb, cfg)
         tot, cnt = tot + t, cnt + n
+    return tot, cnt
+
+
+def chunked_ce_loss(p_embed, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token CE (``chunked_ce_sums``' sum over its count)."""
+    tot, cnt = chunked_ce_sums(p_embed, h, labels, cfg)
     return tot / torch.clamp(cnt, min=1.0)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import Runtime
 from repro_torch.models.layers import conv2d_bias_act
 from repro_torch.models.transformer import VISION_DIM, DenseLM
 
@@ -47,8 +48,8 @@ class Llava(DenseLM):
     """DenseLM already understands the ``patches`` batch key and the
     projector."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rt: Runtime | None = None):
         if cfg.frontend != "vision_stub":
             raise ValueError(f"llava needs frontend 'vision_stub', got "
                              f"{cfg.frontend!r}")
-        super().__init__(cfg)
+        super().__init__(cfg, rt)

@@ -1,16 +1,23 @@
-"""Mixture-of-Experts FFN, on one device (``repro.models.moe`` without a
-mesh).
+"""Mixture-of-Experts FFN with expert parallelism (``repro.models.moe``).
 
 Top-k routing with renormalised gates, a capacity-bounded dispatch of each
 token's k copies into per-expert buffers, the gated expert FFN on every
 buffer as one batched product, and the gate-weighted combine. The
-arithmetic is the reference's no-mesh path: the same top-k, the same
-capacity ``int(max(1, T·K/E · capacity_factor))``, the same cumulative
-count in token order, so the same tokens drop; tokens are dispatched in
-groups of ``TOKEN_GROUP`` when there are whole groups of them.
+arithmetic is the reference's: the same top-k, the same capacity
+``int(max(1, T·K/E · capacity_factor))``, the same cumulative count in
+token order, so the same tokens drop; tokens are dispatched in groups of
+``TOKEN_GROUP`` when there are whole groups of them.
 
-Not ported yet: the expert-parallel path over a mesh (the reference's
-``shard_map`` branch with its psum over the model axis).
+Expert parallelism (``rt`` on a mesh whose ``model`` axis divides the
+experts): each rank holds its block of ``E / n_model`` experts (the
+``experts`` axis of ``rt.placement``) and all of its data rank's tokens.
+It routes every token, dispatches the copies that go to its own experts
+(expert ids offset by its coordinate times the block), keeps the global
+capacity (T the local token count), and the ranks' partial outputs are
+summed over the model axis (``psum``), the aux averaged (``pmean``), as
+the reference's ``shard_map`` branch does. The collectives are the
+differentiable ones of ``distributed.collectives``: the tokens and the
+router enter with a gradient summed over the ranks.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import ParamDef, Runtime, mesh_axes
 from repro_torch.models.layers import act_fn
 
 TOKEN_GROUP = 8192  # tokens dispatched per group (capacity per group)
@@ -55,52 +63,92 @@ def _expert_ffn(buf: torch.Tensor, wg, wu, wd, activation: str) -> torch.Tensor:
     return torch.bmm(act_fn(activation)(g) * u, wd.to(dt))
 
 
-def _ep_group(xt, router, wg, wu, wd, *, cfg: ModelConfig):
-    """One token group: (T, D) -> (out (T, D), aux)."""
+def _ep_group(xt, router, wg, wu, wd, *, cfg: ModelConfig, n_model: int = 1,
+              base: int = 0, psum_axes: tuple = (), mesh=None):
+    """One token group: (T, D) -> (out (T, D), aux). ``wg``/``wu``/``wd``
+    hold experts ``base .. base + E_loc`` of ``E_loc · n_model``; the
+    partial output is summed and the aux averaged over ``psum_axes``."""
     T, D = xt.shape
-    E = wg.shape[0]
+    E_loc = wg.shape[0]
     K = cfg.experts_per_token
+    E = E_loc * n_model
     gates, ids, aux = _route(xt, router, K)
     cap = int(max(1, (T * K / E) * cfg.capacity_factor))
-    flat_ids = ids.reshape(T * K)
     flat_gates = gates.reshape(T * K)
-    onehot = F.one_hot(flat_ids, E).to(torch.int32)
+    lid = ids.reshape(T * K)
+    if n_model > 1:
+        # other ranks' experts count in a spare column E_loc and drop
+        lid = torch.where((lid >= base) & (lid < base + E_loc), lid - base,
+                          E_loc)
+    onehot = F.one_hot(lid, E_loc + (n_model > 1)).to(torch.int32)
     pos = torch.cumsum(onehot, dim=0) - onehot  # place BEFORE this entry
-    pos_in_e = torch.gather(pos, 1, flat_ids[:, None])[:, 0]
+    pos_in_e = torch.gather(pos, 1, lid[:, None])[:, 0]
     keep = pos_in_e < cap
-    slot = torch.where(keep, flat_ids * cap + pos_in_e,
-                       torch.full_like(flat_ids, E * cap))  # E*cap: dropped
-    # dispatch: each token's K copies into (E*cap, D), dropped ones into a
-    # spare last row
+    if n_model > 1:
+        keep &= lid < E_loc
+    slot = torch.where(keep, lid * cap + pos_in_e,
+                       torch.full_like(lid, E_loc * cap))  # E_loc*cap: dropped
+    # dispatch: each token's K copies into (E_loc*cap, D), dropped ones and
+    # other ranks' into a spare last row
     xt_rep = xt[:, None].expand(T, K, D).reshape(T * K, D)
-    buf = torch.zeros((E * cap + 1, D), dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros((E_loc * cap + 1, D), dtype=xt.dtype, device=xt.device)
     buf[slot] = xt_rep
-    buf = buf[:-1].reshape(E, cap, D)
-    out_buf = _expert_ffn(buf, wg, wu, wd, cfg.activation).reshape(E * cap, D)
+    buf = buf[:-1].reshape(E_loc, cap, D)
+    out_buf = _expert_ffn(buf, wg, wu, wd, cfg.activation).reshape(E_loc * cap, D)
     # combine: the kept copies' outputs, gate-weighted, summed over K
-    vals = torch.where(keep[:, None], out_buf[torch.clamp(slot, max=E * cap - 1)],
+    vals = torch.where(keep[:, None],
+                       out_buf[torch.clamp(slot, max=E_loc * cap - 1)],
                        torch.zeros((), dtype=xt.dtype, device=xt.device))
     vals = vals * flat_gates[:, None].to(xt.dtype)
-    return vals.reshape(T, K, D).sum(dim=1).to(xt.dtype), aux
+    out = vals.reshape(T, K, D).sum(dim=1).to(xt.dtype)
+    if psum_axes:
+        out = C.reduce_out(out, psum_axes, mesh)
+        aux = C.mean_out(aux, psum_axes, mesh)
+    return out, aux
 
 
-def _ep_local(xt, router, wg, wu, wd, *, cfg: ModelConfig):
+def _ep_local(xt, router, wg, wu, wd, **kw):
     """Tokens in groups of ``TOKEN_GROUP`` (capacity enforced per group)
     when there are whole groups of them, else as one group."""
     T, D = xt.shape
     if T > TOKEN_GROUP and T % TOKEN_GROUP == 0:
         outs, aux_sum = [], torch.zeros((), device=xt.device)
         for xg in xt.split(TOKEN_GROUP):
-            out, aux = _ep_group(xg, router, wg, wu, wd, cfg=cfg)
+            out, aux = _ep_group(xg, router, wg, wu, wd, **kw)
             outs.append(out)
             aux_sum = aux_sum + aux
         return torch.cat(outs), aux_sum / (T // TOKEN_GROUP)
-    return _ep_group(xt, router, wg, wu, wd, cfg=cfg)
+    return _ep_group(xt, router, wg, wu, wd, **kw)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, L, D) -> (out (B, L, D), aux loss)."""
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime | None = None):
+    """x: (B, L, D) -> (out (B, L, D), aux loss). On a mesh (``rt``) whose
+    expert axis divides the experts, ``p``'s expert leaves are this rank's
+    block and ``x`` this data rank's rows."""
     B, L, D = x.shape
-    out, aux = _ep_local(x.reshape(B * L, D), p["router"], p["wg"], p["wu"],
-                         p["wd"], cfg=cfg)
+    model_ax = rt.axis_for("experts", cfg.num_experts) if rt else None
+    if rt is None or rt.mesh is None or model_ax is None:
+        out, aux = _ep_local(x.reshape(B * L, D), p["router"], p["wg"],
+                             p["wu"], p["wd"], cfg=cfg)
+        return out.reshape(B, L, D), aux
+    n_model = rt.axis_size("experts")
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    wg_spec = rt.pspec(("experts", "embed_act", "mlp"), (e, d, f))
+    psum_axes = tuple(dict.fromkeys(mesh_axes(wg_spec[0])
+                                    + mesh_axes(wg_spec[2])))
+    if psum_axes != mesh_axes(wg_spec[0]):
+        raise NotImplementedError(
+            f"expert F split over {wg_spec[2]!r}: the port holds each "
+            f"expert's F whole (Megatron placements are not ported)")
+    if p["wg"].shape[0] * n_model != e:
+        raise ValueError(f"expert leaf of {p['wg'].shape[0]} experts: this "
+                         f"rank's block is {e // n_model} (rt.local, "
+                         f"init_params(rt=...))")
+    mesh = rt.mesh
+    xt = C.copy_in(x.reshape(B * L, D), psum_axes, mesh)
+    router = C.copy_in(p["router"], psum_axes, mesh)
+    out, aux = _ep_local(xt, router, p["wg"], p["wu"], p["wd"], cfg=cfg,
+                         n_model=n_model,
+                         base=rt.index(wg_spec[0]) * p["wg"].shape[0],
+                         psum_axes=psum_axes, mesh=mesh)
     return out.reshape(B, L, D), aux

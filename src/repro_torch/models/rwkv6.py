@@ -30,9 +30,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, init_params
+from repro_torch.distributed.sharding import ParamDef, Runtime, init_params
 from repro_torch.models import layers as L
-from repro_torch.models.common import layer, scan_blocks, stack_defs
+from repro_torch.models.common import (
+    global_mean, layer, scan_blocks, stack_defs,
+)
 
 LORA_R = 32  # ddlerp LoRA rank
 DECAY_R = 64  # decay LoRA rank
@@ -212,8 +214,10 @@ def channel_mix(lp, x: torch.Tensor, cfg: ModelConfig, x_prev=None):
 
 
 class RWKV6:
-    def __init__(self, cfg: ModelConfig, wkv_mode: str = "scan"):
+    def __init__(self, cfg: ModelConfig, rt: Runtime | None = None,
+                 wkv_mode: str = "scan"):
         self.cfg = cfg
+        self.rt = rt or Runtime()
         self.wkv_mode = wkv_mode
 
     def param_defs(self) -> dict[str, Any]:
@@ -226,7 +230,8 @@ class RWKV6:
 
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen``, on ``gen``'s device."""
-        return init_params(self.param_defs(), gen, self.cfg.param_dtype)
+        return init_params(self.param_defs(), gen, self.cfg.param_dtype,
+                           self.rt)
 
     def _state0(self, x: torch.Tensor) -> torch.Tensor:
         K = self.cfg.rwkv_head_dim
@@ -247,15 +252,17 @@ class RWKV6:
         return self._layer(x, lp)[0]
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token CE of ``batch["labels"]`` (-1 masked). Each block
-        runs under ``torch.utils.checkpoint`` when ``cfg.remat`` is not
-        "none" and grad is enabled."""
+        """Mean next-token CE of ``batch["labels"]`` (-1 masked), over the
+        whole batch with data ranks. Each block runs under
+        ``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" and grad
+        is enabled."""
         cfg = self.cfg
         x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
         x = scan_blocks(x, params["blocks"], self._block,
                         remat=cfg.remat != "none")
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return L.chunked_ce_loss(params["embed"], x, batch["labels"], cfg)
+        return global_mean(*L.chunked_ce_sums(params["embed"], x,
+                                              batch["labels"], cfg), self.rt)
 
     # -- serving ------------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):

@@ -5,6 +5,9 @@ Pre-norm blocks, grouped-query attention with rotary embeddings (optional
 qk_norm), a gated FFN (SwiGLU / GeGLU) or the single-device MoE FFN,
 parameters stacked per layer (the reference's pytree: same paths and
 shapes) and the layers run as a loop, the loss chunked over the sequence.
+On a mesh (``rt``) each rank runs its data rank's rows, the MoE FFN is
+expert-parallel over the model axis, and the loss is the global mean
+over the data ranks (``common.global_mean``).
 A ``vision_stub`` model (llava) has a 2-layer projector that maps
 precomputed patch embeddings into the embedding space; they go ahead of
 the text as a prefix.
@@ -22,11 +25,14 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, init_params, torch_dtype
+from repro_torch.distributed.sharding import (
+    ParamDef, Runtime, init_params, torch_dtype,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
-    kv_cache_defs, layer, scan_blocks, stack_defs, unstack,
+    data_mean, global_mean, kv_cache_defs, layer, scan_blocks, stack_defs,
+    unstack,
 )
 from repro_torch.quant import calibrate
 
@@ -54,8 +60,9 @@ def projector_apply(pj, patches: torch.Tensor, *, dtype=None, x_scale=None,
 
 
 class DenseLM:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rt: Runtime | None = None):
         self.cfg = cfg
+        self.rt = rt or Runtime()
 
     # -- parameters ---------------------------------------------------------------
     def block_defs(self) -> dict[str, Any]:
@@ -89,14 +96,16 @@ class DenseLM:
         return defs
 
     def init(self, gen: torch.Generator):
-        """Random parameters from ``gen``, on ``gen``'s device."""
-        return init_params(self.param_defs(), gen, self.cfg.param_dtype)
+        """Random parameters from ``gen``, on ``gen``'s device (this rank's
+        blocks on a mesh)."""
+        return init_params(self.param_defs(), gen, self.cfg.param_dtype,
+                           self.rt)
 
     # -- blocks ---------------------------------------------------------------------
     def _ffn(self, lp, h):
         """The block's FFN: (output, MoE load-balancing aux or 0)."""
         if self.cfg.num_experts:
-            return moe_lib.moe_apply(lp["moe"], h, self.cfg)
+            return moe_lib.moe_apply(lp["moe"], h, self.cfg, self.rt)
         return L.mlp_apply(lp["mlp"], h, self.cfg), 0.0
 
     def _attend(self, lp, h):
@@ -138,7 +147,9 @@ class DenseLM:
     # -- training ---------------------------------------------------------------------
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE of ``batch["labels"]`` (-1 masked) plus
-        ``0.01 · aux / num_layers``; patch positions carry no loss."""
+        ``0.01 · aux / num_layers``; patch positions carry no loss. With data
+        ranks, the CE is the whole batch's mean and the aux the data ranks'
+        mean."""
         cfg = self.cfg
         h, aux = self.hidden(params, self.embeds_for(params, batch))
         labels = batch["labels"]
@@ -146,8 +157,9 @@ class DenseLM:
             pad = torch.full((labels.shape[0], h.shape[1] - labels.shape[1]),
                              -1, dtype=labels.dtype, device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
-        ce = L.chunked_ce_loss(params["embed"], h, labels, cfg)
-        return ce + 0.01 * aux / max(cfg.num_layers, 1)
+        ce = global_mean(*L.chunked_ce_sums(params["embed"], h, labels, cfg),
+                         self.rt)
+        return ce + 0.01 * data_mean(aux, self.rt) / max(cfg.num_layers, 1)
 
     # -- serving -----------------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):

@@ -21,7 +21,8 @@ and hands conv2 int8 codes (no float tensor between the two). With
 
 Parameters are the reference's pytree (same paths and shapes), as nested
 dicts of tensors with a leading layer dim on the encoder and decoder
-stacks.
+stacks. On a mesh (``rt``) each rank runs its data rank's rows with every
+leaf whole, and the loss is the whole batch's mean.
 """
 from __future__ import annotations
 
@@ -30,10 +31,12 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, init_params, torch_dtype
+from repro_torch.distributed.sharding import (
+    ParamDef, Runtime, init_params, torch_dtype,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
-    kv_cache_defs, kv_scale_defs, layer, scan_blocks, stack_defs,
+    global_mean, kv_cache_defs, kv_scale_defs, layer, scan_blocks, stack_defs,
 )
 
 N_MELS = 80
@@ -65,8 +68,9 @@ def conv_frontend(p, mels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 class Whisper:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rt: Runtime | None = None):
         self.cfg = cfg
+        self.rt = rt or Runtime()
 
     # -- parameters -----------------------------------------------------------
     def _enc_block_defs(self):
@@ -102,7 +106,8 @@ class Whisper:
 
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen``, on ``gen``'s device."""
-        return init_params(self.param_defs(), gen, self.cfg.param_dtype)
+        return init_params(self.param_defs(), gen, self.cfg.param_dtype,
+                           self.rt)
 
     # -- encoder --------------------------------------------------------------
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -138,7 +143,8 @@ class Whisper:
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE of ``batch["labels"]`` (-1 masked) given
         ``batch["frames"]`` (mels or frame embeddings) and
-        ``batch["tokens"]``: a float32 scalar."""
+        ``batch["tokens"]``: a float32 scalar, over the whole batch with
+        data ranks (``common.global_mean``)."""
         cfg = self.cfg
         enc_out = self.encode(params, batch["frames"])
         x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
@@ -147,7 +153,8 @@ class Whisper:
                         functools.partial(self._dec_block, enc_out=enc_out),
                         remat=cfg.remat != "none")
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return L.chunked_ce_loss(params["embed"], x, batch["labels"], cfg)
+        return global_mean(*L.chunked_ce_sums(params["embed"], x,
+                                              batch["labels"], cfg), self.rt)
 
     # -- serving ----------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):

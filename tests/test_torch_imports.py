@@ -139,3 +139,20 @@ def test_analysis_slice_modules_are_checked():
                 "analysis/contracts.py", "analysis/costmodel.py",
                 "analysis/ranges.py", "analysis/lint.py", "analysis/bloat.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_mesh_slice_modules_are_checked():
+    """The mesh runtime's modules are among the files checked above: the
+    rules and Runtime, the mesh and its launcher, the collectives, the
+    error-feedback all-reduce, the expert-parallel MoE, the models that
+    take a Runtime, the synced step, the elastic checkpoints, the pipeline
+    and the bridge's rank block."""
+    checked = set(_port_files())
+    for rel in ("distributed/sharding.py", "launch/mesh.py",
+                "distributed/collectives.py", "optim/compress.py",
+                "models/moe.py", "models/__init__.py",
+                "models/transformer.py", "models/whisper.py",
+                "models/common.py", "launch/steps.py",
+                "checkpoint/manager.py", "distributed/pipeline.py",
+                "bridge.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
