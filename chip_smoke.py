@@ -538,10 +538,11 @@ def _kernel_us(e) -> float:
     return t if t is not None else e.self_cuda_time_total
 
 
-# the timing-only phases 32 and 39 at half their repeats (card_ms's 20
+# the timing-only phases 32 and 39 (PR 34), 27's conv2d timings and 40 (PR
+# 35, beside the larger mesh phase) at half their repeats (card_ms's 20
 # batches, and phase 39's 10), so that chip_smoke.py with the mesh phase
 # stays inside its time limit on a slow host (PERF.md §6)
-HALF_BATCHES = dict(p32=10, p39=5)
+HALF_BATCHES = dict(p27=10, p32=10, p39=5, p40=10)
 
 
 def timings(kernel, plain, library, batches: int = 20) -> dict:
@@ -3076,7 +3077,7 @@ def conv2d_times(s2, s, dtype, act, with_bias, seed, n_sets) -> dict:
             x, w, b, stride=st, activation=act), sets),
         cycling(lambda x, w, b, *_: s2.conv2d_sliding_plain(
             x, w, b, stride=st, activation=act), sets),
-        cycling(library, sets)),
+        cycling(library, sets), HALF_BATCHES["p27"]),
         bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops)
     log(f"time conv2d {s} {dtype} {act} bias={with_bias}: {json.dumps(t)}")
     return t
@@ -5541,7 +5542,7 @@ def phase_attention_f32_times(ad) -> dict:
         out[name] = dict(timings(
             cycling(lambda *a: ad.decode_attention(*a[:-1]), sets),
             cycling(lambda *a: ad.attention_decode_plain(*a[:-1]), sets),
-            cycling(library, sets)),
+            cycling(library, sets), HALF_BATCHES["p40"]),
             bound_ms=bms, bound_by=by, bytes=nbytes, ops=a_ops,
             max_abs_err=err,
             per=f"launch: B={B} S={S} KV={KV} G={G} D={D}, f32 q, f32 "
@@ -6953,45 +6954,78 @@ def phase_examples() -> dict:
 # -- 53: the mesh runtime ------------------------------------------------------------
 
 # qwen3-moe-30b-a3b at full width, 4 of its 48 layers, float32 params and
-# compute, on (data 2, model 2): each rank 64 of the 128 experts; the
-# phase-45 prompts, two rows a data rank, one prefill and 8 greedy steps
+# compute, on (data 2, model 2): tensor-parallel in attention and the
+# vocabulary, each rank 64 of the 128 experts; the phase-45 prompts, two
+# rows a data rank, one prefill and 8 greedy steps
 MESH_MOE_CUT = dict(num_layers=4, param_dtype="float32",
                     compute_dtype="float32", attn_decode="fused")
 MESH_MOE_GEN = 9
+# its blocks a rank: 6.232 GB of the 12.459 GB whole (the expert-parallel
+# slice alone held 7.63 GB a rank)
+MESH_MOE_RANK_GB = 7.63
 # whisper-medium at full width and depth, float32 (the step is held to the
 # one-rank step at 1e-4, which bf16's rounding of a different batch split
 # would exceed), phase 9's batch split two rows a rank on (data 2)
 MESH_TRAIN = dict(B=4, seq=512)
 # the pipeline on those two ranks: two stages of one d x d tanh layer each
 MESH_PIPE = dict(d=1024, M=4, mb=64)
-MESH_LOGIT_REL = 1e-5  # the psum reorders the K-term sum of the experts
+# qwen3-1.7b whole (28 layers, 1,720,574,976 params), float32: served on
+# (model 2), the phase-45 prompts and 9 greedy tokens; one AdamW step of B
+# 4 x 256 on (data 2, model 2) under FSDP_RULES
+MESH_QWEN = "qwen3-1.7b"
+MESH_QWEN_CUT = dict(param_dtype="float32", compute_dtype="float32",
+                     attn_decode="fused")
+MESH_QWEN_PARAMS = 1_720_574_976
+MESH_QWEN_TRAIN = dict(B=4, seq=256)
+# jamba-1.5-large one period without experts (8,999,034,880 params),
+# float32, served on (model 2): row 3 at 8,192 of 16,384 channels a rank
+MESH_JAMBA_CUT = dict(JAMBA_CUT, param_dtype="float32",
+                      compute_dtype="float32", conv_backend="sliding_pallas",
+                      attn_decode="fused")
+# AdamW at an eps above the clipped gradients' scale: the first step's
+# update is continuous in the gradient (at 1e-8 it is lr * sign(g), which a
+# last-bit difference of a near-zero element flips), so the stepped params
+# can be held to the one-rank step's
+MESH_OPT = dict(total_steps=2, warmup_steps=1, eps=1e-3)
+MESH_LOGIT_REL = 1e-5  # the psums reorder a product's sum over the ranks
 MESH_TIE_REL = 2e-5  # a greedy pick that differs must be a near tie
 MESH_GRAD_REL = 1e-4
+# (e): the first mamba layer's states, whose inputs every rank holds bit for
+# bit, within 1e-5; each later layer adds 3-4e-6 as the psums' reordered
+# sums (x_proj, out_proj, the MLP's wd) reach it, 3.4e-05 at the seventh
+# and in the logits (scripts/jamba_tp_noise.py), so those within 1e-4
+MESH_STATE_REL = 1e-5
+MESH_JAMBA_REL = 1e-4
 MESH_EF_REL = 0.05  # the reference test's bound
 MESH_PIPE_TOL = 1e-5
-MESH_TIMEOUT_S = 300.0
+MESH_TIMEOUT_S = 420.0
 
 
-def _recording(fn, out: list):
+def _recording(fn, out: list, states: list | None = None):
     """``fn`` whose returned logits (first of its outputs) are kept, the
-    last position's, in float32 on the host."""
+    last position's, in float32 on the host; with ``states``, the mamba
+    states of the cache it returns (a prefill's) too."""
     def rec(*args, **kwargs):
         res = fn(*args, **kwargs)
         out.append(res[0][:, -1].float().cpu())
+        if states is not None:
+            states.append({k: {n: t.float().cpu() for n, t in v.items()}
+                           for k, v in res[1].items() if k.startswith("mamba")})
         return res
     return rec
 
 
-def _mesh_serve(serve, model, params, prompts, gen):
+def _mesh_serve(serve, model, params, prompts, gen, states=None):
     """One greedy request through ``serve.generate`` (after a 2-token
-    warm-up) with the prefill's and every decode step's logits recorded:
-    (tokens, logits list, stats, launches, peak GB)."""
+    warm-up) with the prefill's and every decode step's logits recorded
+    (and the prefill's mamba states into ``states``): (tokens, logits
+    list, stats, launches, peak GB)."""
     cfg = model.cfg
     B, P = prompts.shape
     cache_len = serve.resolve_cache_len(cfg, P + gen, P, gen)
     serve.generate(model, params, prompts, gen_len=2, cache_len=cache_len)
     logits: list = []
-    model.prefill = _recording(model.prefill, logits)
+    model.prefill = _recording(model.prefill, logits, states)
     model.decode_step = _recording(model.decode_step, logits)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7006,29 +7040,204 @@ def _mesh_serve(serve, model, params, prompts, gen):
             torch.cuda.max_memory_allocated() / 1e9)
 
 
-def _mesh_moe_rank(mesh, prompts, over, gen):
-    """A rank of (a): its block of the one-rank draw (``init_params`` with
-    ``rt``), rescaled as phase 45 rescales, its data rank's two rows."""
+def flat_states(states: dict) -> dict:
+    """A prefill's mamba states ({layer: {conv, ssm}}) as ``layer/conv``,
+    ``layer/ssm`` numpy arrays."""
+    return {f"{k}/{n}": t.numpy() for k, v in states.items()
+            for n, t in v.items()}
+
+
+def state_block(whole: np.ndarray, key: str, m: int, got: np.ndarray):
+    """Model rank ``m``'s channel block of a whole mamba state leaf
+    (``.../conv``: channels last; ``.../ssm``: channels before the state
+    dim), the shape of ``got``."""
+    if key.endswith("conv"):
+        c = got.shape[-1]
+        return whole[..., m * c:(m + 1) * c]
+    c = got.shape[-2]
+    return whole[..., m * c:(m + 1) * c, :]
+
+
+def state_errs(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    """(max |diff| over max |want|, ||diff|| over ||want||), in float64."""
+    d = got.astype(np.float64) - want
+    return (float(np.abs(d).max() / np.abs(want).max()),
+            float(np.linalg.norm(d) / np.linalg.norm(want)))
+
+
+def _params_gb(params, iter_leaves) -> float:
+    return sum(t.numel() * t.element_size() for _, t in iter_leaves(params)) / 1e9
+
+
+def _serve_rank(mesh, arch, over, rows, gen, keep_states=False):
+    """A rank's request: its blocks of the one-rank draw (``init_params``
+    with ``rt``), rescaled as phase 45 rescales, its rows; with
+    ``keep_states`` the prefill's mamba states (``layer/conv``,
+    ``layer/ssm``: this rank's channels) on the host."""
     import repro_torch
     from repro_torch import configs, models
+    from repro_torch.distributed import collectives as C
     from repro_torch.distributed.sharding import Runtime, iter_leaves
     from repro_torch.launch import serve
 
     dev = repro_torch.resolve_device(DEV)
     rt = Runtime(mesh)
-    model = models.build_model(configs.get_config(MOE).replace(**over), rt)
+    model = models.build_model(configs.get_config(arch).replace(**over), rt)
     with torch.no_grad():
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         rescale_fan_in(params, model.param_defs(), iter_leaves)
+    copies0 = dict(C.HOST_COPIES)
+    t0 = time.perf_counter()
+    states = [] if keep_states else None
+    toks, logits, stats, launches, peak = _mesh_serve(
+        serve, model, params, torch.as_tensor(rows, device=dev), gen, states)
+    moe_w = params["blocks"]["moe"]["wg"] if arch == MOE else None
+    out = dict(rank=mesh.rank, coords=dict(mesh.coords), tokens=toks,
+               expert_block=None if moe_w is None else tuple(moe_w.shape),
+               logits=logits, ttft_ms=stats["ttft_s"] * 1e3,
+               decode_step_ms=statistics.median(stats["step_s"]) * 1e3,
+               launches=launches, peak_mem_gb=peak, serve_s=time.perf_counter() - t0,
+               params_gb=_params_gb(params, iter_leaves),
+               host_copies={k: v - copies0.get(k, 0)
+                            for k, v in C.HOST_COPIES.items()})
+    if keep_states:
+        out["states"] = flat_states(states[0])
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_moe_rank(mesh, prompts, over, gen):
+    """A rank of (a): its data rank's two rows."""
     i = mesh.coords["data"]
-    rows = torch.as_tensor(prompts[2 * i:2 * i + 2], device=dev)
-    toks, logits, stats, launches, peak = _mesh_serve(serve, model, params,
-                                                      rows, gen)
-    wg = tuple(params["blocks"]["moe"]["wg"].shape)
-    return dict(rank=mesh.rank, coords=dict(mesh.coords), tokens=toks,
-                logits=logits, ttft_ms=stats["ttft_s"] * 1e3,
-                decode_step_ms=statistics.median(stats["step_s"]) * 1e3,
-                launches=launches, peak_mem_gb=peak, expert_block=wg)
+    out = _serve_rank(mesh, MOE, over, prompts[2 * i:2 * i + 2], gen)
+    return out
+
+
+def _mesh_qwen_train_rank(mesh, over, batch_kw):
+    """A rank of (d)'s step on (data 2, model 2) under FSDP_RULES. Rank 0
+    first runs the one-rank step on the whole batch (the other ranks wait
+    at a barrier) and keeps its gradient and stepped params in host
+    memory; every rank then steps its blocks on its data rank's rows, and
+    each synced gradient leaf (as the step syncs it) and stepped param is
+    gathered whole, one leaf at a time, and held on rank 0."""
+    import repro_torch
+    from repro_torch import configs, models, optim
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.sharding import (
+        FSDP_RULES, Runtime, iter_leaves,
+    )
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+
+    dev = repro_torch.resolve_device(DEV)
+    rt = Runtime(mesh, dict(FSDP_RULES))
+    cfg = configs.get_config(MESH_QWEN).replace(**over)
+    model = models.build_model(cfg, rt)
+    full = train_batches(cfg, batch_kw["B"], batch_kw["seq"], 1, 0, dev,
+                         train)[0]
+    opt_cfg = optim.OptConfig(**MESH_OPT)
+    out = dict(rank=mesh.rank)
+    oracle = None
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        one = models.build_model(cfg)
+        with torch.no_grad():
+            whole = one.init(torch.Generator(device=dev).manual_seed(0))
+            rescale_fan_in(whole, one.param_defs(), iter_leaves)
+        loss1, g1 = steps_mod.loss_and_grads(one, whole, full)
+        grads = {k: g.cpu() for k, g in iter_leaves(g1)}
+        _, _, info = optim.apply_updates(whole, g1, optim.init_opt_state(
+            whole, opt_cfg), opt_cfg)
+        oracle = dict(loss=float(loss1), norm=float(info["grad_norm"]),
+                      grads=grads,
+                      stepped={k: p.cpu() for k, p in iter_leaves(whole)})
+        del one, g1, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(oracle_loss=oracle["loss"], oracle_norm=oracle["norm"])
+    out["oracle_s"] = time.perf_counter() - t0
+    C.barrier(mesh)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    out["params_gb"] = _params_gb(params, iter_leaves)
+    i, half = mesh.coords["data"], batch_kw["B"] // 2
+    batch = {k: v[i * half:(i + 1) * half] for k, v in full.items()}
+    defs = dict(iter_leaves(model.param_defs()))
+
+    def hold(tree, key):
+        """The worst leaf of ``tree`` gathered whole against the oracle's
+        ``key`` leaves (rank 0), as max |diff| over max |oracle|."""
+        worst = 0.0
+        for k, t in iter_leaves(tree):
+            w = rt.gather(t, defs[k])
+            if oracle is not None:
+                ref = oracle[key][k].to(w.device)
+                worst = max(worst, ((w - ref).abs().max()
+                                    / ref.abs().max().clamp(min=1e-30)).item())
+                del ref
+            del w
+        return worst
+
+    real_sync = steps_mod.sync_grads
+
+    def spy(grads, rt_, defs_=None):
+        synced = real_sync(grads, rt_, defs_)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["grad_rel"] = hold(synced, "grads")
+        out["hold_s"] = time.perf_counter() - t1
+        return synced
+
+    state = {"params": params, "opt": optim.init_opt_state(params, opt_cfg)}
+    step = steps_mod.make_train_step(model, opt_cfg, rt=rt)
+    steps_mod.sync_grads = spy
+    copies0 = dict(C.HOST_COPIES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0 - out["hold_s"]
+    finally:
+        steps_mod.sync_grads = real_sync
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["host_copies"] = {k: v - copies0.get(k, 0)
+                          for k, v in C.HOST_COPIES.items()}
+    out["loss"], out["norm"] = float(metrics["loss"]), float(metrics["grad_norm"])
+    t0 = time.perf_counter()
+    out["param_rel"] = hold(state["params"], "stepped")
+    out["hold_s"] += time.perf_counter() - t0
+    del state, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_grid_rank(mesh, prompts, over, gen, qwen_over, qwen_batch):
+    """A rank of (data 2, model 2): (a), then (d)'s FSDP step."""
+    t0 = time.perf_counter()
+    a = _mesh_moe_rank(mesh, prompts, over, gen)
+    a["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = _mesh_qwen_train_rank(mesh, qwen_over, qwen_batch)
+    d["s"] = time.perf_counter() - t0
+    return dict(a=a, d_train=d)
+
+
+def _mesh_model_rank(mesh, prompts_q, qwen_over, gen, prompts_j, jamba_over):
+    """A rank of (model 2): (d)'s request, then (e)'s with the prefill's
+    mamba states kept."""
+    t0 = time.perf_counter()
+    d = _serve_rank(mesh, MESH_QWEN, qwen_over, prompts_q, gen)
+    d["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e = _serve_rank(mesh, JAMBA, jamba_over, prompts_j, gen, keep_states=True)
+    e["s"] = time.perf_counter() - t0
+    return dict(d_serve=d, e=e)
 
 
 def rescale_whisper(params, defs, iter_leaves) -> None:
@@ -7039,20 +7248,25 @@ def rescale_whisper(params, defs, iter_leaves) -> None:
     frontend's outputs reach 900, and on an H100 the encoder turns the
     last bits of a batch-shaped matrix product into 1e-3 of its output, so
     a step on four rows and two steps on two rows each part by 1e-3 in
-    loss (PERF.md §6)."""
+    loss (PERF.md §6). The leaves may be a rank's blocks: the scale is the
+    whole leaf's (``defs``)."""
     rescale_fan_in(params, defs, iter_leaves, stacks=("encoder", "decoder"))
+    want = dict(iter_leaves(defs))
     for name in ("conv1_w", "conv2_w"):
         w = params["frontend"][name]
-        w.div_(w.shape[1] ** 0.5)
+        w.div_(want[f"frontend/{name}"].shape[1] ** 0.5)
 
 
 def _mesh_train_rank(mesh, over, batch_kw, pipe):
-    """A rank of (b) and (c) on (data 2)."""
+    """A rank of (b) and (c) on (data 2): the replicated step, the same
+    step under FSDP_RULES, the error-feedback all-reduce, the pipeline."""
     import repro_torch
     from repro_torch import configs, models, optim
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed.pipeline import pipeline_apply
-    from repro_torch.distributed.sharding import Runtime, iter_leaves, map_tree
+    from repro_torch.distributed.sharding import (
+        FSDP_RULES, Runtime, iter_leaves, map_tree,
+    )
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
@@ -7060,11 +7274,22 @@ def _mesh_train_rank(mesh, over, batch_kw, pipe):
 
     dev = repro_torch.resolve_device(DEV)
     rt = Runtime(mesh)
+    rt_f = Runtime(mesh, dict(FSDP_RULES))
     cfg = configs.get_config("whisper-medium").replace(**over)
     model, one = models.build_model(cfg, rt), models.build_model(cfg)
+    model_f = models.build_model(cfg, rt_f)
+    defs_f = dict(iter_leaves(model_f.param_defs()))
     with torch.no_grad():
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         rescale_whisper(params, model.param_defs(), iter_leaves)
+        # FSDP's blocks of the same weights, before (b) steps them in place
+        params_f = {}
+        for k, t in iter_leaves(params):
+            node = params_f
+            *parents, name = k.split("/")
+            for q in parents:
+                node = node.setdefault(q, {})
+            node[name] = rt_f.local(t, defs_f[k]).clone()
     full = train_batches(cfg, batch_kw["B"], batch_kw["seq"], 1, 0, dev,
                          train)[0]
     i, half = mesh.coords["data"], batch_kw["B"] // 2
@@ -7078,11 +7303,11 @@ def _mesh_train_rank(mesh, over, batch_kw, pipe):
     kept = {}
     real_sync = steps_mod.sync_grads
 
-    def spy(grads, rt_):
+    def spy(grads, rt_, defs=None):
         kept["local"] = map_tree(torch.clone, grads)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        synced = real_sync(grads, rt_)
+        synced = real_sync(grads, rt_, defs)
         torch.cuda.synchronize()
         kept["sync_s"] = time.perf_counter() - t0
         kept["synced"] = map_tree(torch.clone, synced)
@@ -7110,11 +7335,51 @@ def _mesh_train_rank(mesh, over, batch_kw, pipe):
         out["grad_rel"] = max(
             ((g - want[k]).abs().max() / want[k].abs().max()).item()
             for k, g in iter_leaves(kept["synced"]))
-        del oracle, want
     sums = torch.stack([p.double().sum() for _, p in iter_leaves(state["params"])])
     hi, lo = C.pmax(sums, "data", mesh), -C.pmax(-sums, "data", mesh)
     out["param_checksum_diff"] = (hi - lo).abs().max().item()
     del state
+    # (b) under FSDP_RULES: each rank holds its data block of every embed
+    # dim, gathered layer by layer, and its gradient is reduce-scattered
+    kept_f = {}
+
+    def spy_f(grads, rt_, defs=None):
+        synced = real_sync(grads, rt_, defs)
+        kept_f["synced"] = map_tree(torch.clone, synced)
+        return synced
+
+    state_f = {"params": params_f,
+               "opt": optim.init_opt_state(params_f, opt_cfg)}
+    step_f = steps_mod.make_train_step(model_f, opt_cfg, rt=rt_f)
+    steps_mod.sync_grads = spy_f
+    copies0 = dict(C.HOST_COPIES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        t0 = time.perf_counter()
+        state_f, metrics_f = step_f(state_f, batch)
+        torch.cuda.synchronize()
+        out["fsdp_step_s"] = time.perf_counter() - t0
+    finally:
+        steps_mod.sync_grads = real_sync
+    out["fsdp_launches"] = read_launches()
+    out["fsdp_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["fsdp_host_copies"] = {k: v - copies0.get(k, 0)
+                               for k, v in C.HOST_COPIES.items()}
+    out["fsdp_loss"] = float(metrics_f["loss"])
+    out["fsdp_params_gb"] = _params_gb(state_f["params"], iter_leaves)
+    worst = 0.0
+    for k, g in iter_leaves(kept_f["synced"]):
+        w = rt_f.gather(g, defs_f[k])
+        if oracle is not None:
+            worst = max(worst, ((w - want[k]).abs().max()
+                                / want[k].abs().max()).item())
+        del w
+    out["fsdp_grad_rel"] = worst
+    del state_f, kept_f, oracle
+    if mesh.rank == 0:
+        del want
     # the same local gradients through the error-feedback all-reduce
     err = init_error_feedback(kept["local"])
     torch.cuda.synchronize()
@@ -7157,47 +7422,13 @@ def _mesh_train_rank(mesh, over, batch_kw, pipe):
     return out
 
 
-def phase_mesh(serve, models, configs, iter_leaves) -> dict:
-    """53: the mesh runtime, ranks sharing cuda:0 over gloo: (a) qwen3-moe
-    served expert-parallel on (data 2, model 2) against the one-rank model
-    on each data rank's rows; (b) whisper-medium's synced train step on
-    (data 2) against the one-rank step on the whole batch, then the
-    error-feedback all-reduce of the same gradients; (c) the GPipe
-    schedule on the same two ranks against the sequential composition."""
-    from repro_torch.launch.mesh import run_ranks
-
-    res: dict = {}
-    # (a) the one-rank oracle for each data rank's rows, then freed
-    over = dict(MESH_MOE_CUT)
-    cfg = configs.get_config(MOE).replace(**over)
-    model = models.build_model(cfg)
-    with torch.no_grad():
-        params = model.init(torch.Generator(device=DEV).manual_seed(0))
-        rescale_fan_in(params, model.param_defs(), iter_leaves)
-    n_params = sum(t.numel() for _, t in iter_leaves(params))
-    prompts = _decoder_prompts(cfg)
-    oracle = [_mesh_serve(serve, model, params, prompts[2 * i:2 * i + 2],
-                          MESH_MOE_GEN) for i in range(2)]
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"mesh: {MOE} cut to {over} ({n_params} params) one-rank oracle "
-        f"done; parent reserves {torch.cuda.memory_reserved() / 1e9:.3f} GB "
-        f"before the ranks spawn")
-    with tempfile.TemporaryDirectory() as rdv:
-        ranks = run_ranks(_mesh_moe_rank, 2, 2, device=DEV, backend="gloo",
-                          rdv_dir=rdv, args=(prompts.cpu().numpy(), over,
-                                             MESH_MOE_GEN),
-                          timeout_s=MESH_TIMEOUT_S)
-    steps = cfg.num_layers * (MESH_MOE_GEN - 1)
+def _hold_logits(ranks, oracle_of, what, rel=MESH_LOGIT_REL) -> dict:
+    """Each rank's recorded logits against its one-rank oracle's (tokens,
+    logits): within ``rel`` of the largest, up to the first greedy pick
+    that differs, which must be a near tie."""
     worst, agree, picks, gaps = 0.0, 0, 0, []
     for r in ranks:
-        if r["launches"] != only(attention_decode=steps):
-            raise AssertionError(f"mesh rank {r['rank']} launches "
-                                 f"{r['launches']}, expected row 2 {steps}")
-        if r["expert_block"][1] != cfg.num_experts // 2:
-            raise AssertionError(f"rank {r['rank']} holds {r['expert_block']}")
-        want = oracle[r["coords"]["data"]]
+        want = oracle_of(r)
         for t, (got, ref) in enumerate(zip(r["logits"], want[1])):
             scale = float(np.abs(ref).max())
             worst = max(worst, float(np.abs(got - ref).max()) / scale)
@@ -7209,52 +7440,298 @@ def phase_mesh(serve, models, configs, iter_leaves) -> dict:
                 gaps.append(gap)
                 if gap > MESH_TIE_REL:
                     raise AssertionError(
-                        f"mesh rank {r['rank']} step {t}: greedy tokens "
-                        f"{r['tokens'][:, t]} vs one-rank {want[0][:, t]}, "
-                        f"top-2 gap {gap:.3e} of max")
+                        f"mesh {what} rank {r['rank']} step {t}: greedy "
+                        f"tokens {r['tokens'][:, t]} vs one-rank "
+                        f"{want[0][:, t]}, top-2 gap {gap:.3e} of max")
                 break
         agree += int((r["tokens"] == want[0]).sum())
         picks += r["tokens"].size
-    if worst > MESH_LOGIT_REL:
-        raise AssertionError(f"mesh logits max |diff| {worst:.3e} of max")
+    if worst > rel:
+        raise AssertionError(f"mesh {what} logits max |diff| {worst:.3e} of max")
+    return dict(logits_rel=worst, greedy_agreement=agree / picks,
+                differing_pick_gaps=gaps)
+
+
+def _log_ranks(what, ranks, keys=("peak_mem_gb", "ttft_ms", "decode_step_ms",
+                                  "host_copies")) -> None:
+    """One line a rank: its peak, TTFT, decode step and host copies."""
+    for r in ranks:
+        log(f"mesh {what} rank {r['rank']}: " + ", ".join(
+            f"{k} {round(r[k], 2) if isinstance(r[k], float) else r[k]}"
+            for k in keys if k in r))
+
+
+def _serve_oracle(serve, models, configs, iter_leaves, arch, over, prompts,
+                  gen, states=None):
+    """The one-rank request on the same rescaled weights, its numbers on
+    the host, the model freed: ((tokens, logits, stats, launches, peak),
+    params)."""
+    cfg = configs.get_config(arch).replace(**over)
+    model = models.build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    res = _mesh_serve(serve, model, params, prompts, gen, states)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, n_params
+
+
+def phase_mesh(serve, models, configs, iter_leaves) -> dict:
+    """53: the mesh runtime, ranks sharing cuda:0 over gloo: (a) qwen3-moe
+    served tensor- and expert-parallel on (data 2, model 2) against the
+    one-rank model on each data rank's rows, then (d)'s qwen3-1.7b AdamW
+    step under FSDP_RULES on the same ranks against the one-rank step;
+    (d) qwen3-1.7b and (e) jamba-1.5-large's period served tensor-parallel
+    on (model 2); (b) whisper-medium's synced train step on (data 2), and
+    under FSDP_RULES, against the one-rank step on the whole batch, then
+    the error-feedback all-reduce of the same gradients; (c) the GPipe
+    schedule on the same two ranks against the sequential composition."""
+    from repro_torch.launch.mesh import run_ranks
+
+    res: dict = {}
+    seconds: dict = {}
+    # (a) the one-rank oracle for each data rank's rows, then freed
+    t0 = time.perf_counter()
+    over = dict(MESH_MOE_CUT)
+    cfg = configs.get_config(MOE).replace(**over)
+    prompts = _decoder_prompts(cfg)
+    model = models.build_model(cfg)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=DEV).manual_seed(0))
+        rescale_fan_in(params, model.param_defs(), iter_leaves)
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    oracle = [_mesh_serve(serve, model, params, prompts[2 * i:2 * i + 2],
+                          MESH_MOE_GEN) for i in range(2)]
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["a_oracle"] = time.perf_counter() - t0
+    log(f"mesh: {MOE} cut to {over} ({n_params} params) one-rank oracle "
+        f"done; parent reserves {torch.cuda.memory_reserved() / 1e9:.3f} GB "
+        f"before the ranks spawn")
+    qwen_over = dict(MESH_QWEN_CUT)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        grid = run_ranks(_mesh_grid_rank, 2, 2, device=DEV, backend="gloo",
+                         rdv_dir=rdv, args=(prompts.cpu().numpy(), over,
+                                            MESH_MOE_GEN, qwen_over,
+                                            MESH_QWEN_TRAIN),
+                         timeout_s=MESH_TIMEOUT_S)
+    seconds["grid_ranks"] = time.perf_counter() - t0
+    ranks = [g["a"] for g in grid]
+    steps = cfg.num_layers * (MESH_MOE_GEN - 1)
+    for r in ranks:
+        if r["launches"] != only(attention_decode=steps):
+            raise AssertionError(f"mesh rank {r['rank']} launches "
+                                 f"{r['launches']}, expected row 2 {steps}")
+        if r["expert_block"][1] != cfg.num_experts // 2:
+            raise AssertionError(f"rank {r['rank']} holds {r['expert_block']}")
+        if not r["params_gb"] < MESH_MOE_RANK_GB:
+            raise AssertionError(f"mesh (a) rank {r['rank']} holds "
+                                 f"{r['params_gb']:.3f} GB of params")
+    held = _hold_logits(ranks, lambda r: oracle[r["coords"]["data"]], "(a)")
     res["moe"] = dict(
-        n_params=n_params, cut=over, logits_rel=worst,
-        greedy_agreement=agree / picks, differing_pick_gaps=gaps,
+        n_params=n_params, cut=over, **held,
         launches_per_rank=[r["launches"]["attention_decode"] for r in ranks],
         launches=read_total(r["launches"] for r in ranks),
+        params_gb=[r["params_gb"] for r in ranks],
         peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
         ttft_ms=[r["ttft_ms"] for r in ranks],
         decode_step_ms=[r["decode_step_ms"] for r in ranks],
+        host_copies=[r["host_copies"] for r in ranks],
+        s=[r["s"] for r in ranks],
         one_rank_ttft_ms=[o[2]["ttft_s"] * 1e3 for o in oracle],
         one_rank_decode_step_ms=[statistics.median(o[2]["step_s"]) * 1e3
                                  for o in oracle],
         one_rank_peak_mem_gb=[o[4] for o in oracle])
     m = res["moe"]
     log(f"mesh (a) {MOE} {over['num_layers']} layers f32 on (data 2, model "
-        f"2), {cfg.num_experts // 2} experts a rank, B 2 a data rank, P "
+        f"2), tensor-parallel attention and vocabulary, "
+        f"{cfg.num_experts // 2} experts a rank, B 2 a data rank, P "
         f"{prompts.shape[1]}, {MESH_MOE_GEN - 1} decode steps: logits max "
-        f"|diff| {worst:.3e} of max, greedy agreement "
-        f"{m['greedy_agreement']:.3f} (gaps of differing picks {gaps}); row "
-        f"2 launches a rank {m['launches_per_rank']}; peak GB "
-        f"{[round(x, 2) for x in m['peak_mem_gb']]}; TTFT ms "
-        f"{[round(x, 2) for x in m['ttft_ms']]} (one rank "
-        f"{[round(x, 2) for x in m['one_rank_ttft_ms']]}), decode step ms "
-        f"{[round(x, 2) for x in m['decode_step_ms']]} (one rank "
-        f"{[round(x, 2) for x in m['one_rank_decode_step_ms']]})")
+        f"|diff| {m['logits_rel']:.3e} of max, greedy agreement "
+        f"{m['greedy_agreement']:.3f} (gaps of differing picks "
+        f"{m['differing_pick_gaps']}); row 2 launches a rank "
+        f"{m['launches_per_rank']}; params GB a rank "
+        f"{[round(x, 3) for x in m['params_gb']]} (< {MESH_MOE_RANK_GB}); "
+        f"one rank TTFT ms {[round(x, 2) for x in m['one_rank_ttft_ms']]}, "
+        f"decode step ms "
+        f"{[round(x, 2) for x in m['one_rank_decode_step_ms']]}; sub-run s "
+        f"{[round(x, 1) for x in m['s']]}")
+    _log_ranks("(a)", ranks, ("params_gb", "peak_mem_gb", "ttft_ms",
+                              "decode_step_ms", "host_copies"))
+    # (d)'s step on the same ranks
+    tr = [g["d_train"] for g in grid]
+    r0 = tr[0]
+    loss_rel = abs(r0["loss"] - r0["oracle_loss"]) / abs(r0["oracle_loss"])
+    norm_rel = abs(r0["norm"] - r0["oracle_norm"]) / r0["oracle_norm"]
+    if len({r["norm"] for r in tr}) != 1 or len({r["loss"] for r in tr}) != 1:
+        raise AssertionError(f"mesh (d) step: losses {[r['loss'] for r in tr]}"
+                             f", norms {[r['norm'] for r in tr]} differ")
+    if not max(loss_rel, norm_rel, r0["grad_rel"],
+               r0["param_rel"]) <= MESH_GRAD_REL:
+        raise AssertionError(
+            f"mesh (d) step: loss rel {loss_rel:.3e}, norm rel "
+            f"{norm_rel:.3e}, worst gradient leaf {r0['grad_rel']:.3e}, "
+            f"worst stepped param leaf {r0['param_rel']:.3e}")
+    res["qwen_train"] = dict(
+        loss=r0["loss"], oracle_loss=r0["oracle_loss"], loss_rel=loss_rel,
+        norm=r0["norm"], oracle_norm=r0["oracle_norm"], norm_rel=norm_rel,
+        grad_rel=r0["grad_rel"], param_rel=r0["param_rel"],
+        params_gb=[r["params_gb"] for r in tr],
+        peak_mem_gb=[r["peak_mem_gb"] for r in tr],
+        step_s=[r["step_s"] for r in tr], hold_s=[r["hold_s"] for r in tr],
+        oracle_s=r0["oracle_s"], host_copies=[r["host_copies"] for r in tr],
+        s=[r["s"] for r in tr], **MESH_QWEN_TRAIN)
+    q = res["qwen_train"]
+    log(f"mesh (d) {MESH_QWEN} f32 AdamW step on (data 2, model 2) under "
+        f"FSDP_RULES, B {MESH_QWEN_TRAIN['B']} x {MESH_QWEN_TRAIN['seq']}: "
+        f"loss {q['loss']:.6f} vs one rank {q['oracle_loss']:.6f} (rel "
+        f"{loss_rel:.3e}), clip norm rel {norm_rel:.3e}, worst gradient "
+        f"leaf {q['grad_rel']:.3e}, worst stepped param leaf "
+        f"{q['param_rel']:.3e}; params GB a rank "
+        f"{[round(x, 3) for x in q['params_gb']]}; step s "
+        f"{[round(x, 3) for x in q['step_s']]}; one-rank oracle on rank 0 "
+        f"{q['oracle_s']:.1f} s; sub-run s {[round(x, 1) for x in q['s']]}")
+    _log_ranks("(d) step", tr, ("params_gb", "peak_mem_gb", "step_s",
+                                "host_copies"))
+    # (d) and (e) on (model 2): one-rank oracles first, on the host
+    t0 = time.perf_counter()
+    qcfg = configs.get_config(MESH_QWEN).replace(**qwen_over)
+    qprompts = _decoder_prompts(qcfg)
+    q_oracle, nq = _serve_oracle(serve, models, configs, iter_leaves,
+                                 MESH_QWEN, qwen_over, qprompts, MESH_MOE_GEN)
+    if nq != MESH_QWEN_PARAMS:
+        raise AssertionError(f"{MESH_QWEN}: {nq} params")
+    jamba_over = dict(MESH_JAMBA_CUT)
+    jcfg = configs.get_config(JAMBA).replace(**jamba_over)
+    rng = np.random.default_rng(0)
+    jprompts = torch.as_tensor(rng.integers(2, jcfg.vocab_size, size=(
+        SERVE["B"], SERVE["P"])), dtype=torch.int32, device=DEV)
+    j_states: list = []
+    j_oracle, nj = _serve_oracle(serve, models, configs, iter_leaves, JAMBA,
+                                 jamba_over, jprompts, MESH_MOE_GEN, j_states)
+    if nj != JAMBA_PARAMS:
+        raise AssertionError(f"{JAMBA}: {nj} params")
+    j_ref = flat_states(j_states[0])
+    seconds["model2_oracles"] = time.perf_counter() - t0
+    log(f"mesh: {MESH_QWEN} ({nq} params) and {JAMBA} cut to "
+        f"{jamba_over} ({nj} params) one-rank oracles done in "
+        f"{seconds['model2_oracles']:.1f} s; parent reserves "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        mr = run_ranks(_mesh_model_rank, 1, 2, device=DEV, backend="gloo",
+                       rdv_dir=rdv, args=(qprompts.cpu().numpy(), qwen_over,
+                                          MESH_MOE_GEN, jprompts.cpu().numpy(),
+                                          jamba_over),
+                       timeout_s=MESH_TIMEOUT_S)
+    seconds["model2_ranks"] = time.perf_counter() - t0
+    dq = [r["d_serve"] for r in mr]
+    want = only(attention_decode=qcfg.num_layers * (MESH_MOE_GEN - 1))
+    for r in dq:
+        if r["launches"] != want:
+            raise AssertionError(f"mesh (d) rank {r['rank']} launches "
+                                 f"{r['launches']}, expected {want}")
+    res["qwen_serve"] = dict(
+        n_params=nq, **_hold_logits(dq, lambda r: q_oracle, "(d)"),
+        launches_per_rank=[r["launches"]["attention_decode"] for r in dq],
+        launches=read_total(r["launches"] for r in dq),
+        params_gb=[r["params_gb"] for r in dq],
+        peak_mem_gb=[r["peak_mem_gb"] for r in dq],
+        ttft_ms=[r["ttft_ms"] for r in dq],
+        decode_step_ms=[r["decode_step_ms"] for r in dq],
+        host_copies=[r["host_copies"] for r in dq], s=[r["s"] for r in dq],
+        one_rank_ttft_ms=q_oracle[2]["ttft_s"] * 1e3,
+        one_rank_decode_step_ms=statistics.median(q_oracle[2]["step_s"]) * 1e3,
+        one_rank_peak_mem_gb=q_oracle[4])
+    q = res["qwen_serve"]
+    log(f"mesh (d) {MESH_QWEN} whole f32 on (model 2), {qcfg.num_heads // 2} "
+        f"of {qcfg.num_heads} query heads and {qcfg.num_kv_heads // 2} of "
+        f"{qcfg.num_kv_heads} KV heads a rank, B {SERVE['B']}, P {SERVE['P']}, "
+        f"{MESH_MOE_GEN - 1} decode steps: logits max |diff| "
+        f"{q['logits_rel']:.3e} of max, greedy agreement "
+        f"{q['greedy_agreement']:.3f} (gaps {q['differing_pick_gaps']}); row "
+        f"2 a rank {q['launches_per_rank']}; one rank TTFT "
+        f"{q['one_rank_ttft_ms']:.2f} ms, decode step "
+        f"{q['one_rank_decode_step_ms']:.2f} ms, peak "
+        f"{q['one_rank_peak_mem_gb']:.2f} GB; sub-run s "
+        f"{[round(x, 1) for x in q['s']]}")
+    _log_ranks("(d) serve", dq, ("params_gb", "peak_mem_gb", "ttft_ms",
+                                 "decode_step_ms", "host_copies"))
+    je = [r["e"] for r in mr]
+    n_mamba = jcfg.attn_every - 1
+    want = only(conv1d_depthwise=n_mamba, attention_decode=MESH_MOE_GEN - 1)
+    first = min(j_ref, key=lambda k: int(k.split("/")[0][5:]))
+    first = first.split("/")[0]
+    state_rel: dict = {}
+    for r in je:
+        if r["launches"] != want:
+            raise AssertionError(f"mesh (e) rank {r['rank']} launches "
+                                 f"{r['launches']}, expected {want}")
+        m_ = r["coords"]["model"]
+        for k, got in r["states"].items():
+            ref = state_block(j_ref[k], k, m_, got)
+            if got.shape != ref.shape:
+                raise AssertionError(f"mesh (e) {k} {got.shape} vs {ref.shape}")
+            state_rel[k] = max(state_rel.get(k, 0.0), state_errs(got, ref)[0])
+    for k, e in state_rel.items():
+        bound = MESH_STATE_REL if k.startswith(first + "/") else MESH_JAMBA_REL
+        if e > bound:
+            raise AssertionError(f"mesh (e) state block {k} max |diff| "
+                                 f"{e:.3e} of max (bound {bound})")
+    worst_state = max(state_rel.values())
+    res["jamba_serve"] = dict(
+        n_params=nj, cut=JAMBA_CUT, state_rel=state_rel,
+        **_hold_logits(je, lambda r: j_oracle, "(e)", MESH_JAMBA_REL),
+        launches=read_total(r["launches"] for r in je),
+        params_gb=[r["params_gb"] for r in je],
+        peak_mem_gb=[r["peak_mem_gb"] for r in je],
+        ttft_ms=[r["ttft_ms"] for r in je],
+        decode_step_ms=[r["decode_step_ms"] for r in je],
+        host_copies=[r["host_copies"] for r in je], s=[r["s"] for r in je],
+        one_rank_ttft_ms=j_oracle[2]["ttft_s"] * 1e3,
+        one_rank_decode_step_ms=statistics.median(j_oracle[2]["step_s"]) * 1e3,
+        one_rank_peak_mem_gb=j_oracle[4])
+    j = res["jamba_serve"]
+    log(f"mesh (e) {JAMBA} one period f32 on (model 2), "
+        f"{jcfg.mamba_d_inner // 2} of {jcfg.mamba_d_inner} channels and "
+        f"{jcfg.num_heads // 2} of {jcfg.num_heads} query heads a rank: "
+        f"logits max |diff| "
+        f"{j['logits_rel']:.3e} of max, greedy agreement "
+        f"{j['greedy_agreement']:.3f} (gaps {j['differing_pick_gaps']}); "
+        f"ssm and conv state blocks max |diff| of max: {first} "
+        f"{max(v for k, v in state_rel.items() if k.startswith(first + '/')):.3e}"
+        f", all {worst_state:.3e}; "
+        f"launches a rank {je[0]['launches']}; one rank TTFT "
+        f"{j['one_rank_ttft_ms']:.2f} ms, decode step "
+        f"{j['one_rank_decode_step_ms']:.2f} ms, peak "
+        f"{j['one_rank_peak_mem_gb']:.2f} GB; sub-run s "
+        f"{[round(x, 1) for x in j['s']]}")
+    _log_ranks("(e)", je, ("params_gb", "peak_mem_gb", "ttft_ms",
+                           "decode_step_ms", "host_copies"))
+    del q_oracle, j_oracle, j_states
     # (b), (c) on (data 2)
     gc.collect()
     torch.cuda.empty_cache()
     over = dict(conv_backend="sliding_pallas", param_dtype="float32",
                 compute_dtype="float32")
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
         tr = run_ranks(_mesh_train_rank, 2, 1, device=DEV, backend="gloo",
                        rdv_dir=rdv, args=(over, MESH_TRAIN, MESH_PIPE),
                        timeout_s=MESH_TIMEOUT_S)
+    seconds["data2_ranks"] = time.perf_counter() - t0
     r0 = tr[0]
+    rows = only(sliding_conv1d=3, conv1d_bwd_dw=2)
     for r in tr:
-        if r["launches"] != only(sliding_conv1d=3, conv1d_bwd_dw=2):
-            raise AssertionError(f"mesh train rank {r['rank']} launches "
-                                 f"{r['launches']}, expected rows 1, 10 at 3, 2")
+        for key in ("launches", "fsdp_launches"):
+            if r[key] != rows:
+                raise AssertionError(f"mesh train rank {r['rank']} {key} "
+                                     f"{r[key]}, expected rows 1, 10 at 3, 2")
         if r["param_checksum_diff"] != 0:
             raise AssertionError(f"params differ across ranks after the step: "
                                  f"{r['param_checksum_diff']}")
@@ -7263,10 +7740,20 @@ def phase_mesh(serve, models, configs, iter_leaves) -> dict:
                                  f"{r['ef_err_max']}")
         if r["pipe_err"] > MESH_PIPE_TOL:
             raise AssertionError(f"pipeline max |diff| {r['pipe_err']}")
+        if not r["fsdp_params_gb"] < 0.6 * r["n_params"] * 4 / 1e9:
+            raise AssertionError(f"FSDP rank {r['rank']} holds "
+                                 f"{r['fsdp_params_gb']:.3f} GB")
     loss_rel = abs(r0["loss"] - r0["oracle_loss"]) / abs(r0["oracle_loss"])
+    fsdp_loss_rel = abs(r0["fsdp_loss"] - r0["oracle_loss"]) / abs(
+        r0["oracle_loss"])
     if not (loss_rel <= MESH_GRAD_REL and r0["grad_rel"] <= MESH_GRAD_REL):
         raise AssertionError(f"mesh train loss rel {loss_rel:.3e}, worst leaf "
                              f"gradient rel {r0['grad_rel']:.3e}")
+    if not (fsdp_loss_rel <= MESH_GRAD_REL
+            and r0["fsdp_grad_rel"] <= MESH_GRAD_REL):
+        raise AssertionError(f"mesh FSDP train loss rel {fsdp_loss_rel:.3e}, "
+                             f"worst leaf gradient rel "
+                             f"{r0['fsdp_grad_rel']:.3e}")
     res["train"] = dict(
         loss=r0["loss"], oracle_loss=r0["oracle_loss"], loss_rel=loss_rel,
         grad_rel=r0["grad_rel"], n_params=r0["n_params"],
@@ -7277,12 +7764,19 @@ def phase_mesh(serve, models, configs, iter_leaves) -> dict:
         sync_bytes=r0["sync_bytes"], ef_sync_bytes=r0["ef_sync_bytes"],
         ef_rel=max(r["ef_rel"] for r in tr),
         ef_err_max=max(r["ef_err_max"] for r in tr),
-        peak_mem_gb=[r["peak_mem_gb"] for r in tr])
+        peak_mem_gb=[r["peak_mem_gb"] for r in tr],
+        fsdp=dict(loss=r0["fsdp_loss"], loss_rel=fsdp_loss_rel,
+                  grad_rel=r0["fsdp_grad_rel"],
+                  launches=read_total(r["fsdp_launches"] for r in tr),
+                  params_gb=[r["fsdp_params_gb"] for r in tr],
+                  peak_mem_gb=[r["fsdp_peak_mem_gb"] for r in tr],
+                  step_s=[r["fsdp_step_s"] for r in tr],
+                  host_copies=[r["fsdp_host_copies"] for r in tr]))
     res["pipeline"] = dict(err=max(r["pipe_err"] for r in tr),
                            s=[r["pipe_s"] for r in tr],
                            host_copies=[r["pipe_host_copies"] for r in tr],
                            **MESH_PIPE)
-    t, p = res["train"], res["pipeline"]
+    t, p, f = res["train"], res["pipeline"], res["train"]["fsdp"]
     log(f"mesh (b) whisper-medium f32 ({t['n_params']} params) on (data 2), "
         f"B {MESH_TRAIN['B']} x {MESH_TRAIN['seq']} split 2 a rank: loss "
         f"{t['loss']:.6f} vs one rank {t['oracle_loss']:.6f} (rel "
@@ -7294,9 +7788,19 @@ def phase_mesh(serve, models, configs, iter_leaves) -> dict:
         f"({t['ef_sync_bytes']} B a rank: int32 codes + f32 scales), EF rel "
         f"{t['ef_rel']:.3e}, carried error max {t['ef_err_max']:.3e}; peak GB "
         f"{[round(x, 2) for x in t['peak_mem_gb']]}")
+    log(f"mesh (b) under FSDP_RULES: loss {f['loss']:.6f} (rel "
+        f"{fsdp_loss_rel:.3e}), worst gathered gradient leaf rel "
+        f"{f['grad_rel']:.3e}; rows 1, 10 a rank 3, 2; params GB a rank "
+        f"{[round(x, 3) for x in f['params_gb']]} of "
+        f"{t['n_params'] * 4 / 1e9:.3f}; step s "
+        f"{[round(x, 3) for x in f['step_s']]}")
+    _log_ranks("(b) FSDP", [dict(rank=r["rank"], peak_mem_gb=r["fsdp_peak_mem_gb"],
+                                 host_copies=r["fsdp_host_copies"]) for r in tr])
     log(f"mesh (c) pipeline 2 stages d {p['d']}, M {p['M']} x {p['mb']}: max "
         f"|diff| {p['err']:.3e} vs sequential, s {[round(x, 4) for x in p['s']]}, "
         f"host copies {p['host_copies']}")
+    res["seconds"] = seconds
+    log(f"mesh sub-runs s { {k: round(v, 1) for k, v in seconds.items()} }")
     return res
 
 
@@ -7513,7 +8017,10 @@ def main() -> int:
                "edge_cnn": edge_cnn["sliding_pallas"]["launches"],
                "examples": examples["launches"],
                "mesh_qwen3_moe": mesh["moe"]["launches"],
-               "mesh_train_whisper": mesh["train"]["launches"]}
+               "mesh_train_whisper": mesh["train"]["launches"],
+               "mesh_fsdp_whisper": mesh["train"]["fsdp"]["launches"],
+               "mesh_tp_qwen3": mesh["qwen_serve"]["launches"],
+               "mesh_tp_jamba": mesh["jamba_serve"]["launches"]}
     launches = {k: sum(p[k] for p in by_path.values()) for k in full["launches"]}
     kernels = ph.run(6, "times", phase_times, sc, ad, launches, errs)
     kernels.append(ph.run(10, "train_times", phase_train_times, sb, launches,

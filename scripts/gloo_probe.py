@@ -8,8 +8,13 @@ rendezvous) each run every collective on CUDA tensors and check the
 result; ``send``/``recv`` run in a second pair, since gloo may fail there
 (each refusal is caught inside its rank and is the verdict). Then 256 MiB
 of float32 is all-reduced three times as it is and three times through
-pinned host memory by hand. Prints one ``A`` and one ``B`` line of JSON
-per pair (each rank's verdicts and seconds). The table
+pinned host memory by hand. Another pair, run before ``send``/``recv``
+(whose refusal has also aborted the process from a gloo thread), runs
+``reduce_scatter`` (the list form, which ``collectives.reduce_scatter``
+calls) and ``reduce_scatter_tensor`` on host tensors, then on CUDA
+tensors, printing each verdict as it comes, and times the list form on
+256 MiB through pinned host memory. Prints one ``A``, ``C`` and ``B``
+line of JSON per pair (each rank's verdicts and seconds). The table
 ``repro_torch.distributed.collectives.DEVICE_TENSORS`` follows it. Needs
 one card.
 """
@@ -29,7 +34,8 @@ from repro_torch.launch.mesh import run_ranks  # noqa: E402
 def _check(name, fn, out):
     try:
         out[name] = "ok" if fn() else "WRONG"
-    except RuntimeError as e:  # the verdict is the refusal itself
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        # the verdict is the refusal itself
         out[name] = f"raises: {str(e)[:160]}"
 
 
@@ -98,6 +104,49 @@ def send_recv(mesh):
     return out
 
 
+def reduce_scatter(mesh):
+    rank, world = mesh.rank, mesh.size
+    out = {}
+
+    def rs_list(dev):
+        parts = [torch.full((10,), float(rank + 1 + 10 * j), device=dev)
+                 for j in range(world)]
+        y = torch.empty(10, device=dev)
+        dist.reduce_scatter(y, parts)
+        want = sum(r + 1 + 10 * rank for r in range(world))
+        return bool((y == want).all())
+
+    def rs_tensor(dev):
+        x = torch.cat([torch.full((10,), float(rank + 1 + 10 * j), device=dev)
+                       for j in range(world)])
+        y = torch.empty(10, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        want = sum(r + 1 + 10 * rank for r in range(world))
+        return bool((y == want).all())
+
+    for dev in ("cpu", "cuda"):
+        for name, fn in (("reduce_scatter", rs_list),
+                         ("reduce_scatter_tensor", rs_tensor)):
+            key = f"{name}_{dev}"
+            _check(key, lambda: fn(torch.device(dev)), out)
+            print(f"C rank {rank} {key}: {out[key]}", flush=True)
+            dist.barrier()
+    n = 64 * 2 ** 20  # 256 MiB of float32, a host copy each way
+    x = torch.randn(n, device="cuda")
+    h = torch.empty(n, pin_memory=True)
+    y = torch.empty(n // world, pin_memory=True)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        h.copy_(x)
+        dist.reduce_scatter(y, list(h.chunk(world)))
+        x[:n // world].copy_(y)
+    torch.cuda.synchronize()
+    out["reduce_scatter_256MiB_staged_s"] = (time.perf_counter() - t0) / 3
+    return out
+
+
 def run(fn, tag, timeout_s):
     with tempfile.TemporaryDirectory() as d:
         res = run_ranks(fn, 2, 1, device="cuda", backend="gloo", rdv_dir=d,
@@ -109,4 +158,5 @@ if __name__ == "__main__":
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0), flush=True)
     run(collectives, "A", 120)
-    run(send_recv, "B", 60)
+    run(reduce_scatter, "C", 120)
+    run(send_recv, "B", 60)  # gloo may abort its process here

@@ -817,6 +817,13 @@ ATTN_LLAVA = dict(B=4, S=3168, KV=8, G=7, D=128)
 ATTN_GEMMA = dict(B=4, S=288, KV=1, G=8, D=256)
 ATTN_QWEN_MOE = dict(B=4, S=288, KV=4, G=8, D=128)
 ATTN_GQA4 = dict(B=4, S=288, KV=8, G=4, D=128)
+# the rank-local launches of the mesh runs (chip_smoke.py phase 53): each
+# model rank's query and KV heads at a cache of P 256 + 9 tokens, and
+# mamba's prefill conv on its 8,192 of 16,384 channels (model 2)
+ATTN_QWEN3_TP2 = dict(B=4, S=265, KV=4, G=2, D=128)  # qwen3-1.7b
+ATTN_JAMBA_TP2 = dict(B=4, S=265, KV=4, G=8, D=128)  # jamba-1.5-large
+ATTN_QWEN_MOE_TP2 = dict(B=2, S=265, KV=2, G=8, D=128)  # qwen3-moe, data 2
+DEPTHWISE_TP2 = dict(DEPTHWISE_MAIN, C=8192)
 # the tuning shapes: the reference benchmark's autotune rows (f32 fig1 k
 # 3/9/31, fig2 k 3/17, conv1d K 3/33 fp and w8a8, max pool w 4/256) and
 # the int8 decode read at qwen3's smoke cache
@@ -913,7 +920,8 @@ def default_space(quick: bool = False,
             yield "matmul", dict(M=s["B"] * lout, N=s["Cout"],
                                  K=s["K"] * s["Cin"], dtype=dt, sms=sms), {}
 
-    dw_shapes = [dict(B=2, L=4096, C=512, K=4, stride=1), DEPTHWISE_MAIN]
+    dw_shapes = [dict(B=2, L=4096, C=512, K=4, stride=1), DEPTHWISE_MAIN,
+                 DEPTHWISE_TP2]
     for s in dw_shapes:
         lout = (s["L"] - s["K"]) // s["stride"] + 1
         for prec, dt in (("fp", "bfloat16"), ("fp", "float32"),
@@ -938,7 +946,8 @@ def default_space(quick: bool = False,
 
     attn = [ATTN, TUNE_ATTN_INT8, ATTN_MAIN, ATTN_LLAVA, ATTN_GEMMA]
     if not quick:
-        attn += [ATTN_JAMBA, ATTN_QWEN_MOE, ATTN_GQA4]
+        attn += [ATTN_JAMBA, ATTN_QWEN_MOE, ATTN_GQA4, ATTN_QWEN3_TP2,
+                 ATTN_JAMBA_TP2, ATTN_QWEN_MOE_TP2]
     for s in attn:
         default, cands = autotune.attention_candidates(s["B"] * s["KV"],
                                                        s["S"], sms)

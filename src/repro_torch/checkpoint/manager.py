@@ -33,8 +33,9 @@ leaves are ParamDefs, or None for a leaf held whole; one ParamDef stands
 for an int8 moment's pair): ``save`` writes whole leaves, each split leaf
 all-gathered over its mesh axes and rank 0 writing, so the step dir is the
 one-rank format and any mesh restores it; ``restore`` reads only this
-rank's block of each leaf (``rt.block``), whatever mesh wrote it, the
-reference's included.
+rank's block of each leaf (``rt.pieces``: the two runs of a ``runs=2``
+leaf, the row block of an int8 moment's scales), whatever mesh wrote it,
+the reference's included.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ import torch
 
 from repro_torch import faults
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import take_pieces
 from repro_torch.health import HEALTH
 
 _BF16 = "bfloat16"
@@ -96,15 +98,6 @@ def _flatten_defs(state: Any, defs: Any, prefix: str = "",
     else:
         out[prefix[:-1]] = defs if not isinstance(defs, dict) else None
     return out
-
-
-def _gather_whole(t: torch.Tensor, d, rt) -> torch.Tensor:
-    """The whole leaf from every rank's block: an all-gather over each
-    split dim's mesh axes."""
-    for dim, entry in enumerate(rt.placement(d)):
-        if entry is not None:
-            t = C.all_gather(t, entry, rt.mesh, dim=dim)
-    return t
 
 
 def to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -168,7 +161,7 @@ class CheckpointManager:
         mesh = rt.mesh if rt is not None and rt.mesh is not None else None
         if mesh is not None:
             leaf_defs = _flatten_defs(state, defs)
-            flat = {k: _gather_whole(v, leaf_defs[k], rt)
+            flat = {k: rt.gather(v, leaf_defs[k])
                     if leaf_defs[k] is not None else v for k, v in flat.items()}
             if mesh.rank != 0:
                 if blocking:
@@ -299,9 +292,9 @@ class CheckpointManager:
         for key, sk in _flatten(skeleton).items():
             meta = manifest["leaves"][key]
             arr = np.load(d / meta["file"], mmap_mode="r")
-            blk = rt.block(leaf_defs[key]) if leaf_defs.get(key) else None
-            if blk is not None:
-                arr = arr[tuple(slice(a, a + n) for a, n in blk)]
+            ps = rt.pieces(leaf_defs[key]) if leaf_defs.get(key) else None
+            if ps is not None:
+                arr = take_pieces(arr, ps)
             t = from_numpy(arr, meta["dtype"])
             if tuple(t.shape) != tuple(sk.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape "

@@ -8,18 +8,23 @@ tensor through pinned host memory and back, and counts the copy in
 ``HOST_COPIES[collective]``. Which is which is the table
 ``DEVICE_TENSORS[(backend, collective)]``, read before the call; nothing
 is decided by catching an exception. NCCL takes device tensors for all of
-them. gloo (torch 2.11, probed on an H100 with two ranks sharing cuda:0)
-reduces and gathers CUDA tensors itself, staging them in host memory
-inside the call, but its ``send`` and ``recv`` read the tensor's address
-as host memory (``writev ... Bad address``), so ``ppermute`` stages them
-here.
+them. gloo (torch 2.11, probed on an H100 with two ranks sharing cuda:0,
+``scripts/gloo_probe.py``) reduces, gathers and reduce-scatters CUDA
+tensors itself, staging them in host memory inside the call, but its
+``send`` and ``recv`` read the tensor's address as host memory
+(``writev ... Bad address``), so ``ppermute`` stages them here.
 
-A group of one rank (an axis of size 1) makes no call. ``reduce_out``,
-``copy_in`` and ``mean_out`` are the differentiable forms a model uses
-around a computation split over ranks whose result every rank holds:
-``psum`` forward and the identity backward, the identity forward and
-``psum`` backward, ``pmean`` forward and the gradient over the group's
-size backward.
+A group of one rank (an axis of size 1) makes no call. The blocks of a
+gather or a reduce-scatter over a tuple of axes are in the row-major order
+of the tuple as given (its first axis major), as ``Runtime.index`` numbers
+a rank's block. ``reduce_out``, ``copy_in`` and ``mean_out`` are the
+differentiable forms a model uses around a computation split over ranks
+whose result every rank holds: ``psum`` forward and the identity backward
+(a row-parallel product), the identity forward and ``psum`` backward (a
+column-parallel one), ``pmean`` forward and the gradient over the group's
+size backward. ``gather_in`` is FSDP's: the whole tensor from the ranks'
+blocks forward, the gradient summed over the ranks and cut back to this
+rank's block (a reduce-scatter) backward.
 """
 from __future__ import annotations
 
@@ -32,10 +37,12 @@ import torch.distributed as dist
 DEVICE_TENSORS = {
     ("nccl", "all_reduce"): True,
     ("nccl", "all_gather"): True,
+    ("nccl", "reduce_scatter"): True,
     ("nccl", "send"): True,
     ("nccl", "recv"): True,
     ("gloo", "all_reduce"): True,
     ("gloo", "all_gather"): True,
+    ("gloo", "reduce_scatter"): True,
     ("gloo", "send"): False,
     ("gloo", "recv"): False,
 }
@@ -61,7 +68,10 @@ def _to_host(t: torch.Tensor, collective: str) -> torch.Tensor:
 
 
 def all_reduce_(x: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
-    """Reduce ``x`` in place over ``axes`` (``op`` "sum" or "max")."""
+    """Reduce ``x`` in place over ``axes`` (``op`` "sum" or "max"); no axes:
+    ``x`` as it is."""
+    if not axes:
+        return x
     group, _ = mesh.group(axes)
     if group is None:
         return x
@@ -92,9 +102,25 @@ def axis_index(axes, mesh) -> int:
     return ranks.index(mesh.rank)
 
 
+def _positions(axes, mesh, ranks) -> list[int]:
+    """Each of the group's ``ranks``' block index along ``axes``: its
+    coordinates combined row-major in the order ``axes`` names them."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    out = []
+    for r in ranks:
+        c = dict(zip(mesh.axis_names, mesh.coords_of(r)))
+        i = 0
+        for a in axes:
+            i = i * mesh.shape[a] + c[a]
+        out.append(i)
+    return out
+
+
 def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
     """The blocks of ``x`` of every rank along ``axes``, concatenated along
-    ``dim`` in the group's rank order."""
+    ``dim`` in block order."""
+    if not axes:
+        return x
     group, ranks = mesh.group(axes)
     if group is None:
         return x
@@ -102,8 +128,32 @@ def all_gather(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
     src = _to_host(x, "all_gather") if staged else x.contiguous()
     outs = [torch.empty_like(src) for _ in ranks]
     dist.all_gather(outs, src, group=group)
-    out = torch.cat(outs, dim=dim)
+    order = [None] * len(ranks)
+    for j, i in enumerate(_positions(axes, mesh, ranks)):
+        order[i] = outs[j]
+    out = torch.cat(order, dim=dim)
     return out.to(x.device) if staged else out
+
+
+def reduce_scatter(x: torch.Tensor, axes, mesh, dim: int = 0) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``axes``, of which this rank keeps
+    its block along ``dim`` (block order as in ``all_gather``)."""
+    if not axes:
+        return x
+    group, ranks = mesh.group(axes)
+    if group is None:
+        return x
+    if x.shape[dim] % len(ranks):
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"{len(ranks)} ways")
+    blocks = x.movedim(dim, 0).chunk(len(ranks))
+    pos = _positions(axes, mesh, ranks)
+    staged = _staged(mesh, "reduce_scatter", x)
+    parts = [(_to_host(blocks[i], "reduce_scatter") if staged
+              else blocks[i].contiguous()) for i in pos]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return (out.to(x.device) if staged else out).movedim(0, dim)
 
 
 def ppermute(x: torch.Tensor, axis: str, perm, mesh) -> torch.Tensor:
@@ -169,6 +219,17 @@ class _MeanOut(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
+class _GatherIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return all_gather(x, axes, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axes, ctx.mesh, ctx.dim), None, None, None
+
+
 def reduce_out(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     """``psum`` of the ranks' partial ``x``, which every rank then uses
     alike: the gradient of each partial is the result's (identity)."""
@@ -192,3 +253,13 @@ def mean_out(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     if not axes:
         return x
     return _MeanOut.apply(x, axes, mesh)
+
+
+def gather_in(x: torch.Tensor, axes, mesh, dim: int) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks of it along ``dim`` (FSDP's
+    gather of a layer's weights, or a projection split on its output):
+    every rank then uses it for its own part, so the gradient of this
+    rank's block is the ranks' gradients summed and cut to the block."""
+    if not axes:
+        return x
+    return _GatherIn.apply(x, axes, mesh, dim)

@@ -11,11 +11,14 @@ to ``data`` under ``FSDP_RULES``), ``pspec`` gives the reference's
 object with ``axis_names`` and a ``shape`` mapping (``launch.mesh``'s
 ``ProcessMesh``; its ``coords`` for ``local``).
 
-The port's layout is ``Runtime.placement``: only the ``experts`` axis of a
-parameter (and the ``batch`` axis of activations and caches) is split over
-the mesh; every other leaf is held whole on each rank, where the rule table
-would shard it over ``model`` or ``data``. ``init_params(..., rt)`` keeps
-this rank's block of the one-rank draw.
+The port's layout is ``Runtime.placement``, the rule table's ``pspec`` on
+every leaf: heads, kv_heads (head_dim where kv_heads does not divide), mlp,
+vocab, conv_inner and experts over ``model``, ``embed`` over ``data`` under
+``FSDP_RULES``, a cache's ``batch`` over the data axes. A rank holds its
+block of each split dim (``block``, ``local``); a leaf whose last dim is
+``runs`` equal runs side by side (mamba's ``in_proj``, x then z) holds its
+block of each run. ``init_params(..., rt)`` keeps this rank's block of the
+one-rank draw, and ``gather`` puts the whole leaf back together.
 """
 from __future__ import annotations
 
@@ -25,7 +28,10 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from repro_torch.distributed import collectives as C
+
 DTYPES = {
+    "float64": torch.float64,
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "int32": torch.int32,
@@ -44,10 +50,16 @@ class ParamDef:
     init: str = "normal"  # normal | zeros | ones | small | fan_in
     dtype: str | None = None  # override model param dtype
     scale: float | None = None  # stddev override for normal init
+    # the last dim is this many equal runs side by side (mamba's in_proj:
+    # x, then z); a rank's block of it is its block of each run
+    runs: int = 1
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+        if self.runs > 1 and self.shape[-1] % self.runs:
+            raise ValueError(f"last dim {self.shape[-1]} is not {self.runs} "
+                             f"equal runs")
 
 
 def iter_leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -74,7 +86,7 @@ MAX_DRAW = 2 ** 29
 
 
 def _init_leaf(gen: torch.Generator, d: ParamDef, default_dtype,
-               block: tuple | None = None) -> torch.Tensor:
+               pieces: list | None = None) -> torch.Tensor:
     """One leaf, following the reference's ``_init_leaf`` rule for rule.
 
     The reference takes ``fan_in = shape[0]`` of the leaf as stored, so for
@@ -87,14 +99,16 @@ def _init_leaf(gen: torch.Generator, d: ParamDef, default_dtype,
     leading axis at a time (recursing while a slice is still larger), each
     slice scaled with the whole leaf's scale.
 
-    ``block``, one ``(start, size)`` per dim, keeps only that block of the
-    leaf: the draws are the whole leaf's, in the same order and slices, and
-    a slice outside the block is drawn and dropped, so the generator ends
-    where the whole draw leaves it and the block is the whole draw's, bit
-    for bit. Nothing larger than one draw is ever allocated beside it."""
+    ``pieces``, per dim the ``(start, size)`` runs a rank holds
+    (``Runtime.pieces``), keeps only that block of the leaf: the draws are
+    the whole leaf's, in the same order and slices, and a slice outside the
+    block is drawn and dropped, so the generator ends where the whole draw
+    leaves it and the block is the whole draw's, bit for bit. Nothing
+    larger than one draw is ever allocated beside it."""
     dtype = torch_dtype(d.dtype or default_dtype)
     dev = gen.device
-    shape = tuple(n for _, n in block) if block else d.shape
+    shape = (tuple(sum(n for _, n in ps) for ps in pieces) if pieces
+             else d.shape)
     if d.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=dev)
     if d.init == "ones":
@@ -108,20 +122,43 @@ def _init_leaf(gen: torch.Generator, d: ParamDef, default_dtype,
         scale = 0.01
     else:  # fan_in
         scale = 1.0 / max(fan_in, 1) ** 0.5
-    if block is None and math.prod(d.shape) <= MAX_DRAW:
+    if pieces is None and math.prod(d.shape) <= MAX_DRAW:
         x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=dev)
         # scaled in place: one float32 copy of the leaf at a time
         return x.mul_(scale).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=dev)
-    _fill_bounded(out, gen, scale, d.shape, block)
+    _fill_bounded(out, gen, scale, d.shape, pieces)
     return out
 
 
+def take_pieces(x, pieces: list):
+    """The block of ``x`` (a tensor, or a numpy array read from a
+    checkpoint) that ``pieces`` names: per dim, its ``(start, size)`` runs
+    concatenated in order. A dim of ``x`` of size 1 where the runs say
+    otherwise (an int8 moment's scales on the row axis) is kept whole."""
+    for dim, ps in enumerate(pieces):
+        if len(ps) == 1 and ps[0] == (0, x.shape[dim]):
+            continue
+        if x.shape[dim] == 1:
+            continue
+        lead = (slice(None),) * dim
+        parts = [x[(*lead, slice(a, a + n))] for a, n in ps]
+        if len(parts) == 1:
+            x = parts[0]
+        elif isinstance(x, torch.Tensor):
+            x = torch.cat(parts, dim)
+        else:
+            import numpy as np
+
+            x = np.concatenate(parts, dim)
+    return x
+
+
 def _fill_bounded(out: torch.Tensor | None, gen: torch.Generator, scale: float,
-                  shape: tuple | None = None, block: tuple | None = None) -> None:
+                  shape: tuple | None = None, pieces: list | None = None) -> None:
     """Fill ``out`` with N(0, scale^2) draws of at most ``MAX_DRAW``
     float32 elements each, in index order of the leading axes of
-    ``shape`` (``out``'s own when None); ``out`` holds the ``block`` of
+    ``shape`` (``out``'s own when None); ``out`` holds the ``pieces`` of
     them (see ``_init_leaf``), or nothing when None: the draws are made and
     dropped."""
     shape = tuple(out.shape) if shape is None else tuple(shape)
@@ -129,15 +166,19 @@ def _fill_bounded(out: torch.Tensor | None, gen: torch.Generator, scale: float,
         x = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device)
         if out is not None:
-            if block:
-                x = x[tuple(slice(a, a + n) for a, n in block)]
+            if pieces:
+                x = take_pieces(x, pieces)
             out.copy_(x.mul_(scale))
         return
-    start, size = block[0] if block else (0, shape[0])
+    where = {}  # leading index -> its row of ``out``
+    at = 0
+    for a, n in (pieces[0] if pieces else ((0, shape[0]),)):
+        where.update({a + j: at + j for j in range(n)})
+        at += n
     for i in range(shape[0]):
-        inside = out is not None and start <= i < start + size
-        _fill_bounded(out[i - start] if inside else None, gen, scale,
-                      shape[1:], block[1:] if block else None)
+        row = where.get(i) if out is not None else None
+        _fill_bounded(None if row is None else out[row], gen, scale,
+                      shape[1:], pieces[1:] if pieces else None)
 
 
 def init_params(defs: Any, gen: torch.Generator, default_dtype,
@@ -153,8 +194,8 @@ def init_params(defs: Any, gen: torch.Generator, default_dtype,
         *parents, name = path.split("/")
         for p in parents:
             node = node.setdefault(p, {})
-        block = rt.block(d) if rt is not None else None
-        node[name] = _init_leaf(gen, d, default_dtype, block)
+        pieces = rt.pieces(d) if rt is not None else None
+        node[name] = _init_leaf(gen, d, default_dtype, pieces)
     return out
 
 
@@ -194,8 +235,6 @@ DEFAULT_RULES: dict[str, Any] = {
 
 FSDP_RULES = dict(DEFAULT_RULES, embed="data")
 
-# the logical axes that the port's layout splits over the mesh
-PLACED = ("experts", "batch")
 # pspec's priority: these claim their mesh axis ahead of the others
 _HEAD_LIKE = ("heads", "kv_heads", "experts", "mlp", "vocab", "conv_inner",
               "heads_flat")
@@ -273,26 +312,57 @@ class Runtime:
         return tuple(out)
 
     def placement(self, d: ParamDef) -> tuple:
-        """The layout the port holds ``d`` in: ``pspec``'s entry on an
-        ``experts`` or ``batch`` dim, None (whole) on every other. A leaf
-        that the rules would shard over ``model`` or ``data`` on another
-        axis (heads, kv_heads, head_dim, mlp, vocab, conv_inner, FSDP's
-        embed) is held whole on each rank; Megatron tensor parallelism and
-        FSDP placements are not ported yet."""
-        spec = self.pspec(d.axes, d.shape)
-        return tuple(e if a in PLACED else None for a, e in zip(d.axes, spec))
+        """The layout the port holds ``d`` in: the rule table's ``pspec``,
+        one entry per dim (None: whole). A ``runs`` leaf splits each of its
+        runs alike (``pieces``)."""
+        if self.mesh is None:
+            return (None,) * len(d.shape)
+        return self.pspec(d.axes, d.shape)
+
+    def split_axes(self, d: ParamDef, dims=None) -> tuple[str, ...]:
+        """The mesh axes of more than one rank that split ``d`` (on
+        ``dims`` only, when given), in the mesh's axis order."""
+        if self.mesh is None:
+            return ()
+        used = {a for i, e in enumerate(self.placement(d))
+                if dims is None or i in dims for a in mesh_axes(e)
+                if self.mesh.shape[a] > 1}
+        return tuple(a for a in self.mesh.axis_names if a in used)
 
     def block(self, d: ParamDef) -> tuple | None:
         """This rank's block of ``d`` as one ``(start, size)`` per dim, or
-        None when the rank holds ``d`` whole."""
+        None when the rank holds ``d`` whole. On a ``runs`` leaf's last dim
+        the pair is within each run (``pieces`` has the leaf's own)."""
         spec = self.placement(d) if self.mesh is not None else ()
-        if not any(spec):
+        if not any(_mesh_axis_size(self.mesh, e) > 1 for e in spec):
             return None
         out = []
-        for n, entry in zip(d.shape, spec):
+        for dim, (n, entry) in enumerate(zip(d.shape, spec)):
+            if dim == len(d.shape) - 1:
+                n //= d.runs
             k = _mesh_axis_size(self.mesh, entry)
+            if n % k:
+                raise ValueError(f"{d}: a run of {n} does not split {k} ways")
             out.append((self.index(entry) * (n // k), n // k))
         return tuple(out)
+
+    def pieces(self, d: ParamDef) -> list | None:
+        """Per dim, the ``(start, size)`` runs of ``d`` this rank holds, in
+        the order it holds them; None when it holds ``d`` whole."""
+        blk = self.block(d)
+        if blk is None:
+            return None
+        out = [((a, n),) for a, n in blk]
+        m = d.shape[-1] // d.runs
+        if d.runs > 1 and blk[-1][1] < m:
+            a, n = blk[-1]
+            out[-1] = tuple((j * m + a, n) for j in range(d.runs))
+        return out
+
+    def block_shape(self, d: ParamDef) -> tuple[int, ...]:
+        """The shape of this rank's block of ``d``."""
+        ps = self.pieces(d)
+        return d.shape if ps is None else tuple(sum(n for _, n in p) for p in ps)
 
     def index(self, axes) -> int:
         """This rank's coordinate along a mesh axis or tuple of axes, the
@@ -303,20 +373,34 @@ class Runtime:
         return i
 
     def local(self, leaf: torch.Tensor, d: ParamDef) -> torch.Tensor:
-        """This rank's block of the whole tensor ``leaf`` (shaped as ``d`` on
-        each split dim; an int8 moment's scales, of last dim 1, too), a
-        copy; ``leaf`` itself when the rank holds it whole."""
-        blk = self.block(d)
-        if blk is None:
+        """This rank's block of the whole tensor ``leaf`` (shaped as ``d``
+        on each split dim; an int8 moment's scales, of last dim 1, take
+        their row block), a copy; ``leaf`` itself when the rank holds it
+        whole."""
+        ps = self.pieces(d)
+        if ps is None:
             return leaf
-        for dim, ((a, n), whole) in enumerate(zip(blk, d.shape)):
-            if n == whole:
-                continue
-            if leaf.shape[dim] != whole:
+        for dim, whole in enumerate(d.shape):
+            if leaf.shape[dim] not in (whole, 1):
                 raise ValueError(f"leaf {tuple(leaf.shape)} is not {d.shape} "
                                  f"on dim {dim}")
-            leaf = leaf.narrow(dim, a, n)
-        return leaf.clone()
+        return take_pieces(leaf, ps).clone()
+
+    def gather(self, t: torch.Tensor, d: ParamDef) -> torch.Tensor:
+        """The whole leaf from every rank's block ``t``: an all-gather over
+        each split dim's mesh axes (a ``runs`` dim run by run; an int8
+        moment's scale dim of 1 as it is). Collective over the mesh."""
+        held = self.block_shape(d)
+        for dim, entry in enumerate(self.placement(d)):
+            if _mesh_axis_size(self.mesh, entry) == 1 or (
+                    t.shape[dim] == 1 != held[dim]):  # a moment's scales
+                continue
+            if dim == len(d.shape) - 1 and d.runs > 1:
+                t = C.all_gather(t.unflatten(dim, (d.runs, -1)), entry,
+                                 self.mesh, dim=dim + 1).flatten(dim, dim + 1)
+            else:
+                t = C.all_gather(t, entry, self.mesh, dim=dim)
+        return t
 
     def constrain(self, x: torch.Tensor, *axes: str | None) -> torch.Tensor:
         """The identity. The reference constrains an activation's layout

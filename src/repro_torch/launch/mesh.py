@@ -62,13 +62,14 @@ class ProcessMesh:
         if world != self.size:
             raise ValueError(f"mesh {self.shape} needs {self.size} ranks, the "
                              f"process group has {world}")
-        self.coords = dict(zip(self.axis_names, self._coords_of(self.rank)))
+        self.coords = dict(zip(self.axis_names, self.coords_of(self.rank)))
         self._groups: dict[tuple, tuple] = {}
         for n in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, n):
                 self._make_groups(axes)
 
-    def _coords_of(self, rank: int) -> tuple[int, ...]:
+    def coords_of(self, rank: int) -> tuple[int, ...]:
+        """``rank``'s coordinate on each axis, in the mesh's axis order."""
         out = []
         for a in reversed(self.axis_names):
             rank, c = divmod(rank, self.shape[a])

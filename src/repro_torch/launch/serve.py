@@ -561,8 +561,14 @@ def quantize_for_serving(model, params, prompts):
     """int8 post-training quantization of the model's conv path: an eager
     calibration prefill, the activation scales with the requant chains
     (``quant.CHAINS``), then int8 weight leaves. Returns (cfg', params'),
-    cfg' with ``conv_precision="w8a8"``."""
+    cfg' with ``conv_precision="w8a8"``. A model whose runtime splits any
+    leaf raises: int8 weights under tensor parallelism are not ported
+    (ROADMAP Queue 1, "int8 serving under TP")."""
     cfg = model.cfg
+    if any(model.rt.split_axes(d) for _, d in iter_leaves(model.param_defs())):
+        raise NotImplementedError(
+            f"int8 weight serving of {cfg.name} on a mesh that splits its "
+            f"leaves: not ported (ROADMAP Queue 1, int8 serving under TP)")
     B, P = prompts.shape
     calib = quant.Calibration()
     with obs.span("serve.quantize", arch=cfg.name):

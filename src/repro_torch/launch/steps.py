@@ -24,17 +24,28 @@ def loss_and_grads(model, params, batch):
     return loss.detach(), map_tree(lambda _: next(grads), leaves)
 
 
-def sync_grads(grads, rt: Runtime | None):
+def sync_grads(grads, rt: Runtime | None, defs=None):
     """The data ranks' mean of each gradient leaf: a plain all-reduce over
     ``rt.dp_axes()`` in sorted-path order, in place, then over the group's
     size. What GSPMD gives the reference's sharded step; the parameters
     then stay equal on every data rank. ``grads`` itself without data
-    ranks."""
+    ranks. A leaf that the rules split over a data axis (FSDP's ``embed``,
+    given the params' ``defs``) already holds the sum over that axis (its
+    gather's backward reduce-scatters), so it is all-reduced over the other
+    data axes only before the division."""
     n = rt.dp_size if rt is not None else 1
     if n == 1:
         return grads
+    dp = rt.dp_axes()
+    leaf_defs = iter_leaves(defs) if defs is not None else None
     for _, g in iter_leaves(grads):
-        C.all_reduce_(g, rt.dp_axes(), rt.mesh).div_(n)
+        axes = dp
+        if leaf_defs is not None:
+            split = rt.split_axes(next(leaf_defs)[1])
+            axes = tuple(a for a in dp if a not in split)
+        if axes:
+            C.all_reduce_(g, axes, rt.mesh)
+        g.div_(n)
     return grads
 
 
@@ -50,14 +61,20 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
     one after another; their grads add into a ``accum_dtype`` accumulator
     and the mean goes to the optimizer, as does the mean loss.
 
-    On a mesh (``rt`` with data ranks, the model built on the same ``rt``)
-    each rank's batch is its own rows; its gradient is averaged over the
-    data ranks (``sync_grads``) before AdamW.
+    On a mesh (``rt``, the model built on the same ``rt``) each rank's
+    params are its blocks and its batch is its data rank's rows; its
+    gradient is averaged over the data ranks (``sync_grads``) and AdamW
+    clips by the whole model's norm (``optim.global_norm`` over the
+    blocks).
 
     A runtime trip of the step's kernels (``faults.raise_pending``) raises
     before the optimizer writes anything: the params, the moments and the
     step count are as they were, and the grads (the accumulator too) are
     the step's own, so a retry of the same step starts from zero."""
+
+    on_mesh = rt is not None and rt.mesh is not None
+    defs = model.param_defs() if on_mesh else None
+    blocks = dict(rt=rt, defs=defs) if on_mesh else {}  # AdamW on blocks
 
     def train_step(state, batch):
         params = state["params"]
@@ -85,9 +102,9 @@ def make_train_step(model, opt_cfg: OptConfig, accum_steps: int = 1,
             for _, acc in iter_leaves(grads):
                 acc.div_(accum_steps)
         faults.raise_pending(loss.device)
-        grads = sync_grads(grads, rt)
+        grads = sync_grads(grads, rt, defs)
         new_p, new_opt, info = apply_updates(params, grads, state["opt"],
-                                             opt_cfg)
+                                             opt_cfg, **blocks)
         return {"params": new_p, "opt": new_opt}, {"loss": loss, **info}
 
     return train_step

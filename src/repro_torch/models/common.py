@@ -1,6 +1,7 @@
-"""Shared model plumbing: stacked ParamDefs, the loop over layers, KV-cache
-defs (float, or int8 with per-row scales), the per-token cache write and
-the ``attn_`` prefix views of a hybrid model's cache."""
+"""Shared model plumbing: stacked ParamDefs, the loop over layers, FSDP's
+gather of a layer's weights, KV-cache defs (float, or int8 with per-row
+scales; this rank's KV heads on a mesh), the per-token cache write and the
+``attn_`` prefix views of a hybrid model's cache."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import ParamDef, Runtime, iter_leaves, map_tree
+from repro_torch.distributed.sharding import (
+    ParamDef, Runtime, iter_leaves, map_tree, mesh_axes,
+)
 from repro_torch.optim.compress import quantize_int8
 from repro_torch.quant.qconv import QuantizedWeight
 
@@ -76,17 +79,59 @@ def unstack(tree: dict) -> list[dict]:
     return [map_tree(lambda ts: ts[i], leaves) for i in range(n)]
 
 
+def gatherer(defs: Any, rt: Runtime | None) -> Callable[[Any], Any] | None:
+    """FSDP's gather for a tree of leaves of ``defs`` (one layer's): a
+    function giving the tree with every ``embed`` dim that ``rt`` splits
+    all-gathered over its axes (``collectives.gather_in``: reduce-scattered
+    in backward), leaf by leaf in sorted-path order, the same on every
+    rank; None when ``rt`` splits no ``embed`` dim of them."""
+    if rt is None or rt.mesh is None:
+        return None
+    plan = []
+    for path, d in iter_leaves(defs):
+        for dim, (ax, entry) in enumerate(zip(d.axes, rt.placement(d))):
+            axes = tuple(a for a in mesh_axes(entry) if rt.mesh.shape[a] > 1)
+            if ax == "embed" and axes:
+                plan.append((path, dim, axes))
+    if not plan:
+        return None
+    mesh = rt.mesh
+
+    def gather(tree: Any) -> Any:
+        leaves = dict(iter_leaves(tree))
+        for path, dim, axes in plan:
+            leaves[path] = C.gather_in(leaves[path], axes, mesh, dim)
+        out: dict = {}
+        for path, t in leaves.items():
+            node = out
+            *parents, name = path.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[name] = t
+        return out
+
+    return gather
+
+
 def scan_blocks(x: Any, stacked: dict, body: Callable[[Any, dict], Any], *,
-                remat: bool = True, collect: bool = False) -> Any:
+                remat: bool = True, collect: bool = False,
+                gather: Callable[[Any], Any] | None = None) -> Any:
     """Run ``body(carry, layer_params)`` over the layers of ``stacked``
     (the reference's ``scan_blocks``, as a loop). With ``remat`` and grad
     enabled, each block runs under ``torch.utils.checkpoint``: its
-    activations are recomputed in backward instead of kept.
+    activations are recomputed in backward instead of kept. ``gather``
+    (``gatherer``) runs first inside the block, so under FSDP one layer's
+    whole weights exist at a time and the recompute gathers them again.
 
     ``collect=True``: ``body`` returns ``(carry, aux)``, aux a dict tree of
     tensors, and the result is ``(carry, aux stacked along a new leading
     layers axis)`` (a prefill's per-layer states)."""
     ckpt = remat and torch.is_grad_enabled()
+    if gather is not None:
+        inner = body
+
+        def body(x, lp):
+            return inner(x, gather(lp))
     auxes = []
     for lp in unstack(stacked):
         x = checkpoint(body, x, lp, use_reentrant=False) if ckpt else body(x, lp)
@@ -103,12 +148,26 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def kv_cache_defs(cfg: ModelConfig, layers: int, batch: int, seq: int):
-    """Self-attention K/V cache defs. With ``cfg.kv_quant == "int8"`` the
-    leaves store int8 codes, each with its ``<name>_scale`` sibling."""
+def local_kv_heads(cfg: ModelConfig, rt: Runtime | None) -> int:
+    """The KV heads a rank's cache holds: its block of ``wk``'s kv heads,
+    all of them where the rules split ``head_dim`` instead (k and v are
+    gathered whole before they are cached)."""
+    from repro_torch.models.layers import attention_defs
+
+    if rt is None or rt.mesh is None:
+        return cfg.num_kv_heads
+    return rt.block_shape(attention_defs(cfg)["wk"])[1]
+
+
+def kv_cache_defs(cfg: ModelConfig, layers: int, batch: int, seq: int,
+                  rt: Runtime | None = None):
+    """Self-attention K/V cache defs, on this rank's KV heads
+    (``local_kv_heads``) and its ``batch`` rows. With ``cfg.kv_quant ==
+    "int8"`` the leaves store int8 codes, each with its ``<name>_scale``
+    sibling."""
     if cfg.kv_quant not in ("fp", "int8"):
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}")
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv, hd = local_kv_heads(cfg, rt), cfg.resolved_head_dim
     axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
     dt = "int8" if cfg.kv_quant == "int8" else None  # None: param dtype
     d = dict(

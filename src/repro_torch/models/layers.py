@@ -8,8 +8,27 @@ attention past ``attn_chunk``; decode against a static KV cache; logits
 summed in float32; the training loss chunked over the sequence. Rotary
 embeddings (jamba) rotate q and k in float32 where the caller passes
 positions; whisper passes none and uses sinusoidal positions.
+
+Tensor parallelism (Megatron): a model on a mesh computes on its rank's
+blocks of the leaves (``sharding.Runtime.placement``) with the explicit
+collectives its ``Split`` names (``tp_layout``). Attention and the MLP are
+column- then row-parallel: their input enters through ``copy_in`` and
+their output leaves through ``reduce_out``, and each rank runs its heads
+(read from the leaves' shapes) or its block of the hidden width. Where
+``kv_heads`` does not split (gemma's one KV head), ``wk`` and ``wv`` split
+``head_dim`` instead, and k and v are all-gathered over it before
+``k_norm`` and RoPE, which pair the halves of a head: every rank then
+holds the whole k and v (and the whole K/V cache) and reads the KV heads
+its query heads use. The embedding and the logits are vocab-parallel:
+the lookup masks the tokens outside the rank's rows and sums over the
+ranks; serving gathers the last position's logits over the vocabulary,
+and the loss takes a vocab-parallel logsumexp and the gold logit from the
+rank that holds it, so training never builds the whole logits.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +36,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import conv as core_conv
-from repro_torch.distributed.sharding import ParamDef, torch_dtype
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (
+    ParamDef, Runtime, mesh_axes, torch_dtype,
+)
 from repro_torch.kernels import ops
 from repro_torch.quant import calibrate, qconv
 
@@ -198,6 +220,83 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Split:
+    """A model's tensor-parallel layout on this rank, read once from its
+    leaves' placements. Each tuple names the mesh axes of more than one
+    rank that split that part, in the placement's order; an empty one
+    makes the collectives around it the identity."""
+
+    mesh: Any = None
+    heads: tuple = ()  # the query heads of wq and wo (and wk/wv's kv heads)
+    kv_gather: tuple = ()  # wk/wv's head_dim: k and v gathered over it
+    kv_sel: tuple | None = None  # (first, count) of the whole k/v's heads read
+    mlp: tuple = ()  # the MLP's hidden width
+    vocab: tuple = ()  # the embedding's and the logits' vocabulary
+    vocab_base: int = 0  # this rank's first vocabulary row
+    inner: tuple = ()  # mamba's conv_inner channels
+
+
+NO_SPLIT = Split()
+
+
+def _split(rt: Runtime, d: ParamDef, dim: int) -> tuple:
+    """The mesh axes of more than one rank on ``d``'s dim ``dim``, in its
+    placement's order."""
+    return tuple(a for a in mesh_axes(rt.placement(d)[dim])
+                 if rt.mesh.shape[a] > 1)
+
+
+def tp_layout(cfg: ModelConfig, rt: Runtime | None) -> Split:
+    """The ``Split`` of ``cfg``'s attention, MLP, vocabulary and (hybrid)
+    mamba channels under ``rt``. A layout the model code cannot run on
+    raises: query heads that the model axis does not divide, or whole
+    k/v weights beside split query heads."""
+    if rt is None or rt.mesh is None:
+        return NO_SPLIT
+    tok = embed_defs(cfg)["tok"]
+    vocab = _split(rt, tok, 0)
+    kw = dict(mesh=rt.mesh, vocab=vocab,
+              vocab_base=rt.block(tok)[0][0] if vocab else 0)
+    if cfg.num_heads:
+        ad = attention_defs(cfg)
+        wq, wk = ad["wq"], ad["wk"]
+        heads = _split(rt, wq, 1)
+        if _split(rt, wq, 2):
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.num_heads} query heads do not split over "
+                f"{rt.placement(wq)[2]!r}; head_dim-parallel queries are not "
+                f"ported")
+        kv, hd = _split(rt, wk, 1), _split(rt, wk, 2)
+        if heads and not (kv or hd) or (kv and kv != heads) or (
+                hd and hd != heads):
+            raise NotImplementedError(
+                f"{cfg.name}: query heads over {heads}, kv heads over {kv}, "
+                f"kv head_dim over {hd}")
+        kw["heads"] = heads
+        if hd:
+            H, KV = cfg.num_heads, cfg.num_kv_heads
+            G = H // KV
+            h_loc = rt.block_shape(wq)[1]
+            q0 = rt.block(wq)[1][0]
+            if not (h_loc % G == 0 or G % h_loc == 0):
+                raise NotImplementedError(
+                    f"{cfg.name}: {h_loc} query heads a rank straddle groups "
+                    f"of {G}")
+            kw.update(kv_gather=hd, kv_sel=(q0 // G, max(h_loc // G, 1)))
+    mlp = mlp_defs(cfg)
+    kw["mlp"] = _split(rt, mlp["wi" if "wi" in mlp else "wg"], 1)
+    if cfg.family == "hybrid":
+        from repro_torch.models.mamba import mamba_defs
+
+        kw["inner"] = _split(rt, mamba_defs(cfg)["in_proj"], 1)
+    return Split(**kw)
+
+
+# ---------------------------------------------------------------------------
 # parameter defs
 # ---------------------------------------------------------------------------
 
@@ -232,13 +331,19 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict[str, ParamDef]:
     }
 
 
-def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              tp: Split = NO_SPLIT) -> torch.Tensor:
+    """The MLP on this rank's block of its hidden width: column then row
+    parallel over ``tp.mlp``."""
     f = act_fn(cfg.activation)
+    x = C.copy_in(x, tp.mlp, tp.mesh)
     if cfg.activation == "gelu_plain":
-        return f(x @ p["wi"].to(x.dtype)) @ p["wo"].to(x.dtype)
-    g = x @ p["wg"].to(x.dtype)
-    u = x @ p["wu"].to(x.dtype)
-    return (f(g) * u) @ p["wd"].to(x.dtype)
+        y = f(x @ p["wi"].to(x.dtype)) @ p["wo"].to(x.dtype)
+    else:
+        g = x @ p["wg"].to(x.dtype)
+        u = x @ p["wu"].to(x.dtype)
+        y = (f(g) * u) @ p["wd"].to(x.dtype)
+    return C.reduce_out(y, tp.mlp, tp.mesh)
 
 
 def cross_attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
@@ -255,26 +360,45 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("blhk,hkd->bld") as one matrix product."""
+def _out_proj(o: torch.Tensor, w: torch.Tensor, tp: Split = NO_SPLIT
+              ) -> torch.Tensor:
+    """einsum("blhk,hkd->bld") as one matrix product, summed over the
+    ranks that split the heads (row parallel)."""
     h, k, d = w.shape
-    return o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
+    y = o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
+    return C.reduce_out(y, tp.heads, tp.mesh)
+
+
+def _kv_proj(x: torch.Tensor, w: torch.Tensor, tp: Split) -> torch.Tensor:
+    """k or v of this rank: its KV heads, or the whole heads gathered over
+    a split head_dim."""
+    return C.gather_in(_proj_heads(x, w), tp.kv_gather, tp.mesh, -1)
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig,
-         positions: torch.Tensor | None = None):
-    """q, k, v (B, L, heads, hd); rotary embeddings on q and k at
-    ``positions`` (B or 1, L) when given."""
+         positions: torch.Tensor | None = None, tp: Split = NO_SPLIT):
+    """q, k, v (B, L, heads, hd) of this rank's heads; rotary embeddings on
+    q and k at ``positions`` (B or 1, L) when given. ``x`` has entered the
+    heads' ranks (``copy_in``)."""
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    k = _kv_proj(x, p["wk"], tp)
+    v = _kv_proj(x, p["wv"], tp)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        # the norms' scales see this rank's heads: their gradients sum
+        q = rms_norm(q, C.copy_in(p["q_norm"], tp.heads, tp.mesh), cfg.norm_eps)
+        k = rms_norm(k, C.copy_in(p["k_norm"], tp.heads, tp.mesh), cfg.norm_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _read(kv: torch.Tensor, tp: Split) -> torch.Tensor:
+    """The KV heads of a whole k or v (B, L, KV, hd) that this rank's
+    query heads use."""
+    if tp.kv_sel is None:
+        return kv
+    return kv.narrow(2, *tp.kv_sel)
 
 
 def _group(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
@@ -360,24 +484,30 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int, kv_mask=None):
 
 
 def self_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool,
-                   positions: torch.Tensor | None = None):
+                   positions: torch.Tensor | None = None,
+                   tp: Split = NO_SPLIT):
     """Self-attention over a whole sequence (encoder, prefill): the
-    projected output, k and v (rotated where ``positions`` are given). Full
+    projected output, k and v (rotated where ``positions`` are given; this
+    rank's KV heads, or all of them where ``tp`` gathers them). Full
     attention up to ``attn_chunk``, chunked past it."""
-    q, k, v = _qkv(p, x, cfg, positions)
+    x = C.copy_in(x, tp.heads, tp.mesh)
+    q, k, v = _qkv(p, x, cfg, positions, tp)
+    ka, va = _read(k, tp), _read(v, tp)
     if x.shape[1] > cfg.attn_chunk:
-        o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        o = chunked_attention(q, ka, va, causal=causal, chunk=cfg.attn_chunk)
     else:
-        o = full_attention(q, k, v, causal=causal)
-    return _out_proj(o, p["wo"]), k, v
+        o = full_attention(q, ka, va, causal=causal)
+    return _out_proj(o, p["wo"], tp), k, v
 
 
 def attention_train(p, x: torch.Tensor, cfg: ModelConfig,
-                    positions: torch.Tensor | None = None) -> torch.Tensor:
+                    positions: torch.Tensor | None = None,
+                    tp: Split = NO_SPLIT) -> torch.Tensor:
     """Causal self-attention over a full sequence (train): the projected
     output only; rotary embeddings at ``positions`` when given (jamba),
     none otherwise (whisper's decoder)."""
-    return self_attention(p, x, cfg, causal=True, positions=positions)[0]
+    return self_attention(p, x, cfg, causal=True, positions=positions,
+                          tp=tp)[0]
 
 
 def dequant_cache_leaf(cache: dict, name: str, dtype) -> torch.Tensor:
@@ -390,13 +520,28 @@ def dequant_cache_leaf(cache: dict, name: str, dtype) -> torch.Tensor:
     return leaf.to(dtype)
 
 
+def _read_cache(cache: dict, names: tuple, tp: Split) -> dict:
+    """The cache leaves ``names`` (with any ``_scale`` siblings) at the KV
+    heads this rank's query heads read: a whole cache (``tp.kv_sel``)
+    narrowed to them, contiguous for the kernel."""
+    out = {}
+    for n in names:
+        for key in (n, f"{n}_scale"):
+            if key in cache:
+                t = _read(cache[key], tp)
+                out[key] = t if t.is_contiguous() else t.contiguous()
+    return out
+
+
 def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
-                     lengths: torch.Tensor | None = None, rope: bool = False):
+                     lengths: torch.Tensor | None = None, rope: bool = False,
+                     tp: Split = NO_SPLIT):
     """Single-token decode step against a static KV cache.
 
     x: (B, 1, D); cache: {"k", "v": (B, S, KV, hd)}, with ``k_scale`` and
     ``v_scale`` (B, S, KV, 1) when it stores int8, updated in place at
-    ``pos``; ``lengths`` (B,) int32 = pos + 1, made here when not given.
+    ``pos`` (this rank's KV heads, or all of them where ``tp`` gathers k
+    and v); ``lengths`` (B,) int32 = pos + 1, made here when not given.
     ``rope``: q and the new k rotate at position ``pos`` (jamba).
     ``cfg.attn_decode`` "fused" reads the cache through the decode-attention
     kernel (an int8 cache as codes, its scales folded into the softmax);
@@ -406,19 +551,21 @@ def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
     B = x.shape[0]
     positions = (torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
                  if rope else None)
-    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    x = C.copy_in(x, tp.heads, tp.mesh)
+    q, k_new, v_new = _qkv(p, x, cfg, positions, tp)
     for name, fresh in (("k", k_new), ("v", v_new)):
         common.store_kv_token(cache, name, fresh, pos)
+    rd = _read_cache(cache, ("k", "v"), tp)
     if cfg.attn_decode == "fused":
         if lengths is None:
             lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
         out = ops.attention_decode(
-            q[:, 0], cache["k"], cache["v"], lengths=lengths,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            q[:, 0], rd["k"], rd["v"], lengths=lengths,
+            k_scale=rd.get("k_scale"), v_scale=rd.get("v_scale"),
         ).to(x.dtype)[:, None]
     else:
-        k = dequant_cache_leaf(cache, "k", x.dtype)
-        v = dequant_cache_leaf(cache, "v", x.dtype)
+        k = dequant_cache_leaf(rd, "k", x.dtype)
+        v = dequant_cache_leaf(rd, "v", x.dtype)
         S, KV = k.shape[1], k.shape[2]
         qg = _group(q, KV)
         s = torch.einsum("blkgd,bmkd->bkglm", qg, k).float() * q.shape[-1] ** -0.5
@@ -426,22 +573,24 @@ def attention_decode(p, x, cache: dict, pos: int, cfg: ModelConfig, *,
         s = s.masked_fill(~mask[None, None, None], NEG_INF)
         w = torch.softmax(s, dim=-1).to(x.dtype)
         out = torch.einsum("bkglm,bmkd->blkgd", w, v).reshape(q.shape)
-    return _out_proj(out, p["wo"]), cache
+    return _out_proj(out, p["wo"], tp), cache
 
 
-def cross_attention(p, x, enc_kv, cfg: ModelConfig):
+def cross_attention(p, x, enc_kv, cfg: ModelConfig, tp: Split = NO_SPLIT):
     """Decoder cross-attention over a whole sequence (prefill and train);
-    enc_kv = precomputed (k, v) of the encoder output."""
+    enc_kv = precomputed (k, v) of the encoder output (``encode_kv``)."""
+    x = C.copy_in(x, tp.heads, tp.mesh)
     q = _proj_heads(x, p["wq"])
-    k, v = enc_kv
+    k, v = (_read(t, tp) for t in enc_kv)
     if x.shape[1] > cfg.attn_chunk:
         out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     else:
         out = full_attention(q, k, v, causal=False)
-    return _out_proj(out, p["wo"])
+    return _out_proj(out, p["wo"], tp)
 
 
-def cross_attention_decode(p, x, cache: dict, cfg: ModelConfig):
+def cross_attention_decode(p, x, cache: dict, cfg: ModelConfig,
+                           tp: Split = NO_SPLIT):
     """Single-token cross-attention against the cached encoder K/V
     (``xk``/``xv``, with ``_scale`` siblings when the cache stores int8),
     which is zero-padded past each slot's encoder length ``enc_len``
@@ -449,26 +598,32 @@ def cross_attention_decode(p, x, cache: dict, cfg: ModelConfig):
     scores 0, not -inf, so both reads mask on those ragged lengths; length
     0 attends nothing and gives 0."""
     dt = x.dtype
+    x = C.copy_in(x, tp.heads, tp.mesh)
     q = _proj_heads(x, p["wq"])
+    rd = _read_cache(cache, ("xk", "xv"), tp)
     if cfg.attn_decode == "fused":
         out = ops.attention_decode(
-            q[:, 0], cache["xk"], cache["xv"],
+            q[:, 0], rd["xk"], rd["xv"],
             lengths=cache["enc_len"].to(torch.int32),
-            k_scale=cache.get("xk_scale"), v_scale=cache.get("xv_scale"),
+            k_scale=rd.get("xk_scale"), v_scale=rd.get("xv_scale"),
         ).to(dt)[:, None]
     else:
-        xk = dequant_cache_leaf(cache, "xk", dt)
-        xv = dequant_cache_leaf(cache, "xv", dt)
+        xk = dequant_cache_leaf(rd, "xk", dt)
+        xv = dequant_cache_leaf(rd, "xv", dt)
         S = xk.shape[1]
         valid = torch.arange(S, device=x.device)[None, :] < cache["enc_len"][:, None]
         # enc_len 0: attend every (zero) row so the softmax stays finite
         valid = valid | ~valid.any(dim=1, keepdim=True)
         out = full_attention(q, xk, xv, causal=False, kv_mask=valid)
-    return _out_proj(out, p["wo"])
+    return _out_proj(out, p["wo"], tp)
 
 
-def encode_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
-    return _proj_heads(enc_out, p["wk"]), _proj_heads(enc_out, p["wv"])
+def encode_kv(p, enc_out: torch.Tensor, cfg: ModelConfig,
+              tp: Split = NO_SPLIT):
+    """The cross-attention k and v of the encoder output: this rank's KV
+    heads, or all of them where ``tp`` gathers them."""
+    enc_out = C.copy_in(enc_out, tp.heads, tp.mesh)
+    return _kv_proj(enc_out, p["wk"], tp), _kv_proj(enc_out, p["wv"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -486,11 +641,22 @@ def embed_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     return defs
 
 
-def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
+                 tp: Split = NO_SPLIT) -> torch.Tensor:
     """Token embeddings in the compute dtype; with ``cfg.embed_scale``
     (gemma) scaled by sqrt(d_model), the scale itself rounded to that
-    dtype as the reference rounds it."""
-    e = p["tok"][tokens.long()].to(cdtype(cfg))
+    dtype as the reference rounds it. Vocab-parallel under ``tp.vocab``:
+    each rank looks up the tokens in its rows, zeros elsewhere, and the
+    ranks' rows are summed."""
+    tok = p["tok"]
+    if tp.vocab:
+        idx = tokens.long() - tp.vocab_base
+        mine = (idx >= 0) & (idx < tok.shape[0])
+        e = tok[idx.clamp(0, tok.shape[0] - 1)].to(cdtype(cfg))
+        e = C.reduce_out(torch.where(mine[..., None], e, torch.zeros_like(e)),
+                         tp.vocab, tp.mesh)
+    else:
+        e = tok[tokens.long()].to(cdtype(cfg))
     if cfg.embed_scale:
         e = e * torch.tensor(cfg.d_model ** 0.5, dtype=e.dtype, device=e.device)
     return e
@@ -502,25 +668,50 @@ def unembed_matrix(p, cfg: ModelConfig) -> torch.Tensor:
     return p["unembed"]
 
 
-def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def lm_logits(p, h: torch.Tensor, cfg: ModelConfig,
+              tp: Split = NO_SPLIT) -> torch.Tensor:
     """Logits summed in float32 from operands rounded to h's type, as the
-    reference's ``preferred_element_type=f32``."""
+    reference's ``preferred_element_type=f32``: this rank's vocabulary
+    block under ``tp.vocab`` (``h`` enters its ranks)."""
+    h = C.copy_in(h, tp.vocab, tp.mesh)
     w = unembed_matrix(p, cfg).to(h.dtype)
     return h.float() @ w.float()
 
 
-def _ce_chunk(p_embed, hb: torch.Tensor, yb: torch.Tensor, cfg: ModelConfig):
+def serve_logits(p, h: torch.Tensor, cfg: ModelConfig,
+                 tp: Split = NO_SPLIT) -> torch.Tensor:
+    """The whole vocabulary's logits of ``h`` (serving's last position):
+    the ranks' blocks gathered over ``tp.vocab``, one gather a call."""
+    return C.all_gather(lm_logits(p, h, cfg, tp), tp.vocab, tp.mesh, dim=-1)
+
+
+def _ce_chunk(p_embed, hb: torch.Tensor, yb: torch.Tensor, cfg: ModelConfig,
+              tp: Split = NO_SPLIT):
     """(sum of masked next-token CE, count of unmasked labels) of one chunk,
-    from float32 logits."""
-    logits = lm_logits(p_embed, hb, cfg)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, yb.clamp(min=0).long()[..., None])[..., 0]
+    from float32 logits. Under ``tp.vocab`` the logsumexp is the ranks':
+    each sums the exponentials of its block past the ranks' max, and the
+    gold logit comes from the rank whose block holds the label."""
+    logits = lm_logits(p_embed, hb, cfg, tp)
+    y = yb.clamp(min=0).long()
+    if tp.vocab:
+        m = C.pmax(logits.detach().amax(dim=-1), tp.vocab, tp.mesh)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        logz = torch.log(C.reduce_out(se, tp.vocab, tp.mesh)) + m
+        y = y - tp.vocab_base
+        mine = (y >= 0) & (y < logits.shape[-1])
+        g = torch.gather(logits, -1, y.clamp(0, logits.shape[-1] - 1)[..., None])
+        gold = C.reduce_out(torch.where(mine, g[..., 0], torch.zeros_like(m)),
+                            tp.vocab, tp.mesh)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
     mask = (yb >= 0).float()
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
 def chunked_ce_sums(p_embed, h: torch.Tensor, labels: torch.Tensor,
-                    cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+                    cfg: ModelConfig, tp: Split = NO_SPLIT
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(summed next-token CE, count of labels that are not -1) over sequence
     chunks of ``cfg.loss_chunk``. Each chunk runs under
     ``torch.utils.checkpoint``, so its (B, c, V) logits are recomputed in
@@ -534,10 +725,10 @@ def chunked_ce_sums(p_embed, h: torch.Tensor, labels: torch.Tensor,
     for i in range(L // c):
         hb, yb = h[:, i * c : (i + 1) * c], labels[:, i * c : (i + 1) * c]
         if torch.is_grad_enabled():
-            t, n = checkpoint(_ce_chunk, p_embed, hb, yb, cfg,
+            t, n = checkpoint(_ce_chunk, p_embed, hb, yb, cfg, tp,
                               use_reentrant=False)
         else:
-            t, n = _ce_chunk(p_embed, hb, yb, cfg)
+            t, n = _ce_chunk(p_embed, hb, yb, cfg, tp)
         tot, cnt = tot + t, cnt + n
     return tot, cnt
 

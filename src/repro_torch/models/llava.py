@@ -10,6 +10,13 @@ s=14 over image tiles through the paper's sliding conv2d: on
 with the optional bias fused into its epilogue, differentiable through
 ``ops.Conv2dSliding``; with an int8 weight one launch of the int8 conv2d
 kernel.
+
+On a mesh the backbone takes ``DenseLM``'s layout, and under
+``FSDP_RULES`` the projector's ``embed`` blocks are gathered with the
+other leaves outside the blocks before the patches are projected. The
+patch embedding's weight is the caller's, not a leaf of the model's tree
+(the vision tower is a stub), so the rules split nothing of it: a caller
+hands ``patch_embed`` the whole weight, and row 4 launches on it.
 """
 from __future__ import annotations
 

@@ -37,6 +37,15 @@ not observed by the calibration: in the reference they run under the
 period ``lax.scan`` of ``models.jamba``, where the observation sees
 tracers and records nothing, so every mamba conv serves with a dynamic
 scale; the port does the same.
+
+Tensor parallelism over ``conv_inner`` (``tp.inner``): a rank holds its
+run of the x half and its run of the z half of ``in_proj`` (the leaf's
+``runs=2``), its channels of ``conv_w``, ``conv_b``, ``dt_proj``,
+``dt_bias``, ``A_log``, ``D`` and its rows of ``x_proj`` and ``out_proj``.
+The depthwise conv and the scan run on its channels; ``x_proj`` contracts
+over them, so its (B, L, R + 2N) result is summed over the ranks (and its
+gradient too: each rank's channels use it), and ``out_proj`` is row
+parallel. The decode state is the rank's channels.
 """
 from __future__ import annotations
 
@@ -46,7 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import conv as core_conv
-from repro_torch.distributed.sharding import ParamDef
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import ParamDef, Runtime
 from repro_torch.kernels import ops
 from repro_torch.quant.qconv import QuantizedWeight, conv1d_depthwise_q
 
@@ -57,7 +67,8 @@ def mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     d, di = cfg.d_model, cfg.mamba_d_inner
     N, K, R = cfg.mamba_d_state, cfg.mamba_conv_k, cfg.resolved_dt_rank
     return {
-        "in_proj": ParamDef((d, 2 * di), ("embed", "conv_inner"), init="fan_in"),
+        "in_proj": ParamDef((d, 2 * di), ("embed", "conv_inner"), init="fan_in",
+                            runs=2),
         "conv_w": ParamDef((K, di), (None, "conv_inner"), init="fan_in"),
         "conv_b": ParamDef((di,), ("conv_inner",), init="zeros"),
         "x_proj": ParamDef((di, R + 2 * N), ("conv_inner", None), init="fan_in"),
@@ -155,14 +166,19 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
-                return_state: bool = False):
+                return_state: bool = False, tp=None):
     """x: (B, L, d_model). ``state`` (decode): {"conv": (B, K-1, di), "ssm":
     (B, di, N)}. Returns (y, new state or None); ``return_state`` (prefill)
-    gives the final {"conv", "ssm"} state from a fresh start."""
+    gives the final {"conv", "ssm"} state from a fresh start. Under
+    ``tp.inner`` (a ``layers.Split``) ``p``, the state and di are this
+    rank's channels."""
     B, Lt, _ = x.shape
-    di, N, K = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_conv_k
+    N, K = cfg.mamba_d_state, cfg.mamba_conv_k
+    inner, mesh = (tp.inner, tp.mesh) if tp is not None else ((), None)
+    di = p["in_proj"].shape[-1] // 2
     dt_r = cfg.resolved_dt_rank
     dt = x.dtype
+    x = C.copy_in(x, inner, mesh)
     xz = x @ p["in_proj"].to(dt)
     xin, z = xz.split(di, dim=-1)
 
@@ -179,7 +195,9 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
     A = -torch.exp(p["A_log"])  # (di, N) float32
 
     def ssm_params(xc_blk):
-        xdbc = xc_blk @ p["x_proj"].to(dt)
+        # summed over the channels' ranks, and so is its gradient
+        xdbc = C.copy_in(C.reduce_out(xc_blk @ p["x_proj"].to(dt), inner, mesh),
+                         inner, mesh)
         dtr, Bp, Cp = xdbc.split([dt_r, N, N], dim=-1)
         delta = _softplus(dtr.float() @ p["dt_proj"].float() + p["dt_bias"])
         abar = torch.exp(delta[..., None] * A[None, None])  # (B, c, di, N)
@@ -225,7 +243,7 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
         y = read_out(h[:, None], Cp)
     y = y + xc * p["D"].to(dt)
     y = y * F.silu(z)
-    out = y @ p["out_proj"].to(dt)
+    out = C.reduce_out(y @ p["out_proj"].to(dt), inner, mesh)
     if state is not None:
         return out, {"conv": new_conv.to(state["conv"].dtype), "ssm": new_ssm}
     if return_state:
@@ -233,8 +251,12 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None,
     return out, None
 
 
-def mamba_state_defs(cfg: ModelConfig, n_layers: int, batch: int):
+def mamba_state_defs(cfg: ModelConfig, n_layers: int, batch: int,
+                     rt: Runtime | None = None):
+    """The decode state's defs, on this rank's channels under ``rt``."""
     di, N, K = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_conv_k
+    if rt is not None and rt.mesh is not None:
+        di = rt.block_shape(mamba_defs(cfg)["conv_b"])[0]
     return {
         "conv": ParamDef(
             (n_layers, batch, K - 1, di),

@@ -18,6 +18,13 @@ summed over the model axis (``psum``), the aux averaged (``pmean``), as
 the reference's ``shard_map`` branch does. The collectives are the
 differentiable ones of ``distributed.collectives``: the tokens and the
 router enter with a gradient summed over the ranks.
+
+Where the rules also split each expert's F over a second axis (the
+reference's serving 2-D rules, ``mlp=("model", "data")`` with ``batch``
+whole), each rank runs its F block of its experts: the FFN's output is a
+partial sum, and the combine sums over both axes, as the reference's
+``psum_axes``. Under ``FSDP_RULES`` the expert leaves' ``embed`` blocks
+arrive gathered (the layer's gather, ``common.gatherer``).
 """
 from __future__ import annotations
 
@@ -124,7 +131,8 @@ def _ep_local(xt, router, wg, wu, wd, **kw):
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime | None = None):
     """x: (B, L, D) -> (out (B, L, D), aux loss). On a mesh (``rt``) whose
     expert axis divides the experts, ``p``'s expert leaves are this rank's
-    block and ``x`` this data rank's rows."""
+    block (of its experts, and of their F where the rules split it too)
+    and ``x`` this data rank's rows (all rows where ``batch`` is whole)."""
     B, L, D = x.shape
     model_ax = rt.axis_for("experts", cfg.num_experts) if rt else None
     if rt is None or rt.mesh is None or model_ax is None:
@@ -136,10 +144,6 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, rt: Runtime | None = None):
     wg_spec = rt.pspec(("experts", "embed_act", "mlp"), (e, d, f))
     psum_axes = tuple(dict.fromkeys(mesh_axes(wg_spec[0])
                                     + mesh_axes(wg_spec[2])))
-    if psum_axes != mesh_axes(wg_spec[0]):
-        raise NotImplementedError(
-            f"expert F split over {wg_spec[2]!r}: the port holds each "
-            f"expert's F whole (Megatron placements are not ported)")
     if p["wg"].shape[0] * n_model != e:
         raise ValueError(f"expert leaf of {p['wg'].shape[0]} experts: this "
                          f"rank's block is {e // n_model} (rt.local, "

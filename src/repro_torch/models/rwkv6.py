@@ -20,6 +20,9 @@ stacked per layer (the reference's pytree: same paths and shapes). The
 serving state per layer is the WKV state (B, H, K, K) float32 and the two
 token-shift carries (B, 1, d), O(1) in the sequence length: the cache has
 no ``kv_seq`` axis.
+
+On a mesh it runs data-parallel only: a runtime that would split any of
+its leaves (over ``model``, or ``embed`` under ``FSDP_RULES``) raises.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ParamDef, Runtime, init_params
+from repro_torch.distributed.sharding import (
+    ParamDef, Runtime, init_params, iter_leaves,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
     global_mean, layer, scan_blocks, stack_defs,
@@ -219,6 +224,14 @@ class RWKV6:
         self.cfg = cfg
         self.rt = rt or Runtime()
         self.wkv_mode = wkv_mode
+        split = sorted(p for p, d in iter_leaves(self.param_defs())
+                       if self.rt.split_axes(d))
+        if split:
+            raise NotImplementedError(
+                f"rwkv6 on a mesh that splits {len(split)} of its leaves "
+                f"({split[0]}, ...): its heads_flat tensor parallelism is "
+                f"not ported (ROADMAP Queue 1 item 6, rwkv6's heads_flat); "
+                f"data parallelism with a model axis of one rank runs")
 
     def param_defs(self) -> dict[str, Any]:
         cfg = self.cfg

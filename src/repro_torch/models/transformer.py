@@ -5,9 +5,13 @@ Pre-norm blocks, grouped-query attention with rotary embeddings (optional
 qk_norm), a gated FFN (SwiGLU / GeGLU) or the single-device MoE FFN,
 parameters stacked per layer (the reference's pytree: same paths and
 shapes) and the layers run as a loop, the loss chunked over the sequence.
-On a mesh (``rt``) each rank runs its data rank's rows, the MoE FFN is
-expert-parallel over the model axis, and the loss is the global mean
-over the data ranks (``common.global_mean``).
+On a mesh (``rt``) each rank runs its data rank's rows on its blocks of
+the leaves: attention, the MLP, the embedding and the logits tensor-
+parallel over the model axis (``layers.Split``), the MoE FFN expert-
+parallel over it, and under ``FSDP_RULES`` each layer's ``embed`` blocks
+gathered at the start of the layer (``common.gatherer``). The loss is the
+global mean over the data ranks (``common.global_mean``); serving returns
+the whole vocabulary's logits on every rank.
 A ``vision_stub`` model (llava) has a 2-layer projector that maps
 precomputed patch embeddings into the embedding space; they go ahead of
 the text as a prefix.
@@ -31,8 +35,8 @@ from repro_torch.distributed.sharding import (
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
-    data_mean, global_mean, kv_cache_defs, layer, scan_blocks, stack_defs,
-    unstack,
+    data_mean, gatherer, global_mean, kv_cache_defs, layer, scan_blocks,
+    stack_defs, unstack,
 )
 from repro_torch.quant import calibrate
 
@@ -63,6 +67,23 @@ class DenseLM:
     def __init__(self, cfg: ModelConfig, rt: Runtime | None = None):
         self.cfg = cfg
         self.rt = rt or Runtime()
+        self.tp = L.tp_layout(cfg, self.rt)
+        top = {k: v for k, v in self.param_defs().items() if k != "blocks"}
+        self._gather_block = gatherer(self.block_defs(), self.rt)
+        self._gather_top = gatherer(top, self.rt)
+
+    def _whole(self, params):
+        """``params`` with the leaves outside the blocks gathered where
+        FSDP splits them (the blocks gather layer by layer)."""
+        if self._gather_top is None:
+            return params
+        top = self._gather_top({k: v for k, v in params.items()
+                                if k != "blocks"})
+        return dict(top, blocks=params["blocks"])
+
+    def _layer(self, lp):
+        """One layer's leaves, gathered where FSDP splits them."""
+        return lp if self._gather_block is None else self._gather_block(lp)
 
     # -- parameters ---------------------------------------------------------------
     def block_defs(self) -> dict[str, Any]:
@@ -106,14 +127,14 @@ class DenseLM:
         """The block's FFN: (output, MoE load-balancing aux or 0)."""
         if self.cfg.num_experts:
             return moe_lib.moe_apply(lp["moe"], h, self.cfg, self.rt)
-        return L.mlp_apply(lp["mlp"], h, self.cfg), 0.0
+        return L.mlp_apply(lp["mlp"], h, self.cfg, self.tp), 0.0
 
     def _attend(self, lp, h):
         """Causal self-attention over the whole sequence with rotary
         embeddings at positions 0..L-1: (projected output, k, v)."""
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         return L.self_attention(lp["attn"], h, self.cfg, causal=True,
-                                positions=positions)
+                                positions=positions, tp=self.tp)
 
     def _block(self, carry, lp):
         cfg = self.cfg
@@ -130,14 +151,15 @@ class DenseLM:
         cfg = self.cfg
         aux0 = torch.zeros((), dtype=torch.float32, device=embeds.device)
         x, aux = scan_blocks((embeds, aux0), params["blocks"], self._block,
-                             remat=cfg.remat != "none")
+                             remat=cfg.remat != "none",
+                             gather=self._gather_block)
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def embeds_for(self, params, batch) -> torch.Tensor:
         """Token embeddings, with a vision stub's projected ``patches``
         ahead of them (the patch prefix, then the text)."""
         cfg = self.cfg
-        e = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        e = L.embed_tokens(params["embed"], batch["tokens"], cfg, self.tp)
         if cfg.frontend == "vision_stub" and "patches" in batch:
             v = projector_apply(params["projector"], batch["patches"],
                                 dtype=e.dtype)
@@ -151,30 +173,35 @@ class DenseLM:
         ranks, the CE is the whole batch's mean and the aux the data ranks'
         mean."""
         cfg = self.cfg
+        params = self._whole(params)
         h, aux = self.hidden(params, self.embeds_for(params, batch))
         labels = batch["labels"]
         if h.shape[1] != labels.shape[1]:  # vlm: the patch prefix
             pad = torch.full((labels.shape[0], h.shape[1] - labels.shape[1]),
                              -1, dtype=labels.dtype, device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
-        ce = global_mean(*L.chunked_ce_sums(params["embed"], h, labels, cfg),
-                         self.rt)
+        ce = global_mean(*L.chunked_ce_sums(params["embed"], h, labels, cfg,
+                                            self.tp), self.rt)
         return ce + 0.01 * data_mean(aux, self.rt) / max(cfg.num_layers, 1)
 
     # -- serving -----------------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):
-        return kv_cache_defs(self.cfg, self.cfg.num_layers, batch, seq)
+        return kv_cache_defs(self.cfg, self.cfg.num_layers, batch, seq,
+                             self.rt)
 
     def prefill(self, params, batch, *, record: list | None = None):
         """Full-sequence forward: last-position logits (B, 1, V) float32 and
         the KV cache {k, v: (layers, B, prefix + P, KV, hd)} in the param
-        dtype. ``record``, when given, receives max |x| of the residual
-        stream after each layer (one host read per layer)."""
+        dtype (this rank's KV heads). ``record``, when given, receives max
+        |x| of the residual stream after each layer (one host read per
+        layer)."""
         cfg = self.cfg
+        params = self._whole(params)
         x = self.embeds_for(params, batch)
         pd = torch_dtype(cfg.param_dtype)
         ks, vs = [], []
         for lp in unstack(params["blocks"]):
+            lp = self._layer(lp)
             h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             y, k, v = self._attend(lp, h)
             ks.append(k.to(pd))
@@ -184,22 +211,23 @@ class DenseLM:
             if record is not None:
                 record.append(x.abs().max().item())
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = L.lm_logits(params["embed"], x[:, -1:], cfg)
+        logits = L.serve_logits(params["embed"], x[:, -1:], cfg, self.tp)
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int):
         """One token for every slot at position ``pos``: logits (B, 1, V)
         float32. The cache is written in place at ``pos`` and returned."""
         cfg = self.cfg
-        x = L.embed_tokens(params["embed"], tokens, cfg)
+        params = self._whole(params)
+        x = L.embed_tokens(params["embed"], tokens, cfg, self.tp)
         B = x.shape[0]
         lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
         for i in range(cfg.num_layers):
-            lp = layer(params["blocks"], i)
+            lp = self._layer(layer(params["blocks"], i))
             h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             y, _ = L.attention_decode(lp["attn"], h, layer(cache, i), pos, cfg,
-                                      lengths=lengths, rope=True)
+                                      lengths=lengths, rope=True, tp=self.tp)
             x = x + y
             x = x + self._ffn(lp, L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps))[0]
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return L.lm_logits(params["embed"], x, cfg), cache
+        return L.serve_logits(params["embed"], x, cfg, self.tp), cache

@@ -21,8 +21,14 @@ and hands conv2 int8 codes (no float tensor between the two). With
 
 Parameters are the reference's pytree (same paths and shapes), as nested
 dicts of tensors with a leading layer dim on the encoder and decoder
-stacks. On a mesh (``rt``) each rank runs its data rank's rows with every
-leaf whole, and the loss is the whole batch's mean.
+stacks. On a mesh (``rt``) each rank runs its data rank's rows on its
+blocks of the leaves: self- and cross-attention and the MLP tensor-
+parallel over the model axis (``layers.Split``; the cross cache ``xk`` /
+``xv`` on the rank's KV heads), the vocabulary too where the model axis
+divides it (the published 51,865 rows stay whole). Under ``FSDP_RULES``
+each layer's ``embed`` blocks are gathered at the start of the layer and
+the frontend's and the other top leaves' before use (``common.gatherer``),
+so the convs launch on whole weights. The loss is the whole batch's mean.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
-    global_mean, kv_cache_defs, kv_scale_defs, layer, scan_blocks, stack_defs,
+    gatherer, global_mean, kv_cache_defs, kv_scale_defs, layer,
+    local_kv_heads, scan_blocks, stack_defs,
 )
 
 N_MELS = 80
@@ -71,6 +78,26 @@ class Whisper:
     def __init__(self, cfg: ModelConfig, rt: Runtime | None = None):
         self.cfg = cfg
         self.rt = rt or Runtime()
+        self.tp = L.tp_layout(cfg, self.rt)
+        defs = self.param_defs()
+        self._gather_enc = gatherer(self._enc_block_defs(), self.rt)
+        self._gather_dec = gatherer(self._dec_block_defs(), self.rt)
+        self._gather_top = gatherer(
+            {k: v for k, v in defs.items() if k not in ("encoder", "decoder")},
+            self.rt)
+
+    def _whole(self, params):
+        """``params`` with the leaves outside the stacks gathered where FSDP
+        splits them (the stacks gather layer by layer)."""
+        if self._gather_top is None:
+            return params
+        top = self._gather_top({k: v for k, v in params.items()
+                                if k not in ("encoder", "decoder")})
+        return dict(top, encoder=params["encoder"], decoder=params["decoder"])
+
+    def _dec_layer(self, params, i: int):
+        lp = layer(params["decoder"], i)
+        return lp if self._gather_dec is None else self._gather_dec(lp)
 
     # -- parameters -----------------------------------------------------------
     def _enc_block_defs(self):
@@ -119,26 +146,26 @@ class Whisper:
         x = frames.to(L.cdtype(cfg))
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
         x = scan_blocks(x, params["encoder"], self._enc_block,
-                        remat=cfg.remat != "none")
+                        remat=cfg.remat != "none", gather=self._gather_enc)
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _enc_block(self, x, lp):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        x = x + L.self_attention(lp["attn"], h, cfg, causal=False)[0]
+        x = x + L.self_attention(lp["attn"], h, cfg, causal=False, tp=tp)[0]
         h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return x + L.mlp_apply(lp["mlp"], h, cfg)
+        return x + L.mlp_apply(lp["mlp"], h, cfg, tp)
 
     # -- decoder (training) -----------------------------------------------------
     def _dec_block(self, x, lp, enc_out):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        x = x + L.attention_train(lp["attn"], h, cfg)
+        x = x + L.attention_train(lp["attn"], h, cfg, tp=tp)
         h = L.rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
-        kv = L.encode_kv(lp["xattn"], enc_out, cfg)
-        x = x + L.cross_attention(lp["xattn"], h, kv, cfg)
+        kv = L.encode_kv(lp["xattn"], enc_out, cfg, tp)
+        x = x + L.cross_attention(lp["xattn"], h, kv, cfg, tp)
         h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return x + L.mlp_apply(lp["mlp"], h, cfg)
+        return x + L.mlp_apply(lp["mlp"], h, cfg, tp)
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE of ``batch["labels"]`` (-1 masked) given
@@ -146,26 +173,28 @@ class Whisper:
         ``batch["tokens"]``: a float32 scalar, over the whole batch with
         data ranks (``common.global_mean``)."""
         cfg = self.cfg
+        params = self._whole(params)
         enc_out = self.encode(params, batch["frames"])
-        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg, self.tp)
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
         x = scan_blocks(x, params["decoder"],
                         functools.partial(self._dec_block, enc_out=enc_out),
-                        remat=cfg.remat != "none")
+                        remat=cfg.remat != "none", gather=self._gather_dec)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return global_mean(*L.chunked_ce_sums(params["embed"], x,
-                                              batch["labels"], cfg), self.rt)
+                                              batch["labels"], cfg, self.tp),
+                           self.rt)
 
     # -- serving ----------------------------------------------------------------
     def cache_defs(self, batch: int, seq: int):
         """Decoder self-attention cache (seq//2 rows) + cross K/V (seq//2
         encoder frames) + the per-slot encoder length. With ``cfg.kv_quant
         == "int8"`` the self and cross K/V store int8 codes, each with its
-        per-row ``_scale`` sibling."""
+        per-row ``_scale`` sibling. On a mesh, this rank's KV heads."""
         cfg = self.cfg
         s_dec, s_enc = seq // 2, seq // 2
-        d = kv_cache_defs(cfg, cfg.num_layers, batch, s_dec)
-        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        d = kv_cache_defs(cfg, cfg.num_layers, batch, s_dec, self.rt)
+        kv, hd = local_kv_heads(cfg, self.rt), cfg.resolved_head_dim
         axes = ("layers", "batch", "kv_seq", "kv_heads", None)
         dt = "int8" if cfg.kv_quant == "int8" else None
         for name in ("xk", "xv"):
@@ -183,22 +212,23 @@ class Whisper:
         """Encode the frames and run the decoder over the prompt: last-token
         logits (B, 1, V) float32, and the cache {k, v, xk, xv: (layers, B,
         len, KV, hd), enc_len: (layers, B) int32}."""
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
+        params = self._whole(params)
         enc_out = self.encode(params, batch["frames"])
-        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg, tp)
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
         pd = torch_dtype(cfg.param_dtype)
         cache = {"k": [], "v": [], "xk": [], "xv": []}
         for i in range(cfg.num_layers):
-            lp = layer(params["decoder"], i)
+            lp = self._dec_layer(params, i)
             h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            o, k, v = L.self_attention(lp["attn"], h, cfg, causal=True)
+            o, k, v = L.self_attention(lp["attn"], h, cfg, causal=True, tp=tp)
             x = x + o
             h = L.rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
-            xk, xv = L.encode_kv(lp["xattn"], enc_out, cfg)
-            x = x + L.cross_attention(lp["xattn"], h, (xk, xv), cfg)
+            xk, xv = L.encode_kv(lp["xattn"], enc_out, cfg, tp)
+            x = x + L.cross_attention(lp["xattn"], h, (xk, xv), cfg, tp)
             h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], h, cfg)
+            x = x + L.mlp_apply(lp["mlp"], h, cfg, tp)
             for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
                 cache[name].append(t.to(pd))
         cache = {n: torch.stack(ts) for n, ts in cache.items()}
@@ -207,30 +237,31 @@ class Whisper:
             device=x.device,
         )
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return L.lm_logits(params["embed"], x[:, -1:], cfg), cache
+        return L.serve_logits(params["embed"], x[:, -1:], cfg, tp), cache
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int):
         """One token for every slot at position ``pos``: logits (B, 1, V)
         float32. The cache (with its ``_scale`` leaves when int8) is updated
         in place and returned."""
-        cfg = self.cfg
-        x = L.embed_tokens(params["embed"], tokens, cfg)
+        cfg, tp = self.cfg, self.tp
+        params = self._whole(params)
+        x = L.embed_tokens(params["embed"], tokens, cfg, tp)
         B = x.shape[0]
         pe = L.sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
         x = x + pe[pos][None, None].to(x.dtype)
         lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
         for i in range(cfg.num_layers):
-            lp = layer(params["decoder"], i)
+            lp = self._dec_layer(params, i)
             cl = layer(cache, i)
             h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             sub = {n: cl[n] for n in ("k", "v", "k_scale", "v_scale")
                    if n in cl}
             y, _ = L.attention_decode(lp["attn"], h, sub, pos, cfg,
-                                      lengths=lengths)
+                                      lengths=lengths, tp=tp)
             x = x + y
             h = L.rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
-            x = x + L.cross_attention_decode(lp["xattn"], h, cl, cfg)
+            x = x + L.cross_attention_decode(lp["xattn"], h, cl, cfg, tp)
             h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], h, cfg)
+            x = x + L.mlp_apply(lp["mlp"], h, cfg, tp)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return L.lm_logits(params["embed"], x, cfg), cache
+        return L.serve_logits(params["embed"], x, cfg, tp), cache

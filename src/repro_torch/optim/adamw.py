@@ -16,6 +16,12 @@ once its parameter is updated. That saves memory: a functional update
 would hold a second copy of every parameter and moment, so the peak is
 the standing state plus one leaf's float32 transients. The values are
 those of the reference's ``apply_updates``.
+
+On a mesh (``rt`` and the params' ``defs``) each leaf is this rank's
+block: the clip norm sums each leaf's squares over the mesh axes that
+split it (one ``psum`` per set of axes) and counts a replicated leaf once,
+so every rank clips by the one-rank norm; an int8 moment's row scale is
+the max over the ranks that split the leaf's last axis.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.distributed.sharding import map_tree
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import iter_leaves, map_tree
 from repro_torch.optim.compress import dequantize_int8, quantize_int8
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -51,11 +58,13 @@ def _check_state_dtype(cfg: OptConfig) -> None:
                          f"{sorted(STATE_DTYPES)}")
 
 
-def _store(x: torch.Tensor, dtype: str, *, sqrt_space: bool = False):
+def _store(x: torch.Tensor, dtype: str, *, sqrt_space: bool = False,
+           axes=(), mesh=None):
     """A float32 moment in its storage form: a (q, scale) pair for int8
-    (of sqrt(x) for the second moment), else a tensor of ``dtype``."""
+    (of sqrt(x) for the second moment; row scales over the ranks of
+    ``axes``), else a tensor of ``dtype``."""
     if dtype == "int8":
-        return quantize_int8(torch.sqrt(x) if sqrt_space else x)
+        return quantize_int8(torch.sqrt(x) if sqrt_space else x, axes, mesh)
     return x.to(STATE_DTYPES[dtype])
 
 
@@ -97,10 +106,30 @@ def _leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in _leaves(tree)))
+def global_norm(tree, rt=None, defs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32. On a mesh
+    (``rt`` with the tree's ``defs``) the leaves are blocks: the leaves
+    split over the same mesh axes sum their squares together, each group's
+    sum is all-reduced over its axes (groups in sorted order, the same on
+    every rank), and a replicated leaf counts once."""
+    if rt is None or rt.mesh is None or defs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in _leaves(tree)))
+    groups: dict[tuple, torch.Tensor] = {}
+    for x, (_, d) in zip(_leaves(tree), iter_leaves(defs)):
+        axes = rt.split_axes(d)
+        sq = torch.sum(torch.square(x.float()))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    total = sum(C.psum(groups[a], a, rt.mesh) if a else groups[a]
+                for a in sorted(groups))
+    return torch.sqrt(total)
+
+
+def _last_axes(rt, d) -> tuple:
+    """The mesh axes that split ``d``'s last dim (none off a mesh)."""
+    if rt is None or rt.mesh is None or d is None or not d.shape:
+        return ()
+    return rt.split_axes(d, dims=(len(d.shape) - 1,))
 
 
 def init_opt_state(params, cfg: OptConfig) -> dict:
@@ -118,43 +147,48 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, cfg: OptConfig):
+def apply_updates(params, grads, opt_state, cfg: OptConfig, rt=None,
+                  defs=None):
     """One AdamW step with global-norm clipping, in place: ``params`` and
     the moments of ``opt_state`` are overwritten, and ``grads`` is emptied
     leaf by leaf as it is used. Returns (params, the optimizer state with
-    the new count, {"grad_norm", "lr"})."""
+    the new count, {"grad_norm", "lr"}). On a mesh, ``rt`` and the params'
+    ``defs``: the leaves are this rank's blocks (``global_norm``)."""
     _check_state_dtype(cfg)
     sd = cfg.state_dtype
     count = opt_state["count"] + 1
     cf = count.float()
     lr = lr_at(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, rt, defs)
+    mesh = rt.mesh if rt is not None else None
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     c1 = 1 - torch.pow(cfg.b1, cf)
     c2 = 1 - torch.pow(cfg.b2, cf)
 
-    def upd(p, g, m_s, v_s):
+    def upd(p, g, m_s, v_s, d):
+        axes = _last_axes(rt, d) if sd == "int8" else ()
         g = g.float() * scale
         m = cfg.b1 * _load(m_s, sd) + (1 - cfg.b1) * g
         v = cfg.b2 * _load(v_s, sd, sqrt_space=True) + (1 - cfg.b2) * g * g
         del g
-        _assign(m_s, _store(m, sd))
+        _assign(m_s, _store(m, sd, axes=axes, mesh=mesh))
         step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-        _assign(v_s, _store(v, sd, sqrt_space=True))
+        _assign(v_s, _store(v, sd, sqrt_space=True, axes=axes, mesh=mesh))
         del m, v
         pf = p.float()
         if p.dim() >= 2:
             step = step + cfg.weight_decay * pf
         p.copy_(pf - lr * step)
 
-    def walk(p, g, m, v):
+    def walk(p, g, m, v, d):
         for k in sorted(p):
+            dk = d[k] if d is not None else None
             if isinstance(p[k], dict):
-                walk(p[k], g[k], m[k], v[k])
+                walk(p[k], g[k], m[k], v[k], dk)
             else:
-                upd(p[k], g.pop(k), m[k], v[k])
+                upd(p[k], g.pop(k), m[k], v[k], dk)
 
-    walk(params, grads, opt_state["m"], opt_state["v"])
+    walk(params, grads, opt_state["m"], opt_state["v"], defs)
     return params, {"m": opt_state["m"], "v": opt_state["v"], "count": count}, {
         "grad_norm": gnorm, "lr": lr,
     }

@@ -22,14 +22,20 @@ from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import map_tree
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, axes=(), mesh=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per last-axis-row absmax quantization: (q int8, scale float32 with
-    the last axis kept as 1)."""
+    the last axis kept as 1). ``axes``: mesh axes that split the last
+    axis, over which the rows' absmax is the ranks' max (``pmax``), so
+    the codes are the whole row's."""
     xf = x.float()
     if x.dim() == 0:
         s = xf.abs() / 127.0 + 1e-12
         return torch.round(xf / s).to(torch.int8), s
-    s = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if axes:
+        amax = C.pmax(amax, axes, mesh)
+    s = amax / 127.0 + 1e-12
     return torch.round(xf / s).to(torch.int8), s
 
 

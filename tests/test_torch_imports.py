@@ -156,3 +156,21 @@ def test_mesh_slice_modules_are_checked():
                 "checkpoint/manager.py", "distributed/pipeline.py",
                 "bridge.py"):
         assert ROOT / "src" / "repro_torch" / rel in checked, rel
+
+
+def test_tensor_parallel_slice_files_are_checked():
+    """The Megatron and FSDP slice's modules are among the files checked
+    above, and the helper its rank tests spawn imports neither jax nor
+    repro."""
+    checked = set(_port_files())
+    for rel in ("distributed/sharding.py", "distributed/collectives.py",
+                "optim/adamw.py", "optim/compress.py", "models/layers.py",
+                "models/common.py", "launch/steps.py", "models/transformer.py",
+                "models/moe.py", "models/llava.py", "models/whisper.py",
+                "models/mamba.py", "models/jamba.py", "bridge.py",
+                "checkpoint/manager.py", "models/rwkv6.py",
+                "analysis/contracts.py", "launch/serve.py"):
+        assert ROOT / "src" / "repro_torch" / rel in checked, rel
+    assert ROOT / "scripts" / "gloo_probe.py" in checked
+    helper = ROOT / "tests" / "torch_tp_common.py"
+    assert not _imported_roots(helper) & FORBIDDEN

@@ -6,8 +6,8 @@ The rule tables equal the reference's. ``pspec``, ``axis_for``,
 ParamDef of the ten configs (full and smoke) on the production meshes'
 shapes: the reference's ``Runtime`` reads only ``mesh.axis_names`` and
 ``mesh.shape``, so a ``SimpleNamespace`` stands in for a mesh of devices
-on both sides. Then the port's own layout: ``placement`` splits only the
-``experts`` and ``batch`` axes, ``local`` cuts a rank's block, and the
+on both sides. Then the port's own layout: ``placement`` is ``pspec``
+(a ``runs`` leaf split run by run), ``local`` cuts a rank's block, and the
 ranked ``init_params`` draw gives each rank the block of the one-rank draw
 bit for bit, the bounded draw (``MAX_DRAW`` monkeypatched small) included.
 """
@@ -106,26 +106,49 @@ def test_no_mesh_runtime_is_one_rank():
     assert rt.constrain(x, "batch") is x
 
 
-def test_placement_splits_only_experts_and_batch():
-    """qwen3-moe on (data 2, model 2): the expert leaves split over model,
-    every other leaf whole though the rules shard heads, mlp and vocab;
-    under FSDP rules embed stays whole too; a cache's batch axis splits
-    over data."""
-    cfg = get_config("qwen3-moe-30b-a3b")
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
+                                  "gemma-2b"])
+def test_placement_is_the_rule_tables_pspec(arch):
+    """On (data 2, model 2) under both rule tables every leaf is held in
+    its ``pspec`` layout: heads, kv heads (head_dim for gemma's one KV
+    head), mlp, vocab, conv_inner and experts over model, FSDP's embed over
+    data. A rank's block is one run a split dim, except mamba's
+    ``in_proj``, whose x and z halves each give the rank its run of them.
+    A cache's batch axis splits over data; experts that the model axis
+    does not divide stay whole."""
+    cfg = get_config(arch)
     defs = dict(iter_leaves(build_model(cfg).param_defs()))
     for table in (DEFAULT_RULES, FSDP_RULES):
-        rt = Runtime(_mesh((2, 2), ("data", "model")), dict(table))
-        split = {p: rt.placement(d) for p, d in defs.items()
-                 if any(rt.placement(d))}
-        assert split == {f"blocks/moe/{w}": (None, "model", None, None)
-                         for w in ("wg", "wu", "wd")}
-        assert any(any(rt.pspec(d.axes, d.shape)) and not any(rt.placement(d))
-                   for d in defs.values())
+        rt = Runtime(_mesh((2, 2), ("data", "model"),
+                           {"data": 1, "model": 1}), dict(table))
+        for path, d in defs.items():
+            spec = rt.placement(d)
+            assert spec == rt.pspec(d.axes, d.shape), path
+            pieces = rt.pieces(d)
+            if not any(spec):
+                assert pieces is None, path
+                continue
+            runs = [len(p) for p in pieces]
+            if path.endswith("mamba/in_proj"):
+                di = d.shape[-1] // 2
+                assert pieces[-1] == ((di // 2, di // 2), (di + di // 2, di // 2))
+                assert runs[:-1] == [1] * (len(runs) - 1)
+            else:
+                assert runs == [1] * len(runs), path
+        split = {p for p, d in defs.items() if any(rt.placement(d))}
+        assert "embed/tok" in split
+        if table is FSDP_RULES:
+            assert rt.placement(defs["final_norm"]) == ("data",)
+        else:
+            assert "final_norm" not in split
+    if arch == "gemma-2b":
+        rt = Runtime(_mesh((2, 2), ("data", "model")))
+        assert rt.placement(defs["blocks/attn/wk"]) == (None, None, None, "model")
+        assert rt.placement(defs["blocks/attn/wq"]) == (None, None, "model", None)
     cache = ParamDef((4, 8, 64, 4, 128),
                      ("layers", "batch", "kv_seq", "kv_heads", None))
     rt = Runtime(_mesh((2, 2), ("data", "model")))
-    assert rt.placement(cache) == (None, "data", None, None, None)
-    # experts that the model axis does not divide stay whole
+    assert rt.placement(cache) == (None, "data", None, "model", None)
     assert rt.placement(ParamDef((3, 4), ("experts", None))) == (None, None)
 
 
